@@ -35,7 +35,18 @@ SIGNATURES = {
         _P, _P, _P, _F,         # x, thr, norm (or null), norm_eps
         _P, _P, _P, _I, _I, _I,  # w0, w1, w2, n0, n1, n2
         _I, _P, _P, _P, _P,     # n_w, res (or null), out, idx, count
-        _I, _I, _I, _I, _P,     # K, layer, cap, mode, stream
+        _I, _I, _I, _I, _I, _P,  # K, G, layer, cap, mode, stream
+    ],
+    ("block_gather_gemv", "teal_block_gather_gemv"): [
+        _I, _P, _P,             # dtype code, idx, xpack
+        _P, _P, _P, _I, _I, _I,  # w0, w1, w2, n0, n1, n2
+        _I, _P,                 # n_w, out
+        _I, _I, _I, _I, _I, _I,  # K, G, layer, k_keep, xpack rows, rows
+        _P,                     # stream
+    ],
+    ("row_gather_gemv", "teal_row_gather_gemv"): [
+        _I, _P, _P, _P, _P,     # dtype code, idx, xc, w, out
+        _I, _I, _I, _P,         # K, N, nnz, stream
     ],
     ("decode_attention", "teal_decode_attention"): [
         _I,                     # dtype code

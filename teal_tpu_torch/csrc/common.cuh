@@ -79,4 +79,40 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
   return r;
 }
 
+// Thread layout of the gather GEMVs (K1, K3, K4): a block owns TILE
+// output columns; a thread loads 16 bytes (VEC columns) of one weight
+// row, LPR lanes cover a row's tile, so a warp covers RPW rows per load
+// and the block SLOTS rows ("row slots").
+template <typename T, int TILE, int THREADS>
+struct GatherShape {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int LPR = TILE / VEC;
+  static constexpr int RPW = 32 / LPR;
+  static constexpr int SLOTS = (THREADS / 32) * RPW;
+};
+
+// First half of the fixed-order sum over row slots: a butterfly across
+// the RPW lanes of each warp that hold the same columns, then lanes
+// [0, LPR) store the warp's partials [R][TILE] at red + warp * R * TILE.
+// After a __syncthreads the caller adds the warps' partials in warp
+// order, so the result never depends on scheduling.
+template <typename S, int TILE, int R>
+__device__ __forceinline__ void warp_partials(float (&acc)[R][S::VEC],
+                                              float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = S::LPR; o < 32; o <<= 1)
+#pragma unroll
+    for (int b = 0; b < R; ++b)
+#pragma unroll
+      for (int e = 0; e < S::VEC; ++e)
+        acc[b][e] += __shfl_xor_sync(0xffffffffu, acc[b][e], o);
+  if (lane < S::LPR)
+#pragma unroll
+    for (int b = 0; b < R; ++b)
+#pragma unroll
+      for (int e = 0; e < S::VEC; ++e)
+        red[(warp * R + b) * TILE + lane * S::VEC + e] = acc[b][e];
+}
+
 }  // namespace teal

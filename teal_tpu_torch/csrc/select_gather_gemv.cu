@@ -1,14 +1,16 @@
-// K1: select + gather GEMV for single-token decode at group size 128.
+// K1: select + gather GEMV for single-token decode at group size G in
+// {32, 64, 128}.
 //
 // Replaces the Pallas kernel `_fused_select_gather_kernel`
 // (teal_tpu/ops/block_gemv.py:518, launched by
-// `fused_select_gather_packed`, block_gemv.py:761) and the projection
+// `fused_select_gather_packed`, block_gemv.py:761, and at any G by
+// `fused_select_gather_gemv`, block_gemv.py:682) and the projection
 // stage `_proj_stage` of the whole-token kernel
 // (teal_tpu/ops/token_block.py:55) and of the attention block
 // (teal_tpu/ops/attn_block.py:94, its QKV gather). It computes:
 //   1. an optional rms_norm of x in fp32 (`_norm_fold`), with the
 //      reference's cast points: (x * rsqrt(mean(x^2) + eps)) -> T, * gain;
-//   2. a max-|x| score for each 128-wide group;
+//   2. a max-|x| score for each G-wide group;
 //   3. THE selection rule: survivors are score > thr, taken in ascending
 //      group order, the first `cap` kept (`_select_scan`);
 //   4. y[n] = sum over kept rows k of x[k] * W[layer, k, n], fp32 sums,
@@ -28,8 +30,10 @@
 // no atomics, no split-K. Every block reads the whole input vector (at
 // most 11008 values) and repeats the norm, the scores and the scan
 // itself -- a few microseconds of L2 traffic that replaces a second
-// launch. The scan is a warp ballot + popcount prefix over the groups,
-// which keeps exactly the groups the serial scan keeps. In the gather,
+// launch. The scan is a warp ballot + popcount prefix over the groups
+// (32 a step; up to 344 groups), which keeps exactly the groups the
+// serial scan keeps. G is a template parameter, so the row -> (group,
+// offset) split in the gather is a shift and a mask. In the gather,
 // each thread loads 16 bytes (8 bf16 columns) of one kept row; a warp
 // covers 8 rows (bf16) of the tile per instruction and the 8 warps 64
 // rows, unrolled 4 deep. The 64 per-slot partial sums of each column are
@@ -41,7 +45,6 @@ using namespace teal;
 
 namespace {
 
-constexpr int G = 128;       // group size (one TPU lane tile)
 constexpr int TILE = 32;     // output columns per block
 constexpr int THREADS = 256;
 
@@ -61,14 +64,9 @@ struct Args {
 };
 
 template <typename T>
-struct Shape {
-  static constexpr int VEC = 16 / sizeof(T);    // columns per 16-byte load
-  static constexpr int LPR = TILE / VEC;        // lanes per tile row
-  static constexpr int RPW = 32 / LPR;          // rows per warp load
-  static constexpr int SLOTS = (THREADS / 32) * RPW;
-};
+using Shape = GatherShape<T, TILE, THREADS>;
 
-template <typename T, bool PAIR>
+template <typename T, bool PAIR, int G>
 __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
   using S = Shape<T>;
   constexpr int NW = PAIR ? 2 : 1;
@@ -200,7 +198,7 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
   }
 }
 
-template <typename T, bool PAIR>
+template <typename T, bool PAIR, int G>
 int launch(const Args& a, int blocks, cudaStream_t stream) {
   constexpr int NW = PAIR ? 2 : 1;
   const size_t smem =
@@ -208,23 +206,34 @@ int launch(const Args& a, int blocks, cudaStream_t stream) {
                        NW * TILE) +
       sizeof(int) * (a.cap + 1);
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(sgg_kernel<T, PAIR>,
+    cudaFuncSetAttribute(sgg_kernel<T, PAIR, G>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-  sgg_kernel<T, PAIR><<<blocks, THREADS, smem, stream>>>(a);
+  sgg_kernel<T, PAIR, G><<<blocks, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int dispatch(int dtype, const Args& a, int blocks, cudaStream_t s) {
+  const bool pair = a.mode == 2;
+  if (dtype == 0)
+    return pair ? launch<float, true, G>(a, blocks, s)
+                : launch<float, false, G>(a, blocks, s);
+  return pair ? launch<__nv_bfloat16, true, G>(a, blocks, s)
+              : launch<__nv_bfloat16, false, G>(a, blocks, s);
 }
 
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16. mode: 0 raw fp32 out, 1 residual, 2 silu pair.
-// The caller checks shapes: K % 128 == 0, every n_i % 32 == 0, pointers
-// 16-byte aligned, mode 2 with two weights of equal width.
+// G: 32, 64 or 128 (else cudaErrorInvalidValue). The caller checks
+// shapes: K % G == 0, every n_i % 32 == 0, pointers 16-byte aligned,
+// mode 2 with two weights of equal width.
 extern "C" int teal_select_gather_gemv(
     int dtype, const void* x, const void* thr, const void* norm, float eps,
     const void* w0, const void* w1, const void* w2, int n0, int n1, int n2,
     int n_w, const void* res, void* out, void* idx, void* count, int K,
-    int layer, int cap, int mode, void* stream) {
+    int G, int layer, int cap, int mode, void* stream) {
   cudaGetLastError();  // clear any stale error of this library
   Args a;
   a.x = x;
@@ -249,9 +258,10 @@ extern "C" int teal_select_gather_gemv(
   const int n_out = mode == 2 ? n0 : a.n[0] + a.n[1] + a.n[2];
   const int blocks = n_out / TILE;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return mode == 2 ? launch<float, true>(a, blocks, s)
-                     : launch<float, false>(a, blocks, s);
-  return mode == 2 ? launch<__nv_bfloat16, true>(a, blocks, s)
-                   : launch<__nv_bfloat16, false>(a, blocks, s);
+  switch (G) {
+    case 32: return dispatch<32>(dtype, a, blocks, s);
+    case 64: return dispatch<64>(dtype, a, blocks, s);
+    case 128: return dispatch<128>(dtype, a, blocks, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

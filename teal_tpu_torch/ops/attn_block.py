@@ -1,8 +1,9 @@
 """The attention stage of single-token decode: K1 then K2.
 
-Port of `teal_tpu/ops/attn_block.py:attn_stage` (batch 1). The JAX
-package runs the stage as one Pallas launch; here it is two kernels in
-order:
+Port of `teal_tpu/ops/attn_block.py:attn_stage` (batch 1), at group size
+128 on the token path and at the layer loop's group size (32 at 7B) on
+its fused-attention route. The JAX package runs the stage as one Pallas
+launch; here it is two kernels in order:
   1. K1 (`block_gemv.select_gather_gemv`): folded rms_norm, group
      selection, and the q|k|v gather into one fp32 vector;
   2. K2 (`decode_attention.decode_attention`): RoPE on q and the current
@@ -25,15 +26,15 @@ def attn_stage(h: torch.Tensor, thr: torch.Tensor, wq, wk, wv, layer: int,
                cap: int, norm: torch.Tensor, norm_eps: float,
                kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor,
                rope: torch.Tensor, *, n_heads: int,
-               window: Optional[int] = None):
+               window: Optional[int] = None, G: int = 128):
     """h: [D] raw residual stream; norm: [L, D] attention-norm gains;
     kc/vc: [L, 1, Hkv, T, 128] (updated in place); pos: int32 [1];
-    rope: [1, 2, 128] (cos, sin) rows at pos.
+    rope: [1, 2, 128] (cos, sin) rows at pos; G: K1's group size.
 
     Returns (attn [n_heads * 128] in the cache type, kept-group count).
     """
     qkv, _, count = select_gather_gemv(h, thr, (wq, wk, wv), layer, cap,
-                                       norm=norm, norm_eps=norm_eps)
+                                       G=G, norm=norm, norm_eps=norm_eps)
     hkv = kc.shape[2]
     nq, nk = n_heads * HEAD_DIM, hkv * HEAD_DIM
     q = qkv[:nq].view(1, n_heads, HEAD_DIM)

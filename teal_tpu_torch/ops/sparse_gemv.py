@@ -4,11 +4,11 @@ Port of the `masked_dense` and `block` branches of
 `teal_tpu/ops/sparse_gemv.py`:
   - "masked_dense": zero sub-threshold activations, dense matmul — the
     accuracy path (reference semantics);
-  - "block": group-granular selection. One decode row in threshold mode
-    at group size 128 runs kernel K1 (`block_gemv.select_gather_gemv`);
-    several rows fall back to the group-masked dense twin, as in the
-    reference. The "gather" branch (`gather_gemv.row_gather_gemv`) is not
-    ported yet.
+  - "gather": unstructured row skipping, the exact elementwise rule
+    (`gather_gemv.gather_sparse_matmul`, kernel K4), one row only;
+  - "block": group-granular selection. One decode row runs the selection
+    and kernel K3 (`block_gemv.block_sparse_matmul`); several rows fall
+    back to the group-masked dense twin, as in the reference.
 """
 
 from __future__ import annotations
@@ -43,6 +43,11 @@ def sparse_matmul(x, w, threshold, sp: SparsityConfig):
     """Decode-path sparse projection dispatch. x: [..., 1, K]; w: [K, N]."""
     if sp.kernel == "masked_dense":
         return masked_dense_matmul(x, w, threshold)
+    if sp.kernel == "gather":
+        from teal_tpu_torch.ops import gather_gemv
+
+        return gather_gemv.gather_sparse_matmul(x, w, threshold,
+                                                sp.gather_cap_frac)
     if sp.kernel == "block":
         from teal_tpu_torch.ops import block_gemv
 
@@ -51,6 +56,4 @@ def sparse_matmul(x, w, threshold, sp: SparsityConfig):
         thr = threshold if sp.block_thresholding else None
         return block_gemv.block_sparse_matmul(
             x, w, thr, sp.block_size, sp.block_keep_frac)
-    raise NotImplementedError(
-        f"sparse kernel {sp.kernel!r} is not ported (the port has "
-        "'masked_dense' and 'block')")
+    raise ValueError(f"unknown sparse kernel {sp.kernel!r}")

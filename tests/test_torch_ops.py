@@ -170,8 +170,8 @@ def test_k1_wrapper_checks():
 
 
 def test_block_dispatch_matches_jax_twin():
-    """sparse_gemv.sparse_matmul: masked-dense and block (K1) branches
-    against the JAX semantics twins; unported block variants raise."""
+    """sparse_gemv.sparse_matmul: masked-dense and block (threshold and
+    top-k) branches against the JAX semantics twins."""
     from teal_tpu.config import SparsityConfig as JSparsityConfig
     from teal_tpu.ops import sparse_gemv as jsg
 
@@ -197,9 +197,11 @@ def test_block_dispatch_matches_jax_twin():
         jnp.asarray(xb), jnp.asarray(w), 2.0,
         JSparsityConfig(kernel="block", **kw))
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError):
-        tsg.sparse_matmul(torch.from_numpy(x), torch.from_numpy(w), None,
-                          SparsityConfig(kernel="block", enabled=True))
+    got = tsg.sparse_matmul(torch.from_numpy(x), torch.from_numpy(w), None,
+                            SparsityConfig(kernel="block", enabled=True))
+    want = jbg.block_sparse_matmul_reference(
+        jnp.asarray(x), jnp.asarray(w), None, 32, 0.5)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
 
 
 def test_block_reference_and_select_groups_match_jax():
