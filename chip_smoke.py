@@ -49,8 +49,23 @@ Phases:
      per decode step A: K3 4*L and K2 L, B: K1 4*L and K2 L, C: K4 7*L;
   7. per-kernel times on the card beside their plain version, the
      library call and the memory bound, the logits head's time, and the
-     decode step's device and wall time on every path, printed as one
-     `kernels` JSON line.
+     decode step's device and wall time on every path;
+  8. the weight-only quantized paths, each copy quantized on the card from
+     the bf16 params by the port's `quant` functions and freed after its
+     paths: int8 (Q8-main: the main-path config on the token path; Q8-loop:
+     path A's config, K3 then the scale), packed int4 at group 128 (Q4-main)
+     and at group 64 (Q4-loop: path A's config at G = 64). K1 with the int8
+     / int4 plan against its plain version at the token path's stage
+     shapes (three selection regimes, int8 scales in the epilogue) and at
+     G = 32/64, K3 at path A's stage shapes with 1 and 4 rows (identical
+     kept sets; 1e-4 of scale for fp32 outputs, 2^-7 for bf16 epilogues);
+     every 7B layer of each path held to its plain path (2e-2 of scale);
+     three greedy requests per path (8 new tokens) with the launches per
+     step asserted (main paths: K1 4*L + K2 L; loop paths: K3 4*L + K2 L);
+     the decode step, the plan kernels' times beside their bound, plain
+     version, `torch.matmul` on the bf16 weights and PyTorch's own
+     weight-only GEMV, and the quantized logits head;
+all printed as one `kernels` JSON line, with the card in it.
 
 The line before the last is the card's name and power limit from
 `nvidia-smi`; the last line is
@@ -90,6 +105,19 @@ LOOP_LAUNCHES = {"A": (0, 1, 4, 0), "A-b4": (0, 1, 4, 0), "B": (4, 1, 0, 0),
                  "C": (0, 0, 0, 7)}
 LOOP_NEW_TOKENS = 8
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
+STAGE_WEIGHTS = {"qkv": ("wq", "wk", "wv"), "o": ("wo",),
+                 "gate|up": ("wgate", "wup"), "down": ("wdown",)}
+# the weight-only quantized paths: (quantization, SparsityConfig, batch);
+# "int4-g128" / "int4-g64": int4 at that group, packed at block size 128 /
+# 32 (quant group == gather group: no requantization)
+QUANT_PATHS = {
+    "Q8-main": ("int8", MAIN_SP, 1),
+    "Q8-loop": ("int8", LOOP_PATHS["A"][0], 1),
+    "Q4-main": ("int4-g128", MAIN_SP, 1),
+    "Q4-loop": ("int4-g64", LOOP_PATHS["A"][0], 1),
+}
+QUANT_LAUNCHES = {"Q8-main": (4, 1, 0, 0), "Q8-loop": (0, 1, 4, 0),
+                  "Q4-main": (4, 1, 0, 0), "Q4-loop": (0, 1, 4, 0)}
 
 
 class SmokeFailure(RuntimeError):
@@ -160,17 +188,26 @@ def bound_ms(nbytes: float, flops: float):
 # --- phase 2: K1 -------------------------------------------------------
 
 def stage_specs(params, cfg):
-    """The four K1 calls of one layer: weights, folded norm, epilogue and
-    the threshold column each reads."""
+    """The four K1 calls of one token-path layer: K1 operands (and the
+    int8 scales K1's epilogue applies), folded norm, epilogue and the
+    threshold column each reads."""
+    from teal_tpu_torch.ops.token_block import stage_operands
+
     lay = params["layers"]
+    ops, sc = stage_operands(tuple(lay[n] for n in PROJ_NAMES))
+
+    def scales(*i):
+        return None if sc is None else tuple(sc[j] for j in i)
+
     return {
-        "qkv": dict(ws=(lay["wq"], lay["wk"], lay["wv"]),
+        "qkv": dict(ws=ops[0:3], scales=scales(0, 1, 2),
                     norm=lay["attn_norm"], res=False, silu=False, col=0),
-        "o": dict(ws=(lay["wo"],), norm=None, res=True, silu=False, col=3),
-        "gate|up": dict(ws=(lay["wgate"], lay["wup"]),
+        "o": dict(ws=ops[3:4], scales=scales(3), norm=None, res=True,
+                  silu=False, col=3),
+        "gate|up": dict(ws=ops[4:6], scales=scales(4, 5),
                         norm=lay["mlp_norm"], res=False, silu=True, col=4),
-        "down": dict(ws=(lay["wdown"],), norm=None, res=True, silu=False,
-                     col=6),
+        "down": dict(ws=ops[6:7], scales=scales(6), norm=None, res=True,
+                     silu=False, col=6),
     }
 
 
@@ -204,39 +241,42 @@ def threshold_for(scores, n_surv: int):
 def k1_inputs(spec, cfg, K, n_surv, gen, device, dtype, layer, G=128):
     import torch
 
-    from teal_tpu_torch.ops.block_gemv import group_scores, selection_input
+    from teal_tpu_torch.ops.block_gemv import (_width, group_scores,
+                                               selection_input)
 
     x = spiky_input(K, gen, device, dtype, G)
     xs = selection_input(x, spec["norm"], layer, cfg.norm_eps)
     thr, margin = threshold_for(group_scores(xs.float()[None], G), n_surv)
     check(margin > 1e-2, f"a group score lies within {margin:.2e} of the "
           "threshold")
-    n_out = sum(w.shape[2] for w in spec["ws"])
+    n_out = sum(_width(w) for w in spec["ws"])
     res = (torch.randn(n_out, generator=gen, device=device).to(dtype)
            if spec["res"] else None)
     return x, torch.tensor(thr, dtype=torch.float32, device=device), res
 
 
-def check_k1(params, cfg, caps, device, gen):
+def check_k1(params, cfg, caps, device, gen, tag="k1"):
     """K1 against its plain version at the four stage shapes, three
-    selection regimes each. Returns the largest absolute error."""
+    selection regimes each, with the params' weight plan (and int8's
+    scale epilogue). Returns the largest absolute error."""
     import torch
 
+    from teal_tpu_torch.models import llama
     from teal_tpu_torch.ops import block_gemv as bg
 
     layer = cfg.n_layers // 2
     worst = 0.0
     for name, cap in zip(STAGES, caps):
         spec = stage_specs(params, cfg)[name]
-        K = spec["ws"][0].shape[1]
+        K = bg._in_dim(spec["ws"][0])
         nb = K // 128
         for case, n_surv in (("count<cap", max(1, cap // 2)),
                              ("count==cap", cap),
                              ("overflow", min(nb, cap + max(1, nb // 4)))):
             x, thr, res = k1_inputs(spec, cfg, K, n_surv, gen, device,
-                                    params["layers"]["wq"].dtype, layer)
+                                    llama.compute_dtype(params), layer)
             kw = dict(norm=spec["norm"], norm_eps=cfg.norm_eps, res=res,
-                      silu=spec["silu"])
+                      silu=spec["silu"], scales=spec["scales"])
             got, gidx, gcnt = bg.select_gather_gemv(x, thr, spec["ws"],
                                                     layer, cap, **kw)
             want, widx, wcnt = bg.select_gather_gemv_plain(
@@ -253,7 +293,7 @@ def check_k1(params, cfg, caps, device, gen):
             check(err <= tol, f"K1 {name} {case}: max error {err:.3e} > "
                   f"{tol:.3e}")
             worst = max(worst, err)
-            log(f"[k1] {name:8s} K={K:5d} N={want.numel():5d} cap={cap:2d} "
+            log(f"[{tag}] {name:8s} K={K:5d} N={want.numel():5d} cap={cap:2d} "
                 f"{case:10s} kept={n:2d} max_abs_err={err:.3e} "
                 f"(scale {scale:.3e})")
     return worst
@@ -507,7 +547,7 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
     from teal_tpu_torch.config import SparsityConfig
     from teal_tpu_torch.models import llama
 
-    dt = params["layers"]["wq"].dtype
+    dt = llama.compute_dtype(params)
     out = {}
     for kind, sp_kw, b, th in runs:
         sp = SparsityConfig(**sp_kw)
@@ -553,11 +593,11 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
 
 def loop_stages(params, cfg):
     """The four projection stages of a layer-loop layer at the default
-    block size 32 (paths A and B): weights, folded norm (path B), group
-    size (`effective_block_size`: 32, and 64 for down at 7B) and
-    capacity at keep 0.5."""
-    from teal_tpu_torch.ops.block_gemv import (block_capacity,
-                                               effective_block_size)
+    block size 32 (paths A and B): kernel operands (int8 without its
+    scale, which the layer loop applies after the kernel), folded norm
+    (path B), group size (`_shared_group_size`: 32, and 64 for down at 7B;
+    64 for packed int4) and capacity at keep 0.5."""
+    from teal_tpu_torch.ops import block_gemv as bg
 
     lay = params["layers"]
     out = {}
@@ -565,11 +605,12 @@ def loop_stages(params, cfg):
             ("qkv", ("wq", "wk", "wv"), "attn_norm"), ("o", ("wo",), None),
             ("gate|up", ("wgate", "wup"), "mlp_norm"),
             ("down", ("wdown",), None)):
-        K = lay[ws[0]].shape[1]
-        G = effective_block_size(32, K)
-        out[name] = dict(ws=tuple(lay[n] for n in ws), res=False,
+        raw, _ = bg._kernel_operands([lay[n] for n in ws])
+        K = bg._in_dim(raw[0])
+        G = bg._shared_group_size(raw, 32, K)
+        out[name] = dict(ws=tuple(raw), res=False,
                          norm=None if norm is None else lay[norm], G=G,
-                         cap=block_capacity(K // G, 0.5))
+                         cap=bg.block_capacity(K // G, 0.5))
     return out
 
 
@@ -581,17 +622,18 @@ def rel_check(what: str, got, want, rel: float) -> float:
     return err
 
 
-def check_k1_groups(params, cfg, device, gen):
+def check_k1_groups(params, cfg, device, gen, tag="k1g"):
     """K1 at G = 32 / 64 (no epilogue, path B's four stages) against its
     plain version, three selection regimes each. Returns the largest
     absolute error."""
+    from teal_tpu_torch.models import llama
     from teal_tpu_torch.ops import block_gemv as bg
 
     layer = cfg.n_layers // 2
-    dt = params["layers"]["wq"].dtype
+    dt = llama.compute_dtype(params)
     worst = 0.0
     for name, st in loop_stages(params, cfg).items():
-        K, G, cap = st["ws"][0].shape[1], st["G"], st["cap"]
+        K, G, cap = bg._in_dim(st["ws"][0]), st["G"], st["cap"]
         nb = K // G
         for case, n_surv in (("count<cap", max(1, cap // 2)),
                              ("count==cap", cap),
@@ -611,26 +653,27 @@ def check_k1_groups(params, cfg, device, gen):
                   f"K1@G{G} {name} {case}: kept sets differ")
             err = rel_check(f"K1@G{G} {name} {case}", got, want, 1e-4)
             worst = max(worst, err)
-            log(f"[k1g] {name:8s} G={G:3d} K={K:5d} N={want.numel():5d} "
+            log(f"[{tag}] {name:8s} G={G:3d} K={K:5d} N={want.numel():5d} "
                 f"cap={cap:3d} {case:10s} kept={n:3d} max_abs_err={err:.3e} "
                 f"(scale {float(want.abs().max()):.3e})")
     return worst
 
 
-def check_k3(params, cfg, device, gen):
+def check_k3(params, cfg, device, gen, rows_list=(1, 8), tag="k3"):
     """K3 against its plain version at path A's four stages, top-k
-    selections of random inputs with 1 and 8 rows. Returns the largest
-    absolute error."""
+    selections of random inputs with each of `rows_list` rows. Returns the
+    largest absolute error."""
     import torch
 
+    from teal_tpu_torch.models import llama
     from teal_tpu_torch.ops import block_gemv as bg
 
     layer = cfg.n_layers // 2
-    dt = params["layers"]["wq"].dtype
+    dt = llama.compute_dtype(params)
     worst = 0.0
     for name, st in loop_stages(params, cfg).items():
-        K, G, cap = st["ws"][0].shape[1], st["G"], st["cap"]
-        for rows in (1, 8):
+        K, G, cap = bg._in_dim(st["ws"][0]), st["G"], st["cap"]
+        for rows in rows_list:
             x = torch.randn(rows, K, generator=gen, device=device).to(dt)
             idx, xpack = (bg.select_groups(x, G, cap) if rows == 1 else
                           bg.select_groups_batched(x, G, cap))
@@ -640,7 +683,7 @@ def check_k3(params, cfg, device, gen):
                                                     layer, G, rows)
             err = rel_check(f"K3 {name} rows={rows}", got, want, 1e-4)
             worst = max(worst, err)
-            log(f"[k3] {name:8s} G={G:3d} K={K:5d} N={want.shape[1]:5d} "
+            log(f"[{tag}] {name:8s} G={G:3d} K={K:5d} N={want.shape[1]:5d} "
                 f"k_keep={cap:3d} rows={rows} max_abs_err={err:.3e} "
                 f"(scale {float(want.abs().max()):.3e})")
     return worst
@@ -689,18 +732,21 @@ def check_k4(params, cfg, device, gen):
 # --- phase 6: the layer loop's paths end to end ----------------------------
 
 @contextlib.contextmanager
-def plain_path():
-    """Inside the block, every kernel wrapper the layer loop calls is its
-    plain PyTorch version: the same `layer_forward` then runs on the card
-    without a kernel of the port."""
+def plain_path(k1=None):
+    """Inside the block, every kernel wrapper the layer loop and the token
+    path call is its plain PyTorch version (K1's is `k1` where given): the
+    same `layer_forward` / `layer_decode` then runs on the card without a
+    kernel of the port."""
     from teal_tpu_torch.models import llama
-    from teal_tpu_torch.ops import attn_block
+    from teal_tpu_torch.ops import attn_block, token_block
     from teal_tpu_torch.ops import block_gemv as bg
     from teal_tpu_torch.ops import decode_attention as da
     from teal_tpu_torch.ops import gather_gemv as gg
 
-    swaps = [(bg, "select_gather_gemv", bg.select_gather_gemv_plain),
-             (attn_block, "select_gather_gemv", bg.select_gather_gemv_plain),
+    k1 = k1 or bg.select_gather_gemv_plain
+    swaps = [(bg, "select_gather_gemv", k1),
+             (attn_block, "select_gather_gemv", k1),
+             (token_block, "select_gather_gemv", k1),
              (bg, "block_gather_gemv_multi",
               bg.block_gather_gemv_multi_plain),
              (gg, "row_gather_gemv", gg.row_gather_gemv_plain),
@@ -728,7 +774,7 @@ def prefill(params, cfg, toks, device, rope):
     from teal_tpu_torch.models import llama
 
     b, t = toks.shape
-    cache = llama.KVCache.init(cfg, b, MAX_SEQ, params["layers"]["wq"].dtype,
+    cache = llama.KVCache.init(cfg, b, MAX_SEQ, llama.compute_dtype(params),
                                device)
     padded = torch.zeros((b, _pad_len(t)), dtype=torch.int64)
     padded[:, :t] = torch.from_numpy(toks)
@@ -760,22 +806,20 @@ def loop_thresholds(caps, rule: str, th_row, stage: int):
     th_row[list(cols)] = thr
 
 
-def hold_loop_layers(params, cfg, name, cache, toks, pos, rope, device):
-    """For one decode step of path `name` on the cache after a prefill:
-    pick the thresholds layer by layer on the plain path (B: group
-    thresholds, C: elementwise at the median; A needs none), then run
-    each layer of the kernel path on the plain path's layer input and
-    hold its output and written cache rows to the plain layer's within
-    2e-2 of their largest magnitude.
+def hold_loop_layers(params, cfg, name, sp, b, cache, toks, pos, rope,
+                     device):
+    """For one decode step of layer-loop path `name` (config sp, batch b)
+    on the cache after a prefill: pick the thresholds layer by layer on
+    the plain path (B: group thresholds, C: elementwise at the median;
+    the top-k paths need none), then run each layer of the kernel path on
+    the plain path's layer input and hold its output and written cache
+    rows to the plain layer's within 2e-2 of their largest magnitude.
 
     Returns (thresholds [L, 7], worst relative error)."""
     import torch
 
-    from teal_tpu_torch.config import SparsityConfig
     from teal_tpu_torch.models import llama
 
-    sp_kw, b = LOOP_PATHS[name]
-    sp = SparsityConfig(**sp_kw)
     rule = {"B": "group", "C": "elem"}.get(name)
     fused = llama.can_fused_decode(1, b, cfg, MAX_SEQ, sp,
                                    sp.kernel == "block")
@@ -784,10 +828,11 @@ def hold_loop_layers(params, cfg, name, cache, toks, pos, rope, device):
     kk, vk = cache.k.clone(), cache.v.clone()          # kernel path
     pos_t = torch.full((b,), pos, dtype=torch.int64, device=device)
     cos, sin = rope[0][pos_t][:, None], rope[1][pos_t][:, None]
-    h = params["embed"][toks].to(params["layers"]["wq"].dtype)
+    h = params["embed"][toks].to(llama.compute_dtype(params))
     worst = 0.0
     for i in range(cfg.n_layers):
-        lp = {n: w[i] for n, w in params["layers"].items()}
+        lp = {n: llama._leaf(w, lambda a: a[i])
+              for n, w in params["layers"].items()}
         args = (pos_t, cos, sin, cfg, sp)
         with plain_path():
             for stage in range(4 if rule else 0):
@@ -813,24 +858,100 @@ def hold_loop_layers(params, cfg, name, cache, toks, pos, rope, device):
     return th, worst
 
 
-def loop_paths(params, cfg, device, seed, rope):
-    """Phase 6 for every path of `LOOP_PATHS`. Returns {path: results}."""
+def picking_k1(x, thr, ws, layer, cap, *, G=128, norm=None, norm_eps=1e-5,
+               **kw):
+    """K1's plain version that first sets its threshold (`thr`, a view into
+    the [L, 7] table) from the input it sees (`pick_threshold`)."""
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    xs = bg.selection_input(x, norm, layer, norm_eps)
+    thr.fill_(pick_threshold(bg.group_scores(xs.float()[None], G), cap))
+    return bg.select_gather_gemv_plain(x, thr, ws, layer, cap, G=G,
+                                       norm=norm, norm_eps=norm_eps, **kw)
+
+
+def hold_token_layers(params, cfg, cache, tok, pos, rope, device):
+    """For one decode step of the token path on the cache after a prefill,
+    layer by layer: run the plain token-path layer (`layer_decode` under
+    `plain_path`), each K1 stage picking its threshold from the input it
+    sees; then run the kernel path's layer on the same layer input and
+    hold its output and written cache rows to the plain layer's within
+    2e-2 of their largest magnitude, and its kept counts to [1, cap].
+
+    Returns (thresholds [L, 7], worst relative error)."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block
+
+    lay = params["layers"]
+    ws = tuple(lay[n] for n in PROJ_NAMES)
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    th = torch.zeros((cfg.n_layers, 7), dtype=torch.float32, device=device)
+    k, v = cache.k.clone(), cache.v.clone()            # plain path
+    kk, vk = cache.k.clone(), cache.v.clone()          # kernel path
+    row = torch.stack([rope[0][pos], rope[1][pos]])[None]
+    pos_t = torch.full((1,), pos, dtype=torch.int32, device=device)
+    h = params["embed"][tok].reshape(cfg.dim).to(llama.compute_dtype(params))
+    kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+              window=cfg.sliding_window)
+    counts, worst = [], 0.0
+    for i in range(cfg.n_layers):
+        with plain_path(k1=picking_k1):
+            want = token_block.layer_decode(
+                h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], row, k, v,
+                pos_t, **kw)
+        got = token_block.layer_decode(
+            h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], row, kk, vk,
+            pos_t, counts=counts, **kw)
+        for what, g, w in (("hidden", got, want),
+                           ("k row", kk[i, 0, :, pos], k[i, 0, :, pos]),
+                           ("v row", vk[i, 0, :, pos], v[i, 0, :, pos])):
+            err = rel_check(f"token path layer {i} {what}: kernel vs plain",
+                            g, w, 2e-2)
+            worst = max(worst, err / float(w.float().abs().max()))
+        h = want
+    kept = torch.stack(counts).cpu()                       # [L, 4]
+    check(bool((kept >= 1).all()) and all(
+        bool((kept[:, j] <= caps[j]).all()) for j in range(4)),
+        f"kept counts outside [1, cap]: {kept.tolist()}")
+    return th, worst
+
+
+def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
+    """Phase 6 for every path of `paths` (name: (SparsityConfig kwargs,
+    batch); `LOOP_PATHS` by default), each held layer by layer on the
+    token path or the layer loop, as `forward` routes it, with the launch
+    counts per step of `launches`. Returns {path: results}."""
     import numpy as np
 
     from teal_tpu_torch.config import SparsityConfig
     from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.models import llama
 
+    paths = paths or LOOP_PATHS
+    launches = launches or LOOP_LAUNCHES
     rng = np.random.default_rng(seed + 1)
-    dt = params["layers"]["wq"].dtype
+    dt = llama.compute_dtype(params)
     L = cfg.n_layers
     out = {}
-    for name, (sp_kw, b) in LOOP_PATHS.items():
+    for name, (sp_kw, b) in paths.items():
+        sp = SparsityConfig(**sp_kw)
         prompts = [rng.integers(1, cfg.vocab_size, (b, n))
                    for n in PROMPT_LENS]
         cache, tok, pos = prefill(params, cfg, prompts[0], device, rope)
         t0 = time.perf_counter()
-        th, worst = hold_loop_layers(params, cfg, name, cache, tok, pos,
-                                     rope, device)
+        fused = llama.can_fused_decode(
+            1, b, cfg, MAX_SEQ, sp, (sp.enabled and sp.kernel == "block")
+            or llama._is_int4_packed(params["layers"]["wq"]))
+        if llama.can_token_decode(params, cfg, sp, 1, b, dt,
+                                  fused_attn=fused):
+            th, worst = hold_token_layers(params, cfg, cache, tok, pos,
+                                          rope, device)
+        else:
+            th, worst = hold_loop_layers(params, cfg, name, sp, b, cache,
+                                         tok, pos, rope, device)
         log(f"[loop] path {name} (batch {b}): every layer of the kernel path "
             f"held to the plain path (worst error {worst:.2e} of scale, "
             f"tolerance 2e-2) in {time.perf_counter() - t0:.2f} s")
@@ -843,7 +964,7 @@ def loop_paths(params, cfg, device, seed, rope):
                 for p in prompts]
         counts = read_launches()
         steps = len(prompts) * (LOOP_NEW_TOKENS - 1)
-        want = tuple(n * L * steps for n in LOOP_LAUNCHES[name])
+        want = tuple(n * L * steps for n in launches[name])
         check(counts == want, f"path {name}: launches (K1, K2, K3, K4) "
               f"{counts}, expected {want} for {steps} decode steps")
         for p, (toks, st) in zip(prompts, outs):
@@ -867,43 +988,13 @@ def time_kernels(params, cfg, caps, device, gen, rope, launches, errs):
     import torch
     import torch.nn.functional as F
 
-    from teal_tpu_torch.ops import block_gemv as bg
     from teal_tpu_torch.ops.decode_attention import (decode_attention,
                                                      decode_attention_plain)
 
     dt = params["layers"]["wq"].dtype
     esz = torch.finfo(dt).bits // 8
     L = cfg.n_layers
-    stages = []
-    for name, cap in zip(STAGES, caps):
-        spec = stage_specs(params, cfg)[name]
-        K = spec["ws"][0].shape[1]
-        x, thr, res = k1_inputs(spec, cfg, K, cap, gen, device, dt, 0)
-        kw = dict(norm=spec["norm"], norm_eps=cfg.norm_eps, res=res,
-                  silu=spec["silu"])
-        ws = spec["ws"]
-        n_tot = sum(w.shape[2] for w in ws)
-        n_out = ws[0].shape[2] if spec["silu"] else n_tot
-        out_bytes = n_out * (esz if (spec["res"] or spec["silu"]) else 4)
-        nbytes = (cap * 128 * n_tot * esz + K * esz * (2 if spec["norm"]
-                  is not None else 1) + (n_out * esz if spec["res"] else 0)
-                  + out_bytes)
-        b_ms, b_by = bound_ms(nbytes, 2 * cap * 128 * n_tot)
-        # every call reads another layer's weights: no L2 reuse
-        k_ms, host_ms = cuda_ms(lambda i: bg.select_gather_gemv(
-            x, thr, ws, i % L, cap, **kw), 64)
-        p_ms, _ = cuda_ms(lambda i: bg.select_gather_gemv_plain(
-            x, thr, ws, i % L, cap, **kw), 5, warmup=1, queued=False)
-        x2 = x.reshape(1, K)
-        lib_ms = sum(cuda_ms(lambda i, w=w: torch.matmul(x2, w[i % L]),
-                             64)[0] for w in ws)
-        stages.append(dict(stage=name, K=K, N=n_tot, cap=cap, ms=k_ms,
-                           plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=lib_ms, host_ms=host_ms))
-        log(f"[time] K1 {name:8s} kernel {k_ms:.4f} ms (host enqueue "
-            f"{host_ms:.4f} ms)  plain {p_ms:.4f} ms  torch.matmul full keep"
-            f" {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
-            f"{nbytes / 1e6:.2f} MB)")
+    stages = time_k1_plan(params, params, cfg, caps, device, gen, "bf16")
 
     # K2 at 7B (MHA: SDPA needs no GQA expansion), pos = T-1, a 32-layer
     # cache so that calls do not share L2
@@ -995,50 +1086,24 @@ def time_loop_kernels(params, cfg, device, gen, loop, errs):
     dt = params["layers"]["wq"].dtype
     esz = torch.finfo(dt).bits // 8
     L = cfg.n_layers
-    k1g, k3 = [], []
+    k1g = []
     for name, st in loop_stages(params, cfg).items():
-        ws, G, cap = st["ws"], st["G"], st["cap"]
-        K = ws[0].shape[1]
-        n_tot = sum(w.shape[2] for w in ws)
-        x2 = torch.randn(1, K, generator=gen, device=device).to(dt)
-        lib_ms = sum(cuda_ms(lambda i, w=w: torch.matmul(x2, w[i % L]),
-                             64)[0] for w in ws)
         # K1 at G, no epilogue, count == cap (path B)
+        ws, G, cap = st["ws"], st["G"], st["cap"]
+        K, n_tot = ws[0].shape[1], sum(w.shape[2] for w in ws)
         x, thr, _ = k1_inputs(st, cfg, K, cap, gen, device, dt, 0, G)
+        x2 = x.reshape(1, K)
         kw = dict(G=G, norm=st["norm"], norm_eps=cfg.norm_eps)
-        nbytes = (cap * G * n_tot * esz + K * esz * (1 if st["norm"] is None
-                                                     else 2) + n_tot * 4)
-        b_ms, b_by = bound_ms(nbytes, 2 * cap * G * n_tot)
-        ms, host = cuda_ms(lambda i: bg.select_gather_gemv(
-            x, thr, ws, i % L, cap, **kw), 64)
-        p_ms, _ = cuda_ms(lambda i: bg.select_gather_gemv_plain(
-            x, thr, ws, i % L, cap, **kw), 5, warmup=1, queued=False)
-        k1g.append(_stage_row(f"K1 G={G} {name}", K=K, N=n_tot, cap=cap,
-                              ms=ms, host_ms=host, plain_ms=p_ms,
-                              bound_ms=b_ms, bound_by=b_by,
-                              library_ms=lib_ms, mbytes=nbytes / 1e6))
-        # K3 at k_keep == cap, 1 row (path A); 4 rows of an 8-row xpack
-        # (path A at batch 4) beside it
-        row = {}
-        for rows in (1, 4):
-            xr = torch.randn(rows, K, generator=gen, device=device).to(dt)
-            idx, xpack = (bg.select_groups(xr, G, cap) if rows == 1 else
-                          bg.select_groups_batched(xr, G, cap))
-            nbytes = (cap * G * n_tot * esz + idx.numel() * 4
-                      + xpack.numel() * esz + rows * n_tot * 4)
-            b_ms, b_by = bound_ms(nbytes, 2 * rows * cap * G * n_tot)
-            ms, host = cuda_ms(lambda i: bg.block_gather_gemv_multi(
-                idx, xpack, ws, i % L, G, rows), 64)
-            p_ms, _ = cuda_ms(lambda i: bg.block_gather_gemv_multi_plain(
-                idx, xpack, ws, i % L, G, rows), 5, warmup=1, queued=False)
-            row[rows] = dict(ms=ms, host_ms=host, plain_ms=p_ms,
-                             bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6)
-        k3.append(_stage_row(f"K3 G={G} {name} rows=1", K=K, N=n_tot,
-                             k_keep=cap, library_ms=lib_ms, **row[1],
-                             rows4=row[4]))
-        log(f"[time] {'K3 rows=4 ' + name:26s} kernel {row[4]['ms']:.4f} ms "
-            f" plain {row[4]['plain_ms']:.4f} ms  bound "
-            f"{row[4]['bound_ms']:.4f} ms")
+        nbytes = (plan_bytes(ws, G, cap, None) + n_tot * 4
+                  + K * esz * (1 if st["norm"] is None else 2))
+        k1g.append(_plan_row(
+            f"K1 G={G} {name}", nbytes, 2 * cap * G * n_tot,
+            lambda i: bg.select_gather_gemv(x, thr, ws, i % L, cap, **kw),
+            lambda i: bg.select_gather_gemv_plain(x, thr, ws, i % L, cap,
+                                                  **kw),
+            sum(cuda_ms(lambda i, w=w: torch.matmul(x2, w[i % L]), 64)[0]
+                for w in ws), None, K=K, N=n_tot, cap=cap))
+    k3 = time_k3_plan(params, params, cfg, device, gen, "bf16")
     k4 = []
     for n in PROJ_NAMES:
         w3 = params["layers"][n]
@@ -1083,17 +1148,281 @@ def time_loop_kernels(params, cfg, device, gen, loop, errs):
     return out
 
 
-def time_lm_head(params, cfg, device, gen):
+def time_lm_head(params, cfg, device, gen, what="bf16 GEMV, fp32 output"):
     """The logits head of one decode step (h [1, 1, dim] -> fp32 logits)."""
     import torch
 
     from teal_tpu_torch.models import llama
 
     h = torch.randn(1, 1, cfg.dim, generator=gen, device=device).to(
-        params["lm_head"].dtype)
+        llama.compute_dtype(params))
     ms, _ = cuda_ms(lambda i: llama._lm_head(params, h), 64)
-    log(f"[time] lm_head (bf16 GEMV, fp32 output) {ms:.4f} ms")
+    log(f"[time] lm_head ({what}) {ms:.4f} ms")
     return ms
+
+
+# --- phase 8: the weight-only quantized paths -------------------------------
+
+def quantize_on_card(params, kind: str):
+    """The seeded bf16 params quantized on the card by the port's own
+    `quant` functions (`QUANT_PATHS` names the kinds). Returns (params,
+    seconds)."""
+    import torch
+
+    from teal_tpu_torch.ops import quant
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kind == "int8":
+        q = quant.quantize_params_int8(params)
+    else:
+        g = int(kind.split("-g")[1])
+        q = quant.pack_int4_params(quant.quantize_params_int4(params, g),
+                                   block_size=128 if g == 128 else 32)
+    torch.cuda.synchronize()
+    return q, time.perf_counter() - t0
+
+
+def plan_bytes(ws, G: int, cap: int, scales) -> int:
+    """Bytes of the kept slabs of one call's weights (packed int4: the
+    half-height slab and its [scale, zero] row), plus int8 scales read."""
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    n = 0
+    for w in ws:
+        N = bg._width(w)
+        n += (cap * (G // 2 * N + 2 * N * 4) if isinstance(w, dict)
+              else cap * G * N * w.element_size())
+        n += 0 if scales is None else N * 4
+    return n
+
+
+def quant_library_ms(plan: str, K: int, Ns, device, gen):
+    """PyTorch's own weight-only GEMV at full keep on random weights of a
+    stage's shapes, summed over its weights, each call on one of 4 copies
+    in turn (not L2-resident): `torch._weight_int8pack_mm` for int8,
+    `torch._weight_int4pack_mm` (group 128) for int4. Timed only, never
+    called by the port. None for bf16, and where the installed PyTorch
+    has no CUDA kernel for it."""
+    import torch
+
+    if plan not in ("int8", "int4"):
+        return None
+
+    x = torch.randn(1, K, generator=gen, device=device).bfloat16()
+    total = 0.0
+    try:
+        for N in Ns:
+            if plan == "int8":
+                ws = [torch.randint(-128, 128, (N, K), generator=gen,
+                                    device=device, dtype=torch.int8)
+                      for _ in range(4)]
+                sc = torch.rand(N, generator=gen, device=device).bfloat16()
+
+                def fn(i, ws=ws, sc=sc):
+                    return torch._weight_int8pack_mm(x, ws[i % 4], sc)
+            else:
+                ws = [torch._convert_weight_to_int4pack(
+                    torch.randint(0, 256, (N, K // 2), generator=gen,
+                                  device=device, dtype=torch.uint8), 8)
+                    for _ in range(4)]
+                sz = torch.rand(K // 128, N, 2, generator=gen,
+                                device=device).bfloat16()
+
+                def fn(i, ws=ws, sz=sz):
+                    return torch._weight_int4pack_mm(x, ws[i % 4], 128, sz)
+            total += cuda_ms(fn, 64)[0]
+    except (RuntimeError, AttributeError, TypeError,
+            NotImplementedError) as e:
+        log(f"[time] {plan} library GEMV unavailable on this PyTorch: "
+            f"{str(e).splitlines()[0][:120]}")
+        torch.cuda.synchronize()
+        return None
+    return total
+
+
+def _plan_row(name, nbytes, flops, kernel, plain, lib, q_lib, **kw):
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms, host = cuda_ms(kernel, 64)
+    p_ms, _ = cuda_ms(plain, 5, warmup=1, queued=False)
+    row = _stage_row(name, ms=ms, host_ms=host, plain_ms=p_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib, mbytes=nbytes / 1e6,
+                     quant_library_ms=q_lib, **kw)
+    if q_lib is not None:
+        log(f"[time] {'':26s} {('int8' if 'int8' in name else 'int4')}"
+            f"pack_mm full keep {q_lib:.4f} ms")
+    return row
+
+
+def time_k1_plan(qparams, params, cfg, caps, device, gen, plan):
+    """K1 with a weight plan at the token path's four stage shapes (count
+    == cap, epilogues and int8 scales), each call on another layer's
+    weights: kernel, plain version, `torch.matmul` on the bf16 weights and
+    PyTorch's weight-only GEMV at full keep, and the bound."""
+    import torch
+
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    L, esz, rows = cfg.n_layers, 2, []
+    for name, cap in zip(STAGES, caps):
+        spec = stage_specs(qparams, cfg)[name]
+        ws = spec["ws"]
+        K, Ns = bg._in_dim(ws[0]), [bg._width(w) for w in ws]
+        x, thr, res = k1_inputs(spec, cfg, K, cap, gen, device,
+                                torch.bfloat16, 0)
+        kw = dict(norm=spec["norm"], norm_eps=cfg.norm_eps, res=res,
+                  silu=spec["silu"], scales=spec["scales"])
+        n_out = Ns[0] if spec["silu"] else sum(Ns)
+        nbytes = (plan_bytes(ws, 128, cap, spec["scales"])
+                  + K * esz * (1 if spec["norm"] is None else 2)
+                  + (n_out * esz if spec["res"] else 0)
+                  + n_out * (esz if (spec["res"] or spec["silu"]) else 4))
+        x2 = x.reshape(1, K)
+        lib = sum(cuda_ms(lambda i, w=params["layers"][n]:
+                          torch.matmul(x2, w[i % L]), 64)[0]
+                  for n in STAGE_WEIGHTS[name])
+        rows.append(_plan_row(
+            f"K1[{plan}] {name}", nbytes, 2 * cap * 128 * sum(Ns),
+            lambda i: bg.select_gather_gemv(x, thr, ws, i % L, cap, **kw),
+            lambda i: bg.select_gather_gemv_plain(x, thr, ws, i % L, cap,
+                                                  **kw),
+            lib, quant_library_ms(plan, K, Ns, device, gen), K=K,
+            N=sum(Ns), cap=cap))
+    return rows
+
+
+def time_k3_plan(qparams, params, cfg, device, gen, plan):
+    """K3 with a weight plan at path A's four stage shapes (k_keep == cap;
+    1 row, and 4 rows of an 8-row xpack beside it), as `time_k1_plan`."""
+    import torch
+
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    L, esz, out = cfg.n_layers, 2, []
+    for name, st in loop_stages(qparams, cfg).items():
+        ws, G, cap = st["ws"], st["G"], st["cap"]
+        K, Ns = bg._in_dim(ws[0]), [bg._width(w) for w in ws]
+        x2 = torch.randn(1, K, generator=gen, device=device).bfloat16()
+        lib = sum(cuda_ms(lambda i, w=params["layers"][n]:
+                          torch.matmul(x2, w[i % L]), 64)[0]
+                  for n in STAGE_WEIGHTS[name])
+        q_lib = quant_library_ms(plan, K, Ns, device, gen)
+        row = {}
+        for rows in (1, 4):
+            xr = torch.randn(rows, K, generator=gen, device=device).bfloat16()
+            idx, xpack = (bg.select_groups(xr, G, cap) if rows == 1 else
+                          bg.select_groups_batched(xr, G, cap))
+            nbytes = (plan_bytes(ws, G, cap, None) + idx.numel() * 4
+                      + xpack.numel() * esz + rows * sum(Ns) * 4)
+            row[rows] = _plan_row(
+                f"K3[{plan}] G={G} {name} rows={rows}", nbytes,
+                2 * rows * cap * G * sum(Ns),
+                lambda i: bg.block_gather_gemv_multi(idx, xpack, ws, i % L,
+                                                     G, rows),
+                lambda i: bg.block_gather_gemv_multi_plain(
+                    idx, xpack, ws, i % L, G, rows),
+                lib, q_lib, K=K, N=sum(Ns), k_keep=cap)
+        out.append(dict(row[1], rows4={k: row[4][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}))
+    return out
+
+
+def time_quant_head(qparams, plan, cfg, device, gen):
+    """The quantized logits head (PyTorch ops, as the reference's is XLA's:
+    int8 values in bf16 then the GEMV and the scale; int4 dequantized to
+    bf16 then the GEMV) beside its bound (the quantized head's bytes read
+    once) and PyTorch's weight-only GEMV at the same shape."""
+    head = qparams["lm_head"]
+    ms = time_lm_head(qparams, cfg, device, gen,
+                      f"{plan} {sorted(head)}, fp32 output")
+    nbytes = sum(t.numel() * t.element_size() for t in head.values())
+    b_ms, b_by = bound_ms(nbytes + cfg.dim * 2 + cfg.vocab_size * 4,
+                          2 * cfg.dim * cfg.vocab_size)
+    lib = quant_library_ms(plan, cfg.dim, [cfg.vocab_size], device, gen)
+    log(f"[time] lm_head {plan}: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e6:.1f} MB), PyTorch weight-only GEMV {lib}")
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, quant_library_ms=lib)
+
+
+def plan_entry(stages, name, source, replaces, launches, steps, err, timed):
+    """A `kernels` line entry from per-stage rows (one layer, summed)."""
+    e = _summed(stages, name, source, replaces, launches, steps, err, timed)
+    q = [s["quant_library_ms"] for s in stages]
+    e["quant_library_ms"] = None if None in q else sum(q)
+    log(f"[time] {name}: one layer {e['ms']:.4f} ms, plain "
+        f"{e['plain_ms']:.4f} ms, torch.matmul bf16 {e['library_ms']:.4f} "
+        f"ms, PyTorch weight-only GEMV {e['quant_library_ms']}, bound "
+        f"{e['bound_ms']:.4f} ms")
+    return e
+
+
+def quant_paths(params, cfg, caps, device, gen, seed, rope):
+    """Phase 8: for each quantization of `QUANT_PATHS`, quantize the bf16
+    params on the card, hold K1 (token-path stage shapes with the scale
+    epilogue, and G = 32/64) and K3 (path A's stage shapes, 1 and 4 rows)
+    with that weight plan to their plain versions, run its paths
+    (`loop_paths`: every 7B layer held to the plain path, three greedy
+    requests, launch counts), time one decode step at pos 40, the plan's
+    kernels and the quantized logits head; then free the copy. Returns
+    (kernels entries, {path: results}, extra results)."""
+    import torch
+
+    src = "teal_tpu_torch/csrc/"
+    entries, results, extra = [], {}, {}
+    for kind in ("int8", "int4-g128", "int4-g64"):
+        plan = kind.split("-")[0]
+        names = [n for n, v in QUANT_PATHS.items() if v[0] == kind]
+        torch.cuda.reset_peak_memory_stats()
+        qp, q_s = quantize_on_card(params, kind)
+        log(f"[quant] {kind}: quantized on the card in {q_s:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        errs = {}
+        if kind != "int4-g64":
+            errs["k1"] = check_k1(qp, cfg, caps, device, gen,
+                                  tag=f"k1 {plan}")
+        if kind != "int4-g128":
+            k1g = check_k1_groups(qp, cfg, device, gen, tag=f"k1g {plan}")
+            errs["k1"] = max(errs.get("k1", 0.0), k1g)
+            errs["k3"] = check_k3(qp, cfg, device, gen, rows_list=(1, 4),
+                                  tag=f"k3 {plan}")
+            for e in entries:      # int4's K1 entry came from the G=128 copy
+                if e["name"] == f"select_gather_gemv[{plan}]":
+                    e["max_abs_err"] = max(e["max_abs_err"], k1g)
+        runs = loop_paths(qp, cfg, device, seed, rope,
+                          paths={n: QUANT_PATHS[n][1:] for n in names},
+                          launches=QUANT_LAUNCHES)
+        results.update(runs)
+        extra.update({f"decode_step_ms {k}": v for k, v in time_decode_step(
+            qp, cfg, [(n, QUANT_PATHS[n][1], 1, runs[n]["th"])
+                      for n in names], device, rope).items()})
+        for n in names:
+            r = runs[n]
+            if n.endswith("-main"):
+                entries.append(plan_entry(
+                    time_k1_plan(qp, params, cfg, caps, device, gen, plan),
+                    f"select_gather_gemv[{plan}]",
+                    src + "select_gather_gemv.cu",
+                    "teal_tpu/ops/block_gemv.py:761", r["launches"][0],
+                    r["steps"], errs["k1"],
+                    f"{n}: one layer's four calls at count == cap, summed"))
+            else:
+                entries.append(plan_entry(
+                    time_k3_plan(qp, params, cfg, device, gen, plan),
+                    f"block_gather_gemv_multi[{plan}]",
+                    src + "block_gather_gemv.cu",
+                    "teal_tpu/ops/block_gemv.py:354", r["launches"][2],
+                    r["steps"], errs["k3"],
+                    f"{n}: one layer's four calls at k_keep == cap, 1 row, "
+                    "summed"))
+        if kind != "int4-g64":
+            extra[f"lm_head {plan}"] = time_quant_head(qp, plan, cfg,
+                                                       device, gen)
+        extra[f"peak_gib {kind}"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[quant] {kind}: peak {extra[f'peak_gib {kind}']:.2f} GiB "
+            "allocated")
+        del qp
+        torch.cuda.empty_cache()
+    return entries, results, extra
 
 
 def main() -> int:
@@ -1158,6 +1487,13 @@ def main() -> int:
     line["decode_tok_s"] = speeds
     line["decode_tok_s_loop_paths"] = {n: r["tok_s"] for n, r in loop.items()}
     line["decode_step_ms"] = step
+    q_entries, q_runs, q_extra = quant_paths(params, cfg, caps, device, gen,
+                                             seed, rope)
+    line["kernels"] += q_entries
+    line["decode_tok_s_quant_paths"] = {n: r["tok_s"]
+                                        for n, r in q_runs.items()}
+    line["quant"] = q_extra
+    line["card"] = card
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -12,9 +12,10 @@ decode (threshold mode, G = 128) through two hand-written CUDA kernels,
 `ops/decode_attention.decode_attention` (K2); the layer loop's sparse
 decode (block mode in top-k or at G = 32/64, batches up to 8, and gather
 mode) through K1, K2, `ops/block_gemv.block_gather_gemv_multi` (K3) and
-`ops/gather_gemv.row_gather_gemv` (K4); the dense and masked-dense layer
-loop, prefill and the generation engine. ROADMAP.md lists what is still
-to port.
+`ops/gather_gemv.row_gather_gemv` (K4); weight-only int8 and packed int4
+(`ops/quant.py`) on K1 and K3's weight plans; the dense and masked-dense
+layer loop, prefill and the generation engine. ROADMAP.md lists what is
+still to port.
 """
 
 __version__ = "0.1.0"

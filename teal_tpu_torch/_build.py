@@ -31,16 +31,20 @@ FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", ARCH,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     ("select_gather_gemv", "teal_select_gather_gemv"): [
-        _I,                     # dtype code: 0 fp32, 1 bf16
+        _I, _I,                 # dtype code (0 fp32, 1 bf16), weight plan
         _P, _P, _P, _F,         # x, thr, norm (or null), norm_eps
-        _P, _P, _P, _I, _I, _I,  # w0, w1, w2, n0, n1, n2
+        _P, _P, _P,             # w0, w1, w2
+        _P, _P, _P,             # int4 sz0-2 (or null)
+        _P, _P, _P,             # int8 scale0-2 (or null)
+        _I, _I, _I,             # n0, n1, n2
         _I, _P, _P, _P, _P,     # n_w, res (or null), out, idx, count
         _I, _I, _I, _I, _I, _P,  # K, G, layer, cap, mode, stream
     ],
     ("block_gather_gemv", "teal_block_gather_gemv"): [
-        _I, _P, _P,             # dtype code, idx, xpack
-        _P, _P, _P, _I, _I, _I,  # w0, w1, w2, n0, n1, n2
-        _I, _P,                 # n_w, out
+        _I, _I, _P, _P,         # dtype code, weight plan, idx, xpack
+        _P, _P, _P,             # w0, w1, w2
+        _P, _P, _P,             # int4 sz0-2 (or null)
+        _I, _I, _I, _I, _P,     # n0, n1, n2, n_w, out
         _I, _I, _I, _I, _I, _I,  # K, G, layer, k_keep, xpack rows, rows
         _P,                     # stream
     ],

@@ -1,5 +1,5 @@
-// Shared helpers for the port's kernels: element types and fixed-order
-// block reductions.
+// Shared helpers for the port's kernels: element types, the gather
+// GEMVs' weight plans and thread layout, and fixed-order block reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,6 +11,9 @@ namespace teal {
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f(int8_t v) {
+  return static_cast<float>(v);
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
@@ -79,17 +82,67 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
   return r;
 }
 
+// Weight plans of the gather GEMVs K1 and K3 (the reference's
+// `_WeightPlan`, teal_tpu/ops/block_gemv.py:82): weights of the stream
+// type T; int8 (converted exactly to fp32; a per-channel scale, where
+// there is one, goes on the fp32 sums); packed int4: a byte of row p of
+// group g's packed slab [G/2, N] holds row g*G + p in its low nibble and
+// row g*G + G/2 + p in its high one, and sz [nb, 2, N] holds each
+// group's [scale, zero] (`quant.pack_int4`).
+enum Plan { PLAN_STREAM = 0, PLAN_INT8 = 1, PLAN_INT4 = 2 };
+
 // Thread layout of the gather GEMVs (K1, K3, K4): a block owns TILE
-// output columns; a thread loads 16 bytes (VEC columns) of one weight
-// row, LPR lanes cover a row's tile, so a warp covers RPW rows per load
-// and the block SLOTS rows ("row slots").
-template <typename T, int TILE, int THREADS>
-struct GatherShape {
-  static constexpr int VEC = 16 / sizeof(T);
+// output columns; a thread loads VEC columns of one weight row (16 bytes,
+// or 8 bytes = 8 columns x 2 rows of packed int4), LPR lanes cover a
+// row's tile, so a warp covers RPW rows per load and the block SLOTS rows
+// ("row slots").
+template <int VEC_, int TILE, int THREADS>
+struct VecShape {
+  static constexpr int VEC = VEC_;
   static constexpr int LPR = TILE / VEC;
   static constexpr int RPW = 32 / LPR;
   static constexpr int SLOTS = (THREADS / 32) * RPW;
 };
+
+template <typename T, int TILE, int THREADS>
+using GatherShape = VecShape<16 / sizeof(T), TILE, THREADS>;
+
+// The layout of plan P with a stream of type T.
+template <typename T, int P, int TILE, int THREADS>
+using PlanShape =
+    VecShape<P == PLAN_INT8 ? 16 : (P == PLAN_INT4 ? 8 : 16 / sizeof(T)),
+             TILE, THREADS>;
+
+// One 16-byte load of VEC weights of element type E, as fp32.
+template <typename E, int VEC>
+__device__ __forceinline__ void load_row(const E* p, float (&v)[VEC]) {
+  static_assert(VEC * sizeof(E) == 16, "a row load is 16 bytes");
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const E* e = reinterpret_cast<const E*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) v[i] = to_f(e[i]);
+}
+
+// One 8-byte load of packed int4: 8 columns of two rows, as the raw
+// nibbles 0..15 in fp32 (low nibble: the group's row p, high: p + G/2).
+__device__ __forceinline__ void load_nibbles(const int8_t* p, float (&lo)[8],
+                                             float (&hi)[8]) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    lo[i] = static_cast<float>(b[i] & 15);
+    hi[i] = static_cast<float>(b[i] >> 4);
+  }
+}
+
+// 8 consecutive fp32 values (32-byte aligned).
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
 
 // First half of the fixed-order sum over row slots: a butterfly across
 // the RPW lanes of each warp that hold the same columns, then lanes

@@ -14,15 +14,21 @@
 //   3. THE selection rule: survivors are score > thr, taken in ascending
 //      group order, the first `cap` kept (`_select_scan`);
 //   4. y[n] = sum over kept rows k of x[k] * W[layer, k, n], fp32 sums,
-//      over 1-3 layer-stacked weights [L, K, N_i] sharing one selection;
-//   5. an epilogue: raw fp32 (q|k|v), + residual then cast (o, down), or
+//      over 1-3 layer-stacked weights [L, K, N_i] sharing one selection
+//      and one weight plan (`common.cuh`): the stream type, int8, or
+//      packed int4 at G >= 64, where each kept group adds
+//      (x_g @ nib_g) * scale_g + sum(x_g) * zero_g;
+//   5. an epilogue: int8's per-channel scale on the fp32 sums where the
+//      caller passes it (the whole-token kernel's `scale_ref`,
+//      token_block.py:55, applied before RoPE in attn_block.py:218), then
+//      raw fp32 (q|k|v), + residual then cast (o, down), or
 //      silu(gate) * up then cast (gate|up: mode 2, two weights).
 //
 // What bounds it on the H100: bytes. Per call it reads cap * 128 rows of
 // each weight (bf16: 16 MB for the 7B o stage at cap 16, 90 MB for
-// gate|up), against 2 * rows * N flops, so HBM bandwidth (3.35 TB/s) is
-// the roofline and the kernel should keep enough loads in flight on
-// every SM.
+// gate|up; half that in int8, a quarter plus the sz rows in int4),
+// against 2 * rows * N flops, so HBM bandwidth (3.35 TB/s) is the
+// roofline and the kernel should keep enough loads in flight on every SM.
 //
 // Design. Each block owns a tile of 32 output columns of every weight it
 // reads, so the grid is N_out / 32 blocks (128 blocks for a 4096-wide
@@ -34,11 +40,15 @@
 // (32 a step; up to 344 groups), which keeps exactly the groups the
 // serial scan keeps. G is a template parameter, so the row -> (group,
 // offset) split in the gather is a shift and a mask. In the gather,
-// each thread loads 16 bytes (8 bf16 columns) of one kept row; a warp
-// covers 8 rows (bf16) of the tile per instruction and the 8 warps 64
-// rows, unrolled 4 deep. The 64 per-slot partial sums of each column are
-// added in slot order through shared memory, so the result does not
-// depend on scheduling.
+// each thread loads 16 bytes (8 bf16 or 16 int8 columns) of one kept
+// row; a warp covers 8 rows (bf16; 16 int8) of the tile per instruction
+// and the 8 warps 64 (128) rows, unrolled 4 deep. Packed int4 needs each
+// group's sum before its scale, so there a warp owns a kept group at a
+// time: each thread loads 8 bytes (8 columns x 2 rows) of G/16 packed
+// rows of the group, sums x * nibble and x over them, and adds
+// partial * scale_g + sum(x) * zero_g to its accumulators. The per-slot
+// partial sums of each column are added in slot order through shared
+// memory, so the result does not depend on scheduling.
 #include "common.cuh"
 
 using namespace teal;
@@ -47,13 +57,16 @@ namespace {
 
 constexpr int TILE = 32;     // output columns per block
 constexpr int THREADS = 256;
+constexpr int NWARPS = THREADS / 32;
 
 struct Args {
   const void* x;
   const float* thr;
   const void* norm;          // [L, K] gains, or null
   float eps;
-  const void* w[3];          // [L, K, n_i] each
+  const void* w[3];          // [L, K, n_i] (int4: packed [L, K/2, n_i])
+  const float* sz[3];        // int4: [L, K/G, 2, n_i] (scale, zero)
+  const float* scale[3];     // int8: [L, n_i] per-channel scales, or null
   int n[3];
   int n_w;
   const void* res;           // [N_out] residual (mode 1)
@@ -63,12 +76,17 @@ struct Args {
   int K, layer, cap, mode;
 };
 
-template <typename T>
-using Shape = GatherShape<T, TILE, THREADS>;
+template <typename T, int P>
+using Shape = PlanShape<T, P, TILE, THREADS>;
 
-template <typename T, bool PAIR, int G>
+// element type of a 16-byte row load
+template <typename T, int P> struct Elem { using type = T; };
+template <typename T> struct Elem<T, PLAN_INT8> { using type = int8_t; };
+
+template <typename T, int P, bool PAIR, int G>
 __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
-  using S = Shape<T>;
+  using S = Shape<T, P>;
+  using E = typename Elem<T, P>::type;
   constexpr int NW = PAIR ? 2 : 1;
   extern __shared__ float smem[];
   const int K = a.K, nb = K / G;
@@ -101,7 +119,7 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
   __syncthreads();
 
   // 2. group scores
-  for (int gi = warp; gi < nb; gi += THREADS / 32) {
+  for (int gi = warp; gi < nb; gi += NWARPS) {
     float m = 0.f;
     for (int j = lane; j < G; j += 32) m = fmaxf(m, fabsf(xs[gi * G + j]));
     m = warp_max(m);
@@ -133,19 +151,17 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
 
   // 4. gather the kept rows of this block's column tile
   const int c0 = blockIdx.x * TILE;
-  const T* W[NW];
-  int N;
+  int wsel[NW];                 // the weights this block reads
+  int off = c0, N;              // the tile's first column within them
   if (PAIR) {
     N = a.n[0];
-    const size_t base = static_cast<size_t>(a.layer) * K * N + c0;
-    W[0] = static_cast<const T*>(a.w[0]) + base;
-    if (NW > 1) W[NW - 1] = static_cast<const T*>(a.w[1]) + base;
+    wsel[0] = 0;
+    wsel[NW - 1] = 1;
   } else {
-    int wi = 0, off = c0;
+    int wi = 0;
     while (off >= a.n[wi]) off -= a.n[wi++];
     N = a.n[wi];
-    W[0] = static_cast<const T*>(a.w[wi]) +
-           static_cast<size_t>(a.layer) * K * N + off;
+    wsel[0] = wi;
   }
   const int sub = lane % S::LPR;
   const int slot = warp * S::RPW + lane / S::LPR;
@@ -154,19 +170,67 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
   for (int w = 0; w < NW; ++w)
 #pragma unroll
     for (int e = 0; e < S::VEC; ++e) acc[w][e] = 0.f;
-  const int R = count * G;
-#pragma unroll 4
-  for (int r = slot; r < R; r += S::SLOTS) {
-    const int k = idx[r / G] * G + (r % G);
-    const float xv = xs[k];
+  if constexpr (P == PLAN_INT4) {
+    constexpr int HALF = G / 2;                 // packed rows a group
+    const int rl = lane / S::LPR;
+    const int8_t* Q[NW];
+    const float* SZ[NW];
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-          W[w] + static_cast<size_t>(k) * N + sub * S::VEC));
-      const T* v = reinterpret_cast<const T*>(&raw);
+      Q[w] = static_cast<const int8_t*>(a.w[wsel[w]]) +
+             static_cast<size_t>(a.layer) * (K / 2) * N + off + sub * 8;
+      SZ[w] = a.sz[wsel[w]] + static_cast<size_t>(a.layer) * nb * 2 * N +
+              off + sub * 8;
+    }
+    for (int j = warp; j < count; j += NWARPS) {
+      const int g = idx[j];
+      const float* xg = xs + g * G;
+      float p[NW][8], sx = 0.f;
 #pragma unroll
-      for (int e = 0; e < S::VEC; ++e)
-        acc[w][e] = fmaf(xv, to_f(v[e]), acc[w][e]);
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) p[w][e] = 0.f;
+#pragma unroll 4
+      for (int i = rl; i < HALF; i += S::RPW) {
+        const float xlo = xg[i], xhi = xg[HALF + i];
+        sx += xlo + xhi;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          float lo[8], hi[8];
+          load_nibbles(Q[w] + static_cast<size_t>(g * HALF + i) * N, lo, hi);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            p[w][e] = fmaf(xhi, hi[e], fmaf(xlo, lo[e], p[w][e]));
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        float sc[8], zr[8];
+        load8(SZ[w] + static_cast<size_t>(g) * 2 * N, sc);
+        load8(SZ[w] + static_cast<size_t>(g) * 2 * N + N, zr);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[w][e] = fmaf(p[w][e], sc[e], fmaf(sx, zr[e], acc[w][e]));
+      }
+    }
+  } else {
+    const E* W[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      W[w] = static_cast<const E*>(a.w[wsel[w]]) +
+             static_cast<size_t>(a.layer) * K * N + off + sub * S::VEC;
+    const int R = count * G;
+#pragma unroll 4
+    for (int r = slot; r < R; r += S::SLOTS) {
+      const int k = idx[r / G] * G + (r % G);
+      const float xv = xs[k];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        float v[S::VEC];
+        load_row<E, S::VEC>(W[w] + static_cast<size_t>(k) * N, v);
+#pragma unroll
+        for (int e = 0; e < S::VEC; ++e) acc[w][e] = fmaf(xv, v[e], acc[w][e]);
+      }
     }
   }
 #pragma unroll
@@ -176,10 +240,13 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
       red[slot * NW * TILE + w * TILE + sub * S::VEC + e] = acc[w][e];
   __syncthreads();
 
-  // 5. fixed-order sum over slots, then the epilogue
+  // 5. fixed-order sum over slots, the int8 scale, then the epilogue
   if (tid < NW * TILE) {
     float s = 0.f;
     for (int sl = 0; sl < S::SLOTS; ++sl) s += red[sl * NW * TILE + tid];
+    const float* sc = a.scale[wsel[tid / TILE]];
+    if (sc != nullptr)
+      s *= sc[static_cast<size_t>(a.layer) * N + off + tid % TILE];
     fin[tid] = s;
   }
   __syncthreads();
@@ -198,51 +265,79 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
   }
 }
 
-template <typename T, bool PAIR, int G>
+template <typename T, int P, bool PAIR, int G>
 int launch(const Args& a, int blocks, cudaStream_t stream) {
   constexpr int NW = PAIR ? 2 : 1;
   const size_t smem =
-      sizeof(float) * (a.K + Shape<T>::SLOTS * NW * TILE + a.K / G + 32 +
+      sizeof(float) * (a.K + Shape<T, P>::SLOTS * NW * TILE + a.K / G + 32 +
                        NW * TILE) +
       sizeof(int) * (a.cap + 1);
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(sgg_kernel<T, PAIR, G>,
+    cudaFuncSetAttribute(sgg_kernel<T, P, PAIR, G>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-  sgg_kernel<T, PAIR, G><<<blocks, THREADS, smem, stream>>>(a);
+  sgg_kernel<T, P, PAIR, G><<<blocks, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int P, int G>
+int launch_mode(const Args& a, int blocks, cudaStream_t s) {
+  return a.mode == 2 ? launch<T, P, true, G>(a, blocks, s)
+                     : launch<T, P, false, G>(a, blocks, s);
+}
+
+template <typename T, int G>
+int dispatch(int plan, const Args& a, int blocks, cudaStream_t s) {
+  switch (plan) {
+    case PLAN_STREAM: return launch_mode<T, PLAN_STREAM, G>(a, blocks, s);
+    case PLAN_INT8: return launch_mode<T, PLAN_INT8, G>(a, blocks, s);
+    case PLAN_INT4:
+      if constexpr (G >= 64)
+        return launch_mode<T, PLAN_INT4, G>(a, blocks, s);
+      else
+        return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <int G>
-int dispatch(int dtype, const Args& a, int blocks, cudaStream_t s) {
-  const bool pair = a.mode == 2;
-  if (dtype == 0)
-    return pair ? launch<float, true, G>(a, blocks, s)
-                : launch<float, false, G>(a, blocks, s);
-  return pair ? launch<__nv_bfloat16, true, G>(a, blocks, s)
-              : launch<__nv_bfloat16, false, G>(a, blocks, s);
+int dispatch_type(int dtype, int plan, const Args& a, int blocks,
+                  cudaStream_t s) {
+  return dtype == 0 ? dispatch<float, G>(plan, a, blocks, s)
+                    : dispatch<__nv_bfloat16, G>(plan, a, blocks, s);
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16. mode: 0 raw fp32 out, 1 residual, 2 silu pair.
-// G: 32, 64 or 128 (else cudaErrorInvalidValue). The caller checks
-// shapes: K % G == 0, every n_i % 32 == 0, pointers 16-byte aligned,
-// mode 2 with two weights of equal width.
+// dtype: 0 fp32, 1 bf16 (the stream x, norm, res and the mode 1/2
+// output). plan: 0 weights of the stream type, 1 int8, 2 packed int4
+// (w_i the packed rows, sz_i their [scale, zero] rows; G 64 or 128).
+// scale_i: int8 per-channel scales [L, n_i] applied to the sums, or
+// null. mode: 0 raw fp32 out, 1 residual, 2 silu pair. G: 32, 64 or 128
+// (else cudaErrorInvalidValue). The caller checks shapes: K % G == 0,
+// every n_i % 32 == 0, pointers 16-byte aligned, mode 2 with two weights
+// of equal width, one plan for all weights.
 extern "C" int teal_select_gather_gemv(
-    int dtype, const void* x, const void* thr, const void* norm, float eps,
-    const void* w0, const void* w1, const void* w2, int n0, int n1, int n2,
-    int n_w, const void* res, void* out, void* idx, void* count, int K,
-    int G, int layer, int cap, int mode, void* stream) {
+    int dtype, int plan, const void* x, const void* thr, const void* norm,
+    float eps, const void* w0, const void* w1, const void* w2,
+    const void* sz0, const void* sz1, const void* sz2, const void* sc0,
+    const void* sc1, const void* sc2, int n0, int n1, int n2, int n_w,
+    const void* res, void* out, void* idx, void* count, int K, int G,
+    int layer, int cap, int mode, void* stream) {
   cudaGetLastError();  // clear any stale error of this library
   Args a;
   a.x = x;
   a.thr = static_cast<const float*>(thr);
   a.norm = norm;
   a.eps = eps;
-  a.w[0] = w0;
-  a.w[1] = w1;
-  a.w[2] = w2;
+  const void* w[3] = {w0, w1, w2};
+  const void* sz[3] = {sz0, sz1, sz2};
+  const void* sc[3] = {sc0, sc1, sc2};
+  for (int i = 0; i < 3; ++i) {
+    a.w[i] = w[i];
+    a.sz[i] = static_cast<const float*>(sz[i]);
+    a.scale[i] = static_cast<const float*>(sc[i]);
+  }
   a.n[0] = n0;
   a.n[1] = n_w > 1 ? n1 : 0;
   a.n[2] = n_w > 2 ? n2 : 0;
@@ -259,9 +354,9 @@ extern "C" int teal_select_gather_gemv(
   const int blocks = n_out / TILE;
   auto s = static_cast<cudaStream_t>(stream);
   switch (G) {
-    case 32: return dispatch<32>(dtype, a, blocks, s);
-    case 64: return dispatch<64>(dtype, a, blocks, s);
-    case 128: return dispatch<128>(dtype, a, blocks, s);
+    case 32: return dispatch_type<32>(dtype, plan, a, blocks, s);
+    case 64: return dispatch_type<64>(dtype, plan, a, blocks, s);
+    case 128: return dispatch_type<128>(dtype, plan, a, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

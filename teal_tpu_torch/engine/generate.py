@@ -41,7 +41,9 @@ class GenerateStats:
 
 
 class Generator:
-    """Generation for one (model config, sparsity config) on one device."""
+    """Generation for one (model config, sparsity config) on one device.
+    The default cache type, bf16, is the compute type of quantized
+    params (`llama.compute_dtype`), which the token path needs."""
 
     def __init__(self, cfg: ModelConfig, params, *,
                  sp: SparsityConfig = SparsityConfig(),
@@ -58,9 +60,15 @@ class Generator:
         self.temperature = temperature
         self.top_k = top_k
         self.rope = llama.precompute_rope(cfg, self.max_seq, self.device)
-        # projection bytes; the reference protocol excludes embeddings
+
+        def leaf_bytes(w):
+            ts = w.values() if isinstance(w, dict) else (w,)
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        # projection bytes (bf16/fp32, int8 and int4 leaves with their
+        # scales); the reference protocol excludes embeddings
         self.model_bytes = sum(
-            params["layers"][n].numel() * params["layers"][n].element_size()
+            leaf_bytes(params["layers"][n])
             for n in ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown"))
 
     def new_cache(self) -> KVCache:

@@ -9,7 +9,10 @@ Port of `teal_tpu/models/llama.py` with the same parameter layout:
   - sparsity enters as a `[L, 7]` threshold table (order
     `config.PROJS`) plus a `SparsityConfig`;
   - norms, RoPE and softmax run in fp32; projections in the parameter
-    type with fp32 sums.
+    type with fp32 sums;
+  - projections may be int8 {"q", "scale"}, groupwise int4
+    {"q", "scale", "zero"} or packed int4 {"qp", "sz"} dicts
+    (`ops/quant.py`); activations are then bf16 (`compute_dtype`).
 
 `forward` routes as the reference does. Batch-1 single-token
 threshold-mode decode at G=128 with the default route flags (the main
@@ -19,10 +22,13 @@ runs the layer loop (`layer_forward`): dense and masked-dense layers in
 plain PyTorch, and single-token sparse decode through the kernels --
 block mode on K1 (threshold) or K3 (top-k, and batches of up to 8),
 gather mode on K4, attention on K2 where `can_fused_decode` holds.
+Packed int4 weights always decode through the block route (at keep 1.0
+when sparsity is off), as in the reference.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -30,13 +36,28 @@ import torch
 import torch.nn.functional as F
 
 from teal_tpu_torch.config import ModelConfig, PROJS, SparsityConfig
-from teal_tpu_torch.ops import block_gemv, sparse_gemv
+from teal_tpu_torch.ops import block_gemv, quant, sparse_gemv
 from teal_tpu_torch.ops.attn_block import attn_stage
-from teal_tpu_torch.ops.block_gemv import effective_block_size
 from teal_tpu_torch.ops.decode_attention import decode_attention
 from teal_tpu_torch.ops.sparsify import apply_sparsity, group_capacity
 
 _WEIGHTS = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
+# quantization leaves, fp32 whatever type the floats are cast to
+_FP32_LEAVES = ("scale", "sz", "zero")
+
+
+def _is_int8(w) -> bool:
+    """An int8 weight-only dict {"q", "scale"} (not groupwise int4)."""
+    return isinstance(w, dict) and "q" in w and "zero" not in w
+
+
+def _is_int4_packed(w) -> bool:
+    return isinstance(w, dict) and "qp" in w
+
+
+def _leaf(w, fn):
+    """fn applied to a weight, or to each array of a quantized dict."""
+    return {k: fn(v) for k, v in w.items()} if isinstance(w, dict) else fn(w)
 
 
 def _device(device) -> torch.device:
@@ -88,12 +109,18 @@ class KVCache(NamedTuple):
 def params_from_numpy(tree, device="cuda", dtype=torch.float32):
     """The JAX package's parameter pytree (each leaf through `np.asarray`)
     as the port's tensors: same keys, same layout, floats cast to
-    `dtype`."""
+    `dtype` except the quantization leaves `scale`, `sz` and `zero`,
+    which stay fp32 as the JAX package keeps them; integer leaves (int8
+    `q`, packed `qp`) keep their type."""
     device = _device(device)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype)
-                for k, v in tree.items()}
-    return _to_tensor(tree, device, dtype)
+
+    def conv(t, key):
+        if isinstance(t, dict):
+            return {k: conv(v, k) for k, v in t.items()}
+        return _to_tensor(t, device, torch.float32 if key in _FP32_LEAVES
+                          else dtype)
+
+    return conv(tree, None)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
@@ -122,20 +149,38 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return out.to(x.dtype)
 
 
-def _check_plain_weights(lay) -> None:
-    if not all(isinstance(lay[n], torch.Tensor) for n in _WEIGHTS):
-        raise NotImplementedError(
-            "quantized weights (int8 {'q','scale'}, int4 dicts) are not "
-            "ported yet")
-
-
 def _proj(x, w, thresh, sp: SparsityConfig):
     """One of the seven sparsifiable projections: the sparse decode kernels
     for a single-token input (`sparse_gemv.sparse_matmul`), else sparsify
-    then matmul."""
+    then matmul (the quantized products of `ops/quant.py`). A packed int4
+    single row always takes the gather kernel (keep 1.0 without block
+    sparsity). int8 in block mode takes top-k selection and ignores the
+    threshold, as the reference does (`teal_tpu/models/llama.py:115`)."""
+    quantized = isinstance(w, dict)
+    is_int4 = quantized and "zero" in w
+    is_int4_packed = quantized and "qp" in w
+    if (is_int4_packed and x.shape[-2] == 1
+            and math.prod(x.shape[:-1]) == 1):
+        sparse = sp.enabled and sp.kernel == "block"
+        return quant.int4_block_sparse_matmul(
+            x, w, sp.block_size, sp.block_keep_frac if sparse else 1.0,
+            threshold=thresh if (sparse and sp.block_thresholding) else None)
     if sp.enabled and x.shape[-2] == 1 and sp.kernel != "masked_dense":
-        return sparse_gemv.sparse_matmul(x, w, thresh, sp)
-    return torch.matmul(apply_sparsity(x, thresh, sp), w).to(x.dtype)
+        if quantized and not is_int4 and not is_int4_packed \
+                and sp.kernel == "block":
+            return quant.int8_block_sparse_matmul(
+                x, quant.Int8Weight(w["q"], w["scale"]), sp.block_size,
+                sp.block_keep_frac)
+        if not quantized:
+            return sparse_gemv.sparse_matmul(x, w, thresh, sp)
+    xs = apply_sparsity(x, thresh, sp)
+    if is_int4_packed:
+        return quant.int4_packed_matmul(xs, w)
+    if is_int4:
+        return quant.int4_dict_matmul(xs, w)
+    if quantized:
+        return quant.int8_matmul(xs, quant.Int8Weight(w["q"], w["scale"]))
+    return torch.matmul(xs, w).to(x.dtype)
 
 
 def _attention(q, k, v, pos: torch.Tensor, q_len: int, max_seq: int,
@@ -182,13 +227,15 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
                   sp: SparsityConfig, thresholds, capture: bool = False,
                   fused_attn: bool = False):
     """One transformer block of the layer loop. h: [B, S, D]; lp: this
-    layer's parameters; kc/vc: this layer's [B, Hkv, T, Dh] cache views,
+    layer's parameters (a quantized weight is a dict of this layer's
+    arrays); kc/vc: this layer's [B, Hkv, T, Dh] cache views,
     written in place at each sequence's positions; pos: int64 [B] first
     position of each sequence, on h's device; cos/sin: [B, S, Dh];
     thresholds: [7]; fused_attn: single-token attention through K2
     (`can_fused_decode`).
 
-    A single-token input with B <= 8 in block mode takes the reference's
+    A single-token input with B <= 8 in block mode (or with packed int4
+    weights, at keep 1.0 without block sparsity) takes the reference's
     block route (`teal_tpu/models/llama.py:258-466`): q|k|v, o, gate|up
     and down through `block_gemv.project_many` (K1 in threshold mode,
     with the rms_norm folded in at B = 1; K3 in top-k mode) or
@@ -202,21 +249,27 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
     hidden-state groups (attn h1/h2, mlp h1/h2) for calibration."""
     if cfg.n_experts > 0:
         raise NotImplementedError("the MoE FFN is not ported yet")
-    _check_plain_weights(lp)
     b, s, d = h.shape
     t = {p: thresholds[i] for i, p in enumerate(PROJS)}
     sparse_block = sp.enabled and sp.kernel == "block"
-    use_block = s == 1 and b <= 8 and sparse_block
-    fold = (use_block and b == 1 and sp.block_thresholding and not capture
-            and d % 128 == 0)
-    kf = sp.block_keep_fracs or (sp.block_keep_frac,) * 7
+    use_block = (s == 1 and b <= 8
+                 and (sparse_block or _is_int4_packed(lp["wq"])))
+    fold = (use_block and b == 1 and sparse_block and sp.block_thresholding
+            and not capture and d % 128 == 0)
+    # packed int4 without block sparsity reads every group
+    kf = ((sp.block_keep_fracs or (sp.block_keep_frac,) * 7)
+          if sparse_block else (1.0,) * 7)
+
+    def stack1(name):
+        """This layer's weight as a one-layer stack for the kernels."""
+        return _leaf(lp[name], lambda a: a[None])
 
     def blockproj(inp, projs, frac, norm=None):
         """Block-sparse projections `projs` (PROJS names) of one input,
         sharing one selection; the first one's threshold in threshold
         mode."""
-        ws = [lp["w" + p][None] for p in projs]
-        thr = t[projs[0]] if sp.block_thresholding else None
+        ws = [stack1("w" + p) for p in projs]
+        thr = t[projs[0]] if sparse_block and sp.block_thresholding else None
         if b == 1:
             return block_gemv.project_many(
                 inp, ws, sp.block_size, frac, threshold=thr,
@@ -236,14 +289,17 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
         return [blockproj(inp, [p], f, norm)[0] for p, f in zip(projs, fr)]
 
     x = None if fold else rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    # the attention stage (K1 + K2); int8 takes K1 then K2 on their own
+    # here, with the scale after K1, as the reference's layer loop does
     mega = (fold and fused_attn and kf[0] == kf[1] == kf[2]
-            and cfg.head_dim == 128 and sp.fused_attn_block is not False)
+            and cfg.head_dim == 128 and not _is_int8(lp["wq"])
+            and sp.fused_attn_block is not False)
     if mega:
-        G = effective_block_size(sp.block_size, d)
+        wqkv = [stack1(n) for n in ("wq", "wk", "wv")]
+        G = block_gemv._shared_group_size(wqkv, sp.block_size, d)
         rope = torch.stack([cos[:, 0], sin[:, 0]], dim=1)
         attn, _ = attn_stage(
-            h.reshape(d), t["q"], lp["wq"][None], lp["wk"][None],
-            lp["wv"][None], 0, group_capacity(d // G, kf[0]),
+            h.reshape(d), t["q"], *wqkv, 0, group_capacity(d // G, kf[0]),
             lp["attn_norm"][None], cfg.norm_eps, kc[None], vc[None],
             pos.to(torch.int32), rope, n_heads=cfg.n_heads,
             window=cfg.sliding_window, G=G)
@@ -319,24 +375,38 @@ def can_token_decode(params, cfg: ModelConfig, sp: SparsityConfig,
     threshold-mode decode with fused decode attention (`fused_attn`, from
     `can_fused_decode`) and `packed_pipeline` not False; batch 1, or up to
     16 unless `token_fused` is False (the batched token kernel, which the
-    port does not have: `forward` raises for it); group size 128 for
-    every stage, equal capacities within the fused stages, head_dim 128,
-    the cache in the stream type."""
+    port does not have: `forward` raises for it); weights that are arrays,
+    packed int4, or all seven int8 with `token_fused` not False (only the
+    reference's whole-token kernel applies int8 scales), never unpacked
+    int4; group size 128 for every stage (int4 at least 64), equal
+    capacities within the fused stages, head_dim 128, the cache in the
+    stream type."""
+    lay = params["layers"]
+    if isinstance(lay["wq"], dict) and "zero" in lay["wq"]:
+        return False
+    if _is_int8(lay["wq"]) and (sp.token_fused is False or not all(
+            _is_int8(lay[n]) for n in _WEIGHTS)):
+        return False
     kf = sp.block_keep_fracs or (sp.block_keep_frac,) * 7
     ok_b = b == 1 or (b <= 16 and sp.token_fused is not False)
-    return (sp.packed_pipeline is not False and fused_attn and s == 1
+    if not (sp.packed_pipeline is not False and fused_attn and s == 1
             and ok_b and sp.enabled and sp.kernel == "block"
             and sp.block_thresholding and cfg.n_experts == 0
-            and cfg.head_dim == 128
-            and effective_block_size(sp.block_size, cfg.dim) == 128
-            and effective_block_size(sp.block_size,
-                                     cfg.intermediate_size) == 128
-            and kf[0] == kf[1] == kf[2] and kf[4] == kf[5]
-            and params["layers"]["wq"].dtype == cache_dtype)
+            and cfg.head_dim == 128 and kf[0] == kf[1] == kf[2]
+            and kf[4] == kf[5] and compute_dtype(params) == cache_dtype):
+        return False
+    D, I = cfg.dim, cfg.intermediate_size
+    return all(block_gemv._shared_group_size([lay[n] for n in names],
+                                             sp.block_size, K) == 128
+               for names, K in ((("wq", "wk", "wv"), D), (("wo",), D),
+                                (("wgate", "wup"), D), (("wdown",), I)))
 
 
 def compute_dtype(params) -> torch.dtype:
-    return params["layers"]["wq"].dtype
+    """Activation type: the projections' type, or bf16 when they are
+    quantized dicts."""
+    w = params["layers"]["wq"]
+    return torch.bfloat16 if isinstance(w, dict) else w.dtype
 
 
 def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
@@ -351,7 +421,6 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
     Returns (logits [B, S, V] fp32, cache)."""
     if sp.debug_fixed_selection:
         raise NotImplementedError("debug_fixed_selection is not ported")
-    _check_plain_weights(params["layers"])
     dev = tokens.device
     h = params["embed"][tokens].to(compute_dtype(params))
     b, s = tokens.shape
@@ -361,8 +430,9 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
     pos = pos * b if len(pos) == 1 else pos
     cos_full, sin_full = rope or precompute_rope(cfg, cache.max_seq, dev)
     lay = params["layers"]
-    fused_attn = can_fused_decode(s, b, cfg, cache.max_seq, sp,
-                                  sp.enabled and sp.kernel == "block")
+    block_path = ((sp.enabled and sp.kernel == "block")
+                  or _is_int4_packed(lay["wq"]))
+    fused_attn = can_fused_decode(s, b, cfg, cache.max_seq, sp, block_path)
 
     if can_token_decode(params, cfg, sp, s, b, cache.k.dtype,
                         fused_attn=fused_attn):
@@ -389,7 +459,7 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
         positions = pos_t[:, None] + torch.arange(s, device=dev)[None, :]
         cos, sin = cos_full[positions], sin_full[positions]
         for i in range(cfg.n_layers):
-            lp = {k: v[i] for k, v in lay.items()}
+            lp = {k: _leaf(v, lambda a: a[i]) for k, v in lay.items()}
             h, _, _, _ = layer_forward(h, lp, cache.k[i], cache.v[i], pos_t,
                                        cos, sin, cfg, sp, thresholds[i],
                                        fused_attn=fused_attn)
@@ -398,15 +468,17 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
 
 
 def _lm_head(params, h):
-    """Logits: the fp32 sums of the products in the parameters' type, as
-    the reference computes them. On the card a bf16 head is one GEMM with
-    an fp32 output; elsewhere the product runs in fp32, which holds every
-    bf16 product exactly."""
+    """Logits: the fp32 sums of the products in h's type, as the reference
+    computes them (`quant.matmul_f32`: one GEMM with an fp32 output on
+    the card). An int8 head {"q", "scale"} multiplies the int8 values in
+    h's type and scales the sums; a groupwise int4 head {"q", "scale",
+    "zero"} is dequantized to h's type first."""
     w = params["lm_head"]
-    if h.device.type == "cuda" and w.dtype != torch.float32:
-        y = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*h.shape[:-1], w.shape[1])
-    return torch.matmul(h.float(), w.float())
+    if isinstance(w, dict):
+        if "zero" in w:
+            return quant.matmul_f32(h, quant.dequantize_int4_dict(w, h.dtype))
+        return quant.matmul_f32(h, w["q"]) * w["scale"]
+    return quant.matmul_f32(h, w)
 
 
 def zero_thresholds(cfg: ModelConfig, device="cuda"):

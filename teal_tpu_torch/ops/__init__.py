@@ -1,2 +1,2 @@
-"""Sparsity ops and the port's kernels (K1 in block_gemv, K2 in
-decode_attention)."""
+"""Sparsity ops, weight-only quantization (quant) and the port's kernels
+(K1 and K3 in block_gemv, K2 in decode_attention, K4 in gather_gemv)."""

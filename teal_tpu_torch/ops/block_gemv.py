@@ -1,13 +1,12 @@
 """Group-sparse GEMV: selection helpers and kernels K1 and K3.
 
-Port of the array-weight parts of `teal_tpu/ops/block_gemv.py`. The
-input dimension is cut into groups of G rows; selection follows THE
-unified rule (docs/KERNEL_NOTES.md "Selection semantics"): in threshold
-mode a group is kept if its score (max |x| within the group) clears a
-calibrated group threshold, survivors are taken in ascending group order
-and the first `cap` kept; in top-k mode the `cap` best-scoring groups are
-kept, in ascending order. Only the kept groups' weight slabs `[G, N]` are
-read.
+Port of `teal_tpu/ops/block_gemv.py`. The input dimension is cut into
+groups of G rows; selection follows THE unified rule
+(docs/KERNEL_NOTES.md "Selection semantics"): in threshold mode a group
+is kept if its score (max |x| within the group) clears a calibrated group
+threshold, survivors are taken in ascending group order and the first
+`cap` kept; in top-k mode the `cap` best-scoring groups are kept, in
+ascending order. Only the kept groups' weight slabs `[G, N]` are read.
 
 Two kernels, each launched on CUDA tensors and run as its plain PyTorch
 version (same module) on CPU tensors:
@@ -19,13 +18,26 @@ version (same module) on CPU tensors:
     gather over a kept-group list selected outside the kernel (top-k
     mode, and batched decode of up to 8 rows with one pooled selection).
 `project_many` / `project_many_batched` pick between them as the
-reference does. Quantized weight plans (int8 `{"q","scale"}`, int4
-`{"qp","sz"}`) are not ported and raise.
+reference does.
+
+Both kernels take the reference's three weight plans (`_WeightPlan`,
+`teal_tpu/ops/block_gemv.py:82`), one plan for all weights of a call:
+  - weights of the stream type (bf16/fp32);
+  - int8 `[L, K, N]`, converted to fp32 in the kernel. The per-output-
+    channel scale of an int8 dict {"q","scale"} goes on the fp32 sums:
+    after the kernel in `project_many` (as in the reference), or inside
+    K1's epilogue with `scales` (the token path, as the whole-token
+    kernel's `scale_ref` does), before the residual, silu or RoPE;
+  - packed int4 {"qp" int8 [L, K/2, N], "sz" fp32 [L, K/G, 2, N]} at
+    G >= 64 (quant group == gather group): a byte holds row l of a group
+    in its low nibble and row l + G/2 in its high nibble, and each kept
+    group's affine is factored through the sum,
+    (x @ nib) * scale_g + sum(x) * zero_g (`quant.pack_int4`).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -56,14 +68,41 @@ def block_capacity(nb: int, keep_frac: Optional[float]) -> int:
     return group_capacity(nb, keep_frac if keep_frac else 0.625)
 
 
+def _weight_kind(w) -> str:
+    """"int4" (packed {"qp","sz"}), "int8" ({"q","scale"}) or "array"."""
+    if isinstance(w, dict) and "qp" in w:
+        return "int4"
+    if isinstance(w, dict):
+        if "zero" in w:
+            raise ValueError("unpacked int4 {'q','scale','zero'} weights "
+                             "take no gather kernel: pack them with "
+                             "quant.pack_int4_params")
+        return "int8"
+    return "array"
+
+
 def _shared_group_size(ws, block_size: int, K: int) -> int:
-    """Gather group size for a projection set of plain weight tensors
-    (the int4 plan, which raises G to 64, is not ported)."""
-    if not all(isinstance(w, torch.Tensor) for w in ws):
-        raise NotImplementedError(
-            "quantized weight plans (int8 {'q','scale'}, int4 {'qp','sz'}) "
-            "are not ported yet")
-    return effective_block_size(block_size, K)
+    """Gather group size for a projection set: any packed int4 weight
+    raises G to >= 64 (quant group == gather group)."""
+    G = effective_block_size(block_size, K)
+    if any(_weight_kind(w) == "int4" for w in ws):
+        G = max(64, G)
+    return G
+
+
+def _kernel_operands(ws):
+    """(kernel operands, int8 scales to apply after the kernel or None)."""
+    raw, scales = [], []
+    for w in ws:
+        int8 = _weight_kind(w) == "int8"
+        raw.append(w["q"] if int8 else w)
+        scales.append(w["scale"] if int8 else None)
+    return raw, scales
+
+
+def _width(w) -> int:
+    """Output width N of a kernel operand."""
+    return (w["qp"] if isinstance(w, dict) else w).shape[-1]
 
 
 def group_scores(x: torch.Tensor, G: int) -> torch.Tensor:
@@ -176,11 +215,14 @@ def block_sparse_matmul_reference(x: torch.Tensor, w: torch.Tensor,
     return y.reshape(*lead, N)
 
 
-def _split(y: torch.Tensor, ws, dtype, lead) -> List[torch.Tensor]:
+def _split(y: torch.Tensor, raw, scales, layer: int, dtype,
+           lead) -> List[torch.Tensor]:
     """Cut a kernel's fp32 output [..., n_tot] into one tensor per weight,
-    each cast to `dtype` and shaped lead + [N_i]."""
-    outs = torch.split(y, [w.shape[-1] for w in ws], dim=-1)
-    return [o.to(dtype).reshape(*lead, o.shape[-1]) for o in outs]
+    each times its int8 scale at `layer` (where it has one), cast to
+    `dtype` and shaped lead + [N_i]."""
+    outs = torch.split(y, [_width(w) for w in raw], dim=-1)
+    return [(o if s is None else o * s[layer]).to(dtype)
+            .reshape(*lead, o.shape[-1]) for o, s in zip(outs, scales)]
 
 
 def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor, threshold,
@@ -197,64 +239,131 @@ def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor, threshold,
     return y.to(x.dtype).reshape(*x.shape[:-1], N)
 
 
-def project_many(x: torch.Tensor, ws: Sequence[torch.Tensor],
-                 block_size: int = 32, keep_frac: Optional[float] = None,
-                 layer: int = 0, threshold=None,
-                 norm: Optional[torch.Tensor] = None,
+def project_many(x: torch.Tensor, ws, block_size: int = 32,
+                 keep_frac: Optional[float] = None, layer: int = 0,
+                 threshold=None, norm: Optional[torch.Tensor] = None,
                  norm_eps: float = 1e-5) -> List[torch.Tensor]:
     """Block-sparse projections of one decode row through weights sharing
-    its selection. x: [..., K] with one row; ws: [L, K, N_i] stacks read
-    at `layer`. Threshold mode runs K1 with the selection inside the
-    kernel (and, with `norm` [L, K], the folded rms_norm: x is then the
-    raw stream); top-k mode selects in PyTorch and runs K3. Returns one
-    [..., N_i] tensor per weight, the fp32 sums cast to x's type."""
+    its selection. x: [..., K] with one row; ws: layer-stacked weights
+    read at `layer`: [L, K, N_i] arrays, int8 dicts {"q" [L, K, N_i],
+    "scale" [L, N_i]} or packed int4 dicts {"qp", "sz"}. Threshold mode
+    runs K1 with the selection inside the kernel (and, with `norm`
+    [L, K], the folded rms_norm: x is then the raw stream); top-k mode
+    selects in PyTorch and runs K3. Returns one [..., N_i] tensor per
+    weight: the fp32 sums, times the int8 scale, cast to x's type."""
     K = x.shape[-1]
     G = _shared_group_size(ws, block_size, K)
     k_keep = block_capacity(K // G, keep_frac)
+    raw, scales = _kernel_operands(ws)
     if threshold is not None:
         thr = torch.as_tensor(threshold, dtype=torch.float32,
                               device=x.device).reshape(())
-        y = fused_select_gather_gemv(x.reshape(K).contiguous(), thr, ws,
+        y = fused_select_gather_gemv(x.reshape(K).contiguous(), thr, raw,
                                      layer, G, k_keep, norm=norm,
                                      norm_eps=norm_eps)
     elif norm is not None:
         raise ValueError("the norm fold needs threshold mode")
     else:
         idx, xpack = select_groups(x.reshape(1, K), G, k_keep)
-        y = block_gather_gemv_multi(idx, xpack, ws, layer, G, 1)[0]
-    return _split(y, ws, x.dtype, x.shape[:-1])
+        y = block_gather_gemv_multi(idx, xpack, raw, layer, G, 1)[0]
+    return _split(y, raw, scales, layer, x.dtype, x.shape[:-1])
 
 
-def project_many_batched(x: torch.Tensor, ws: Sequence[torch.Tensor],
-                         block_size: int = 32,
+def project_many_batched(x: torch.Tensor, ws, block_size: int = 32,
                          keep_frac: Optional[float] = None, layer: int = 0,
                          threshold=None) -> List[torch.Tensor]:
     """Batched (B <= 8) block-sparse projections: one pooled selection for
     the batch (`select_groups_batched`), then K3 with B rows. x: [B, K];
-    returns one [B, N_i] tensor per weight in x's type."""
+    ws as in `project_many`; returns one [B, N_i] tensor per weight in
+    x's type."""
     B, K = x.shape
     G = _shared_group_size(ws, block_size, K)
     k_keep = block_capacity(K // G, keep_frac)
+    raw, scales = _kernel_operands(ws)
     idx, xpack = select_groups_batched(x, G, k_keep, threshold)
-    y = block_gather_gemv_multi(idx, xpack, ws, layer, G, B)
-    return _split(y, ws, x.dtype, (B,))
+    y = block_gather_gemv_multi(idx, xpack, raw, layer, G, B)
+    return _split(y, raw, scales, layer, x.dtype, (B,))
 
 
-def _check_weights(ws, K: int, dtype, device) -> int:
-    """Shared checks of 1-3 layer-stacked weights; returns L."""
+# Weight plans of the kernels' operands (one plan for all weights of a
+# call): 0 the stream type, 1 int8, 2 packed int4 {"qp", "sz"}
+PLAN_STREAM, PLAN_INT8, PLAN_INT4 = 0, 1, 2
+
+
+def _plan(w) -> int:
+    if isinstance(w, dict):
+        return PLAN_INT4
+    return PLAN_INT8 if w.dtype == torch.int8 else PLAN_STREAM
+
+
+def _in_dim(w) -> int:
+    """Input dim K of a layer-stacked kernel operand."""
+    return 2 * w["qp"].shape[1] if isinstance(w, dict) else w.shape[1]
+
+
+def _check_weights(ws, K: int, dtype, device, G: int) -> Tuple[int, int]:
+    """Shared checks of 1-3 layer-stacked kernel operands of one plan at
+    group size G; returns (L, plan)."""
     if not 1 <= len(ws) <= 3:
         raise ValueError(f"1-3 weights share one selection; got {len(ws)}")
-    L = ws[0].shape[0]
+    if not all(isinstance(w, torch.Tensor) or (isinstance(w, dict)
+               and set(w) == {"qp", "sz"}) for w in ws):
+        raise ValueError("weights are tensors or packed int4 dicts "
+                         "{'qp', 'sz'}")
+    plans = {_plan(w) for w in ws}
+    if len(plans) != 1:
+        raise ValueError("the weights of one call share one weight plan")
+    plan = plans.pop()
+    if plan == PLAN_INT4 and G < 64:
+        raise ValueError(f"packed int4 needs G >= 64; got {G}")
+    L = (ws[0]["qp"] if plan == PLAN_INT4 else ws[0]).shape[0]
     for w in ws:
-        if (w.dim() != 3 or w.shape[0] != L or w.shape[1] != K
-                or w.shape[2] % 32 or w.dtype != dtype
-                or w.device != device or not w.is_contiguous()
-                or w.data_ptr() % 16):
+        if plan == PLAN_INT4:
+            qp, sz = w["qp"], w["sz"]
+            ok = (qp.dim() == 3 and qp.shape[:2] == (L, K // 2)
+                  and qp.dtype == torch.int8
+                  and sz.shape == (L, K // G, 2, qp.shape[2])
+                  and sz.dtype == torch.float32)
+            tensors, want = (qp, sz), "int8 qp [L, K/2, N], fp32 sz " \
+                                      "[L, K/G, 2, N]"
+        else:
+            ok = (w.dim() == 3 and w.shape[:2] == (L, K)
+                  and w.dtype == (torch.int8 if plan else dtype))
+            tensors, want = (w,), f"[L, {K}, N] of type {dtype} or int8"
+        ok = ok and _width(w) % 32 == 0 and all(
+            t.device == device and t.is_contiguous() and t.data_ptr() % 16
+            == 0 for t in tensors)
+        if not ok:
             raise ValueError(
-                f"weights must be contiguous, 16-byte aligned [L, {K}, N] "
-                f"stacks of type {dtype} on {device} with N % 32 == 0; got "
-                f"{w.dtype} {tuple(w.shape)} on {w.device}")
-    return L
+                f"weights must be contiguous, 16-byte aligned stacks on "
+                f"{device} with N % 32 == 0 ({want}); got "
+                + ", ".join(f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                            for t in tensors))
+    return L, plan
+
+
+def _slab_sums(xg: torch.Tensor, w, layer: int, gidx: torch.Tensor,
+               G: int) -> torch.Tensor:
+    """fp32 sums of one weight over kept groups, the reference's
+    arithmetic (`_accumulate`): xg [rows, k, G] the kept groups' inputs,
+    gidx [k] their indices. Stream-type and int8 slabs are converted
+    (exactly) and multiplied; packed int4 factors each group's affine
+    through its sum, (x @ nib) * scale + sum(x) * zero. Returns
+    [rows, N]."""
+    xg = xg.float()
+    if isinstance(w, dict):
+        qp = w["qp"][layer]
+        N = qp.shape[-1]
+        pk = qp.reshape(-1, G // 2, N)[gidx].to(torch.int32)
+        nib = torch.cat([pk & 15, (pk >> 4) & 15], dim=1).float()
+        sz = w["sz"][layer][gidx]                          # [k, 2, N]
+        terms = (torch.einsum("rkg,kgn->rkn", xg, nib) * sz[None, :, 0]
+                 + xg.sum(-1)[..., None] * sz[None, :, 1])
+    else:
+        N = w.shape[-1]
+        slabs = w[layer].reshape(-1, G, N)[gidx].float()
+        terms = torch.einsum("rkg,kgn->rkn", xg, slabs)
+    return terms.sum(dim=1)
 
 
 def _check_launch_device(t: torch.Tensor, name: str) -> None:
@@ -279,11 +388,11 @@ def selection_input(x, norm, layer: int, norm_eps: float):
 def select_gather_gemv_plain(x, thr, ws, layer: int, cap: int, *,
                              G: int = LANES, norm=None,
                              norm_eps: float = 1e-5, res=None,
-                             silu: bool = False):
+                             silu: bool = False, scales=None):
     """K1 in plain PyTorch (same arguments and results as
     `select_gather_gemv`). Keeps the reference's cast points: the folded
     norm rounds to the stream type before and after the gain; scores,
-    sums and epilogues are fp32."""
+    sums, int8 scales and epilogues are fp32."""
     dt = x.dtype
     nb = x.shape[0] // G
     x = selection_input(x, norm, layer, norm_eps)
@@ -292,9 +401,10 @@ def select_gather_gemv_plain(x, thr, ws, layer: int, cap: int, *,
     count = kept.numel()
     idx = torch.full((cap,), -1, dtype=torch.int32, device=x.device)
     idx[:count] = kept.to(torch.int32)
-    xk = x.reshape(nb, G)[kept].reshape(-1).float()
-    accs = [xk @ w[layer].reshape(nb, G, w.shape[2])[kept]
-            .reshape(count * G, w.shape[2]).float() for w in ws]
+    xg = x.reshape(nb, G)[kept][None]
+    accs = [_slab_sums(xg, w, layer, kept, G)[0] for w in ws]
+    if scales is not None:
+        accs = [a * s[layer] for a, s in zip(accs, scales)]
     if silu:
         g, u = accs
         out = (g * (1.0 / (1.0 + torch.exp(-g))) * u).to(dt)
@@ -306,7 +416,7 @@ def select_gather_gemv_plain(x, thr, ws, layer: int, cap: int, *,
                                   device=x.device)
 
 
-def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu):
+def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales):
     if x.dtype not in _DTYPE_CODE or x.dim() != 1 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous fp32/bf16 vector; got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -314,7 +424,14 @@ def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu):
     if G not in GROUP_SIZES or K % G:
         raise ValueError(f"group size {G} must be one of {GROUP_SIZES} and "
                          f"divide K={K}")
-    L = _check_weights(ws, K, x.dtype, x.device)
+    L, plan = _check_weights(ws, K, x.dtype, x.device, G)
+    if scales is not None and (
+            plan != PLAN_INT8 or len(scales) != len(ws)
+            or not all(s.shape == (L, _width(w)) and s.dtype == torch.float32
+                       and s.device == x.device and s.is_contiguous()
+                       for s, w in zip(scales, ws))):
+        raise ValueError("scales are one contiguous fp32 [L, N_i] stack per "
+                         "int8 weight")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
     if not 1 <= cap <= K // G:
@@ -327,58 +444,73 @@ def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu):
                              or not norm.is_contiguous()):
         raise ValueError(f"norm must be a contiguous [L, K] stack of x's "
                          f"type; got {norm.dtype} {tuple(norm.shape)}")
-    if silu and (len(ws) != 2 or ws[0].shape[2] != ws[1].shape[2]
+    if silu and (len(ws) != 2 or _width(ws[0]) != _width(ws[1])
                  or res is not None):
         raise ValueError("silu needs exactly (gate, up) of equal width and "
                          "no residual")
     if res is not None:
-        n_tot = sum(w.shape[2] for w in ws)
+        n_tot = sum(_width(w) for w in ws)
         if (res.shape != (n_tot,) or res.dtype != x.dtype
                 or res.device != x.device or not res.is_contiguous()):
             raise ValueError(f"res must be a contiguous [{n_tot}] vector of "
                              f"x's type")
+    return plan
 
 
-def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor,
-                       ws: Sequence[torch.Tensor], layer: int, cap: int, *,
-                       G: int = LANES,
+def _ptrs(ws, plan: int, scales):
+    """The C interface's weight, sz and scale pointers (3 each, null where
+    absent)."""
+    pad = [None] * (3 - len(ws))
+    w = [(t["qp"] if plan == PLAN_INT4 else t).data_ptr() for t in ws]
+    sz = [t["sz"].data_ptr() if plan == PLAN_INT4 else None for t in ws]
+    sc = [None] * len(ws) if scales is None else [s.data_ptr() for s in scales]
+    return w + pad, sz + pad, sc + pad
+
+
+def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer: int,
+                       cap: int, *, G: int = LANES,
                        norm: Optional[torch.Tensor] = None,
                        norm_eps: float = 1e-5,
                        res: Optional[torch.Tensor] = None,
-                       silu: bool = False):
+                       silu: bool = False, scales=None):
     """K1: select + gather GEMV over layer `layer` of stacked weights.
 
     x:    [K] stream (raw when `norm` is given, which folds rms_norm in)
     thr:  one fp32 group-score threshold (a 0-d view into the [L, 7]
           table works: the kernel reads it on the device)
-    ws:   1-3 weights [L, K, N_i] of x's type, sharing one selection
+    ws:   1-3 weights sharing one selection and one plan: [L, K, N_i] of
+          x's type, int8 [L, K, N_i], or packed int4 {"qp" int8
+          [L, K/2, N_i], "sz" fp32 [L, K/G, 2, N_i]} (G >= 64)
     G:    group size, one of `GROUP_SIZES`
     norm: [L, K] rms_norm gains; res: [N] residual added in fp32
     silu: ws = (gate, up): out = silu(gate) * up
+    scales: int8 only, one fp32 [L, N_i] per-channel scale per weight,
+          applied to the fp32 sums before the epilogue
 
     Returns (out, idx, count): out is fp32 [sum N_i] (no epilogue) or
     x's type [N] (res / silu); idx [cap] int32 holds the kept groups in
     ascending order, -1 past `count` ([1] int32).
     """
-    _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu)
+    plan = _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales)
     if x.device.type == "cpu":
         return select_gather_gemv_plain(x, thr, ws, layer, cap, G=G,
                                         norm=norm, norm_eps=norm_eps,
-                                        res=res, silu=silu)
+                                        res=res, silu=silu, scales=scales)
     _check_launch_device(x, "select_gather_gemv")
     lib = _build.load()["select_gather_gemv"]
     mode = 2 if silu else (1 if res is not None else 0)
-    n = [w.shape[2] for w in ws]
+    n = [_width(w) for w in ws]
     n_out = n[0] if silu else sum(n)
     out = torch.empty(n_out, device=x.device,
                       dtype=torch.float32 if mode == 0 else x.dtype)
     sel = torch.empty(cap + 1, dtype=torch.int32, device=x.device)
-    ptrs = [w.data_ptr() for w in ws] + [None] * (3 - len(ws))
+    w_p, sz_p, sc_p = _ptrs(ws, plan, scales)
     n += [0] * (3 - len(ws))
     err = lib.teal_select_gather_gemv(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), thr.data_ptr(),
+        _DTYPE_CODE[x.dtype], plan, x.data_ptr(), thr.data_ptr(),
         None if norm is None else norm.data_ptr(), norm_eps,
-        *ptrs, *n, len(ws), None if res is None else res.data_ptr(),
+        *w_p, *sz_p, *sc_p, *n, len(ws),
+        None if res is None else res.data_ptr(),
         out.data_ptr(), sel.data_ptr(), sel.data_ptr() + 4 * cap,
         x.shape[0], G, layer, cap, mode,
         torch.cuda.current_stream().cuda_stream)
@@ -390,9 +522,9 @@ def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor,
 select_gather_gemv.launches = 0
 
 
-def fused_select_gather_gemv(x: torch.Tensor, thr: torch.Tensor,
-                             ws: Sequence[torch.Tensor], layer: int, G: int,
-                             cap: int, norm: Optional[torch.Tensor] = None,
+def fused_select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws,
+                             layer: int, G: int, cap: int,
+                             norm: Optional[torch.Tensor] = None,
                              norm_eps: float = 1e-5) -> torch.Tensor:
     """The reference's `fused_select_gather_gemv`: K1 with no epilogue at
     group size G. Returns the fp32 sums [sum N_i]."""
@@ -406,12 +538,9 @@ def block_gather_gemv_multi_plain(idx, xpack, ws, layer: int, G: int,
                                   rows: int):
     """K3 in plain PyTorch (same arguments and result as
     `block_gather_gemv_multi`)."""
-    k = idx.shape[0]
-    xr = xpack[:, :rows, :G].float().transpose(0, 1).reshape(rows, k * G)
+    xg = xpack[:, :rows, :G].transpose(0, 1)                # [rows, k, G]
     gi = idx.long()
-    return torch.cat([
-        xr @ w[layer].reshape(-1, G, w.shape[2])[gi]
-        .reshape(k * G, w.shape[2]).float() for w in ws], dim=1)
+    return torch.cat([_slab_sums(xg, w, layer, gi, G) for w in ws], dim=1)
 
 
 def _check_bgg(idx, xpack, ws, layer, G, rows):
@@ -429,42 +558,44 @@ def _check_bgg(idx, xpack, ws, layer, G, rows):
                          f"device; got {xpack.dtype} {tuple(xpack.shape)}")
     if not 1 <= rows <= xpack.shape[1]:
         raise ValueError(f"rows {rows} out of range [1, {xpack.shape[1]}]")
-    K = ws[0].shape[1] if ws else 0
-    L = _check_weights(ws, K, xpack.dtype, xpack.device)
+    K = _in_dim(ws[0]) if ws else 0
     if G not in GROUP_SIZES or K % G or k > K // G:
         raise ValueError(f"group size {G} must be one of {GROUP_SIZES} and "
                          f"divide K={K} into at least {k} groups")
+    L, plan = _check_weights(ws, K, xpack.dtype, xpack.device, G)
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
+    return plan
 
 
-def block_gather_gemv_multi(idx: torch.Tensor, xpack: torch.Tensor,
-                            ws: Sequence[torch.Tensor], layer: int, G: int,
-                            rows: int) -> torch.Tensor:
+def block_gather_gemv_multi(idx: torch.Tensor, xpack: torch.Tensor, ws,
+                            layer: int, G: int, rows: int) -> torch.Tensor:
     """K3: y[b, :] = sum over slots j of xpack[j, b, :G] @ W[layer,
     idx[j]*G : idx[j]*G + G, :], for each weight, concatenated.
 
     idx:   [k] int32 kept group indices in [0, K // G) (the kernel clamps
            out-of-range values, so it never reads outside W)
-    xpack: [k, 1 or 8, 128] of the weights' type; row b of slot j holds
-           input row b's values of group idx[j] in lanes [:G]
-    ws:    1-3 weights [L, K, N_i] sharing the selection
+    xpack: [k, 1 or 8, 128] fp32/bf16; row b of slot j holds input row
+           b's values of group idx[j] in lanes [:G]
+    ws:    1-3 weights sharing the selection and one plan: [L, K, N_i] of
+           xpack's type, int8 [L, K, N_i] (the caller applies any scale
+           to the result), or packed int4 {"qp", "sz"} (G >= 64)
     rows:  input rows to compute (<= xpack.shape[1])
 
     Returns fp32 [rows, sum N_i].
     """
-    _check_bgg(idx, xpack, ws, layer, G, rows)
+    plan = _check_bgg(idx, xpack, ws, layer, G, rows)
     if idx.device.type == "cpu":
         return block_gather_gemv_multi_plain(idx, xpack, ws, layer, G, rows)
     _check_launch_device(idx, "block_gather_gemv_multi")
     lib = _build.load()["block_gather_gemv"]
-    n = [w.shape[2] for w in ws]
+    n = [_width(w) for w in ws]
     out = torch.empty((rows, sum(n)), dtype=torch.float32, device=idx.device)
-    ptrs = [w.data_ptr() for w in ws] + [None] * (3 - len(ws))
+    w_p, sz_p, _ = _ptrs(ws, plan, None)
     n += [0] * (3 - len(ws))
     err = lib.teal_block_gather_gemv(
-        _DTYPE_CODE[xpack.dtype], idx.data_ptr(), xpack.data_ptr(), *ptrs,
-        *n, len(ws), out.data_ptr(), ws[0].shape[1], G, layer,
+        _DTYPE_CODE[xpack.dtype], plan, idx.data_ptr(), xpack.data_ptr(),
+        *w_p, *sz_p, *n, len(ws), out.data_ptr(), _in_dim(ws[0]), G, layer,
         idx.shape[0], xpack.shape[1], rows,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "block_gather_gemv")

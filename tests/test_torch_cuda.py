@@ -162,3 +162,79 @@ def test_lm_head_keeps_fp32_sums_on_the_card(cuda):
     assert got.dtype == torch.float32
     ok, err = _close(got, want, 1e-5)
     assert ok, err
+
+
+def _plan_weights(g, cuda, plan, L, K, ns, G):
+    """Random int8 [L, K, N] weights, or packed int4 {"qp", "sz"} at G."""
+    if plan == "int8":
+        return [torch.randint(-128, 128, (L, K, n), generator=g, device=cuda,
+                              dtype=torch.int8) for n in ns]
+    out = []
+    for n in ns:
+        sz = torch.rand(L, K // G, 2, n, generator=g, device=cuda) * 0.01
+        sz[:, :, 1] -= 0.05                       # zero points below 0
+        out.append({"qp": torch.randint(-128, 128, (L, K // 2, n),
+                                        generator=g, device=cuda,
+                                        dtype=torch.int8), "sz": sz})
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan,G", [("int8", 32), ("int8", 128),
+                                    ("int4", 64), ("int4", 128)])
+@pytest.mark.parametrize("epilogue", ["qkv", "res", "silu"])
+def test_k1_plans_match_plain(cuda, dtype, plan, G, epilogue):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    L, K, layer, cap = 2, 1024, 1, 4 if G == 128 else 12
+    ns = {"qkv": (512, 256, 256), "res": (1024,), "silu": (512, 512)}
+    ws = _plan_weights(g, cuda, plan, L, K, ns[epilogue], G)
+    scales = ([torch.rand(L, n, generator=g, device=cuda) * 1e-3
+               for n in ns[epilogue]] if plan == "int8" else None)
+    x = torch.randn(K, generator=g, device=cuda).to(dtype)
+    norm = (1 + 0.1 * torch.randn(L, K, generator=g, device=cuda)).to(dtype)
+    kw = dict(G=G, norm=None if epilogue == "res" else norm,
+              res=(torch.randn(K, generator=g, device=cuda).to(dtype)
+                   if epilogue == "res" else None),
+              silu=epilogue == "silu", scales=scales)
+    for thr in (0.0, 1.8, 2.6, 100.0):
+        t = torch.tensor(thr, device=cuda)
+        got, gidx, gcnt = bg.select_gather_gemv(x, t, ws, layer, cap, **kw)
+        want, widx, wcnt = bg.select_gather_gemv_plain(x, t, ws, layer, cap,
+                                                       **kw)
+        assert torch.equal(gcnt, wcnt) and torch.equal(gidx, widx), thr
+        ok, err = _close(got, want, 1e-5 if got.dtype == torch.float32
+                         else 2 ** -7)
+        assert ok, (thr, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan,G", [("int8", 32), ("int8", 64),
+                                    ("int4", 64), ("int4", 128)])
+@pytest.mark.parametrize("rows", [1, 4])
+def test_k3_plans_match_plain(cuda, dtype, plan, G, rows):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    L, K, layer, k_keep = 3, 1024, 2, 7
+    ws = _plan_weights(g, cuda, plan, L, K, (256, 96, 32), G)
+    x = torch.randn(rows, K, generator=g, device=cuda).to(dtype)
+    idx, xpack = (bg.select_groups(x, G, k_keep) if rows == 1
+                  else bg.select_groups_batched(x, G, k_keep))
+    got = bg.block_gather_gemv_multi(idx, xpack, ws, layer, G, rows)
+    want = bg.block_gather_gemv_multi_plain(idx, xpack, ws, layer, G, rows)
+    ok, err = _close(got, want, 1e-5)
+    assert ok, err
+
+
+def test_plan_kernels_raise_rather_than_fall_back(cuda):
+    """int4 below G = 64 and mixed plans raise on the card."""
+    x = torch.ones(256, device=cuda)
+    w8 = torch.ones(1, 256, 32, dtype=torch.int8, device=cuda)
+    i4 = {"qp": torch.zeros(1, 128, 32, dtype=torch.int8, device=cuda),
+          "sz": torch.zeros(1, 8, 2, 32, device=cuda)}
+    t = torch.tensor(0.5, device=cuda)
+    for ws, G in (([i4], 32), ([w8, torch.ones(1, 256, 32, device=cuda)],
+                               32)):
+        with pytest.raises(ValueError):
+            bg.select_gather_gemv(x, t, ws, 0, 1, G=G)
+    before = bg.select_gather_gemv.launches
+    bg.select_gather_gemv(x, t, [w8], 0, 1, G=32)
+    assert bg.select_gather_gemv.launches == before + 1

@@ -228,8 +228,9 @@ def test_lm_head_keeps_fp32_sums():
 
 
 def test_unported_variants_raise(model):
-    """int8 weights on the layer loop, the MoE FFN, batched gather mode and
-    batched decode on the token path raise NotImplementedError."""
+    """The MoE FFN, batched gather mode and batched decode on the token
+    path raise NotImplementedError (int8 and int4 weights are held to the
+    JAX package in tests/test_torch_quant.py)."""
     cfg, _, params, _ = model
     th = torch.zeros(cfg.n_layers, len(PROJS))
 
@@ -238,12 +239,8 @@ def test_unported_variants_raise(model):
         llama.forward(p, torch.ones((b, 1), dtype=torch.int64), cache, 3, th,
                       cfg=c, sp=SparsityConfig(**sp))
 
-    wq = params["layers"]["wq"]
-    int8 = dict(params, layers=dict(
-        params["layers"], wq={"q": wq.to(torch.int8),
-                              "scale": torch.ones(wq.shape[0], wq.shape[2])}))
     moe = dataclasses.replace(cfg, n_experts=2, n_experts_per_tok=1)
-    for p, c, sp, b in ((int8, cfg, PATH_A, 1), (params, moe, PATH_A, 1),
-                        (params, cfg, PATH_C, 2), (params, cfg, MAIN, 2)):
+    for p, c, sp, b in ((params, moe, PATH_A, 1), (params, cfg, PATH_C, 2),
+                        (params, cfg, MAIN, 2)):
         with pytest.raises(NotImplementedError):
             fwd(p, c, sp, b)

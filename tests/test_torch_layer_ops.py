@@ -72,8 +72,13 @@ def test_selection_twins_match_jax(G, k_keep):
     for nb_, keep in ((128, 0.5), (172, 0.5), (3, 0.5), (8, None)):
         assert tbg.block_capacity(nb_, keep) == \
             max(1, min(nb_, int(round(nb_ * (keep or 0.625)))))
-    with pytest.raises(NotImplementedError):
-        tbg._shared_group_size([{"q": w, "scale": w}], 32, 256)
+    # int8 dicts keep the group size, packed int4 raises it to >= 64
+    jz = jnp.zeros((8, 32))
+    for block_size, K in ((32, 256), (128, 4096), (16, 24)):
+        for tw, jw in (({"q": w, "scale": w}, {"q": jz, "scale": jz}),
+                       ({"qp": w, "sz": w}, {"qp": jz, "sz": jz})):
+            assert tbg._shared_group_size([w, tw], block_size, K) == \
+                jbg._shared_group_size([jz, jw], block_size, K)
 
 
 def _k1_case(seed, G, L=3, nb=8, norm=True, n_ws=(64, 32, 32)):
