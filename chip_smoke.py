@@ -64,7 +64,26 @@ Phases:
      step asserted (main paths: K1 4*L + K2 L; loop paths: K3 4*L + K2 L);
      the decode step, the plan kernels' times beside their bound, plain
      version, `torch.matmul` on the bf16 weights and PyTorch's own
-     weight-only GEMV, and the quantized logits head;
+     weight-only GEMV, and the quantized logits head; with each plan also
+     K1's rows form (phase 9's checks) and a batch-16 token path
+     (Q8-main-b16, Q4-main-b16: three requests, 4*L K1 + L K2 a step);
+  9. the batched token path and its two entry points, at full depth:
+     K1's rows form against its plain version at the token path's stage
+     shapes for B in {3, 8, 16} (the three selection regimes on pooled
+     scores and `fixed`; identical kept sets; 1e-4 / 2^-7 of scale), K2
+     with 16 rows at distinct positions and in its seq_block form (S = 8
+     at pos 0, 5, 500; MHA and GQA with a window; caches bit for bit,
+     outputs within 1e-2 of scale); the continuous-batching server
+     (`engine/serving.py`, 16 slots, 24 greedy requests of 5-120 prompt
+     and 8-16 new tokens, one-shot and chunked admission), its thresholds
+     picked on the plain path and every layer of a B = 16 decode step
+     held to the plain path (2e-2), 4*L K1 + L K2 launches per decode
+     step at every batch, aggregate decode tok/s and the step's wall and
+     device time at B = 1, 8, 16; `block_verify` at S = 4, 8, 12 after a
+     prefill, every layer of each chunk held to its plain version,
+     ceil(S/8) * (4*L K1 + L K2) launches, logits against the dense
+     forward and against its plain version (2e-2 of scale); the rows
+     forms' times beside their bound, plain version and library call;
 all printed as one `kernels` JSON line, with the card in it.
 
 The line before the last is the card's name and power limit from
@@ -112,12 +131,15 @@ STAGE_WEIGHTS = {"qkv": ("wq", "wk", "wv"), "o": ("wo",),
 # 32 (quant group == gather group: no requantization)
 QUANT_PATHS = {
     "Q8-main": ("int8", MAIN_SP, 1),
+    "Q8-main-b16": ("int8", MAIN_SP, 16),
     "Q8-loop": ("int8", LOOP_PATHS["A"][0], 1),
     "Q4-main": ("int4-g128", MAIN_SP, 1),
+    "Q4-main-b16": ("int4-g128", MAIN_SP, 16),
     "Q4-loop": ("int4-g64", LOOP_PATHS["A"][0], 1),
 }
-QUANT_LAUNCHES = {"Q8-main": (4, 1, 0, 0), "Q8-loop": (0, 1, 4, 0),
-                  "Q4-main": (4, 1, 0, 0), "Q4-loop": (0, 1, 4, 0)}
+QUANT_LAUNCHES = {"Q8-main": (4, 1, 0, 0), "Q8-main-b16": (4, 1, 0, 0),
+                  "Q8-loop": (0, 1, 4, 0), "Q4-main": (4, 1, 0, 0),
+                  "Q4-main-b16": (4, 1, 0, 0), "Q4-loop": (0, 1, 4, 0)}
 
 
 class SmokeFailure(RuntimeError):
@@ -534,12 +556,12 @@ def end_to_end(params, cfg, caps, device, seed):
 
 
 def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
-    """One decode `forward` (embedding to logits) at pos 40 for each run
-    (kind, sparsity kwargs, batch, thresholds): device time (the sum of
-    kernel times from torch.profiler) and wall time per step (host clock,
-    synchronised, without the profiler). A step launches more kernels
-    than the launch queue holds, so the sleep-queued timing of `cuda_ms`
-    cannot apply."""
+    """One decode `forward` (embedding to logits) for each run (kind,
+    sparsity kwargs, batch, thresholds[, positions]; at pos 40 where no
+    positions are given): device time (the sum of kernel times from
+    torch.profiler) and wall time per step (host clock, synchronised,
+    without the profiler). A step launches more kernels than the launch
+    queue holds, so the sleep-queued timing of `cuda_ms` cannot apply."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -549,13 +571,14 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
 
     dt = llama.compute_dtype(params)
     out = {}
-    for kind, sp_kw, b, th in runs:
+    for kind, sp_kw, b, th, *pos in runs:
         sp = SparsityConfig(**sp_kw)
         tok = torch.full((b, 1), 7, device=device)
         cache = llama.KVCache.init(cfg, b, MAX_SEQ, dt, device)
+        pos = pos[0] if pos else 40
 
         def step():
-            llama.forward(params, tok, cache, 40, th, cfg=cfg, sp=sp,
+            llama.forward(params, tok, cache, pos, th, cfg=cfg, sp=sp,
                           rope=rope)
 
         step()
@@ -582,7 +605,7 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
         dev = sum(t for _, t in rows)
         out[kind] = dict(device_ms=dev, wall_ms=wall,
                          idle_share=max(0.0, 1.0 - dev / wall))
-        log(f"[time] one {kind} decode step (forward at pos 40): device "
+        log(f"[time] one {kind} decode step (batch {b}): device "
             f"{dev:.3f} ms (sum of kernel times), wall {wall:.3f} ms, "
             f"device idle {out[kind]['idle_share']:.1%}; top: "
             + "; ".join(f"{k[:48]} {t:.3f} ms" for k, t in rows[:4]))
@@ -861,24 +884,35 @@ def hold_loop_layers(params, cfg, name, sp, b, cache, toks, pos, rope,
 def picking_k1(x, thr, ws, layer, cap, *, G=128, norm=None, norm_eps=1e-5,
                **kw):
     """K1's plain version that first sets its threshold (`thr`, a view into
-    the [L, 7] table) from the input it sees (`pick_threshold`)."""
+    the [L, 7] table) from the input it sees (`pick_threshold` on the
+    group scores, pooled over the rows)."""
     from teal_tpu_torch.ops import block_gemv as bg
 
     xs = bg.selection_input(x, norm, layer, norm_eps)
-    thr.fill_(pick_threshold(bg.group_scores(xs.float()[None], G), cap))
+    scores = xs.float().abs().reshape(-1, xs.shape[-1] // G, G).amax(-1)
+    thr.fill_(pick_threshold(scores.amax(0), cap))
     return bg.select_gather_gemv_plain(x, thr, ws, layer, cap, G=G,
                                        norm=norm, norm_eps=norm_eps, **kw)
 
 
-def hold_token_layers(params, cfg, cache, tok, pos, rope, device):
-    """For one decode step of the token path on the cache after a prefill,
+def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
+                      verify: bool = False):
+    """For one decode step of the token path on a cache after prefills,
     layer by layer: run the plain token-path layer (`layer_decode` under
     `plain_path`), each K1 stage picking its threshold from the input it
-    sees; then run the kernel path's layer on the same layer input and
-    hold its output and written cache rows to the plain layer's within
-    2e-2 of their largest magnitude, and its kept counts to [1, cap].
+    sees (pooled over the rows); then run the kernel path's layer on the
+    same layer input and hold its output and written cache rows to the
+    plain layer's within 2e-2 of their largest magnitude, and its kept
+    counts to [1, cap].
 
-    Returns (thresholds [L, 7], worst relative error)."""
+    tok: B tokens, one per row; pos: B positions (an int for B = 1). Each
+    row is a sequence in its own cache row, or with `verify` the rows are
+    consecutive positions of one sequence (`block_verify`'s chunk: fixed
+    full selection, `seq_block`, no thresholds picked).
+
+    Returns (thresholds [L, 7], worst relative error, the plain path's
+    cache after the step as (k, v))."""
+    import numpy as np
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -887,36 +921,43 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device):
 
     lay = params["layers"]
     ws = tuple(lay[n] for n in PROJ_NAMES)
-    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    caps = ((cfg.dim // 128,) * 3 + (cfg.intermediate_size // 128,)
+            if verify else llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP)))
     th = torch.zeros((cfg.n_layers, 7), dtype=torch.float32, device=device)
     k, v = cache.k.clone(), cache.v.clone()            # plain path
     kk, vk = cache.k.clone(), cache.v.clone()          # kernel path
-    row = torch.stack([rope[0][pos], rope[1][pos]])[None]
-    pos_t = torch.full((1,), pos, dtype=torch.int32, device=device)
-    h = params["embed"][tok].reshape(cfg.dim).to(llama.compute_dtype(params))
+    pos_t = torch.as_tensor(np.asarray(pos).reshape(-1),
+                            dtype=torch.int32).to(device)
+    B = pos_t.numel()
+    rows = llama._rope_rows(rope[0], rope[1], pos_t)
+    h = params["embed"][torch.as_tensor(tok).reshape(-1).to(device)].to(
+        llama.compute_dtype(params))
+    h = h.reshape(cfg.dim) if B == 1 else h.reshape(B, cfg.dim)
+    cb = (torch.zeros if verify else torch.arange)(B, device=device).long()
+    pl = pos_t.long()
     kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
-              window=cfg.sliding_window)
+              window=cfg.sliding_window, fixed_sel=verify, seq_block=verify)
     counts, worst = [], 0.0
     for i in range(cfg.n_layers):
-        with plain_path(k1=picking_k1):
+        with plain_path(k1=None if verify else picking_k1):
             want = token_block.layer_decode(
-                h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], row, k, v,
+                h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], rows, k, v,
                 pos_t, **kw)
         got = token_block.layer_decode(
-            h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], row, kk, vk,
+            h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], rows, kk, vk,
             pos_t, counts=counts, **kw)
         for what, g, w in (("hidden", got, want),
-                           ("k row", kk[i, 0, :, pos], k[i, 0, :, pos]),
-                           ("v row", vk[i, 0, :, pos], v[i, 0, :, pos])):
-            err = rel_check(f"token path layer {i} {what}: kernel vs plain",
-                            g, w, 2e-2)
+                           ("k rows", kk[i, cb, :, pl], k[i, cb, :, pl]),
+                           ("v rows", vk[i, cb, :, pl], v[i, cb, :, pl])):
+            err = rel_check(f"token path (B={B}{', verify' if verify else ''})"
+                            f" layer {i} {what}: kernel vs plain", g, w, 2e-2)
             worst = max(worst, err / float(w.float().abs().max()))
         h = want
     kept = torch.stack(counts).cpu()                       # [L, 4]
     check(bool((kept >= 1).all()) and all(
         bool((kept[:, j] <= caps[j]).all()) for j in range(4)),
         f"kept counts outside [1, cap]: {kept.tolist()}")
-    return th, worst
+    return th, worst, (k, v)
 
 
 def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
@@ -947,8 +988,8 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
             or llama._is_int4_packed(params["layers"]["wq"]))
         if llama.can_token_decode(params, cfg, sp, 1, b, dt,
                                   fused_attn=fused):
-            th, worst = hold_token_layers(params, cfg, cache, tok, pos,
-                                          rope, device)
+            th, worst, _ = hold_token_layers(params, cfg, cache, tok,
+                                             [pos] * b, rope, device)
         else:
             th, worst = hold_loop_layers(params, cfg, name, sp, b, cache,
                                          tok, pos, rope, device)
@@ -1197,19 +1238,19 @@ def plan_bytes(ws, G: int, cap: int, scales) -> int:
     return n
 
 
-def quant_library_ms(plan: str, K: int, Ns, device, gen):
+def quant_library_ms(plan: str, K: int, Ns, device, gen, rows: int = 1):
     """PyTorch's own weight-only GEMV at full keep on random weights of a
-    stage's shapes, summed over its weights, each call on one of 4 copies
-    in turn (not L2-resident): `torch._weight_int8pack_mm` for int8,
-    `torch._weight_int4pack_mm` (group 128) for int4. Timed only, never
-    called by the port. None for bf16, and where the installed PyTorch
-    has no CUDA kernel for it."""
+    stage's shapes with `rows` input rows, summed over its weights, each
+    call on one of 4 copies in turn (not L2-resident):
+    `torch._weight_int8pack_mm` for int8, `torch._weight_int4pack_mm`
+    (group 128) for int4. Timed only, never called by the port. None for
+    bf16, and where the installed PyTorch has no CUDA kernel for it."""
     import torch
 
     if plan not in ("int8", "int4"):
         return None
 
-    x = torch.randn(1, K, generator=gen, device=device).bfloat16()
+    x = torch.randn(rows, K, generator=gen, device=device).bfloat16()
     total = 0.0
     try:
         for N in Ns:
@@ -1380,6 +1421,8 @@ def quant_paths(params, cfg, caps, device, gen, seed, rope):
         if kind != "int4-g64":
             errs["k1"] = check_k1(qp, cfg, caps, device, gen,
                                   tag=f"k1 {plan}")
+            errs["rows"] = check_k1_rows(qp, cfg, caps, device, gen,
+                                         tag=f"k1 rows {plan}")
         if kind != "int4-g128":
             k1g = check_k1_groups(qp, cfg, device, gen, tag=f"k1g {plan}")
             errs["k1"] = max(errs.get("k1", 0.0), k1g)
@@ -1393,11 +1436,15 @@ def quant_paths(params, cfg, caps, device, gen, seed, rope):
                           launches=QUANT_LAUNCHES)
         results.update(runs)
         extra.update({f"decode_step_ms {k}": v for k, v in time_decode_step(
-            qp, cfg, [(n, QUANT_PATHS[n][1], 1, runs[n]["th"])
+            qp, cfg, [(n, *QUANT_PATHS[n][1:], runs[n]["th"])
                       for n in names], device, rope).items()})
         for n in names:
             r = runs[n]
-            if n.endswith("-main"):
+            if n.endswith("-b16"):
+                entries.append(time_rows_kernels(
+                    qp, params, cfg, caps, device, gen, rope, plan,
+                    r["launches"][0], r["steps"], errs["rows"]))
+            elif n.endswith("-main"):
                 entries.append(plan_entry(
                     time_k1_plan(qp, params, cfg, caps, device, gen, plan),
                     f"select_gather_gemv[{plan}]",
@@ -1423,6 +1470,528 @@ def quant_paths(params, cfg, caps, device, gen, seed, rope):
         del qp
         torch.cuda.empty_cache()
     return entries, results, extra
+
+
+# --- phase 9: the batched token path, the server and block_verify ---------
+
+ROWS = (3, 8, 16)                # K1 rows forms checked
+SERVER_SLOTS = 16
+SERVER_REQUESTS = 24
+SERVER_CHUNK = 32
+SERVER_PROMPT = (5, 120)         # prompt lengths, inclusive
+VERIFY_S = (4, 8, 12)
+STEP_BATCHES = (1, 8, 16)
+
+
+def rows_input(spec, cfg, K, B, n_surv, gen, device, dtype, layer):
+    """B rows over uniform noise in [-0.5, 0.5] where group g has its spike
+    (1.05**rank, rank a permutation of the groups) in row g % B, so that
+    every group's pooled score comes from one row; a threshold with
+    exactly `n_surv` pooled scores (of the selection input) above it, more
+    than 1e-2 from each; and a [B, N] residual where the stage has one."""
+    import torch
+
+    from teal_tpu_torch.ops.block_gemv import _width, selection_input
+
+    nb = K // 128
+    g = torch.arange(nb, device=device)
+    for _ in range(8):
+        x = torch.rand(B, nb, 128, generator=gen, device=device) - 0.5
+        lv = 1.05 ** torch.randperm(nb, generator=gen, device=device).float()
+        col = torch.randint(0, 128, (nb,), generator=gen, device=device)
+        sign = torch.randint(0, 2, (nb,), generator=gen, device=device) * 2 - 1
+        x[g % B, g, col] = lv * sign
+        x = x.reshape(B, K).to(dtype)
+        xs = selection_input(x, spec["norm"], layer, cfg.norm_eps)
+        pooled = xs.float().abs().reshape(B, nb, 128).amax(-1).amax(0)
+        thr, margin = threshold_for(pooled, n_surv)
+        if margin > 1e-2:
+            break
+    check(margin > 1e-2, f"a pooled group score lies within {margin:.2e} "
+          "of the threshold")
+    n_out = sum(_width(w) for w in spec["ws"])
+    res = (torch.randn(B, n_out, generator=gen, device=device).to(dtype)
+           if spec["res"] else None)
+    return x, torch.tensor(thr, dtype=torch.float32, device=device), res
+
+
+def check_k1_rows(params, cfg, caps, device, gen, tag="k1 rows"):
+    """K1's rows form against its plain version at the token path's four
+    stage shapes for B in `ROWS`: the three selection regimes on pooled
+    scores and `fixed`, with the params' weight plan. Returns the largest
+    absolute error."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    layer = cfg.n_layers // 2
+    dt = llama.compute_dtype(params)
+    worst = 0.0
+    for B in ROWS:
+        for name, cap in zip(STAGES, caps):
+            spec = stage_specs(params, cfg)[name]
+            K = bg._in_dim(spec["ws"][0])
+            nb = K // 128
+            for case, n_surv in (("count<cap", max(1, cap // 2)),
+                                 ("count==cap", cap),
+                                 ("overflow", min(nb, cap + max(1, nb // 4))),
+                                 ("fixed", cap)):
+                fixed = case == "fixed"
+                x, thr, res = rows_input(spec, cfg, K, B, n_surv, gen, device,
+                                         dt, layer)
+                kw = dict(norm=spec["norm"], norm_eps=cfg.norm_eps, res=res,
+                          silu=spec["silu"], scales=spec["scales"],
+                          fixed=fixed)
+                got, gidx, gcnt = bg.select_gather_gemv(x, thr, spec["ws"],
+                                                        layer, cap, **kw)
+                want, widx, wcnt = bg.select_gather_gemv_plain(
+                    x, thr, spec["ws"], layer, cap, **kw)
+                n = int(wcnt[0])
+                check(n == min(n_surv, cap) and int(gcnt[0]) == n,
+                      f"K1 rows B={B} {name} {case}: count {int(gcnt[0])} vs "
+                      f"plain {n}, expected {min(n_surv, cap)}")
+                check(bool((gidx == widx).all()),
+                      f"K1 rows B={B} {name} {case}: kept sets differ")
+                err = rel_check(f"K1 rows B={B} {name} {case}", got, want,
+                                1e-4 if got.dtype == torch.float32
+                                else 2 ** -7)
+                worst = max(worst, err)
+                log(f"[{tag}] B={B:2d} {name:8s} K={K:5d} "
+                    f"N={want.shape[-1]:5d} cap={cap:2d} {case:10s} "
+                    f"kept={n:2d} max_abs_err={err:.3e} (scale "
+                    f"{float(want.float().abs().max()):.3e})")
+    return worst
+
+
+def k2_rows_inputs(L, Bc, S, Hq, Hkv, gen, device, dtype):
+    import torch
+
+    kc = torch.randn((L, Bc, Hkv, MAX_SEQ, 128), generator=gen,
+                     device=device).to(dtype)
+    vc = torch.randn((L, Bc, Hkv, MAX_SEQ, 128), generator=gen,
+                     device=device).to(dtype)
+    qkv = torch.randn(S, (Hq + 2 * Hkv) * 128, generator=gen, device=device)
+    q = qkv[:, :Hq * 128].view(S, Hq, 128)
+    kn = qkv[:, Hq * 128:(Hq + Hkv) * 128].view(S, Hkv, 128)
+    vn = qkv[:, (Hq + Hkv) * 128:].view(S, Hkv, 128)
+    return kc, vc, q, kn, vn
+
+
+def check_k2_rows(cfg, device, gen, rope):
+    """K2 with 16 rows at distinct positions, and its seq_block form (S = 8
+    consecutive positions of cache row 0 at pos 0, 5 and 500), at 7B
+    (MHA) and at GQA with a window (Hq=32, Hkv=8, window=64), q/k/v as
+    strided views of one [S, n_tot] block as the token path passes them:
+    the whole cache after the call bit for bit, outputs within 1e-2 of
+    scale. Returns the largest absolute error."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops.decode_attention import (decode_attention,
+                                                     decode_attention_plain)
+
+    L, layer, worst = 2, 1, 0.0
+    cases = [("B=16", 16, None)] + [(f"seq_block S=8 pos={p0}", 8, p0)
+                                    for p0 in (0, 5, MAX_SEQ - 12)]
+    for Hq, Hkv, window in ((cfg.n_heads, cfg.n_kv_heads, None),
+                            (32, 8, 64)):
+        for name, S, p0 in cases:
+            seq = p0 is not None
+            kc, vc, q, kn, vn = k2_rows_inputs(L, 1 if seq else S, S, Hq, Hkv,
+                                               gen, device, torch.bfloat16)
+            pos = (torch.arange(p0, p0 + S, device=device) if seq else
+                   torch.randperm(MAX_SEQ, generator=gen, device=device)[:S])
+            pos = pos.to(torch.int32)
+            rows = llama._rope_rows(rope[0], rope[1], pos)
+            k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            got = decode_attention(q, kn, vn, k1, v1, layer, pos,
+                                   window=window, rope=rows, seq_block=seq)
+            want = decode_attention_plain(q, kn, vn, k2, v2, layer, pos,
+                                          window=window, rope=rows,
+                                          seq_block=seq)
+            check(torch.equal(k1, k2) and torch.equal(v1, v2),
+                  f"K2 {name} Hkv={Hkv}: caches differ after the writes")
+            err = rel_check(f"K2 {name} Hkv={Hkv}", got, want, 1e-2)
+            worst = max(worst, err)
+            log(f"[k2 rows] Hq={Hq} Hkv={Hkv} window={window} {name} "
+                f"max_abs_err={err:.3e} (scale "
+                f"{float(want.float().abs().max()):.3e})")
+    return worst
+
+
+def check_step_launches(params, cfg, th, device, rope):
+    """One batched decode `forward` at every B of `STEP_BATCHES` (distinct
+    positions): exactly 4*L K1 and L K2 launches, no other port kernel,
+    finite logits of the expected shape."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+
+    L = cfg.n_layers
+    for b in STEP_BATCHES:
+        cache = llama.KVCache.init(cfg, b, MAX_SEQ, torch.bfloat16, device)
+        pos = [40 + 4 * i for i in range(b)]
+        reset_launches()
+        lg, _ = llama.forward(params, torch.full((b, 1), 7, device=device),
+                              cache, pos, th, cfg=cfg,
+                              sp=SparsityConfig(**MAIN_SP), rope=rope)
+        got = read_launches()
+        check(got == (4 * L, L, 0, 0), f"batch {b}: launches (K1, K2, K3, "
+              f"K4) {got} in one decode step, expected {(4 * L, L, 0, 0)}")
+        check(tuple(lg.shape) == (b, 1, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()), f"batch {b}: bad logits")
+    log(f"[serve] one decode step at batch {STEP_BATCHES}: launches (K1, "
+        f"K2, K3, K4) = {(4 * L, L, 0, 0)} each")
+
+
+def server_phase(params, cfg, device, seed, rope):
+    """The continuous-batching server at 7B: `SERVER_SLOTS` slots,
+    `SERVER_REQUESTS` greedy requests (prompts of 5-120 tokens, 8-16 new
+    tokens), so that requests join as slots free up. Thresholds are picked
+    on the plain path over the first 16 admitted requests' first decode
+    step, every layer of which is held to the plain path at B = 16. Then
+    the workload runs with one-shot admission and with
+    `prefill_chunk=SERVER_CHUNK`, launch counts reset just before and read
+    just after: 4*L K1 + L K2 per decode step, nothing else. Returns
+    (thresholds, results)."""
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine import ContinuousBatchingEngine
+
+    rng = np.random.default_rng(seed + 4)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(SERVER_PROMPT[0], SERVER_PROMPT[1] + 1,
+                                     SERVER_REQUESTS)]
+    new = [int(n) for n in rng.integers(8, 17, SERVER_REQUESTS)]
+    L = cfg.n_layers
+
+    def engine(th=None, chunk=None):
+        return ContinuousBatchingEngine(
+            cfg, params, slots=SERVER_SLOTS, max_seq=MAX_SEQ,
+            sp=SparsityConfig(**MAIN_SP), thresholds=th, temperature=0.0,
+            cache_dtype=torch.bfloat16, prefill_chunk=chunk, device=device)
+
+    eng = engine()
+    for p, n in zip(prompts[:SERVER_SLOTS], new[:SERVER_SLOTS]):
+        eng.submit(p, n)
+    eng._admit()
+    t0 = time.perf_counter()
+    th, worst, _ = hold_token_layers(params, cfg, eng.cache, eng.cur,
+                                     eng.pos, rope, device)
+    log(f"[serve] thresholds picked on the plain path and every layer of "
+        f"the batched token path (B = {SERVER_SLOTS}, positions "
+        f"{sorted(eng.pos.tolist())}) held to it (worst error {worst:.2e} "
+        f"of scale, tolerance 2e-2) in {time.perf_counter() - t0:.2f} s")
+    del eng
+    check_step_launches(params, cfg, th, device, rope)
+
+    out = {"worst": worst}
+    for chunk in (None, SERVER_CHUNK):
+        eng = engine(th, chunk)
+        decode = []                   # (active slots, wall s) per step
+        step_fn = eng._decode_step
+
+        def timed_step(step_fn=step_fn, eng=eng, decode=decode):
+            n = sum(r is not None for r in eng.active)
+            t = time.perf_counter()
+            toks = step_fn()          # ends on the host: synchronised
+            decode.append((n, time.perf_counter() - t))
+            return toks
+
+        eng._decode_step = timed_step
+        for p, n in zip(prompts, new):
+            eng.submit(p, n)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        steps = len(decode)
+        check(got == (4 * L * steps, L * steps, 0, 0),
+              f"server (chunk {chunk}): launches (K1, K2, K3, K4) {got}, "
+              f"expected {(4 * L * steps, L * steps, 0, 0)} for {steps} "
+              "decode steps")
+        check(len(done) == SERVER_REQUESTS and all(
+            len(r.out) == n and all(0 <= t < cfg.vocab_size for t in r.out)
+            for r, n in zip(sorted(done, key=lambda r: r.id), new)),
+            f"server (chunk {chunk}): requests unfinished or bad tokens")
+        toks = sum(n for n, _ in decode)
+        dec_s = sum(t for _, t in decode)
+        key = "oneshot" if chunk is None else f"chunk{chunk}"
+        out[key] = dict(
+            steps=steps, launches=got, wall_s=wall, decode_tokens=toks,
+            decode_s=dec_s, decode_tok_s=toks / dec_s,
+            step_ms_full=1e3 * float(np.mean([t for n, t in decode
+                                               if n == SERVER_SLOTS] or [0])),
+            steps_full=sum(n == SERVER_SLOTS for n, _ in decode),
+            outs=[r.out for r in sorted(done, key=lambda r: r.id)])
+        log(f"[serve] {key}: {SERVER_REQUESTS} requests in {wall:.2f} s, "
+            f"{steps} decode steps (launches K1 {got[0]}, K2 {got[1]}: "
+            f"{got[0] // steps} + {got[1] // steps} a step), {toks} decoded "
+            f"tokens, aggregate decode {toks / dec_s:.1f} tok/s, a step with "
+            f"all {SERVER_SLOTS} slots active "
+            + (f"{out[key]['step_ms_full']:.2f} ms" if out[key]["step_ms_full"]
+               else "n/a (never all active)"))
+    a, b = out["oneshot"]["outs"], out[f"chunk{SERVER_CHUNK}"]["outs"]
+    same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+    log(f"[serve] one-shot vs chunked admission: {same} of "
+        f"{sum(map(len, a))} greedy tokens equal (bf16 prefills of other "
+        f"shapes round differently)")
+    out["tokens_equal"] = (same, sum(map(len, a)))
+    return th, out
+
+
+def to_fp32(tree):
+    """A copy of a parameter tree with every tensor in fp32."""
+    if isinstance(tree, dict):
+        return {k: to_fp32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def verify_phase(params, cfg, device, seed, rope):
+    """`block_verify` at S in `VERIFY_S` after a dense prefill of 40
+    tokens: every layer of each chunk held to its plain version (2e-2 of
+    scale), ceil(S/8) * (4*L K1 + L K2) launches, finite logits. The
+    logits of all 32 bf16 layers are compared with the dense forward and
+    with `block_verify` on the plain versions, and reported: random bf16
+    weights turn each layer's rounding differences (the per-layer holds'
+    ~1e-3 of scale) into several 1e-2 of the logits' scale after 32
+    layers, so that comparison is no check. The end-to-end check runs the
+    same positions on an fp32 copy of the weights and cache, where
+    `block_verify`'s logits must match the dense forward's within 2e-2 of
+    scale. Returns results."""
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+
+    rng = np.random.default_rng(seed + 5)
+    L = cfg.n_layers
+    cache, _, pos = prefill(params, cfg, rng.integers(1, cfg.vocab_size,
+                                                      (1, 40)), device, rope)
+    zero = llama.zero_thresholds(cfg, device)
+    out, toks_s = {}, {}
+    for S in VERIFY_S:
+        check(llama.can_block_verify(params, cfg, S), f"S={S}: gate refused")
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, S)))
+        toks = toks_s[S] = toks.to(device)
+        n_chunks = -(-S // 8)
+        sizes = [S // n_chunks + (1 if j < S % n_chunks else 0)
+                 for j in range(n_chunks)]
+        kv, off, worst = cache, 0, 0.0
+        for ss in sizes:                 # each chunk on the plain cache
+            _, w, kv = hold_token_layers(
+                params, cfg, llama.KVCache(*kv), toks[0, off:off + ss],
+                list(range(pos + off, pos + off + ss)), rope, device,
+                verify=True)
+            worst, off = max(worst, w), off + ss
+        runs = {}
+        for kind in ("kernel", "plain", "dense"):
+            c = llama.KVCache(cache.k.clone(), cache.v.clone())
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            if kind == "dense":
+                lg, _ = llama.forward(params, toks, c, pos, zero, cfg=cfg,
+                                      sp=SparsityConfig(), rope=rope)
+            elif kind == "plain":
+                with plain_path():
+                    lg, _ = llama.block_verify(params, toks, c, pos, zero,
+                                               cfg=cfg, rope=rope)
+            else:
+                lg, _ = llama.block_verify(params, toks, c, pos, zero,
+                                           cfg=cfg, rope=rope)
+            torch.cuda.synchronize()
+            runs[kind] = (lg, time.perf_counter() - t0, read_launches())
+        lg, wall, got = runs["kernel"]
+        want = (n_chunks * 4 * L, n_chunks * L, 0, 0)
+        check(got == want, f"block_verify S={S}: launches {got}, expected "
+              f"{want}")
+        check(tuple(lg.shape) == (1, S, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()), f"S={S}: bad logits")
+        rel = {k: float((lg - runs[k][0]).abs().max()
+                        / runs[k][0].abs().max()) for k in ("plain", "dense")}
+        out[S] = dict(launches=got, worst=worst, wall_ms=wall * 1e3,
+                      dense_wall_ms=runs["dense"][1] * 1e3,
+                      bf16_err_dense=rel["dense"],
+                      bf16_err_plain=rel["plain"])
+        log(f"[verify] S={S} ({n_chunks} chunk(s) {sizes}): every layer held "
+            f"to the plain version (worst {worst:.2e} of scale); launches "
+            f"(K1, K2, K3, K4) {got}; bf16 logits after {L} layers vs the "
+            f"dense forward {rel['dense']:.2e} of scale, vs the plain "
+            f"version {rel['plain']:.2e} (reported, not checked); wall "
+            f"{wall * 1e3:.1f} ms (dense forward {runs['dense'][1] * 1e3:.1f}"
+            " ms)")
+    p32 = to_fp32(params)
+    for S, toks in toks_s.items():
+        lgs = []
+        for verify in (True, False):
+            c = llama.KVCache(cache.k.float(), cache.v.float())
+            lgs.append(llama.block_verify(p32, toks, c, pos, zero, cfg=cfg,
+                                          rope=rope)[0] if verify else
+                       llama.forward(p32, toks, c, pos, zero, cfg=cfg,
+                                     sp=SparsityConfig(), rope=rope)[0])
+        err = rel_check(f"fp32 block_verify S={S} logits vs the dense "
+                        "forward", lgs[0], lgs[1], 2e-2)
+        out[S]["fp32_err_dense"] = err / float(lgs[1].abs().max())
+        log(f"[verify] S={S} fp32 copy, all {L} layers: block_verify logits "
+            f"vs the dense forward {out[S]['fp32_err_dense']:.2e} of scale "
+            "(tolerance 2e-2)")
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_rows_kernels(qparams, params, cfg, caps, device, gen, rope, plan,
+                      launches, steps, err):
+    """K1's rows form at B = 8 and 16 with a weight plan at the token
+    path's four stage shapes (count == cap): kernel, plain version,
+    `torch.matmul` of [B, K] @ [K, N] on the bf16 weights at full keep,
+    PyTorch's weight-only GEMV with B rows (int8 / int4), and the bound
+    (the kept weights once, plus the B rows in and out). Returns the
+    `kernels` entry (B = 16 at its top level, B = 8 under "b8")."""
+    import torch
+
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    L, esz = cfg.n_layers, 2
+    per_b = {}
+    for B in (8, 16):
+        rows = []
+        for name, cap in zip(STAGES, caps):
+            spec = stage_specs(qparams, cfg)[name]
+            ws = spec["ws"]
+            K, Ns = bg._in_dim(ws[0]), [bg._width(w) for w in ws]
+            x, thr, res = rows_input(spec, cfg, K, B, cap, gen, device,
+                                     torch.bfloat16, 0)
+            kw = dict(norm=spec["norm"], norm_eps=cfg.norm_eps, res=res,
+                      silu=spec["silu"], scales=spec["scales"])
+            n_out = Ns[0] if spec["silu"] else sum(Ns)
+            nbytes = (plan_bytes(ws, 128, cap, spec["scales"])
+                      + B * K * esz + (K * esz if spec["norm"] is not None
+                                       else 0)
+                      + (B * n_out * esz if spec["res"] else 0)
+                      + B * n_out * (esz if (spec["res"] or spec["silu"])
+                                     else 4))
+            lib = sum(cuda_ms(lambda i, w=params["layers"][n]:
+                              torch.matmul(x, w[i % L]), 64)[0]
+                      for n in STAGE_WEIGHTS[name])
+            rows.append(_plan_row(
+                f"K1 rows[{plan}] B={B} {name}", nbytes,
+                2 * B * cap * 128 * sum(Ns),
+                lambda i: bg.select_gather_gemv(x, thr, ws, i % L, cap, **kw),
+                lambda i: bg.select_gather_gemv_plain(x, thr, ws, i % L, cap,
+                                                      **kw),
+                lib, quant_library_ms(plan, K, Ns, device, gen, rows=B),
+                K=K, N=sum(Ns), cap=cap, rows=B))
+        per_b[B] = rows
+    e = plan_entry(per_b[16], f"select_gather_gemv[rows {plan}]",
+                   "teal_tpu_torch/csrc/select_gather_gemv.cu",
+                   "teal_tpu/ops/token_block.py:518", launches, steps, err,
+                   "rows form: one layer's four calls at B = 16 (B = 8 under "
+                   "b8) at count == cap, summed")
+    q8 = [r["quant_library_ms"] for r in per_b[8]]
+    e["b8"] = dict({k: sum(r[k] for r in per_b[8])
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                   quant_library_ms=None if None in q8 else sum(q8))
+    log(f"[time] {e['name']} at B = 8: one layer {e['b8']['ms']:.4f} ms, "
+        f"bound {e['b8']['bound_ms']:.4f} ms")
+    return e
+
+
+def time_k2_rows(cfg, device, gen, rope, launches, steps, err, name):
+    """K2 at 16 rows at positions spread over the cache (the server's
+    shape) or in its seq_block form (S = 8 at pos 500, the verify path's),
+    beside its plain version, `scaled_dot_product_attention` with the
+    equivalent mask and the bound. Returns the `kernels` entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops.decode_attention import (decode_attention,
+                                                     decode_attention_plain)
+
+    L, Hq, Hkv, esz = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, 2
+    seq = name == "seq_block"
+    S = 8 if seq else 16
+    kc, vc, q, kn, vn = k2_rows_inputs(L, 1 if seq else S, S, Hq, Hkv, gen,
+                                       device, torch.bfloat16)
+    p0 = MAX_SEQ - 12
+    pos = (torch.arange(p0, p0 + S, device=device) if seq else
+           torch.linspace(31, MAX_SEQ - 1, S, device=device).round())
+    pos = pos.to(torch.int32)
+    rows = llama._rope_rows(rope[0], rope[1], pos)
+    pl = pos.long()
+    live = p0 if seq else int(pos.sum())           # cache rows read
+    nbytes = (2 * live * Hkv * 128 * esz + S * (Hq + 2 * Hkv) * 128 * 4
+              + S * 2 * 128 * 4 + S * Hq * 128 * esz + 2 * S * Hkv * 128 * esz)
+    b_ms, b_by = bound_ms(nbytes, 4 * Hq * 128 * int(pos.sum()))
+    kw = dict(rope=rows, seq_block=seq)
+    ms, host = cuda_ms(lambda i: decode_attention(q, kn, vn, kc, vc, i % L,
+                                                  pos, **kw), 64)
+    p_ms, _ = cuda_ms(lambda i: decode_attention_plain(
+        q, kn, vn, kc, vc, i % L, pos, **kw), 3, warmup=1, queued=False)
+    t = torch.arange(MAX_SEQ, device=device)
+    if seq:       # query i sees cache rows t <= p0 + i
+        qs = q.to(torch.bfloat16).transpose(0, 1)[None]      # [1, Hq, S, D]
+        mask = (t[None, :] <= pl[:, None])[None, None]
+        lib, _ = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qs, kc[i % L], vc[i % L], attn_mask=mask), 64)
+    else:         # row b sees its own cache row up to pos[b]
+        qs = q.to(torch.bfloat16)[:, :, None]                # [B, Hq, 1, D]
+        mask = (t[None, :] <= pl[:, None])[:, None, None]
+        lib, _ = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qs, kc[i % L], vc[i % L], attn_mask=mask), 64)
+    timed = (f"seq_block S={S} at pos {p0}.." if seq else
+             f"B={S} rows at positions {pos.tolist()}")
+    log(f"[time] K2 {name} ({timed}) kernel {ms:.4f} ms (host enqueue "
+        f"{host:.4f} ms)  plain {p_ms:.4f} ms  SDPA {lib:.4f} ms  bound "
+        f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+    return dict(name=f"decode_attention[{name}]", route="cuda",
+                source="teal_tpu_torch/csrc/decode_attention.cu",
+                replaces="teal_tpu/ops/attn_block.py:94", launches=launches,
+                launches_per_token=launches / steps, max_abs_err=err, ms=ms,
+                kernel_ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, timed=timed)
+
+
+def batched_phase(params, cfg, caps, device, gen, seed, rope):
+    """Phase 9 on the bf16 params. Returns (kernels entries, results)."""
+    e_k1 = check_k1_rows(params, cfg, caps, device, gen)
+    e_k2 = check_k2_rows(cfg, device, gen, rope)
+    th, serve = server_phase(params, cfg, device, seed, rope)
+    verify = verify_phase(params, cfg, device, seed, rope)
+    steps = time_decode_step(
+        params, cfg, [(f"server batch {b}", MAIN_SP, b, th,
+                       [40 + 4 * i for i in range(b)]) for b in STEP_BATCHES],
+        device, rope)
+    for b in STEP_BATCHES:
+        r = steps[f"server batch {b}"]
+        log(f"[serve] decode step at batch {b}: {b / r['wall_ms'] * 1e3:.1f} "
+            f"tok/s from its wall time ({r['wall_ms']:.3f} ms wall, "
+            f"{r['device_ms']:.3f} ms device, idle {r['idle_share']:.1%})")
+    one = serve["oneshot"]
+    v_launch = sum(r["launches"][1] for r in verify.values())
+    v_steps = sum(-(-S // 8) for S in VERIFY_S)
+    entries = [
+        time_rows_kernels(params, params, cfg, caps, device, gen, rope,
+                          "bf16", one["launches"][0], one["steps"], e_k1),
+        time_k2_rows(cfg, device, gen, rope, one["launches"][1],
+                     one["steps"], e_k2, "B=16"),
+        time_k2_rows(cfg, device, gen, rope, v_launch, v_steps, e_k2,
+                     "seq_block"),
+    ]
+    results = dict(
+        server={k: ({kk: vv for kk, vv in v.items() if kk != "outs"}
+                    if isinstance(v, dict) else v) for k, v in serve.items()},
+        verify=verify, decode_step_ms=steps)
+    return entries, results, th
 
 
 def main() -> int:
@@ -1487,6 +2056,9 @@ def main() -> int:
     line["decode_tok_s"] = speeds
     line["decode_tok_s_loop_paths"] = {n: r["tok_s"] for n, r in loop.items()}
     line["decode_step_ms"] = step
+    b_entries, line["batched"], _ = batched_phase(params, cfg, caps, device,
+                                                  gen, seed, rope)
+    line["kernels"] += b_entries
     q_entries, q_runs, q_extra = quant_paths(params, cfg, caps, device, gen,
                                              seed, rope)
     line["kernels"] += q_entries

@@ -13,9 +13,13 @@ decode (threshold mode, G = 128) through two hand-written CUDA kernels,
 decode (block mode in top-k or at G = 32/64, batches up to 8, and gather
 mode) through K1, K2, `ops/block_gemv.block_gather_gemv_multi` (K3) and
 `ops/gather_gemv.row_gather_gemv` (K4); weight-only int8 and packed int4
-(`ops/quant.py`) on K1 and K3's weight plans; the dense and masked-dense
-layer loop, prefill and the generation engine. ROADMAP.md lists what is
-still to port.
+(`ops/quant.py`) on K1 and K3's weight plans; batched decode of up to
+16 sequences on the token path (K1's rows form, K2 with B rows), which
+the continuous-batching server (`engine/serving.py`) and
+`Generator(batch=B)` run, and `models/llama.block_verify` (K1's fixed
+selection, K2's seq_block form); the dense and masked-dense layer loop,
+prefill and the generation engine. ROADMAP.md lists what is still to
+port.
 """
 
 __version__ = "0.1.0"

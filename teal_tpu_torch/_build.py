@@ -38,7 +38,8 @@ SIGNATURES = {
         _P, _P, _P,             # int8 scale0-2 (or null)
         _I, _I, _I,             # n0, n1, n2
         _I, _P, _P, _P, _P,     # n_w, res (or null), out, idx, count
-        _I, _I, _I, _I, _I, _P,  # K, G, layer, cap, mode, stream
+        _I, _I, _I, _I, _I,     # K, G, layer, cap, mode
+        _I, _I, _P,             # rows, fixed selection, stream
     ],
     ("block_gather_gemv", "teal_block_gather_gemv"): [
         _I, _I, _P, _P,         # dtype code, weight plan, idx, xpack
@@ -57,7 +58,9 @@ SIGNATURES = {
         _P, _P, _P, _P,         # q, k_new, v_new, cos|sin
         _P, _P, _P, _P,         # kc, vc, pos, out
         _I, _I, _I, _I, _I,     # B, Hq, Hkv, T, layer
-        _I, _F, _P,             # window (0: none), scale, stream
+        _I, _F,                 # window (0: none), scale
+        _I, _I, _I, _P,         # q row stride, k/v row stride, seq_block,
+                                # stream
     ],
 }
 

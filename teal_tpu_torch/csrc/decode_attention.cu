@@ -33,6 +33,20 @@
 // summing over t in order. Each warp scores 4 cache rows per step with
 // 8-byte loads so several rows are in flight. T is not split across
 // blocks; a later split needs a fixed-order second combine pass.
+//
+// seq_block (the verify path's `cache_rows = (0,)*B`, attn_block.py:
+// 118-127): the B slots are consecutive positions pos[0] + i of ONE
+// sequence in cache row 0, and slot i attends to slots < i as the
+// reference's in-order slots read them back from the cache. Reading
+// those rows from the cache in this launch would race with the blocks
+// that write them, so each block rebuilds rows pos[0] .. pos[i]-1 from
+// the k_new / v_new inputs -- RoPE'd with their own slot's rows and
+// rounded to the cache type, bit for bit what the write stores -- into
+// shared memory, and takes the cache only below pos[0]. Slot i's own
+// term stays fp32. A block still writes only its own row pos[i].
+//
+// q, k_new and v_new may be strided rows (views into K1's [B, n_tot]
+// q|k|v output): row b starts q_rs (k/v: kv_rs) floats after row b-1.
 #include "common.cuh"
 
 using namespace teal;
@@ -43,18 +57,20 @@ constexpr int D = 128;        // head dim
 constexpr int THREADS = 128;  // one thread per head dimension
 constexpr int MAXG = 8;       // query heads per kv head
 constexpr int UR = 4;         // cache rows per warp step
+constexpr int MAXB = 16;      // slots of a seq_block launch
 
 struct Args {
-  const float* q;    // [B, Hq, D]   raw (pre-RoPE) fp32
-  const float* kn;   // [B, Hkv, D]  raw (pre-RoPE) fp32
-  const float* vn;   // [B, Hkv, D]  fp32
+  const float* q;    // [B, Hq, D]   raw (pre-RoPE) fp32, row stride q_rs
+  const float* kn;   // [B, Hkv, D]  raw (pre-RoPE) fp32, row stride kv_rs
+  const float* vn;   // [B, Hkv, D]  fp32, row stride kv_rs
   const float* cs;   // [B, 2, D]    cos row, sin row
-  void* kc;          // [L, B, Hkv, T, D]
+  void* kc;          // [L, Bc, Hkv, T, D]: Bc = B, or 1 with seq_block
   void* vc;
   const int* pos;    // [B]
   void* out;         // [B, Hq, D]
   int B, Hq, Hkv, T, layer, window;
   float scale;
+  int q_rs, kv_rs;
 };
 
 __device__ __forceinline__ void load4(const float* p, float* v) {
@@ -76,7 +92,9 @@ __device__ __forceinline__ float rope(const float* row, int d, float c,
   return __fadd_rn(__fmul_rn(row[d], c), __fmul_rn(rot, s));
 }
 
-template <typename T>
+// SEQ (seq_block) is a template parameter so that the one-row-per-sequence
+// form keeps its inner loops free of the rebuilt-rows branch.
+template <typename T, bool SEQ>
 __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
   extern __shared__ float smem[];
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
@@ -90,14 +108,21 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
   float* ec = sc + MAXG;            // [MAXG] current-token weight
   float* den = ec + MAXG;           // [MAXG] softmax denominator
   float* scratch = den + MAXG;      // [32]
-  float* s = scratch + 32;          // [GH, T] slab scores, then weights
+  float* kp = scratch + 32;         // seq_block: [b, D] earlier slots' k
+  float* vp = kp + (SEQ ? MAXB * D : 0);     // and v, rounded to T
+  float* s = vp + (SEQ ? MAXB * D : 0);      // [GH, T] slab scores, then
+                                             // weights
 
   const int p = a.pos[b];
   if (p < 0 || p >= a.T) __trap();
+  // seq_block: slots are pos[0] + i; rows p0 .. p-1 come from kp / vp
+  const int p0 = SEQ ? a.pos[0] : a.T;
+  if (SEQ && p != p0 + b) __trap();
   const int lo = a.window > 0 ? max(p - a.window + 1, 0) : 0;
   const int n = p - lo;             // live slab rows: lo .. p-1
   const size_t slab =
-      (static_cast<size_t>(a.layer) * a.B + b) * a.Hkv + h;
+      (static_cast<size_t>(a.layer) * (SEQ ? 1 : a.B) + (SEQ ? 0 : b)) *
+          a.Hkv + h;
   T* kcache = static_cast<T*>(a.kc) + slab * a.T * D;
   T* vcache = static_cast<T*>(a.vc) + slab * a.T * D;
 
@@ -105,14 +130,23 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
   {
     const float c = a.cs[(b * 2) * D + d], sn = a.cs[(b * 2 + 1) * D + d];
     for (int g = 0; g < GH; ++g) {
-      const float* row = a.q + (static_cast<size_t>(b) * a.Hq + h * GH + g) * D;
+      const float* row =
+          a.q + static_cast<size_t>(b) * a.q_rs + (h * GH + g) * D;
       const float v = __fmul_rn(rope(row, d, c, sn), a.scale);
       qf[g * D + d] = v;
       qr[g * D + d] = rnd<T>(v);
     }
-    const size_t kv = (static_cast<size_t>(b) * a.Hkv + h) * D;
+    const size_t kv = static_cast<size_t>(b) * a.kv_rs + h * D;
     knf[d] = rope(a.kn + kv, d, c, sn);
     vnf[d] = a.vn[kv + d];
+    if (SEQ) {
+      for (int j = 0; j < b; ++j) {
+        const size_t kvj = static_cast<size_t>(j) * a.kv_rs + h * D;
+        kp[j * D + d] = rnd<T>(rope(a.kn + kvj, d, a.cs[(j * 2) * D + d],
+                                    a.cs[(j * 2 + 1) * D + d]));
+        vp[j * D + d] = rnd<T>(a.vn[kvj + d]);
+      }
+    }
   }
   __syncthreads();
 
@@ -121,8 +155,13 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
     float kv[UR][4];
 #pragma unroll
     for (int u = 0; u < UR; ++u)
-      if (t0 + u < n)
-        load4(kcache + static_cast<size_t>(lo + t0 + u) * D + lane * 4, kv[u]);
+      if (t0 + u < n) {
+        const int t = lo + t0 + u;
+        if (SEQ && t >= p0)
+          load4(kp + (t - p0) * D + lane * 4, kv[u]);
+        else
+          load4(kcache + static_cast<size_t>(t) * D + lane * 4, kv[u]);
+      }
 #pragma unroll
     for (int u = 0; u < UR; ++u) {
       if (t0 + u >= n) break;
@@ -176,7 +215,9 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
   for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
 #pragma unroll 8
   for (int t = 0; t < n; ++t) {
-    const float v = to_f(vcache[static_cast<size_t>(lo + t) * D + d]);
+    const float v = SEQ && lo + t >= p0
+                        ? vp[(lo + t - p0) * D + d]
+                        : to_f(vcache[static_cast<size_t>(lo + t) * D + d]);
 #pragma unroll
     for (int g = 0; g < MAXG; ++g)
       if (g < GH) acc[g] = fmaf(s[g * a.T + t], v, acc[g]);
@@ -188,35 +229,40 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
       out[(static_cast<size_t>(b) * a.Hq + h * GH + g) * D + d] =
           from_f<T>((acc[g] + ec[g] * vnf[d]) * (1.0f / den[g]));
 
-  // in-place write of the current token (row p: read by no block)
+  // in-place write of the current token (row p: read by no block; with
+  // seq_block, later slots take it from kp / vp)
   kcache[static_cast<size_t>(p) * D + d] = from_f<T>(knf[d]);
   vcache[static_cast<size_t>(p) * D + d] = from_f<T>(vnf[d]);
 }
 
-template <typename T>
+template <typename T, bool SEQ>
 int launch(const Args& a, cudaStream_t stream) {
   const int GH = a.Hq / a.Hkv;
   const size_t smem =
       sizeof(float) * (2 * GH * D + 2 * D + 3 * MAXG + 32 +
+                       (SEQ ? 2 * MAXB * D : 0) +
                        static_cast<size_t>(GH) * a.T);
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(attn_kernel<T>,
+    cudaFuncSetAttribute(attn_kernel<T, SEQ>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-  attn_kernel<T><<<dim3(a.Hkv, a.B), THREADS, smem, stream>>>(a);
+  attn_kernel<T, SEQ><<<dim3(a.Hkv, a.B), THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16 (the cache type). window 0 means none. The caller
-// checks shapes: head dim 128, Hq % Hkv == 0, Hq / Hkv <= 8, and that the
-// score row GH * T fits shared memory.
+// dtype: 0 fp32, 1 bf16 (the cache type). window 0 means none. q_rs /
+// kv_rs: row strides of q and of k_new / v_new in floats. seq_block: the
+// B <= 16 slots are consecutive positions of cache row 0 (a slot whose
+// pos is not pos[0] + i traps). The caller checks shapes: head dim 128,
+// Hq % Hkv == 0, Hq / Hkv <= 8, and that the score row GH * T fits
+// shared memory.
 extern "C" int teal_decode_attention(
     int dtype, const void* q, const void* k_new, const void* v_new,
     const void* cs, void* kc, void* vc, const void* pos, void* out, int B,
-    int Hq, int Hkv, int T, int layer, int window, float scale,
-    void* stream) {
+    int Hq, int Hkv, int T, int layer, int window, float scale, int q_rs,
+    int kv_rs, int seq_block, void* stream) {
   cudaGetLastError();  // clear any stale error of this library
   Args a;
   a.q = static_cast<const float*>(q);
@@ -234,6 +280,12 @@ extern "C" int teal_decode_attention(
   a.layer = layer;
   a.window = window;
   a.scale = scale;
+  a.q_rs = q_rs;
+  a.kv_rs = kv_rs;
+  if (seq_block && B > MAXB) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(a, s) : launch<__nv_bfloat16>(a, s);
+  if (dtype == 0)
+    return seq_block ? launch<float, true>(a, s) : launch<float, false>(a, s);
+  return seq_block ? launch<__nv_bfloat16, true>(a, s)
+                   : launch<__nv_bfloat16, false>(a, s);
 }

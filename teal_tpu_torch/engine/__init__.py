@@ -1,3 +1,5 @@
 from teal_tpu_torch.engine.generate import GenerateStats, Generator
+from teal_tpu_torch.engine.serving import ContinuousBatchingEngine, Request
 
-__all__ = ["Generator", "GenerateStats"]
+__all__ = ["ContinuousBatchingEngine", "Generator", "GenerateStats",
+           "Request"]

@@ -14,10 +14,13 @@ Port of `teal_tpu/models/llama.py` with the same parameter layout:
     {"q", "scale", "zero"} or packed int4 {"qp", "sz"} dicts
     (`ops/quant.py`); activations are then bf16 (`compute_dtype`).
 
-`forward` routes as the reference does. Batch-1 single-token
-threshold-mode decode at G=128 with the default route flags (the main
-path; the reference's packed pipeline / whole-token kernel) runs
-`ops/token_block.token_decode` on kernels K1 and K2. Everything else
+`forward` routes as the reference does. Single-token threshold-mode
+decode at G=128 with the default route flags, batch 1 or up to 16 rows
+(the main path and the continuous-batching server's decode step; the
+reference's packed pipeline / whole-token kernel) runs
+`ops/token_block.token_decode` on kernels K1 and K2; so does
+`block_verify` (S consecutive positions of one sequence as rows, fixed
+full selection, `seq_block`). Everything else
 runs the layer loop (`layer_forward`): dense and masked-dense layers in
 plain PyTorch, and single-token sparse decode through the kernels --
 block mode on K1 (threshold) or K3 (top-k, and batches of up to 8),
@@ -374,8 +377,8 @@ def can_token_decode(params, cfg: ModelConfig, sp: SparsityConfig,
     pipeline or whole-token kernel (`_can_packed_pipeline`): single-token
     threshold-mode decode with fused decode attention (`fused_attn`, from
     `can_fused_decode`) and `packed_pipeline` not False; batch 1, or up to
-    16 unless `token_fused` is False (the batched token kernel, which the
-    port does not have: `forward` raises for it); weights that are arrays,
+    16 unless `token_fused` is False (the batched token kernel's rows);
+    weights that are arrays,
     packed int4, or all seven int8 with `token_fused` not False (only the
     reference's whole-token kernel applies int8 scales), never unpacked
     int4; group size 128 for every stage (int4 at least 64), equal
@@ -413,7 +416,8 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             *, cfg: ModelConfig, sp: SparsityConfig,
             rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Full forward. tokens: [B, S] int; pos: start position shared by the
-    batch (int) or one per sequence; thresholds: [L, 7] fp32 on the
+    batch (int) or one per sequence (continuous batching: each row decodes
+    at its own depth); thresholds: [L, 7] fp32 on the
     parameters' device; rope: optional (cos, sin) tables from
     `precompute_rope` (computed here when absent). The cache is updated
     in place.
@@ -438,20 +442,24 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
                         fused_attn=fused_attn):
         from teal_tpu_torch.ops import token_block
 
-        if b > 1:
-            raise NotImplementedError(
-                "batched decode on the token path (the reference's batched "
-                "whole-token kernel) is not ported yet; token_fused=False "
-                "runs the layer loop")
-        p = pos[0]
-        rope_row = torch.stack([cos_full[p], sin_full[p]])[None]
+        if b == 1:
+            p = pos[0]
+            rows, pos_arg = h.reshape(cfg.dim), p
+            rope_rows = torch.stack([cos_full[p], sin_full[p]])[None]
+        else:
+            # one launch per stage for all rows: one pooled selection, the
+            # kept weights read once for the batch
+            rows = h.reshape(b, cfg.dim)
+            pos_arg = (torch.full((b,), pos[0], dtype=torch.int32,
+                                  device=dev) if len(set(pos)) == 1
+                       else torch.tensor(pos, dtype=torch.int32, device=dev))
+            rope_rows = _rope_rows(cos_full, sin_full, pos_arg)
         h1 = token_block.token_decode(
-            h.reshape(cfg.dim), thresholds,
-            tuple(lay[n] for n in _WEIGHTS), lay["attn_norm"],
-            lay["mlp_norm"], rope_row, cache.k, cache.v, p,
-            caps=token_path_caps(cfg, sp), n_heads=cfg.n_heads,
+            rows, thresholds, tuple(lay[n] for n in _WEIGHTS),
+            lay["attn_norm"], lay["mlp_norm"], rope_rows, cache.k, cache.v,
+            pos_arg, caps=token_path_caps(cfg, sp), n_heads=cfg.n_heads,
             norm_eps=cfg.norm_eps, window=cfg.sliding_window)
-        h = h1.reshape(1, 1, cfg.dim)
+        h = h1.reshape(b, 1, cfg.dim)
     else:
         # one fill, not a host-to-device copy, when the batch shares pos
         pos_t = (torch.full((b,), pos[0], dtype=torch.int64, device=dev)
@@ -464,6 +472,82 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
                                        cos, sin, cfg, sp, thresholds[i],
                                        fused_attn=fused_attn)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _lm_head(params, h), cache
+
+
+def _rope_rows(cos_full, sin_full, pos: torch.Tensor) -> torch.Tensor:
+    """[B, 2, head_dim] (cos, sin) rows at positions pos [B]."""
+    p = pos.long()
+    return torch.stack([cos_full[p], sin_full[p]], dim=1)
+
+
+def can_block_verify(params, cfg: ModelConfig, s: int) -> bool:
+    """Gate for `block_verify` (the reference's `can_block_verify`, shapes
+    and types only): 1 < s <= 32, no MoE, head_dim 128, dim and
+    intermediate_size multiples of 128, weights that are arrays, all seven
+    int8, or packed int4, gathered at G = 128 in every stage."""
+    lay = params["layers"]
+    if not (1 < s <= 32 and cfg.n_experts == 0 and cfg.head_dim == 128
+            and cfg.dim % 128 == 0 and cfg.intermediate_size % 128 == 0):
+        return False
+    if isinstance(lay["wq"], dict) and "zero" in lay["wq"]:
+        return False
+    if _is_int8(lay["wq"]) and not all(_is_int8(lay[n]) for n in _WEIGHTS):
+        return False
+    D, I = cfg.dim, cfg.intermediate_size
+    return all(block_gemv._shared_group_size([lay[n] for n in names], 128,
+                                             K) == 128
+               for names, K in ((("wq", "wk", "wv"), D), (("wo",), D),
+                                (("wgate", "wup"), D), (("wdown",), I)))
+
+
+def block_verify(params, tokens: torch.Tensor, cache: KVCache, pos: int,
+                 thresholds, *, cfg: ModelConfig,
+                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Dense forward over S consecutive positions pos..pos+S-1 of ONE
+    sequence through the token path (the reference's `block_verify`,
+    `teal_tpu/models/llama.py:811`): the positions ride as K1's rows with
+    the identity selection at full capacity (`fixed_sel`), so every
+    weight is read once per chunk, and K2 runs them as `seq_block` slots
+    of cache row 0. S > 8 runs ceil(S/8) chunks of balanced sizes (S = 12
+    -> 6 + 6) in order; a later chunk attends to the earlier ones through
+    the cache. Gate with `can_block_verify`.
+
+    tokens: [1, S] int; pos: the first position; thresholds: [L, 7]
+    (unused by the fixed selection, passed through as the reference
+    does); the cache (batch 1) is updated in place at pos..pos+S-1.
+    Returns (logits [1, S, V] fp32, cache)."""
+    from teal_tpu_torch.ops import token_block
+
+    b, s = tokens.shape
+    if b != 1 or s < 2:
+        raise ValueError(f"block_verify takes one sequence of S >= 2 "
+                         f"tokens; got {tuple(tokens.shape)}")
+    pos = int(pos)
+    if not (0 <= pos and pos + s <= cache.max_seq):
+        raise ValueError(f"positions {pos}..{pos + s - 1} out of range "
+                         f"[0, {cache.max_seq})")
+    lay = params["layers"]
+    dev = tokens.device
+    cos_full, sin_full = rope or precompute_rope(cfg, cache.max_seq, dev)
+    n_chunks = -(-s // 8)
+    base, rem = divmod(s, n_chunks)
+    sizes = [base + (1 if j < rem else 0) for j in range(n_chunks)]
+    D, I = cfg.dim, cfg.intermediate_size
+    hs, off = [], 0
+    for ss in sizes:
+        h = params["embed"][tokens[0, off:off + ss]].to(compute_dtype(params))
+        positions = torch.arange(pos + off, pos + off + ss, dtype=torch.int32,
+                                 device=dev)
+        hs.append(token_block.token_decode(
+            h, thresholds, tuple(lay[n] for n in _WEIGHTS),
+            lay["attn_norm"], lay["mlp_norm"],
+            _rope_rows(cos_full, sin_full, positions), cache.k, cache.v,
+            positions, caps=(D // 128, D // 128, D // 128, I // 128),
+            n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+            window=cfg.sliding_window, fixed_sel=True, seq_block=True))
+        off += ss
+    h = rms_norm(torch.cat(hs)[None], params["final_norm"], cfg.norm_eps)
     return _lm_head(params, h), cache
 
 

@@ -11,9 +11,10 @@ ascending order. Only the kept groups' weight slabs `[G, N]` are read.
 Two kernels, each launched on CUDA tensors and run as its plain PyTorch
 version (same module) on CPU tensors:
   - K1 `select_gather_gemv` (`csrc/select_gather_gemv.cu`): threshold
-    selection inside the kernel at G in {32, 64, 128}, one input row,
-    optional folded rms_norm, 1-3 layer-stacked weights `[L, K, N]`
-    sharing one selection, and one of three epilogues;
+    selection inside the kernel at G in {32, 64, 128}, one input row or
+    up to 16 rows at G = 128 (pooled scores, one kept set), optional
+    folded rms_norm, 1-3 layer-stacked weights `[L, K, N]` sharing one
+    selection, and one of three epilogues;
   - K3 `block_gather_gemv_multi` (`csrc/block_gather_gemv.cu`): the
     gather over a kept-group list selected outside the kernel (top-k
     mode, and batched decode of up to 8 rows with one pooled selection).
@@ -46,6 +47,7 @@ from teal_tpu_torch.ops.sparsify import group_capacity
 
 LANES = 128
 SUBLANES = 8
+MAX_ROWS = 16                    # K1's rows form: batched token decode
 GROUP_SIZES = (32, 64, 128)      # the kernels' compiled group sizes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -375,55 +377,69 @@ def _check_launch_device(t: torch.Tensor, name: str) -> None:
 # --- K1 -------------------------------------------------------------------
 
 def selection_input(x, norm, layer: int, norm_eps: float):
-    """The vector K1 scores and gathers with: x itself, or with `norm`
-    its folded rms_norm, rounded to the stream type before and after the
-    gain as `llama.rms_norm` does."""
+    """What K1 scores and gathers with, for x [K] or rows [B, K]: x
+    itself, or with `norm` its folded rms_norm (each row by the rsqrt of
+    its own mean square, `_norm_fold`), rounded to the stream type before
+    and after the gain as `llama.rms_norm` does."""
     if norm is None:
         return x
     xf = x.float()
-    scale = torch.rsqrt((xf * xf).sum() / x.shape[0] + norm_eps)
+    scale = torch.rsqrt((xf * xf).sum(-1, keepdim=True) / x.shape[-1]
+                        + norm_eps)
     return (xf * scale).to(x.dtype) * norm[layer].to(x.dtype)
 
 
 def select_gather_gemv_plain(x, thr, ws, layer: int, cap: int, *,
                              G: int = LANES, norm=None,
                              norm_eps: float = 1e-5, res=None,
-                             silu: bool = False, scales=None):
+                             silu: bool = False, scales=None,
+                             fixed: bool = False):
     """K1 in plain PyTorch (same arguments and results as
     `select_gather_gemv`). Keeps the reference's cast points: the folded
     norm rounds to the stream type before and after the gain; scores,
-    sums, int8 scales and epilogues are fp32."""
+    sums, int8 scales and epilogues are fp32. A group's score is its max
+    |x| over lanes and rows (`_select_scan`); one kept set serves every
+    row."""
     dt = x.dtype
-    nb = x.shape[0] // G
-    x = selection_input(x, norm, layer, norm_eps)
-    scores = x.float().abs().reshape(nb, G).amax(dim=-1)
-    kept = torch.nonzero(_threshold_mask(scores, thr, cap)).flatten()
+    rows = x.reshape(-1, x.shape[-1])
+    nb = rows.shape[1] // G
+    xs = selection_input(rows, norm, layer, norm_eps)
+    if fixed:
+        kept = torch.arange(cap, device=x.device)
+    else:
+        scores = xs.float().abs().reshape(-1, nb, G).amax(dim=-1).amax(dim=0)
+        kept = torch.nonzero(_threshold_mask(scores, thr, cap)).flatten()
     count = kept.numel()
     idx = torch.full((cap,), -1, dtype=torch.int32, device=x.device)
     idx[:count] = kept.to(torch.int32)
-    xg = x.reshape(nb, G)[kept][None]
-    accs = [_slab_sums(xg, w, layer, kept, G)[0] for w in ws]
+    xg = xs.reshape(-1, nb, G)[:, kept]                       # [B, k, G]
+    accs = [_slab_sums(xg, w, layer, kept, G) for w in ws]    # [B, N_i]
     if scales is not None:
         accs = [a * s[layer] for a, s in zip(accs, scales)]
     if silu:
         g, u = accs
         out = (g * (1.0 / (1.0 + torch.exp(-g))) * u).to(dt)
     elif res is not None:
-        out = (accs[0] + res.float()).to(dt)
+        out = (accs[0] + res.reshape(accs[0].shape).float()).to(dt)
     else:
-        out = torch.cat(accs)
-    return out, idx, torch.tensor([count], dtype=torch.int32,
-                                  device=x.device)
+        out = torch.cat(accs, dim=-1)
+    return (out.reshape(*x.shape[:-1], out.shape[-1]), idx,
+            torch.tensor([count], dtype=torch.int32, device=x.device))
 
 
 def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales):
-    if x.dtype not in _DTYPE_CODE or x.dim() != 1 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous fp32/bf16 vector; got "
-                         f"{x.dtype} {tuple(x.shape)}")
-    K = x.shape[0]
+    if (x.dtype not in _DTYPE_CODE or x.dim() not in (1, 2)
+            or not x.is_contiguous()
+            or (x.dim() == 2 and not 1 <= x.shape[0] <= MAX_ROWS)):
+        raise ValueError(f"x must be a contiguous fp32/bf16 vector [K] or "
+                         f"rows [B <= {MAX_ROWS}, K]; got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    K = x.shape[-1]
     if G not in GROUP_SIZES or K % G:
         raise ValueError(f"group size {G} must be one of {GROUP_SIZES} and "
                          f"divide K={K}")
+    if x.dim() == 2 and x.shape[0] > 1 and G != LANES:
+        raise ValueError(f"the rows form runs at G = {LANES}; got G = {G}")
     L, plan = _check_weights(ws, K, x.dtype, x.device, G)
     if scales is not None and (
             plan != PLAN_INT8 or len(scales) != len(ws)
@@ -449,11 +465,11 @@ def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales):
         raise ValueError("silu needs exactly (gate, up) of equal width and "
                          "no residual")
     if res is not None:
-        n_tot = sum(_width(w) for w in ws)
-        if (res.shape != (n_tot,) or res.dtype != x.dtype
+        shape = (*x.shape[:-1], sum(_width(w) for w in ws))
+        if (res.shape != shape or res.dtype != x.dtype
                 or res.device != x.device or not res.is_contiguous()):
-            raise ValueError(f"res must be a contiguous [{n_tot}] vector of "
-                             f"x's type")
+            raise ValueError(f"res must be a contiguous {list(shape)} tensor "
+                             f"of x's type")
     return plan
 
 
@@ -472,36 +488,44 @@ def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer: int,
                        norm: Optional[torch.Tensor] = None,
                        norm_eps: float = 1e-5,
                        res: Optional[torch.Tensor] = None,
-                       silu: bool = False, scales=None):
+                       silu: bool = False, scales=None,
+                       fixed: bool = False):
     """K1: select + gather GEMV over layer `layer` of stacked weights.
 
-    x:    [K] stream (raw when `norm` is given, which folds rms_norm in)
+    x:    [K] stream, or rows [B, K] with B <= 16 at G = 128 (raw when
+          `norm` is given, which folds rms_norm in, row by row); rows
+          share one kept set, picked by each group's max |x| over the rows
     thr:  one fp32 group-score threshold (a 0-d view into the [L, 7]
           table works: the kernel reads it on the device)
     ws:   1-3 weights sharing one selection and one plan: [L, K, N_i] of
           x's type, int8 [L, K, N_i], or packed int4 {"qp" int8
           [L, K/2, N_i], "sz" fp32 [L, K/G, 2, N_i]} (G >= 64)
     G:    group size, one of `GROUP_SIZES`
-    norm: [L, K] rms_norm gains; res: [N] residual added in fp32
+    norm: [L, K] rms_norm gains; res: residual of out's shape, added in
+          fp32
     silu: ws = (gate, up): out = silu(gate) * up
     scales: int8 only, one fp32 [L, N_i] per-channel scale per weight,
           applied to the fp32 sums before the epilogue
+    fixed: keep groups 0..cap-1 without scoring (`_select_scan(fixed)`,
+          the verify path's identity selection at full capacity)
 
-    Returns (out, idx, count): out is fp32 [sum N_i] (no epilogue) or
-    x's type [N] (res / silu); idx [cap] int32 holds the kept groups in
-    ascending order, -1 past `count` ([1] int32).
+    Returns (out, idx, count): out is fp32 [..., sum N_i] (no epilogue)
+    or x's type [..., N] (res / silu), with x's leading shape; idx [cap]
+    int32 holds the kept groups in ascending order, -1 past `count` ([1]
+    int32).
     """
     plan = _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales)
     if x.device.type == "cpu":
         return select_gather_gemv_plain(x, thr, ws, layer, cap, G=G,
                                         norm=norm, norm_eps=norm_eps,
-                                        res=res, silu=silu, scales=scales)
+                                        res=res, silu=silu, scales=scales,
+                                        fixed=fixed)
     _check_launch_device(x, "select_gather_gemv")
     lib = _build.load()["select_gather_gemv"]
     mode = 2 if silu else (1 if res is not None else 0)
     n = [_width(w) for w in ws]
     n_out = n[0] if silu else sum(n)
-    out = torch.empty(n_out, device=x.device,
+    out = torch.empty((*x.shape[:-1], n_out), device=x.device,
                       dtype=torch.float32 if mode == 0 else x.dtype)
     sel = torch.empty(cap + 1, dtype=torch.int32, device=x.device)
     w_p, sz_p, sc_p = _ptrs(ws, plan, scales)
@@ -512,8 +536,8 @@ def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer: int,
         *w_p, *sz_p, *sc_p, *n, len(ws),
         None if res is None else res.data_ptr(),
         out.data_ptr(), sel.data_ptr(), sel.data_ptr() + 4 * cap,
-        x.shape[0], G, layer, cap, mode,
-        torch.cuda.current_stream().cuda_stream)
+        x.shape[-1], G, layer, cap, mode, x.numel() // x.shape[-1],
+        int(fixed), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "select_gather_gemv")
     select_gather_gemv.launches += 1
     return out, sel[:cap], sel[cap:]

@@ -9,6 +9,11 @@ type. `decode_attention` launches `csrc/decode_attention.cu` on CUDA
 tensors and runs `decode_attention_plain` on CPU tensors.
 
 The cache is updated in place (the JAX kernel aliases it input->output).
+
+`seq_block=True` is the verify path's form (`attn_block.attn_stage` with
+`cache_rows=(0,)*B`): the B slots are consecutive positions pos[0] + i of
+one sequence in cache row 0, and slot i attends to the slots before it
+as if each slot's row were written before the next slot reads.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from teal_tpu_torch import _build
 
 HEAD_DIM = 128
 MAX_GROUP = 8                    # query heads per kv head in the kernel
+MAX_SEQ_BLOCK = 16               # slots of a seq_block launch
 _SMEM_BYTES = 227 * 1024         # a block's shared memory on Hopper
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,9 +40,11 @@ def rope_rows(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
 
 
 def decode_attention_plain(q, k_new, v_new, kc, vc, layer: int, pos, *,
-                           window: Optional[int] = None, rope=None):
+                           window: Optional[int] = None, rope=None,
+                           seq_block: bool = False):
     """K2 in plain PyTorch (same arguments and result as
-    `decode_attention`): one exact softmax pass per kv head."""
+    `decode_attention`): one exact softmax pass per kv head, slot by slot,
+    each slot's cache row written before the next slot reads."""
     B, Hq, D = q.shape
     Hkv = k_new.shape[1]
     GH = Hq // Hkv
@@ -47,9 +55,10 @@ def decode_attention_plain(q, k_new, v_new, kc, vc, layer: int, pos, *,
     out = torch.empty((B, Hq, D), dtype=cdt, device=q.device)
     for b in range(B):
         p = int(pos[b])
+        cb = 0 if seq_block else b
         lo = max(p - window + 1, 0) if window else 0
-        ks = kc[layer, b, :, lo:p].float()               # [Hkv, n, D]
-        vs = vc[layer, b, :, lo:p].float()
+        ks = kc[layer, cb, :, lo:p].float()              # [Hkv, n, D]
+        vs = vc[layer, cb, :, lo:p].float()
         qg = q[b].reshape(Hkv, GH, D)
         s = torch.einsum("hgd,htd->hgt", qg.to(cdt).float(), ks)
         sc = (qg * k_new[b][:, None, :]).sum(-1, keepdim=True)
@@ -60,19 +69,30 @@ def decode_attention_plain(q, k_new, v_new, kc, vc, layer: int, pos, *,
         pv = torch.einsum("hgt,htd->hgd", e.to(cdt).float(), vs)
         o = (pv + ec * v_new[b][:, None, :]) * (1.0 / den)
         out[b] = o.reshape(Hq, D).to(cdt)
-        kc[layer, b, :, p] = k_new[b].to(cdt)
-        vc[layer, b, :, p] = v_new[b].to(cdt)
+        kc[layer, cb, :, p] = k_new[b].to(cdt)
+        vc[layer, cb, :, p] = v_new[b].to(cdt)
     return out
 
 
-def _check(q, k_new, v_new, kc, vc, layer, pos, window, rope):
+def _rows_ok(t, shape) -> bool:
+    """An fp32 [B, H, 128] tensor whose rows may be strided (a view into
+    K1's [B, n_tot] q|k|v output), each row contiguous."""
+    return (t.shape == shape and t.dtype == torch.float32
+            and t.stride()[1:] == (HEAD_DIM, 1))
+
+
+def _check(q, k_new, v_new, kc, vc, layer, pos, window, rope, seq_block):
     if q.dim() != 3 or q.shape[-1] != HEAD_DIM:
         raise ValueError(f"q must be [B, Hq, {HEAD_DIM}]; got "
                          f"{tuple(q.shape)}")
     B, Hq, D = q.shape
-    if kc.dim() != 5 or kc.shape[1] != B or kc.shape[4] != D:
-        raise ValueError(f"caches must be [L, {B}, Hkv, T, {D}]; got "
+    bc = 1 if seq_block else B
+    if kc.dim() != 5 or kc.shape[1] != bc or kc.shape[4] != D:
+        raise ValueError(f"caches must be [L, {bc}, Hkv, T, {D}]; got "
                          f"{tuple(kc.shape)}")
+    if seq_block and B > MAX_SEQ_BLOCK:
+        raise ValueError(f"a seq_block launch takes at most "
+                         f"{MAX_SEQ_BLOCK} slots; got {B}")
     L, _, Hkv, T, _ = kc.shape
     if Hq % Hkv or Hq // Hkv > MAX_GROUP:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}, at most "
@@ -81,13 +101,18 @@ def _check(q, k_new, v_new, kc, vc, layer, pos, window, rope):
             kc.dtype not in _DTYPE_CODE:
         raise ValueError("k/v caches must share one shape and fp32/bf16 type")
     for name, t, shape in (("q", q, (B, Hq, D)), ("k_new", k_new, (B, Hkv, D)),
-                           ("v_new", v_new, (B, Hkv, D)),
-                           ("rope", rope, (B, 2, D))):
-        if t is not None and (t.shape != shape or t.dtype != torch.float32
-                              or not t.is_contiguous()
-                              or t.device != kc.device):
-            raise ValueError(f"{name} must be contiguous fp32 {shape} on "
-                             f"the cache's device")
+                           ("v_new", v_new, (B, Hkv, D))):
+        if not _rows_ok(t, shape) or t.device != kc.device:
+            raise ValueError(f"{name} must be fp32 {shape} rows, each "
+                             f"contiguous, on the cache's device")
+    if k_new.stride(0) != v_new.stride(0):
+        raise ValueError("k_new and v_new must share one row stride")
+    if rope is not None and (rope.shape != (B, 2, D)
+                             or rope.dtype != torch.float32
+                             or not rope.is_contiguous()
+                             or rope.device != kc.device):
+        raise ValueError(f"rope must be contiguous fp32 {(B, 2, D)} on the "
+                         f"cache's device")
     for t in (kc, vc):
         if not t.is_contiguous():
             raise ValueError("caches must be contiguous")
@@ -99,7 +124,8 @@ def _check(q, k_new, v_new, kc, vc, layer, pos, window, rope):
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive; got {window}")
     GH = Hq // Hkv
-    if 4 * (2 * GH * D + 2 * D + 64 + GH * T) > _SMEM_BYTES:
+    prev = 2 * MAX_SEQ_BLOCK * D if seq_block else 0
+    if 4 * (2 * GH * D + 2 * D + 64 + prev + GH * T) > _SMEM_BYTES:
         raise ValueError(f"score row of {GH} heads x T={T} does not fit "
                          "one block's shared memory")
 
@@ -107,17 +133,22 @@ def _check(q, k_new, v_new, kc, vc, layer, pos, window, rope):
 def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                      layer: int, pos, *, window: Optional[int] = None,
-                     rope: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     rope: Optional[torch.Tensor] = None,
+                     seq_block: bool = False) -> torch.Tensor:
     """Single-token attention for layer `layer` of a stacked cache.
 
     q:     [B, Hq, 128] fp32 projection sums (RoPE and 1/sqrt(128) are
-           applied here)
+           applied here); rows may be strided, each row contiguous
     k_new: [B, Hkv, 128] fp32 current keys (RoPE applied here), v_new
-           likewise (no RoPE); both are written, cast to the cache type,
-           at row pos[b] of layer `layer`
-    kc/vc: [L, B, Hkv, T, 128] caches, updated in place
-    pos:   int32 [B] tensor (or an int) of current positions
+           likewise (no RoPE; same row stride); both are written, cast to
+           the cache type, at row pos[b] of layer `layer`
+    kc/vc: [L, B, Hkv, T, 128] caches ([L, 1, ...] with seq_block),
+           updated in place
+    pos:   int32 [B] tensor (or an int) of current positions; with
+           seq_block, pos[0] + i for slot i (the kernel traps otherwise)
     rope:  [B, 2, 128] fp32 (cos, sin) rows at pos, or None for no RoPE
+    seq_block: the B (<= 16) slots are consecutive positions of cache
+           row 0; slot i sees slots < i
 
     Returns attn [B, Hq, 128] in the cache type.
     """
@@ -126,10 +157,11 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
             raise ValueError(f"pos {pos} out of range [0, {kc.shape[3]})")
         pos = torch.full((q.shape[0],), pos, dtype=torch.int32,
                          device=kc.device)
-    _check(q, k_new, v_new, kc, vc, layer, pos, window, rope)
+    _check(q, k_new, v_new, kc, vc, layer, pos, window, rope, seq_block)
     if kc.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, kc, vc, layer, pos,
-                                      window=window, rope=rope)
+                                      window=window, rope=rope,
+                                      seq_block=seq_block)
     if kc.device.type != "cuda" or \
             kc.device.index != torch.cuda.current_device():
         raise ValueError(f"decode_attention runs on the current CUDA device "
@@ -145,8 +177,8 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
         _DTYPE_CODE[kc.dtype], q.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), rope.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         pos.data_ptr(), out.data_ptr(), B, Hq, kc.shape[2], kc.shape[3],
-        layer, window or 0, 1.0 / D ** 0.5,
-        torch.cuda.current_stream().cuda_stream)
+        layer, window or 0, 1.0 / D ** 0.5, q.stride(0), k_new.stride(0),
+        int(seq_block), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

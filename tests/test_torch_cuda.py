@@ -238,3 +238,73 @@ def test_plan_kernels_raise_rather_than_fall_back(cuda):
     before = bg.select_gather_gemv.launches
     bg.select_gather_gemv(x, t, [w8], 0, 1, G=32)
     assert bg.select_gather_gemv.launches == before + 1
+
+
+def _rows_weights(g, cuda, plan, dtype, L, K, ns):
+    """Weights of a plan for K1's rows form (G = 128), and int8 scales."""
+    if plan == "stream":
+        return [(torch.randn(L, K, n, generator=g, device=cuda) * 0.05)
+                .to(dtype) for n in ns], None
+    ws = _plan_weights(g, cuda, plan, L, K, ns, 128)
+    scales = ([torch.rand(L, n, generator=g, device=cuda) * 1e-3
+               for n in ns] if plan == "int8" else None)
+    return ws, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", ["stream", "int8", "int4"])
+@pytest.mark.parametrize("epilogue", ["qkv", "res", "silu"])
+@pytest.mark.parametrize("B", [3, 16])
+def test_k1_rows_match_plain(cuda, dtype, plan, epilogue, B):
+    """K1's rows form: the same kept set as the plain version (pooled
+    scores, per-row norm; `fixed` keeps 0..cap-1) and the same outputs
+    for every row."""
+    g = torch.Generator(device=cuda).manual_seed(8 + B)
+    L, K, layer, cap = 2, 1024, 1, 4
+    ns = {"qkv": (512, 256, 256), "res": (1024,), "silu": (512, 512)}
+    ws, scales = _rows_weights(g, cuda, plan, dtype, L, K, ns[epilogue])
+    x = torch.randn(B, K, generator=g, device=cuda).to(dtype)
+    norm = (1 + 0.1 * torch.randn(L, K, generator=g, device=cuda)).to(dtype)
+    kw = dict(norm=None if epilogue == "res" else norm,
+              res=(torch.randn(B, K, generator=g, device=cuda).to(dtype)
+                   if epilogue == "res" else None),
+              silu=epilogue == "silu", scales=scales)
+    for thr, fixed in ((0.0, False), (2.9, False), (3.4, False),
+                       (100.0, False), (100.0, True)):
+        t = torch.tensor(thr, device=cuda)
+        got, gidx, gcnt = bg.select_gather_gemv(x, t, ws, layer, cap,
+                                                fixed=fixed, **kw)
+        want, widx, wcnt = bg.select_gather_gemv_plain(x, t, ws, layer, cap,
+                                                       fixed=fixed, **kw)
+        assert torch.equal(gcnt, wcnt) and torch.equal(gidx, widx), thr
+        assert got.shape == want.shape == (B, want.shape[-1])
+        ok, err = _close(got, want, 1e-5 if dtype == torch.float32
+                         else 2 ** -7)
+        assert ok, (thr, fixed, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,window", [(4, 4, None), (8, 2, 16)])
+@pytest.mark.parametrize("p0", [0, 5, 40])
+def test_k2_seq_block_matches_plain(cuda, dtype, Hq, Hkv, window, p0):
+    """K2's seq_block form (S = 8 consecutive positions of cache row 0,
+    q/k/v as strided views of one [S, n_tot] row block): the whole cache
+    after the call bit for bit, outputs as the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(9 + p0)
+    L, T, S, layer = 2, 64, 8, 1
+    kc = torch.randn(L, 1, Hkv, T, 128, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(L, 1, Hkv, T, 128, generator=g, device=cuda).to(dtype)
+    qkv = torch.randn(S, (Hq + 2 * Hkv) * 128, generator=g, device=cuda)
+    q = qkv[:, :Hq * 128].view(S, Hq, 128)
+    kn = qkv[:, Hq * 128:(Hq + Hkv) * 128].view(S, Hkv, 128)
+    vn = qkv[:, (Hq + Hkv) * 128:].view(S, Hkv, 128)
+    rope = torch.rand(S, 2, 128, generator=g, device=cuda)
+    pos = torch.arange(p0, p0 + S, dtype=torch.int32, device=cuda)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = decode_attention(q, kn, vn, k1, v1, layer, pos, window=window,
+                           rope=rope, seq_block=True)
+    want = decode_attention_plain(q, kn, vn, k2, v2, layer, pos,
+                                  window=window, rope=rope, seq_block=True)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    ok, err = _close(got, want, 1e-5 if dtype == torch.float32 else 1e-2)
+    assert ok, err

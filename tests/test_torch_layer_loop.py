@@ -228,9 +228,10 @@ def test_lm_head_keeps_fp32_sums():
 
 
 def test_unported_variants_raise(model):
-    """The MoE FFN, batched gather mode and batched decode on the token
-    path raise NotImplementedError (int8 and int4 weights are held to the
-    JAX package in tests/test_torch_quant.py)."""
+    """The MoE FFN (on the layer loop's and the token path's configs) and
+    batched gather mode raise NotImplementedError (int8 and int4 weights
+    are held to the JAX package in tests/test_torch_quant.py, batched
+    decode on the token path in tests/test_torch_batched.py)."""
     cfg, _, params, _ = model
     th = torch.zeros(cfg.n_layers, len(PROJS))
 
@@ -241,6 +242,6 @@ def test_unported_variants_raise(model):
 
     moe = dataclasses.replace(cfg, n_experts=2, n_experts_per_tok=1)
     for p, c, sp, b in ((params, moe, PATH_A, 1), (params, cfg, PATH_C, 2),
-                        (params, cfg, MAIN, 2)):
+                        (params, moe, MAIN, 2)):
         with pytest.raises(NotImplementedError):
             fwd(p, c, sp, b)

@@ -160,9 +160,15 @@ def test_entry_points_default_to_cuda(model):
 
 
 def test_unported_sparse_decode_raises(model):
+    """What is still unported raises: the MoE FFN, on the token path's
+    config as everywhere, and MoE parameters."""
     cfg, _, params, _, th = model
+    moe = get_model_config("tiny", **CFG_KW, n_experts=4, n_experts_per_tok=2)
+    sp = SparsityConfig(**MAIN)
+    assert not llama.can_token_decode(params, moe, sp, 1, 2, torch.float32)
     cache = llama.KVCache.init(cfg, 2, T, torch.float32, "cpu")
     with pytest.raises(NotImplementedError):
         llama.forward(params, torch.tensor([[1], [2]]), cache, 3,
-                      torch.from_numpy(th), cfg=cfg,
-                      sp=SparsityConfig(**MAIN))
+                      torch.from_numpy(th), cfg=moe, sp=sp)
+    with pytest.raises(NotImplementedError):
+        llama.init_params(moe, torch.Generator(), torch.float32, "cpu")

@@ -1,0 +1,147 @@
+"""The port's continuous-batching server (`engine/serving.py`) against the
+JAX package's on the CPU, greedy in fp32: identical tokens for every
+request. With the main-path config each decode step is one pass of the
+batched token path over all slots (the JAX side through its batched
+whole-token kernel in interpret mode), inactive slots included."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from teal_tpu.config import SparsityConfig as JSparsityConfig
+from teal_tpu.config import get_model_config as jget_model_config
+from teal_tpu.engine.serving import ContinuousBatchingEngine as JEngine
+from teal_tpu.models import llama as jllama
+from teal_tpu_torch.config import SparsityConfig, get_model_config
+from teal_tpu_torch.engine import ContinuousBatchingEngine, Generator
+from teal_tpu_torch.models import llama
+
+MAIN = dict(enabled=True, kernel="block", block_size=128,
+            block_keep_frac=0.5, block_thresholding=True)
+TH = np.array([2.6, 2.6, 2.6, 0.12, 2.65, 2.65, 0.12], np.float32)
+MAX_SEQ = 48
+
+
+@functools.lru_cache(maxsize=None)
+def _model():
+    kw = dict(n_layers=2, n_heads=2, n_kv_heads=1, dim=256,
+              intermediate_size=384, vocab_size=128)
+    cfg, jcfg = get_model_config("tiny", **kw), jget_model_config("tiny", **kw)
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(5), jnp.float32)
+    params = llama.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                     device="cpu")
+    return cfg, jcfg, params, jparams
+
+
+def _prompts(n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 128, int(rng.integers(2, 20))).tolist()
+            for _ in range(n)]
+
+
+def _port(prompts, new, slots, sp=MAIN, **kw):
+    cfg, _, params, _ = _model()
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=slots, max_seq=MAX_SEQ, temperature=0.0,
+        cache_dtype=torch.float32, sp=SparsityConfig(**sp),
+        thresholds=torch.from_numpy(np.tile(TH, (cfg.n_layers, 1))),
+        device="cpu", **kw)
+    for p in prompts:
+        eng.submit(p, new)
+    return [r.out for r in sorted(eng.run(), key=lambda r: r.id)]
+
+
+def _jax(prompts, new, slots, **kw):
+    _, jcfg, _, jparams = _model()
+    eng = JEngine(jcfg, jparams, slots=slots, max_seq=MAX_SEQ,
+                  temperature=0.0, cache_dtype=jnp.float32,
+                  sp=JSparsityConfig(**MAIN, fused_decode_attention=True),
+                  thresholds=jnp.asarray(np.tile(TH, (jcfg.n_layers, 1))),
+                  **kw)
+    for p in prompts:
+        eng.submit(p, new)
+    with pltpu.force_tpu_interpret_mode():
+        return [r.out for r in sorted(eng.run(), key=lambda r: r.id)]
+
+
+@pytest.mark.parametrize("slots,n_req", [(2, 2), (10, 10), (3, 7)],
+                         ids=["2-slots", "10-slots", "more-requests"])
+def test_server_matches_jax(slots, n_req):
+    """2 slots (one row tile), 10 slots (two row tiles), and 7 requests
+    on 3 slots: requests join as slots free up, and inactive slots ride
+    in the pooled selection at token 0, position 0, as in the
+    reference."""
+    prompts = _prompts(n_req, slots)
+    got = _port(prompts, 5, slots)
+    assert got == _jax(prompts, 5, slots)
+    assert all(len(o) == 5 for o in got)
+
+
+def test_chunked_admission_matches_oneshot_and_jax():
+    """prefill_chunk=8 admission (one chunk per engine step, interleaved
+    with decode) gives one-shot admission's tokens, and the JAX chunked
+    server's."""
+    prompts = [[1, 2, 3], list(range(1, 20)), [4, 5, 6, 9]]
+    got = _port(prompts, 5, 2, prefill_chunk=8)
+    assert got == _port(prompts, 5, 2)
+    assert got == _jax(prompts, 5, 2, prefill_chunk=8)
+
+
+def test_chunked_admission_interleaves_decode():
+    """While a 4-chunk prompt is admitted, an active request decodes one
+    token per engine step."""
+    cfg, _, params, _ = _model()
+    C = 8
+    eng = ContinuousBatchingEngine(cfg, params, slots=2, max_seq=MAX_SEQ,
+                                   temperature=0.0, cache_dtype=torch.float32,
+                                   prefill_chunk=C, device="cpu")
+    eng.submit([1, 2, 3], 40)
+    eng.step()
+    eng.step()
+    before = len(eng.active[0].out)
+    eng.submit(list(range(1, 4 * C + 1)), 2)
+    steps = 0
+    while (eng._pending is not None or eng.active[1] is None) and steps < 10:
+        eng.step()
+        steps += 1
+    assert steps == 4
+    assert len(eng.active[0].out) - before == steps
+
+
+def test_server_matches_single_request_generation():
+    """Each request's tokens are what the batch-1 Generator gives it alone
+    (dense decode, where the batch cannot change the arithmetic), with a
+    reused slot and an eos stop."""
+    cfg, _, params, _ = _model()
+    prompts = [[9, 8, 7], [2, 4], [5, 6, 7, 8]]
+    gen = Generator(cfg, params, max_seq=MAX_SEQ, cache_dtype=torch.float32,
+                    temperature=0.0, device="cpu")
+    want = [gen.generate(np.array(p), 6)[0][0, len(p):].tolist()
+            for p in prompts]
+    assert _port(prompts, 6, 2, sp={}) == want
+    eos = want[0][1]
+    got = _port(prompts[:1], 50, 1, sp={}, eos_id=eos)
+    assert got == [want[0][:want[0].index(eos) + 1]]
+
+
+def test_server_samples_from_its_generator():
+    """temperature > 0 draws from the engine's torch.Generator: the same
+    seed gives the same tokens."""
+    cfg, _, params, _ = _model()
+
+    def run(seed):
+        eng = ContinuousBatchingEngine(
+            cfg, params, slots=2, max_seq=MAX_SEQ, temperature=1.0,
+            cache_dtype=torch.float32, device="cpu",
+            generator=torch.Generator().manual_seed(seed))
+        for p in ([1, 2, 3], [4, 5]):
+            eng.submit(p, 6)
+        return [r.out for r in sorted(eng.run(), key=lambda r: r.id)]
+
+    assert run(3) == run(3)
+    assert all(0 <= t < cfg.vocab_size for o in run(4) for t in o)
