@@ -84,6 +84,22 @@ Phases:
      ceil(S/8) * (4*L K1 + L K2) launches, logits against the dense
      forward and against its plain version (2e-2 of scale); the rows
      forms' times beside their bound, plain version and library call;
+ 10. Mixtral-8x7B (MoE) on the token path, after the 7B weights are freed:
+     K5 (`moe_route`) against its plain version on a bf16 stream and fp32
+     routers (identical routed experts, also where two router columns tie:
+     the lower expert wins; xn within one bf16 ulp; weights within 1e-6);
+     then an int8 copy at all 32 layers and a bf16 copy at 8 layers, full
+     width, each built on the card one layer at a time (int8: drawn in
+     bf16 and quantized layer by layer; peak memory logged): K1's MoE
+     forms against the plain version (pseudo-layer read on the device, up
+     to 255; gate|up without a norm; down with the weighted residual;
+     three selection regimes; identical kept sets, 2^-7 of scale), every
+     layer of one decode step held to the plain token path (thresholds of
+     columns 0, 3, 4 picked there, column 6 at 0; 2e-2 of scale; the same
+     routed experts), three greedy requests with 6*L K1 + L K2 + L K5
+     launches a decoded token (256 at 32 layers), tok/s at keep 0.5
+     against 1.0, the decode step's device and wall time, and K5's and the
+     MoE K1 calls' times beside their bound and yardsticks;
 all printed as one `kernels` JSON line, with the card in it.
 
 The line before the last is the card's name and power limit from
@@ -119,9 +135,10 @@ LOOP_PATHS = {
                block_keep_frac=0.5, block_thresholding=True), 1),
     "C": (dict(enabled=True, kernel="gather"), 1),
 }
-# kernel launches per layer and decode step on each path: K1, K2, K3, K4
-LOOP_LAUNCHES = {"A": (0, 1, 4, 0), "A-b4": (0, 1, 4, 0), "B": (4, 1, 0, 0),
-                 "C": (0, 0, 0, 7)}
+# kernel launches per layer and decode step on each path: K1, K2, K3, K4,
+# K5
+LOOP_LAUNCHES = {"A": (0, 1, 4, 0, 0), "A-b4": (0, 1, 4, 0, 0),
+                 "B": (4, 1, 0, 0, 0), "C": (0, 0, 0, 7, 0)}
 LOOP_NEW_TOKENS = 8
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
 STAGE_WEIGHTS = {"qkv": ("wq", "wk", "wv"), "o": ("wo",),
@@ -137,9 +154,10 @@ QUANT_PATHS = {
     "Q4-main-b16": ("int4-g128", MAIN_SP, 16),
     "Q4-loop": ("int4-g64", LOOP_PATHS["A"][0], 1),
 }
-QUANT_LAUNCHES = {"Q8-main": (4, 1, 0, 0), "Q8-main-b16": (4, 1, 0, 0),
-                  "Q8-loop": (0, 1, 4, 0), "Q4-main": (4, 1, 0, 0),
-                  "Q4-main-b16": (4, 1, 0, 0), "Q4-loop": (0, 1, 4, 0)}
+QUANT_LAUNCHES = {"Q8-main": (4, 1, 0, 0, 0), "Q8-main-b16": (4, 1, 0, 0, 0),
+                  "Q8-loop": (0, 1, 4, 0, 0), "Q4-main": (4, 1, 0, 0, 0),
+                  "Q4-main-b16": (4, 1, 0, 0, 0),
+                  "Q4-loop": (0, 1, 4, 0, 0)}
 
 
 class SmokeFailure(RuntimeError):
@@ -449,14 +467,15 @@ def calibrate_and_check(params, cfg, cache, tok, pos, rope, caps, device):
 
 
 def _wrappers():
-    """Every kernel wrapper, in the order K1, K2, K3, K4."""
+    """Every kernel wrapper, in the order K1, K2, K3, K4, K5."""
     from teal_tpu_torch.ops.block_gemv import (block_gather_gemv_multi,
                                                select_gather_gemv)
     from teal_tpu_torch.ops.decode_attention import decode_attention
     from teal_tpu_torch.ops.gather_gemv import row_gather_gemv
+    from teal_tpu_torch.ops.token_block import moe_route
 
     return (select_gather_gemv, decode_attention, block_gather_gemv_multi,
-            row_gather_gemv)
+            row_gather_gemv, moe_route)
 
 
 def reset_launches():
@@ -465,7 +484,7 @@ def reset_launches():
 
 
 def read_launches():
-    """Launch counts (K1, K2, K3, K4)."""
+    """Launch counts (K1, K2, K3, K4, K5)."""
     return tuple(f.launches for f in _wrappers())
 
 
@@ -524,10 +543,11 @@ def end_to_end(params, cfg, caps, device, seed):
     dense.generate(prompts[0], 4)
     reset_launches()
     outs = [sparse.generate(p, NEW_TOKENS, thresholds=th) for p in prompts]
-    k1, k2, k3, k4 = read_launches()
+    k1, k2, k3, k4, k5 = read_launches()
     decoded = len(prompts) * (NEW_TOKENS - 1)
     check_launches(k1, k2, L, decoded)
-    check(k3 == k4 == 0, f"the main path launched K3 {k3} and K4 {k4} times")
+    check(k3 == k4 == k5 == 0, f"the main path launched K3 {k3}, K4 {k4} "
+          f"and K5 {k5} times")
     log(f"[e2e] main path: {len(prompts)} requests, {decoded} decoded "
         f"tokens, K1 launches {k1} ({k1 // max(decoded, 1)}/token), "
         f"K2 launches {k2} ({k2 // max(decoded, 1)}/token)")
@@ -774,7 +794,8 @@ def plain_path(k1=None):
               bg.block_gather_gemv_multi_plain),
              (gg, "row_gather_gemv", gg.row_gather_gemv_plain),
              (llama, "decode_attention", da.decode_attention_plain),
-             (attn_block, "decode_attention", da.decode_attention_plain)]
+             (attn_block, "decode_attention", da.decode_attention_plain),
+             (token_block, "moe_route", token_block.moe_route_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     before = read_launches()
     for m, n, f in swaps:
@@ -885,12 +906,15 @@ def picking_k1(x, thr, ws, layer, cap, *, G=128, norm=None, norm_eps=1e-5,
                **kw):
     """K1's plain version that first sets its threshold (`thr`, a view into
     the [L, 7] table) from the input it sees (`pick_threshold` on the
-    group scores, pooled over the rows)."""
+    group scores, pooled over the rows) -- except the MoE down stage (the
+    weighted residual), whose column 6 stays 0 as the reference's
+    calibration leaves it."""
     from teal_tpu_torch.ops import block_gemv as bg
 
-    xs = bg.selection_input(x, norm, layer, norm_eps)
-    scores = xs.float().abs().reshape(-1, xs.shape[-1] // G, G).amax(-1)
-    thr.fill_(pick_threshold(scores.amax(0), cap))
+    if kw.get("route_w") is None:
+        xs = bg.selection_input(x, norm, layer, norm_eps)
+        scores = xs.float().abs().reshape(-1, xs.shape[-1] // G, G).amax(-1)
+        thr.fill_(pick_threshold(scores.amax(0), cap))
     return bg.select_gather_gemv_plain(x, thr, ws, layer, cap, G=G,
                                        norm=norm, norm_eps=norm_eps, **kw)
 
@@ -908,7 +932,8 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
     tok: B tokens, one per row; pos: B positions (an int for B = 1). Each
     row is a sequence in its own cache row, or with `verify` the rows are
     consecutive positions of one sequence (`block_verify`'s chunk: fixed
-    full selection, `seq_block`, no thresholds picked).
+    full selection, `seq_block`, no thresholds picked). Mixtral (batch 1):
+    the layer's K5 too, whose routed experts must be the plain path's.
 
     Returns (thresholds [L, 7], worst relative error, the plain path's
     cache after the step as (k, v))."""
@@ -937,15 +962,29 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
     pl = pos_t.long()
     kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
               window=cfg.sliding_window, fixed_sel=verify, seq_block=verify)
+    cap_cols = caps
+    if cfg.n_experts:
+        ws = (*ws[:4], *(token_block.expert_stacks(w) for w in ws[4:]))
+        kw.update(router=lay["router"], k_exp=cfg.n_experts_per_tok)
+        cap_cols = caps[:2] + caps[2:] * cfg.n_experts_per_tok
     counts, worst = [], 0.0
     for i in range(cfg.n_layers):
+        routes = ([], [])                       # plain, kernel
         with plain_path(k1=None if verify else picking_k1):
             want = token_block.layer_decode(
                 h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], rows, k, v,
-                pos_t, **kw)
+                pos_t, routes=routes[0], **kw)
         got = token_block.layer_decode(
             h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], rows, kk, vk,
-            pos_t, counts=counts, **kw)
+            pos_t, counts=counts, routes=routes[1], **kw)
+        if cfg.n_experts:
+            check(all(torch.equal(a, b) for a, b in zip(*routes)),
+                  f"layer {i}: routed pseudo-layers {routes[1][0].tolist()} "
+                  f"vs the plain path's {routes[0][0].tolist()}")
+            if i in (0, cfg.n_layers - 1):
+                log(f"[moe] layer {i}: routed experts "
+                    f"{[e - i * cfg.n_experts for e in routes[1][0].tolist()]}"
+                    " on both paths")
         for what, g, w in (("hidden", got, want),
                            ("k rows", kk[i, cb, :, pl], k[i, cb, :, pl]),
                            ("v rows", vk[i, cb, :, pl], v[i, cb, :, pl])):
@@ -953,9 +992,9 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
                             f" layer {i} {what}: kernel vs plain", g, w, 2e-2)
             worst = max(worst, err / float(w.float().abs().max()))
         h = want
-    kept = torch.stack(counts).cpu()                       # [L, 4]
+    kept = torch.stack(counts).cpu()              # [L, len(cap_cols)]
     check(bool((kept >= 1).all()) and all(
-        bool((kept[:, j] <= caps[j]).all()) for j in range(4)),
+        bool((kept[:, j] <= c).all()) for j, c in enumerate(cap_cols)),
         f"kept counts outside [1, cap]: {kept.tolist()}")
     return th, worst, (k, v)
 
@@ -1006,14 +1045,14 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
         counts = read_launches()
         steps = len(prompts) * (LOOP_NEW_TOKENS - 1)
         want = tuple(n * L * steps for n in launches[name])
-        check(counts == want, f"path {name}: launches (K1, K2, K3, K4) "
+        check(counts == want, f"path {name}: launches (K1, K2, K3, K4, K5) "
               f"{counts}, expected {want} for {steps} decode steps")
         for p, (toks, st) in zip(prompts, outs):
             check(toks.shape == (b, p.shape[1] + LOOP_NEW_TOKENS)
                   and bool((toks >= 0).all() and (toks < cfg.vocab_size)
                            .all()), f"path {name}: bad tokens {toks.shape}")
         log(f"[loop] path {name}: {len(prompts)} requests, {steps} decode "
-            f"steps, launches per step (K1, K2, K3, K4) "
+            f"steps, launches per step (K1, K2, K3, K4, K5) "
             f"{tuple(c // steps for c in counts)}; tok/s "
             + ", ".join(f"{st.tokens_per_s * b:.2f}" for _, st in outs)
             + f"; first request's new tokens "
@@ -1638,12 +1677,13 @@ def check_step_launches(params, cfg, th, device, rope):
                               cache, pos, th, cfg=cfg,
                               sp=SparsityConfig(**MAIN_SP), rope=rope)
         got = read_launches()
-        check(got == (4 * L, L, 0, 0), f"batch {b}: launches (K1, K2, K3, "
-              f"K4) {got} in one decode step, expected {(4 * L, L, 0, 0)}")
+        check(got == (4 * L, L, 0, 0, 0), f"batch {b}: launches (K1, K2, K3, "
+              f"K4, K5) {got} in one decode step, expected "
+              f"{(4 * L, L, 0, 0, 0)}")
         check(tuple(lg.shape) == (b, 1, cfg.vocab_size)
               and bool(torch.isfinite(lg).all()), f"batch {b}: bad logits")
     log(f"[serve] one decode step at batch {STEP_BATCHES}: launches (K1, "
-        f"K2, K3, K4) = {(4 * L, L, 0, 0)} each")
+        f"K2, K3, K4, K5) = {(4 * L, L, 0, 0, 0)} each")
 
 
 def server_phase(params, cfg, device, seed, rope):
@@ -1712,10 +1752,9 @@ def server_phase(params, cfg, device, seed, rope):
         wall = time.perf_counter() - t0
         got = read_launches()
         steps = len(decode)
-        check(got == (4 * L * steps, L * steps, 0, 0),
-              f"server (chunk {chunk}): launches (K1, K2, K3, K4) {got}, "
-              f"expected {(4 * L * steps, L * steps, 0, 0)} for {steps} "
-              "decode steps")
+        want = (4 * L * steps, L * steps, 0, 0, 0)
+        check(got == want, f"server (chunk {chunk}): launches (K1, K2, K3, "
+              f"K4, K5) {got}, expected {want} for {steps} decode steps")
         check(len(done) == SERVER_REQUESTS and all(
             len(r.out) == n and all(0 <= t < cfg.vocab_size for t in r.out)
             for r, n in zip(sorted(done, key=lambda r: r.id), new)),
@@ -1810,7 +1849,7 @@ def verify_phase(params, cfg, device, seed, rope):
             torch.cuda.synchronize()
             runs[kind] = (lg, time.perf_counter() - t0, read_launches())
         lg, wall, got = runs["kernel"]
-        want = (n_chunks * 4 * L, n_chunks * L, 0, 0)
+        want = (n_chunks * 4 * L, n_chunks * L, 0, 0, 0)
         check(got == want, f"block_verify S={S}: launches {got}, expected "
               f"{want}")
         check(tuple(lg.shape) == (1, S, cfg.vocab_size)
@@ -1823,8 +1862,8 @@ def verify_phase(params, cfg, device, seed, rope):
                       bf16_err_plain=rel["plain"])
         log(f"[verify] S={S} ({n_chunks} chunk(s) {sizes}): every layer held "
             f"to the plain version (worst {worst:.2e} of scale); launches "
-            f"(K1, K2, K3, K4) {got}; bf16 logits after {L} layers vs the "
-            f"dense forward {rel['dense']:.2e} of scale, vs the plain "
+            f"(K1, K2, K3, K4, K5) {got}; bf16 logits after {L} layers vs "
+            f"the dense forward {rel['dense']:.2e} of scale, vs the plain "
             f"version {rel['plain']:.2e} (reported, not checked); wall "
             f"{wall * 1e3:.1f} ms (dense forward {runs['dense'][1] * 1e3:.1f}"
             " ms)")
@@ -1994,6 +2033,378 @@ def batched_phase(params, cfg, caps, device, gen, seed, rope):
     return entries, results, th
 
 
+# --- phase 10: Mixtral-8x7B on the token path's MoE branch -----------------
+
+MOE_MODEL = "Mixtral-8x7B"
+# (weights, layers): int8 at full depth, bf16 at 8 layers (full width)
+MOE_RUNS = (("int8", None), ("bf16", 8))
+MOE_ROUTE_LAYERS = 4             # K5 checked on synthetic routers
+MOE_PSEUDO = {"int8": (255, 100, 0), "bf16": (63, 20, 0)}
+
+
+def mixtral_params(cfg, gen, device, int8: bool):
+    """Mixtral at cfg's width and depth, random weights drawn on the card
+    from `gen` one layer at a time: each layer by the port's `init_params`
+    in bf16 (at a vocabulary of 8: the embedding and head are drawn once
+    after) and, with `int8`, quantized by `quantize_params_int8` before the
+    next is drawn, so that no bf16 copy of the whole model is ever held.
+    Returns (params, seconds)."""
+    import dataclasses
+
+    import torch
+
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import quant
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = dataclasses.replace(cfg, n_layers=1, vocab_size=8)
+    L, layers = cfg.n_layers, {}
+    for i in range(L):
+        lp = llama.init_params(one, gen, torch.bfloat16, device)
+        if int8:
+            lp = quant.quantize_params_int8(lp)
+        for name, leaf in lp["layers"].items():
+            if name not in layers:
+                layers[name] = llama._leaf(leaf, lambda a: torch.empty(
+                    (L, *a.shape[1:]), dtype=a.dtype, device=device))
+            dst = layers[name]
+            for key in (leaf if isinstance(leaf, dict) else (None,)):
+                d, s = (dst, leaf) if key is None else (dst[key], leaf[key])
+                d[i] = s[0]
+        del lp
+    V, D = cfg.vocab_size, cfg.dim
+    embed = (torch.randn((V, D), generator=gen, device=device)
+             * 0.02).bfloat16()
+    head = (torch.randn((D, V), generator=gen, device=device)
+            * 0.02).bfloat16()
+    if int8:
+        q = quant.quantize_int8(head)
+        head = {"q": q.q, "scale": q.scale}
+    params = {"embed": embed, "layers": layers, "lm_head": head,
+              "final_norm": torch.ones(D, dtype=torch.bfloat16,
+                                       device=device)}
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def check_k5(cfg, device, gen):
+    """K5 against its plain version at Mixtral's routing shapes (D, E = 8,
+    2 routed) on a bf16 stream and fp32 routers of `MOE_ROUTE_LAYERS`
+    layers: identical routed pseudo-layers, xn within one bf16 ulp,
+    weights within 1e-6; with two equal router columns on top (3 and 6)
+    and tied for second place (2 and 5, under expert 0) the lower expert
+    must win. Returns the largest absolute error."""
+    import torch
+
+    from teal_tpu_torch.ops import token_block as tb
+
+    D, E, k = cfg.dim, cfg.n_experts, cfg.n_experts_per_tok
+    Lr = MOE_ROUTE_LAYERS
+    router = torch.randn(Lr, D, E, generator=gen, device=device) * 0.02
+    norm = (1 + 0.1 * torch.randn(Lr, D, generator=gen, device=device)
+            ).bfloat16()
+    worst = 0.0
+    for li in range(Lr):
+        x = torch.randn(D, generator=gen, device=device).bfloat16()
+        xn = tb.moe_route_plain(x, norm, router, li, 1)[0].float()
+        for case, cols, want_e in (("random", {}, None),
+                                   ("tie first", {3: 4e-3, 6: 4e-3}, [3, 6]),
+                                   ("tie second", {0: 8e-3, 2: 4e-3,
+                                                   5: 4e-3}, [0, 2])):
+            r = router.clone()
+            for e, c in cols.items():
+                r[li, :, e] = xn * c
+            got = tb.moe_route(x, norm, r, li, k)
+            want = tb.moe_route_plain(x, norm, r, li, k)
+            ge = [e - li * E for e in got[1].tolist()]
+            we = [e - li * E for e in want[1].tolist()]
+            check(ge == we and (want_e is None or ge == want_e[:k]),
+                  f"K5 layer {li} {case}: experts {ge}, plain {we}, "
+                  f"expected {want_e}")
+            ulp = torch.finfo(torch.bfloat16).eps * want[0].float().abs()
+            d_xn = (got[0].float() - want[0].float()).abs()
+            check(bool((d_xn <= ulp).all()), f"K5 layer {li} {case}: xn "
+                  f"differs by more than one bf16 ulp")
+            d_w = float((got[2] - want[2]).abs().max())
+            check(d_w <= 1e-6, f"K5 layer {li} {case}: weights differ by "
+                  f"{d_w:.3e}")
+            worst = max(worst, d_w, float(d_xn.max()))
+            log(f"[k5] layer {li} {case:10s} experts {ge} weights "
+                f"{[round(w, 6) for w in got[2].tolist()]} xn max_abs_err "
+                f"{float(d_xn.max()):.3e} weights max_abs_err {d_w:.3e}")
+    return worst
+
+
+def moe_stage_specs(params, cfg):
+    """K1's two calls of a routed expert on the token path: operands as
+    the pseudo-layer stacks [L*E, K, N] (`expert_stacks`), int8 scales,
+    no norm; gate|up with silu, down with the weighted residual."""
+    from teal_tpu_torch.ops.token_block import expert_stacks, stage_operands
+
+    lay = params["layers"]
+    ops, sc = stage_operands(tuple(
+        expert_stacks(lay[n]) if n in ("wgate", "wup", "wdown") else lay[n]
+        for n in PROJ_NAMES))
+    return {"gate|up": dict(ws=ops[4:6], norm=None, res=False, silu=True,
+                            scales=None if sc is None else sc[4:6]),
+            "down": dict(ws=ops[6:7], norm=None, res=True, silu=False,
+                         scales=None if sc is None else sc[6:7])}
+
+
+def moe_k1_args(spec, cfg, cap, n_surv, gen, device, pl):
+    """Inputs of one MoE K1 call (`k1_inputs`: spiky input, threshold with
+    n_surv survivors, residual) and its keyword arguments: the device
+    pseudo-layers `pl` read at slot 1, routing weights for the down
+    stage."""
+    import torch
+
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    K = bg._in_dim(spec["ws"][0])
+    x, thr, res = k1_inputs(spec, cfg, K, n_surv, gen, device,
+                            torch.bfloat16, 0)
+    eidx = torch.tensor(pl, dtype=torch.int32, device=device)
+    kw = dict(slot=1, silu=spec["silu"], scales=spec["scales"], res=res)
+    if spec["res"]:
+        kw["route_w"] = torch.tensor([0.375, 0.625], device=device)
+    return x, thr, eidx, kw
+
+
+def check_k1_moe(params, cfg, caps, device, gen, plan):
+    """K1's MoE forms against the plain version at the expert shapes
+    (gate|up K = dim, N = 2 * intermediate; down K = intermediate, N =
+    dim): the pseudo-layer read on the device (`MOE_PSEUDO`, the largest
+    of the stacks among them, for the 64-bit offsets), gate|up without a
+    norm, down with the weighted residual, three selection regimes each:
+    identical kept sets, outputs within 2^-7 of scale. Returns the
+    largest absolute error."""
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    worst = 0.0
+    for name, cap in (("gate|up", caps[2]), ("down", caps[3])):
+        spec = moe_stage_specs(params, cfg)[name]
+        nb = bg._in_dim(spec["ws"][0]) // 128
+        for pl in MOE_PSEUDO[plan]:
+            for case, n_surv in (("count<cap", max(1, cap // 2)),
+                                 ("count==cap", cap),
+                                 ("overflow", min(nb, cap + max(1, nb // 4)))):
+                x, thr, eidx, kw = moe_k1_args(spec, cfg, cap, n_surv, gen,
+                                               device, [0, pl])
+                got, gidx, gcnt = bg.select_gather_gemv(
+                    x, thr, spec["ws"], eidx, cap, **kw)
+                want, widx, wcnt = bg.select_gather_gemv_plain(
+                    x, thr, spec["ws"], eidx, cap, **kw)
+                n = int(wcnt[0])
+                check(n == min(n_surv, cap) and int(gcnt[0]) == n,
+                      f"K1 moe {plan} {name} {case}: count {int(gcnt[0])} "
+                      f"vs plain {n}, expected {min(n_surv, cap)}")
+                check(bool((gidx == widx).all()),
+                      f"K1 moe {plan} {name} {case}: kept sets differ")
+                err = rel_check(f"K1 moe {plan} {name} pseudo-layer {pl} "
+                                f"{case}", got, want, 2 ** -7)
+                worst = max(worst, err)
+                log(f"[k1 moe {plan}] {name:8s} pseudo-layer {pl:3d} "
+                    f"cap={cap:2d} {case:10s} kept={n:2d} max_abs_err="
+                    f"{err:.3e} (scale {float(want.float().abs().max()):.3e})")
+    return worst
+
+
+def time_moe_kernels(params, cfg, caps, device, gen, plan):
+    """K5 and K1's two MoE calls at Mixtral's shapes (count == cap), each
+    call on another layer or pseudo-layer (no L2 reuse): kernel, plain
+    version, bound and yardsticks (K1: `torch.matmul` of the bf16 expert
+    weights at full keep, and `torch._weight_int8pack_mm` for int8; K5:
+    none, no single PyTorch call routes). Returns (K5 row, K1 rows)."""
+    import torch
+
+    from teal_tpu_torch.ops import block_gemv as bg
+    from teal_tpu_torch.ops import token_block as tb
+
+    lay = params["layers"]
+    L, D, E, k = cfg.n_layers, cfg.dim, cfg.n_experts, cfg.n_experts_per_tok
+    LE, esz = L * E, 2
+    x = torch.randn(D, generator=gen, device=device).bfloat16()
+    nbytes = 3 * D * esz + D * E * 4 + 2 * k * 4
+    b_ms, b_by = bound_ms(nbytes, 2 * D * E)
+    ms, host = cuda_ms(lambda i: tb.moe_route(
+        x, lay["mlp_norm"], lay["router"], i % L, k, cfg.norm_eps), 64)
+    p_ms, _ = cuda_ms(lambda i: tb.moe_route_plain(
+        x, lay["mlp_norm"], lay["router"], i % L, k, cfg.norm_eps), 5,
+        warmup=1, queued=False)
+    k5 = dict(ms=ms, host_ms=host, plain_ms=p_ms, bound_ms=b_ms,
+              bound_by=b_by, library_ms=None, mbytes=nbytes / 1e6)
+    log(f"[time] K5 moe_route [{plan}] kernel {ms:.4f} ms (host enqueue "
+        f"{host:.4f} ms)  plain {p_ms:.4f} ms  bound {b_ms:.6f} ms ({b_by}, "
+        f"{nbytes / 1e6:.3f} MB; a launch costs more)")
+    rows = []
+    for name, cap in (("gate|up", caps[2]), ("down", caps[3])):
+        spec = moe_stage_specs(params, cfg)[name]
+        ws = spec["ws"]
+        K, Ns = bg._in_dim(ws[0]), [bg._width(w) for w in ws]
+        n_out = Ns[0]
+        x, thr, _, kw = moe_k1_args(spec, cfg, cap, cap, gen, device, [0, 0])
+        eidxs = [torch.tensor([0, pl], dtype=torch.int32, device=device)
+                 for pl in range(LE)]
+        nbytes = (plan_bytes(ws, 128, cap, spec["scales"]) + K * esz
+                  + n_out * esz * (2 if spec["res"] else 1) + 8)
+        # the bf16 weights of the yardstick: the params' own, or 4 random
+        # copies of each for int8 (not L2-resident in turn)
+        if plan == "bf16":
+            lib_ws = [[w[pl] for pl in range(LE)] for w in ws]
+        else:
+            lib_ws = [[(torch.randn(K, N, generator=gen, device=device)
+                        * 0.02).bfloat16() for _ in range(4)] for N in Ns]
+        x2 = x.reshape(1, K)
+        lib = sum(cuda_ms(lambda i, w=w: torch.matmul(x2, w[i % len(w)]),
+                          64)[0] for w in lib_ws)
+        del lib_ws
+        rows.append(_plan_row(
+            f"K1[moe {plan}] {name}", nbytes, 2 * cap * 128 * sum(Ns),
+            lambda i: bg.select_gather_gemv(x, thr, ws, eidxs[i % LE], cap,
+                                            **kw),
+            lambda i: bg.select_gather_gemv_plain(x, thr, ws, eidxs[i % LE],
+                                                  cap, **kw),
+            lib, quant_library_ms(plan, K, Ns, device, gen), K=K, N=sum(Ns),
+            cap=cap))
+    return k5, rows
+
+
+def moe_run(cfg, plan, device, gen, seed, rope):
+    """Phase 10 for one Mixtral copy: build it on the card, hold K1's MoE
+    forms to the plain version, pick the thresholds (columns 0, 3 and 4;
+    6 stays 0) on the plain token path and hold every layer of one decode
+    step to it (2e-2 of scale, the same routed experts), run three greedy
+    requests (dense prefill on the layer loop, decode on the token path)
+    with 6 K1 + 1 K2 + 1 K5 launches a layer and token, and time the
+    decode step (keep 0.5 and 1.0), tok/s in turns and the kernels.
+    Returns (kernels rows, results)."""
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.models import llama
+
+    torch.cuda.reset_peak_memory_stats()
+    params, build_s = mixtral_params(cfg, gen, device, plan == "int8")
+    L = cfg.n_layers
+    log(f"[moe {plan}] {MOE_MODEL} at {L} layers, full width, built on the "
+        f"card one layer at a time in {build_s:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    sp = SparsityConfig(**MAIN_SP)
+    check(llama.can_token_decode(params, cfg, sp, 1, 1, torch.bfloat16),
+          f"moe {plan}: the token path refuses the MoE decode")
+    caps = llama.token_path_caps(cfg, sp)
+    err_k1 = check_k1_moe(params, cfg, caps, device, gen, plan)
+
+    rng = np.random.default_rng(seed + 10)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in PROMPT_LENS]
+    cache, tok, pos = prefill(params, cfg, prompts[0][None], device, rope)
+    t0 = time.perf_counter()
+    th, worst, _ = hold_token_layers(params, cfg, cache, tok, pos, rope,
+                                     device)
+    log(f"[moe {plan}] thresholds (columns 0, 3, 4; column 6 at 0) picked "
+        f"on the plain token path and every layer of the kernel path held "
+        f"to it with the same routed experts (worst error {worst:.2e} of "
+        f"scale, tolerance 2e-2) in {time.perf_counter() - t0:.2f} s")
+
+    gens = {keep: Generator(cfg, params, sp=SparsityConfig(
+        **dict(MAIN_SP, block_keep_frac=keep)), max_seq=MAX_SEQ,
+        cache_dtype=torch.bfloat16, temperature=0.0, device=device)
+        for keep in (0.5, 1.0)}
+    zero = llama.zero_thresholds(cfg, device)
+    gens[0.5].generate(prompts[0], 3, thresholds=th)          # warm-up
+    reset_launches()
+    outs = [gens[0.5].generate(p, NEW_TOKENS, thresholds=th)
+            for p in prompts]
+    got = read_launches()
+    decoded = len(prompts) * (NEW_TOKENS - 1)
+    k_exp = cfg.n_experts_per_tok
+    want = ((2 + 2 * k_exp) * L * decoded, L * decoded, 0, 0, L * decoded)
+    check(got == want, f"moe {plan}: launches (K1, K2, K3, K4, K5) {got}, "
+          f"expected {want} for {decoded} decoded tokens")
+    for p, (toks, st) in zip(prompts, outs):
+        check(toks.shape == (1, len(p) + NEW_TOKENS)
+              and bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
+              f"moe {plan}: bad tokens {toks.shape}")
+    log(f"[moe {plan}] {len(prompts)} requests, {decoded} decoded tokens, "
+        f"launches a token (K1, K2, K3, K4, K5) "
+        f"{tuple(c // decoded for c in got)}; first request's new tokens "
+        f"{outs[0][0][0, len(prompts[0]):].tolist()}")
+    lg, _ = llama.forward(params, tok, llama.KVCache(cache.k.clone(),
+                                                     cache.v.clone()),
+                          pos, th, cfg=cfg, sp=sp, rope=rope)
+    check(tuple(lg.shape) == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(lg).all()), f"moe {plan}: bad logits")
+
+    speeds = {0.5: [], 1.0: []}
+    for keep in (1.0, 0.5, 0.5, 1.0):
+        _, st = gens[keep].generate(prompts[2], 32, thresholds=(
+            th if keep == 0.5 else zero))
+        speeds[keep].append(st.tokens_per_s)
+    log(f"[moe {plan}] decode tok/s (prompt 40, 32 new tokens, in turns): "
+        f"keep 0.5 {speeds[0.5]}, keep 1.0 {speeds[1.0]}")
+    step = time_decode_step(params, cfg, [
+        (f"moe {plan} keep 0.5", MAIN_SP, 1, th),
+        (f"moe {plan} keep 1.0", dict(MAIN_SP, block_keep_frac=1.0), 1,
+         zero)], device, rope)
+    k5, k1_rows = time_moe_kernels(params, cfg, caps, device, gen, plan)
+    results = dict(layers=L, build_s=build_s, worst=worst, launches=got,
+                   decoded=decoded, err_k1=err_k1,
+                   tok_s={str(k): v for k, v in speeds.items()},
+                   decode_step_ms=step,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   new_tokens=[o[0][0, len(p):].tolist()
+                               for p, o in zip(prompts, outs)])
+    del params, gens, cache
+    torch.cuda.empty_cache()
+    return k5, k1_rows, results
+
+
+def moe_phase(device, gen, seed):
+    """Phase 10: K5 against its plain version, then `moe_run` on the int8
+    and bf16 copies of `MOE_RUNS`. Returns (kernels entries, results)."""
+    import dataclasses
+
+    from teal_tpu_torch.config import get_model_config
+    from teal_tpu_torch.models import llama
+
+    full = get_model_config(MOE_MODEL)
+    rope = llama.precompute_rope(full, MAX_SEQ, device)
+    err_k5 = check_k5(full, device, gen)
+    entries, results, k5_rows = [], {}, {}
+    src = "teal_tpu_torch/csrc/"
+    for plan, layers in MOE_RUNS:
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+        k5_rows[plan], k1_rows, results[plan] = moe_run(cfg, plan, device,
+                                                        gen, seed, rope)
+        r = results[plan]
+        entries.append(plan_entry(
+            k1_rows, f"select_gather_gemv[moe {plan}]",
+            src + "select_gather_gemv.cu", "teal_tpu/ops/token_block.py:274",
+            r["launches"][0], r["decoded"], r["err_k1"],
+            f"{MOE_MODEL} {plan} at {cfg.n_layers} layers: one routed "
+            "expert's two calls (gate|up, down with the weighted residual; "
+            "device pseudo-layer) at count == cap, summed; launches are all "
+            "of K1's on that path (qkv, o and 2 per routed expert)"))
+    r8 = results["int8"]
+    entries.append(dict(
+        name="moe_route", route="cuda", source=src + "moe_route.cu",
+        replaces="teal_tpu/ops/token_block.py:131",
+        launches=r8["launches"][4],
+        launches_per_token=r8["launches"][4] / r8["decoded"],
+        max_abs_err=err_k5, kernel_ms=k5_rows["int8"]["ms"],
+        timed=f"{MOE_MODEL} int8: one layer's routing (D = {full.dim}, E = "
+              f"{full.n_experts}, {full.n_experts_per_tok} routed); bf16 "
+              "copy under bf16",
+        bf16={k: k5_rows["bf16"][k] for k in ("ms", "plain_ms")},
+        **{k: k5_rows["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}))
+    return entries, results
+
+
 def main() -> int:
     import torch
 
@@ -2065,6 +2476,11 @@ def main() -> int:
     line["decode_tok_s_quant_paths"] = {n: r["tok_s"]
                                         for n, r in q_runs.items()}
     line["quant"] = q_extra
+    # phase 10 needs the card's memory for int8 Mixtral-8x7B (46 GB)
+    del params
+    torch.cuda.empty_cache()
+    m_entries, line["moe"] = moe_phase(device, gen, seed)
+    line["kernels"] += m_entries
     line["card"] = card
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)

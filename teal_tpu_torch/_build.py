@@ -39,7 +39,10 @@ SIGNATURES = {
         _I, _I, _I,             # n0, n1, n2
         _I, _P, _P, _P, _P,     # n_w, res (or null), out, idx, count
         _I, _I, _I, _I, _I,     # K, G, layer, cap, mode
-        _I, _I, _P,             # rows, fixed selection, stream
+        _I, _I,                 # rows, fixed selection
+        _P, _I, _I, _P,         # device layers (or null), slot, L,
+                                # routing weights (mode 3, or null)
+        _P,                     # stream
     ],
     ("block_gather_gemv", "teal_block_gather_gemv"): [
         _I, _I, _P, _P,         # dtype code, weight plan, idx, xpack
@@ -61,6 +64,11 @@ SIGNATURES = {
         _I, _F,                 # window (0: none), scale
         _I, _I, _I, _P,         # q row stride, k/v row stride, seq_block,
                                 # stream
+    ],
+    ("moe_route", "teal_moe_route"): [
+        _I, _P, _P, _F, _P,     # dtype code, x, norm, norm_eps, router
+        _P, _P, _P,             # xn, pseudo-layers, weights (outputs)
+        _I, _I, _I, _I, _P,     # D, E, k_exp, layer, stream
     ],
 }
 

@@ -21,8 +21,19 @@
 //   5. an epilogue: int8's per-channel scale on the fp32 sums where the
 //      caller passes it (the whole-token kernel's `scale_ref`,
 //      token_block.py:55, applied before RoPE in attn_block.py:218), then
-//      raw fp32 (q|k|v), + residual then cast (o, down), or
-//      silu(gate) * up then cast (gate|up: mode 2, two weights).
+//      raw fp32 (q|k|v), + residual then cast (o, down), silu(gate) * up
+//      then cast (gate|up: mode 2, two weights), or the MoE expert's
+//      weighted residual w[slot] * sums + residual then cast (mode 3, the
+//      MoE branch's `write_down_weighted`, token_block.py:302).
+//
+// MoE (the whole-token kernel's expert stages, token_block.py:274-324):
+// the expert stacks [L, E, K, N] are read as [L*E, K, N], expert e of
+// layer l being pseudo-layer l*E + e. The layer may then come from the
+// device: each block reads layer_dev[slot] (the router kernel K5's
+// output) at its start, so the host never waits for the routing, and
+// traps on a value outside [0, L) as K2 traps on a bad position. Every
+// weight and scale offset is 64-bit: one int8 expert stack of Mixtral is
+// 15 GB.
 //
 // What bounds it on the H100: bytes. Per call it reads cap * 128 rows of
 // each weight (bf16: 16 MB for the 7B o stage at cap 16, 90 MB for
@@ -98,6 +109,10 @@ struct Args {
   int* idx_out;              // [cap] kept groups, -1 past the count
   int* count_out;            // [1]
   int K, layer, cap, mode;
+  const int* layer_dev;      // device layers (MoE pseudo-layers), or null
+  int slot;                  // this call's entry of layer_dev and route_w
+  int L;                     // layers of the weight stacks
+  const float* route_w;      // mode 3: fp32 routing weights
   int B;                     // input rows (rows form when > 1)
   int fixed;                 // keep groups 0..cap-1, no scores
   int n_out;                 // output columns of a row
@@ -105,6 +120,14 @@ struct Args {
 
 template <typename T, int P>
 using Shape = PlanShape<T, P, TILE, THREADS>;
+
+// The layer this call reads: the host's, or layer_dev[slot] read on the
+// device. A value outside [0, L) traps rather than read out of bounds.
+__device__ __forceinline__ size_t read_layer(const Args& a) {
+  const int l = a.layer_dev != nullptr ? a.layer_dev[a.slot] : a.layer;
+  if (l < 0 || l >= a.L) __trap();
+  return static_cast<size_t>(l);
+}
 
 // THE selection rule on the group scores (or groups 0..cap-1 with
 // `fixed`): a warp ballot + popcount prefix over the groups, 32 a step,
@@ -180,6 +203,7 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
   int* cnt = idx + a.cap;                       // [1]
   const T* x = static_cast<const T*>(a.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t layer = read_layer(a);
 
   // 1. input, with the optional folded rms_norm
   if (a.norm != nullptr) {
@@ -190,8 +214,7 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
     }
     ss = block_sum(ss, scratch);
     const float scale = 1.0f / sqrtf(ss / static_cast<float>(K) + a.eps);
-    const T* g = static_cast<const T*>(a.norm) +
-                 static_cast<size_t>(a.layer) * K;
+    const T* g = static_cast<const T*>(a.norm) + layer * K;
     for (int k = tid; k < K; k += THREADS)
       xs[k] = rnd<T>(rnd<T>(to_f(x[k]) * scale) * to_f(g[k]));
   } else {
@@ -231,9 +254,8 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
       Q[w] = static_cast<const int8_t*>(a.w[wsel[w]]) +
-             static_cast<size_t>(a.layer) * (K / 2) * N + off + sub * 8;
-      SZ[w] = a.sz[wsel[w]] + static_cast<size_t>(a.layer) * nb * 2 * N +
-              off + sub * 8;
+             layer * (K / 2) * N + off + sub * 8;
+      SZ[w] = a.sz[wsel[w]] + layer * nb * 2 * N + off + sub * 8;
     }
     for (int j = warp; j < count; j += NWARPS) {
       const int g = idx[j];
@@ -270,8 +292,8 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
     const E* W[NW];
 #pragma unroll
     for (int w = 0; w < NW; ++w)
-      W[w] = static_cast<const E*>(a.w[wsel[w]]) +
-             static_cast<size_t>(a.layer) * K * N + off + sub * S::VEC;
+      W[w] = static_cast<const E*>(a.w[wsel[w]]) + layer * K * N + off +
+             sub * S::VEC;
     const int R = count * G;
 #pragma unroll 4
     for (int r = slot; r < R; r += S::SLOTS) {
@@ -298,8 +320,7 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
     float s = 0.f;
     for (int sl = 0; sl < S::SLOTS; ++sl) s += red[sl * NW * TILE + tid];
     const float* sc = a.scale[wsel[tid / TILE]];
-    if (sc != nullptr)
-      s *= sc[static_cast<size_t>(a.layer) * N + off + tid % TILE];
+    if (sc != nullptr) s *= sc[layer * N + off + tid % TILE];
     fin[tid] = s;
   }
   __syncthreads();
@@ -310,6 +331,11 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
     } else if (a.mode == 1) {
       const float r = to_f(static_cast<const T*>(a.res)[col]);
       static_cast<T*>(a.out)[col] = from_f<T>(fin[tid] + r);
+    } else if (a.mode == 3) {
+      // (scaled sums * w) + residual, two roundings as in the reference
+      const float r = to_f(static_cast<const T*>(a.res)[col]);
+      static_cast<T*>(a.out)[col] =
+          from_f<T>(__fadd_rn(__fmul_rn(fin[tid], a.route_w[a.slot]), r));
     } else {
       const float g = fin[tid], u = fin[NW * TILE - TILE + tid];
       static_cast<T*>(a.out)[col] =
@@ -386,9 +412,10 @@ __global__ void __launch_bounds__(THREADS) sgg_rows_kernel(Args a) {
   int* idx = reinterpret_cast<int*>(rscale + MAXB);  // [cap]
   int* cnt = idx + a.cap;                          // [1]
   const T* x = static_cast<const T*>(a.x);
-  const T* gain = a.norm == nullptr ? nullptr
-                                    : static_cast<const T*>(a.norm) +
-                                          static_cast<size_t>(a.layer) * K;
+  const size_t layer = read_layer(a);
+  const T* gain = a.norm == nullptr
+                      ? nullptr
+                      : static_cast<const T*>(a.norm) + layer * K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // 1. per-row norm scale: a warp per row, fixed order
@@ -444,16 +471,15 @@ __global__ void __launch_bounds__(THREADS) sgg_rows_kernel(Args a) {
       for (int w = 0; w < NW; ++w) {
         const unsigned char* src =
             static_cast<const unsigned char*>(a.w[wsel[w]]) +
-            ((static_cast<size_t>(a.layer) * krows +
-              static_cast<size_t>(g) * TL::RROWS) * N + off) * ESZ;
+            ((layer * krows + static_cast<size_t>(g) * TL::RROWS) * N +
+             off) * ESZ;
         unsigned char* dst = st + w * TL::BYTES;
         for (int c = tid; c < TL::RROWS * CPR; c += THREADS)
           cp_async16(dst + c * 16, src + (static_cast<size_t>(c / CPR) * N *
                                           ESZ + (c % CPR) * 16));
         if constexpr (P == PLAN_INT4) {
-          const float* sz = a.sz[wsel[w]] +
-                            (static_cast<size_t>(a.layer) * nb + g) * 2 * N +
-                            off;
+          const float* sz =
+              a.sz[wsel[w]] + (layer * nb + g) * 2 * N + off;
           if (tid < 2 * TILE / 4)
             cp_async16(dst + TL::RROWS * TL::ROW_BYTES + tid * 16,
                        sz + static_cast<size_t>(tid / (TILE / 4)) * N +
@@ -602,7 +628,7 @@ __global__ void __launch_bounds__(THREADS) sgg_rows_kernel(Args a) {
       for (int wp = 0; wp < NWARPS; ++wp)
         s += red[(wp * MAXB + b) * NW * TILE + w * TILE + c];
       const float* sc = a.scale[wsel[w]];
-      if (sc != nullptr) s *= sc[static_cast<size_t>(a.layer) * N + off + c];
+      if (sc != nullptr) s *= sc[layer * N + off + c];
       f[w] = s;
     }
     const size_t at = static_cast<size_t>(b) * a.n_out + col;
@@ -685,19 +711,23 @@ int dispatch_type(int dtype, int plan, const Args& a, int blocks,
 // output). plan: 0 weights of the stream type, 1 int8, 2 packed int4
 // (w_i the packed rows, sz_i their [scale, zero] rows; G 64 or 128).
 // scale_i: int8 per-channel scales [L, n_i] applied to the sums, or
-// null. mode: 0 raw fp32 out, 1 residual, 2 silu pair. G: 32, 64 or 128
-// (else cudaErrorInvalidValue). rows: input rows B, contiguous [B, K];
-// out and res are [B, n_out]; rows > 1 needs G == 128 and rows <= 16.
-// fixed: keep groups 0..cap-1. The caller checks shapes: K % G == 0,
-// every n_i % 32 == 0, pointers 16-byte aligned, mode 2 with two weights
-// of equal width, one plan for all weights.
+// null. mode: 0 raw fp32 out, 1 residual, 2 silu pair, 3 weighted
+// residual (route_w[slot] * sums + res; one row). G: 32, 64 or 128 (else
+// cudaErrorInvalidValue). rows: input rows B, contiguous [B, K]; out and
+// res are [B, n_out]; rows > 1 needs G == 128 and rows <= 16. fixed: keep
+// groups 0..cap-1. layer_dev: null (read `layer`) or int32 device layers,
+// entry `slot` read by the kernel; L: the stacks' layers. The caller
+// checks shapes: K % G == 0, every n_i % 32 == 0, pointers 16-byte
+// aligned, mode 2 with two weights of equal width, one plan for all
+// weights, a host layer in [0, L), no norm with a device layer.
 extern "C" int teal_select_gather_gemv(
     int dtype, int plan, const void* x, const void* thr, const void* norm,
     float eps, const void* w0, const void* w1, const void* w2,
     const void* sz0, const void* sz1, const void* sz2, const void* sc0,
     const void* sc1, const void* sc2, int n0, int n1, int n2, int n_w,
     const void* res, void* out, void* idx, void* count, int K, int G,
-    int layer, int cap, int mode, int rows, int fixed, void* stream) {
+    int layer, int cap, int mode, int rows, int fixed, const void* layer_dev,
+    int slot, int L, const void* route_w, void* stream) {
   cudaGetLastError();  // clear any stale error of this library
   Args a;
   a.x = x;
@@ -724,11 +754,16 @@ extern "C" int teal_select_gather_gemv(
   a.layer = layer;
   a.cap = cap;
   a.mode = mode;
+  a.layer_dev = static_cast<const int*>(layer_dev);
+  a.slot = slot;
+  a.L = L;
+  a.route_w = static_cast<const float*>(route_w);
   a.B = rows;
   a.fixed = fixed;
   const int n_out = mode == 2 ? n0 : a.n[0] + a.n[1] + a.n[2];
   a.n_out = n_out;
-  if (rows < 1 || rows > MAXB || (rows > 1 && G != RG))
+  if (rows < 1 || rows > MAXB || (rows > 1 && (G != RG || mode == 3)) ||
+      (mode == 3 && route_w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = n_out / TILE;
   auto s = static_cast<cudaStream_t>(stream);

@@ -66,10 +66,13 @@ class Generator:
             return sum(t.numel() * t.element_size() for t in ts)
 
         # projection bytes (bf16/fp32, int8 and int4 leaves with their
-        # scales); the reference protocol excludes embeddings
+        # scales) and Mixtral's router; the reference protocol excludes
+        # embeddings
         self.model_bytes = sum(
             leaf_bytes(params["layers"][n])
-            for n in ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown"))
+            for n in ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown",
+                      "router")
+            if n in params["layers"])
 
     def new_cache(self) -> KVCache:
         return KVCache.init(self.cfg, self.batch, self.max_seq,

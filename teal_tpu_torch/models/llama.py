@@ -12,7 +12,10 @@ Port of `teal_tpu/models/llama.py` with the same parameter layout:
     type with fp32 sums;
   - projections may be int8 {"q", "scale"}, groupwise int4
     {"q", "scale", "zero"} or packed int4 {"qp", "sz"} dicts
-    (`ops/quant.py`); activations are then bf16 (`compute_dtype`).
+    (`ops/quant.py`); activations are then bf16 (`compute_dtype`);
+  - Mixtral (`cfg.n_experts > 0`): the FFN leaves are a fp32 router
+    [L, D, E] and expert stacks wgate / wup [L, E, D, I], wdown
+    [L, E, I, D] (`models/moe.py`).
 
 `forward` routes as the reference does. Single-token threshold-mode
 decode at G=128 with the default route flags, batch 1 or up to 16 rows
@@ -20,7 +23,9 @@ decode at G=128 with the default route flags, batch 1 or up to 16 rows
 reference's packed pipeline / whole-token kernel) runs
 `ops/token_block.token_decode` on kernels K1 and K2; so does
 `block_verify` (S consecutive positions of one sequence as rows, fixed
-full selection, `seq_block`). Everything else
+full selection, `seq_block`). Mixtral decodes batch 1 on the token path
+too, routing in kernel K5 and gathering the routed experts' kept groups
+through K1. Everything else
 runs the layer loop (`layer_forward`): dense and masked-dense layers in
 plain PyTorch, and single-token sparse decode through the kernels --
 block mode on K1 (threshold) or K3 (top-k, and batches of up to 8),
@@ -39,14 +44,18 @@ import torch
 import torch.nn.functional as F
 
 from teal_tpu_torch.config import ModelConfig, PROJS, SparsityConfig
+from teal_tpu_torch.models import moe
 from teal_tpu_torch.ops import block_gemv, quant, sparse_gemv
 from teal_tpu_torch.ops.attn_block import attn_stage
 from teal_tpu_torch.ops.decode_attention import decode_attention
 from teal_tpu_torch.ops.sparsify import apply_sparsity, group_capacity
 
 _WEIGHTS = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
-# quantization leaves, fp32 whatever type the floats are cast to
-_FP32_LEAVES = ("scale", "sz", "zero")
+# leaves that stay fp32 whatever type the floats are cast to: the
+# quantization leaves, and the MoE router, which the token path reads in
+# fp32 (the JAX package's int8 quantization leaves it unrounded; a bf16
+# router is exact in fp32)
+_FP32_LEAVES = ("scale", "sz", "zero", "router")
 
 
 def _is_int8(w) -> bool:
@@ -113,8 +122,9 @@ def params_from_numpy(tree, device="cuda", dtype=torch.float32):
     """The JAX package's parameter pytree (each leaf through `np.asarray`)
     as the port's tensors: same keys, same layout, floats cast to
     `dtype` except the quantization leaves `scale`, `sz` and `zero`,
-    which stay fp32 as the JAX package keeps them; integer leaves (int8
-    `q`, packed `qp`) keep their type."""
+    which stay fp32 as the JAX package keeps them, and the MoE `router`,
+    carried in fp32 so that routing sees the reference's values; integer
+    leaves (int8 `q`, packed `qp`) keep their type."""
     device = _device(device)
 
     def conv(t, key):
@@ -248,10 +258,13 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
     type, and silu runs in fp32 before the cast and the product with up:
     the layer loop's cast points, not the token path's.
 
+    Mixtral (`cfg.n_experts > 0`): the FFN is `moe.moe_ffn` on the
+    explicit mlp rms_norm, with the gate and down thresholds; captures
+    then hold attn h1/h2 and mlp h1 only (each expert's intermediate is
+    its own).
+
     Returns (h_out, kc, vc, captures|None): captures are the four TEAL
     hidden-state groups (attn h1/h2, mlp h1/h2) for calibration."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("the MoE FFN is not ported yet")
     b, s, d = h.shape
     t = {p: thresholds[i] for i, p in enumerate(PROJS)}
     sparse_block = sp.enabled and sp.kernel == "block"
@@ -341,6 +354,13 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
     else:
         h = h + _proj(attn, lp["wo"], t["o"], sp)
 
+    if cfg.n_experts > 0:
+        y = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)             # mlp h1
+        h = h + moe.moe_ffn(y, lp, cfg, sp, th_gu=t["gate"],
+                            th_down=t["down"])
+        caps = ({"self_attn": {"h1": x, "h2": attn}, "mlp": {"h1": y}}
+                if capture else None)
+        return h, kc, vc, caps
     y = None if fold else rms_norm(h, lp["mlp_norm"], cfg.norm_eps)  # mlp h1
     if use_block:
         gate, up = blockprojs(h if fold else y, ("gate", "up"),
@@ -383,9 +403,20 @@ def can_token_decode(params, cfg: ModelConfig, sp: SparsityConfig,
     reference's whole-token kernel applies int8 scales), never unpacked
     int4; group size 128 for every stage (int4 at least 64), equal
     capacities within the fused stages, head_dim 128, the cache in the
-    stream type."""
+    stream type. Mixtral only at batch 1 with `token_fused` not False,
+    arrays or all seven int8 (no packed int4), and an effective group of
+    128 for dim and intermediate_size, as in the reference; b > 1 takes
+    the layer loop."""
     lay = params["layers"]
     if isinstance(lay["wq"], dict) and "zero" in lay["wq"]:
+        return False
+    if cfg.n_experts > 0 and not (
+            b == 1 and sp.token_fused is not False
+            and not _is_int4_packed(lay["wq"])
+            and not _is_int4_packed(lay["wgate"])
+            and block_gemv.effective_block_size(sp.block_size, cfg.dim) == 128
+            and block_gemv.effective_block_size(
+                sp.block_size, cfg.intermediate_size) == 128):
         return False
     if _is_int8(lay["wq"]) and (sp.token_fused is False or not all(
             _is_int8(lay[n]) for n in _WEIGHTS)):
@@ -394,8 +425,8 @@ def can_token_decode(params, cfg: ModelConfig, sp: SparsityConfig,
     ok_b = b == 1 or (b <= 16 and sp.token_fused is not False)
     if not (sp.packed_pipeline is not False and fused_attn and s == 1
             and ok_b and sp.enabled and sp.kernel == "block"
-            and sp.block_thresholding and cfg.n_experts == 0
-            and cfg.head_dim == 128 and kf[0] == kf[1] == kf[2]
+            and sp.block_thresholding and cfg.head_dim == 128
+            and kf[0] == kf[1] == kf[2]
             and kf[4] == kf[5] and compute_dtype(params) == cache_dtype):
         return False
     D, I = cfg.dim, cfg.intermediate_size
@@ -454,11 +485,14 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
                                   device=dev) if len(set(pos)) == 1
                        else torch.tensor(pos, dtype=torch.int32, device=dev))
             rope_rows = _rope_rows(cos_full, sin_full, pos_arg)
+        moe_kw = (dict(router=lay["router"],
+                       n_experts_per_tok=cfg.n_experts_per_tok)
+                  if cfg.n_experts > 0 else {})
         h1 = token_block.token_decode(
             rows, thresholds, tuple(lay[n] for n in _WEIGHTS),
             lay["attn_norm"], lay["mlp_norm"], rope_rows, cache.k, cache.v,
             pos_arg, caps=token_path_caps(cfg, sp), n_heads=cfg.n_heads,
-            norm_eps=cfg.norm_eps, window=cfg.sliding_window)
+            norm_eps=cfg.norm_eps, window=cfg.sliding_window, **moe_kw)
         h = h1.reshape(b, 1, cfg.dim)
     else:
         # one fill, not a host-to-device copy, when the batch shares pos
@@ -573,11 +607,10 @@ def zero_thresholds(cfg: ModelConfig, device="cuda"):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cuda"):
     """Random-init parameters on `device` from a seeded `generator` (on
-    the same device): N(0, 0.02^2) weights drawn one layer at a time in
-    fp32, unit norm gains."""
+    the same device): N(0, 0.02^2) weights drawn one layer (one expert) at
+    a time in fp32, unit norm gains; Mixtral's FFN leaves from
+    `moe.init_moe_ffn_params`."""
     device = _device(device)
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE parameters are not ported yet")
 
     def w(shape, scale=0.02):
         if len(shape) == 2:
@@ -599,10 +632,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "wk": w((L, D, KV)),
         "wv": w((L, D, KV)),
         "wo": w((L, D, D)),
-        "wgate": w((L, D, I)),
-        "wup": w((L, D, I)),
-        "wdown": w((L, I, D)),
     }
+    if cfg.n_experts > 0:
+        layers.update(moe.init_moe_ffn_params(cfg, generator, dtype, device))
+    else:
+        layers.update({"wgate": w((L, D, I)), "wup": w((L, D, I)),
+                       "wdown": w((L, I, D))})
     return {
         "embed": w((V, D)),
         "layers": layers,

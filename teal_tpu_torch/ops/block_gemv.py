@@ -389,18 +389,23 @@ def selection_input(x, norm, layer: int, norm_eps: float):
     return (xf * scale).to(x.dtype) * norm[layer].to(x.dtype)
 
 
-def select_gather_gemv_plain(x, thr, ws, layer: int, cap: int, *,
+def select_gather_gemv_plain(x, thr, ws, layer, cap: int, *,
                              G: int = LANES, norm=None,
                              norm_eps: float = 1e-5, res=None,
                              silu: bool = False, scales=None,
-                             fixed: bool = False):
+                             fixed: bool = False, slot: int = 0,
+                             route_w=None):
     """K1 in plain PyTorch (same arguments and results as
     `select_gather_gemv`). Keeps the reference's cast points: the folded
     norm rounds to the stream type before and after the gain; scores,
-    sums, int8 scales and epilogues are fp32. A group's score is its max
-    |x| over lanes and rows (`_select_scan`); one kept set serves every
-    row."""
+    sums, int8 scales and epilogues are fp32, the weighted residual
+    rounding the product before the sum. A group's score is its max |x|
+    over lanes and rows (`_select_scan`); one kept set serves every row.
+    A device layer is read to the host here (this version is no fast
+    path)."""
     dt = x.dtype
+    if isinstance(layer, torch.Tensor):
+        layer = int(layer[slot])
     rows = x.reshape(-1, x.shape[-1])
     nb = rows.shape[1] // G
     xs = selection_input(rows, norm, layer, norm_eps)
@@ -419,6 +424,9 @@ def select_gather_gemv_plain(x, thr, ws, layer: int, cap: int, *,
     if silu:
         g, u = accs
         out = (g * (1.0 / (1.0 + torch.exp(-g))) * u).to(dt)
+    elif route_w is not None:
+        out = (accs[0] * route_w[slot]
+               + res.reshape(accs[0].shape).float()).to(dt)
     elif res is not None:
         out = (accs[0] + res.reshape(accs[0].shape).float()).to(dt)
     else:
@@ -427,7 +435,8 @@ def select_gather_gemv_plain(x, thr, ws, layer: int, cap: int, *,
             torch.tensor([count], dtype=torch.int32, device=x.device))
 
 
-def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales):
+def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales, slot,
+               route_w):
     if (x.dtype not in _DTYPE_CODE or x.dim() not in (1, 2)
             or not x.is_contiguous()
             or (x.dim() == 2 and not 1 <= x.shape[0] <= MAX_ROWS)):
@@ -448,7 +457,17 @@ def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales):
                        for s, w in zip(scales, ws))):
         raise ValueError("scales are one contiguous fp32 [L, N_i] stack per "
                          "int8 weight")
-    if not 0 <= layer < L:
+    if isinstance(layer, torch.Tensor):
+        # checked on the card by the kernel, which traps outside [0, L)
+        if (layer.dtype != torch.int32 or layer.dim() != 1
+                or not 0 <= slot < layer.numel() or layer.device != x.device
+                or not layer.is_contiguous()):
+            raise ValueError(f"a device layer is a contiguous int32 vector "
+                             f"on x's device with an entry at slot {slot}")
+        if norm is not None or x.dim() != 1:
+            raise ValueError("a device layer takes one row and no norm "
+                             "(the norm is indexed by the real layer)")
+    elif not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
     if not 1 <= cap <= K // G:
         raise ValueError(f"cap {cap} out of range [1, {K // G}]")
@@ -470,7 +489,14 @@ def _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales):
                 or res.device != x.device or not res.is_contiguous()):
             raise ValueError(f"res must be a contiguous {list(shape)} tensor "
                              f"of x's type")
-    return plan
+    if route_w is not None and (
+            res is None or x.dim() != 1 or route_w.dtype != torch.float32
+            or route_w.dim() != 1 or not 0 <= slot < route_w.numel()
+            or route_w.device != x.device or not route_w.is_contiguous()):
+        raise ValueError(f"route_w (the weighted residual) is a contiguous "
+                         f"fp32 vector on x's device with an entry at slot "
+                         f"{slot}, with res and one row")
+    return L, plan
 
 
 def _ptrs(ws, plan: int, scales):
@@ -483,13 +509,14 @@ def _ptrs(ws, plan: int, scales):
     return w + pad, sz + pad, sc + pad
 
 
-def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer: int,
+def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer,
                        cap: int, *, G: int = LANES,
                        norm: Optional[torch.Tensor] = None,
                        norm_eps: float = 1e-5,
                        res: Optional[torch.Tensor] = None,
                        silu: bool = False, scales=None,
-                       fixed: bool = False):
+                       fixed: bool = False, slot: int = 0,
+                       route_w: Optional[torch.Tensor] = None):
     """K1: select + gather GEMV over layer `layer` of stacked weights.
 
     x:    [K] stream, or rows [B, K] with B <= 16 at G = 128 (raw when
@@ -508,21 +535,32 @@ def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer: int,
           applied to the fp32 sums before the epilogue
     fixed: keep groups 0..cap-1 without scoring (`_select_scan(fixed)`,
           the verify path's identity selection at full capacity)
+    layer: a host int, or (MoE, one row, no norm) an int32 device vector
+          whose entry `slot` the kernel reads: the pseudo-layers l*E + e
+          of the router (`token_block.moe_route`) into expert stacks read
+          as [L*E, K, N], so that the host never waits for the routing
+    route_w: with res, the MoE expert's weighted residual (mode 3): out =
+          (sums * route_w[slot] + res) in fp32, cast to x's type, the
+          reference's `write_down_weighted`
 
     Returns (out, idx, count): out is fp32 [..., sum N_i] (no epilogue)
     or x's type [..., N] (res / silu), with x's leading shape; idx [cap]
     int32 holds the kept groups in ascending order, -1 past `count` ([1]
     int32).
     """
-    plan = _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales)
+    L, plan = _check_sgg(x, thr, ws, layer, cap, G, norm, res, silu, scales,
+                         slot, route_w)
     if x.device.type == "cpu":
         return select_gather_gemv_plain(x, thr, ws, layer, cap, G=G,
                                         norm=norm, norm_eps=norm_eps,
                                         res=res, silu=silu, scales=scales,
-                                        fixed=fixed)
+                                        fixed=fixed, slot=slot,
+                                        route_w=route_w)
     _check_launch_device(x, "select_gather_gemv")
     lib = _build.load()["select_gather_gemv"]
-    mode = 2 if silu else (1 if res is not None else 0)
+    mode = (2 if silu else 3 if route_w is not None
+            else 1 if res is not None else 0)
+    dev_layer = isinstance(layer, torch.Tensor)
     n = [_width(w) for w in ws]
     n_out = n[0] if silu else sum(n)
     out = torch.empty((*x.shape[:-1], n_out), device=x.device,
@@ -536,8 +574,11 @@ def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer: int,
         *w_p, *sz_p, *sc_p, *n, len(ws),
         None if res is None else res.data_ptr(),
         out.data_ptr(), sel.data_ptr(), sel.data_ptr() + 4 * cap,
-        x.shape[-1], G, layer, cap, mode, x.numel() // x.shape[-1],
-        int(fixed), torch.cuda.current_stream().cuda_stream)
+        x.shape[-1], G, 0 if dev_layer else layer, cap, mode,
+        x.numel() // x.shape[-1], int(fixed),
+        layer.data_ptr() if dev_layer else None, slot, L,
+        None if route_w is None else route_w.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
     _build.check(err, "select_gather_gemv")
     select_gather_gemv.launches += 1
     return out, sel[:cap], sel[cap:]

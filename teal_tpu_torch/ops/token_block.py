@@ -25,6 +25,24 @@ Weights are arrays of the stream type, int8 dicts {"q", "scale"} (all
 seven, as the reference's kernel needs: K1 applies each stage's
 per-channel scales to its fp32 sums before the epilogue, the reference's
 `scale_ref`) or packed int4 dicts {"qp", "sz"} (unpacked in K1).
+
+Mixtral (the reference's MoE branch, `token_block.py:274-324`; batch 1,
+arrays or int8): stages 3-4 become, per layer,
+  3. K5 `moe_route` (`csrc/moe_route.cu`) on the stream: the mlp norm
+     (`xn`, stream type), the top K_EXP experts as pseudo-layers l*E + e
+     (int32) and their softmax weights (fp32), all left on the device;
+  4. for each routed expert t: K1 gate|up on `xn` (no norm, column 4) and
+     K1 down (column 6) with the weighted residual h = (w_t * sums + h)
+     rounded to the stream type, both reading pseudo-layer t of K5's
+     output on the device from the expert stacks read as [L*E, K, N]
+     (int8 scales as [L*E, N]): no host sync between K5 and the experts.
+Launches a layer: 2 (attention) + 1 (o) + 1 (K5) + 2 * K_EXP; 256 a token
+at Mixtral's 32 layers. Two quirks of the reference are kept: thresholds
+are read at the real layer (calibration leaves the MoE down column 6 at
+0, so the down stage keeps its first `cap` groups by index), and each
+expert is added to the stream in fp32 with the fp32 routing weight (the
+layer loop's twin, `models/moe.moe_ffn`, combines the experts in the
+stream type with weights rounded to it).
 """
 
 from __future__ import annotations
@@ -33,8 +51,110 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from teal_tpu_torch import _build
 from teal_tpu_torch.ops.attn_block import attn_stage
-from teal_tpu_torch.ops.block_gemv import _weight_kind, select_gather_gemv
+from teal_tpu_torch.ops.block_gemv import (_DTYPE_CODE, _check_launch_device,
+                                           _weight_kind, select_gather_gemv,
+                                           selection_input)
+
+MAX_EXPERTS = 64                 # K5's taken mask
+MAX_ROUTED = 8                   # routed experts a token
+
+
+def moe_route_plain(x: torch.Tensor, norm: torch.Tensor,
+                    router: torch.Tensor, layer: int, k_exp: int,
+                    norm_eps: float = 1e-5):
+    """K5 in plain PyTorch (same arguments and results as `moe_route`):
+    the folded norm of `block_gemv.selection_input`, one dot product per
+    expert (equal router columns give equal logits), top-k by repeated
+    argmax (the first maximum wins: the lowest index among ties, as
+    `jax.lax.top_k`), then the softmax anchored at the largest logit and
+    summed in t order."""
+    xn = selection_input(x, norm, layer, norm_eps)
+    xf = xn.float()
+    E = router.shape[-1]
+    logits = torch.stack([torch.dot(xf, router[layer, :, e])
+                          for e in range(E)])
+    iota = torch.arange(E, device=x.device)
+    taken = torch.zeros(E, dtype=torch.bool, device=x.device)
+    idx = []
+    for _ in range(k_exp):
+        i = torch.argmax(logits.masked_fill(taken, float("-inf")))
+        taken = taken | (iota == i)
+        idx.append(i)
+    idx = torch.stack(idx)
+    ex = torch.exp(logits[idx] - logits[idx[0]])
+    den = ex[0]
+    for t in range(1, k_exp):
+        den = den + ex[t]
+    return xn, (layer * E + idx).to(torch.int32), ex / den
+
+
+def _check_route(x, norm, router, layer, k_exp):
+    if (x.dtype not in _DTYPE_CODE or x.dim() != 1
+            or not x.is_contiguous()):
+        raise ValueError(f"x must be a contiguous fp32/bf16 vector [D]; got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    D = x.shape[0]
+    if (router.dim() != 3 or router.shape[1] != D
+            or router.dtype != torch.float32 or not router.is_contiguous()
+            or router.device != x.device):
+        raise ValueError(f"router must be a contiguous fp32 [L, {D}, E] "
+                         f"stack on x's device; got {router.dtype} "
+                         f"{tuple(router.shape)}")
+    L, _, E = router.shape
+    if (norm.shape != (L, D) or norm.dtype != x.dtype
+            or norm.device != x.device or not norm.is_contiguous()):
+        raise ValueError(f"norm must be a contiguous [L, D] stack of x's "
+                         f"type; got {norm.dtype} {tuple(norm.shape)}")
+    if not (1 <= E <= MAX_EXPERTS and 1 <= k_exp <= min(E, MAX_ROUTED)):
+        raise ValueError(f"{k_exp} routed of {E} experts: K5 takes at most "
+                         f"{MAX_EXPERTS} experts and {MAX_ROUTED} routed")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+
+
+def moe_route(x: torch.Tensor, norm: torch.Tensor, router: torch.Tensor,
+              layer: int, k_exp: int, norm_eps: float = 1e-5):
+    """K5: Mixtral routing of one decode row at layer `layer`.
+
+    x:      [D] raw residual stream (fp32 or bf16)
+    norm:   [L, D] mlp rms_norm gains of x's type
+    router: [L, D, E] fp32 router weights
+    k_exp:  routed experts (<= 8, <= E)
+
+    Returns (xn [D] the folded norm in x's type, pseudo-layers int32
+    [k_exp] layer * E + e_t, routing weights fp32 [k_exp]), all on x's
+    device, the experts in descending logit order (the lowest index
+    first among equal logits)."""
+    _check_route(x, norm, router, layer, k_exp)
+    if x.device.type == "cpu":
+        return moe_route_plain(x, norm, router, layer, k_exp, norm_eps)
+    _check_launch_device(x, "moe_route")
+    lib = _build.load()["moe_route"]
+    xn = torch.empty_like(x)
+    eidx = torch.empty(k_exp, dtype=torch.int32, device=x.device)
+    w = torch.empty(k_exp, dtype=torch.float32, device=x.device)
+    err = lib.teal_moe_route(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), norm.data_ptr(), norm_eps,
+        router.data_ptr(), xn.data_ptr(), eidx.data_ptr(), w.data_ptr(),
+        x.shape[0], router.shape[2], k_exp, layer,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "moe_route")
+    moe_route.launches += 1
+    return xn, eidx, w
+
+
+moe_route.launches = 0
+
+
+def expert_stacks(w):
+    """An expert stack [L, E, K, N] (int8: {"q" [L, E, K, N], "scale"
+    [L, E, N]}) as the pseudo-layer stack [L*E, K, N] K1 reads: views, no
+    copy."""
+    if isinstance(w, dict):
+        return {k: v.flatten(0, 1) for k, v in w.items()}
+    return w.flatten(0, 1)
 
 
 def stage_operands(ws):
@@ -57,11 +177,17 @@ def layer_decode(h: torch.Tensor, layer: int, thresholds: torch.Tensor,
                  caps: Tuple[int, int, int, int], n_heads: int,
                  norm_eps: float = 1e-5, window: Optional[int] = None,
                  fixed_sel: bool = False, seq_block: bool = False,
-                 counts: Optional[List[torch.Tensor]] = None):
+                 counts: Optional[List[torch.Tensor]] = None,
+                 router: Optional[torch.Tensor] = None, k_exp: int = 0,
+                 routes: Optional[List[torch.Tensor]] = None):
     """One transformer layer of `token_decode` (h: [dim] or rows [B, dim];
-    pos: int32 [B] on the device; the rest as in `token_decode`). Returns
-    the new stream. With `counts`, appends this layer's kept-group counts
-    (qkv, o, gate|up, down) as an int32 [4] device tensor."""
+    pos: int32 [B] on the device; with `router`, the MoE layer, ws holding
+    the expert stacks as [L*E, K, N] (`expert_stacks`); the rest as in
+    `token_decode`). Returns the new stream. With `counts`, appends this
+    layer's kept-group counts as an int32 device tensor: (qkv, o, gate|up,
+    down), or with `router` (qkv, o, then gate|up and down of each routed
+    expert); with `routes`, this layer's routed pseudo-layers (K5's int32
+    [k_exp])."""
     ops, sc = stage_operands(ws)
     wq, wk, wv, wo, wgate, wup, wdown = ops
 
@@ -76,15 +202,33 @@ def layer_decode(h: torch.Tensor, layer: int, thresholds: torch.Tensor,
     h, _, c1 = select_gather_gemv(attn, thresholds[layer, 3], (wo,), layer,
                                   caps[1], res=h, scales=scales(3),
                                   fixed=fixed_sel)
-    inter, _, c2 = select_gather_gemv(h, thresholds[layer, 4], (wgate, wup),
-                                      layer, caps[2], norm=norm_mlp,
-                                      norm_eps=norm_eps, silu=True,
-                                      scales=scales(4, 5), fixed=fixed_sel)
-    h, _, c3 = select_gather_gemv(inter, thresholds[layer, 6], (wdown,),
-                                  layer, caps[3], res=h, scales=scales(6),
-                                  fixed=fixed_sel)
+    if router is not None:
+        xn, eidx, route_w = moe_route(h, norm_mlp, router, layer, k_exp,
+                                      norm_eps)
+        if routes is not None:
+            routes.append(eidx)
+        cs = []
+        for t in range(k_exp):
+            inter, _, c2 = select_gather_gemv(
+                xn, thresholds[layer, 4], (wgate, wup), eidx, caps[2],
+                slot=t, silu=True, scales=scales(4, 5), fixed=fixed_sel)
+            h, _, c3 = select_gather_gemv(
+                inter, thresholds[layer, 6], (wdown,), eidx, caps[3],
+                slot=t, res=h, route_w=route_w, scales=scales(6),
+                fixed=fixed_sel)
+            cs += [c2, c3]
+    else:
+        inter, _, c2 = select_gather_gemv(h, thresholds[layer, 4],
+                                          (wgate, wup), layer, caps[2],
+                                          norm=norm_mlp, norm_eps=norm_eps,
+                                          silu=True, scales=scales(4, 5),
+                                          fixed=fixed_sel)
+        h, _, c3 = select_gather_gemv(inter, thresholds[layer, 6], (wdown,),
+                                      layer, caps[3], res=h,
+                                      scales=scales(6), fixed=fixed_sel)
+        cs = [c2, c3]
     if counts is not None:
-        counts.append(torch.cat([c0, c1, c2, c3]))
+        counts.append(torch.cat([c0, c1, *cs]))
     return h
 
 
@@ -94,7 +238,9 @@ def token_decode(h: torch.Tensor, thresholds: torch.Tensor,
                  kc: torch.Tensor, vc: torch.Tensor, pos, *,
                  caps: Tuple[int, int, int, int], n_heads: int,
                  norm_eps: float = 1e-5, window: Optional[int] = None,
-                 fixed_sel: bool = False, seq_block: bool = False):
+                 fixed_sel: bool = False, seq_block: bool = False,
+                 router: Optional[torch.Tensor] = None,
+                 n_experts_per_tok: int = 0):
     """Decode one token per row through every layer.
 
     h:    [dim] raw residual stream (embedding of the token), or rows
@@ -113,9 +259,17 @@ def token_decode(h: torch.Tensor, thresholds: torch.Tensor,
     fixed_sel: keep groups 0..cap-1 at every stage (no scoring)
     seq_block: the rows are consecutive positions pos[0] + i of one
           sequence in cache row 0; row i attends to rows < i
+    router: Mixtral, one row: [L, dim, E] fp32 router weights; ws[4:7]
+          are then the expert stacks [L, E, K, N] (int8: {"q" [L, E, K,
+          N], "scale" [L, E, N]}), `n_experts_per_tok` of which run a
+          layer (see the module docstring)
 
     Returns the stream after the last layer, of h's shape.
     """
+    if router is not None:
+        if h.dim() != 1 or seq_block:
+            raise ValueError("the MoE token path decodes one row")
+        ws = (*ws[:4], *(expert_stacks(w) for w in ws[4:]))
     if isinstance(pos, int):
         if not 0 <= pos < kc.shape[3]:
             raise ValueError(f"pos {pos} out of range [0, {kc.shape[3]})")
@@ -127,5 +281,6 @@ def token_decode(h: torch.Tensor, thresholds: torch.Tensor,
         h = layer_decode(h, layer, thresholds, ws, norm_attn, norm_mlp, rope,
                          kc, vc, pos, caps=caps, n_heads=n_heads,
                          norm_eps=norm_eps, window=window,
-                         fixed_sel=fixed_sel, seq_block=seq_block)
+                         fixed_sel=fixed_sel, seq_block=seq_block,
+                         router=router, k_exp=n_experts_per_tok)
     return h

@@ -14,6 +14,7 @@ import torch
 from teal_tpu_torch.models import llama
 from teal_tpu_torch.ops import block_gemv as bg
 from teal_tpu_torch.ops import gather_gemv as gg
+from teal_tpu_torch.ops import token_block as tb
 from teal_tpu_torch.ops.decode_attention import (decode_attention,
                                                  decode_attention_plain)
 
@@ -308,3 +309,89 @@ def test_k2_seq_block_matches_plain(cuda, dtype, Hq, Hkv, window, p0):
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     ok, err = _close(got, want, 1e-5 if dtype == torch.float32 else 1e-2)
     assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,k_exp", [(8, 2), (4, 1), (16, 4)])
+def test_k5_route_matches_plain(cuda, dtype, E, k_exp):
+    """K5 (`moe_route`): the same experts in the same order as the plain
+    version, xn within one ulp of a bf16 stream (4 of an fp32 one: the two
+    sum the squares of the norm in other orders, and xn rounds twice),
+    weights within 1e-6; with two equal router columns at the top the
+    lower expert comes first."""
+    g = torch.Generator(device=cuda).manual_seed(10 + E)
+    L, D = 3, 1024
+    router = torch.randn(L, D, E, generator=g, device=cuda) * 0.05
+    norm = (1 + 0.1 * torch.randn(L, D, generator=g, device=cuda)).to(dtype)
+    x = torch.randn(D, generator=g, device=cuda).to(dtype)
+    for layer in range(L):
+        for tie in (False, True):
+            r = router.clone()
+            if tie:       # experts E-1 and 1 equal and above the rest
+                xn = tb.moe_route_plain(x, norm, r, layer, 1)[0].float()
+                r[layer, :, 1] = r[layer, :, E - 1] = xn * 0.01
+            got = tb.moe_route(x, norm, r, layer, k_exp)
+            want = tb.moe_route_plain(x, norm, r, layer, k_exp)
+            assert torch.equal(got[1], want[1]), (layer, tie)
+            ulp = (torch.finfo(dtype).eps * want[0].float().abs()
+                   * (4 if dtype == torch.float32 else 1))
+            assert bool(((got[0].float() - want[0].float()).abs()
+                         <= ulp).all()), (layer, tie)
+            assert float((got[2] - want[2]).abs().max()) <= 1e-6
+            if tie:
+                assert int(got[1][0]) == layer * E + 1
+                if k_exp > 1:
+                    assert int(got[1][1]) == layer * E + E - 1
+                    assert float((got[2][0] - got[2][1]).abs()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", ["stream", "int8"])
+def test_k1_moe_forms_match_plain(cuda, dtype, plan):
+    """K1 reading its layer on the device (pseudo-layers of [L*E, K, N]
+    stacks): gate|up (silu, no norm) and down with the weighted residual
+    (mode 3), the same kept sets and outputs as the plain version; an out
+    of range pseudo-layer is refused on the host for an int layer."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    LE, D, I, cap_gu, cap_dn = 6, 512, 768, 2, 3
+    ws, scales = _rows_weights(g, cuda, plan, dtype, LE, D, (I, I))
+    wd, sd = _rows_weights(g, cuda, plan, dtype, LE, I, (D,))
+    eidx = torch.tensor([5, 2], dtype=torch.int32, device=cuda)
+    route_w = torch.tensor([0.7, 0.3], device=cuda)
+    x = torch.randn(D, generator=g, device=cuda).to(dtype)
+    h = torch.randn(D, generator=g, device=cuda).to(dtype)
+    for thr in (0.0, 2.0, 100.0):
+        t = torch.tensor(thr, device=cuda)
+        for slot in (0, 1):
+            kw = dict(slot=slot, silu=True, scales=scales)
+            got, gidx, gcnt = bg.select_gather_gemv(x, t, ws, eidx, cap_gu,
+                                                    **kw)
+            want, widx, wcnt = bg.select_gather_gemv_plain(x, t, ws, eidx,
+                                                           cap_gu, **kw)
+            assert torch.equal(gcnt, wcnt) and torch.equal(gidx, widx)
+            ok, err = _close(got, want, 1e-5 if dtype == torch.float32
+                             else 2 ** -7)
+            assert ok, (thr, slot, err)
+            kw = dict(slot=slot, res=h, route_w=route_w, scales=sd)
+            inter = want.contiguous()
+            got, gidx, _ = bg.select_gather_gemv(inter, t, wd, eidx, cap_dn,
+                                                 **kw)
+            want, widx, _ = bg.select_gather_gemv_plain(inter, t, wd, eidx,
+                                                        cap_dn, **kw)
+            assert torch.equal(gidx, widx)
+            ok, err = _close(got, want, 1e-5 if dtype == torch.float32
+                             else 2 ** -7)
+            assert ok, (thr, slot, err)
+    with pytest.raises(ValueError):
+        bg.select_gather_gemv(x, torch.tensor(0.0, device=cuda), ws, LE,
+                              cap_gu, silu=True, scales=scales)
+
+
+def test_moe_route_counts_launches(cuda):
+    before = tb.moe_route.launches
+    x = torch.ones(256, device=cuda)
+    norm = torch.ones(1, 256, device=cuda)
+    r = torch.ones(1, 256, 4, device=cuda)
+    tb.moe_route(x, norm, r, 0, 2)
+    tb.moe_route_plain(x, norm, r, 0, 2)
+    assert tb.moe_route.launches == before + 1

@@ -228,20 +228,26 @@ def test_lm_head_keeps_fp32_sums():
 
 
 def test_unported_variants_raise(model):
-    """The MoE FFN (on the layer loop's and the token path's configs) and
-    batched gather mode raise NotImplementedError (int8 and int4 weights
-    are held to the JAX package in tests/test_torch_quant.py, batched
-    decode on the token path in tests/test_torch_batched.py)."""
+    """Batched gather mode raises NotImplementedError. The MoE FFN is
+    ported: on the layer loop's configs (the top-k block config at batch
+    1, the main-path config at batch 2) it decodes to finite logits (held
+    to the JAX package in tests/test_torch_moe.py; int8 and int4 weights
+    in tests/test_torch_quant.py, batched decode on the token path in
+    tests/test_torch_batched.py)."""
     cfg, _, params, _ = model
     th = torch.zeros(cfg.n_layers, len(PROJS))
 
     def fwd(p, c, sp, b):
         cache = llama.KVCache.init(c, b, T, torch.float32, "cpu")
-        llama.forward(p, torch.ones((b, 1), dtype=torch.int64), cache, 3, th,
-                      cfg=c, sp=SparsityConfig(**sp))
+        return llama.forward(p, torch.ones((b, 1), dtype=torch.int64),
+                             cache, 3, th, cfg=c, sp=SparsityConfig(**sp))[0]
 
+    with pytest.raises(NotImplementedError):
+        fwd(params, cfg, PATH_C, 2)
     moe = dataclasses.replace(cfg, n_experts=2, n_experts_per_tok=1)
-    for p, c, sp, b in ((params, moe, PATH_A, 1), (params, cfg, PATH_C, 2),
-                        (params, moe, MAIN, 2)):
-        with pytest.raises(NotImplementedError):
-            fwd(p, c, sp, b)
+    mp = llama.init_params(moe, torch.Generator().manual_seed(1),
+                           torch.float32, "cpu")
+    for sp, b in ((PATH_A, 1), (MAIN, 2)):
+        lg = fwd(mp, moe, sp, b)
+        assert lg.shape == (b, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(lg).all())

@@ -160,15 +160,19 @@ def test_entry_points_default_to_cuda(model):
 
 
 def test_unported_sparse_decode_raises(model):
-    """What is still unported raises: the MoE FFN, on the token path's
-    config as everywhere, and MoE parameters."""
+    """What is still unported raises: the reference's debug fixed
+    selection. The MoE FFN is ported: it takes the token path at batch 1
+    only, as in the reference (batch 2 runs the layer loop; both are held
+    to the JAX package in tests/test_torch_moe.py)."""
     cfg, _, params, _, th = model
     moe = get_model_config("tiny", **CFG_KW, n_experts=4, n_experts_per_tok=2)
+    mp = llama.init_params(moe, torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
     sp = SparsityConfig(**MAIN)
-    assert not llama.can_token_decode(params, moe, sp, 1, 2, torch.float32)
+    assert llama.can_token_decode(mp, moe, sp, 1, 1, torch.float32)
+    assert not llama.can_token_decode(mp, moe, sp, 1, 2, torch.float32)
     cache = llama.KVCache.init(cfg, 2, T, torch.float32, "cpu")
     with pytest.raises(NotImplementedError):
         llama.forward(params, torch.tensor([[1], [2]]), cache, 3,
-                      torch.from_numpy(th), cfg=moe, sp=sp)
-    with pytest.raises(NotImplementedError):
-        llama.init_params(moe, torch.Generator(), torch.float32, "cpu")
+                      torch.from_numpy(th), cfg=cfg,
+                      sp=SparsityConfig(**MAIN, debug_fixed_selection=True))
