@@ -100,6 +100,24 @@ Phases:
      launches a decoded token (256 at 32 layers), tok/s at keep 0.5
      against 1.0, the decode step's device and wall time, and K5's and the
      MoE K1 calls' times beside their bound and yardsticks;
+ 11. long prompts (run before phase 10, on the resident bf16 7B params):
+     K6 (`flash_prefill_attention`) against its plain version, each
+     (head, query) row within a tolerance of its own largest value: bf16
+     at S = 256, 2048, 2560 (Hq/Hkv 32/32 and 32/8, 2^-6 a row) and fp32
+     at S = 256 (1e-4 a row); every layer of a 2048-token prefill through
+     K6 held to the plain path on the same layer input (the attention
+     output 2^-6 a row, the layer output 2e-2 of scale); `Generator` with
+     a 2000-token prompt
+     (padded to 2048) and 16 greedy tokens on the main path, asserting
+     exactly L K6 launches for the long prefill besides 4*L K1 + L K2 a
+     token (the short prompts of phases 4-10 assert none); the 2k
+     prefill's seconds and peak memory with K6 against the plain
+     `_attention` path, in turns; `eval_ppl` at context 2048 + window
+     512 over a 4096-token stream (4 windows), bf16 dense and at phase
+     4's thresholds, and on an fp32 copy through K6's fp32 path against
+     the plain path (each window's NLL within 1e-4 relative); K6's times
+     at S = 2048 and 2560 beside its plain version, SDPA (causal, GQA)
+     and its bound, and K2 at pos 2047 of a 2048-row cache;
 all printed as one `kernels` JSON line, with the card in it.
 
 The line before the last is the card's name and power limit from
@@ -116,6 +134,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Tuple
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
@@ -136,9 +155,10 @@ LOOP_PATHS = {
     "C": (dict(enabled=True, kernel="gather"), 1),
 }
 # kernel launches per layer and decode step on each path: K1, K2, K3, K4,
-# K5
-LOOP_LAUNCHES = {"A": (0, 1, 4, 0, 0), "A-b4": (0, 1, 4, 0, 0),
-                 "B": (4, 1, 0, 0, 0), "C": (0, 0, 0, 7, 0)}
+# K5, K6 (K6 runs only in the prefill of a prompt of 256 or more tokens:
+# none for these requests' short prompts)
+LOOP_LAUNCHES = {"A": (0, 1, 4, 0, 0, 0), "A-b4": (0, 1, 4, 0, 0, 0),
+                 "B": (4, 1, 0, 0, 0, 0), "C": (0, 0, 0, 7, 0, 0)}
 LOOP_NEW_TOKENS = 8
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
 STAGE_WEIGHTS = {"qkv": ("wq", "wk", "wv"), "o": ("wo",),
@@ -154,10 +174,11 @@ QUANT_PATHS = {
     "Q4-main-b16": ("int4-g128", MAIN_SP, 16),
     "Q4-loop": ("int4-g64", LOOP_PATHS["A"][0], 1),
 }
-QUANT_LAUNCHES = {"Q8-main": (4, 1, 0, 0, 0), "Q8-main-b16": (4, 1, 0, 0, 0),
-                  "Q8-loop": (0, 1, 4, 0, 0), "Q4-main": (4, 1, 0, 0, 0),
-                  "Q4-main-b16": (4, 1, 0, 0, 0),
-                  "Q4-loop": (0, 1, 4, 0, 0)}
+QUANT_LAUNCHES = {"Q8-main": (4, 1, 0, 0, 0, 0),
+                  "Q8-main-b16": (4, 1, 0, 0, 0, 0),
+                  "Q8-loop": (0, 1, 4, 0, 0, 0), "Q4-main": (4, 1, 0, 0, 0, 0),
+                  "Q4-main-b16": (4, 1, 0, 0, 0, 0),
+                  "Q4-loop": (0, 1, 4, 0, 0, 0)}
 
 
 class SmokeFailure(RuntimeError):
@@ -467,15 +488,16 @@ def calibrate_and_check(params, cfg, cache, tok, pos, rope, caps, device):
 
 
 def _wrappers():
-    """Every kernel wrapper, in the order K1, K2, K3, K4, K5."""
+    """Every kernel wrapper, in the order K1, K2, K3, K4, K5, K6."""
     from teal_tpu_torch.ops.block_gemv import (block_gather_gemv_multi,
                                                select_gather_gemv)
     from teal_tpu_torch.ops.decode_attention import decode_attention
+    from teal_tpu_torch.ops.flash_prefill import flash_prefill_attention
     from teal_tpu_torch.ops.gather_gemv import row_gather_gemv
     from teal_tpu_torch.ops.token_block import moe_route
 
     return (select_gather_gemv, decode_attention, block_gather_gemv_multi,
-            row_gather_gemv, moe_route)
+            row_gather_gemv, moe_route, flash_prefill_attention)
 
 
 def reset_launches():
@@ -484,14 +506,19 @@ def reset_launches():
 
 
 def read_launches():
-    """Launch counts (K1, K2, K3, K4, K5)."""
+    """Launch counts (K1, K2, K3, K4, K5, K6)."""
     return tuple(f.launches for f in _wrappers())
 
 
-def check_launches(k1: int, k2: int, L: int, decoded: int) -> None:
-    check(k1 == 4 * L * decoded and k2 == L * decoded,
-          f"launches K1={k1} K2={k2}, expected {4 * L * decoded} and "
-          f"{L * decoded} for {decoded} decoded tokens")
+def check_launches(counts, L: int, decoded: int, long_prefills: int = 0):
+    """The main path's launch counts (K1, K2, K3, K4, K5, K6) after
+    `decoded` token-path decode steps and prefills of which
+    `long_prefills` had 256 or more tokens: 4*L K1 and L K2 a token, L K6
+    a long prefill (none for a short one), no other kernel."""
+    want = (4 * L * decoded, L * decoded, 0, 0, 0, L * long_prefills)
+    check(tuple(counts) == want, f"launches (K1, K2, K3, K4, K5, K6) "
+          f"{tuple(counts)}, expected {want} for {decoded} decoded tokens "
+          f"and {long_prefills} prefill(s) of 256 or more tokens")
 
 
 def end_to_end(params, cfg, caps, device, seed):
@@ -543,11 +570,9 @@ def end_to_end(params, cfg, caps, device, seed):
     dense.generate(prompts[0], 4)
     reset_launches()
     outs = [sparse.generate(p, NEW_TOKENS, thresholds=th) for p in prompts]
-    k1, k2, k3, k4, k5 = read_launches()
+    k1, k2, *_ = counts = read_launches()
     decoded = len(prompts) * (NEW_TOKENS - 1)
-    check_launches(k1, k2, L, decoded)
-    check(k3 == k4 == k5 == 0, f"the main path launched K3 {k3}, K4 {k4} "
-          f"and K5 {k5} times")
+    check_launches(counts, L, decoded)         # short prompts: no K6
     log(f"[e2e] main path: {len(prompts)} requests, {decoded} decoded "
         f"tokens, K1 launches {k1} ({k1 // max(decoded, 1)}/token), "
         f"K2 launches {k2} ({k2 // max(decoded, 1)}/token)")
@@ -575,6 +600,29 @@ def end_to_end(params, cfg, caps, device, seed):
     return (k1, k2, decoded), speeds, th
 
 
+def profile_device(fn, iters: int):
+    """Device time of fn() per call from torch.profiler: (the sum of the
+    kernel times in ms, [(kernel, ms)] largest first). Kernel events only:
+    an operator's event, and the span the profiler draws on the device
+    for an annotated operator (e.g. "aten::mm"), repeat the device time
+    of the kernels inside them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return sum(t for _, t in rows), rows
+
+
 def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
     """One decode `forward` (embedding to logits) for each run (kind,
     sparsity kwargs, batch, thresholds[, positions]; at pos 40 where no
@@ -583,8 +631,6 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
     without the profiler). A step launches more kernels than the launch
     queue holds, so the sleep-queued timing of `cuda_ms` cannot apply."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from teal_tpu_torch.config import SparsityConfig
     from teal_tpu_torch.models import llama
@@ -608,21 +654,7 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                step()
-            torch.cuda.synchronize()
-        # kernel events only: an operator's event, and the span the
-        # profiler draws on the device for an annotated operator (e.g.
-        # "aten::mm"), repeat the device time of the kernels inside them
-        rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False)
-                       and e.self_device_time_total > 0),
-                      key=lambda r: -r[1])
-        dev = sum(t for _, t in rows)
+        dev, rows = profile_device(step, iters)
         out[kind] = dict(device_ms=dev, wall_ms=wall,
                          idle_share=max(0.0, 1.0 - dev / wall))
         log(f"[time] one {kind} decode step (batch {b}): device "
@@ -663,6 +695,20 @@ def rel_check(what: str, got, want, rel: float) -> float:
     check(err <= rel * scale, f"{what}: max error {err:.3e} > "
           f"{rel * scale:.3e}")
     return err
+
+
+def row_check(what: str, got, want, rel: float) -> Tuple[float, float]:
+    """Per row of the last axis: each row's largest error within `rel` of
+    that row's largest |want|. Returns (largest absolute error, largest
+    ratio of a row's error to its scale)."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    bad = int((diff > rel * scale).sum())
+    ratio = float((diff / scale.clamp_min(1e-30)).max())
+    check(bad == 0, f"{what}: {bad} of {diff.numel()} rows with an error "
+          f"above {rel:g} of the row's largest value (worst "
+          f"{ratio:.3e})")
+    return float(diff.max()), ratio
 
 
 def check_k1_groups(params, cfg, device, gen, tag="k1g"):
@@ -784,6 +830,7 @@ def plain_path(k1=None):
     from teal_tpu_torch.ops import attn_block, token_block
     from teal_tpu_torch.ops import block_gemv as bg
     from teal_tpu_torch.ops import decode_attention as da
+    from teal_tpu_torch.ops import flash_prefill as fp
     from teal_tpu_torch.ops import gather_gemv as gg
 
     k1 = k1 or bg.select_gather_gemv_plain
@@ -795,7 +842,9 @@ def plain_path(k1=None):
              (gg, "row_gather_gemv", gg.row_gather_gemv_plain),
              (llama, "decode_attention", da.decode_attention_plain),
              (attn_block, "decode_attention", da.decode_attention_plain),
-             (token_block, "moe_route", token_block.moe_route_plain)]
+             (token_block, "moe_route", token_block.moe_route_plain),
+             (llama, "flash_prefill_attention",
+              fp.flash_prefill_attention_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     before = read_launches()
     for m, n, f in swaps:
@@ -1045,14 +1094,15 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
         counts = read_launches()
         steps = len(prompts) * (LOOP_NEW_TOKENS - 1)
         want = tuple(n * L * steps for n in launches[name])
-        check(counts == want, f"path {name}: launches (K1, K2, K3, K4, K5) "
+        check(counts == want, f"path {name}: launches (K1, K2, K3, K4, K5, "
+              f"K6) "
               f"{counts}, expected {want} for {steps} decode steps")
         for p, (toks, st) in zip(prompts, outs):
             check(toks.shape == (b, p.shape[1] + LOOP_NEW_TOKENS)
                   and bool((toks >= 0).all() and (toks < cfg.vocab_size)
                            .all()), f"path {name}: bad tokens {toks.shape}")
         log(f"[loop] path {name}: {len(prompts)} requests, {steps} decode "
-            f"steps, launches per step (K1, K2, K3, K4, K5) "
+            f"steps, launches per step (K1, K2, K3, K4, K5, K6) "
             f"{tuple(c // steps for c in counts)}; tok/s "
             + ", ".join(f"{st.tokens_per_s * b:.2f}" for _, st in outs)
             + f"; first request's new tokens "
@@ -1065,50 +1115,16 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
 # --- phase 7: kernel times ------------------------------------------------
 
 def time_kernels(params, cfg, caps, device, gen, rope, launches, errs):
-    import torch
-    import torch.nn.functional as F
-
-    from teal_tpu_torch.ops.decode_attention import (decode_attention,
-                                                     decode_attention_plain)
-
-    dt = params["layers"]["wq"].dtype
-    esz = torch.finfo(dt).bits // 8
     L = cfg.n_layers
     stages = time_k1_plan(params, params, cfg, caps, device, gen, "bf16")
 
-    # K2 at 7B (MHA: SDPA needs no GQA expansion), pos = T-1, a 32-layer
-    # cache so that calls do not share L2
-    Hq, Hkv, T = cfg.n_heads, cfg.n_kv_heads, MAX_SEQ
-    p = T - 1
-    kc = torch.randn((L, 1, Hkv, T, 128), generator=gen, device=device).to(dt)
-    vc = torch.randn((L, 1, Hkv, T, 128), generator=gen, device=device).to(dt)
-    q = torch.randn(1, Hq, 128, generator=gen, device=device)
-    kn = torch.randn(1, Hkv, 128, generator=gen, device=device)
-    vn = torch.randn(1, Hkv, 128, generator=gen, device=device)
-    row = torch.stack([rope[0][p], rope[1][p]])[None].contiguous()
-    pos_t = torch.tensor([p], dtype=torch.int32, device=device)
-    nbytes = (2 * p * Hkv * 128 * esz + (Hq + 2 * Hkv) * 128 * 4
-              + 2 * 128 * 4 + Hq * 128 * esz + 2 * Hkv * 128 * esz)
-    a_ms, a_by = bound_ms(nbytes, 4 * Hq * p * 128)
-    k2_ms, k2_host = cuda_ms(lambda i: decode_attention(
-        q, kn, vn, kc, vc, i % L, pos_t, rope=row), 64)
-    k2_plain, _ = cuda_ms(lambda i: decode_attention_plain(
-        q, kn, vn, kc, vc, i % L, pos_t, rope=row), 5, warmup=1,
-        queued=False)
-    q4 = q.to(dt)[:, :, None]
-    k2_lib, _ = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        q4, kc[i % L][:, :, :p + 1], vc[i % L][:, :, :p + 1]), 64)
-    log(f"[time] K2 pos={p} kernel {k2_ms:.4f} ms (host enqueue "
-        f"{k2_host:.4f} ms)  plain {k2_plain:.4f} ms  "
-        f"SDPA {k2_lib:.4f} ms  bound {a_ms:.4f} ms ({a_by}, "
-        f"{nbytes / 1e6:.2f} MB)")
-
     (k1n, k2n, decoded) = launches
+    k2 = time_k2(cfg, device, gen, rope, k2n, decoded, errs[1])
     per_layer = {key: sum(s[key] for s in stages)
                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     log(f"[time] kernel time per token, summed over stages and layers: "
-        f"{L * (per_layer['ms'] + k2_ms):.3f} ms (bound "
-        f"{L * (per_layer['bound_ms'] + a_ms):.3f} ms)")
+        f"{L * (per_layer['ms'] + k2['ms']):.3f} ms (bound "
+        f"{L * (per_layer['bound_ms'] + k2['bound_ms']):.3f} ms)")
     return {"kernels": [
         dict(name="select_gather_gemv", route="cuda",
              source="teal_tpu_torch/csrc/select_gather_gemv.cu",
@@ -1122,15 +1138,62 @@ def time_kernels(params, cfg, caps, device, gen, rope, launches, errs):
              library_ms=per_layer["library_ms"],
              timed="one layer's four calls (qkv, o, gate|up, down) at "
                    "count == cap, summed", stages=stages),
-        dict(name="decode_attention", route="cuda",
-             source="teal_tpu_torch/csrc/decode_attention.cu",
-             replaces="teal_tpu/ops/decode_attention.py:444",
-             launches=k2n, launches_per_token=k2n / decoded,
-             max_abs_err=errs[1], ms=k2_ms, kernel_ms=k2_ms,
-             plain_ms=k2_plain,
-             bound_ms=a_ms, bound_by=a_by, library_ms=k2_lib,
-             timed=f"Hq={Hq} Hkv={Hkv} T={T} pos={p}"),
+        k2,
     ]}
+
+
+def time_k2(cfg, device, gen, rope, launches, steps, err, name=None):
+    """K2 at pos T-1 of a bf16 cache of T rows (T: the rope tables'
+    length), at 7B (MHA: SDPA needs no GQA expansion), a 32-layer cache
+    so that calls do not share L2: one call against its plain version
+    (the whole cache equal after the write, outputs within 1e-2 of
+    scale), then kernel, plain version, SDPA and the bound. Returns the
+    `kernels` entry (max_abs_err: the larger of `err` and this check's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from teal_tpu_torch.ops.decode_attention import (decode_attention,
+                                                     decode_attention_plain)
+
+    L, Hq, Hkv, esz = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, 2
+    T = rope[0].shape[0]
+    p = T - 1
+    shape = (L, 1, Hkv, T, 128)
+    kc = torch.randn(shape, generator=gen, device=device).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=device).bfloat16()
+    q = torch.randn(1, Hq, 128, generator=gen, device=device)
+    kn = torch.randn(1, Hkv, 128, generator=gen, device=device)
+    vn = torch.randn(1, Hkv, 128, generator=gen, device=device)
+    row = torch.stack([rope[0][p], rope[1][p]])[None].contiguous()
+    pos_t = torch.tensor([p], dtype=torch.int32, device=device)
+    k1, v1, k2, v2 = (c[:1].clone() for c in (kc, vc, kc, vc))
+    got = decode_attention(q, kn, vn, k1, v1, 0, pos_t, rope=row)
+    want = decode_attention_plain(q, kn, vn, k2, v2, 0, pos_t, rope=row)
+    check(torch.equal(k1, k2) and torch.equal(v1, v2),
+          f"K2 pos={p}: caches differ after the write")
+    err = max(err, rel_check(f"K2 pos={p}", got, want, 1e-2))
+    del k1, v1, k2, v2
+    nbytes = (2 * p * Hkv * 128 * esz + (Hq + 2 * Hkv) * 128 * 4
+              + 2 * 128 * 4 + Hq * 128 * esz + 2 * Hkv * 128 * esz)
+    b_ms, b_by = bound_ms(nbytes, 4 * Hq * p * 128)
+    ms, host = cuda_ms(lambda i: decode_attention(q, kn, vn, kc, vc, i % L,
+                                                  pos_t, rope=row), 64)
+    p_ms, _ = cuda_ms(lambda i: decode_attention_plain(
+        q, kn, vn, kc, vc, i % L, pos_t, rope=row), 5, warmup=1,
+        queued=False)
+    q4 = q.to(torch.bfloat16)[:, :, None]
+    lib, _ = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q4, kc[i % L][:, :, :p + 1], vc[i % L][:, :, :p + 1]), 64)
+    log(f"[time] K2 pos={p} (T={T}) kernel {ms:.4f} ms (host enqueue "
+        f"{host:.4f} ms)  plain {p_ms:.4f} ms  SDPA {lib:.4f} ms  bound "
+        f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
+    return dict(name=name or "decode_attention", route="cuda",
+                source="teal_tpu_torch/csrc/decode_attention.cu",
+                replaces="teal_tpu/ops/decode_attention.py:444",
+                launches=launches, launches_per_token=launches / steps,
+                max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                timed=f"Hq={Hq} Hkv={Hkv} T={T} pos={p}")
 
 
 def _stage_row(name, **kw):
@@ -1677,13 +1740,13 @@ def check_step_launches(params, cfg, th, device, rope):
                               cache, pos, th, cfg=cfg,
                               sp=SparsityConfig(**MAIN_SP), rope=rope)
         got = read_launches()
-        check(got == (4 * L, L, 0, 0, 0), f"batch {b}: launches (K1, K2, K3, "
-              f"K4, K5) {got} in one decode step, expected "
-              f"{(4 * L, L, 0, 0, 0)}")
+        check(got == (4 * L, L, 0, 0, 0, 0), f"batch {b}: launches (K1, K2, "
+              f"K3, K4, K5, K6) {got} in one decode step, expected "
+              f"{(4 * L, L, 0, 0, 0, 0)}")
         check(tuple(lg.shape) == (b, 1, cfg.vocab_size)
               and bool(torch.isfinite(lg).all()), f"batch {b}: bad logits")
     log(f"[serve] one decode step at batch {STEP_BATCHES}: launches (K1, "
-        f"K2, K3, K4, K5) = {(4 * L, L, 0, 0, 0)} each")
+        f"K2, K3, K4, K5, K6) = {(4 * L, L, 0, 0, 0, 0)} each")
 
 
 def server_phase(params, cfg, device, seed, rope):
@@ -1752,9 +1815,10 @@ def server_phase(params, cfg, device, seed, rope):
         wall = time.perf_counter() - t0
         got = read_launches()
         steps = len(decode)
-        want = (4 * L * steps, L * steps, 0, 0, 0)
+        # prompts of at most 120 tokens: no K6 in one-shot admission
+        want = (4 * L * steps, L * steps, 0, 0, 0, 0)
         check(got == want, f"server (chunk {chunk}): launches (K1, K2, K3, "
-              f"K4, K5) {got}, expected {want} for {steps} decode steps")
+              f"K4, K5, K6) {got}, expected {want} for {steps} decode steps")
         check(len(done) == SERVER_REQUESTS and all(
             len(r.out) == n and all(0 <= t < cfg.vocab_size for t in r.out)
             for r, n in zip(sorted(done, key=lambda r: r.id), new)),
@@ -1849,7 +1913,7 @@ def verify_phase(params, cfg, device, seed, rope):
             torch.cuda.synchronize()
             runs[kind] = (lg, time.perf_counter() - t0, read_launches())
         lg, wall, got = runs["kernel"]
-        want = (n_chunks * 4 * L, n_chunks * L, 0, 0, 0)
+        want = (n_chunks * 4 * L, n_chunks * L, 0, 0, 0, 0)
         check(got == want, f"block_verify S={S}: launches {got}, expected "
               f"{want}")
         check(tuple(lg.shape) == (1, S, cfg.vocab_size)
@@ -1862,7 +1926,8 @@ def verify_phase(params, cfg, device, seed, rope):
                       bf16_err_plain=rel["plain"])
         log(f"[verify] S={S} ({n_chunks} chunk(s) {sizes}): every layer held "
             f"to the plain version (worst {worst:.2e} of scale); launches "
-            f"(K1, K2, K3, K4, K5) {got}; bf16 logits after {L} layers vs "
+            f"(K1, K2, K3, K4, K5, K6) {got}; bf16 logits after {L} layers "
+            f"vs "
             f"the dense forward {rel['dense']:.2e} of scale, vs the plain "
             f"version {rel['plain']:.2e} (reported, not checked); wall "
             f"{wall * 1e3:.1f} ms (dense forward {runs['dense'][1] * 1e3:.1f}"
@@ -2031,6 +2096,356 @@ def batched_phase(params, cfg, caps, device, gen, seed, rope):
                     if isinstance(v, dict) else v) for k, v in serve.items()},
         verify=verify, decode_step_ms=steps)
     return entries, results, th
+
+
+# --- phase 11: long prompts: K6, the 2k prefill and eval_ppl ----------------
+
+LONG_PROMPT = 2000               # tokens; the Generator pads it to 2048
+LONG_NEW_TOKENS = 16
+K6_HEADS = ((32, 32), (32, 8))   # (Hq, Hkv): Llama-2-7B; Mixtral / Mistral
+K6_CHECK_S = (256, 2048, 2560)
+K6_TIME_S = (2048, 2560)
+K6_SETS = 4                      # input sets timed in turn (> L2 at S 2048)
+PPL_CONTEXT, PPL_WINDOW, PPL_TOKENS = 2048, 512, 4096
+# K6 in bf16 against its plain version, a (head, query) row at a time:
+# two bf16 ulps of the row's largest value. Each side rounds its output
+# to bf16 (one ulp is at most 2^-7 of the value); the probabilities are
+# rounded to bf16 before PV on both sides, but at different points (the
+# kernel the running, unnormalised weights, the plain version the
+# normalised ones), each weight within 2^-9 of its value, which moves a
+# row by far less than an ulp.
+K6_BF16_ROW_TOL = 2 ** -6
+
+
+def k6_inputs(S, Hq, Hkv, gen, device, dtype):
+    """Random q [1, Hq, S, 128] and k / v [1, Hkv, S, 128]."""
+    import torch
+
+    return tuple(torch.randn(1, h, S, 128, generator=gen,
+                             device=device).to(dtype)
+                 for h in (Hq, Hkv, Hkv))
+
+
+def check_k6(device, gen):
+    """K6 against its plain version, each (head, query) row held alone:
+    bf16 at `K6_CHECK_S`, MHA and GQA, the row's largest error within
+    `K6_BF16_ROW_TOL` of the row's largest |value|; fp32 at S = 256 within
+    1e-4 of it (the FMA path: fp32 throughout, only the order of the sums
+    differs). Returns the largest absolute error in bf16."""
+    import torch
+
+    from teal_tpu_torch.ops.flash_prefill import (
+        flash_prefill_attention, flash_prefill_attention_plain)
+
+    worst = 0.0
+    for dt, sizes, rel in ((torch.bfloat16, K6_CHECK_S, K6_BF16_ROW_TOL),
+                           (torch.float32, (256,), 1e-4)):
+        for S in sizes:
+            for Hq, Hkv in K6_HEADS:
+                q, k, v = k6_inputs(S, Hq, Hkv, gen, device, dt)
+                got = flash_prefill_attention(q, k, v)
+                want = flash_prefill_attention_plain(q, k, v)
+                check(got.dtype == dt and got.shape == q.shape,
+                      f"K6 {dt} S={S}: output {got.dtype} {tuple(got.shape)}")
+                err, ratio = row_check(f"K6 {dt} S={S} Hq={Hq} Hkv={Hkv}",
+                                       got, want, rel)
+                if dt == torch.bfloat16:
+                    worst = max(worst, err)
+                log(f"[k6] {str(dt)[6:]:8s} S={S:4d} Hq={Hq} Hkv={Hkv:2d} "
+                    f"max_abs_err={err:.3e}, worst row {ratio:.3e} of the "
+                    f"row's largest value (tolerance {rel:g} a row)")
+    return worst
+
+
+def time_k6(device, gen, launches, prefills, err):
+    """K6 at the 7B and GQA shapes, S in `K6_TIME_S`, bf16, `K6_SETS`
+    input sets in turn: kernel, plain version, SDPA (causal, GQA) and the
+    bound (the causal half of QK^T and PV at the bf16 peak; q, k, v and
+    the output once). Returns the `kernels` entry (S = 2048 at 7B at its
+    top level, every shape under "shapes")."""
+    import torch
+    import torch.nn.functional as F
+
+    from teal_tpu_torch.ops.flash_prefill import (
+        flash_prefill_attention, flash_prefill_attention_plain)
+
+    rows = []
+    for S in K6_TIME_S:
+        for Hq, Hkv in K6_HEADS:
+            sets = [k6_inputs(S, Hq, Hkv, gen, device, torch.bfloat16)
+                    for _ in range(K6_SETS)]
+            flops = 4 * 128 * Hq * S * (S + 1) / 2
+            nbytes = (2 * Hq + 2 * Hkv) * S * 128 * 2
+            b_ms, b_by = bound_ms(nbytes, flops)
+            ms, host = cuda_ms(lambda i: flash_prefill_attention(
+                *sets[i % K6_SETS]), 32)
+            p_ms, _ = cuda_ms(lambda i: flash_prefill_attention_plain(
+                *sets[i % K6_SETS]), 3, warmup=1, queued=False)
+            lib, _ = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                *sets[i % K6_SETS], is_causal=True, enable_gqa=True), 32)
+            rows.append(dict(S=S, Hq=Hq, Hkv=Hkv, ms=ms, host_ms=host,
+                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib, tflop_s=flops / ms / 1e9))
+            log(f"[time] K6 S={S} Hq={Hq} Hkv={Hkv:2d} kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s; host enqueue {host:.4f} "
+                f"ms)  plain {p_ms:.4f} ms  SDPA {lib:.4f} ms  bound "
+                f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+    top = rows[0]
+    return dict(name="flash_prefill_attention", route="cuda",
+                source="teal_tpu_torch/csrc/flash_prefill.cu",
+                replaces="teal_tpu/models/llama.py:138", launches=launches,
+                launches_per_prefill=launches / prefills, max_abs_err=err,
+                kernel_ms=top["ms"],
+                timed=f"S={top['S']} Hq={top['Hq']} Hkv={top['Hkv']} bf16 "
+                      "(one layer's prefill attention); every timed shape "
+                      "under shapes",
+                shapes=rows, **{k: top[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")})
+
+
+def hold_prefill_layers(params, cfg, toks, rope, device):
+    """Every layer of a pos-0 dense prefill of toks [1, S] through K6
+    (`layer_forward` with `causal_prefill`) held to the plain path (the
+    same layer under `plain_path`: K6's plain version) on the same layer
+    input: the attention output (attn h2) a (head, query) row at a time
+    within `K6_BF16_ROW_TOL` of the row's largest value, the layer's
+    output within 2e-2 of scale, one K6 launch a layer. Returns the worst
+    row ratio of the attention output."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+
+    b, s = toks.shape
+    dt = llama.compute_dtype(params)
+    sp = SparsityConfig()
+    th = torch.zeros(7, dtype=torch.float32, device=device)
+    pos_t = torch.zeros(b, dtype=torch.int64, device=device)
+    positions = torch.arange(s, device=device)[None]
+    cos, sin = rope[0][positions], rope[1][positions]
+    h = params["embed"][toks].to(dt)
+    shape = (b, cfg.n_kv_heads, s, cfg.head_dim)
+    heads = (b, s, cfg.n_heads, cfg.head_dim)
+    worst = 0.0
+    for i in range(cfg.n_layers):
+        lp = {n: llama._leaf(w, lambda a: a[i])
+              for n, w in params["layers"].items()}
+        caches = [torch.zeros(shape, dtype=dt, device=device)
+                  for _ in range(4)]
+        with plain_path():
+            want, _, _, wcap = llama.layer_forward(
+                h, lp, caches[0], caches[1], pos_t, cos, sin, cfg, sp, th,
+                capture=True, causal_prefill=True)
+        before = read_launches()[5]
+        got, _, _, gcap = llama.layer_forward(
+            h, lp, caches[2], caches[3], pos_t, cos, sin, cfg, sp, th,
+            capture=True, causal_prefill=True)
+        check(read_launches()[5] == before + 1,
+              f"prefill layer {i}: K6 launched {read_launches()[5] - before} "
+              "times, expected once")
+        err, ratio = row_check(
+            f"prefill S={s} layer {i} attention: kernel vs plain",
+            gcap["self_attn"]["h2"].reshape(heads),
+            wcap["self_attn"]["h2"].reshape(heads), K6_BF16_ROW_TOL)
+        worst = max(worst, ratio)
+        h_err = rel_check(f"prefill S={s} layer {i} output: kernel vs plain",
+                          got, want, 2e-2)
+        if i in (0, cfg.n_layers - 1):
+            log(f"[long] prefill layer {i} kernel vs plain: attention "
+                f"max_abs_err={err:.3e}, worst row {ratio:.3e} of its "
+                f"largest value; layer output max_abs_err={h_err:.3e} "
+                f"(scale {float(want.float().abs().max()):.3e})")
+        h = want
+    return worst
+
+
+def long_prompt_run(params, cfg, device, seed, th):
+    """Llama-2-7B, bf16, `Generator` on the main path: a `LONG_PROMPT`
+    prompt padded to 2048 (K6 in every layer of its prefill, each layer
+    held to the plain path), then `LONG_NEW_TOKENS` greedy tokens on the
+    token path with the launch counts reset just before and read just
+    after; the 2k prefill's seconds and peak memory with K6 against the
+    plain `_attention` path, in turns. Returns results."""
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.engine.generate import _pad_len
+    from teal_tpu_torch.models import llama
+
+    L = cfg.n_layers
+    T = _pad_len(LONG_PROMPT)
+    check(llama._can_flash_prefill(T, cfg.head_dim, cfg.sliding_window)
+          and not llama._can_flash_prefill(_pad_len(max(PROMPT_LENS)),
+                                           cfg.head_dim, cfg.sliding_window),
+          "the K6 gate: the long prompt must take it, the short ones not")
+    prompt = np.random.default_rng(seed + 11).integers(1, cfg.vocab_size,
+                                                       LONG_PROMPT)
+    gen = Generator(cfg, params, sp=SparsityConfig(**MAIN_SP), max_seq=T,
+                    cache_dtype=torch.bfloat16, temperature=0.0,
+                    device=device)
+    padded = torch.zeros((1, T), dtype=torch.int64)
+    padded[0, :LONG_PROMPT] = torch.from_numpy(prompt)
+    padded = padded.to(device)
+    t0 = time.perf_counter()
+    worst = hold_prefill_layers(params, cfg, padded, gen.rope, device)
+    log(f"[long] every layer of the {T}-token prefill through K6 held to the "
+        f"plain path (attention: worst row {worst:.2e} of its largest value, "
+        f"tolerance {K6_BF16_ROW_TOL:g} a row) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    gen.generate(prompt[:300], 2, thresholds=th)           # warm-up
+    reset_launches()
+    toks, st = gen.generate(prompt, LONG_NEW_TOKENS, thresholds=th)
+    counts = read_launches()
+    decoded = LONG_NEW_TOKENS - 1
+    check_launches(counts, L, decoded, long_prefills=1)
+    check(toks.shape == (1, LONG_PROMPT + LONG_NEW_TOKENS)
+          and bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
+          f"bad tokens {toks.shape}")
+    log(f"[long] {LONG_PROMPT}-token prompt (padded to {T}), "
+        f"{LONG_NEW_TOKENS} greedy tokens: launches (K1, K2, K3, K4, K5, K6) "
+        f"{counts}; prefill {st.prefill_s:.4f} s (time to first token), "
+        f"decode {st.tokens_per_s:.2f} tok/s at pos {LONG_PROMPT}-"
+        f"{LONG_PROMPT + decoded - 1}; new tokens "
+        f"{toks[0, LONG_PROMPT:].tolist()}")
+
+    # the 2k prefill alone (dense forward, embedding to logits): K6
+    # against the plain `_attention` path, in turns
+    zero = llama.zero_thresholds(cfg, device)
+    runs = {"kernel": [], "plain": []}
+    last = {}
+    for kind in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+        cache = gen.new_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lg, _ = llama.forward(params, padded, cache, 0, zero, cfg=cfg,
+                              sp=SparsityConfig(), rope=gen.rope,
+                              causal_prefill=kind == "kernel")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        last[kind] = lg[0, LONG_PROMPT - 1].float()
+        runs[kind].append(dict(s=sec, peak_gib=peak / 2 ** 30,
+                               peak_over_resident_gib=(peak - base) / 2 ** 30))
+        del lg, cache
+    for kind in runs:                    # the first of each: a warm-up
+        runs[kind] = runs[kind][1:]
+    device_ms = {}
+    for kind in ("kernel", "plain"):
+        def step():
+            llama.forward(params, padded, gen.new_cache(), 0, zero, cfg=cfg,
+                          sp=SparsityConfig(), rope=gen.rope,
+                          causal_prefill=kind == "kernel")
+        dev, rows = profile_device(step, 2)
+        wall = sum(r["s"] for r in runs[kind]) / len(runs[kind]) * 1e3
+        device_ms[kind] = dict(device_ms=dev, wall_ms=wall,
+                               idle_share=max(0.0, 1.0 - dev / wall),
+                               top=[(k, t) for k, t in rows[:6]])
+        log(f"[long] {T}-token prefill via "
+            f"{'K6' if kind == 'kernel' else 'the plain _attention'}: "
+            f"device {dev:.3f} ms (sum of kernel times), wall {wall:.3f} ms, "
+            f"device idle {device_ms[kind]['idle_share']:.1%}; top: "
+            + "; ".join(f"{k[:48]} {t:.3f} ms" for k, t in rows[:6]))
+    rel = float((last["kernel"] - last["plain"]).abs().max()
+                / last["plain"].abs().max())
+    for kind, rs in runs.items():
+        log(f"[long] {T}-token prefill via "
+            f"{'K6' if kind == 'kernel' else 'the plain _attention'}: "
+            + ", ".join(f"{r['s']:.4f} s" for r in rs) + "; peak "
+            + ", ".join(f"{r['peak_gib']:.2f} GiB "
+                        f"(+{r['peak_over_resident_gib']:.2f})" for r in rs))
+    log(f"[long] last prompt position's bf16 logits, K6 vs plain after {L} "
+        f"layers: {rel:.2e} of scale (reported, not checked: 32 random bf16 "
+        f"layers; each layer is held above)")
+    return dict(launches=counts, decoded=decoded, worst=worst,
+                prefill_s=st.prefill_s, tok_s=st.tokens_per_s,
+                prefill=runs, prefill_device=device_ms,
+                logits_rel_kernel_vs_plain=rel)
+
+
+def ppl_run(params, cfg, device, seed, th):
+    """`eval_ppl` on the 7B at context `PPL_CONTEXT` + window `PPL_WINDOW`
+    over a `PPL_TOKENS`-token seeded stream: the bf16 model through K6,
+    dense and with the group thresholds `th` on every window's prefill
+    (the masked-dense group twin), K6 launched once a layer and window;
+    then an fp32 copy through K6's fp32 path against the plain path, each
+    window's NLL within 1e-4 relative. Returns results."""
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.eval import ppl
+
+    L = cfg.n_layers
+    ids = np.random.default_rng(seed + 12).integers(0, cfg.vocab_size,
+                                                    PPL_TOKENS)
+    n_win = len(list(ppl.windows(PPL_TOKENS, PPL_CONTEXT, PPL_WINDOW)))
+    kw = dict(context_size=PPL_CONTEXT, window_size=PPL_WINDOW,
+              device=device)
+    out = {}
+
+    def run(p, sp_kw, thr, kind):
+        torch.cuda.synchronize()
+        before = read_launches()
+        t0 = time.perf_counter()
+        with plain_path() if kind == "plain" else contextlib.nullcontext():
+            nlls = ppl.window_nlls(p, cfg, ids, sp=SparsityConfig(**sp_kw),
+                                   thresholds=thr, **kw)
+        sec = time.perf_counter() - t0
+        counts = tuple(a - b for a, b in zip(read_launches(), before))
+        want = (0, 0, 0, 0, 0, 0 if kind == "plain" else L * n_win)
+        check(counts == want, f"eval_ppl ({kind}): launches {counts}, "
+              f"expected {want} for {n_win} windows")
+        check(len(nlls) == n_win and all(np.isfinite(nlls)),
+              f"eval_ppl ({kind}): window NLLs {nlls}")
+        return nlls, sec
+
+    for name, sp_kw, thr in (("bf16 dense", {}, None),
+                             ("bf16 sparse", dict(TWIN_SP, apply_prefill=True),
+                              th)):
+        nlls, sec = run(params, sp_kw, thr, "kernel")
+        out[name] = dict(ppl=float(np.exp(np.mean(nlls))), nlls=nlls, s=sec)
+        log(f"[ppl] {name}: ppl {out[name]['ppl']:.4f} over {n_win} windows "
+            f"of {PPL_CONTEXT} + {PPL_WINDOW} tokens (window NLLs "
+            f"{[round(x, 5) for x in nlls]}), {sec:.2f} s")
+    p32 = to_fp32(params)
+    got, sec_k = run(p32, {}, None, "kernel")
+    want, sec_p = run(p32, {}, None, "plain")
+    del p32
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    check(rel <= 1e-4, f"fp32 eval_ppl: a window NLL through K6 is {rel:.2e} "
+          f"relative from the plain path's (tolerance 1e-4): {got} vs {want}")
+    out["fp32 dense"] = dict(ppl=float(np.exp(np.mean(got))), nlls=got,
+                             nlls_plain=want, worst_rel=rel, s=sec_k,
+                             s_plain=sec_p)
+    log(f"[ppl] fp32 copy, dense: ppl {out['fp32 dense']['ppl']:.4f}; window "
+        f"NLLs through K6 {[round(x, 6) for x in got]} vs the plain path "
+        f"{[round(x, 6) for x in want]}: worst {rel:.2e} relative "
+        f"(tolerance 1e-4); {sec_k:.2f} s vs {sec_p:.2f} s")
+    return out
+
+
+def long_prompt_phase(params, cfg, device, gen, seed, th):
+    """Phase 11 on the resident bf16 7B params (`th`: the main path's
+    thresholds from phase 4). Returns (kernels entries, results)."""
+    from teal_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    err = check_k6(device, gen)
+    long = long_prompt_run(params, cfg, device, seed, th)
+    ppl_res = ppl_run(params, cfg, device, seed, th)
+    rope = llama.precompute_rope(cfg, 2048, device)
+    entries = [time_k6(device, gen, long["launches"][5], 1, err),
+               time_k2(cfg, device, gen, rope, long["launches"][1],
+                       long["decoded"], 0.0, "decode_attention[pos 2047]")]
+    log(f"[long] phase 11 in {time.perf_counter() - t0:.1f} s")
+    return entries, dict(long_prompt=long, ppl=ppl_res)
 
 
 # --- phase 10: Mixtral-8x7B on the token path's MoE branch -----------------
@@ -2322,15 +2737,15 @@ def moe_run(cfg, plan, device, gen, seed, rope):
     got = read_launches()
     decoded = len(prompts) * (NEW_TOKENS - 1)
     k_exp = cfg.n_experts_per_tok
-    want = ((2 + 2 * k_exp) * L * decoded, L * decoded, 0, 0, L * decoded)
-    check(got == want, f"moe {plan}: launches (K1, K2, K3, K4, K5) {got}, "
+    want = ((2 + 2 * k_exp) * L * decoded, L * decoded, 0, 0, L * decoded, 0)
+    check(got == want, f"moe {plan}: launches (K1, K2, K3, K4, K5, K6) {got}, "
           f"expected {want} for {decoded} decoded tokens")
     for p, (toks, st) in zip(prompts, outs):
         check(toks.shape == (1, len(p) + NEW_TOKENS)
               and bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
               f"moe {plan}: bad tokens {toks.shape}")
     log(f"[moe {plan}] {len(prompts)} requests, {decoded} decoded tokens, "
-        f"launches a token (K1, K2, K3, K4, K5) "
+        f"launches a token (K1, K2, K3, K4, K5, K6) "
         f"{tuple(c // decoded for c in got)}; first request's new tokens "
         f"{outs[0][0][0, len(prompts[0]):].tolist()}")
     lg, _ = llama.forward(params, tok, llama.KVCache(cache.k.clone(),
@@ -2476,6 +2891,9 @@ def main() -> int:
     line["decode_tok_s_quant_paths"] = {n: r["tok_s"]
                                         for n, r in q_runs.items()}
     line["quant"] = q_extra
+    l_entries, line["long_prompts"] = long_prompt_phase(params, cfg, device,
+                                                        gen, seed, th)
+    line["kernels"] += l_entries
     # phase 10 needs the card's memory for int8 Mixtral-8x7B (46 GB)
     del params
     torch.cuda.empty_cache()

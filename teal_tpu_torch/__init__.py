@@ -18,8 +18,11 @@ mode) through K1, K2, `ops/block_gemv.block_gather_gemv_multi` (K3) and
 the continuous-batching server (`engine/serving.py`) and
 `Generator(batch=B)` run, and `models/llama.block_verify` (K1's fixed
 selection, K2's seq_block form); the dense and masked-dense layer loop,
-prefill and the generation engine. ROADMAP.md lists what is still to
-port.
+prefill and the generation engine; Mixtral's MoE decode (K5
+`ops/token_block.moe_route`); the causal prefill of prompts of 256 or
+more tokens through `ops/flash_prefill.flash_prefill_attention` (K6),
+which `Generator`, the server's one-shot admission and the perplexity
+harness `eval/ppl.py` take. ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

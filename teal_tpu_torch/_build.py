@@ -70,6 +70,11 @@ SIGNATURES = {
         _P, _P, _P,             # xn, pseudo-layers, weights (outputs)
         _I, _I, _I, _I, _P,     # D, E, k_exp, layer, stream
     ],
+    ("flash_prefill", "teal_flash_prefill"): [
+        _I, _P, _P, _P, _P,     # dtype code, q, k, v, out
+        _I, _I, _I, _I, _F,     # B, Hq, Hkv, S, scale
+        _P,                     # stream
+    ],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -2,7 +2,9 @@
 
 Port of `teal_tpu/engine/generate.py`: a dense prefill over the prompt
 padded to `_pad_len` (the padded rows' cache entries lie past the prompt
-and are masked out until decode overwrites them, as in the reference),
+and are masked out until decode overwrites them, as in the reference;
+the prefill starts at pos 0, so it runs with `causal_prefill` and a
+prompt padded to 256 or more takes kernel K6),
 then one `forward` per new token in a Python loop. Tokens stay on the
 device until the end, so the loop never waits for the card. A CUDA graph
 of the decode step is later work.
@@ -110,7 +112,8 @@ class Generator:
         t0 = time.perf_counter()
         logits, cache = llama.forward(self.params, padded, cache, 0,
                                       thresholds, cfg=self.cfg,
-                                      sp=prefill_sp, rope=self.rope)
+                                      sp=prefill_sp, rope=self.rope,
+                                      causal_prefill=True)
         tok = sampling.sample(logits[:, t - 1], self.temperature, self.top_k,
                               generator)
         self._sync()

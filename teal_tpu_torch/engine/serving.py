@@ -11,12 +11,13 @@ cache row, which admission overwrites.
 
 Admission is FIFO. One-shot admission (`prefill_slot`) runs a batch-1
 dense prefill of the prompt, padded to `_pad_len`, into a `pad`-long
-sub-cache, copies it into the slot's cache row and samples the first
-token. Chunked admission (`prefill_chunk=C`) prefills one pending prompt
-C positions per engine step (`forward` at S = C, pos > 0 on the
-sub-cache), interleaved with the decode step, and copies the sub-cache
-into the slot after the last chunk; at temperature 0 it gives the same
-tokens as one-shot admission.
+sub-cache (pos 0, so with `causal_prefill`: a prompt padded to 256 or
+more takes kernel K6), copies it into the slot's cache row and samples
+the first token. Chunked admission (`prefill_chunk=C`) prefills one
+pending prompt C positions per engine step (`forward` at S = C, pos > 0
+on the sub-cache), interleaved with the decode step, and copies the
+sub-cache into the slot after the last chunk; at temperature 0 it gives
+the same tokens as one-shot admission.
 
 Sampling draws from an explicit `torch.Generator` (temperature > 0);
 temperature 0 is greedy argmax. The cache is updated in place.
@@ -179,7 +180,8 @@ class ContinuousBatchingEngine:
             logits, sub = llama.forward(self.params, self._padded(req.prompt,
                                                                   pad),
                                         sub, 0, self.thresholds,
-                                        cfg=self.cfg, sp=self.prefill_sp)
+                                        cfg=self.cfg, sp=self.prefill_sp,
+                                        causal_prefill=True)
             self._scatter_slot(sub, b)
             self._activate(b, req, int(self._sample(logits[:, t - 1])[0]))
 

@@ -29,7 +29,9 @@ through K1. Everything else
 runs the layer loop (`layer_forward`): dense and masked-dense layers in
 plain PyTorch, and single-token sparse decode through the kernels --
 block mode on K1 (threshold) or K3 (top-k, and batches of up to 8),
-gather mode on K4, attention on K2 where `can_fused_decode` holds.
+gather mode on K4, attention on K2 where `can_fused_decode` holds,
+and with `causal_prefill` a pos-0 prompt's attention on K6 where
+`_can_flash_prefill` holds.
 Packed int4 weights always decode through the block route (at keep 1.0
 when sparsity is off), as in the reference.
 """
@@ -48,6 +50,8 @@ from teal_tpu_torch.models import moe
 from teal_tpu_torch.ops import block_gemv, quant, sparse_gemv
 from teal_tpu_torch.ops.attn_block import attn_stage
 from teal_tpu_torch.ops.decode_attention import decode_attention
+from teal_tpu_torch.ops.flash_prefill import flash_prefill_attention
+from teal_tpu_torch.ops.flash_prefill import masked_attention as _attention
 from teal_tpu_torch.ops.sparsify import apply_sparsity, group_capacity
 
 _WEIGHTS = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
@@ -196,27 +200,26 @@ def _proj(x, w, thresh, sp: SparsityConfig):
     return torch.matmul(xs, w).to(x.dtype)
 
 
-def _attention(q, k, v, pos: torch.Tensor, q_len: int, max_seq: int,
-               sliding_window: Optional[int]):
-    """Grouped-query attention over the full static cache.
+def _flash_prefill_attention(q, k_new, v_new):
+    """Causal prefill attention through kernel K6 for the pos-0 prompt
+    (the reference's `_flash_prefill_attention`): q/k/v cover positions
+    0..S-1, so plain causal masking equals the masked attention over the
+    zero-filled cache, and the [S, T] score matrix is never built.
+    q: [B, Hq, S, D] (cast to the cache type k_new / v_new carry);
+    k_new/v_new: [B, Hkv, S, D]. Returns [B, Hq, S, D] in the cache
+    type."""
+    return flash_prefill_attention(q.to(k_new.dtype).contiguous(),
+                                   k_new.contiguous(), v_new.contiguous())
 
-    q: [B, Hq, S, D]; k/v: [B, Hkv, T, D]; pos [B] each sequence's first
-    query position. Future and out-of-window slots are masked out."""
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    q = q.reshape(b, hkv, hq // hkv, s, d)
-    scores = torch.einsum("bkgsd,bktd->bkgst", q.float(), k.float()) \
-        * (1.0 / d ** 0.5)
-    q_pos = pos[:, None] + torch.arange(s, device=q.device)[None, :]
-    t_pos = torch.arange(max_seq, device=q.device)[None, None, :]
-    valid = t_pos <= q_pos[:, :, None]                  # [B, S, T]
-    if sliding_window is not None:
-        valid &= t_pos > (q_pos[:, :, None] - sliding_window)
-    scores = scores.masked_fill(~valid[:, None, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,bktd->bkgsd", probs.to(v.dtype).float(),
-                       v.float())
-    return out.reshape(b, hq, s, d).to(v.dtype)
+
+def _can_flash_prefill(s: int, head_dim: int, sliding_window) -> bool:
+    """Gate for K6 (the reference's `_can_flash_prefill`): no sliding
+    window (Mistral keeps `_attention`), S >= 256, S % 128 == 0 and
+    head_dim % 128 == 0. Decided from shapes alone, never from the
+    device (the reference also refuses the CPU backend), so that the CPU
+    runs the composition the card runs."""
+    return (sliding_window is None and s >= 256 and s % 128 == 0
+            and head_dim % 128 == 0)
 
 
 def can_fused_decode(s: int, b: int, cfg: ModelConfig, max_seq: int,
@@ -238,14 +241,16 @@ def can_fused_decode(s: int, b: int, cfg: ModelConfig, max_seq: int,
 def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
                   pos: torch.Tensor, cos, sin, cfg: ModelConfig,
                   sp: SparsityConfig, thresholds, capture: bool = False,
-                  fused_attn: bool = False):
+                  fused_attn: bool = False, causal_prefill: bool = False):
     """One transformer block of the layer loop. h: [B, S, D]; lp: this
     layer's parameters (a quantized weight is a dict of this layer's
     arrays); kc/vc: this layer's [B, Hkv, T, Dh] cache views,
     written in place at each sequence's positions; pos: int64 [B] first
     position of each sequence, on h's device; cos/sin: [B, S, Dh];
     thresholds: [7]; fused_attn: single-token attention through K2
-    (`can_fused_decode`).
+    (`can_fused_decode`); causal_prefill: the caller guarantees pos 0
+    and an empty cache, so a prompt that `_can_flash_prefill` takes runs
+    its attention through K6 over the fresh k/v (after the cache write).
 
     A single-token input with B <= 8 in block mode (or with packed int4
     weights, at keep 1.0 without block sparsity) takes the reference's
@@ -345,8 +350,13 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
             for bi in range(b):
                 kc[bi].index_copy_(1, rows[bi], k[bi].to(kc.dtype))
                 vc[bi].index_copy_(1, rows[bi], v[bi].to(vc.dtype))
-            attn = _attention(q, kc, vc, pos, s, kc.shape[2],
-                              cfg.sliding_window)
+            if causal_prefill and s > 1 and _can_flash_prefill(
+                    s, cfg.head_dim, cfg.sliding_window):
+                attn = _flash_prefill_attention(q, k.to(kc.dtype),
+                                                v.to(vc.dtype))
+            else:
+                attn = _attention(q, kc, vc, pos, s, kc.shape[2],
+                                  cfg.sliding_window)
         attn = attn.transpose(1, 2).reshape(b, s, -1).to(h.dtype)  # attn h2
     if use_block:
         (o_out,) = blockproj(attn, ("o",), kf[3])
@@ -445,7 +455,8 @@ def compute_dtype(params) -> torch.dtype:
 
 def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             *, cfg: ModelConfig, sp: SparsityConfig,
-            rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+            rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            causal_prefill: bool = False):
     """Full forward. tokens: [B, S] int; pos: start position shared by the
     batch (int) or one per sequence (continuous batching: each row decodes
     at its own depth); thresholds: [L, 7] fp32 on the
@@ -453,9 +464,13 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
     `precompute_rope` (computed here when absent). The cache is updated
     in place.
 
+    causal_prefill: the caller guarantees pos == 0 and an empty cache
+    (a whole prompt, a perplexity window), which lets the layer loop take
+    K6 for prompts `_can_flash_prefill` accepts. `sp.debug_fixed_selection`
+    keeps groups 0..cap-1 at every stage of the token path (K1's `fixed`
+    selection) and is ignored on every other route, as in the reference.
+
     Returns (logits [B, S, V] fp32, cache)."""
-    if sp.debug_fixed_selection:
-        raise NotImplementedError("debug_fixed_selection is not ported")
     dev = tokens.device
     h = params["embed"][tokens].to(compute_dtype(params))
     b, s = tokens.shape
@@ -492,7 +507,8 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             rows, thresholds, tuple(lay[n] for n in _WEIGHTS),
             lay["attn_norm"], lay["mlp_norm"], rope_rows, cache.k, cache.v,
             pos_arg, caps=token_path_caps(cfg, sp), n_heads=cfg.n_heads,
-            norm_eps=cfg.norm_eps, window=cfg.sliding_window, **moe_kw)
+            norm_eps=cfg.norm_eps, window=cfg.sliding_window,
+            fixed_sel=sp.debug_fixed_selection, **moe_kw)
         h = h1.reshape(b, 1, cfg.dim)
     else:
         # one fill, not a host-to-device copy, when the batch shares pos
@@ -504,7 +520,8 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             lp = {k: _leaf(v, lambda a: a[i]) for k, v in lay.items()}
             h, _, _, _ = layer_forward(h, lp, cache.k[i], cache.v[i], pos_t,
                                        cos, sin, cfg, sp, thresholds[i],
-                                       fused_attn=fused_attn)
+                                       fused_attn=fused_attn,
+                                       causal_prefill=causal_prefill)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _lm_head(params, h), cache
 

@@ -17,6 +17,8 @@ from teal_tpu_torch.ops import gather_gemv as gg
 from teal_tpu_torch.ops import token_block as tb
 from teal_tpu_torch.ops.decode_attention import (decode_attention,
                                                  decode_attention_plain)
+from teal_tpu_torch.ops.flash_prefill import (flash_prefill_attention,
+                                              flash_prefill_attention_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -395,3 +397,36 @@ def test_moe_route_counts_launches(cuda):
     tb.moe_route(x, norm, r, 0, 2)
     tb.moe_route_plain(x, norm, r, 0, 2)
     assert tb.moe_route.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S", [(1, 4, 4, 64), (2, 4, 2, 256),
+                                        (1, 8, 1, 384)])
+def test_k6_matches_plain(cuda, dtype, B, Hq, Hkv, S):
+    """K6 (causal flash prefill) against its plain version, each (head,
+    query) row within a tolerance of that row's largest value: fp32 1e-5,
+    bf16 2^-6 (two bf16 ulps: each side rounds its output to bf16, and
+    the softmax weights are rounded to bf16 before PV at different
+    points); one launch counted a call."""
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    q, k, v = (torch.randn(B, h, S, 128, generator=g, device=cuda).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    before = flash_prefill_attention.launches
+    got = flash_prefill_attention(q, k, v)
+    assert flash_prefill_attention.launches == before + 1
+    want = flash_prefill_attention_plain(q, k, v)
+    assert got.dtype == dtype and got.shape == q.shape
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -6
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    assert bool((diff <= rel * scale).all()), \
+        float((diff / scale.clamp_min(1e-30)).max())
+
+
+def test_k6_raises_rather_than_falls_back(cuda):
+    q = torch.randn(1, 2, 256, 64, device=cuda)
+    with pytest.raises(ValueError):
+        flash_prefill_attention(q, q, q)
+    q = torch.randn(1, 2, 100, 128, device=cuda)
+    with pytest.raises(ValueError):
+        flash_prefill_attention(q, q, q)

@@ -1,7 +1,10 @@
 """The port's model and engine against the JAX package on the CPU (fp32):
 the main decode path (token path, K1/K2 plain versions) against the JAX
 masked-dense group twin and against the JAX whole-token Pallas kernel in
-interpret mode; dense prefill and decode; greedy generation."""
+interpret mode; dense prefill and decode; greedy generation;
+`debug_fixed_selection` on the token path (against the JAX token kernel
+in interpret mode, run in a subprocess by `jax_subprocess.jax_results`)
+and on the layer loop, where it changes nothing."""
 
 import jax
 import jax.numpy as jnp
@@ -9,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax_subprocess import jax_results
 
 from teal_tpu.config import SparsityConfig as JSparsityConfig
 from teal_tpu.config import get_model_config as jget_model_config
@@ -17,6 +21,7 @@ from teal_tpu.models import llama as jllama
 from teal_tpu_torch.config import SparsityConfig, get_model_config
 from teal_tpu_torch.engine import Generator
 from teal_tpu_torch.models import llama
+from teal_tpu_torch.ops import block_gemv
 
 CFG_KW = dict(n_layers=3, n_heads=2, n_kv_heads=1, dim=256,
               intermediate_size=384, vocab_size=128)
@@ -35,12 +40,16 @@ def model():
     jparams = jllama.init_params(jcfg, jax.random.PRNGKey(7), jnp.float32)
     params = llama.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                      device="cpu")
-    # per-layer group thresholds, equal within each fused stage (q=k=v,
-    # gate=up), near the median group score of each stage's input so
-    # that stages keep some groups and drop others
+    return cfg, jcfg, params, jparams, _thresholds(cfg)
+
+
+def _thresholds(cfg):
+    """Per-layer group thresholds, equal within each fused stage (q=k=v,
+    gate=up), near the median group score of each stage's input so that
+    stages keep some groups and drop others."""
     base = np.array([2.6, 2.6, 2.6, 0.12, 2.65, 2.65, 0.12], np.float32)
     th = base[None] * (1 + 0.03 * np.arange(cfg.n_layers)[:, None])
-    return cfg, jcfg, params, jparams, th.astype(np.float32)
+    return th.astype(np.float32)
 
 
 def _cache(seed):
@@ -159,20 +168,105 @@ def test_entry_points_default_to_cuda(model):
         llama.KVCache.init(cfg, 1, T)
 
 
-def test_unported_sparse_decode_raises(model):
-    """What is still unported raises: the reference's debug fixed
-    selection. The MoE FFN is ported: it takes the token path at batch 1
-    only, as in the reference (batch 2 runs the layer loop; both are held
-    to the JAX package in tests/test_torch_moe.py)."""
-    cfg, _, params, _, th = model
+def test_moe_token_path_gate(model):
+    """The MoE FFN takes the token path at batch 1 only, as in the
+    reference (batch 2 runs the layer loop; both are held to the JAX
+    package in tests/test_torch_moe.py)."""
     moe = get_model_config("tiny", **CFG_KW, n_experts=4, n_experts_per_tok=2)
     mp = llama.init_params(moe, torch.Generator().manual_seed(0),
                            torch.float32, "cpu")
     sp = SparsityConfig(**MAIN)
     assert llama.can_token_decode(mp, moe, sp, 1, 1, torch.float32)
     assert not llama.can_token_decode(mp, moe, sp, 1, 2, torch.float32)
-    cache = llama.KVCache.init(cfg, 2, T, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError):
-        llama.forward(params, torch.tensor([[1], [2]]), cache, 3,
-                      torch.from_numpy(th), cfg=cfg,
-                      sp=SparsityConfig(**MAIN, debug_fixed_selection=True))
+
+
+FIXED_POS = [3, 9]           # positions of the batch rows (batch 1: the first)
+
+
+def _fixed_inputs(b):
+    k, v = _cache(40 + b)
+    k, v = np.repeat(k, b, axis=1), np.repeat(v, b, axis=1)
+    toks = np.array([[5 + 2 * i] for i in range(b)])
+    return k, v, toks, FIXED_POS[:b]
+
+
+def jax_fixed_selection(b):
+    """JAX's token path with `debug_fixed_selection` (the whole-token
+    kernel's fixed_sel) in interpret mode, run by `jax_results` in the
+    subprocess."""
+    jcfg = jget_model_config("tiny", **CFG_KW)
+    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(7), jnp.float32)
+    k, v, toks, pos = _fixed_inputs(b)
+    with pltpu.force_tpu_interpret_mode():
+        want, wc = jllama.forward(
+            jparams, jnp.asarray(toks, jnp.int32),
+            jllama.KVCache(jnp.asarray(k), jnp.asarray(v)),
+            jnp.asarray(pos, jnp.int32), jnp.asarray(_thresholds(jcfg)),
+            cfg=jcfg, sp=JSparsityConfig(**MAIN, fused_decode_attention=True,
+                                         debug_fixed_selection=True))
+    return dict(logits=want, k=wc.k, v=wc.v)
+
+
+@pytest.fixture(scope="module")
+def jax_fixed(tmp_path_factory):
+    return jax_results(__file__, "jax_fixed_selection",
+                       {str(b): dict(b=b) for b in (1, 2)},
+                       tmp_path_factory.mktemp("jax_fixed"))
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_debug_fixed_selection_matches_jax(model, jax_fixed, b):
+    """`debug_fixed_selection` on the token path (batch 1, and the
+    batched rows at two positions): every stage keeps groups 0..cap-1,
+    as the reference's token kernel does with fixed_sel; logits and
+    caches within 2e-5 of JAX's, and unlike the threshold selection."""
+    cfg, _, params, _, th = model
+    k, v, toks, pos = _fixed_inputs(b)
+    sp = SparsityConfig(**MAIN, debug_fixed_selection=True)
+    assert llama.can_token_decode(params, cfg, sp, 1, b, torch.float32)
+    out = {}
+    for fixed in (True, False):
+        cache = llama.KVCache.from_numpy(k, v, device="cpu")
+        lg, cache = llama.forward(
+            params, torch.from_numpy(toks), cache, pos, torch.from_numpy(th),
+            cfg=cfg, sp=sp.replace(debug_fixed_selection=fixed))
+        out[fixed] = (lg.numpy(), cache.k.numpy(), cache.v.numpy())
+    want = jax_fixed[str(b)]
+    for got, name in zip(out[True], ("logits", "k", "v")):
+        np.testing.assert_allclose(got, want[name], **TOL)
+    assert np.abs(out[True][0] - out[False][0]).max() > 1e-3
+    # K1's fixed selection keeps groups 0..cap-1 even when no group
+    # clears the threshold
+    x = torch.from_numpy(np.random.default_rng(b).standard_normal(
+        (b, cfg.dim)).astype(np.float32))
+    _, idx, count = block_gemv.select_gather_gemv_plain(
+        x, torch.tensor(1e9), (params["layers"]["wo"],), 0, 1, fixed=True)
+    assert idx.tolist() == [0] and int(count[0]) == 1
+
+
+def test_debug_fixed_selection_ignored_on_layer_loop(model):
+    """On the layer loop (the masked-dense group twin: prefill, then one
+    decode step) the flag changes nothing, in the port as in the JAX
+    package."""
+    cfg, jcfg, params, jparams, th = model
+    toks = np.array([[5, 1, 7, 2, 9, 4]], np.int32)
+    runs = {}
+    for fixed in (True, False):
+        cache = llama.KVCache.init(cfg, 1, T, torch.float32, "cpu")
+        sp = SparsityConfig(**TWIN, debug_fixed_selection=fixed)
+        assert not llama.can_token_decode(params, cfg, sp, 1, 1,
+                                          torch.float32)
+        for tk, p in ((toks, 0), (np.array([[11]], np.int32), 6)):
+            lg, cache = llama.forward(params, torch.from_numpy(tk).long(),
+                                      cache, p, torch.from_numpy(th),
+                                      cfg=cfg, sp=sp)
+        runs[fixed] = (lg.numpy(), cache.k.numpy())
+    jcache = jllama.KVCache.init(jcfg, 1, T, jnp.float32)
+    jsp = JSparsityConfig(**TWIN, debug_fixed_selection=True)
+    for tk, p in ((toks, 0), (np.array([[11]], np.int32), 6)):
+        want, jcache = jllama.forward(jparams, jnp.asarray(tk), jcache, p,
+                                      jnp.asarray(th), cfg=jcfg, sp=jsp)
+    np.testing.assert_array_equal(runs[True][0], runs[False][0])
+    np.testing.assert_array_equal(runs[True][1], runs[False][1])
+    np.testing.assert_allclose(runs[True][0], np.asarray(want), **TOL)
+    np.testing.assert_allclose(runs[True][1], np.asarray(jcache.k), **TOL)

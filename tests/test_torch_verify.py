@@ -3,7 +3,11 @@
 token path's rows, fixed full selection, K2's `seq_block` form) against
 JAX's `block_verify` through its whole-token kernel in interpret mode,
 logits and caches within 2e-5; and K2's `seq_block` form in its plain
-version against one single-slot call per position in order."""
+version against one single-slot call per position in order.
+
+The JAX interpret-mode references run in one subprocess for the module
+(`jax_subprocess.jax_results`), so a hang of the interpreter fails these
+cases instead of stalling the run."""
 
 import functools
 
@@ -13,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax_subprocess import jax_results
 
 from teal_tpu.config import get_model_config as jget_model_config
 from teal_tpu.models import llama as jllama
@@ -23,6 +28,9 @@ from teal_tpu_torch.ops.decode_attention import decode_attention
 TOL = dict(rtol=2e-5, atol=2e-5)
 MAX_SEQ = 48
 HEADS = {"mha": (2, 2), "gqa": (4, 2)}
+
+
+VERIFY_CASES = [(0, 5), (7, 5), (0, 9), (5, 12)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,29 +52,49 @@ def _cache(cfg, seed):
             rng.standard_normal(shape).astype(np.float32) * 0.1)
 
 
+def _tokens(s):
+    return np.array([[(3 * i + 1) % 127 for i in range(s)]])
+
+
+def jax_block_verify(heads, pos, s):
+    """JAX's block_verify through its whole-token kernel in interpret
+    mode (run by `jax_results` in the subprocess)."""
+    cfg, jcfg, _, jparams = _model(heads)
+    assert jllama.can_block_verify(jparams, jcfg, s)
+    k, v = _cache(cfg, 10 * pos + s)
+    with pltpu.force_tpu_interpret_mode():
+        want, wc = jllama.block_verify(
+            jparams, jnp.asarray(_tokens(s), jnp.int32),
+            jllama.KVCache(jnp.asarray(k), jnp.asarray(v)), pos,
+            jnp.zeros((cfg.n_layers, 7), jnp.float32), cfg=jcfg)
+    return dict(logits=want, k=wc.k, v=wc.v)
+
+
+@pytest.fixture(scope="module")
+def jax_verify(tmp_path_factory):
+    cases = {f"{h}-{p}-{s}": dict(heads=h, pos=p, s=s)
+             for h in HEADS for p, s in VERIFY_CASES}
+    return jax_results(__file__, "jax_block_verify", cases,
+                       tmp_path_factory.mktemp("jax_verify"))
+
+
 @pytest.mark.parametrize("heads", list(HEADS))
-@pytest.mark.parametrize("pos,s", [(0, 5), (7, 5), (0, 9), (5, 12)])
-def test_block_verify_matches_jax(heads, pos, s):
+@pytest.mark.parametrize("pos,s", VERIFY_CASES)
+def test_block_verify_matches_jax(heads, pos, s, jax_verify):
     """One chunk (S <= 8) and two balanced chunks (9 -> 5 + 4, 12 -> 6 +
     6; the later chunk reads the earlier one through the cache), at pos 0
     and mid-cache."""
-    cfg, jcfg, params, jparams = _model(heads)
+    cfg, _, params, _ = _model(heads)
     assert llama.can_block_verify(params, cfg, s)
-    assert jllama.can_block_verify(jparams, jcfg, s)
     k, v = _cache(cfg, 10 * pos + s)
-    toks = np.array([[(3 * i + 1) % 127 for i in range(s)]])
     th = np.zeros((cfg.n_layers, 7), np.float32)
     cache = llama.KVCache.from_numpy(k, v, device="cpu")
-    got, cache = llama.block_verify(params, torch.from_numpy(toks), cache,
-                                    pos, torch.from_numpy(th), cfg=cfg)
-    with pltpu.force_tpu_interpret_mode():
-        want, wc = jllama.block_verify(
-            jparams, jnp.asarray(toks, jnp.int32),
-            jllama.KVCache(jnp.asarray(k), jnp.asarray(v)), pos,
-            jnp.asarray(th), cfg=jcfg)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    np.testing.assert_allclose(cache.k.numpy(), np.asarray(wc.k), **TOL)
-    np.testing.assert_allclose(cache.v.numpy(), np.asarray(wc.v), **TOL)
+    got, cache = llama.block_verify(params, torch.from_numpy(_tokens(s)),
+                                    cache, pos, torch.from_numpy(th), cfg=cfg)
+    want = jax_verify[f"{heads}-{pos}-{s}"]
+    np.testing.assert_allclose(got.numpy(), want["logits"], **TOL)
+    np.testing.assert_allclose(cache.k.numpy(), want["k"], **TOL)
+    np.testing.assert_allclose(cache.v.numpy(), want["v"], **TOL)
 
 
 def test_block_verify_matches_dense_forward():
