@@ -62,8 +62,8 @@ SIGNATURES = {
         _P, _P, _P, _P,         # kc, vc, pos, out
         _I, _I, _I, _I, _I,     # B, Hq, Hkv, T, layer
         _I, _F,                 # window (0: none), scale
-        _I, _I, _I, _P,         # q row stride, k/v row stride, seq_block,
-                                # stream
+        _I, _I, _I,             # q row stride, k/v row stride, seq_block
+        _I, _I, _P,             # splits, slots a cluster, stream
     ],
     ("moe_route", "teal_moe_route"): [
         _I, _P, _P, _F, _P,     # dtype code, x, norm, norm_eps, router

@@ -12,10 +12,10 @@
 //     cache rows t < pos (and t > pos - window), summed in fp32;
 //   - the current token's score q . k_new and its value term ec * v_new
 //     are fp32 (attn_block.py:309-345);
-//   - the softmax is fp32 with the max taken over the slab and the
-//     current token; the weights are rounded to the cache type before
-//     the PV product (attn_block.py:298-307), the denominator sums the
-//     unrounded weights;
+//   - the softmax is fp32 with ONE max taken over the whole live slab and
+//     the current token before any exp; the weights are rounded to the
+//     cache type before the PV product (attn_block.py:298-307), the
+//     denominator sums the unrounded weights;
 //   - k_new (post-RoPE) and v_new are written, cast to the cache type,
 //     at row `pos` of layer `layer`; the output is in the cache type.
 //
@@ -24,40 +24,70 @@
 // per element read, far below the ridge point, so HBM bandwidth is the
 // roofline; at short context one launch's fixed cost dominates instead.
 //
-// Design. One block per (batch row, kv head): it owns that head's cache
-// row `pos`, which it alone writes and no block reads, so there is no
-// race between the update and the reads. The block keeps the whole score
-// row of its GH query heads in shared memory (GH * T floats), so the
-// softmax is one exact pass: scores, block max, exp and block sum (both
-// in a fixed order), then PV with one thread per head dimension, each
-// summing over t in order. Each warp scores 4 cache rows per step with
-// 8-byte loads so several rows are in flight. T is not split across
-// blocks; a later split needs a fixed-order second combine pass.
+// Design: a thread-block cluster of S <= 8 blocks per (batch row, kv
+// head), S chosen on the host from the shapes (never from pos, which
+// lives on the device). Block j of the cluster takes the j-th equal share
+// of the live rows lo .. pos-1, computed here from pos and the window.
+//   1. Its K rows are one contiguous range of the [T, 128] slab: they
+//      stream through a ring of <= 4 16 KB tiles filled by 1-D bulk copies
+//      (cp.async.bulk, completion on an mbarrier per stage), the V rows
+//      right behind them in the same ring, so V is in flight while the
+//      scores and the cluster's max are formed. One or two neighbouring
+//      lanes score a cache row against the query rows the thread holds,
+//      the 128-wide dot product in registers (16-byte chunks, rotated by
+//      row so a quarter-warp hits 8 distinct bank groups), halves added
+//      by one shuffle.
+//   2. The block's score slice stays in shared memory; its max per query
+//      row is pushed into every peer's shared memory (distributed shared
+//      memory) and, after a cluster barrier, each block has the S maxima
+//      and the current token's score: the one max M.
+//   3. e = exp(s - M), rounded to the cache type; the block sums the
+//      unrounded e and forms its partial PV (thread d owns dimension d,
+//      summing its rows in order); it pushes dimensions r*128/S .. of the
+//      partial, and its sums, to rank r.
+//   4. After a second cluster barrier rank r combines its dimensions from
+//      its own shared memory in split order 0..S-1, adds ec * v_new and
+//      divides. No block reads a peer after that barrier, so blocks may
+//      exit; every peer has started before the first push (an arrival at
+//      entry, waited on before it).
+// Every sum runs in a fixed order and nothing is atomic, so two identical
+// calls give identical bits. Rank 0 writes row pos, which no block of the
+// launch reads. A block whose share is empty (pos < S, a short window)
+// contributes 0 to the PV and the denominator and still reaches every
+// barrier.
 //
 // seq_block (the verify path's `cache_rows = (0,)*B`, attn_block.py:
 // 118-127): the B slots are consecutive positions pos[0] + i of ONE
 // sequence in cache row 0, and slot i attends to slots < i as the
-// reference's in-order slots read them back from the cache. Reading
-// those rows from the cache in this launch would race with the blocks
-// that write them, so each block rebuilds rows pos[0] .. pos[i]-1 from
-// the k_new / v_new inputs -- RoPE'd with their own slot's rows and
-// rounded to the cache type, bit for bit what the write stores -- into
-// shared memory, and takes the cache only below pos[0]. Slot i's own
-// term stays fp32. A block still writes only its own row pos[i].
+// reference's in-order slots read them back from the cache. One cluster
+// per kv head serves a group of slots (all B unless its scores would not
+// fit shared memory): its query rows are the (slot, head) pairs, and
+// each cache row is read once for all of them. Rows pos[0] .. are not
+// read from the cache, which this launch writes: every block rebuilds
+// them from k_new / v_new -- RoPE'd with their own slot's rows and
+// rounded to the cache type, bit for bit what the write stores -- and
+// takes the cache only below pos[0]. Slot i masks the rows outside
+// [lo_i, pos[0] + i). Slot i's own term stays fp32.
 //
 // q, k_new and v_new may be strided rows (views into K1's [B, n_tot]
 // q|k|v output): row b starts q_rs (k/v: kv_rs) floats after row b-1.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
 using namespace teal;
 
 namespace {
 
-constexpr int D = 128;        // head dim
-constexpr int THREADS = 128;  // one thread per head dimension
-constexpr int MAXG = 8;       // query heads per kv head
-constexpr int UR = 4;         // cache rows per warp step
-constexpr int MAXB = 16;      // slots of a seq_block launch
+constexpr int D = 128;                // head dim
+constexpr int THREADS = 128;
+constexpr int MAXG = 8;               // query heads per kv head
+constexpr int MAXB = 16;              // slots of a seq_block launch
+constexpr int MAXS = 8;               // blocks of a cluster (portable)
+constexpr int MAXNST = 4;             // ring stages, at most
+constexpr int TILE_BYTES = 16384;     // one ring stage
+constexpr int SMEM_MAX = 232448;      // a block's shared memory on Hopper
 
 struct Args {
   const float* q;    // [B, Hq, D]   raw (pre-RoPE) fp32, row stride q_rs
@@ -71,115 +101,336 @@ struct Args {
   int B, Hq, Hkv, T, layer, window;
   float scale;
   int q_rs, kv_rs;
+  int S;             // blocks a cluster (splits of the live rows)
+  int gslots;        // seq_block: slots a cluster (1 otherwise)
+  int NS;            // score columns a block: ceil(T / S), padded to 4
+  int nst;           // ring stages: min(4, the tiles of K and V a block
+                     // has at most)
 };
 
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 r = *reinterpret_cast<const float4*>(p);
-  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&r);
-  v[0] = to_f(e[0]); v[1] = to_f(e[1]); v[2] = to_f(e[2]); v[3] = to_f(e[3]);
-}
+template <typename T>
+struct Tile {
+  static constexpr int EPC = 16 / sizeof(T);   // elements a 16-byte chunk
+  static constexpr int NCH = D / EPC;          // chunks a row
+  static constexpr int ROWS = TILE_BYTES / (D * sizeof(T));
+  static constexpr int NQG = THREADS / ROWS;   // query groups of a tile
+};
+
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+// Shared-memory layout, in bytes from the (128-byte aligned) base. The
+// Python wrapper's `_smem_bytes` mirrors `total`.
+struct Layout {
+  int bars, qr, pv, pvall, kb, vb, knf, small, s, total;
+  __host__ __device__ Layout(int esz, int QR, int gslots, int nreb, int S,
+                             int NS, int nst) {
+    bars = nst * TILE_BYTES;
+    qr = bars + 64;                         // [QR, D] q rounded, type T
+    pv = qr + QR * D * esz;                 // [QR, D] fp32: q, then PV
+    pvall = pv + QR * D * 4;                // [S, QR, D/S] peers' PV parts
+    kb = pvall + QR * D * 4;                // seq: [nreb, D] rebuilt k, T
+    vb = kb + nreb * D * esz;               // and v
+    knf = vb + nreb * D * esz;              // [2, gslots, D] fp32 current
+    small = knf + 2 * gslots * D * 4;       // k, v; sc, ec, M: [QR]; peers'
+    s = small + (3 + 2 * S) * pad4(QR) * 4; // maxima, sums: [S, QR]
+    total = s + QR * NS * 4;                // [QR, NS] scores, weights
+  }
+};
 
 // x * cos + rotate_half(x) * sin, rounded as separate products and a sum
 // (no fused multiply-add), so the written cache row matches the plain
 // version bit for bit.
 __device__ __forceinline__ float rope(const float* row, int d, float c,
                                       float s) {
-  const float rot = d < D / 2 ? -row[d + D / 2] : row[d - D / 2];
-  return __fadd_rn(__fmul_rn(row[d], c), __fmul_rn(rot, s));
+  const float rot =
+      d < D / 2 ? -__ldg(row + d + D / 2) : __ldg(row + d - D / 2);
+  return __fadd_rn(__fmul_rn(__ldg(row + d), c), __fmul_rn(rot, s));
 }
 
-// SEQ (seq_block) is a template parameter so that the one-row-per-sequence
-// form keeps its inner loops free of the rebuilt-rows branch.
-template <typename T, bool SEQ>
+// One 16-byte chunk of shared memory as fp32.
+__device__ __forceinline__ void chunk(const float* p, float (&v)[4]) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+}
+__device__ __forceinline__ void chunk(const __nv_bfloat16* p,
+                                      float (&v)[8]) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // element 2i is the low half of word i
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Thread 0: copy `bytes` contiguous bytes from global `src` into the
+// stage at `dst`, completing on mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Scores of nr cache rows (type T, row-major in shared memory; absolute
+// row index t0 + r) against the QR query rows: s[g * NS + t - a], -inf
+// where slot g / GH may not see row t (seq_block) -- rows before its
+// window or at or after its own position. Thread layout: NP neighbouring
+// lanes share a row's dot product (lane h of them the chunks m*NP + h,
+// summed in order, then added by a fixed butterfly), ROWS rows, NQ =
+// NQG / NP query groups (warp-uniform); a thread holds Q query rows at a
+// time (rows past QR repeat the last one and are not stored, so the hot
+// loop has no branches). Chunks are rotated by NP * r so the 8 lanes of a
+// quarter-warp read 8 distinct bank groups.
+template <typename T, bool SEQ, int NP, int Q>
+__device__ __forceinline__ void score_rows(
+    const T* rows, int nr, int t0, const T* qr, int QR, int GH, float* s,
+    int NS, int a, int c0, int p0, int window) {
+  using TL = Tile<T>;
+  constexpr int NQ = TL::NQG / NP, M = TL::NCH / NP;
+  const int h = threadIdx.x % NP, r = (threadIdx.x / NP) % TL::ROWS;
+  const int qg = threadIdx.x / (NP * TL::ROWS);
+  const int t = t0 + r;
+  const T* krow = rows + (r < nr ? r : 0) * D;
+  for (int g0 = qg; g0 < QR; g0 += NQ * Q) {
+    const T* qp[Q];
+    float acc[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      qp[j] = qr + min(g0 + j * NQ, QR - 1) * D;
+      acc[j] = 0.f;
+    }
+    // unrolled twice, not fully: the kernel's code must stay small, as it
+    // runs between large kernels that evict it from the instruction caches
+#pragma unroll 2
+    for (int m = 0; m < M; ++m) {
+      const int cc = (m * NP + h + NP * r) & (TL::NCH - 1);
+      float k[TL::EPC];
+      chunk(krow + cc * TL::EPC, k);
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        float qv[TL::EPC];
+        chunk(qp[j] + cc * TL::EPC, qv);
+#pragma unroll
+        for (int e = 0; e < TL::EPC; ++e) acc[j] = fmaf(qv[e], k[e], acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+#pragma unroll
+      for (int o = 1; o < NP; o <<= 1)
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+      const int g = g0 + j * NQ;
+      if (g < QR && r < nr && h == 0) {
+        bool ok = true;
+        if (SEQ) {
+          const int p = p0 + c0 + g / GH;
+          ok = t < p && (window <= 0 || t > p - window);
+        }
+        s[g * NS + t - a] = ok ? acc[j] : __int_as_float(0xff800000);
+      }
+    }
+  }
+}
+
+// The thread layouts of a kernel built for at most QC query rows a
+// cluster (a power of two; rows past 8 a thread are looped over): score
+// with NP lanes a row where there are fewer query rows than query groups
+// and QS query rows a thread, PV with QP. One layout a kernel keeps the
+// code small: the kernel runs between large kernels that evict it from
+// the instruction caches, and with every layout in one kernel the main
+// path's call was slower inside the decode step than the one-block
+// kernel's, though faster alone.
+template <typename T, int QC>
+struct Layouts {
+  static constexpr int G = Tile<T>::NQG;   // 2 (bf16) or 4 (fp32)
+  static constexpr int NP = QC == 1 ? G : (QC < G ? G / 2 : 1);
+  static constexpr int QS =
+      QC < G ? 1 : ((QC + G - 1) / G > 8 ? 8 : (QC + G - 1) / G);
+  static constexpr int QP = QC > 8 ? 8 : QC;
+};
+
+// Partial PV over nr value rows: pv[g][d] += sum_r e[g][t0 + r - a] *
+// v[r][d], thread d summing its rows in order (loads U rows ahead), Q
+// query rows at a time (past QR: the last one again, not stored).
+template <typename T, int Q>
+__device__ __forceinline__ void pv_rows(const T* rows, int nr, int t0,
+                                        const float* s, int NS, int a,
+                                        float* pv, int QR) {
+  constexpr int U = 8;
+  const int d = threadIdx.x;
+  for (int g0 = 0; g0 < QR; g0 += Q) {
+    const float* ep[Q];
+    float acc[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const int g = min(g0 + j, QR - 1);
+      ep[j] = s + g * NS + t0 - a;
+      acc[j] = pv[g * D + d];
+    }
+    // 16-byte weight loads where the columns are aligned (cache tiles
+    // start at multiples of ROWS, and NS is a multiple of 4)
+    int r = 0;
+    for (; ((t0 - a) & 3) == 0 && r + U <= nr; r += U) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = to_f(rows[(r + u) * D + d]);
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+#pragma unroll
+        for (int u = 0; u < U; u += 4) {
+          const float4 w = *reinterpret_cast<const float4*>(ep[j] + r + u);
+          acc[j] = fmaf(w.x, v[u], acc[j]);
+          acc[j] = fmaf(w.y, v[u + 1], acc[j]);
+          acc[j] = fmaf(w.z, v[u + 2], acc[j]);
+          acc[j] = fmaf(w.w, v[u + 3], acc[j]);
+        }
+      }
+    }
+    for (; r < nr; ++r) {
+      const float v = to_f(rows[r * D + d]);
+#pragma unroll
+      for (int j = 0; j < Q; ++j) acc[j] = fmaf(ep[j][r], v, acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < Q; ++j)
+      if (g0 + j < QR) pv[(g0 + j) * D + d] = acc[j];
+  }
+}
+
+template <typename T, bool SEQ, int QC>
 __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  using TL = Tile<T>;
+  using LY = Layouts<T, QC>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = a.S, rank = static_cast<int>(cluster.block_rank());
+  const int h = blockIdx.x / S, d = threadIdx.x;
   const int lane = d & 31, warp = d >> 5;
   const int GH = a.Hq / a.Hkv;
-  float* qf = smem;                 // [GH, D] post-RoPE, scaled, fp32
-  float* qr = qf + GH * D;          // [GH, D] the same rounded to T
-  float* knf = qr + GH * D;         // [D] post-RoPE current key
-  float* vnf = knf + D;             // [D] current value
-  float* sc = vnf + D;              // [MAXG] current-token scores
-  float* ec = sc + MAXG;            // [MAXG] current-token weight
-  float* den = ec + MAXG;           // [MAXG] softmax denominator
-  float* scratch = den + MAXG;      // [32]
-  float* kp = scratch + 32;         // seq_block: [b, D] earlier slots' k
-  float* vp = kp + (SEQ ? MAXB * D : 0);     // and v, rounded to T
-  float* s = vp + (SEQ ? MAXB * D : 0);      // [GH, T] slab scores, then
-                                             // weights
+  // slots of this cluster: row b alone, or seq_block slots c0 .. c1-1
+  const int c0 = SEQ ? blockIdx.y * a.gslots : blockIdx.y;
+  const int c1 = SEQ ? min(c0 + a.gslots, a.B) : c0 + 1;
+  const int ns = c1 - c0, QR = ns * GH, NS = a.NS;
+  const int nreb = SEQ ? a.B - 1 : 0;
+  const int NST = a.nst;
+  const Layout lay(sizeof(T), QR, SEQ ? a.gslots : 1, nreb, S, NS, NST);
+  T* ring = reinterpret_cast<T*>(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  T* qr = reinterpret_cast<T*>(smem + lay.qr);
+  float* pv = reinterpret_cast<float*>(smem + lay.pv);  // q first
+  float* pvall = reinterpret_cast<float*>(smem + lay.pvall);
+  T* kb = reinterpret_cast<T*>(smem + lay.kb);
+  T* vb = reinterpret_cast<T*>(smem + lay.vb);
+  float* knf = reinterpret_cast<float*>(smem + lay.knf);
+  float* vnf = knf + (SEQ ? a.gslots : 1) * D;
+  float* sc = reinterpret_cast<float*>(smem + lay.small);
+  float* ec = sc + pad4(QR);
+  float* M = ec + pad4(QR);
+  float* mall = M + pad4(QR);           // [S, pad4(QR)]: rank j's maxima
+  float* dall = mall + S * pad4(QR);    // and its sums of e
+  float* s = reinterpret_cast<float*>(smem + lay.s);
 
-  const int p = a.pos[b];
-  if (p < 0 || p >= a.T) __trap();
-  // seq_block: slots are pos[0] + i; rows p0 .. p-1 come from kp / vp
-  const int p0 = SEQ ? a.pos[0] : a.T;
-  if (SEQ && p != p0 + b) __trap();
-  const int lo = a.window > 0 ? max(p - a.window + 1, 0) : 0;
-  const int n = p - lo;             // live slab rows: lo .. p-1
+  // the cluster's rows [lo, hi) and this block's share [ra, rb); rows
+  // from p0 on are rebuilt (seq_block), the rest come from the cache
+  const int p0 = SEQ ? a.pos[0] : 0;
+  const int pb = a.pos[c0];
+  if (d < ns) {
+    const int p = a.pos[c0 + d];
+    if (p < 0 || p >= a.T || (SEQ && p != p0 + c0 + d)) __trap();
+  }
+  const int hi = SEQ ? p0 + c1 - 1 : pb;
+  const int lo = a.window > 0 ? max(pb - a.window + 1, 0) : 0;
+  const int n = max(hi - lo, 0);
+  const int ra = lo + n * rank / S, rb = lo + n * (rank + 1) / S;
+  const int ce = SEQ ? min(rb, p0) : rb;     // cache rows [ra, ce)
+  const int ncache = max(ce - ra, 0);
+  const int nt = (ncache + TL::ROWS - 1) / TL::ROWS;   // tiles of K, of V
   const size_t slab =
-      (static_cast<size_t>(a.layer) * (SEQ ? 1 : a.B) + (SEQ ? 0 : b)) *
+      (static_cast<size_t>(a.layer) * (SEQ ? 1 : a.B) + (SEQ ? 0 : c0)) *
           a.Hkv + h;
   T* kcache = static_cast<T*>(a.kc) + slab * a.T * D;
   T* vcache = static_cast<T*>(a.vc) + slab * a.T * D;
 
-  // prologue: RoPE (fp32), q scale
-  {
-    const float c = a.cs[(b * 2) * D + d], sn = a.cs[(b * 2 + 1) * D + d];
-    for (int g = 0; g < GH; ++g) {
-      const float* row =
-          a.q + static_cast<size_t>(b) * a.q_rs + (h * GH + g) * D;
-      const float v = __fmul_rn(rope(row, d, c, sn), a.scale);
-      qf[g * D + d] = v;
-      qr[g * D + d] = rnd<T>(v);
-    }
+  // tile i < nt: K rows ra + i*ROWS ..; i >= nt: the same rows of V
+  auto issue = [&](int i) {
+    const int first = ra + (i % nt) * TL::ROWS;
+    const int rows = min(TL::ROWS, ce - first);
+    const T* src = (i < nt ? kcache : vcache) + static_cast<size_t>(first) * D;
+    bulk_load(ring + (i % NST) * (TILE_BYTES / sizeof(T)), src,
+              rows * D * sizeof(T), smem_addr(&bars[i % NST]));
+  };
+  // every block of the cluster has started once this arrival is waited on
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (d == 0) {
+    for (int i = 0; i < NST; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(&bars[i])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (d == 0)
+    for (int i = 0; i < min(NST, 2 * nt); ++i) issue(i);
+
+  // prologue: RoPE (fp32), q scale, current keys, rebuilt rows (inputs
+  // read through the read-only path)
+  for (int i = 0; i < QR; ++i) {
+    const int b = c0 + i / GH;
+    const float* row = a.q + static_cast<size_t>(b) * a.q_rs +
+                       (h * GH + i % GH) * D;
+    const float v = __fmul_rn(rope(row, d, __ldg(a.cs + (b * 2) * D + d),
+                                   __ldg(a.cs + (b * 2 + 1) * D + d)),
+                              a.scale);
+    pv[i * D + d] = v;
+    qr[i * D + d] = from_f<T>(v);
+  }
+  for (int i = 0; i < ns; ++i) {
+    const int b = c0 + i;
     const size_t kv = static_cast<size_t>(b) * a.kv_rs + h * D;
-    knf[d] = rope(a.kn + kv, d, c, sn);
-    vnf[d] = a.vn[kv + d];
-    if (SEQ) {
-      for (int j = 0; j < b; ++j) {
-        const size_t kvj = static_cast<size_t>(j) * a.kv_rs + h * D;
-        kp[j * D + d] = rnd<T>(rope(a.kn + kvj, d, a.cs[(j * 2) * D + d],
-                                    a.cs[(j * 2 + 1) * D + d]));
-        vp[j * D + d] = rnd<T>(a.vn[kvj + d]);
-      }
+    knf[i * D + d] = rope(a.kn + kv, d, __ldg(a.cs + (b * 2) * D + d),
+                          __ldg(a.cs + (b * 2 + 1) * D + d));
+    vnf[i * D + d] = __ldg(a.vn + kv + d);
+  }
+  if (SEQ) {
+    for (int j = 0; j < nreb; ++j) {
+      const size_t kvj = static_cast<size_t>(j) * a.kv_rs + h * D;
+      kb[j * D + d] =
+          from_f<T>(rope(a.kn + kvj, d, __ldg(a.cs + (j * 2) * D + d),
+                         __ldg(a.cs + (j * 2 + 1) * D + d)));
+      vb[j * D + d] = from_f<T>(__ldg(a.vn + kvj + d));
+    }
+  }
+  if (rank == 0) {   // rows pos[b]: read by no block of this launch
+    for (int i = 0; i < ns; ++i) {
+      const size_t row = static_cast<size_t>(pb + i) * D + d;
+      kcache[row] = from_f<T>(knf[i * D + d]);
+      vcache[row] = from_f<T>(vnf[i * D + d]);
     }
   }
   __syncthreads();
-
-  // slab scores: warp w takes rows w*UR .. w*UR+UR-1, then strides by 4*UR
-  for (int t0 = warp * UR; t0 < n; t0 += 4 * UR) {
-    float kv[UR][4];
-#pragma unroll
-    for (int u = 0; u < UR; ++u)
-      if (t0 + u < n) {
-        const int t = lo + t0 + u;
-        if (SEQ && t >= p0)
-          load4(kp + (t - p0) * D + lane * 4, kv[u]);
-        else
-          load4(kcache + static_cast<size_t>(t) * D + lane * 4, kv[u]);
-      }
-#pragma unroll
-    for (int u = 0; u < UR; ++u) {
-      if (t0 + u >= n) break;
-      for (int g = 0; g < GH; ++g) {
-        const float* qg = qr + g * D + lane * 4;
-        float part = qg[0] * kv[u][0];
-        part = fmaf(qg[1], kv[u][1], part);
-        part = fmaf(qg[2], kv[u][2], part);
-        part = fmaf(qg[3], kv[u][3], part);
-        part = warp_sum(part);
-        if (lane == 0) s[g * a.T + t0 + u] = part;
-      }
-    }
-  }
-  // current token, fp32
-  for (int g = warp; g < GH; g += THREADS / 32) {
-    const float* qg = qf + g * D + lane * 4;
-    const float* kg = knf + lane * 4;
+  // current token's score, fp32: a warp per query row
+  for (int g = warp; g < QR; g += THREADS / 32) {
+    const float* qg = pv + g * D + lane * 4;
+    const float* kg = knf + (g / GH) * D + lane * 4;
     float part = qg[0] * kg[0];
     part = fmaf(qg[1], kg[1], part);
     part = fmaf(qg[2], kg[2], part);
@@ -187,67 +438,161 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
     part = warp_sum(part);
     if (lane == 0) sc[g] = part;
   }
-  __syncthreads();
 
-  // softmax over slab + current token, in fixed order
-  for (int g = 0; g < GH; ++g) {
+  // phase 1: scores of the block's K rows
+  for (int i = 0; i < nt; ++i) {
+    mbar_wait(smem_addr(&bars[i % NST]), (i / NST) & 1);
+    const int first = ra + i * TL::ROWS;
+    score_rows<T, SEQ, LY::NP, LY::QS>(
+        ring + (i % NST) * (TILE_BYTES / sizeof(T)), min(TL::ROWS, ce - first),
+        first, qr, QR, GH, s, NS, ra, c0, p0, a.window);
+    __syncthreads();
+    if (d == 0 && i + NST < 2 * nt) issue(i + NST);
+  }
+  if (SEQ) {   // rebuilt rows [max(ra, p0), rb)
+    for (int t0 = max(ra, p0); t0 < rb; t0 += TL::ROWS)
+      score_rows<T, SEQ, LY::NP, LY::QS>(kb + (t0 - p0) * D,
+                                         min(TL::ROWS, rb - t0), t0, qr, QR,
+                                         GH, s, NS, ra, c0, p0, a.window);
+  }
+  __syncthreads();
+  // the slice's max per query row (a warp per row, lanes strided),
+  // pushed into every peer's `mall` row `rank`
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  const int nr = rb - ra;
+  for (int g = warp; g < QR; g += THREADS / 32) {
     float m = __int_as_float(0xff800000);  // -inf
-    for (int t = d; t < n; t += THREADS) m = fmaxf(m, s[g * a.T + t]);
-    m = fmaxf(block_max(m, scratch), sc[g]);
+    for (int t = lane; t < nr; t += 32) m = fmaxf(m, s[g * NS + t]);
+    m = warp_max(m);
+    if (lane < S) cluster.map_shared_rank(mall, lane)[rank * pad4(QR) + g] = m;
+  }
+  cluster.sync();                          // every slice max is in
+
+  for (int g = d; g < QR; g += THREADS) {
+    float m = sc[g];
+    for (int j = 0; j < S; ++j) m = fmaxf(m, mall[j * pad4(QR) + g]);
+    M[g] = m;
+    ec[g] = expf(sc[g] - m);
+  }
+  __syncthreads();
+  for (int i = d; i < QR * D; i += THREADS) pv[i] = 0.f;
+  // weights: e rounded to T for PV; the denominator sums e unrounded
+  for (int g = warp; g < QR; g += THREADS / 32) {
+    const float m = M[g];
     float sum = 0.f;
-    for (int t = d; t < n; t += THREADS) {
-      const float e = expf(s[g * a.T + t] - m);
-      s[g * a.T + t] = rnd<T>(e);
+    for (int t = lane; t < nr; t += 32) {
+      const float e = expf(s[g * NS + t] - m);
+      s[g * NS + t] = rnd<T>(e);
       sum += e;
     }
-    sum = block_sum(sum, scratch);
-    if (d == 0) {
-      const float e = expf(sc[g] - m);
-      ec[g] = e;
-      den[g] = sum + e;
-    }
+    sum = warp_sum(sum);
+    if (lane < S) cluster.map_shared_rank(dall, lane)[rank * pad4(QR) + g] =
+        sum;
   }
   __syncthreads();
 
-  // PV: thread d sums over t in order
-  float acc[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
-#pragma unroll 8
-  for (int t = 0; t < n; ++t) {
-    const float v = SEQ && lo + t >= p0
-                        ? vp[(lo + t - p0) * D + d]
-                        : to_f(vcache[static_cast<size_t>(lo + t) * D + d]);
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-      if (g < GH) acc[g] = fmaf(s[g * a.T + t], v, acc[g]);
+  // phase 2: partial PV over the block's V rows
+  for (int i = nt; i < 2 * nt; ++i) {
+    mbar_wait(smem_addr(&bars[i % NST]), (i / NST) & 1);
+    const int first = ra + (i - nt) * TL::ROWS;
+    pv_rows<T, LY::QP>(ring + (i % NST) * (TILE_BYTES / sizeof(T)),
+                       min(TL::ROWS, ce - first), first, s, NS, ra, pv, QR);
+    __syncthreads();
+    if (d == 0 && i + NST < 2 * nt) issue(i + NST);
   }
-  T* out = static_cast<T*>(a.out);
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-    if (g < GH)
-      out[(static_cast<size_t>(b) * a.Hq + h * GH + g) * D + d] =
-          from_f<T>((acc[g] + ec[g] * vnf[d]) * (1.0f / den[g]));
+  if (SEQ) {
+    for (int t0 = max(ra, p0); t0 < rb; t0 += TL::ROWS)
+      pv_rows<T, LY::QP>(vb + (t0 - p0) * D, min(TL::ROWS, rb - t0), t0, s,
+                         NS, ra, pv, QR);
+  }
+  __syncthreads();
+  // push dimensions [r * D / S, (r + 1) * D / S) of the partial PV to
+  // rank r, which combines them
+  const int dw = D / S;
+  for (int i = d; i < QR * D; i += THREADS) {
+    const int g = i / D, r = (i % D) / dw;
+    cluster.map_shared_rank(pvall, r)[(rank * QR + g) * dw + i % dw] = pv[i];
+  }
+  cluster.sync();                          // every partial is in
 
-  // in-place write of the current token (row p: read by no block; with
-  // seq_block, later slots take it from kp / vp)
-  kcache[static_cast<size_t>(p) * D + d] = from_f<T>(knf[d]);
-  vcache[static_cast<size_t>(p) * D + d] = from_f<T>(vnf[d]);
+  // combine this rank's dimensions in split order; nothing is read from
+  // a peer from here on, so a block may exit
+  T* out = static_cast<T*>(a.out);
+  for (int i = d; i < QR * dw; i += THREADS) {
+    const int g = i / dw, dd = rank * dw + i % dw;
+    float acc = 0.f, den = 0.f;
+    for (int j = 0; j < S; ++j) {
+      acc += pvall[(j * QR + g) * dw + i % dw];
+      den += dall[j * pad4(QR) + g];
+    }
+    const int b = c0 + g / GH;
+    const float vnew = vnf[(g / GH) * D + dd];
+    out[(static_cast<size_t>(b) * a.Hq + h * GH + g % GH) * D + dd] =
+        from_f<T>((acc + ec[g] * vnew) * (1.0f / (den + ec[g])));
+  }
 }
 
-template <typename T, bool SEQ>
-int launch(const Args& a, cudaStream_t stream) {
+// Occupancy checks already made: (kernel, S, shared bytes) -> clusters.
+struct OccEntry { const void* fn; int S, smem, clusters; };
+OccEntry occ_cache[64];
+int occ_n = 0;
+
+template <typename T, bool SEQ, int QC>
+int launch(const Args& a, int ny, cudaStream_t stream) {
   const int GH = a.Hq / a.Hkv;
-  const size_t smem =
-      sizeof(float) * (2 * GH * D + 2 * D + 3 * MAXG + 32 +
-                       (SEQ ? 2 * MAXB * D : 0) +
-                       static_cast<size_t>(GH) * a.T);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(attn_kernel<T, SEQ>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  attn_kernel<T, SEQ><<<dim3(a.Hkv, a.B), THREADS, smem, stream>>>(a);
+  const int gs = SEQ ? a.gslots : 1;
+  const Layout lay(sizeof(T), gs * GH, gs, SEQ ? a.B - 1 : 0, a.S, a.NS,
+                   a.nst);
+  if (lay.total > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto fn = attn_kernel<T, SEQ, QC>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.Hkv * a.S, ny, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = lay.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = -1;
+  for (int i = 0; i < occ_n; ++i)
+    if (occ_cache[i].fn == reinterpret_cast<const void*>(fn) &&
+        occ_cache[i].S == a.S && occ_cache[i].smem == lay.total)
+      clusters = occ_cache[i].clusters;
+  if (clusters < 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (occ_n < 64)
+      occ_cache[occ_n++] = {reinterpret_cast<const void*>(fn), a.S,
+                            lay.total, clusters};
+  }
+  if (clusters < 1) return -1;             // the cluster cannot be placed
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel built for the launch's query rows a cluster (GH, times the
+// slots of a seq_block group): 1, 2, 4, 8, or (seq_block) 16 and more.
+template <typename T, bool SEQ>
+int by_rows(const Args& a, int ny, cudaStream_t stream) {
+  const int qr = (SEQ ? a.gslots : 1) * (a.Hq / a.Hkv);
+  if (qr == 1) return launch<T, SEQ, 1>(a, ny, stream);
+  if (qr == 2) return launch<T, SEQ, 2>(a, ny, stream);
+  if (qr <= 4) return launch<T, SEQ, 4>(a, ny, stream);
+  if (qr <= 8) return launch<T, SEQ, 8>(a, ny, stream);
+  if constexpr (SEQ) return launch<T, SEQ, 16>(a, ny, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -255,15 +600,21 @@ int launch(const Args& a, cudaStream_t stream) {
 // dtype: 0 fp32, 1 bf16 (the cache type). window 0 means none. q_rs /
 // kv_rs: row strides of q and of k_new / v_new in floats. seq_block: the
 // B <= 16 slots are consecutive positions of cache row 0 (a slot whose
-// pos is not pos[0] + i traps). The caller checks shapes: head dim 128,
-// Hq % Hkv == 0, Hq / Hkv <= 8, and that the score row GH * T fits
-// shared memory.
+// pos is not pos[0] + i traps), served by clusters of group_slots slots.
+// splits: blocks a cluster, a power of two <= 8. The caller checks shapes
+// (head dim 128, Hq % Hkv == 0, Hq / Hkv <= 8) and that the block's
+// shared memory fits; a launch returns -1 when no cluster of this size
+// can be resident on the card.
 extern "C" int teal_decode_attention(
     int dtype, const void* q, const void* k_new, const void* v_new,
     const void* cs, void* kc, void* vc, const void* pos, void* out, int B,
     int Hq, int Hkv, int T, int layer, int window, float scale, int q_rs,
-    int kv_rs, int seq_block, void* stream) {
+    int kv_rs, int seq_block, int splits, int group_slots, void* stream) {
   cudaGetLastError();  // clear any stale error of this library
+  if (splits < 1 || splits > MAXS || (splits & (splits - 1)) ||
+      Hq % Hkv || Hq / Hkv > MAXG || (seq_block && B > MAXB) ||
+      group_slots < 1 || (seq_block && group_slots > B))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = static_cast<const float*>(q);
   a.kn = static_cast<const float*>(k_new);
@@ -282,10 +633,17 @@ extern "C" int teal_decode_attention(
   a.scale = scale;
   a.q_rs = q_rs;
   a.kv_rs = kv_rs;
-  if (seq_block && B > MAXB) return static_cast<int>(cudaErrorInvalidValue);
+  a.S = splits;
+  a.gslots = seq_block ? group_slots : 1;
+  const int rows = (T + splits - 1) / splits;   // at most, a block
+  const int tile_rows = TILE_BYTES / (D * (dtype == 0 ? 4 : 2));
+  a.NS = pad4(rows);
+  a.nst = min(MAXNST, 2 * ((rows + tile_rows - 1) / tile_rows));
+  const int ny = seq_block ? (B + a.gslots - 1) / a.gslots : B;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return seq_block ? launch<float, true>(a, s) : launch<float, false>(a, s);
-  return seq_block ? launch<__nv_bfloat16, true>(a, s)
-                   : launch<__nv_bfloat16, false>(a, s);
+    return seq_block ? by_rows<float, true>(a, ny, s)
+                     : by_rows<float, false>(a, ny, s);
+  return seq_block ? by_rows<__nv_bfloat16, true>(a, ny, s)
+                   : by_rows<__nv_bfloat16, false>(a, ny, s);
 }

@@ -10,6 +10,11 @@ tensors and runs `decode_attention_plain` on CPU tensors.
 
 The cache is updated in place (the JAX kernel aliases it input->output).
 
+The kernel splits the live rows of each (row, kv head) over a cluster of
+S <= 8 blocks; `_splits` picks S from the shapes alone and `_plan` fits
+it to shared memory. The split changes no rounding point, so every S
+gives the plain version's result within the same tolerance.
+
 `seq_block=True` is the verify path's form (`attn_block.attn_stage` with
 `cache_rows=(0,)*B`): the B slots are consecutive positions pos[0] + i of
 one sequence in cache row 0, and slot i attends to the slots before it
@@ -27,8 +32,14 @@ from teal_tpu_torch import _build
 HEAD_DIM = 128
 MAX_GROUP = 8                    # query heads per kv head in the kernel
 MAX_SEQ_BLOCK = 16               # slots of a seq_block launch
+MAX_SPLITS = 8                   # blocks of a cluster (the portable size)
 _SMEM_BYTES = 227 * 1024         # a block's shared memory on Hopper
+_TILE_BYTES = 16384              # a stage of the kernel's tile ring
+_BLOCKS_PER_SM = 2               # the split rule's aim
+_MIN_SPLIT_ROWS = 32             # cache rows a split has at least, at T
+_H100_SMS = 132
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_sms = {}                        # device index -> SM count
 
 
 def rope_rows(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
@@ -74,6 +85,60 @@ def decode_attention_plain(q, k_new, v_new, kc, vc, layer: int, pos, *,
     return out
 
 
+def _splits(B: int, Hkv: int, T: int, seq_block: bool, n_sms: int) -> int:
+    """Blocks a cluster, from shapes only (never from pos, which lives on
+    the device): the largest power of two S <= 8 that keeps the grid at
+    about `_BLOCKS_PER_SM` blocks an SM and gives each split at least
+    `_MIN_SPLIT_ROWS` rows of a full cache of T rows. A seq_block launch
+    has one cluster per kv head (B = 1 here)."""
+    clusters = Hkv * (1 if seq_block else B)
+    S = 1
+    while (2 * S <= MAX_SPLITS
+           and clusters * 2 * S <= _BLOCKS_PER_SM * n_sms
+           and T // (2 * S) >= _MIN_SPLIT_ROWS):
+        S *= 2
+    return S
+
+
+def _smem_bytes(esz: int, GH: int, slots: int, nreb: int, T: int,
+                S: int) -> int:
+    """One block's shared memory (the kernel's `Layout::total`): the tile
+    ring (up to 4 stages, as many as K and V take at T); for `slots` * GH query rows q rounded (esz bytes), the fp32
+    partial PV and the peers' parts of it; the `nreb` rebuilt k/v rows of
+    a seq_block launch; the current keys and values; three per-query-row
+    scalars and the S peers' maxima and sums; the score slice of
+    ceil(T / S) rows, padded to a multiple of 4."""
+    QR = slots * GH
+    rows = -(-T // S)                  # a block's rows, at most
+    stages = min(4, 2 * -(-rows // (_TILE_BYTES // (HEAD_DIM * esz))))
+    return (stages * _TILE_BYTES + 64 + QR * HEAD_DIM * (esz + 8)
+            + 2 * nreb * HEAD_DIM * esz + 2 * slots * HEAD_DIM * 4
+            + (3 + 2 * S) * 4 * _pad4(QR) + QR * _pad4(rows) * 4)
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _plan(B: int, Hq: int, Hkv: int, T: int, seq_block: bool, esz: int,
+          n_sms: int = _H100_SMS):
+    """(S, slots a cluster) for a launch, or None when no plan fits one
+    block's shared memory. S starts at `_splits`; a seq_block launch
+    serves all B slots from one cluster per kv head where they fit, else
+    the fewest groups of slots that do; S grows only when one slot does
+    not fit."""
+    GH = Hq // Hkv
+    nreb = B - 1 if seq_block else 0
+    S = _splits(B, Hkv, T, seq_block, n_sms)
+    while S <= MAX_SPLITS:
+        for groups in range(1, (B if seq_block else 1) + 1):
+            slots = -(-B // groups) if seq_block else 1
+            if _smem_bytes(esz, GH, slots, nreb, T, S) <= _SMEM_BYTES:
+                return S, slots
+        S *= 2
+    return None
+
+
 def _rows_ok(t, shape) -> bool:
     """An fp32 [B, H, 128] tensor whose rows may be strided (a view into
     K1's [B, n_tot] q|k|v output), each row contiguous."""
@@ -81,7 +146,9 @@ def _rows_ok(t, shape) -> bool:
             and t.stride()[1:] == (HEAD_DIM, 1))
 
 
-def _check(q, k_new, v_new, kc, vc, layer, pos, window, rope, seq_block):
+def _check(q, k_new, v_new, kc, vc, layer, pos, window, rope, seq_block,
+           n_sms=_H100_SMS):
+    """Raise on what the kernel does not take; return its `_plan`."""
     if q.dim() != 3 or q.shape[-1] != HEAD_DIM:
         raise ValueError(f"q must be [B, Hq, {HEAD_DIM}]; got "
                          f"{tuple(q.shape)}")
@@ -123,11 +190,12 @@ def _check(q, k_new, v_new, kc, vc, layer, pos, window, rope, seq_block):
         raise ValueError(f"pos must be int32 [{B}] on the cache's device")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive; got {window}")
-    GH = Hq // Hkv
-    prev = 2 * MAX_SEQ_BLOCK * D if seq_block else 0
-    if 4 * (2 * GH * D + 2 * D + 64 + prev + GH * T) > _SMEM_BYTES:
-        raise ValueError(f"score row of {GH} heads x T={T} does not fit "
-                         "one block's shared memory")
+    plan = _plan(B, Hq, Hkv, T, seq_block, kc.element_size(), n_sms)
+    if plan is None:
+        raise ValueError(f"the score slices of {Hq // Hkv} heads x T={T} do "
+                         f"not fit one block's shared memory at "
+                         f"{MAX_SPLITS} splits")
+    return plan
 
 
 def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
@@ -157,7 +225,11 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
             raise ValueError(f"pos {pos} out of range [0, {kc.shape[3]})")
         pos = torch.full((q.shape[0],), pos, dtype=torch.int32,
                          device=kc.device)
-    _check(q, k_new, v_new, kc, vc, layer, pos, window, rope, seq_block)
+    idx = kc.device.index
+    if kc.device.type == "cuda" and idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    S, slots = _check(q, k_new, v_new, kc, vc, layer, pos, window, rope,
+                      seq_block, _sms.get(idx, _H100_SMS))
     if kc.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, kc, vc, layer, pos,
                                       window=window, rope=rope,
@@ -172,13 +244,18 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
         rope[:, 0] = 1.0
     lib = _build.load()["decode_attention"]
     B, Hq, D = q.shape
+    Hkv, T = kc.shape[2], kc.shape[3]
     out = torch.empty((B, Hq, D), dtype=kc.dtype, device=kc.device)
     err = lib.teal_decode_attention(
         _DTYPE_CODE[kc.dtype], q.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), rope.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, Hq, kc.shape[2], kc.shape[3],
-        layer, window or 0, 1.0 / D ** 0.5, q.stride(0), k_new.stride(0),
-        int(seq_block), torch.cuda.current_stream().cuda_stream)
+        pos.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, layer, window or 0,
+        1.0 / D ** 0.5, q.stride(0), k_new.stride(0), int(seq_block), S,
+        slots, torch.cuda.current_stream().cuda_stream)
+    if err == -1:
+        raise RuntimeError(f"decode_attention: no cluster of {S} blocks "
+                           f"(Hq={Hq}, Hkv={Hkv}, T={T}, {slots} slots) can "
+                           "be resident on this card")
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

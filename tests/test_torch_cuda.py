@@ -14,6 +14,7 @@ import torch
 from teal_tpu_torch.models import llama
 from teal_tpu_torch.ops import block_gemv as bg
 from teal_tpu_torch.ops import gather_gemv as gg
+from teal_tpu_torch.ops import decode_attention as da
 from teal_tpu_torch.ops import token_block as tb
 from teal_tpu_torch.ops.decode_attention import (decode_attention,
                                                  decode_attention_plain)
@@ -430,3 +431,118 @@ def test_k6_raises_rather_than_falls_back(cuda):
     q = torch.randn(1, 2, 100, 128, device=cuda)
     with pytest.raises(ValueError):
         flash_prefill_attention(q, q, q)
+
+
+# K2's split-context form: every case below forces the split count S by
+# monkeypatching the split rule and holds three things: the whole cache
+# equal bit for bit after the call, every (row, head) output within a
+# tolerance of that row's largest value (fp32 1e-5; bf16 2^-6, two bf16
+# ulps: both sides round the output and the rounded softmax weights, from
+# scores summed in other orders), and two identical calls giving
+# identical bits.
+K2_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+
+
+def _k2_case(cuda, dtype, q, kn, vn, kc, vc, layer, pos, window, rope,
+             seq_block=False):
+    outs = []
+    for _ in range(2):
+        k1, v1 = kc.clone(), vc.clone()
+        before = decode_attention.launches
+        outs.append(decode_attention(q, kn, vn, k1, v1, layer, pos,
+                                     window=window, rope=rope,
+                                     seq_block=seq_block))
+        assert decode_attention.launches == before + 1
+    k2, v2 = kc.clone(), vc.clone()
+    want = decode_attention_plain(q, kn, vn, k2, v2, layer, pos,
+                                  window=window, rope=rope,
+                                  seq_block=seq_block)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2), "caches differ"
+    assert torch.equal(outs[0], outs[1]), "two identical calls differ"
+    got = outs[0]
+    assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    ok = diff <= K2_ROW_TOL[dtype] * scale
+    assert bool(ok.all()), float((diff / scale.clamp_min(1e-30)).max())
+
+
+def _k2_inputs(g, cuda, dtype, L, Bc, S, Hq, Hkv, T):
+    kc = torch.randn(L, Bc, Hkv, T, 128, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(L, Bc, Hkv, T, 128, generator=g, device=cuda).to(dtype)
+    qkv = torch.randn(S, (Hq + 2 * Hkv) * 128, generator=g, device=cuda)
+    q = qkv[:, :Hq * 128].view(S, Hq, 128)
+    kn = qkv[:, Hq * 128:(Hq + Hkv) * 128].view(S, Hkv, 128)
+    vn = qkv[:, (Hq + Hkv) * 128:].view(S, Hkv, 128)
+    rope = torch.rand(S, 2, 128, generator=g, device=cuda)
+    return kc, vc, q, kn, vn, rope
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("GH,window", [(1, None), (1, 40), (4, None),
+                                       (4, 200), (8, None), (8, 3)])
+def test_k2_splits_match_plain(cuda, monkeypatch, dtype, splits, GH, window):
+    """Two rows at T in {64, 512, 2048}, pos in {0, 1, 7, 256, T-1}: empty
+    splits (pos < S), a window inside one split, GQA 1/4/8."""
+    monkeypatch.setattr(da, "_splits", lambda *a, **k: splits)
+    g = torch.Generator(device=cuda).manual_seed(splits * 10 + GH)
+    Hkv = 2
+    for T in (64, 512, 2048):
+        kc, vc, q, kn, vn, rope = _k2_inputs(g, cuda, dtype, 2, 2, 2,
+                                             GH * Hkv, Hkv, T)
+        for p in (0, 1, 7, 256, T - 1):
+            if p >= T:
+                continue
+            pos = torch.tensor([p, min(p + 3, T - 1)], dtype=torch.int32,
+                               device=cuda)
+            _k2_case(cuda, dtype, q, kn, vn, kc, vc, 1, pos, window, rope)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_k2_sixteen_rows_match_plain(cuda, monkeypatch, dtype, splits):
+    """B = 16 rows at mixed positions, some at 0, MHA and GQA + window."""
+    monkeypatch.setattr(da, "_splits", lambda *a, **k: splits)
+    g = torch.Generator(device=cuda).manual_seed(100 + splits)
+    T = 512
+    pos = torch.tensor([0, 0, 1, 3, 7, 8, 31, 64, 100, 255, 256, 300, 411,
+                        500, 510, T - 1], dtype=torch.int32, device=cuda)
+    for Hq, Hkv, window in ((4, 4, None), (16, 2, 64)):
+        kc, vc, q, kn, vn, rope = _k2_inputs(g, cuda, dtype, 2, 16, 16, Hq,
+                                             Hkv, T)
+        _k2_case(cuda, dtype, q, kn, vn, kc, vc, 1, pos, window, rope)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [1, 8, 16])
+def test_k2_seq_block_splits_match_plain(cuda, monkeypatch, dtype, splits, S):
+    """seq_block with S slots at p0 in {0, 5, T-20}: one read of the cache
+    for all slots (or groups of slots where they do not fit), MHA and
+    GQA 8 with a window."""
+    monkeypatch.setattr(da, "_splits", lambda *a, **k: splits)
+    g = torch.Generator(device=cuda).manual_seed(200 + splits * S)
+    T = 512
+    for Hq, Hkv, window in ((2, 2, None), (16, 2, 24)):
+        kc, vc, q, kn, vn, rope = _k2_inputs(g, cuda, dtype, 2, 1, S, Hq,
+                                             Hkv, T)
+        for p0 in (0, 5, T - 20):
+            pos = torch.arange(p0, p0 + S, dtype=torch.int32, device=cuda)
+            _k2_case(cuda, dtype, q, kn, vn, kc, vc, 1, pos, window, rope,
+                     seq_block=True)
+
+
+def test_k2_split_rule_on_this_card(cuda):
+    """The rule's choice at the 7B shapes on this card, and a launch at
+    the largest score slice the plan accepts."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert da._splits(1, 32, 2048, False, sms) == (8 if sms >= 128 else 4)
+    assert da._splits(16, 32, 2048, False, sms) == 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    T = 12000
+    assert da._plan(1, 8, 1, T, False, 2, sms) is not None
+    kc, vc, q, kn, vn, rope = _k2_inputs(g, cuda, torch.bfloat16, 1, 1, 1,
+                                         8, 1, T)
+    pos = torch.tensor([T - 1], dtype=torch.int32, device=cuda)
+    _k2_case(cuda, torch.bfloat16, q, kn, vn, kc, vc, 0, pos, None, rope)

@@ -12,6 +12,7 @@ from teal_tpu.models import llama as jllama
 from teal_tpu.ops import block_gemv as jbg
 from teal_tpu_torch.config import SparsityConfig
 from teal_tpu_torch.ops import block_gemv as tbg
+from teal_tpu_torch.ops import decode_attention as tda
 from teal_tpu_torch.ops import sparse_gemv as tsg
 from teal_tpu_torch.ops import sparsify as tsp
 from teal_tpu_torch.ops.attn_block import attn_stage
@@ -305,6 +306,80 @@ def test_k2_wrapper_checks():
         decode_attention(q, kn, kn, kc, kc.clone(), 1, 1)
     with pytest.raises(ValueError):
         decode_attention(q.double(), kn, kn, kc, kc.clone(), 0, 1)
+
+
+@pytest.mark.parametrize("seq_block", [False, True])
+@pytest.mark.parametrize("sms", [114, 132])
+def test_k2_split_rule(seq_block, sms):
+    """K2's split rule as a pure function of shapes (no pos argument):
+    a power of two in [1, 8], at most `_BLOCKS_PER_SM` blocks an SM where
+    it splits at all, each split with rows at T; the plan fitted on it
+    keeps S a power of two that divides the head dim, and its slot groups
+    cover the B slots exactly once."""
+    import inspect
+
+    assert "pos" not in inspect.signature(tda._splits).parameters
+    for B in ((1, 2, 8, 16) if seq_block else (1, 2, 3, 4, 8, 16)):
+        for Hkv in (1, 2, 8, 32):
+            for T in (16, 64, 512, 2048, 8192):
+                S = tda._splits(B, Hkv, T, seq_block, sms)
+                assert S in (1, 2, 4, 8)
+                clusters = Hkv * (1 if seq_block else B)
+                assert S == 1 or clusters * S <= tda._BLOCKS_PER_SM * sms
+                assert S == 1 or T // S >= tda._MIN_SPLIT_ROWS
+                for GH in (1, 4, 8):
+                    for esz in (2, 4):
+                        S2, slots = tda._plan(B, GH * Hkv, Hkv, T, seq_block,
+                                              esz, sms)
+                        assert S2 in (1, 2, 4, 8) and S2 >= S
+                        assert tda.HEAD_DIM % S2 == 0
+                        groups = -(-B // slots)
+                        assert (slots == 1 if not seq_block else
+                                groups * slots >= B > (groups - 1) * slots)
+    assert tda._splits(1, 32, 2048, False, 132) == 8
+    assert tda._splits(16, 32, 2048, False, 132) == 1
+    assert tda._splits(1, 32, 512, seq_block, 132) == 8
+
+
+def _old_k2_fits(GH, T, seq_block):
+    """The shared-memory check of the kernel before the split (one block
+    per row and kv head, the whole score row in shared memory)."""
+    prev = 2 * tda.MAX_SEQ_BLOCK * 128 if seq_block else 0
+    return 4 * (2 * GH * 128 + 2 * 128 + 64 + prev + GH * T) <= 227 * 1024
+
+
+@pytest.mark.parametrize("seq_block", [False, True])
+def test_k2_check_accepts_every_shape_it_accepted(seq_block):
+    """Every (GH, T) the one-block kernel accepted still has a plan, at
+    B = 1 and at the largest slot count, fp32 and bf16, up to the largest
+    T it accepted; GH = 8 then fits at a T four times larger."""
+    B = tda.MAX_SEQ_BLOCK if seq_block else 16
+    for GH in (1, 2, 4, 8):
+        top = max(T for T in range(1, 80000, 7) if _old_k2_fits(GH, T,
+                                                                seq_block))
+        for T in (1, 64, 512, top // 2, top - 7, top):
+            assert _old_k2_fits(GH, T, seq_block)
+            for b in (1, B):
+                for esz in (2, 4):
+                    assert tda._plan(b, GH, 1, T, seq_block, esz) is not None
+    top8 = max(T for T in range(1, 80000, 7) if _old_k2_fits(8, T, seq_block))
+    assert not _old_k2_fits(8, 4 * top8, seq_block)
+    assert tda._plan(1, 8, 1, 4 * top8, seq_block, 2) is not None
+
+
+def test_k2_wrapper_checks_shared_memory():
+    """`_check` (through the CPU wrapper) takes GH = 8 at the one-block
+    kernel's largest T and at 3x it, and raises where no plan fits."""
+    for T, ok in ((6968, True), (3 * 6968, True), (60000, False)):
+        kc = torch.zeros(1, 1, 1, T, 128)
+        q = torch.zeros(1, 8, 128)
+        kn = torch.zeros(1, 1, 128)
+        if ok:
+            out = decode_attention(q, kn, kn, kc, kc.clone(), 0, T - 1)
+            assert out.shape == (1, 8, 128)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                decode_attention(q, kn, kn, kc, kc.clone(), 0, T - 1)
 
 
 def test_attn_stage_composes_k1_and_k2():
