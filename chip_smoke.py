@@ -3,12 +3,7 @@
 
 Run from the repository root:
 
-    python3 chip_smoke.py [--parent-k2 DIR]
-
-`--parent-k2 DIR` builds another version of K2 (`DIR/decode_attention.cu`
-with its `common.cuh`, e.g. a parent commit's from `git show`) and times
-it in turns beside this tree's K2 wherever K2 is timed, and in the main
-decode step at pos 40.
+    python3 chip_smoke.py
 
 It needs one CUDA card and the CUDA toolkit (`nvcc`), imports nothing of
 JAX, and exits non-zero -- printing no result -- when there is no card,
@@ -28,7 +23,9 @@ Phases:
      fp32, pos in {0, 1, 7, 255, 256, 511}: the whole cache after the call
      equal bit for bit (row pos holds the written value), two identical
      calls equal bit for bit, each (row, head) output within 2^-6 (bf16)
-     or 1e-5 (fp32) of its row's largest value (`k2_check`);
+     or 1e-5 (fp32) of its row's largest value (`k2_check`); the
+     wrapper's shared-memory size equal to the kernel's for every plan
+     shape (`check_k2_layout`);
   4. end to end: `Generator` on the 7B config with bf16 random weights made
      on the card from a seeded `torch.Generator` and the main-path
      `SparsityConfig`, thresholds calibrated on the plain path for one
@@ -120,7 +117,8 @@ Phases:
      exactly L K6 launches for the long prefill besides 4*L K1 + L K2 a
      token (the short prompts of phases 4-10 assert none); the 2k
      prefill's seconds and peak memory with K6 against the plain
-     `_attention` path, in turns; `eval_ppl` at context 2048 + window
+     `_attention` path, in turns; one main-path decode step at pos 2000
+     on the prompt's cache, profiled (K2's share); `eval_ppl` at context 2048 + window
      512 over a 4096-token stream (4 windows), bf16 dense and at phase
      4's thresholds, and on an fp32 copy through K6's fp32 path against
      the plain path (each window's NLL within 1e-4 relative); K6's times
@@ -376,8 +374,6 @@ def check_k1(params, cfg, caps, device, gen, tag="k1"):
 # and the weights e to bf16 before PV from scores summed in other
 # orders); fp32 1e-5 of it.
 K2_ROW_TOL = {"bfloat16": 2 ** -6, "float32": 1e-5}
-PARENT_K2 = None         # --parent-k2 DIR: the parent commit's K2, timed
-                         # in turns beside this one (see `parent_k2`)
 
 
 def k2_check(what, q, kn, vn, kc, vc, layer, pos, **kw):
@@ -406,11 +402,41 @@ def k2_check(what, q, kn, vn, kc, vc, layer, pos, **kw):
     return row_check(what, outs[0], want, tol)
 
 
+def check_k2_layout():
+    """The wrapper's shared-memory size (`_smem_bytes`, which `_plan`
+    fits) equal to the kernel's `Layout::total`
+    (`teal_decode_attention_smem`) for every plan shape: both cache
+    types, GH 1-8, one row or a seq_block group of B <= 16 slots, S 1-8,
+    short and long T."""
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.ops import decode_attention as da
+
+    smem = _build.load()["decode_attention"].teal_decode_attention_smem
+    n = 0
+    for code, esz in ((0, 4), (1, 2)):
+        for GH in (1, 2, 4, 8):
+            for B in range(1, da.MAX_SEQ_BLOCK + 1):
+                for slots, nreb in {(1, 0), *((g, B - 1)
+                                              for g in range(1, B + 1))}:
+                    for T in (1, 7, 64, 100, 512, 2048, 4096, 12000):
+                        for S in (1, 2, 4, 8):
+                            want = smem(code, GH, slots, nreb, T, S)
+                            check(da._smem_bytes(esz, GH, slots, nreb, T, S)
+                                  == want, f"K2 shared memory: the wrapper "
+                                  f"and the kernel disagree at esz={esz} "
+                                  f"GH={GH} slots={slots} T={T} S={S}")
+                            n += 1
+    log(f"[k2] the wrapper's shared-memory size equals the kernel's "
+        f"layout in all {n} plan shapes checked")
+
+
 def check_k2(cfg, device, gen, rope):
     """K2 against its plain version (`k2_check`), bf16 and fp32. Returns
     the largest absolute error."""
     import torch
 
+    if device.type == "cuda":
+        check_k2_layout()
     T, L, layer = MAX_SEQ, 2, 1
     worst = 0.0
     for dt in (torch.bfloat16, torch.float32):
@@ -434,71 +460,6 @@ def check_k2(cfg, device, gen, rope):
                     f"{ratio:.2e} of its largest value (tolerance "
                     f"{K2_ROW_TOL[str(dt)[6:]]:g}); two calls identical")
     return worst
-
-
-def parent_k2(src_dir: str):
-    """The parent commit's K2 (its `decode_attention.cu` and `common.cuh`,
-    copied into `src_dir`), built with nvcc into a temporary directory
-    and bound with its own C signature, as a function of
-    `decode_attention`'s arguments. For timing beside this tree's K2."""
-    import ctypes
-    import tempfile
-
-    import torch
-
-    from teal_tpu_torch import _build
-
-    tmp = tempfile.mkdtemp(prefix="k2_parent_")
-    so = Path(tmp) / "libk2_parent.so"
-    t0 = time.perf_counter()
-    subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", str(so),
-                    str(Path(src_dir) / "decode_attention.cu")], check=True,
-                   capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.teal_decode_attention
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, P]
-    fn.restype = I
-    log(f"[k2 parent] built {src_dir}/decode_attention.cu in "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    def call(q, kn, vn, kc, vc, layer, pos, *, window=None, rope=None,
-             seq_block=False):
-        B, Hq, D = q.shape
-        out = torch.empty((B, Hq, D), dtype=kc.dtype, device=kc.device)
-        err = fn(1 if kc.dtype == torch.bfloat16 else 0, q.data_ptr(),
-                 kn.data_ptr(), vn.data_ptr(), rope.data_ptr(),
-                 kc.data_ptr(), vc.data_ptr(), pos.data_ptr(),
-                 out.data_ptr(), B, Hq, kc.shape[2], kc.shape[3], layer,
-                 window or 0, 1.0 / D ** 0.5, q.stride(0), kn.stride(0),
-                 int(seq_block), torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"the parent's K2 failed to launch: {err}")
-        return out
-
-    return call
-
-
-def k2_turns(args, L: int, iters: int = 64, **kw):
-    """Device ms a call of K2 on the cache layers i % L, and of the
-    parent's K2 where `PARENT_K2` is set, in turns (this, parent, parent,
-    this). Returns (ms, host enqueue ms, parent ms or None, readings)."""
-    from teal_tpu_torch.ops.decode_attention import decode_attention
-
-    q, kn, vn, kc, vc, pos = args
-    fns = {"this": decode_attention}
-    order = ["this"]
-    if PARENT_K2 is not None:
-        fns["parent"] = PARENT_K2
-        order = ["this", "parent", "parent", "this"]
-    got = {k: [] for k in fns}
-    host = 0.0
-    for k in order:
-        ms, h = cuda_ms(lambda i: fns[k](q, kn, vn, kc, vc, i % L, pos, **kw),
-                        iters)
-        got[k].append(ms)
-        host = h if k == "this" else host
-    mean = {k: sum(v) / len(v) for k, v in got.items()}
-    return mean["this"], host, mean.get("parent"), got
 
 
 # --- phase 4: end to end ------------------------------------------------
@@ -622,18 +583,40 @@ def check_launches(counts, L: int, decoded: int, long_prefills: int = 0):
           f"and {long_prefills} prefill(s) of 256 or more tokens")
 
 
-def end_to_end(params, cfg, caps, device, seed):
+def main_prompts(cfg, seed):
+    """Phase 4's three seeded prompts (`PROMPT_LENS` tokens)."""
     import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, n) for n in PROMPT_LENS]
+
+
+def calibration_token(params, cfg, prompt, cache, rope, device):
+    """The dense prefill of `prompt` into `cache`: (cache, the next
+    token, its position), phase 4's calibration token."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine.generate import _pad_len
+    from teal_tpu_torch.models import llama
+
+    padded = torch.zeros((1, _pad_len(len(prompt))), dtype=torch.int64)
+    padded[0, :len(prompt)] = torch.from_numpy(prompt)
+    zero = llama.zero_thresholds(cfg, device)
+    logits, cache = llama.forward(params, padded.to(device), cache, 0, zero,
+                                  cfg=cfg, sp=SparsityConfig(), rope=rope)
+    return cache, int(logits[0, len(prompt) - 1].argmax()), len(prompt)
+
+
+def end_to_end(params, cfg, caps, device, seed):
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
     from teal_tpu_torch.engine import Generator
-    from teal_tpu_torch.engine.generate import _pad_len
     from teal_tpu_torch.models import llama
 
     dt = params["layers"]["wq"].dtype
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(1, cfg.vocab_size, n) for n in PROMPT_LENS]
+    prompts = main_prompts(cfg, seed)
     sparse = Generator(cfg, params, sp=SparsityConfig(**MAIN_SP),
                        max_seq=MAX_SEQ, cache_dtype=dt, temperature=0.0,
                        device=device)
@@ -643,16 +626,9 @@ def end_to_end(params, cfg, caps, device, seed):
 
     # calibration token: dense prefill of the first prompt, then its
     # first decode position
-    p0 = prompts[0]
-    cache = sparse.new_cache()
-    padded = torch.zeros((1, _pad_len(len(p0))), dtype=torch.int64)
-    padded[0, :len(p0)] = torch.from_numpy(p0)
-    zero = llama.zero_thresholds(cfg, device)
-    logits, cache = llama.forward(params, padded.to(device), cache, 0, zero,
-                                  cfg=cfg, sp=SparsityConfig(),
-                                  rope=sparse.rope)
-    tok = int(logits[0, len(p0) - 1].argmax())
-    pos = len(p0)
+    cache, tok, pos = calibration_token(params, cfg, prompts[0],
+                                        sparse.new_cache(), sparse.rope,
+                                        device)
     t0 = time.perf_counter()
     th, kept, worst = calibrate_and_check(params, cfg, cache, tok, pos,
                                           sparse.rope, caps, device)
@@ -724,13 +700,16 @@ def profile_device(fn, iters: int):
     return sum(t for _, t in rows), rows
 
 
-def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
+def time_decode_step(params, cfg, runs, device, rope, iters: int = 3,
+                     cache=None, tok=None):
     """One decode `forward` (embedding to logits) for each run (kind,
     sparsity kwargs, batch, thresholds[, positions]; at pos 40 where no
-    positions are given): device time (the sum of kernel times from
-    torch.profiler) and wall time per step (host clock, synchronised,
-    without the profiler). A step launches more kernels than the launch
-    queue holds, so the sleep-queued timing of `cuda_ms` cannot apply."""
+    positions are given) on `cache` with input `tok` (default: an empty
+    `MAX_SEQ`-row cache and token 7): device time (the sum of kernel
+    times from torch.profiler) and wall time per step (host clock,
+    synchronised, without the profiler). A step launches more kernels
+    than the launch queue holds, so the sleep-queued timing of `cuda_ms`
+    cannot apply."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -740,13 +719,13 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
     out = {}
     for kind, sp_kw, b, th, *pos in runs:
         sp = SparsityConfig(**sp_kw)
-        tok = torch.full((b, 1), 7, device=device)
-        cache = llama.KVCache.init(cfg, b, MAX_SEQ, dt, device)
+        x = torch.full((b, 1), 7, device=device) if tok is None else tok
+        kv = (llama.KVCache.init(cfg, b, MAX_SEQ, dt, device)
+              if cache is None else cache)
         pos = pos[0] if pos else 40
 
         def step():
-            llama.forward(params, tok, cache, pos, th, cfg=cfg, sp=sp,
-                          rope=rope)
+            llama.forward(params, x, kv, pos, th, cfg=cfg, sp=sp, rope=rope)
 
         step()
         torch.cuda.synchronize()
@@ -764,28 +743,6 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3):
             f"device idle {out[kind]['idle_share']:.1%}; K2 {k2:.3f} ms "
             f"({k2 / dev:.1%} of device); top: "
             + "; ".join(f"{k[:48]} {t:.3f} ms" for k, t in rows[:4]))
-    return out
-
-
-def step_with_parent_k2(params, cfg, th, device, rope):
-    """The main decode step (pos 40) with this tree's K2 and with the
-    parent's (`PARENT_K2`, swapped into the token path's attention
-    stage), in turns: (this, parent, parent, this). Returns {name:
-    [(K2 ms, device ms) a step]}."""
-    from teal_tpu_torch.ops import attn_block
-
-    mine, out = attn_block.decode_attention, {}
-    try:
-        for name in ("this", "parent", "parent", "this"):
-            attn_block.decode_attention = PARENT_K2 if name == "parent" \
-                else mine
-            r = time_decode_step(params, cfg, [("sparse", MAIN_SP, 1, th)],
-                                 device, rope)["sparse"]
-            out.setdefault(name, []).append((r["k2_ms"], r["device_ms"]))
-    finally:
-        attn_block.decode_attention = mine
-    log(f"[time] main step at pos 40, K2 and device ms a step, in turns: "
-        f"{out}")
     return out
 
 
@@ -1271,15 +1228,14 @@ def time_k2(cfg, device, gen, rope, launches, steps, err, name=None,
             heads=None, T=None):
     """K2 at pos T-1 of a bf16 cache of T rows (default: the rope tables'
     length), at the 7B heads or `heads` (Hq, Hkv), a 32-layer cache so
-    that calls do not share L2: one `k2_check`, then the kernel (beside
-    the parent's where `PARENT_K2` is set), plain version, SDPA (with
-    `enable_gqa` where Hq != Hkv) and the bound. Returns the `kernels`
+    that calls do not share L2: one `k2_check`, then the kernel, plain
+    version, SDPA (with `enable_gqa` where Hq != Hkv) and the bound. Returns the `kernels`
     entry (max_abs_err: the larger of `err` and this check's)."""
     import torch
     import torch.nn.functional as F
 
-    from teal_tpu_torch.ops.decode_attention import (_plan,
-                                                     decode_attention_plain)
+    from teal_tpu_torch.ops.decode_attention import (
+        _plan, decode_attention, decode_attention_plain)
 
     L, esz = cfg.n_layers, 2
     Hq, Hkv = heads or (cfg.n_heads, cfg.n_kv_heads)
@@ -1299,7 +1255,8 @@ def time_k2(cfg, device, gen, rope, launches, steps, err, name=None,
     nbytes = (2 * p * Hkv * 128 * esz + (Hq + 2 * Hkv) * 128 * 4
               + 2 * 128 * 4 + Hq * 128 * esz + 2 * Hkv * 128 * esz)
     b_ms, b_by = bound_ms(nbytes, 4 * Hq * p * 128)
-    ms, host, par, got = k2_turns((q, kn, vn, kc, vc, pos_t), L, rope=row)
+    ms, host = cuda_ms(lambda i: decode_attention(
+        q, kn, vn, kc, vc, i % L, pos_t, rope=row), 64)
     p_ms, _ = cuda_ms(lambda i: decode_attention_plain(
         q, kn, vn, kc, vc, i % L, pos_t, rope=row), 5, warmup=1,
         queued=False)
@@ -1310,18 +1267,16 @@ def time_k2(cfg, device, gen, rope, launches, steps, err, name=None,
     S, _ = _plan(1, Hq, Hkv, T, False, esz,
                  torch.cuda.get_device_properties(device).multi_processor_count)
     log(f"[time] K2 Hq={Hq} Hkv={Hkv} pos={p} (T={T}, S={S}) kernel "
-        f"{ms:.4f} ms {got['this']} (host enqueue {host:.4f} ms)"
-        + (f"  parent {par:.4f} ms {got['parent']}" if par else "")
-        + f"  plain {p_ms:.4f} ms  SDPA {lib:.4f} ms  bound {b_ms:.4f} ms "
-        f"({b_by}, {nbytes / 1e6:.2f} MB, {b_ms / ms:.1%} of it); worst "
-        f"row {ratio:.2e}")
+        f"{ms:.4f} ms (host enqueue {host:.4f} ms)  plain {p_ms:.4f} ms  "
+        f"SDPA {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e6:.2f} MB, {b_ms / ms:.1%} of it); worst row "
+        f"{ratio:.2e}")
     return dict(name=name or "decode_attention", route="cuda",
                 source="teal_tpu_torch/csrc/decode_attention.cu",
                 replaces="teal_tpu/ops/decode_attention.py:444",
                 launches=launches, launches_per_token=launches / steps,
                 max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib, parent_ms=par,
-                splits=S, timed=f"Hq={Hq} Hkv={Hkv} T={T} pos={p}")
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib, splits=S, timed=f"Hq={Hq} Hkv={Hkv} T={T} pos={p}")
 
 
 K2_SWEEP = ((40, 512), (511, 512), (2047, 2048))   # (pos, T)
@@ -1330,9 +1285,8 @@ K2_SWEEP = ((40, 512), (511, 512), (2047, 2048))   # (pos, T)
 def k2_sweep(cfg, device, gen, rope):
     """K2 at 7B (Hq = Hkv = 32, bf16, one row) with the split count forced
     to 1, 2, 4 and 8, at pos 40 and 511 of a 512-row cache (the main
-    path) and pos 2047 of a 2048-row one (the long-prompt decode), beside
-    the parent's K2 where `PARENT_K2` is set; every forced S passes
-    `k2_check` first. Returns {pos: {S: ms, "parent": ms, "rule": S}}."""
+    path) and pos 2047 of a 2048-row one (the long-prompt decode); every
+    forced S passes `k2_check` first. Returns {pos: {S: ms, "rule": S}}."""
     import torch
 
     from teal_tpu_torch.ops import decode_attention as da
@@ -1356,20 +1310,14 @@ def k2_sweep(cfg, device, gen, rope):
                 da._splits = lambda *a, _S=S, **k: _S
                 k2_check(f"K2 sweep S={S} pos={p}", q, kn, vn, kc[:1],
                          vc[:1], 0, pos, rope=row)
-                ms, _, par, _ = k2_turns((q, kn, vn, kc, vc, pos), L,
-                                         rope=row)
-                res[S] = ms
-                if par is not None:
-                    res.setdefault("parent", []).append(par)
+                res[S], _ = cuda_ms(lambda i: da.decode_attention(
+                    q, kn, vn, kc, vc, i % L, pos, rope=row), 64)
         finally:
             da._splits = rule
-        if "parent" in res:
-            res["parent"] = sum(res["parent"]) / len(res["parent"])
         out[p] = res
         log(f"[k2 sweep] pos={p} T={T}: "
             + "  ".join(f"S={S} {res[S]:.4f} ms" for S in (1, 2, 4, 8))
-            + (f"  parent {res['parent']:.4f} ms" if "parent" in res
-               else "") + f"  (rule: S={res['rule']})")
+            + f"  (rule: S={res['rule']})")
     return out
 
 
@@ -2187,14 +2135,14 @@ def time_rows_kernels(qparams, params, cfg, caps, device, gen, rope, plan,
 def time_k2_rows(cfg, device, gen, rope, launches, steps, err, name):
     """K2 at 16 rows at positions spread over the cache (the server's
     shape) or in its seq_block form (S = 8 at pos 500, the verify path's),
-    after a `k2_check`, beside the parent's K2 where `PARENT_K2` is set,
-    its plain version, `scaled_dot_product_attention` with the equivalent
+    after a `k2_check`, its plain version, `scaled_dot_product_attention` with the equivalent
     mask and the bound. Returns the `kernels` entry."""
     import torch
     import torch.nn.functional as F
 
     from teal_tpu_torch.models import llama
-    from teal_tpu_torch.ops.decode_attention import decode_attention_plain
+    from teal_tpu_torch.ops.decode_attention import (decode_attention,
+                                                     decode_attention_plain)
 
     L, Hq, Hkv, esz = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, 2
     seq = name == "seq_block"
@@ -2215,7 +2163,8 @@ def time_k2_rows(cfg, device, gen, rope, launches, steps, err, name):
     nbytes = (2 * live * Hkv * 128 * esz + S * (Hq + 2 * Hkv) * 128 * 4
               + S * 2 * 128 * 4 + S * Hq * 128 * esz + 2 * S * Hkv * 128 * esz)
     b_ms, b_by = bound_ms(nbytes, 4 * Hq * 128 * int(pos.sum()))
-    ms, host, par, got = k2_turns((q, kn, vn, kc, vc, pos), L, **kw)
+    ms, host = cuda_ms(lambda i: decode_attention(
+        q, kn, vn, kc, vc, i % L, pos, **kw), 64)
     p_ms, _ = cuda_ms(lambda i: decode_attention_plain(
         q, kn, vn, kc, vc, i % L, pos, **kw), 3, warmup=1, queued=False)
     t = torch.arange(MAX_SEQ, device=device)
@@ -2231,18 +2180,16 @@ def time_k2_rows(cfg, device, gen, rope, launches, steps, err, name):
             qs, kc[i % L], vc[i % L], attn_mask=mask), 64)
     timed = (f"seq_block S={S} at pos {p0}.." if seq else
              f"B={S} rows at positions {pos.tolist()}")
-    log(f"[time] K2 {name} ({timed}) kernel {ms:.4f} ms {got['this']} (host "
-        f"enqueue {host:.4f} ms)"
-        + (f"  parent {par:.4f} ms {got['parent']}" if par else "")
-        + f"  plain {p_ms:.4f} ms  SDPA {lib:.4f} ms  bound {b_ms:.4f} ms "
-        f"({b_by}, {nbytes / 1e6:.2f} MB, {b_ms / ms:.1%} of it); worst row "
-        f"{ratio:.2e}")
+    log(f"[time] K2 {name} ({timed}) kernel {ms:.4f} ms (host enqueue "
+        f"{host:.4f} ms)  plain {p_ms:.4f} ms  SDPA {lib:.4f} ms  bound "
+        f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, {b_ms / ms:.1%} of "
+        f"it); worst row {ratio:.2e}")
     return dict(name=f"decode_attention[{name}]", route="cuda",
                 source="teal_tpu_torch/csrc/decode_attention.cu",
                 replaces="teal_tpu/ops/attn_block.py:94", launches=launches,
                 launches_per_token=launches / steps, max_abs_err=err, ms=ms,
                 kernel_ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, parent_ms=par, timed=timed)
+                library_ms=lib, timed=timed)
 
 
 def batched_phase(params, cfg, caps, device, gen, seed, rope):
@@ -2533,6 +2480,17 @@ def long_prompt_run(params, cfg, device, seed, th):
             + "; ".join(f"{k[:48]} {t:.3f} ms" for k, t in rows[:6]))
     rel = float((last["kernel"] - last["plain"]).abs().max()
                 / last["plain"].abs().max())
+    # one main-path decode step at pos LONG_PROMPT on the prompt's own
+    # cache (a K6 prefill), profiled: K2's share of the step
+    lg, cache = llama.forward(params, padded, gen.new_cache(), 0, zero,
+                              cfg=cfg, sp=SparsityConfig(), rope=gen.rope,
+                              causal_prefill=True)
+    tok = lg[:, LONG_PROMPT - 1:LONG_PROMPT].argmax(-1)
+    del lg
+    step = time_decode_step(params, cfg, [(f"pos {LONG_PROMPT}", MAIN_SP, 1,
+                                           th, LONG_PROMPT)], device,
+                            gen.rope, cache=cache, tok=tok)
+    del cache
     for kind, rs in runs.items():
         log(f"[long] {T}-token prefill via "
             f"{'K6' if kind == 'kernel' else 'the plain _attention'}: "
@@ -2545,6 +2503,7 @@ def long_prompt_run(params, cfg, device, seed, th):
     return dict(launches=counts, decoded=decoded, worst=worst,
                 prefill_s=st.prefill_s, tok_s=st.tokens_per_s,
                 prefill=runs, prefill_device=device_ms,
+                decode_step=step[f"pos {LONG_PROMPT}"],
                 logits_rel_kernel_vs_plain=rel)
 
 
@@ -3021,7 +2980,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    global PARENT_K2
     from teal_tpu_torch import _build
     from teal_tpu_torch.config import SparsityConfig, get_model_config
     from teal_tpu_torch.models import llama
@@ -3038,8 +2996,6 @@ def main() -> int:
     log(f"[build] {_build.build_seconds:.1f} s")
     for line in _build.ptxas_report:
         log(f"[build] {line.strip()}")
-    if "--parent-k2" in sys.argv:
-        PARENT_K2 = parent_k2(sys.argv[sys.argv.index("--parent-k2") + 1])
 
     cfg = get_model_config("7B")
     seed = 0
@@ -3075,9 +3031,6 @@ def main() -> int:
     line["decode_tok_s"] = speeds
     line["decode_tok_s_loop_paths"] = {n: r["tok_s"] for n, r in loop.items()}
     line["decode_step_ms"] = step
-    if PARENT_K2 is not None:
-        line["decode_step_k2_parent"] = step_with_parent_k2(params, cfg, th,
-                                                            device, rope)
     b_entries, line["batched"], _ = batched_phase(params, cfg, caps, device,
                                                   gen, seed, rope)
     line["kernels"] += b_entries

@@ -65,6 +65,9 @@ SIGNATURES = {
         _I, _I, _I,             # q row stride, k/v row stride, seq_block
         _I, _I, _P,             # splits, slots a cluster, stream
     ],
+    ("decode_attention", "teal_decode_attention_smem"): [
+        _I, _I, _I, _I, _I, _I,  # dtype code, GH, slots, rebuilt rows, T, S
+    ],
     ("moe_route", "teal_moe_route"): [
         _I, _P, _P, _F, _P,     # dtype code, x, norm, norm_eps, router
         _P, _P, _P,             # xn, pseudo-layers, weights (outputs)

@@ -119,7 +119,8 @@ struct Tile {
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 
 // Shared-memory layout, in bytes from the (128-byte aligned) base. The
-// Python wrapper's `_smem_bytes` mirrors `total`.
+// Python wrapper's `_smem_bytes` mirrors `total`, and the card tests hold
+// it to `teal_decode_attention_smem`.
 struct Layout {
   int bars, qr, pv, pvall, kb, vb, knf, small, s, total;
   __host__ __device__ Layout(int esz, int QR, int gslots, int nreb, int S,
@@ -595,7 +596,27 @@ int by_rows(const Args& a, int ny, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A block's score columns (ceil(T / S), padded to 4) and ring stages
+// (min(4, the tiles of K and V a block has at most)).
+void split_shape(int dtype, int T, int S, int* NS, int* nst) {
+  const int rows = (T + S - 1) / S;
+  const int tile_rows = TILE_BYTES / (D * (dtype == 0 ? 4 : 2));
+  *NS = pad4(rows);
+  *nst = min(MAXNST, 2 * ((rows + tile_rows - 1) / tile_rows));
+}
+
 }  // namespace
+
+// A block's dynamic shared memory in bytes (`Layout::total`) for GH query
+// heads a kv head, `slots` slots a cluster (1 but in seq_block), nreb
+// rebuilt rows (B - 1 in seq_block, else 0), T cache rows and S splits.
+extern "C" int teal_decode_attention_smem(int dtype, int GH, int slots,
+                                          int nreb, int T, int S) {
+  int NS, nst;
+  split_shape(dtype, T, S, &NS, &nst);
+  return Layout(dtype == 0 ? 4 : 2, slots * GH, slots, nreb, S, NS, nst)
+      .total;
+}
 
 // dtype: 0 fp32, 1 bf16 (the cache type). window 0 means none. q_rs /
 // kv_rs: row strides of q and of k_new / v_new in floats. seq_block: the
@@ -635,10 +656,7 @@ extern "C" int teal_decode_attention(
   a.kv_rs = kv_rs;
   a.S = splits;
   a.gslots = seq_block ? group_slots : 1;
-  const int rows = (T + splits - 1) / splits;   // at most, a block
-  const int tile_rows = TILE_BYTES / (D * (dtype == 0 ? 4 : 2));
-  a.NS = pad4(rows);
-  a.nst = min(MAXNST, 2 * ((rows + tile_rows - 1) / tile_rows));
+  split_shape(dtype, T, splits, &a.NS, &a.nst);
   const int ny = seq_block ? (B + a.gslots - 1) / a.gslots : B;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

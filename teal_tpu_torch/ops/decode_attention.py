@@ -102,10 +102,12 @@ def _splits(B: int, Hkv: int, T: int, seq_block: bool, n_sms: int) -> int:
 
 def _smem_bytes(esz: int, GH: int, slots: int, nreb: int, T: int,
                 S: int) -> int:
-    """One block's shared memory (the kernel's `Layout::total`): the tile
-    ring (up to 4 stages, as many as K and V take at T); for `slots` * GH query rows q rounded (esz bytes), the fp32
-    partial PV and the peers' parts of it; the `nreb` rebuilt k/v rows of
-    a seq_block launch; the current keys and values; three per-query-row
+    """One block's shared memory (the kernel's `Layout::total`, which the
+    card tests hold this to through `teal_decode_attention_smem`): the
+    tile ring (up to 4 stages, as many as K and V take at T); for
+    `slots` * GH query rows q rounded (esz bytes), the fp32 partial PV
+    and the peers' parts of it; the `nreb` rebuilt k/v rows of a
+    seq_block launch; the current keys and values; three per-query-row
     scalars and the S peers' maxima and sums; the score slice of
     ceil(T / S) rows, padded to a multiple of 4."""
     QR = slots * GH

@@ -11,6 +11,7 @@ JAX test setup of tests/conftest.py:
 import pytest
 import torch
 
+from teal_tpu_torch import _build
 from teal_tpu_torch.models import llama
 from teal_tpu_torch.ops import block_gemv as bg
 from teal_tpu_torch.ops import gather_gemv as gg
@@ -546,3 +547,18 @@ def test_k2_split_rule_on_this_card(cuda):
                                          8, 1, T)
     pos = torch.tensor([T - 1], dtype=torch.int32, device=cuda)
     _k2_case(cuda, torch.bfloat16, q, kn, vn, kc, vc, 0, pos, None, rope)
+
+
+def test_k2_smem_matches_kernel_layout(cuda):
+    """The wrapper's `_smem_bytes` equals the kernel's `Layout::total`
+    across the plans it may choose: both cache types, GH 1-8, seq_block
+    slot groups with their rebuilt rows, short and long T, S 1-8."""
+    lib = _build.load()["decode_attention"]
+    for code, esz in ((0, 4), (1, 2)):
+        for GH in (1, 2, 4, 8):
+            for slots, nreb in ((1, 0), (1, 7), (4, 15), (8, 15), (16, 15)):
+                for T in (1, 64, 100, 512, 2048, 12000):
+                    for S in (1, 2, 4, 8):
+                        assert da._smem_bytes(esz, GH, slots, nreb, T, S) == \
+                            lib.teal_decode_attention_smem(code, GH, slots,
+                                                           nreb, T, S)
