@@ -72,8 +72,9 @@ Phases:
      (Q8-main-b16, Q4-main-b16: three requests, 4*L K1 + L K2 a step);
   9. the batched token path and its two entry points, at full depth:
      K1's rows form against its plain version at the token path's stage
-     shapes for B in {3, 8, 16} (the three selection regimes on pooled
-     scores and `fixed`; identical kept sets; 1e-4 / 2^-7 of scale), K2
+     shapes for B in {2, 3, 8, 16} (the three selection regimes on pooled
+     scores, `fixed` and no survivor; identical kept sets; 1e-4 / 2^-7 of
+     scale; two identical calls bit-identical), K2
      with 16 rows at distinct positions (two at 0) and in its seq_block
      form (S = 8 and 16 at pos 0, 5, 492; MHA and GQA with a window;
      `k2_check`); the continuous-batching server
@@ -85,8 +86,10 @@ Phases:
      device time at B = 1, 8, 16; `block_verify` at S = 4, 8, 12 after a
      prefill, every layer of each chunk held to its plain version,
      ceil(S/8) * (4*L K1 + L K2) launches, logits against the dense
-     forward and against its plain version (2e-2 of scale); the rows
-     forms' times beside their bound, plain version and library call;
+     forward and against its plain version (2e-2 of scale); each K1
+     stage's kept count in the timed B = 16 step; the rows forms' times
+     beside their bound (and the share of it), plain version and library
+     call at B = 8 and 16;
  10. Mixtral-8x7B (MoE) on the token path, after the 7B weights are freed:
      K5 (`moe_route`) against its plain version on a bf16 stream and fp32
      routers (identical routed experts, also where two router columns tie:
@@ -736,12 +739,14 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3,
         wall = (time.perf_counter() - t0) * 1e3 / iters
         dev, rows = profile_device(step, iters)
         k2 = sum(t for k, t in rows if "attn_kernel" in k)
+        k1 = sum(t for k, t in rows if "sgg_" in k)
         out[kind] = dict(device_ms=dev, wall_ms=wall,
-                         idle_share=max(0.0, 1.0 - dev / wall), k2_ms=k2)
+                         idle_share=max(0.0, 1.0 - dev / wall), k2_ms=k2,
+                         k1_ms=k1)
         log(f"[time] one {kind} decode step (batch {b}): device "
             f"{dev:.3f} ms (sum of kernel times), wall {wall:.3f} ms, "
-            f"device idle {out[kind]['idle_share']:.1%}; K2 {k2:.3f} ms "
-            f"({k2 / dev:.1%} of device); top: "
+            f"device idle {out[kind]['idle_share']:.1%}; K1 {k1:.3f} ms, "
+            f"K2 {k2:.3f} ms ({k2 / dev:.1%} of device); top: "
             + "; ".join(f"{k[:48]} {t:.3f} ms" for k, t in rows[:4]))
     return out
 
@@ -1127,6 +1132,10 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
     check(bool((kept >= 1).all()) and all(
         bool((kept[:, j] <= c).all()) for j, c in enumerate(cap_cols)),
         f"kept counts outside [1, cap]: {kept.tolist()}")
+    log(f"[token] B={B}{' verify' if verify else ''}: kept groups a K1 "
+        f"call, mean over the {cfg.n_layers} layers "
+        f"{[round(float(c), 2) for c in kept.float().mean(0)]} of caps "
+        f"{list(cap_cols)}")
     return th, worst, (k, v)
 
 
@@ -1701,7 +1710,7 @@ def quant_paths(params, cfg, caps, device, gen, seed, rope):
 
 # --- phase 9: the batched token path, the server and block_verify ---------
 
-ROWS = (3, 8, 16)                # K1 rows forms checked
+ROWS = (2, 3, 8, 16)             # K1 rows forms checked
 SERVER_SLOTS = 16
 SERVER_REQUESTS = 24
 SERVER_CHUNK = 32
@@ -1715,7 +1724,8 @@ def rows_input(spec, cfg, K, B, n_surv, gen, device, dtype, layer):
     (1.05**rank, rank a permutation of the groups) in row g % B, so that
     every group's pooled score comes from one row; a threshold with
     exactly `n_surv` pooled scores (of the selection input) above it, more
-    than 1e-2 from each; and a [B, N] residual where the stage has one."""
+    than 1e-2 from each (n_surv = 0: twice the largest); and a [B, N]
+    residual where the stage has one."""
     import torch
 
     from teal_tpu_torch.ops.block_gemv import _width, selection_input
@@ -1731,6 +1741,9 @@ def rows_input(spec, cfg, K, B, n_surv, gen, device, dtype, layer):
         x = x.reshape(B, K).to(dtype)
         xs = selection_input(x, spec["norm"], layer, cfg.norm_eps)
         pooled = xs.float().abs().reshape(B, nb, 128).amax(-1).amax(0)
+        if n_surv == 0:
+            thr, margin = 2.0 * float(pooled.max()), 0.5
+            break
         thr, margin = threshold_for(pooled, n_surv)
         if margin > 1e-2:
             break
@@ -1745,8 +1758,9 @@ def rows_input(spec, cfg, K, B, n_surv, gen, device, dtype, layer):
 def check_k1_rows(params, cfg, caps, device, gen, tag="k1 rows"):
     """K1's rows form against its plain version at the token path's four
     stage shapes for B in `ROWS`: the three selection regimes on pooled
-    scores and `fixed`, with the params' weight plan. Returns the largest
-    absolute error."""
+    scores, `fixed` and no survivor, with the params' weight plan; two
+    identical calls must give identical bits. Returns the largest absolute
+    error."""
     import torch
 
     from teal_tpu_torch.models import llama
@@ -1763,7 +1777,7 @@ def check_k1_rows(params, cfg, caps, device, gen, tag="k1 rows"):
             for case, n_surv in (("count<cap", max(1, cap // 2)),
                                  ("count==cap", cap),
                                  ("overflow", min(nb, cap + max(1, nb // 4))),
-                                 ("fixed", cap)):
+                                 ("fixed", cap), ("none", 0)):
                 fixed = case == "fixed"
                 x, thr, res = rows_input(spec, cfg, K, B, n_surv, gen, device,
                                          dt, layer)
@@ -1772,6 +1786,12 @@ def check_k1_rows(params, cfg, caps, device, gen, tag="k1 rows"):
                           fixed=fixed)
                 got, gidx, gcnt = bg.select_gather_gemv(x, thr, spec["ws"],
                                                         layer, cap, **kw)
+                again = bg.select_gather_gemv(x, thr, spec["ws"], layer, cap,
+                                              **kw)
+                check(all(torch.equal(u, v) for u, v in
+                          zip((got, gidx, gcnt), again)),
+                      f"K1 rows B={B} {name} {case}: two identical calls "
+                      "differ")
                 want, widx, wcnt = bg.select_gather_gemv_plain(
                     x, thr, spec["ws"], layer, cap, **kw)
                 n = int(wcnt[0])
@@ -1912,10 +1932,17 @@ def server_phase(params, cfg, device, seed, rope):
         f"the batched token path (B = {SERVER_SLOTS}, positions "
         f"{sorted(eng.pos.tolist())}) held to it (worst error {worst:.2e} "
         f"of scale, tolerance 2e-2) in {time.perf_counter() - t0:.2f} s")
+    # the same step timed on the admitted requests (kept counts as logged
+    # above), beside phase 9's step on token 7 at fixed positions
+    admitted = time_decode_step(
+        params, cfg, [(f"server batch {SERVER_SLOTS}, admitted requests",
+                       MAIN_SP, SERVER_SLOTS, th, eng.pos.tolist())],
+        device, rope, cache=eng.cache,
+        tok=torch.from_numpy(eng.cur[:, None]).to(device))
     del eng
     check_step_launches(params, cfg, th, device, rope)
 
-    out = {"worst": worst}
+    out = {"worst": worst, "admitted_step": admitted}
     for chunk in (None, SERVER_CHUNK):
         eng = engine(th, chunk)
         decode = []                   # (active slots, wall s) per step
@@ -2117,6 +2144,10 @@ def time_rows_kernels(qparams, params, cfg, caps, device, gen, rope, plan,
                                                       **kw),
                 lib, quant_library_ms(plan, K, Ns, device, gen, rows=B),
                 K=K, N=sum(Ns), cap=cap, rows=B))
+            r = rows[-1]
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+            log(f"[time] {'':26s} {r['bound_share']:.1%} of the bound; "
+                f"{r['ms'] / r['library_ms']:.2f}x torch.matmul")
         per_b[B] = rows
     e = plan_entry(per_b[16], f"select_gather_gemv[rows {plan}]",
                    "teal_tpu_torch/csrc/select_gather_gemv.cu",
@@ -2126,9 +2157,15 @@ def time_rows_kernels(qparams, params, cfg, caps, device, gen, rope, plan,
     q8 = [r["quant_library_ms"] for r in per_b[8]]
     e["b8"] = dict({k: sum(r[k] for r in per_b[8])
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-                   quant_library_ms=None if None in q8 else sum(q8))
-    log(f"[time] {e['name']} at B = 8: one layer {e['b8']['ms']:.4f} ms, "
-        f"bound {e['b8']['bound_ms']:.4f} ms")
+                   quant_library_ms=None if None in q8 else sum(q8),
+                   stages=per_b[8])
+    for d in (e, e["b8"]):
+        d["bound_share"] = d["bound_ms"] / d["ms"]
+    log(f"[time] {e['name']}: {e['bound_share']:.1%} of the bound at B = "
+        f"16; at B = 8 one layer {e['b8']['ms']:.4f} ms, bound "
+        f"{e['b8']['bound_ms']:.4f} ms ({e['b8']['bound_share']:.1%}), "
+        f"torch.matmul {e['b8']['library_ms']:.4f} ms, PyTorch weight-only "
+        f"GEMV {e['b8']['quant_library_ms']}")
     return e
 
 
@@ -2192,6 +2229,44 @@ def time_k2_rows(cfg, device, gen, rope, launches, steps, err, name):
                 library_ms=lib, timed=timed)
 
 
+def step_kept_counts(params, cfg, th, device, rope, b: int = 16):
+    """The kept count of every K1 call in one server decode step at batch
+    b (the step `time_decode_step` times: token 7 at positions 40, 44, ...
+    on an empty cache, the server's thresholds), read from the kernels'
+    count outputs. Returns [L, 4] counts (qkv, o, gate|up, down)."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import attn_block, token_block
+
+    counts = []
+    real = token_block.select_gather_gemv
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        counts.append(out[2])
+        return out
+
+    cache = llama.KVCache.init(cfg, b, MAX_SEQ, torch.bfloat16, device)
+    try:
+        token_block.select_gather_gemv = attn_block.select_gather_gemv = \
+            recording
+        llama.forward(params, torch.full((b, 1), 7, device=device), cache,
+                      [40 + 4 * i for i in range(b)], th, cfg=cfg,
+                      sp=SparsityConfig(**MAIN_SP), rope=rope)
+    finally:
+        token_block.select_gather_gemv = attn_block.select_gather_gemv = real
+    kept = torch.cat(counts).reshape(cfg.n_layers, 4).cpu()
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    for j, name in enumerate(STAGES):
+        c = kept[:, j].float()
+        log(f"[serve] kept groups in one batch-{b} decode step, {name}: "
+            f"mean {float(c.mean()):.2f} (min {int(c.min())}, max "
+            f"{int(c.max())}) of cap {caps[j]}, {float(c.mean()) / caps[j]:.1%}")
+    return kept
+
+
 def batched_phase(params, cfg, caps, device, gen, seed, rope):
     """Phase 9 on the bf16 params. Returns (kernels entries, results)."""
     e_k1 = check_k1_rows(params, cfg, caps, device, gen)
@@ -2207,6 +2282,7 @@ def batched_phase(params, cfg, caps, device, gen, seed, rope):
         log(f"[serve] decode step at batch {b}: {b / r['wall_ms'] * 1e3:.1f} "
             f"tok/s from its wall time ({r['wall_ms']:.3f} ms wall, "
             f"{r['device_ms']:.3f} ms device, idle {r['idle_share']:.1%})")
+    kept = step_kept_counts(params, cfg, th, device, rope)
     one = serve["oneshot"]
     v_launch = sum(r["launches"][1] for r in verify.values())
     v_steps = sum(-(-S // 8) for S in VERIFY_S)
@@ -2221,7 +2297,9 @@ def batched_phase(params, cfg, caps, device, gen, seed, rope):
     results = dict(
         server={k: ({kk: vv for kk, vv in v.items() if kk != "outs"}
                     if isinstance(v, dict) else v) for k, v in serve.items()},
-        verify=verify, decode_step_ms=steps)
+        verify=verify, decode_step_ms=steps,
+        step_kept_b16={name: kept[:, j].tolist()
+                       for j, name in enumerate(STAGES)})
     return entries, results, th
 
 

@@ -44,6 +44,16 @@ SIGNATURES = {
                                 # routing weights (mode 3, or null)
         _P,                     # stream
     ],
+    ("select_gather_gemv", "teal_sgg_rows_plan"): [
+        _I, _I, _I, _I, _I,     # dtype code, weight plan, pair, K, n_out
+        _I, _I, _I, _P,         # cap, SM count, splits (0: the rule),
+                                # out int32 [4]
+    ],
+    ("select_gather_gemv", "teal_sgg_rows_force_splits"): [_I],
+    ("select_gather_gemv", "teal_sgg_rows_residency"): [
+        _I, _I, _I, _I, _I,     # dtype code, weight plan, pair, K, n_out
+        _I, _I, _P,             # cap, splits (0: the rule), out int32 [3]
+    ],
     ("block_gather_gemv", "teal_block_gather_gemv"): [
         _I, _I, _P, _P,         # dtype code, weight plan, idx, xpack
         _P, _P, _P,             # w0, w1, w2
@@ -83,6 +93,18 @@ SIGNATURES = {
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds: Optional[float] = None
 ptxas_report: List[str] = []
+_sms: Dict[int, int] = {}        # CUDA device index -> SM count
+
+
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index` (the kernels' launch plans
+    read it)."""
+    if index not in _sms:
+        import torch
+
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
 
 
 def _nvcc() -> str:

@@ -164,10 +164,6 @@ __device__ __forceinline__ void chunk(const __nv_bfloat16* p,
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   do {
@@ -189,7 +185,7 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 // Scores of nr cache rows (type T, row-major in shared memory; absolute
@@ -378,14 +374,14 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
     const int rows = min(TL::ROWS, ce - first);
     const T* src = (i < nt ? kcache : vcache) + static_cast<size_t>(first) * D;
     bulk_load(ring + (i % NST) * (TILE_BYTES / sizeof(T)), src,
-              rows * D * sizeof(T), smem_addr(&bars[i % NST]));
+              rows * D * sizeof(T), smem_u32(&bars[i % NST]));
   };
   // every block of the cluster has started once this arrival is waited on
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cluster_arrive_relaxed();
   if (d == 0) {
     for (int i = 0; i < NST; ++i)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(smem_addr(&bars[i])) : "memory");
+                   :: "r"(smem_u32(&bars[i])) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -442,7 +438,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
 
   // phase 1: scores of the block's K rows
   for (int i = 0; i < nt; ++i) {
-    mbar_wait(smem_addr(&bars[i % NST]), (i / NST) & 1);
+    mbar_wait(smem_u32(&bars[i % NST]), (i / NST) & 1);
     const int first = ra + i * TL::ROWS;
     score_rows<T, SEQ, LY::NP, LY::QS>(
         ring + (i % NST) * (TILE_BYTES / sizeof(T)), min(TL::ROWS, ce - first),
@@ -459,7 +455,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
   __syncthreads();
   // the slice's max per query row (a warp per row, lanes strided),
   // pushed into every peer's `mall` row `rank`
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  cluster_wait();
   const int nr = rb - ra;
   for (int g = warp; g < QR; g += THREADS / 32) {
     float m = __int_as_float(0xff800000);  // -inf
@@ -494,7 +490,7 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
 
   // phase 2: partial PV over the block's V rows
   for (int i = nt; i < 2 * nt; ++i) {
-    mbar_wait(smem_addr(&bars[i % NST]), (i / NST) & 1);
+    mbar_wait(smem_u32(&bars[i % NST]), (i / NST) & 1);
     const int first = ra + (i - nt) * TL::ROWS;
     pv_rows<T, LY::QP>(ring + (i % NST) * (TILE_BYTES / sizeof(T)),
                        min(TL::ROWS, ce - first), first, s, NS, ra, pv, QR);

@@ -65,27 +65,54 @@
 // kernel's `_proj_stage` with `batch` rows, token_block.py:343): one
 // kept set for all rows, picked by each group's max |x| over lanes and
 // rows (`_select_scan`, block_gemv.py:456); the folded norm is per row.
-// It reads the kept slabs once for all B rows, so it is bound by the
-// same bytes as one row plus B rows of x. Holding B rows of a K-long
-// input in shared memory does not fit (B * K * 4 bytes: 704 KB for the
-// 7B down stage), and B accumulators of the row-slot layout do not fit
-// in registers, so the design differs from the one-row kernel:
-//   - the prologue reads x from global memory (L2): per-row norm scales
-//     (a warp per row), then the pooled group scores (a warp per group);
-//   - the gather streams one kept group at a time through a ring of
-//     RSTAGES shared-memory stages: cp.async copies of the group's
-//     [128, TILE] slab of each weight (packed int4: [64, TILE] bytes and
-//     its [scale, zero] rows), and the group's selected inputs for all
-//     16 rows as fp32 [128][16], loaded into registers before the
-//     previous stage's arithmetic and stored after it;
-//   - each warp owns 16 of a group's 128 rows (int4: 8 packed rows); a
-//     lane owns 4 rows x 4 columns of every weight and adds row by row,
-//     so one 16-byte load of inputs and one load of 4 weights feed 16
-//     FMAs. Per-warp partial sums go through shared memory and are added
-//     in warp order before the epilogue: deterministic, no atomics.
+// It reads the kept slabs once for all B rows, so it is bound by the same
+// bytes as one row plus B rows of x, and does 2 * B * rows * N flops: at
+// B = 16 about one flop a bf16 weight byte, which fp32 FMAs on the CUDA
+// cores could not hide, so the bf16 stream runs on the tensor cores (the
+// reference's own arithmetic is a bf16 x bf16 -> fp32 `dot_general` on
+// the MXU with 16 sublane rows, block_gemv.py:208-238). The design:
+//   - a block owns RT = 64 output columns of a tile, or with S = 2 or 4
+//     splits a 1/S share of the tile's kept groups (S = 2 for the
+//     4096-wide o and down stages at 7B), so the narrow stages also keep
+//     every SM streaming;
+//   - a thread-block cluster of C <= 8 blocks does the prologue once: each
+//     block takes 1/C of the groups, reads its share of the B input rows
+//     with 16-byte loads, and pushes its per-row sums of squares, then
+//     (after the row scales are formed from the C partials in rank order)
+//     its pooled group scores, into every peer's shared memory. Every
+//     block then holds identical scores and runs the same ballot scan, so
+//     all keep exactly the serial scan's groups;
+//   - the gather streams one kept group a stage through a ring of up to 8
+//     shared-memory stages filled by cp.async: the group's [128, RT] slab
+//     of each weight (packed int4: [64, RT] bytes and the group's scale
+//     and zero rows), its B raw input rows and its gains;
+//   - bf16 stream: mma.sync.m16n8k16 with the 16 input rows as M (rows
+//     >= B zero), each warp taking 16 of the group's 128 rows as K and all
+//     8 n-tiles of the block's columns. The A fragment comes in through
+//     ldmatrix and gets the row scale and gain in registers, with the
+//     reference's two roundings; int8 and nibbles become bf16 in
+//     registers, exactly. int8's per-channel scale goes on the fp32 sums
+//     in the epilogue; int4 adds (x @ nib) * scale + sum(x) * zero a
+//     group, sum(x) from one more MMA against ones. fp32 stream: the same
+//     slices on FMAs (TF32 would not hold the 1e-4 checks);
+//   - per-warp sums are added in warp order through shared memory, split
+//     parts are pushed to the block that combines those columns and added
+//     in split order: deterministic, no atomics.
+// The plan (S, C, ring depth) comes from shapes only (`rows_plan`,
+// mirrored by the wrapper's `_rows_plan` and exported as
+// `teal_sgg_rows_plan`); the launch is one cudaLaunchKernelEx. Measured
+// on the H100 (PERF.md section 6): the bf16 stream streams its slabs at
+// 2.0-2.8 TB/s and pays a fixed prologue, first-group latency and
+// epilogue of about a third of its time; the int8 and int4 plans are
+// bound by the arithmetic of the conversions and scales a group, not by
+// their bytes. 1-D bulk copies of the 128-byte slab rows, and L2
+// prefetches ahead of the ring, were slower than cp.async.
 // `fixed` (both forms) skips scoring and keeps groups 0..cap-1.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
 using namespace teal;
 
 namespace {
@@ -116,6 +143,7 @@ struct Args {
   int B;                     // input rows (rows form when > 1)
   int fixed;                 // keep groups 0..cap-1, no scores
   int n_out;                 // output columns of a row
+  int S, C, nst;             // rows form: splits, cluster, ring stages
 };
 
 template <typename T, int P>
@@ -346,71 +374,201 @@ __global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
 
 // --- rows form --------------------------------------------------------
 
-constexpr int RG = 128;        // the rows form's group size
-constexpr int MAXB = 16;       // input rows
-constexpr int RSTAGES = 3;     // kept groups in flight
+constexpr int RG = 128;          // the rows form's group size
+constexpr int MAXB = 16;         // input rows: the MMA's M
+constexpr int RT = 64;           // output columns a block
+constexpr int MAXC = 8;          // blocks a cluster (the portable size)
+constexpr int MAXS = 4;          // splits of the kept groups of a tile
+constexpr int MAXNST = 8;        // ring stages, at most
+constexpr int SMEM_MAX = 232448; // a block's shared memory on Hopper
+constexpr int SM_SMEM = 233472;  // an SM's, of which 1 KB a resident block's
 
-// One kept group's slab of one weight in shared memory: RROWS rows of
-// TILE columns (packed int4: G/2 rows of TILE bytes, then its scale and
-// zero rows, TILE fp32 each).
-template <typename T, int P>
-struct RowsTile {
-  static constexpr int RROWS = P == PLAN_INT4 ? RG / 2 : RG;
-  static constexpr int ROW_BYTES =
-      TILE * (P == PLAN_STREAM ? static_cast<int>(sizeof(T)) : 1);
-  static constexpr int SZ_BYTES = P == PLAN_INT4 ? 2 * TILE * 4 : 0;
-  static constexpr int BYTES = RROWS * ROW_BYTES + SZ_BYTES;
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+// Shared-memory layout of the rows kernel, bytes from the (128-byte
+// aligned) base. A ring stage holds one kept group: NW weight slabs (rows
+// padded by 16 bytes, so the lanes of a fragment load hit distinct banks;
+// packed int4: 64 rows, then its scale and zero rows), the group's B raw
+// input rows (row stride padded likewise; rows B..15 stay zero) and its
+// gains. After the loop the ring holds the per-warp sums. The wrapper's
+// `_rows_smem` mirrors `total`; the card tests hold the two together
+// through `teal_sgg_rows_plan`.
+struct RowsLayout {
+  int wstride, wslab, xstride, stage, pall, ssq, rs, scores, idx, total;
+  __host__ __device__ RowsLayout(int esz, int plan, int nw, int nst, int S,
+                                 int C, int nb, int cap) {
+    const int wrows = plan == PLAN_INT4 ? RG / 2 : RG;
+    wstride = RT * (plan == PLAN_STREAM ? esz : 1) + 16;
+    wslab = wrows * wstride + (plan == PLAN_INT4 ? 2 * RT * 4 : 0);
+    xstride = RG * esz + 16;
+    stage = nw * wslab + MAXB * xstride + RG * esz;
+    const int ring = nst * stage;
+    const int red = NWARPS * nw * MAXB * RT * 4;    // [warp][w][b][col]
+    pall = ring > red ? ring : red;                 // [S][w][b][RT / S]
+    ssq = pall + (S > 1 ? nw * MAXB * RT * 4 : 0);  // [C][MAXB] partials
+    rs = ssq + C * MAXB * 4;                        // [MAXB] row scales
+    scores = rs + MAXB * 4;                         // [nb]
+    idx = scores + pad4(nb) * 4;                    // [cap] + count
+    total = idx + pad4(cap + 1) * 4;
+  }
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// The launch plan, from shapes only: S splits of a tile's kept groups
+// (the largest power of two <= MAXS keeping the grid within one block an
+// SM: a grid of 2 * 128 blocks in clusters of 8 does not fit the H100's
+// GPCs at once), C = S * (tiles a cluster) blocks a cluster (the largest
+// power of two <= MAXC whose tiles divide the output), and the deepest
+// ring (<= MAXNST stages) that leaves room for two blocks an SM (at one
+// block an SM only 15 clusters of 8 fit the H100 at once), else that fits
+// one block. smem is -1 where the widths are not whole tiles or nothing
+// fits.
+// `splits` > 0 forces S (the card tests' override).
+struct RowsPlan { int S, C, nst, smem; };
+
+RowsPlan rows_plan(int esz, int plan, int nw, int K, int n_out, int cap,
+                   int n_sms, int splits) {
+  RowsPlan p = {0, 0, 0, -1};
+  if (n_out % RT || K % RG || n_out <= 0) return p;
+  const int tiles = n_out / RT;
+  int S = 1;
+  while (S < MAXS && tiles * 2 * S <= n_sms) S *= 2;
+  if (splits > 0) S = splits;
+  int tc = 1;
+  while (tc * 2 * S <= MAXC && tiles % (tc * 2) == 0) tc *= 2;
+  for (int pass = 0; pass < 2; ++pass)
+    for (int nst = MAXNST; nst >= 2; --nst) {
+      const int smem =
+          RowsLayout(esz, plan, nw, nst, S, tc * S, K / RG, cap).total;
+      if (pass == 0 ? 2 * (smem + 1024) <= SM_SMEM : smem <= SMEM_MAX) {
+        p = {S, tc * S, nst, smem};
+        return p;
+      }
+    }
+  return p;
 }
 
-// 4 consecutive weights of element type E from shared memory, as fp32
-__device__ __forceinline__ void load4s(const unsigned char* p,
-                                       float (&v)[4], float) {
-  const float4 r = *reinterpret_cast<const float4*>(p);
-  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-__device__ __forceinline__ void load4s(const unsigned char* p,
-                                       float (&v)[4], __nv_bfloat16) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = to_f(e[i]);
-}
-__device__ __forceinline__ void load4s(const unsigned char* p,
-                                       float (&v)[4], int8_t) {
-  const int r = *reinterpret_cast<const int*>(p);
-  const int8_t* e = reinterpret_cast<const int8_t*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = static_cast<float>(e[i]);
+// cp.async.wait_group with a run-time count (the ring's depth - 2)
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
 }
 
+// bf16x2 (128 + a, 128 + b) -> (a, b): exact for nibbles
+__device__ __forceinline__ uint32_t minus128(uint32_t v) {
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
+                                   __floats2bfloat162_rn(128.f, 128.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// bf16x2 of byte s of int8 words w0 (low half) and w1, exactly and on
+// full-rate integer and half2 units: magnitude m <= 128 as bits 0x4300 | m
+// (128 + m: bf16 counts 1s from 128 to 256), the sign in bit 15, then
+// +-(128 + m) - +-128.
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w0, uint32_t w1,
+                                              int s) {
+  const uint32_t m = __byte_perm(__vabs4(w0), __vabs4(w1),
+                                 s | ((4 + s) << 8)) & 0x00FF00FFu;
+  const uint32_t sg = __byte_perm(w0, w1, (s << 4) | ((4 + s) << 12)) &
+                      0x80008000u;
+  uint32_t v = m | 0x43004300u | sg, c = 0x43004300u | sg;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
+                                   *reinterpret_cast<__nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// selection input of a bf16x2 pair: rnd(rnd(v * rs) * g) per element
+__device__ __forceinline__ uint32_t sel2(uint32_t v, float rs, uint32_t g) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  const float2 gg =
+      __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&g));
+  return pack_bf16(rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(x.x * rs) * gg.x),
+                   rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(x.y * rs) * gg.y));
+}
+
+// A warp's slice of a kept group is 16 of its 128 rows: MMA k-index i of
+// warp w reads row 8w + i (i < 8) or 64 + 8w + i - 8 -- for packed int4
+// the low (i < 8) and high nibbles of packed row 8w + i % 8, so one byte
+// feeds two k-indices. Column n (0..7) of n-tile t is the tile's column
+// 8n + t, so a lane's eight n-tiles share one 16-byte (bf16) or 8-byte
+// (int8, int4) chunk of a weight row.
+template <int P>
+__device__ __forceinline__ void b_frags(const unsigned char* W, int wstride,
+                                        uint32_t (&b)[8][2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = lane & 3, n8 = (lane >> 2) * 8;
+  if constexpr (P == PLAN_STREAM) {            // bf16
+    const unsigned char* r0 = W + (8 * warp + 2 * q) * wstride + n8 * 2;
+    const uint4 v0 = *reinterpret_cast<const uint4*>(r0);
+    const uint4 v1 = *reinterpret_cast<const uint4*>(r0 + wstride);
+    const uint4 v2 = *reinterpret_cast<const uint4*>(r0 + 64 * wstride);
+    const uint4 v3 = *reinterpret_cast<const uint4*>(r0 + 65 * wstride);
+    const uint32_t e0[4] = {v0.x, v0.y, v0.z, v0.w};
+    const uint32_t e1[4] = {v1.x, v1.y, v1.z, v1.w};
+    const uint32_t e2[4] = {v2.x, v2.y, v2.z, v2.w};
+    const uint32_t e3[4] = {v3.x, v3.y, v3.z, v3.w};
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const uint32_t s = (t & 1) ? 0x7632u : 0x5410u;
+      b[t][0] = __byte_perm(e0[t >> 1], e1[t >> 1], s);
+      b[t][1] = __byte_perm(e2[t >> 1], e3[t >> 1], s);
+    }
+  } else if constexpr (P == PLAN_INT8) {
+    const unsigned char* r0 = W + (8 * warp + 2 * q) * wstride + n8;
+    const uint2 v0 = *reinterpret_cast<const uint2*>(r0);
+    const uint2 v1 = *reinterpret_cast<const uint2*>(r0 + wstride);
+    const uint2 v2 = *reinterpret_cast<const uint2*>(r0 + 64 * wstride);
+    const uint2 v3 = *reinterpret_cast<const uint2*>(r0 + 65 * wstride);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      b[t][0] = i8x2_bf16(t < 4 ? v0.x : v0.y, t < 4 ? v1.x : v1.y, t & 3);
+      b[t][1] = i8x2_bf16(t < 4 ? v2.x : v2.y, t < 4 ? v3.x : v3.y, t & 3);
+    }
+  } else {                                     // packed int4
+    const unsigned char* r0 = W + (8 * warp + 2 * q) * wstride + n8;
+    const uint2 p0 = *reinterpret_cast<const uint2*>(r0);
+    const uint2 p1 = *reinterpret_cast<const uint2*>(r0 + wstride);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const uint32_t s = t & 3;
+      // bytes 0, 1: packed row 2q's byte t; bytes 2, 3: row 2q + 1's
+      const uint32_t v = __byte_perm(t < 4 ? p0.x : p0.y, t < 4 ? p1.x : p1.y,
+                                     s | (s << 4) | ((4 + s) << 8) |
+                                         ((4 + s) << 12));
+      b[t][0] = minus128((v & 0x000F000Fu) | 0x43004300u);
+      b[t][1] = minus128(((v >> 4) & 0x000F000Fu) | 0x43004300u);
+    }
+  }
+}
+
+// bf16: two blocks an SM (128 registers a thread), as the plan assumes
 template <typename T, int P, bool PAIR>
-__global__ void __launch_bounds__(THREADS) sgg_rows_kernel(Args a) {
-  using E = typename Elem<T, P>::type;
-  using TL = RowsTile<T, P>;
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 2 : 1)
+    sgg_rows_kernel(Args a) {
   constexpr int NW = PAIR ? 2 : 1;
-  constexpr int ESZ = P == PLAN_STREAM ? static_cast<int>(sizeof(T)) : 1;
-  extern __shared__ __align__(16) unsigned char sraw[];
+  constexpr int ESZ = static_cast<int>(sizeof(T));
+  constexpr int WESZ = P == PLAN_STREAM ? ESZ : 1;  // bytes a stored weight
+  constexpr int EPV = 16 / ESZ;                     // inputs a 16-byte chunk
+  constexpr int CPG = RG / EPV;                     // chunks of a group row
+  constexpr int WROWS = P == PLAN_INT4 ? RG / 2 : RG;
+  constexpr int WCH = RT * WESZ / 16;               // chunks of a weight row
+  constexpr bool MMA = ESZ == 2;                    // bf16: tensor cores
+  extern __shared__ __align__(128) unsigned char sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = a.S, C = a.C, NST = a.nst;
+  const int rank = static_cast<int>(cluster.block_rank());
   const int K = a.K, nb = K / RG, B = a.B;
-  unsigned char* wbuf = sraw;                      // [RSTAGES][NW] tiles
-  float* xbuf = reinterpret_cast<float*>(wbuf + RSTAGES * NW * TL::BYTES);
-  float* red = xbuf + RSTAGES * RG * MAXB;         // [NWARPS][MAXB][NW*TILE]
-  float* scores = red + NWARPS * MAXB * NW * TILE;  // [nb]
-  float* rscale = scores + nb;                     // [MAXB]
-  int* idx = reinterpret_cast<int*>(rscale + MAXB);  // [cap]
-  int* cnt = idx + a.cap;                          // [1]
+  const RowsLayout lay(ESZ, P, NW, NST, S, C, nb, a.cap);
+  float* ssq = reinterpret_cast<float*>(sm + lay.ssq);
+  float* rs = reinterpret_cast<float*>(sm + lay.rs);
+  float* scores = reinterpret_cast<float*>(sm + lay.scores);
+  int* idx = reinterpret_cast<int*>(sm + lay.idx);
   const T* x = static_cast<const T*>(a.x);
   const size_t layer = read_layer(a);
   const T* gain = a.norm == nullptr
@@ -418,220 +576,387 @@ __global__ void __launch_bounds__(THREADS) sgg_rows_kernel(Args a) {
                       : static_cast<const T*>(a.norm) + layer * K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // 1. per-row norm scale: a warp per row, fixed order
-  if (gain != nullptr) {
-    for (int b = warp; b < B; b += NWARPS) {
-      const T* xb = x + static_cast<size_t>(b) * K;
-      float ss = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float v = to_f(xb[k]);
-        ss = fmaf(v, v, ss);
-      }
-      ss = warp_sum(ss);
-      if (lane == 0) rscale[b] = 1.0f / sqrtf(ss / static_cast<float>(K) +
-                                              a.eps);
-    }
+  // 1. the prologue, once per cluster: block `rank` takes groups
+  // [g0, g1); its norm partial sums and scores go into every peer's
+  // shared memory, combined in rank order, so every block of the cluster
+  // holds the same row scales and scores and keeps the same groups.
+  cluster_arrive_relaxed();
+  for (int s = 0; s < NST; ++s) {
+    uint4* z = reinterpret_cast<uint4*>(sm + s * lay.stage +
+                                        NW * lay.wslab + B * lay.xstride);
+    for (int i = tid; i < (MAXB - B) * lay.xstride / 16; i += THREADS)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
   }
-  __syncthreads();
-  // the selection input of row b at k, from the raw value and the gain
-  auto sel = [&](int b, float v, float g) {
-    return gain == nullptr ? v : rnd<T>(rnd<T>(v * rscale[b]) * g);
+  const int g0 = nb * rank / C, g1 = nb * (rank + 1) / C;
+  // A lane's chunks of a group: chunk kc = lane % CPG of rows
+  // (lane + 32 i) / CPG, all loaded before the first is used. Where each
+  // warp scores at most one group (`one`), its chunks stay in registers
+  // from the norm's sums of squares to the scores: one pass over x.
+  constexpr int MAXL = MAXB * CPG / 32;
+  const int kc = lane % CPG;
+  const bool one = !a.fixed && g1 - g0 <= NWARPS;
+  uint4 raw[MAXL];
+  float gv[EPV];
+  auto load_group = [&](int g) {
+    if (gain != nullptr) load_row<T, EPV>(gain + g * RG + kc * EPV, gv);
+#pragma unroll
+    for (int i = 0; i < MAXL; ++i)
+      if (lane + 32 * i < B * CPG)
+        raw[i] = __ldg(reinterpret_cast<const uint4*>(
+            x + static_cast<size_t>((lane + 32 * i) / CPG) * K + g * RG +
+            kc * EPV));
   };
-
-  // 2. pooled group scores: max over lanes and rows
-  for (int gi = a.fixed ? nb : warp; gi < nb; gi += NWARPS) {
+  // pooled score of group g from raw: max |selection input| over its
+  // lanes and rows, pushed into every peer's scores
+  auto score = [&](int g) {
     float m = 0.f;
-    for (int j = lane; j < RG; j += 32) {
-      const int k = gi * RG + j;
-      const float g = gain == nullptr ? 1.f : to_f(gain[k]);
-      for (int b = 0; b < B; ++b)
-        m = fmaxf(m, fabsf(sel(b, to_f(x[static_cast<size_t>(b) * K + k]),
-                               g)));
+#pragma unroll
+    for (int i = 0; i < MAXL; ++i) {
+      if (lane + 32 * i >= B * CPG) break;
+      const int b = (lane + 32 * i) / CPG;
+      const T* v = reinterpret_cast<const T*>(&raw[i]);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e)
+        m = fmaxf(m, fabsf(gain == nullptr
+                               ? to_f(v[e])
+                               : rnd<T>(rnd<T>(to_f(v[e]) * rs[b]) * gv[e])));
     }
     m = warp_max(m);
-    if (lane == 0) scores[gi] = m;
+    if (lane < C) cluster.map_shared_rank(scores, lane)[g] = m;
+  };
+  if (one && g0 + warp < g1) load_group(g0 + warp);
+  if (gain != nullptr) {
+    if (one) {
+      // per-row sums of squares of the warp's group (the CPG lanes of a
+      // row chunk by chunk, then a butterfly), added in warp order
+      float* part = reinterpret_cast<float*>(sm);   // the ring is free
+      if (g0 + warp < g1) {
+#pragma unroll
+        for (int i = 0; i < MAXL; ++i) {
+          float ss = 0.f;
+          if (lane + 32 * i < B * CPG) {
+            const T* v = reinterpret_cast<const T*>(&raw[i]);
+#pragma unroll
+            for (int e = 0; e < EPV; ++e) ss = fmaf(to_f(v[e]), to_f(v[e]),
+                                                    ss);
+          }
+#pragma unroll
+          for (int o = 1; o < CPG; o <<= 1)
+            ss += __shfl_xor_sync(0xffffffffu, ss, o);
+          if (kc == 0 && lane + 32 * i < B * CPG)
+            part[warp * MAXB + (lane + 32 * i) / CPG] = ss;
+        }
+      }
+      __syncthreads();
+      if (tid < B) {
+        float ss = 0.f;
+        for (int w = 0; w < g1 - g0; ++w) ss += part[w * MAXB + tid];
+        rs[tid] = ss;
+      }
+    } else {
+      for (int b = warp; b < B; b += NWARPS) {
+        const T* xb = x + static_cast<size_t>(b) * K;
+        float ss = 0.f;
+#pragma unroll 4
+        for (int c = g0 * CPG + lane; c < g1 * CPG; c += 32) {
+          float v[EPV];
+          load_row<T, EPV>(xb + c * EPV, v);
+#pragma unroll
+          for (int e = 0; e < EPV; ++e) ss = fmaf(v[e], v[e], ss);
+        }
+        ss = warp_sum(ss);
+        if (lane == 0) rs[b] = ss;
+      }
+    }
   }
   __syncthreads();
+  cluster_wait();
+  if (gain != nullptr) {
+    for (int i = tid; i < C * B; i += THREADS)
+      cluster.map_shared_rank(ssq, i / B)[rank * MAXB + i % B] = rs[i % B];
+    cluster.sync();
+    // rsqrtf, as the reference's rsqrt rounds on the card (torch.rsqrt):
+    // a row scale one ulp away moves a bf16 selection input near a
+    // rounding point by one bf16 ulp
+    if (tid < MAXB) {
+      float s = 0.f;
+      for (int r = 0; r < C; ++r) s += ssq[r * MAXB + tid];
+      rs[tid] = tid < B ? rsqrtf(s / static_cast<float>(K) + a.eps) : 0.f;
+    }
+    __syncthreads();
+  }
+  if (!a.fixed) {
+    if (one) {
+      if (g0 + warp < g1) score(g0 + warp);
+    } else {
+      for (int g = g0 + warp; g < g1; g += NWARPS) {
+        load_group(g);
+        score(g);
+      }
+    }
+    cluster.sync();
+  }
+  const int count = select_scan(a, scores, nb, idx, idx + a.cap);
 
-  // 3. one kept set for all rows
-  const int count = select_scan(a, scores, nb, idx, cnt);
-
-  // 4. the gather, one kept group a stage
-  const int c0 = blockIdx.x * TILE;
+  // 2. the gather: this block's share [j0, j0 + mine) of the kept list,
+  // one group a ring stage (cp.async: weight slabs, input rows, gains)
+  const int split = static_cast<int>(blockIdx.x) % S;
+  const int c0 = static_cast<int>(blockIdx.x) / S * RT;
   int wsel[NW];
   int off, N;
   tile_weights<NW>(a, c0, wsel, off, N);
-  const size_t krows = P == PLAN_INT4 ? K / 2 : K;   // stored rows a layer
+  const int j0 = count * split / S, mine = count * (split + 1) / S - j0;
+  const size_t krows = P == PLAN_INT4 ? K / 2 : K;
+  // a thread's 16-byte chunks of a weight slab, as offsets from the
+  // group's first row (global) and the slab (shared), fixed for the call
+  constexpr int WCPT = WROWS * WCH / THREADS;       // chunks a thread
+  static_assert(WROWS * WCH % THREADS == 0, "whole chunks a thread");
+  size_t wsrc[WCPT];
+  int wdst[WCPT];
+#pragma unroll
+  for (int k = 0; k < WCPT; ++k) {
+    const int c = tid + k * THREADS;
+    wsrc[k] = static_cast<size_t>(c / WCH) * N * WESZ + (c % WCH) * 16;
+    wdst[k] = (c / WCH) * lay.wstride + (c % WCH) * 16;
+  }
   auto fetch = [&](int j) {
-    if (j < count) {
-      const int g = idx[j];
-      unsigned char* st = wbuf + (j % RSTAGES) * NW * TL::BYTES;
-      constexpr int CPR = TL::ROW_BYTES / 16;          // 16-byte chunks
+    if (j < mine) {
+      const int g = idx[j0 + j];
+      unsigned char* st = sm + (j % NST) * lay.stage;
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
         const unsigned char* src =
             static_cast<const unsigned char*>(a.w[wsel[w]]) +
-            ((layer * krows + static_cast<size_t>(g) * TL::RROWS) * N +
-             off) * ESZ;
-        unsigned char* dst = st + w * TL::BYTES;
-        for (int c = tid; c < TL::RROWS * CPR; c += THREADS)
-          cp_async16(dst + c * 16, src + (static_cast<size_t>(c / CPR) * N *
-                                          ESZ + (c % CPR) * 16));
+            ((layer * krows + static_cast<size_t>(g) * WROWS) * N + off) *
+                WESZ;
+        unsigned char* dst = st + w * lay.wslab;
+#pragma unroll
+        for (int k = 0; k < WCPT; ++k)
+          cp_async16(dst + wdst[k], src + wsrc[k]);
         if constexpr (P == PLAN_INT4) {
-          const float* sz =
-              a.sz[wsel[w]] + (layer * nb + g) * 2 * N + off;
-          if (tid < 2 * TILE / 4)
-            cp_async16(dst + TL::RROWS * TL::ROW_BYTES + tid * 16,
-                       sz + static_cast<size_t>(tid / (TILE / 4)) * N +
-                           (tid % (TILE / 4)) * 4);
+          if (tid < 2 * RT / 4)
+            cp_async16(dst + WROWS * lay.wstride + tid * 16,
+                       a.sz[wsel[w]] +
+                           ((layer * nb + g) * 2 + tid / (RT / 4)) * N + off +
+                           (tid % (RT / 4)) * 4);
         }
       }
+      unsigned char* xd = st + NW * lay.wslab;
+      for (int c = tid; c < B * CPG; c += THREADS)
+        cp_async16(xd + (c / CPG) * lay.xstride + (c % CPG) * 16,
+                   x + static_cast<size_t>(c / CPG) * K + g * RG +
+                       (c % CPG) * EPV);
+      if (gain != nullptr && tid < CPG)
+        cp_async16(xd + MAXB * lay.xstride + tid * 16,
+                   gain + g * RG + tid * EPV);
     }
     cp_async_commit();
   };
-  // the group's selected inputs: thread t holds row b = t / 16 at 8
-  // consecutive positions of the group
-  const int xb_row = tid >> 4, xr0 = (tid & 15) * 8;
-  float xv[8], gv[8];
-  auto load_x = [&](int j) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) xv[e] = gv[e] = 0.f;
-    if (j < count && xb_row < B) {
-      const int k = idx[j] * RG + xr0;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        xv[e] = to_f(x[static_cast<size_t>(xb_row) * K + k + e]);
-        if (gain != nullptr) gv[e] = to_f(gain[k + e]);
-      }
-    }
-  };
-  auto store_x = [&](int j) {
-    float* xs = xbuf + (j % RSTAGES) * RG * MAXB;
-    const bool live = j < count && xb_row < B;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      xs[(xr0 + e) * MAXB + xb_row] = live ? sel(xb_row, xv[e], gv[e]) : 0.f;
-  };
 
-  const int b4 = (lane >> 3) * 4;      // this lane's rows b4 .. b4+3
-  const int c4 = (lane & 7) * 4;       // and columns c4 .. c4+3
-  float acc[NW][4][4];
+  // acc[w][t][i]: bf16, MMA n-tile t's accumulator i (row lane/4 + 8 *
+  // (i / 2), tile column (2 * (lane % 4) + i % 2) * 8 + t); fp32 FMAs:
+  // row (lane / 8) * 4 + i, tile column (lane % 8) * 8 + t
+  float acc[NW][8][4];
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int t = 0; t < 8; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[w][i][e] = 0.f;
-  auto compute = [&](int j) {
-    const float* xs = xbuf + (j % RSTAGES) * RG * MAXB;
-    const unsigned char* st = wbuf + (j % RSTAGES) * NW * TL::BYTES;
-    if constexpr (P == PLAN_INT4) {
-      constexpr int PR = RG / 2 / NWARPS;           // packed rows a warp
-      float p[NW][4][4], sx[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) p[w][i][e] = 0.f;
-#pragma unroll
-      for (int r = 0; r < PR; ++r) {
-        const int pr = warp * PR + r;
-        const float4 lo4 =
-            *reinterpret_cast<const float4*>(xs + pr * MAXB + b4);
-        const float4 hi4 = *reinterpret_cast<const float4*>(
-            xs + (pr + RG / 2) * MAXB + b4);
-        const float xlo[4] = {lo4.x, lo4.y, lo4.z, lo4.w};
-        const float xhi[4] = {hi4.x, hi4.y, hi4.z, hi4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sx[i] += xlo[i] + xhi[i];
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {
-          const unsigned q = *reinterpret_cast<const unsigned*>(
-              st + w * TL::BYTES + pr * TL::ROW_BYTES + c4);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float nlo = static_cast<float>((q >> (8 * e)) & 15u);
-            const float nhi = static_cast<float>((q >> (8 * e + 4)) & 15u);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              p[w][i][e] = fmaf(xhi[i], nhi, fmaf(xlo[i], nlo, p[w][i][e]));
-          }
-        }
+      for (int i = 0; i < 4; ++i) acc[w][t][i] = 0.f;
+
+  auto compute = [&](const unsigned char* st) {
+    const unsigned char* xs = st + NW * lay.wslab;
+    const T* gs = reinterpret_cast<const T*>(xs + MAXB * lay.xstride);
+    if constexpr (MMA) {
+      // A: the warp's 16 rows of the group for the 16 input rows, then
+      // the selection input applied in registers (each element once)
+      uint32_t af[4];
+      {
+        const int mi = lane >> 3;
+        ldsm_x4(af, xs + ((lane & 7) + (mi & 1) * 8) * lay.xstride +
+                        (8 * warp + (mi >> 1) * 64) * 2);
       }
+      if (gain != nullptr) {
+        const int q = lane & 3, r = lane >> 2;
+        const uint32_t glo =
+            *reinterpret_cast<const uint32_t*>(gs + 8 * warp + 2 * q);
+        const uint32_t ghi =
+            *reinterpret_cast<const uint32_t*>(gs + 64 + 8 * warp + 2 * q);
+        af[0] = sel2(af[0], rs[r], glo);
+        af[1] = sel2(af[1], rs[r + 8], glo);
+        af[2] = sel2(af[2], rs[r], ghi);
+        af[3] = sel2(af[3], rs[r + 8], ghi);
+      }
+      float sx[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (P == PLAN_INT4)      // the warp's sum of x per row
+        mma16816(sx, af, 0x3F803F80u, 0x3F803F80u);
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
-        const float* szr = reinterpret_cast<const float*>(
-            st + w * TL::BYTES + TL::RROWS * TL::ROW_BYTES);
+        const unsigned char* W = st + w * lay.wslab;
+        uint32_t bf[8][2];
+        b_frags<P>(W, lay.wstride, bf);
+        if constexpr (P == PLAN_INT4) {
+          // (x @ nib) * scale + sum(x) * zero, the group's own sums
+          // scale row, then zero row; columns (2q + e) * 8 + t, four
+          // tiles (16 bytes) a load
+          const float* sz = reinterpret_cast<const float*>(W + WROWS *
+                                                               lay.wstride) +
+                            2 * (lane & 3) * 8;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float sc = szr[c4 + e], zr = szr[TILE + c4 + e];
+          for (int h = 0; h < 8; h += 4) {
+            const float4 s0 = *reinterpret_cast<const float4*>(sz + h);
+            const float4 s1 = *reinterpret_cast<const float4*>(sz + 8 + h);
+            const float4 z0 = *reinterpret_cast<const float4*>(sz + RT + h);
+            const float4 z1 =
+                *reinterpret_cast<const float4*>(sz + RT + 8 + h);
+            const float sc0[4] = {s0.x, s0.y, s0.z, s0.w};
+            const float sc1[4] = {s1.x, s1.y, s1.z, s1.w};
+            const float zr0[4] = {z0.x, z0.y, z0.z, z0.w};
+            const float zr1[4] = {z1.x, z1.y, z1.z, z1.w};
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[w][i][e] = fmaf(p[w][i][e], sc, fmaf(sx[i], zr, acc[w][i][e]));
+            for (int u = 0; u < 4; ++u) {
+              float p[4] = {0.f, 0.f, 0.f, 0.f};
+              mma16816(p, af, bf[h + u][0], bf[h + u][1]);
+              float* c = acc[w][h + u];
+              c[0] = fmaf(p[0], sc0[u], fmaf(sx[0], zr0[u], c[0]));
+              c[1] = fmaf(p[1], sc1[u], fmaf(sx[1], zr1[u], c[1]));
+              c[2] = fmaf(p[2], sc0[u], fmaf(sx[2], zr0[u], c[2]));
+              c[3] = fmaf(p[3], sc1[u], fmaf(sx[3], zr1[u], c[3]));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) mma16816(acc[w][t], af, bf[t][0],
+                                               bf[t][1]);
         }
       }
     } else {
-      constexpr int KR = RG / NWARPS;               // rows a warp
-#pragma unroll 4
-      for (int r = 0; r < KR; ++r) {
-        const int row = warp * KR + r;
-        const float4 x4 =
-            *reinterpret_cast<const float4*>(xs + row * MAXB + b4);
-        const float xr[4] = {x4.x, x4.y, x4.z, x4.w};
+      // fp32 stream: FMAs (TF32 would not hold 1e-4); lane: rows b4..b4+3,
+      // tile columns c8..c8+7, over the warp's 16 rows of the group
+      const int b4 = (lane >> 3) * 4, c8 = (lane & 7) * 8;
+      const float* xf = reinterpret_cast<const float*>(xs);
+      const int xr = lay.xstride / 4;
+      auto xin = [&](int i, int k) {
+        const float v = xf[(b4 + i) * xr + k];
+        return gain == nullptr ? v : (v * rs[b4 + i]) * to_f(gs[k]);
+      };
+      if constexpr (P == PLAN_INT4) {
+        float p[NW][8][4], sx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) p[w][t][i] = 0.f;
+#pragma unroll 2
+        for (int r = 0; r < 8; ++r) {
+          const int pr = 8 * warp + r;
+          float xlo[4], xhi[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            xlo[i] = xin(i, pr);
+            xhi[i] = xin(i, pr + 64);
+            sx[i] += xlo[i] + xhi[i];
+          }
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            const uint2 q2 = *reinterpret_cast<const uint2*>(
+                st + w * lay.wslab + pr * lay.wstride + c8);
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+              const uint32_t bt = ((t < 4 ? q2.x : q2.y) >> ((t & 3) * 8));
+              const float nlo = static_cast<float>(bt & 15u);
+              const float nhi = static_cast<float>((bt >> 4) & 15u);
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                p[w][t][i] = fmaf(xhi[i], nhi, fmaf(xlo[i], nlo, p[w][t][i]));
+            }
+          }
+        }
 #pragma unroll
         for (int w = 0; w < NW; ++w) {
-          float v[4];
-          load4s(st + w * TL::BYTES + row * TL::ROW_BYTES + c4 * ESZ, v, E());
+          const float* sc = reinterpret_cast<const float*>(
+              st + w * lay.wslab + WROWS * lay.wstride);
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+          for (int t = 0; t < 8; ++t)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[w][i][e] = fmaf(xr[i], v[e],
-                                                            acc[w][i][e]);
+            for (int i = 0; i < 4; ++i)
+              acc[w][t][i] = fmaf(p[w][t][i], sc[c8 + t],
+                                  fmaf(sx[i], sc[RT + c8 + t], acc[w][t][i]));
+        }
+      } else {
+#pragma unroll 2
+        for (int r = 0; r < 16; ++r) {
+          const int k = r < 8 ? 8 * warp + r : 64 + 8 * warp + r - 8;
+          float xv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) xv[i] = xin(i, k);
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            const unsigned char* row =
+                st + w * lay.wslab + k * lay.wstride + c8 * WESZ;
+            float wv[8];
+            if constexpr (P == PLAN_INT8) {
+              const uint2 q2 = *reinterpret_cast<const uint2*>(row);
+#pragma unroll
+              for (int t = 0; t < 8; ++t)
+                wv[t] = static_cast<float>(static_cast<int8_t>(
+                    (t < 4 ? q2.x : q2.y) >> ((t & 3) * 8)));
+            } else {
+              const float4 lo = *reinterpret_cast<const float4*>(row);
+              const float4 hi = *reinterpret_cast<const float4*>(row + 16);
+              wv[0] = lo.x; wv[1] = lo.y; wv[2] = lo.z; wv[3] = lo.w;
+              wv[4] = hi.x; wv[5] = hi.y; wv[6] = hi.z; wv[7] = hi.w;
+            }
+#pragma unroll
+            for (int t = 0; t < 8; ++t)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[w][t][i] = fmaf(xv[i], wv[t], acc[w][t][i]);
+          }
         }
       }
     }
   };
 
-  for (int j = 0; j < RSTAGES - 1; ++j) {
-    fetch(j);
-    load_x(j);
-    store_x(j);
-  }
-  for (int j = 0; j < count; ++j) {
-    cp_async_wait<RSTAGES - 2>();
+  for (int j = 0; j < NST - 1; ++j) fetch(j);
+  for (int j = 0; j < mine; ++j) {
+    cp_async_wait_dyn(NST - 2);
     __syncthreads();       // stage j landed; stage j-1 is free again
-    const int jn = j + RSTAGES - 1;
-    fetch(jn);
-    load_x(jn);            // in flight during the arithmetic
-    compute(j);
-    store_x(jn);
+    fetch(j + NST - 1);
+    compute(sm + (j % NST) * lay.stage);
   }
   cp_async_wait<0>();
+  __syncthreads();
 
-  // 5. fixed-order sum over warps, the int8 scale, then the epilogue
+  // 3. fixed-order sums: over warps, then (S > 1) over the tile's splits,
+  // each block combining RT / S columns from its peers' pushes in split
+  // order; the int8 scale, then the epilogue. No atomics. The per-warp
+  // sums go through shared memory in accumulator order (slot (i, t,
+  // lane)), so both the stores and the warp-order sums are free of bank
+  // conflicts; `slot` maps a slot to its row and tile column.
+  float* red = reinterpret_cast<float*>(sm);      // [warp][w][4][8][32]
+  constexpr int SLOTS = 4 * 8 * 32;
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int t = 0; t < 8; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[(warp * MAXB + b4 + i) * NW * TILE + w * TILE + c4 + e] =
-            acc[w][i][e];
+      for (int i = 0; i < 4; ++i)
+        red[(warp * NW + w) * SLOTS + (i * 8 + t) * 32 + lane] = acc[w][t][i];
   __syncthreads();
-  for (int o = tid; o < B * TILE; o += THREADS) {
-    const int b = o / TILE, c = o % TILE, col = c0 + c;
-    float f[NW];
+  auto slot = [&](int sl, int& b, int& col) {
+    const int i = sl >> 8, t = (sl >> 5) & 7, ln = sl & 31;
+    b = MMA ? (ln >> 2) + (i >> 1) * 8 : (ln >> 3) * 4 + i;
+    col = MMA ? (2 * (ln & 3) + (i & 1)) * 8 + t : (ln & 7) * 8 + t;
+  };
+  auto finish = [&](int b, int c, float (&f)[NW]) {
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      float s = 0.f;
-      for (int wp = 0; wp < NWARPS; ++wp)
-        s += red[(wp * MAXB + b) * NW * TILE + w * TILE + c];
       const float* sc = a.scale[wsel[w]];
-      if (sc != nullptr) s *= sc[layer * N + off + c];
-      f[w] = s;
+      if (sc != nullptr) f[w] *= sc[layer * N + off + c];
     }
-    const size_t at = static_cast<size_t>(b) * a.n_out + col;
+    const size_t at = static_cast<size_t>(b) * a.n_out + c0 + c;
     if (a.mode == 0) {
       static_cast<float*>(a.out)[at] = f[0];
     } else if (a.mode == 1) {
@@ -641,29 +966,171 @@ __global__ void __launch_bounds__(THREADS) sgg_rows_kernel(Args a) {
       static_cast<T*>(a.out)[at] =
           from_f<T>(f[0] * (1.0f / (1.0f + expf(-f[0]))) * f[NW - 1]);
     }
+  };
+  float* pall = reinterpret_cast<float*>(sm + lay.pall);
+  const int cw = RT / S;
+  for (int sl = tid; sl < SLOTS; sl += THREADS) {
+    int b, col;
+    slot(sl, b, col);
+    if (b >= B) continue;
+    float f[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      float s = 0.f;
+      for (int wp = 0; wp < NWARPS; ++wp) s += red[(wp * NW + w) * SLOTS + sl];
+      f[w] = s;
+    }
+    if (S == 1) {
+      finish(b, col, f);
+    } else {
+      float* dst = cluster.map_shared_rank(pall, rank - split + col / cw);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        dst[((split * NW + w) * MAXB + b) * cw + col % cw] = f[w];
+    }
+  }
+  if (S > 1) {
+    cluster.sync();        // every split's part is in; no peer access after
+    for (int o = tid; o < B * cw; o += THREADS) {
+      const int b = o / cw, cl = o % cw;
+      float f[NW];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        float s = 0.f;
+        for (int sp = 0; sp < S; ++sp)
+          s += pall[((sp * NW + w) * MAXB + b) * cw + cl];
+        f[w] = s;
+      }
+      finish(b, split * cw + cl, f);
+    }
   }
 }
 
+int device_sms() {
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+// Occupancy checks already made: (kernel, C, shared bytes) -> clusters.
+struct OccEntry { const void* fn; int C, smem, clusters; };
+OccEntry occ_cache[64];
+int occ_n = 0;
+
+int forced_splits = 0;     // 0: the rule; else S (teal_sgg_rows_force_splits)
+
+// The rows kernel's launch for a0's shapes: its arguments with the plan,
+// its configuration (cfg.attrs points at attr) and the clusters of it
+// that can be resident at once (cudaOccupancyMaxActiveClusters, cached).
 template <typename T, int P, bool PAIR>
-int launch_rows(const Args& a, int blocks, cudaStream_t stream) {
+int rows_setup(const Args& a0, int splits, cudaStream_t stream, Args& a,
+               cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1],
+               int& clusters) {
   constexpr int NW = PAIR ? 2 : 1;
-  const size_t smem =
-      RSTAGES * NW * RowsTile<T, P>::BYTES +
-      sizeof(float) * (RSTAGES * RG * MAXB + NWARPS * MAXB * NW * TILE +
-                       a.K / RG + MAXB) +
-      sizeof(int) * (a.cap + 1);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(sgg_rows_kernel<T, P, PAIR>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  sgg_rows_kernel<T, P, PAIR><<<blocks, THREADS, smem, stream>>>(a);
+  const RowsPlan p = rows_plan(sizeof(T), P, NW, a0.K, a0.n_out, a0.cap,
+                               device_sms(), splits);
+  if (p.smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  a = a0;
+  a.S = p.S;
+  a.C = p.C;
+  a.nst = p.nst;
+  auto fn = sgg_rows_kernel<T, P, PAIR>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  cfg = {};
+  cfg.gridDim = dim3(a.n_out / RT * p.S, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  clusters = -1;
+  for (int i = 0; i < occ_n; ++i)
+    if (occ_cache[i].fn == reinterpret_cast<const void*>(fn) &&
+        occ_cache[i].C == p.C && occ_cache[i].smem == p.smem)
+      clusters = occ_cache[i].clusters;
+  if (clusters < 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (occ_n < 64)
+      occ_cache[occ_n++] = {reinterpret_cast<const void*>(fn), p.C, p.smem,
+                            clusters};
+  }
+  return 0;
+}
+
+template <typename T, int P, bool PAIR>
+int launch_rows(const Args& a0, cudaStream_t stream) {
+  Args a;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int clusters;
+  const int err = rows_setup<T, P, PAIR>(a0, forced_splits, stream, a, cfg,
+                                         attr, clusters);
+  if (err != 0) return err;
+  if (clusters < 1) return -1;             // the cluster cannot be placed
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, sgg_rows_kernel<T, P, PAIR>,
+                                           a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int P, bool PAIR>
+int rows_residency(int K, int n_out, int cap, int splits, int* out) {
+  Args a0 = {};
+  a0.K = K;
+  a0.n_out = n_out;
+  a0.cap = cap;
+  Args a = {};
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  int clusters = 0;
+  const int err =
+      rows_setup<T, P, PAIR>(a0, splits, nullptr, a, cfg, attr, clusters);
+  out[0] = static_cast<int>(cfg.gridDim.x);
+  out[1] = a.C;
+  out[2] = clusters;
+  return err;
+}
+
+template <typename T, int P>
+int residency_pair(int pair, int K, int n_out, int cap, int splits,
+                   int* out) {
+  return pair ? rows_residency<T, P, true>(K, n_out, cap, splits, out)
+              : rows_residency<T, P, false>(K, n_out, cap, splits, out);
+}
+
+template <typename T>
+int residency_plan(int plan, int pair, int K, int n_out, int cap,
+                   int splits, int* out) {
+  switch (plan) {
+    case PLAN_STREAM:
+      return residency_pair<T, PLAN_STREAM>(pair, K, n_out, cap, splits, out);
+    case PLAN_INT8:
+      return residency_pair<T, PLAN_INT8>(pair, K, n_out, cap, splits, out);
+    case PLAN_INT4:
+      return residency_pair<T, PLAN_INT4>(pair, K, n_out, cap, splits, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T, int P, bool PAIR, int G>
 int launch(const Args& a, int blocks, cudaStream_t stream) {
   if constexpr (G == RG) {
-    if (a.B > 1) return launch_rows<T, P, PAIR>(a, blocks, stream);
+    if (a.B > 1) return launch_rows<T, P, PAIR>(a, stream);
   }
   constexpr int NW = PAIR ? 2 : 1;
   const size_t smem =
@@ -714,12 +1181,53 @@ int dispatch_type(int dtype, int plan, const Args& a, int blocks,
 // null. mode: 0 raw fp32 out, 1 residual, 2 silu pair, 3 weighted
 // residual (route_w[slot] * sums + res; one row). G: 32, 64 or 128 (else
 // cudaErrorInvalidValue). rows: input rows B, contiguous [B, K]; out and
-// res are [B, n_out]; rows > 1 needs G == 128 and rows <= 16. fixed: keep
+// res are [B, n_out]; rows > 1 needs G == 128, rows <= 16 and
+// widths that are multiples of 64 (returns -1 where no cluster of the
+// plan can be placed on the card). fixed: keep
 // groups 0..cap-1. layer_dev: null (read `layer`) or int32 device layers,
 // entry `slot` read by the kernel; L: the stacks' layers. The caller
 // checks shapes: K % G == 0, every n_i % 32 == 0, pointers 16-byte
 // aligned, mode 2 with two weights of equal width, one plan for all
 // weights, a host layer in [0, L), no norm with a device layer.
+// The rows form's launch plan for a stream of type dtype (0 fp32, 1
+// bf16), weight plan `plan`, `pair` (mode 2: two weights), input dim K,
+// n_out output columns, cap, an SM count and `splits` (0: the rule, else
+// S): out = {S, C, ring stages, shared bytes a block}; shared bytes -1
+// where no plan fits.
+extern "C" int teal_sgg_rows_plan(int dtype, int plan, int pair, int K,
+                                  int n_out, int cap, int n_sms, int splits,
+                                  int* out) {
+  const RowsPlan p = rows_plan(dtype == 0 ? 4 : 2, plan, pair ? 2 : 1, K,
+                               n_out, cap, n_sms, splits);
+  out[0] = p.S;
+  out[1] = p.C;
+  out[2] = p.nst;
+  out[3] = p.smem;
+  return 0;
+}
+
+// On this card, for the rows form's plan (`splits` 0: the rule, else S):
+// out = {blocks of the grid, blocks a cluster, clusters that can be
+// resident at once}; the card tests check that the whole grid is.
+extern "C" int teal_sgg_rows_residency(int dtype, int plan, int pair, int K,
+                                       int n_out, int cap, int splits,
+                                       int* out) {
+  cudaGetLastError();
+  return dtype == 0 ? residency_plan<float>(plan, pair, K, n_out, cap,
+                                            splits, out)
+                    : residency_plan<__nv_bfloat16>(plan, pair, K, n_out, cap,
+                                                    splits, out);
+}
+
+// Force the rows form's split count S (1, 2 or 4) for the launches that
+// follow, or restore the rule with 0: the card tests run each S.
+extern "C" int teal_sgg_rows_force_splits(int splits) {
+  if (splits != 0 && splits != 1 && splits != 2 && splits != 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  forced_splits = splits;
+  return 0;
+}
+
 extern "C" int teal_select_gather_gemv(
     int dtype, int plan, const void* x, const void* thr, const void* norm,
     float eps, const void* w0, const void* w1, const void* w2,

@@ -12,9 +12,10 @@ Two kernels, each launched on CUDA tensors and run as its plain PyTorch
 version (same module) on CPU tensors:
   - K1 `select_gather_gemv` (`csrc/select_gather_gemv.cu`): threshold
     selection inside the kernel at G in {32, 64, 128}, one input row or
-    up to 16 rows at G = 128 (pooled scores, one kept set), optional
-    folded rms_norm, 1-3 layer-stacked weights `[L, K, N]` sharing one
-    selection, and one of three epilogues;
+    up to 16 rows at G = 128 (pooled scores, one kept set; on the card a
+    cluster kernel on the tensor cores, planned by `_rows_plan`),
+    optional folded rms_norm, 1-3 layer-stacked weights `[L, K, N]`
+    sharing one selection, and one of three epilogues;
   - K3 `block_gather_gemv_multi` (`csrc/block_gather_gemv.cu`): the
     gather over a kept-group list selected outside the kernel (top-k
     mode, and batched decode of up to 8 rows with one pooled selection).
@@ -376,6 +377,76 @@ def _check_launch_device(t: torch.Tensor, name: str) -> None:
 
 # --- K1 -------------------------------------------------------------------
 
+# K1's rows form on the card (`csrc/select_gather_gemv.cu`, `RowsLayout`
+# and `rows_plan`, which `_rows_smem` and `_rows_plan` mirror; the card
+# tests hold them together through `teal_sgg_rows_plan`)
+ROWS_TILE = 64                   # output columns a block
+_ROWS_WARPS = 8
+_ROWS_MAX_CLUSTER = 8            # blocks a cluster (the portable size)
+_ROWS_MAX_SPLITS = 4             # splits of a tile's kept groups
+_ROWS_MAX_STAGES = 8             # ring stages
+_SMEM_BYTES = 232448             # a block's shared memory on Hopper
+_SM_SMEM_BYTES = 233472          # an SM's; a resident block reserves 1 KB
+_H100_SMS = 132
+# None: the split rule; 1, 2 or 4 force S on the card (the card tests
+# monkeypatch it)
+ROWS_SPLITS: Optional[int] = None
+_lib_splits = [0]                # the S the library was last told
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _rows_smem(esz: int, plan: int, nw: int, stages: int, S: int, C: int,
+               nb: int, cap: int) -> int:
+    """One block's shared memory in bytes: a ring of `stages` stages, each
+    one kept group's `nw` weight slabs (rows padded by 16 bytes; packed
+    int4 64 rows and the group's scale and zero rows), its 16 input rows
+    (padded likewise) and its gains, or the per-warp sums if larger; with
+    S > 1 the split parts the block combines; the C peers' norm partials,
+    the row scales, the nb scores and the cap kept groups and count."""
+    wrows = LANES // 2 if plan == PLAN_INT4 else LANES
+    wstride = ROWS_TILE * (esz if plan == PLAN_STREAM else 1) + 16
+    wslab = wrows * wstride + (2 * ROWS_TILE * 4 if plan == PLAN_INT4 else 0)
+    stage = nw * wslab + MAX_ROWS * (LANES * esz + 16) + LANES * esz
+    sums = nw * MAX_ROWS * ROWS_TILE * 4
+    return (max(stages * stage, _ROWS_WARPS * sums) + (sums if S > 1 else 0)
+            + (C + 1) * MAX_ROWS * 4 + _pad4(nb) * 4 + _pad4(cap + 1) * 4)
+
+
+def _rows_plan(esz: int, plan: int, nw: int, K: int, n_out: int, cap: int,
+               n_sms: int = _H100_SMS, splits: Optional[int] = None
+               ) -> Optional[Tuple[int, int, int, int]]:
+    """The rows kernel's launch plan from shapes only: (S, C, stages,
+    shared bytes), or None where the widths are not whole 64-column tiles
+    or nothing fits. S (1, 2 or 4) splits each tile's kept groups: the
+    largest that keeps the grid within one block an SM. C = S * (tiles a
+    cluster) <= 8: the largest power of two whose tiles divide the output.
+    The ring is the deepest (<= 8 stages) that leaves room for two blocks
+    an SM (clusters of 8 blocks of one an SM do not all fit the H100's
+    GPCs at once), else the deepest that fits one block. `splits` forces
+    S."""
+    if n_out <= 0 or n_out % ROWS_TILE or K % LANES:
+        return None
+    tiles = n_out // ROWS_TILE
+    S = 1
+    while S < _ROWS_MAX_SPLITS and tiles * 2 * S <= n_sms:
+        S *= 2
+    S = splits or S
+    tc = 1
+    while tc * 2 * S <= _ROWS_MAX_CLUSTER and tiles % (tc * 2) == 0:
+        tc *= 2
+    for two in (True, False):
+        for stages in range(_ROWS_MAX_STAGES, 1, -1):
+            smem = _rows_smem(esz, plan, nw, stages, S, tc * S, K // LANES,
+                              cap)
+            if (2 * (smem + 1024) <= _SM_SMEM_BYTES if two
+                    else smem <= _SMEM_BYTES):
+                return S, tc * S, stages, smem
+    return None
+
+
 def selection_input(x, norm, layer: int, norm_eps: float):
     """What K1 scores and gathers with, for x [K] or rows [B, K]: x
     itself, or with `norm` its folded rms_norm (each row by the rsqrt of
@@ -557,12 +628,29 @@ def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer,
                                         fixed=fixed, slot=slot,
                                         route_w=route_w)
     _check_launch_device(x, "select_gather_gemv")
-    lib = _build.load()["select_gather_gemv"]
     mode = (2 if silu else 3 if route_w is not None
             else 1 if res is not None else 0)
     dev_layer = isinstance(layer, torch.Tensor)
     n = [_width(w) for w in ws]
     n_out = n[0] if silu else sum(n)
+    rows = x.numel() // x.shape[-1]
+    lib = _build.load()["select_gather_gemv"]
+    if rows > 1:
+        if _rows_plan(x.element_size(), plan, 2 if silu else 1, x.shape[-1],
+                      n_out, cap, _build.sm_count(x.device.index),
+                      ROWS_SPLITS) is None \
+                or any(n_i % ROWS_TILE for n_i in n):
+            raise ValueError(f"the rows kernel takes widths that are "
+                             f"multiples of {ROWS_TILE} and a plan that fits "
+                             f"shared memory; got widths {n}, K = "
+                             f"{x.shape[-1]}, cap {cap}")
+        if x.data_ptr() % 16 or (norm is not None and norm.data_ptr() % 16):
+            raise ValueError("the rows kernel copies x and norm in 16-byte "
+                             "chunks: both must be 16-byte aligned")
+        if (ROWS_SPLITS or 0) != _lib_splits[0]:
+            _build.check(lib.teal_sgg_rows_force_splits(ROWS_SPLITS or 0),
+                         "select_gather_gemv (forced splits)")
+            _lib_splits[0] = ROWS_SPLITS or 0
     out = torch.empty((*x.shape[:-1], n_out), device=x.device,
                       dtype=torch.float32 if mode == 0 else x.dtype)
     sel = torch.empty(cap + 1, dtype=torch.int32, device=x.device)
@@ -574,11 +662,15 @@ def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer,
         *w_p, *sz_p, *sc_p, *n, len(ws),
         None if res is None else res.data_ptr(),
         out.data_ptr(), sel.data_ptr(), sel.data_ptr() + 4 * cap,
-        x.shape[-1], G, 0 if dev_layer else layer, cap, mode,
-        x.numel() // x.shape[-1], int(fixed),
+        x.shape[-1], G, 0 if dev_layer else layer, cap, mode, rows,
+        int(fixed),
         layer.data_ptr() if dev_layer else None, slot, L,
         None if route_w is None else route_w.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
+    if err == -1:
+        raise RuntimeError(f"select_gather_gemv: no cluster of the rows "
+                           f"kernel's plan (K = {x.shape[-1]}, {n_out} "
+                           f"columns) can be resident on this card")
     _build.check(err, "select_gather_gemv")
     select_gather_gemv.launches += 1
     return out, sel[:cap], sel[cap:]

@@ -39,7 +39,6 @@ _BLOCKS_PER_SM = 2               # the split rule's aim
 _MIN_SPLIT_ROWS = 32             # cache rows a split has at least, at T
 _H100_SMS = 132
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_sms = {}                        # device index -> SM count
 
 
 def rope_rows(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
@@ -227,11 +226,9 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
             raise ValueError(f"pos {pos} out of range [0, {kc.shape[3]})")
         pos = torch.full((q.shape[0],), pos, dtype=torch.int32,
                          device=kc.device)
-    idx = kc.device.index
-    if kc.device.type == "cuda" and idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     S, slots = _check(q, k_new, v_new, kc, vc, layer, pos, window, rope,
-                      seq_block, _sms.get(idx, _H100_SMS))
+                      seq_block, _build.sm_count(kc.device.index)
+                      if kc.device.type == "cuda" else _H100_SMS)
     if kc.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, kc, vc, layer, pos,
                                       window=window, rope=rope,

@@ -256,36 +256,151 @@ def _rows_weights(g, cuda, plan, dtype, L, K, ns):
     return ws, scales
 
 
+# K1's rows form: the selection regimes every case runs (survivors at cap
+# 4 of 8 groups; "fixed" keeps 0..cap-1; "none" keeps no group).
+K1_ROWS_REGIMES = (("count<cap", 2), ("count==cap", 4), ("overflow", 6),
+                   ("fixed", 4), ("none", 0))
+
+
+def _rows_x(g, cuda, dtype, B, K, norm, layer, n_surv):
+    """B rows of uniform noise in [-0.5, 0.5] where group i has its spike
+    (3 * 1.3**rank, rank a permutation) in row i % B, so each pooled score
+    comes from one row; and a threshold with exactly `n_surv` pooled
+    scores of the selection input above it, more than 1e-2 (relative)
+    from every score."""
+    nb = K // 128
+    gi = torch.arange(nb, device=cuda)
+    for _ in range(16):
+        x = torch.rand(B, nb, 128, generator=g, device=cuda) - 0.5
+        lv = 3 * 1.3 ** torch.randperm(nb, generator=g, device=cuda).float()
+        col = torch.randint(0, 128, (nb,), generator=g, device=cuda)
+        x[gi % B, gi, col] = lv
+        x = x.reshape(B, K).to(dtype)
+        xs = bg.selection_input(x, norm, layer, 1e-5).float()
+        pooled = xs.abs().reshape(B, nb, 128).amax(-1).amax(0)
+        v = pooled.sort(descending=True).values
+        if n_surv == 0:
+            return x, torch.tensor(float(v[0]) * 2.0, device=cuda)
+        thr = (float(v[n_surv - 1]) * float(v[n_surv])) ** 0.5 \
+            if n_surv < nb else float(v[-1]) * 0.5
+        if float(((pooled - thr).abs() / thr).min()) > 1e-2:
+            return x, torch.tensor(thr, device=cuda)
+    raise AssertionError("no threshold 1e-2 away from every pooled score")
+
+
+def _rows_case(cuda, g, dtype, plan, epilogue, B, ns=None, K=1024, cap=4):
+    """Every regime of `K1_ROWS_REGIMES` for one shape: the kernel's kept
+    set and count equal to the plain version's, outputs within 1e-5 of
+    scale (fp32 stream), 1e-4 (bf16 stream, fp32 q|k|v sums) or 2^-7
+    (bf16 outputs), two identical calls bit-identical, one launch a call."""
+    L, layer = 2, 1
+    ns = ns or {"qkv": (512, 256, 256), "res": (1024,),
+                "silu": (512, 512)}[epilogue]
+    ws, scales = _rows_weights(g, cuda, plan, dtype, L, K, ns)
+    norm = (1 + 0.1 * torch.randn(L, K, generator=g, device=cuda)).to(dtype)
+    norm = None if epilogue == "res" else norm
+    res = (torch.randn(B, sum(ns), generator=g, device=cuda).to(dtype)
+           if epilogue == "res" else None)
+    kw = dict(norm=norm, res=res, silu=epilogue == "silu", scales=scales)
+    for case, n_surv in K1_ROWS_REGIMES:
+        fixed = case == "fixed"
+        x, t = _rows_x(g, cuda, dtype, B, K, norm, layer, n_surv)
+        before = bg.select_gather_gemv.launches
+        got, gidx, gcnt = bg.select_gather_gemv(x, t, ws, layer, cap,
+                                                fixed=fixed, **kw)
+        again, aidx, acnt = bg.select_gather_gemv(x, t, ws, layer, cap,
+                                                  fixed=fixed, **kw)
+        assert bg.select_gather_gemv.launches == before + 2
+        want, widx, wcnt = bg.select_gather_gemv_plain(x, t, ws, layer, cap,
+                                                       fixed=fixed, **kw)
+        assert int(wcnt[0]) == min(n_surv, cap), case
+        assert torch.equal(gcnt, wcnt) and torch.equal(gidx, widx), case
+        assert torch.equal(got, again) and torch.equal(gidx, aidx) \
+            and torch.equal(gcnt, acnt), f"{case}: two calls differ"
+        assert got.shape == want.shape == (B, want.shape[-1])
+        rel = (1e-5 if dtype == torch.float32 else
+               1e-4 if got.dtype == torch.float32 else 2 ** -7)
+        ok, err = _close(got, want, rel)
+        assert ok, (case, err)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("plan", ["stream", "int8", "int4"])
 @pytest.mark.parametrize("epilogue", ["qkv", "res", "silu"])
-@pytest.mark.parametrize("B", [3, 16])
+@pytest.mark.parametrize("B", list(range(2, 17)))
 def test_k1_rows_match_plain(cuda, dtype, plan, epilogue, B):
     """K1's rows form: the same kept set as the plain version (pooled
     scores, per-row norm; `fixed` keeps 0..cap-1) and the same outputs
-    for every row."""
+    for every row, at every B (each pads the MMA's 16 rows differently),
+    in every selection regime, deterministically."""
     g = torch.Generator(device=cuda).manual_seed(8 + B)
-    L, K, layer, cap = 2, 1024, 1, 4
-    ns = {"qkv": (512, 256, 256), "res": (1024,), "silu": (512, 512)}
-    ws, scales = _rows_weights(g, cuda, plan, dtype, L, K, ns[epilogue])
-    x = torch.randn(B, K, generator=g, device=cuda).to(dtype)
-    norm = (1 + 0.1 * torch.randn(L, K, generator=g, device=cuda)).to(dtype)
-    kw = dict(norm=None if epilogue == "res" else norm,
-              res=(torch.randn(B, K, generator=g, device=cuda).to(dtype)
-                   if epilogue == "res" else None),
-              silu=epilogue == "silu", scales=scales)
-    for thr, fixed in ((0.0, False), (2.9, False), (3.4, False),
-                       (100.0, False), (100.0, True)):
-        t = torch.tensor(thr, device=cuda)
-        got, gidx, gcnt = bg.select_gather_gemv(x, t, ws, layer, cap,
-                                                fixed=fixed, **kw)
-        want, widx, wcnt = bg.select_gather_gemv_plain(x, t, ws, layer, cap,
-                                                       fixed=fixed, **kw)
-        assert torch.equal(gcnt, wcnt) and torch.equal(gidx, widx), thr
-        assert got.shape == want.shape == (B, want.shape[-1])
-        ok, err = _close(got, want, 1e-5 if dtype == torch.float32
-                         else 2 ** -7)
-        assert ok, (thr, fixed, err)
+    _rows_case(cuda, g, dtype, plan, epilogue, B)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", ["stream", "int8", "int4"])
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_k1_rows_splits_match_plain(cuda, monkeypatch, dtype, plan, splits):
+    """K1's rows form with its split count S forced (each tile's kept
+    groups over S blocks of a cluster, their sums added in split order):
+    3, 16 and 17 column tiles (clusters of S, 8 and S blocks); K = 11008
+    (86 groups: more than a warp each in a block of the prologue), 2816
+    (an odd group count) and 1024; B = 2, 9 and 16."""
+    monkeypatch.setattr(bg, "ROWS_SPLITS", splits)
+    g = torch.Generator(device=cuda).manual_seed(300 + splits)
+    for epilogue, ns, K, cap in (("res", (192,), 11008, 4),
+                                 ("qkv", (512, 256, 256), 2816, 4),
+                                 ("silu", (1088, 1088), 1024, 4)):
+        for B in (2, 9, 16):
+            _rows_case(cuda, g, dtype, plan, epilogue, B, ns=ns, K=K,
+                       cap=cap)
+
+
+def test_k1_rows_plan_matches_kernel(cuda):
+    """The wrapper's `_rows_plan` (splits, cluster, ring stages, shared
+    bytes) equals the kernel's `rows_plan` over the 7B stage shapes and
+    small ones, both stream types, the three weight plans, forced and
+    ruled splits and two SM counts; the rule's plans at 7B keep every
+    block of the grid resident."""
+    lib = _build.load()["select_gather_gemv"]
+    out = (torch.zeros(4, dtype=torch.int32))
+    shapes = [(4096, 12288, 1), (4096, 4096, 1), (4096, 11008, 2),
+              (11008, 4096, 1), (1024, 1024, 1), (1024, 192, 1),
+              (2816, 1024, 1), (1024, 1088, 2), (256, 64, 1), (256, 96, 1)]
+    for K, n_out, nw in shapes:
+        nb = K // 128
+        for cap in sorted({1, nb // 2 or 1, nb}):
+            for code, esz in ((0, 4), (1, 2)):
+                for plan in (0, 1, 2):
+                    for sms in (114, 132):
+                        for splits in (None, 1, 2, 4):
+                            want = bg._rows_plan(esz, plan, nw, K, n_out,
+                                                 cap, sms, splits)
+                            lib.teal_sgg_rows_plan(
+                                code, plan, int(nw == 2), K, n_out, cap,
+                                sms, splits or 0, out.data_ptr())
+                            got = tuple(int(v) for v in out)
+                            assert (got[3] == -1 if want is None
+                                    else got == want), (K, n_out, nw, cap,
+                                                        esz, plan, sms,
+                                                        splits)
+
+
+def test_k1_rows_grid_resident_at_7b(cuda):
+    """At the 7B stage shapes (bf16 stream, every weight plan, caps at
+    keep 0.5) every cluster of the rows kernel's grid can be resident at
+    once on this card, as the plan intends."""
+    lib = _build.load()["select_gather_gemv"]
+    out = torch.zeros(3, dtype=torch.int32)
+    for K, n_out, nw, cap in ((4096, 12288, 1, 16), (4096, 4096, 1, 16),
+                              (4096, 11008, 2, 16), (11008, 4096, 1, 43)):
+        for plan in (0, 1, 2):
+            assert lib.teal_sgg_rows_residency(1, plan, int(nw == 2), K,
+                                               n_out, cap, 0,
+                                               out.data_ptr()) == 0
+            grid, C, clusters = (int(v) for v in out)
+            assert grid % C == 0 and clusters * C >= grid, \
+                (K, n_out, plan, grid, C, clusters)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

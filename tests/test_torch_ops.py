@@ -382,6 +382,74 @@ def test_k2_wrapper_checks_shared_memory():
                 decode_attention(q, kn, kn, kc, kc.clone(), 0, T - 1)
 
 
+# the token path's four K1 stages at Llama-2-7B: (K, output columns,
+# weights of one tile: 2 for gate|up), and their caps at keep 0.5
+_K1_7B_STAGES = {"qkv": (4096, 12288, 1), "o": (4096, 4096, 1),
+                 "gate|up": (4096, 11008, 2), "down": (11008, 4096, 1)}
+
+
+@pytest.mark.parametrize("stage", list(_K1_7B_STAGES))
+@pytest.mark.parametrize("sms", [114, 132])
+def test_k1_rows_plan_at_7b(stage, sms):
+    """K1's rows-form plan as a pure function of shapes (no B, no count):
+    S in {1, 2, 4}, a cluster of C <= 8 blocks that is a multiple of S
+    and divides the grid into whole clusters, shared memory within a
+    block's 227 KB, at most two blocks an SM at 7B and, for bf16, shared
+    memory for all of them at once, at every cap; it takes no B, so one plan serves B = 2..16.
+    For every kept count the S shares of a tile's kept list cover it
+    once, in order, each non-empty when count >= S (else some are empty,
+    which the kernel skips)."""
+    import inspect
+
+    params = inspect.signature(tbg._rows_plan).parameters
+    assert not {"B", "rows", "count"} & set(params)
+    K, n_out, nw = _K1_7B_STAGES[stage]
+    nb = K // 128
+    for esz in (2, 4):
+        for plan in (tbg.PLAN_STREAM, tbg.PLAN_INT8, tbg.PLAN_INT4):
+            for cap in (1, tbg.block_capacity(nb, 0.5), nb):
+                S, C, stages, smem = tbg._rows_plan(esz, plan, nw, K, n_out,
+                                                    cap, sms)
+                grid = n_out // tbg.ROWS_TILE * S
+                assert S in (1, 2, 4) and C in (1, 2, 4, 8) and C % S == 0
+                assert grid % C == 0 and 2 <= stages <= 8
+                assert smem == tbg._rows_smem(esz, plan, nw, stages, S, C,
+                                              nb, cap) <= 232448
+                per_sm = -(-grid // sms)
+                assert per_sm <= 2 and (esz == 4 or per_sm * (smem + 1024)
+                                        <= 233472)
+                for count in range(cap + 1):
+                    shares = [(count * s // S, count * (s + 1) // S)
+                              for s in range(S)]
+                    assert shares[0][0] == 0 and shares[-1][1] == count
+                    assert all(a[1] == b[0] for a, b in
+                               zip(shares, shares[1:]))
+                    if count >= S:
+                        assert all(hi > lo for lo, hi in shares)
+    # the rule's choice at the 7B shapes on a 132-SM card, bf16
+    if sms == 132:
+        want = {"qkv": (1, 8), "o": (2, 8), "gate|up": (1, 4),
+                "down": (2, 8)}[stage]
+        assert tbg._rows_plan(2, 0, nw, K, n_out, 16)[:2] == want
+
+
+def test_k1_rows_plan_limits():
+    """Widths that are not whole 64-column tiles have no plan (the card
+    wrapper raises on them; the CPU path takes them); a forced split
+    keeps its S and a cluster that is a multiple of it."""
+    assert tbg._rows_plan(2, 0, 1, 256, 96, 1) is None
+    assert tbg._rows_plan(2, 0, 1, 200, 64, 1) is None
+    for splits in (1, 2, 4):
+        for tiles in (1, 3, 16, 17, 172, 192):
+            S, C, _, smem = tbg._rows_plan(2, 0, 1, 4096, 64 * tiles, 16,
+                                           splits=splits)
+            assert S == splits and C % S == 0 and (tiles * S) % C == 0
+            assert smem <= 232448
+    out, _, _ = tbg.select_gather_gemv(torch.ones(2, 256), torch.tensor(0.0),
+                                       [torch.zeros(1, 256, 96)], 0, 1)
+    assert out.shape == (2, 96)
+
+
 def test_attn_stage_composes_k1_and_k2():
     """The attention stage == K1 on q|k|v then K2 (plain versions)."""
     rng = np.random.default_rng(10)

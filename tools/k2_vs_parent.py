@@ -31,14 +31,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
 
 import chip_smoke as cs  # noqa: E402
+from older_kernels import build_older  # noqa: E402
 
 TURNS = ("this", "older", "older", "this")
 
@@ -48,15 +48,8 @@ def older_k2(src_dir: str):
     of `decode_attention`'s arguments."""
     import torch
 
-    from teal_tpu_torch import _build
-
-    out_dir = ROOT / "build" / "k2_older"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / "libk2_older.so"
-    subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", str(so),
-                    str(Path(src_dir) / "decode_attention.cu")], check=True,
-                   capture_output=True, timeout=600)
-    fn = ctypes.CDLL(str(so)).teal_decode_attention
+    fn = build_older(src_dir, "decode_attention.cu",
+                     "k2_older").teal_decode_attention
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, P]
     fn.restype = I
