@@ -109,11 +109,14 @@ Phases:
      Mixtral's heads (GQA 32/8) at pos 511 and 2047 beside SDPA with
      `enable_gqa` and its bound;
  11. long prompts (run before phase 10, on the resident bf16 7B params):
-     K6 (`flash_prefill_attention`) against its plain version, each
+     K6's launch plan in the wrapper equal to the kernel's; K6
+     (`flash_prefill_attention`) against its plain version, each
      (head, query) row within a tolerance of its own largest value: bf16
-     at S = 256, 2048, 2560 (Hq/Hkv 32/32 and 32/8, 2^-6 a row) and fp32
-     at S = 256 (1e-4 a row); every layer of a 2048-token prefill through
-     K6 held to the plain path on the same layer input (the attention
+     at S = 256, 320 (a last half query tile), 2048, 2560 (Hq/Hkv 32/32
+     and 32/8, 2^-6 a row) and fp32 at S = 256 (1e-4 a row), a second
+     call bit-identical to the first; every layer of a 2048-token
+     prefill through K6 held to the plain path on the same layer input
+     (the attention
      output 2^-6 a row, the layer output 2e-2 of scale); `Generator` with
      a 2000-token prompt
      (padded to 2048) and 16 greedy tokens on the main path, asserting
@@ -126,8 +129,9 @@ Phases:
      4's thresholds, and on an fp32 copy through K6's fp32 path against
      the plain path (each window's NLL within 1e-4 relative); K6's times
      at S = 2048 and 2560 beside its plain version, SDPA (causal, GQA)
-     and its bound; K2 at pos 2047 of a 2048-row cache and K2's split
-     sweep (S forced to 1, 2, 4, 8 at pos 40, 511 and 2047, 7B heads);
+     and its bound, and the share of the bound; K2 at pos 2047 of a
+     2048-row cache and K2's split sweep (S forced to 1, 2, 4, 8 at pos
+     40, 511 and 2047, 7B heads);
 all printed as one `kernels` JSON line, with the card in it.
 
 The line before the last is the card's name and power limit from
@@ -2308,7 +2312,7 @@ def batched_phase(params, cfg, caps, device, gen, seed, rope):
 LONG_PROMPT = 2000               # tokens; the Generator pads it to 2048
 LONG_NEW_TOKENS = 16
 K6_HEADS = ((32, 32), (32, 8))   # (Hq, Hkv): Llama-2-7B; Mixtral / Mistral
-K6_CHECK_S = (256, 2048, 2560)
+K6_CHECK_S = (256, 320, 2048, 2560)   # 320: a last half query tile
 K6_TIME_S = (2048, 2560)
 K6_SETS = 4                      # input sets timed in turn (> L2 at S 2048)
 PPL_CONTEXT, PPL_WINDOW, PPL_TOKENS = 2048, 512, 4096
@@ -2331,12 +2335,43 @@ def k6_inputs(S, Hq, Hkv, gen, device, dtype):
                  for h in (Hq, Hkv, Hkv))
 
 
+def check_k6_plan():
+    """The wrapper's launch plan (`flash_prefill._plan`: query tiles,
+    blocks, threads, shared bytes) equal to the kernel's
+    (`teal_flash_prefill_plan`) for both types, B = 1 and 2, Hq = 8 and
+    32, S = 64..4096, on this card's SM count."""
+    import ctypes
+
+    import torch
+
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.ops import flash_prefill as fp
+
+    fn = _build.load()["flash_prefill"].teal_flash_prefill_plan
+    sms = _build.sm_count(torch.cuda.current_device())
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for B, Hq in ((1, 32), (2, 32), (1, 8)):
+            for S in range(64, 4097, 64):
+                out = (ctypes.c_int * 4)()
+                fn(fp._DTYPE_CODE[dt], B, Hq, S, sms, out)
+                tiles, _, blocks, threads, smem = fp._plan(dt, B, Hq, S, sms)
+                want = (tiles, blocks, threads, smem)
+                check(tuple(out) == want and smem <= fp.SMEM_LIMIT,
+                      f"K6 plan at {dt} B={B} Hq={Hq} S={S}: the kernel's "
+                      f"{tuple(out)}, the wrapper's {want}")
+                n += 1
+    log(f"[k6] the wrapper's launch plan equals the kernel's at all {n} "
+        f"(type, B, Hq, S) shapes checked ({sms} SMs)")
+
+
 def check_k6(device, gen):
     """K6 against its plain version, each (head, query) row held alone:
     bf16 at `K6_CHECK_S`, MHA and GQA, the row's largest error within
     `K6_BF16_ROW_TOL` of the row's largest |value|; fp32 at S = 256 within
     1e-4 of it (the FMA path: fp32 throughout, only the order of the sums
-    differs). Returns the largest absolute error in bf16."""
+    differs); a second call bit-identical to the first. Returns the
+    largest absolute error in bf16."""
     import torch
 
     from teal_tpu_torch.ops.flash_prefill import (
@@ -2352,13 +2387,16 @@ def check_k6(device, gen):
                 want = flash_prefill_attention_plain(q, k, v)
                 check(got.dtype == dt and got.shape == q.shape,
                       f"K6 {dt} S={S}: output {got.dtype} {tuple(got.shape)}")
+                check(torch.equal(flash_prefill_attention(q, k, v), got),
+                      f"K6 {dt} S={S} Hq={Hq} Hkv={Hkv}: two calls differ")
                 err, ratio = row_check(f"K6 {dt} S={S} Hq={Hq} Hkv={Hkv}",
                                        got, want, rel)
                 if dt == torch.bfloat16:
                     worst = max(worst, err)
                 log(f"[k6] {str(dt)[6:]:8s} S={S:4d} Hq={Hq} Hkv={Hkv:2d} "
                     f"max_abs_err={err:.3e}, worst row {ratio:.3e} of the "
-                    f"row's largest value (tolerance {rel:g} a row)")
+                    f"row's largest value (tolerance {rel:g} a row); two "
+                    f"calls bit-identical")
     return worst
 
 
@@ -2390,11 +2428,13 @@ def time_k6(device, gen, launches, prefills, err):
                 *sets[i % K6_SETS], is_causal=True, enable_gqa=True), 32)
             rows.append(dict(S=S, Hq=Hq, Hkv=Hkv, ms=ms, host_ms=host,
                              plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=lib, tflop_s=flops / ms / 1e9))
+                             bound_share=b_ms / ms, library_ms=lib,
+                             tflop_s=flops / ms / 1e9))
             log(f"[time] K6 S={S} Hq={Hq} Hkv={Hkv:2d} kernel {ms:.4f} ms "
-                f"({flops / ms / 1e9:.1f} TFLOP/s; host enqueue {host:.4f} "
-                f"ms)  plain {p_ms:.4f} ms  SDPA {lib:.4f} ms  bound "
-                f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+                f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of the "
+                f"bound, {ms / lib:.2f}x SDPA; host enqueue {host:.4f} ms)  "
+                f"plain {p_ms:.4f} ms  SDPA {lib:.4f} ms  bound {b_ms:.4f} ms "
+                f"({b_by}, {nbytes / 1e6:.1f} MB)")
     top = rows[0]
     return dict(name="flash_prefill_attention", route="cuda",
                 source="teal_tpu_torch/csrc/flash_prefill.cu",
@@ -2405,7 +2445,7 @@ def time_k6(device, gen, launches, prefills, err):
                       "(one layer's prefill attention); every timed shape "
                       "under shapes",
                 shapes=rows, **{k: top[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "ms", "plain_ms", "bound_ms", "bound_by", "bound_share",
                     "library_ms")})
 
 
@@ -2654,6 +2694,7 @@ def long_prompt_phase(params, cfg, device, gen, seed, th):
     from teal_tpu_torch.models import llama
 
     t0 = time.perf_counter()
+    check_k6_plan()
     err = check_k6(device, gen)
     long = long_prompt_run(params, cfg, device, seed, th)
     ppl_res = ppl_run(params, cfg, device, seed, th)

@@ -88,6 +88,10 @@ SIGNATURES = {
         _I, _I, _I, _I, _F,     # B, Hq, Hkv, S, scale
         _P,                     # stream
     ],
+    ("flash_prefill", "teal_flash_prefill_plan"): [
+        _I, _I, _I, _I, _I, _P,  # dtype code, B, Hq, S, SM count,
+                                # out int32 [4]
+    ],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -164,24 +164,12 @@ __device__ __forceinline__ void chunk(const __nv_bfloat16* p,
   }
 }
 
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // Thread 0: copy `bytes` contiguous bytes from global `src` into the
 // stage at `dst`, completing on mbarrier `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
+  mbar_expect_tx(bar, bytes);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
@@ -379,10 +367,8 @@ __global__ void __launch_bounds__(THREADS) attn_kernel(Args a) {
   // every block of the cluster has started once this arrival is waited on
   cluster_arrive_relaxed();
   if (d == 0) {
-    for (int i = 0; i < NST; ++i)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(smem_u32(&bars[i])) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < NST; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    mbar_init_fence();
   }
   __syncthreads();
   if (d == 0)

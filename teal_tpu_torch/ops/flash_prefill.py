@@ -6,7 +6,11 @@ the Pallas TPU library kernel `flash_attention` with causal=True): q
 row i seeing keys 0..i, scale 1/sqrt(128), GQA without repeating KV, an
 fp32 softmax, the output in the inputs' type. `flash_prefill_attention`
 launches `csrc/flash_prefill.cu` on CUDA tensors and runs
-`flash_prefill_attention_plain` on CPU tensors.
+`flash_prefill_attention_plain` on CPU tensors. `_plan` mirrors the
+kernel's launch (`teal_flash_prefill_plan`): bf16 runs a persistent grid
+of blocks of three warpgroups (two consumers, one TMA producer), each
+walking 128-row query tiles in `_schedule`'s order with a ring of
+`STAGES` K/V stages; fp32 one block of four warps a 64-row tile.
 """
 
 from __future__ import annotations
@@ -18,8 +22,51 @@ import torch
 from teal_tpu_torch import _build
 
 HEAD_DIM = 128
-BLOCK = 64                       # query rows of a block and keys of a tile
+BLOCK = 64                       # S must be a multiple of this
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# bf16: query rows a tile (== keys a tile), ring stages, threads a block;
+# the fp32 kernel's tile and threads
+TILE, STAGES, THREADS = 128, 2, 384
+FP32_TILE, FP32_THREADS = 64, 128
+SMEM_LIMIT = 232448              # shared bytes a block may use (H100)
+
+
+def _plan(dtype: torch.dtype, b: int, hq: int, s: int, n_sms: int):
+    """The kernel's launch (`teal_flash_prefill_plan`) for dtype, B, Hq
+    and S on a card of `n_sms` SMs: (query tiles a (head, batch row),
+    query rows a tile, blocks, threads a block, dynamic shared bytes).
+    fp32: one block a tile. bf16: a persistent grid of min(tiles, SMs)
+    blocks walking the tile list in `_schedule`'s order."""
+    if dtype == torch.float32:
+        tiles = s // FP32_TILE
+        # Q, K and V tiles, each row padded by 16 bytes
+        return (tiles, FP32_TILE, b * hq * tiles, FP32_THREADS,
+                3 * FP32_TILE * (HEAD_DIM + 4) * 4)
+    tiles = -(-s // TILE)
+    tile_bytes = TILE * HEAD_DIM * 2
+    # Q, the K and V stages, the mbarriers (Q full and empty; K and V full
+    # and empty a stage), and slack to align the base to 1024 bytes
+    smem = tile_bytes * (1 + 2 * STAGES) + 8 * (2 + 4 * STAGES) + 1024
+    return tiles, TILE, min(b * hq * tiles, n_sms), THREADS, smem
+
+
+def _schedule(tiles: int, hb: int, blocks: int):
+    """The bf16 kernel's tile order (`tile_at`): for each block, its list
+    of tiles (query tile, head-and-batch index). Tile u of the list has
+    query tile tiles - 1 - u // hb (the longest rows first) and index
+    u % hb; blocks take the list in rounds, every other round in reverse
+    (a snake)."""
+    out = []
+    for g in range(blocks):
+        mine, n = [], 0
+        while True:
+            u = n * blocks + (blocks - 1 - g if n % 2 else g)
+            if u >= tiles * hb:
+                break
+            mine.append((tiles - 1 - u // hb, u % hb))
+            n += 1
+        out.append(mine)
+    return out
 
 
 def masked_attention(q, k, v, pos: torch.Tensor, q_len: int, max_seq: int,

@@ -516,18 +516,28 @@ def test_moe_route_counts_launches(cuda):
     assert tb.moe_route.launches == before + 1
 
 
+K6_CASES = [(1, 4, 4, 64), (2, 4, 2, 256), (1, 8, 1, 384), (1, 2, 2, 128),
+            (2, 4, 2, 192), (1, 8, 2, 320), (1, 4, 4, 2048),
+            (2, 8, 4, 2048)]
+
+
+def _k6_inputs(cuda, dtype, B, Hq, Hkv, S):
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    return tuple(torch.randn(B, h, S, 128, generator=g,
+                             device=cuda).to(dtype)
+                 for h in (Hq, Hkv, Hkv))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Hq,Hkv,S", [(1, 4, 4, 64), (2, 4, 2, 256),
-                                        (1, 8, 1, 384)])
+@pytest.mark.parametrize("B,Hq,Hkv,S", K6_CASES)
 def test_k6_matches_plain(cuda, dtype, B, Hq, Hkv, S):
     """K6 (causal flash prefill) against its plain version, each (head,
     query) row within a tolerance of that row's largest value: fp32 1e-5,
     bf16 2^-6 (two bf16 ulps: each side rounds its output to bf16, and
     the softmax weights are rounded to bf16 before PV at different
-    points); one launch counted a call."""
-    g = torch.Generator(device=cuda).manual_seed(S + Hq)
-    q, k, v = (torch.randn(B, h, S, 128, generator=g, device=cuda).to(dtype)
-               for h in (Hq, Hkv, Hkv))
+    points); one launch counted a call. S = 64, 192, 320: a last half
+    tile of the bf16 kernel's 128-row query tiles; Hq/Hkv = 1, 2, 4, 8."""
+    q, k, v = _k6_inputs(cuda, dtype, B, Hq, Hkv, S)
     before = flash_prefill_attention.launches
     got = flash_prefill_attention(q, k, v)
     assert flash_prefill_attention.launches == before + 1
@@ -538,6 +548,32 @@ def test_k6_matches_plain(cuda, dtype, B, Hq, Hkv, S):
     scale = want.float().abs().amax(-1)
     assert bool((diff <= rel * scale).all()), \
         float((diff / scale.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,S", [(1, 8, 2, 320), (2, 4, 4, 2048)])
+def test_k6_two_calls_identical(cuda, dtype, B, Hq, Hkv, S):
+    """Fixed-order sums, no atomics: two calls give identical bits."""
+    q, k, v = _k6_inputs(cuda, dtype, B, Hq, Hkv, S)
+    assert torch.equal(flash_prefill_attention(q, k, v),
+                       flash_prefill_attention(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_plan_matches_kernel(cuda, dtype):
+    """The wrapper's launch plan (`_plan`) equals the kernel's own."""
+    import ctypes
+
+    from teal_tpu_torch.ops import flash_prefill as fp
+
+    lib = _build.load()["flash_prefill"]
+    for B, Hq in ((1, 32), (2, 4), (1, 2)):
+        for S in (64, 128, 192, 320, 2048, 2560):
+            out = (ctypes.c_int * 4)()
+            assert lib.teal_flash_prefill_plan(fp._DTYPE_CODE[dtype], B, Hq,
+                                               S, 132, out) == 0
+            tiles, _, blocks, threads, smem = fp._plan(dtype, B, Hq, S, 132)
+            assert tuple(out) == (tiles, blocks, threads, smem), (B, Hq, S)
 
 
 def test_k6_raises_rather_than_falls_back(cuda):

@@ -450,6 +450,42 @@ def test_k1_rows_plan_limits():
     assert out.shape == (2, 96)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [64, 128, 192, 256, 320, 2048, 2560])
+def test_k6_plan_covers_every_query_row_once(dtype, S):
+    """K6's launch plan at the 7B (32/32) and GQA (32/8) heads, B = 1 and
+    2, on a 132-SM card: the query tiles cover rows 0..S-1 once (a last
+    half tile where S % 128 == 64 stores only its rows below S); shared
+    memory within a block's 227 KB. bf16: a persistent grid of at most
+    one block an SM whose schedule takes every (query tile, head, batch
+    row) once, the longest rows first, and evens out the causal work
+    (the busiest block within 5% of the mean, or one tile of it)."""
+    from teal_tpu_torch.ops import flash_prefill as fp
+
+    for Hq, Hkv in ((32, 32), (32, 8)):
+        for B in (1, 2):
+            tiles, rows, blocks, threads, smem = fp._plan(dtype, B, Hq, S,
+                                                          132)
+            assert smem <= fp.SMEM_LIMIT and Hq % Hkv == 0
+            seen = [r for t in range(tiles)
+                    for r in range(t * rows, min(S, (t + 1) * rows))]
+            assert seen == list(range(S))
+            if dtype == torch.float32:
+                assert (threads, blocks) == (fp.FP32_THREADS,
+                                             B * Hq * tiles)
+                continue
+            assert threads == fp.THREADS
+            assert blocks == min(132, B * Hq * tiles)
+            sched = fp._schedule(tiles, B * Hq, blocks)
+            got = sorted(x for mine in sched for x in mine)
+            assert got == sorted((t, hb) for t in range(tiles)
+                                 for hb in range(B * Hq))
+            assert sched[0][0] == (tiles - 1, 0)
+            work = [sum(t + 1 for t, _ in mine) for mine in sched]
+            mean = sum(work) / len(work)
+            assert max(work) <= max(1.05 * mean, mean + tiles)
+
+
 def test_attn_stage_composes_k1_and_k2():
     """The attention stage == K1 on q|k|v then K2 (plain versions)."""
     rng = np.random.default_rng(10)
