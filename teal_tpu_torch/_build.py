@@ -62,9 +62,24 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I,  # K, G, layer, k_keep, xpack rows, rows
         _P,                     # stream
     ],
+    ("block_gather_gemv", "teal_block_gather_plan"): [
+        _I, _I, _I,             # dtype code, weight plan, G
+        _I, _I, _I, _I,         # n0, n1, n2, n_w
+        _I, _I, _I, _P,         # k_keep, xpack rows R, SM count,
+                                # out int32 [4]
+    ],
+    ("block_gather_gemv", "teal_block_gather_split"): [
+        _I, _I, _I, _P,         # k_keep, S, split, out int32 [2]
+    ],
     ("row_gather_gemv", "teal_row_gather_gemv"): [
         _I, _P, _P, _P, _P,     # dtype code, idx, xc, w, out
         _I, _I, _I, _P,         # K, N, nnz, stream
+    ],
+    ("row_gather_gemv", "teal_row_gather_plan"): [
+        _I, _I, _I, _P,         # dtype code, N, SM count, out int32 [5]
+    ],
+    ("row_gather_gemv", "teal_row_gather_split"): [
+        _I, _I, _I, _P,         # nnz, S, split, out int32 [2]
     ],
     ("decode_attention", "teal_decode_attention"): [
         _I,                     # dtype code

@@ -92,7 +92,7 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
 // group's [scale, zero] (`quant.pack_int4`).
 enum Plan { PLAN_STREAM = 0, PLAN_INT8 = 1, PLAN_INT4 = 2 };
 
-// Thread layout of the gather GEMVs (K1, K3, K4): a block owns TILE
+// Thread layout of K1's single-row gather: a block owns TILE
 // output columns; a thread loads VEC columns of one weight row (16 bytes,
 // or 8 bytes = 8 columns x 2 rows of packed int4), LPR lanes cover a
 // row's tile, so a warp covers RPW rows per load and the block SLOTS rows
@@ -104,9 +104,6 @@ struct VecShape {
   static constexpr int RPW = 32 / LPR;
   static constexpr int SLOTS = (THREADS / 32) * RPW;
 };
-
-template <typename T, int TILE, int THREADS>
-using GatherShape = VecShape<16 / sizeof(T), TILE, THREADS>;
 
 // The layout of plan P with a stream of type T.
 template <typename T, int P, int TILE, int THREADS>
@@ -221,36 +218,120 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// cp.async.wait_group with a run-time count (a ring's depth - 2)
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+// --- the gather GEMVs' split of their slots or kept groups ---------------
+
+// The first item of split s of S over `count` items: split s takes
+// [split_lo(count, S, s), split_lo(count, S, s + 1)), so the S splits
+// cover [0, count) once, in order (some empty where count < S).
+__host__ __device__ inline int split_lo(int count, int S, int s) {
+  return static_cast<int>(static_cast<long long>(count) * s / S);
+}
+
+// --- int8 and packed int4 as bf16, exactly (the gather GEMVs' MMAs) -------
+
+// bf16x2 (128 + a, 128 + b) -> (a, b): exact for nibbles
+__device__ __forceinline__ uint32_t minus128(uint32_t v) {
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
+                                   __floats2bfloat162_rn(128.f, 128.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// bf16x2 of byte s of int8 words w0 (low half) and w1, exactly and on
+// full-rate integer and half2 units: magnitude m <= 128 as bits 0x4300 | m
+// (128 + m: bf16 counts 1s from 128 to 256), the sign in bit 15, then
+// +-(128 + m) - +-128.
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w0, uint32_t w1,
+                                              int s) {
+  const uint32_t m = __byte_perm(__vabs4(w0), __vabs4(w1),
+                                 s | ((4 + s) << 8)) & 0x00FF00FFu;
+  const uint32_t sg = __byte_perm(w0, w1, (s << 4) | ((4 + s) << 12)) &
+                      0x80008000u;
+  uint32_t v = m | 0x43004300u | sg, c = 0x43004300u | sg;
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
+                                   *reinterpret_cast<__nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// B fragments of mma16816 for one warp's 16 k-rows of a gathered weight
+// slab in shared memory (rows `wstride` bytes apart), over a 64-column
+// tile: MMA k-index i reads slab row row0 + i (i < 8) or row0 + HALF + i
+// - 8 -- for packed int4 the low (i < 8) and high nibbles of packed row
+// row0 + i % 8, so one byte feeds two k-indices (HALF = G / 2 places the
+// high nibbles' rows in the group). Column n (0..7) of n-tile t is the
+// tile's column 8n + t, so a lane's eight n-tiles share one 16-byte
+// (bf16) or 8-byte (int8, int4) chunk of a weight row. int8 values and
+// nibbles become bf16 exactly.
+template <int P, int HALF>
+__device__ __forceinline__ void gather_b_frags(const unsigned char* W,
+                                               int wstride, int row0,
+                                               uint32_t (&b)[8][2]) {
+  const int lane = threadIdx.x & 31;
+  const int q = lane & 3, n8 = (lane >> 2) * 8;
+  if constexpr (P == PLAN_STREAM) {            // bf16
+    const unsigned char* r0 = W + (row0 + 2 * q) * wstride + n8 * 2;
+    const uint4 v0 = *reinterpret_cast<const uint4*>(r0);
+    const uint4 v1 = *reinterpret_cast<const uint4*>(r0 + wstride);
+    const uint4 v2 = *reinterpret_cast<const uint4*>(r0 + HALF * wstride);
+    const uint4 v3 =
+        *reinterpret_cast<const uint4*>(r0 + (HALF + 1) * wstride);
+    const uint32_t e0[4] = {v0.x, v0.y, v0.z, v0.w};
+    const uint32_t e1[4] = {v1.x, v1.y, v1.z, v1.w};
+    const uint32_t e2[4] = {v2.x, v2.y, v2.z, v2.w};
+    const uint32_t e3[4] = {v3.x, v3.y, v3.z, v3.w};
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const uint32_t s = (t & 1) ? 0x7632u : 0x5410u;
+      b[t][0] = __byte_perm(e0[t >> 1], e1[t >> 1], s);
+      b[t][1] = __byte_perm(e2[t >> 1], e3[t >> 1], s);
+    }
+  } else if constexpr (P == PLAN_INT8) {
+    const unsigned char* r0 = W + (row0 + 2 * q) * wstride + n8;
+    const uint2 v0 = *reinterpret_cast<const uint2*>(r0);
+    const uint2 v1 = *reinterpret_cast<const uint2*>(r0 + wstride);
+    const uint2 v2 = *reinterpret_cast<const uint2*>(r0 + HALF * wstride);
+    const uint2 v3 =
+        *reinterpret_cast<const uint2*>(r0 + (HALF + 1) * wstride);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      b[t][0] = i8x2_bf16(t < 4 ? v0.x : v0.y, t < 4 ? v1.x : v1.y, t & 3);
+      b[t][1] = i8x2_bf16(t < 4 ? v2.x : v2.y, t < 4 ? v3.x : v3.y, t & 3);
+    }
+  } else {                                     // packed int4
+    const unsigned char* r0 = W + (row0 + 2 * q) * wstride + n8;
+    const uint2 p0 = *reinterpret_cast<const uint2*>(r0);
+    const uint2 p1 = *reinterpret_cast<const uint2*>(r0 + wstride);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const uint32_t s = t & 3;
+      // bytes 0, 1: packed row 2q's byte t; bytes 2, 3: row 2q + 1's
+      const uint32_t v = __byte_perm(t < 4 ? p0.x : p0.y, t < 4 ? p1.x : p1.y,
+                                     s | (s << 4) | ((4 + s) << 8) |
+                                         ((4 + s) << 12));
+      b[t][0] = minus128((v & 0x000F000Fu) | 0x43004300u);
+      b[t][1] = minus128(((v >> 4) & 0x000F000Fu) | 0x43004300u);
+    }
+  }
+}
+
 // 8 consecutive fp32 values (32-byte aligned).
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// First half of the fixed-order sum over row slots: a butterfly across
-// the RPW lanes of each warp that hold the same columns, then lanes
-// [0, LPR) store the warp's partials [R][TILE] at red + warp * R * TILE.
-// After a __syncthreads the caller adds the warps' partials in warp
-// order, so the result never depends on scheduling.
-template <typename S, int TILE, int R>
-__device__ __forceinline__ void warp_partials(float (&acc)[R][S::VEC],
-                                              float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = S::LPR; o < 32; o <<= 1)
-#pragma unroll
-    for (int b = 0; b < R; ++b)
-#pragma unroll
-      for (int e = 0; e < S::VEC; ++e)
-        acc[b][e] += __shfl_xor_sync(0xffffffffu, acc[b][e], o);
-  if (lane < S::LPR)
-#pragma unroll
-    for (int b = 0; b < R; ++b)
-#pragma unroll
-      for (int e = 0; e < S::VEC; ++e)
-        red[(warp * R + b) * TILE + lane * S::VEC + e] = acc[b][e];
 }
 
 }  // namespace teal

@@ -447,42 +447,6 @@ RowsPlan rows_plan(int esz, int plan, int nw, int K, int n_out, int cap,
   return p;
 }
 
-// cp.async.wait_group with a run-time count (the ring's depth - 2)
-__device__ __forceinline__ void cp_async_wait_dyn(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    default: cp_async_wait<6>(); break;
-  }
-}
-
-// bf16x2 (128 + a, 128 + b) -> (a, b): exact for nibbles
-__device__ __forceinline__ uint32_t minus128(uint32_t v) {
-  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
-                                   __floats2bfloat162_rn(128.f, 128.f));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// bf16x2 of byte s of int8 words w0 (low half) and w1, exactly and on
-// full-rate integer and half2 units: magnitude m <= 128 as bits 0x4300 | m
-// (128 + m: bf16 counts 1s from 128 to 256), the sign in bit 15, then
-// +-(128 + m) - +-128.
-__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w0, uint32_t w1,
-                                              int s) {
-  const uint32_t m = __byte_perm(__vabs4(w0), __vabs4(w1),
-                                 s | ((4 + s) << 8)) & 0x00FF00FFu;
-  const uint32_t sg = __byte_perm(w0, w1, (s << 4) | ((4 + s) << 12)) &
-                      0x80008000u;
-  uint32_t v = m | 0x43004300u | sg, c = 0x43004300u | sg;
-  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
-                                   *reinterpret_cast<__nv_bfloat162*>(&c));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
 // selection input of a bf16x2 pair: rnd(rnd(v * rs) * g) per element
 __device__ __forceinline__ uint32_t sel2(uint32_t v, float rs, uint32_t g) {
   const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
@@ -490,61 +454,6 @@ __device__ __forceinline__ uint32_t sel2(uint32_t v, float rs, uint32_t g) {
       __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&g));
   return pack_bf16(rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(x.x * rs) * gg.x),
                    rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(x.y * rs) * gg.y));
-}
-
-// A warp's slice of a kept group is 16 of its 128 rows: MMA k-index i of
-// warp w reads row 8w + i (i < 8) or 64 + 8w + i - 8 -- for packed int4
-// the low (i < 8) and high nibbles of packed row 8w + i % 8, so one byte
-// feeds two k-indices. Column n (0..7) of n-tile t is the tile's column
-// 8n + t, so a lane's eight n-tiles share one 16-byte (bf16) or 8-byte
-// (int8, int4) chunk of a weight row.
-template <int P>
-__device__ __forceinline__ void b_frags(const unsigned char* W, int wstride,
-                                        uint32_t (&b)[8][2]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q = lane & 3, n8 = (lane >> 2) * 8;
-  if constexpr (P == PLAN_STREAM) {            // bf16
-    const unsigned char* r0 = W + (8 * warp + 2 * q) * wstride + n8 * 2;
-    const uint4 v0 = *reinterpret_cast<const uint4*>(r0);
-    const uint4 v1 = *reinterpret_cast<const uint4*>(r0 + wstride);
-    const uint4 v2 = *reinterpret_cast<const uint4*>(r0 + 64 * wstride);
-    const uint4 v3 = *reinterpret_cast<const uint4*>(r0 + 65 * wstride);
-    const uint32_t e0[4] = {v0.x, v0.y, v0.z, v0.w};
-    const uint32_t e1[4] = {v1.x, v1.y, v1.z, v1.w};
-    const uint32_t e2[4] = {v2.x, v2.y, v2.z, v2.w};
-    const uint32_t e3[4] = {v3.x, v3.y, v3.z, v3.w};
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const uint32_t s = (t & 1) ? 0x7632u : 0x5410u;
-      b[t][0] = __byte_perm(e0[t >> 1], e1[t >> 1], s);
-      b[t][1] = __byte_perm(e2[t >> 1], e3[t >> 1], s);
-    }
-  } else if constexpr (P == PLAN_INT8) {
-    const unsigned char* r0 = W + (8 * warp + 2 * q) * wstride + n8;
-    const uint2 v0 = *reinterpret_cast<const uint2*>(r0);
-    const uint2 v1 = *reinterpret_cast<const uint2*>(r0 + wstride);
-    const uint2 v2 = *reinterpret_cast<const uint2*>(r0 + 64 * wstride);
-    const uint2 v3 = *reinterpret_cast<const uint2*>(r0 + 65 * wstride);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      b[t][0] = i8x2_bf16(t < 4 ? v0.x : v0.y, t < 4 ? v1.x : v1.y, t & 3);
-      b[t][1] = i8x2_bf16(t < 4 ? v2.x : v2.y, t < 4 ? v3.x : v3.y, t & 3);
-    }
-  } else {                                     // packed int4
-    const unsigned char* r0 = W + (8 * warp + 2 * q) * wstride + n8;
-    const uint2 p0 = *reinterpret_cast<const uint2*>(r0);
-    const uint2 p1 = *reinterpret_cast<const uint2*>(r0 + wstride);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const uint32_t s = t & 3;
-      // bytes 0, 1: packed row 2q's byte t; bytes 2, 3: row 2q + 1's
-      const uint32_t v = __byte_perm(t < 4 ? p0.x : p0.y, t < 4 ? p1.x : p1.y,
-                                     s | (s << 4) | ((4 + s) << 8) |
-                                         ((4 + s) << 12));
-      b[t][0] = minus128((v & 0x000F000Fu) | 0x43004300u);
-      b[t][1] = minus128(((v >> 4) & 0x000F000Fu) | 0x43004300u);
-    }
-  }
 }
 
 // bf16: two blocks an SM (128 registers a thread), as the plan assumes
@@ -794,7 +703,7 @@ __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 2 : 1)
       for (int w = 0; w < NW; ++w) {
         const unsigned char* W = st + w * lay.wslab;
         uint32_t bf[8][2];
-        b_frags<P>(W, lay.wstride, bf);
+        gather_b_frags<P, RG / 2>(W, lay.wstride, 8 * warp, bf);
         if constexpr (P == PLAN_INT4) {
           // (x @ nib) * scale + sum(x) * zero, the group's own sums
           // scale row, then zero row; columns (2q + e) * 8 + t, four

@@ -691,6 +691,83 @@ def fused_select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws,
 
 # --- K3 -------------------------------------------------------------------
 
+# K3's launch plans on the card (`csrc/block_gather_gemv.cu`, `full_plan`,
+# `StreamLayout` and `Layout`, which `_bgg_plan`, `_bgg_stream_smem` and
+# `_bgg_smem` mirror; the card tests hold them together through
+# `teal_block_gather_plan`). Two forms: the one-row stream (R = 1) and the
+# rows form on the tensor cores (R = 8).
+BGG_TILE = 64                    # the rows form's output columns a block
+_BGG_STAGE_ROWS = 128            # the rows form's slab rows a ring stage
+_BGG_MAX_SPLITS = 8              # blocks a cluster
+_BGG_PIECE = 256                 # the one-row form's bytes of a slab row
+_BGG_STREAM_STAGES = 8
+
+
+def _bgg_smem(esz: int, plan: int, G: int, stages: int, S: int,
+              jmax: int) -> int:
+    """The rows form's shared memory in bytes: a ring of `stages` stages,
+    each 128 slab rows of the tile (rows padded by 16 bytes; packed int4:
+    64 rows and each group's scale and zero rows) and 16 input rows
+    (padded likewise), or the per-warp sums if larger; with S > 1 the
+    split parts the block combines; the block's `jmax` kept groups."""
+    wrows = _BGG_STAGE_ROWS // 2 if plan == PLAN_INT4 else _BGG_STAGE_ROWS
+    wstride = BGG_TILE * (esz if plan == PLAN_STREAM else 1) + 16
+    wslab = wrows * wstride + (_BGG_STAGE_ROWS // G * 2 * BGG_TILE * 4
+                               if plan == PLAN_INT4 else 0)
+    stage = wslab + MAX_ROWS * (LANES * esz + 16)
+    sums = _ROWS_WARPS * MAX_ROWS * BGG_TILE * 4
+    return (max(stages * stage, sums)
+            + (MAX_ROWS * BGG_TILE * 4 if S > 1 else 0) + _pad4(jmax) * 4)
+
+
+def _bgg_stream_tile(esz: int, plan: int) -> int:
+    """The one-row form's tile: 256 bytes of each slab row, in columns."""
+    return _BGG_PIECE // (esz if plan == PLAN_STREAM else 1)
+
+
+def _bgg_stream_smem(esz: int, plan: int, G: int) -> int:
+    """The one-row form's shared memory in bytes: the ring (8 stages of a
+    16-byte chunk a thread), a chunk's input values (2048, or 1024 for
+    packed int4) of the stream type, (int4) its groups' scale and zero
+    rows of the tile, its kept groups and the block's fp32 sums."""
+    tw = _bgg_stream_tile(esz, plan)
+    xs = 1024 if plan == PLAN_INT4 else 2048
+    cg = xs // G
+    return (_BGG_STREAM_STAGES * 256 * 16 + xs * esz
+            + (cg * 2 * tw * 4 if plan == PLAN_INT4 else 0) + _pad4(cg) * 4
+            + tw * 4)
+
+
+def _bgg_plan(esz: int, plan: int, G: int, ns, k_keep: int, R: int,
+              n_sms: int = _H100_SMS) -> Optional[Tuple[int, int, int, int]]:
+    """K3's launch plan from shapes only: (form, S, ring stages, shared
+    bytes), or None where nothing fits. R (xpack's rows) picks the form:
+    0, the one-row stream (R = 1: a block reads 256 bytes of each slab row
+    of its tile, sum of ceil(N_i / tile) tiles, 8 stages); 1, the rows
+    form on the tensor cores (R = 8: 64-column tiles; the deepest ring,
+    <= 8 stages, that leaves room for two blocks an SM, else that fits
+    one block). A block takes one of S contiguous shares of the kept list
+    (`gather_gemv.split_range`); S (the cluster) is the largest power of
+    two <= 8 keeping the grid within one block an SM."""
+    tw = _bgg_stream_tile(esz, plan) if R == 1 else BGG_TILE
+    tiles = sum(-(-n // tw) for n in ns)
+    if tiles <= 0 or k_keep < 1:
+        return None
+    S = 1
+    while S < _BGG_MAX_SPLITS and tiles * 2 * S <= n_sms:
+        S *= 2
+    if R == 1:
+        return 0, S, _BGG_STREAM_STAGES, _bgg_stream_smem(esz, plan, G)
+    jmax = -(-k_keep // S)
+    for two in (True, False):
+        for stages in range(_ROWS_MAX_STAGES, 1, -1):
+            smem = _bgg_smem(esz, plan, G, stages, S, jmax)
+            if (2 * (smem + 1024) <= _SM_SMEM_BYTES if two
+                    else smem <= _SMEM_BYTES):
+                return 1, S, stages, smem
+    return None
+
+
 def block_gather_gemv_multi_plain(idx, xpack, ws, layer: int, G: int,
                                   rows: int):
     """K3 in plain PyTorch (same arguments and result as

@@ -21,6 +21,43 @@ from teal_tpu_torch import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# K4's launch plan on the card (`csrc/row_gather_gemv.cu`, `plan` and
+# `Layout`, which `_plan` mirrors; the card tests hold the two together
+# through `teal_row_gather_plan`)
+_PIECE = 256                     # bytes of a row a block reads
+_THREADS = 256
+_STAGES = 8                      # the ring of row pieces
+_CHUNK = 2048                    # slots compacted at a time
+_MAX_SPLITS = 8                  # blocks a cluster
+
+
+def _plan(esz: int, N: int, n_sms: int):
+    """K4's launch plan from shapes only: (tile columns, S, ring stages,
+    compaction chunk, shared bytes). A block reads 256 bytes of each
+    survivor row (128 bf16 or 64 fp32 columns; the last tile masks columns
+    past N) and one of S contiguous ranges of the slots; S (the cluster)
+    is the largest power of two <= 8 keeping the grid within two blocks
+    an SM (block s takes the slots `split_range(nnz, S, s)`). Shared
+    memory: the ring [stages][threads] x 16 bytes, the
+    compacted indices and values, the warps' counts (64 bytes) and the
+    block's fp32 sums of its tile."""
+    tw = _PIECE // esz
+    tiles = -(-N // tw)
+    S = 1
+    while S < _MAX_SPLITS and tiles * S * 2 <= 2 * n_sms:
+        S *= 2
+    smem = _STAGES * _THREADS * 16 + 2 * _CHUNK * 4 + 64 + tw * 4
+    return tw, S, _STAGES, _CHUNK, smem
+
+
+def split_range(count: int, S: int, s: int):
+    """The items [lo, hi) of `count` that split s of S takes (`split_lo`
+    in `csrc/common.cuh`, by which K3 and K4 cut their kept groups and
+    slots; the card tests hold the two together through
+    `teal_row_gather_split` and `teal_block_gather_split`): S contiguous
+    ranges in order, some empty where count < S."""
+    return count * s // S, count * (s + 1) // S
+
 
 def compact_indices(x: torch.Tensor, threshold, nnz_cap: int):
     """Survivor compaction of one row x (K values): the indices of

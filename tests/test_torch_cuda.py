@@ -113,20 +113,46 @@ def test_k1_at_group_size_matches_plain(cuda, dtype, G, norm):
         assert ok, (thr, err)
 
 
+def _k3_case(cuda, g, dtype, ws, G, rows, k_keep, layer, rel):
+    """K3 against its plain version at one shape: outputs within `rel` of
+    scale, two identical calls bit-identical, one launch a call."""
+    K = bg._in_dim(ws[0])
+    x = torch.randn(rows, K, generator=g, device=cuda).to(dtype)
+    idx, xpack = (bg.select_groups(x, G, k_keep) if rows == 1
+                  else bg.select_groups_batched(x, G, k_keep))
+    before = bg.block_gather_gemv_multi.launches
+    got = bg.block_gather_gemv_multi(idx, xpack, ws, layer, G, rows)
+    again = bg.block_gather_gemv_multi(idx, xpack, ws, layer, G, rows)
+    assert bg.block_gather_gemv_multi.launches == before + 2
+    want = bg.block_gather_gemv_multi_plain(idx, xpack, ws, layer, G, rows)
+    assert torch.equal(got, again), (G, rows, k_keep, "two calls differ")
+    ok, err = _close(got, want, rel)
+    assert ok, (G, rows, k_keep, len(ws), err)
+
+
+# K3's kept counts: 1, below the cluster of the small shapes' plan (7
+# tiles: S = 8), and 9
+K3_KEEPS = (1, 3, 9)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,rows", [(32, 1), (64, 1), (32, 8), (128, 5)])
+@pytest.mark.parametrize("G,rows", [(32, 1), (64, 1), (32, 8), (128, 5),
+                                    (128, 1), (64, 4), (32, 4), (64, 8),
+                                    (128, 8)])
 def test_k3_kernel_matches_plain(cuda, dtype, G, rows):
+    """K3 (weights of the stream type) at every G and rows 1-8 (1 and 4-5
+    of an 8-row xpack), with 1-3 weights of widths 256 / 96 / 32 (masked
+    half tiles), k_keep 1, below the split count and above it; two calls
+    bit-identical."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    L, K, layer, k_keep = 3, 1024, 2, 9
+    L, K, layer = 3, 1024, 2
     ws = [(torch.randn(L, K, n, generator=g, device=cuda) * 0.05).to(dtype)
           for n in (256, 96, 32)]
-    x = torch.randn(rows, K, generator=g, device=cuda).to(dtype)
-    idx, xpack = (bg.select_groups(x, G, min(k_keep, K // G)) if rows == 1
-                  else bg.select_groups_batched(x, G, min(k_keep, K // G)))
-    got = bg.block_gather_gemv_multi(idx, xpack, ws, layer, G, rows)
-    want = bg.block_gather_gemv_multi_plain(idx, xpack, ws, layer, G, rows)
-    ok, err = _close(got, want, 1e-5 if dtype == torch.float32 else 1e-4)
-    assert ok, err
+    for n_w in (3, 1, 2):
+        for k_keep in K3_KEEPS:
+            _k3_case(cuda, g, dtype, ws[3 - n_w:] if n_w < 3 else ws, G,
+                     rows, min(k_keep, K // G), layer,
+                     1e-5 if dtype == torch.float32 else 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -142,6 +168,149 @@ def test_k4_kernel_matches_plain(cuda, dtype, quantile):
     want = gg.row_gather_gemv_plain(idx, vals, w)
     ok, err = _close(got, want, 1e-5 if dtype == torch.float32 else 2 ** -7)
     assert ok, err
+
+
+# K4's edge cases: (K, N, nnz, what the slots hold)
+K4_EDGES = {
+    "nnz=1": (1536, 416, 1, "compact"),
+    "nnz below the splits": (1536, 416, 3, "compact"),
+    "every xc zero": (1536, 416, 960, "zero"),
+    "idx outside [0, K)": (1536, 416, 960, "bad idx"),
+    "N=32": (512, 32, 320, "compact"),
+    "N not a tile multiple": (768, 1056, 480, "compact"),
+    "K=11008 uneven ranges": (11008, 256, 6883, "compact"),
+    "more slots than a chunk": (32768, 64, 20480, "compact"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(K4_EDGES))
+def test_k4_edge_cases_match_plain(cuda, dtype, case):
+    """K4 against its plain version where the split or the masking could
+    go wrong: one slot, fewer slots than the cluster's splits, no
+    survivor, indices outside [0, K) (clamped: the plain version reads the
+    clamped rows), a single 32-column tile, a last tile past N, slot
+    ranges that do not divide evenly, a range longer than one compaction
+    chunk; two calls bit-identical."""
+    K, N, nnz, kind = K4_EDGES[case]
+    g = torch.Generator(device=cuda).manual_seed(40 + len(case))
+    w = (torch.randn(K, N, generator=g, device=cuda) * 0.05).to(dtype)
+    x = torch.randn(K, generator=g, device=cuda).to(dtype)
+    thr = torch.quantile(x.float().abs(), 0.5)
+    idx, vals = gg.compact_indices(x, thr, nnz)
+    if kind == "zero":
+        vals = torch.zeros_like(vals)
+    elif kind == "bad idx":
+        bad = torch.randint(-3 * K, 3 * K, idx.shape, generator=g,
+                            device=cuda, dtype=torch.int32)
+        idx = torch.where(torch.arange(nnz, device=cuda) % 3 == 0, bad, idx)
+    before = gg.row_gather_gemv.launches
+    got = gg.row_gather_gemv(idx, vals, w)
+    again = gg.row_gather_gemv(idx, vals, w)
+    assert gg.row_gather_gemv.launches == before + 2
+    assert torch.equal(got, again), "two calls differ"
+    want = gg.row_gather_gemv_plain(idx.clamp(0, K - 1), vals, w)
+    if kind == "zero":
+        assert not bool(got.any())
+    ok, err = _close(got, want, 1e-5 if dtype == torch.float32 else 2 ** -7)
+    assert ok, err
+
+
+def test_k4_plan_matches_kernel(cuda):
+    """The wrapper's `_plan` (tile columns, splits, ring stages, chunk,
+    shared bytes) equals the kernel's over widths, both types, and SM
+    counts."""
+    lib = _build.load()["row_gather_gemv"]
+    out = torch.zeros(5, dtype=torch.int32)
+    for N in (32, 96, 416, 1056, 4096, 11008, 14336):
+        for code, esz in ((0, 4), (1, 2)):
+            for sms in (78, 114, 132):
+                assert lib.teal_row_gather_plan(code, N, sms,
+                                                out.data_ptr()) == 0
+                assert tuple(int(v) for v in out) == gg._plan(esz, N, sms), \
+                    (N, esz, sms)
+
+
+def test_k3_plan_matches_kernel(cuda):
+    """The wrapper's `_bgg_plan` (form, splits, ring stages, shared bytes)
+    equals the kernel's over the 7B stage shapes and small ones, both
+    stream types, the three weight plans, every G, both forms and two SM
+    counts."""
+    lib = _build.load()["block_gather_gemv"]
+    out = torch.zeros(4, dtype=torch.int32)
+    shapes = [(4096, 4096, 4096), (4096,), (11008, 11008), (256, 96, 32),
+              (32,), (96, 64), (14336,)]
+    for ns in shapes:
+        padded = list(ns) + [0] * (3 - len(ns))
+        for G in bg.GROUP_SIZES:
+            for k_keep in (1, 3, 64, 86, 344):
+                for code, esz in ((0, 4), (1, 2)):
+                    for plan in (0, 1, 2):
+                        for R in (1, 8):
+                            for sms in (114, 132):
+                                want = bg._bgg_plan(esz, plan, G, ns,
+                                                    k_keep, R, sms)
+                                lib.teal_block_gather_plan(
+                                    code, plan, G, *padded, len(ns), k_keep,
+                                    R, sms, out.data_ptr())
+                                got = tuple(int(v) for v in out)
+                                assert (got[3] == -1 if want is None
+                                        else got == want), (
+                                    ns, G, k_keep, esz, plan, R, sms)
+
+
+def test_split_range_matches_kernels(cuda):
+    """`gather_gemv.split_range` equals the split both libraries cut by
+    (`split_lo` through `teal_row_gather_split` and
+    `teal_block_gather_split`) at every S the plans give, counts from 1
+    to past an int32 product."""
+    libs = _build.load()
+    out = torch.zeros(2, dtype=torch.int32)
+    for lib, fn in ((libs["row_gather_gemv"], "teal_row_gather_split"),
+                    (libs["block_gather_gemv"], "teal_block_gather_split")):
+        for S in (1, 2, 4, 8):
+            for count in (1, 2, 3, 7, 13, 86, 6880, 11008, 300_000_000):
+                for s in range(S):
+                    assert getattr(lib, fn)(count, S, s, out.data_ptr()) == 0
+                    assert tuple(int(v) for v in out) == \
+                        gg.split_range(count, S, s), (fn, count, S, s)
+
+
+def _widths_for_splits(esz, plan, R, splits, sms):
+    """Widths 96 and 32 (masked half tiles) behind a first width that
+    brings the tile count to where K3's plan takes `splits` on this card
+    (the largest power of two <= 8 with tiles * S <= SMs)."""
+    tw = bg._bgg_stream_tile(esz, plan) if R == 1 else bg.BGG_TILE
+    tiles = sms // splits if splits > 1 else sms
+    rest = -(-96 // tw) + -(-32 // tw)
+    return ((tiles - rest) * tw, 96, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", ["stream", "int8", "int4"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_k3_splits_match_plain(cuda, dtype, plan, splits):
+    """K3 at each split count S (each tile's kept groups over S blocks of
+    a cluster, added in split order), reached through the weights' widths
+    at this card's SM count, in both forms (rows 1 and 4 of 8): k_keep 1,
+    3 (below S) and 13 (uneven shares); 1e-4 of scale (bf16 stream) or
+    1e-5; two calls bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(500 + splits)
+    L, K, layer, G = 2, 2048, 1, 64
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    esz = torch.finfo(dtype).bits // 8
+    code = {"stream": bg.PLAN_STREAM, "int8": bg.PLAN_INT8,
+            "int4": bg.PLAN_INT4}[plan]
+    rel = 1e-4 if plan == "stream" and dtype == torch.bfloat16 else 1e-5
+    for rows, R in ((1, 1), (4, 8)):
+        ns = _widths_for_splits(esz, code, R, splits, sms)
+        assert bg._bgg_plan(esz, code, G, ns, 13, R, sms)[1] == splits, ns
+        ws = (_plan_weights(g, cuda, plan, L, K, ns, G)
+              if plan != "stream" else
+              [(torch.randn(L, K, n, generator=g, device=cuda) * 0.05)
+               .to(dtype) for n in ns])
+        for k_keep in (1, 3, 13):
+            _k3_case(cuda, g, dtype, ws, G, rows, k_keep, layer, rel)
 
 
 def test_layer_loop_kernels_count_launches(cuda):
@@ -214,19 +383,20 @@ def test_k1_plans_match_plain(cuda, dtype, plan, G, epilogue):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("plan,G", [("int8", 32), ("int8", 64),
-                                    ("int4", 64), ("int4", 128)])
-@pytest.mark.parametrize("rows", [1, 4])
+                                    ("int4", 64), ("int4", 128),
+                                    ("int8", 128)])
+@pytest.mark.parametrize("rows", [1, 4, 8])
 def test_k3_plans_match_plain(cuda, dtype, plan, G, rows):
+    """K3 with int8 and packed-int4 weights at every G they take, rows 1,
+    4 and 8, 1-3 weights of widths 256 / 96 / 32, k_keep 1, below the
+    split count and 7; two calls bit-identical; 1e-5 of scale."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    L, K, layer, k_keep = 3, 1024, 2, 7
+    L, K, layer = 3, 1024, 2
     ws = _plan_weights(g, cuda, plan, L, K, (256, 96, 32), G)
-    x = torch.randn(rows, K, generator=g, device=cuda).to(dtype)
-    idx, xpack = (bg.select_groups(x, G, k_keep) if rows == 1
-                  else bg.select_groups_batched(x, G, k_keep))
-    got = bg.block_gather_gemv_multi(idx, xpack, ws, layer, G, rows)
-    want = bg.block_gather_gemv_multi_plain(idx, xpack, ws, layer, G, rows)
-    ok, err = _close(got, want, 1e-5)
-    assert ok, err
+    for n_w in (3, 1, 2):
+        for k_keep in (1, 3, 7):
+            _k3_case(cuda, g, dtype, ws[3 - n_w:] if n_w < 3 else ws, G,
+                     rows, min(k_keep, K // G), layer, 1e-5)
 
 
 def test_plan_kernels_raise_rather_than_fall_back(cuda):
