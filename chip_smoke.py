@@ -12,7 +12,9 @@ when the port's package is missing beside it, or when any check fails.
 Phases:
   1. build the port's CUDA kernels from `teal_tpu_torch/csrc` (one `nvcc`
      per source, all at once) and print the build time and `ptxas` report;
-  2. K1 (`select_gather_gemv`) against its plain version, bf16, at the four
+  2. K1's single-row launch plan in the wrapper equal to the kernel's
+     (`check_k1_plan`); K1 (`select_gather_gemv`) against its plain
+     version, bf16, at the four
      Llama-2-7B stage shapes, for count < cap, count == cap with groups
      under the threshold, and more survivors than cap: identical kept
      sets, outputs within 1e-4 (fp32 q|k|v) or 2^-7 (bf16 epilogues) of
@@ -337,6 +339,52 @@ def k1_inputs(spec, cfg, K, n_surv, gen, device, dtype, layer, G=128):
     res = (torch.randn(n_out, generator=gen, device=device).to(dtype)
            if spec["res"] else None)
     return x, torch.tensor(thr, dtype=torch.float32, device=device), res
+
+
+def check_k1_plan(cfg, caps):
+    """The wrapper's single-row plan (`block_gemv._sgg_plan`: splits,
+    cluster, ring stages, shared bytes) equal to the kernel's
+    (`teal_sgg_plan`) at the token path's four stage shapes and path B's,
+    for both stream types, the three weight plans and caps 1 to nb, on
+    this card's SM count."""
+    import ctypes
+
+    import torch
+
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    fn = _build.load()["select_gather_gemv"].teal_sgg_plan
+    sms = _build.sm_count(torch.cuda.current_device())
+    D, I = cfg.dim, cfg.intermediate_size
+    kv = cfg.n_kv_heads * cfg.head_dim
+    shapes = {"qkv": (D, (D, kv, kv), 1), "o": (D, (D,), 1),
+              "gate|up": (D, (I, I), 2), "down": (I, (D,), 1)}
+    n = 0
+    for name, (K, ns, nw) in shapes.items():
+        padded = list(ns) + [0] * (3 - len(ns))
+        for G in (128, bg.effective_block_size(32, K)):
+            nb = K // G
+            for cap in sorted({1, nb // 2, nb, *caps}):
+                if cap > nb:
+                    continue
+                for code, esz in ((0, 4), (1, 2)):
+                    for plan in (0, 1, 2):
+                        out = (ctypes.c_int * 4)()
+                        fn(code, plan, int(nw == 2), G, *padded, len(ns), K,
+                           cap, sms, out)
+                        want = bg._sgg_plan(esz, plan, nw, G, ns, K, cap, sms)
+                        check(want is not None and tuple(out) == want,
+                              f"K1 plan at {name} G={G} cap={cap} esz={esz} "
+                              f"plan={plan}: the kernel's {tuple(out)}, the "
+                              f"wrapper's {want}")
+                        n += 1
+    log(f"[k1] the wrapper's single-row plan equals the kernel's at all {n} "
+        f"(stage, G, cap, type, weight plan) shapes checked ({sms} SMs); "
+        "bf16 at G = 128, cap " + ", ".join(
+            f"{name} {bg._sgg_plan(2, 0, nw, 128, ns, K, cap, sms)[:2]}"
+            for (name, (K, ns, nw)), cap in zip(shapes.items(), caps))
+        + " as (S, C)")
 
 
 def check_k1(params, cfg, caps, device, gen, tag="k1"):
@@ -3333,6 +3381,7 @@ def main() -> int:
     caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
     rope = llama.precompute_rope(cfg, MAX_SEQ, device)
 
+    check_k1_plan(cfg, caps)
     e1 = check_k1(params, cfg, caps, device, gen)
     e2 = check_k2(cfg, device, gen, rope)
     e_loop = (check_k1_groups(params, cfg, device, gen),

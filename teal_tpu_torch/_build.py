@@ -44,15 +44,18 @@ SIGNATURES = {
                                 # routing weights (mode 3, or null)
         _P,                     # stream
     ],
+    ("select_gather_gemv", "teal_sgg_plan"): [
+        _I, _I, _I, _I,         # dtype code, weight plan, pair, G
+        _I, _I, _I, _I,         # n0, n1, n2, n_w
+        _I, _I, _I, _P,         # K, cap, SM count, out int32 [4]
+    ],
     ("select_gather_gemv", "teal_sgg_rows_plan"): [
         _I, _I, _I, _I, _I,     # dtype code, weight plan, pair, K, n_out
-        _I, _I, _I, _P,         # cap, SM count, splits (0: the rule),
-                                # out int32 [4]
+        _I, _I, _P,             # cap, SM count, out int32 [4]
     ],
-    ("select_gather_gemv", "teal_sgg_rows_force_splits"): [_I],
     ("select_gather_gemv", "teal_sgg_rows_residency"): [
         _I, _I, _I, _I, _I,     # dtype code, weight plan, pair, K, n_out
-        _I, _I, _P,             # cap, splits (0: the rule), out int32 [3]
+        _I, _P,                 # cap, out int32 [3]
     ],
     ("block_gather_gemv", "teal_block_gather_gemv"): [
         _I, _I, _P, _P,         # dtype code, weight plan, idx, xpack

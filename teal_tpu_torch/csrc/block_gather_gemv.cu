@@ -460,21 +460,6 @@ int stream_splits(int tiles, int n_sms) {
   return S;
 }
 
-// Byte k of an int8 word as fp32, exactly: the byte b xor 0x80 placed
-// under 0x4B000000 is the float 2^23 + 128 + b, and 2^23 + 128 comes off.
-__device__ __forceinline__ float i8_f(uint32_t w, int k) {
-  return __int_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
-                                    k | (4 << 4) | (5 << 8) | (7 << 12))) -
-         8388736.f;
-}
-
-// 128 + nibble byte k of w (bytes 0..15) as fp32, exactly, in one PRMT:
-// the bits 0x43000000 | n << 16 (the bf16 0x4300 | n widened).
-__device__ __forceinline__ float nib128_f(uint32_t w, int k) {
-  return __int_as_float(__byte_perm(w, 0x43000000u,
-                                    4 | (5 << 4) | (k << 8) | (7 << 12)));
-}
-
 // Thread (row lane rl, chunk q) streams rows rl, rl + SRL, ... of the
 // block's share of the kept groups' slabs (GROWS rows a group, IPG of
 // them the thread's), 16 bytes of each, through its own slots of a ring

@@ -92,25 +92,6 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
 // group's [scale, zero] (`quant.pack_int4`).
 enum Plan { PLAN_STREAM = 0, PLAN_INT8 = 1, PLAN_INT4 = 2 };
 
-// Thread layout of K1's single-row gather: a block owns TILE
-// output columns; a thread loads VEC columns of one weight row (16 bytes,
-// or 8 bytes = 8 columns x 2 rows of packed int4), LPR lanes cover a
-// row's tile, so a warp covers RPW rows per load and the block SLOTS rows
-// ("row slots").
-template <int VEC_, int TILE, int THREADS>
-struct VecShape {
-  static constexpr int VEC = VEC_;
-  static constexpr int LPR = TILE / VEC;
-  static constexpr int RPW = 32 / LPR;
-  static constexpr int SLOTS = (THREADS / 32) * RPW;
-};
-
-// The layout of plan P with a stream of type T.
-template <typename T, int P, int TILE, int THREADS>
-using PlanShape =
-    VecShape<P == PLAN_INT8 ? 16 : (P == PLAN_INT4 ? 8 : 16 / sizeof(T)),
-             TILE, THREADS>;
-
 // One 16-byte load of VEC weights of element type E, as fp32.
 template <typename E, int VEC>
 __device__ __forceinline__ void load_row(const E* p, float (&v)[VEC]) {
@@ -119,19 +100,6 @@ __device__ __forceinline__ void load_row(const E* p, float (&v)[VEC]) {
   const E* e = reinterpret_cast<const E*>(&raw);
 #pragma unroll
   for (int i = 0; i < VEC; ++i) v[i] = to_f(e[i]);
-}
-
-// One 8-byte load of packed int4: 8 columns of two rows, as the raw
-// nibbles 0..15 in fp32 (low nibble: the group's row p, high: p + G/2).
-__device__ __forceinline__ void load_nibbles(const int8_t* p, float (&lo)[8],
-                                             float (&hi)[8]) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    lo[i] = static_cast<float>(b[i] & 15);
-    hi[i] = static_cast<float>(b[i] >> 4);
-  }
 }
 
 // --- asynchronous copies, tensor cores and clusters (sm_90a) ---------------
@@ -326,12 +294,21 @@ __device__ __forceinline__ void gather_b_frags(const unsigned char* W,
   }
 }
 
-// 8 consecutive fp32 values (32-byte aligned).
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+// --- int8 and packed int4 as fp32, exactly (the one-row streams) -------
+
+// Byte k of an int8 word as fp32, exactly: the byte b xor 0x80 placed
+// under 0x4B000000 is the float 2^23 + 128 + b, and 2^23 + 128 comes off.
+__device__ __forceinline__ float i8_f(uint32_t w, int k) {
+  return __int_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
+                                    k | (4 << 4) | (5 << 8) | (7 << 12))) -
+         8388736.f;
+}
+
+// 128 + nibble byte k of w (bytes 0..15) as fp32, exactly, in one PRMT:
+// the bits 0x43000000 | n << 16 (the bf16 0x4300 | n widened).
+__device__ __forceinline__ float nib128_f(uint32_t w, int k) {
+  return __int_as_float(__byte_perm(w, 0x43000000u,
+                                    4 | (5 << 4) | (k << 8) | (7 << 12)));
 }
 
 }  // namespace teal

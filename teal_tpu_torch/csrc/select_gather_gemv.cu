@@ -41,25 +41,35 @@
 // against 2 * rows * N flops, so HBM bandwidth (3.35 TB/s) is the
 // roofline and the kernel should keep enough loads in flight on every SM.
 //
-// Design. Each block owns a tile of 32 output columns of every weight it
-// reads, so the grid is N_out / 32 blocks (128 blocks for a 4096-wide
-// output, 688 for gate|up at 7B) and no block needs another's result:
-// no atomics, no split-K. Every block reads the whole input vector (at
-// most 11008 values) and repeats the norm, the scores and the scan
-// itself -- a few microseconds of L2 traffic that replaces a second
-// launch. The scan is a warp ballot + popcount prefix over the groups
-// (32 a step; up to 344 groups), which keeps exactly the groups the
-// serial scan keeps. G is a template parameter, so the row -> (group,
-// offset) split in the gather is a shift and a mask. In the gather,
-// each thread loads 16 bytes (8 bf16 or 16 int8 columns) of one kept
-// row; a warp covers 8 rows (bf16; 16 int8) of the tile per instruction
-// and the 8 warps 64 (128) rows, unrolled 4 deep. Packed int4 needs each
-// group's sum before its scale, so there a warp owns a kept group at a
-// time: each thread loads 8 bytes (8 columns x 2 rows) of G/16 packed
-// rows of the group, sums x * nibble and x over them, and adds
-// partial * scale_g + sum(x) * zero_g to its accumulators. The per-slot
-// partial sums of each column are added in slot order through shared
-// memory, so the result does not depend on scheduling.
+// Design of the single row (`sgg_stream_kernel`). A block owns a tile of
+// 256 bytes of each slab row of the weights it reads (bf16 128 columns,
+// fp32 64, int8 and packed int4 256; mode 2 the same columns of gate and
+// up, so the silu product needs no second pass; a narrower last tile of
+// a weight is masked) and one of S contiguous shares of the kept list
+// (`split_lo`). A thread-block cluster of C = S * (tiles a cluster) <= 8
+// blocks does the prologue once: block `rank` reads its 1/C of the groups
+// of x with 16-byte loads, pushes its sum of squares into every peer's
+// shared memory (added in rank order, so every block forms the same row
+// scale), then its groups' max-|x| scores after the fold; every block
+// runs the same ballot scan on identical scores, so all keep exactly the
+// serial scan's groups. The gather then streams the block's share as
+// K3's one-row form does: the kept groups' selection inputs (and int4's
+// scale and zero rows, laid out without bank conflicts) are staged in
+// shared memory a chunk of groups at a time; each thread streams 16
+// bytes of every 16th slab row of its share (of both weights in mode 2)
+// through its own slots of an 8-stage cp.async ring and does its FMAs on
+// what it copied itself, so the loop has no block barrier and no
+// dependent load. int8 becomes fp32 with one byte permute a value
+// (`i8_f`); packed int4 with one PRMT a nibble (`nib128_f`), each group's
+// sums kept in fp32 before its scale and zero. Sums are added in a fixed
+// order -- a thread's rows in order, the 16 row lanes in order, the S
+// split blocks in split order after each pushed its part over
+// distributed shared memory -- so two calls give the same bits; no
+// atomics. The plan (S, C, ring stages, shared bytes) comes from shapes
+// only (`sgg_plan`, mirrored by the wrapper's `_sgg_plan` and exported as
+// `teal_sgg_plan`). Measured on the H100 (PERF.md section 6): a call
+// pays a fixed 8-10 us whatever its bytes; a grid doubled to two blocks
+// an SM, a 12-stage ring and 512-byte tiles were all slower.
 //
 // Rows form (B = 2..16 input rows at G = 128, the batched whole-token
 // kernel's `_proj_stage` with `batch` rows, token_block.py:343): one
@@ -117,7 +127,6 @@ using namespace teal;
 
 namespace {
 
-constexpr int TILE = 32;     // output columns per block
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 
@@ -143,11 +152,8 @@ struct Args {
   int B;                     // input rows (rows form when > 1)
   int fixed;                 // keep groups 0..cap-1, no scores
   int n_out;                 // output columns of a row
-  int S, C, nst;             // rows form: splits, cluster, ring stages
+  int S, C, nst;             // the plan: splits, cluster, ring stages
 };
-
-template <typename T, int P>
-using Shape = PlanShape<T, P, TILE, THREADS>;
 
 // The layer this call reads: the host's, or layer_dev[slot] read on the
 // device. A value outside [0, L) traps rather than read out of bounds.
@@ -211,164 +217,440 @@ __device__ __forceinline__ void tile_weights(const Args& a, int c0,
   }
 }
 
-// element type of a 16-byte row load
-template <typename T, int P> struct Elem { using type = T; };
-template <typename T> struct Elem<T, PLAN_INT8> { using type = int8_t; };
+// --- single row: selection once per cluster, a stream of slab rows ----
+
+constexpr int PIECE = 256;           // bytes of a slab row a block reads
+constexpr int CPR = PIECE / 16;      // 16-byte chunks of a row piece
+constexpr int RLANES = THREADS / CPR;  // row lanes
+constexpr int SNST = 8;              // ring stages
+constexpr int SMAXS = 8;             // splits of a tile's kept groups
+constexpr int SMAXC = 8;             // blocks a cluster (the portable size)
+constexpr int SCRATCH = 64;          // floats: block_sum, norm partials
+constexpr int SMEM_MAX = 232448;     // a block's shared memory on Hopper
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+// Groups staged a chunk: 2048 input values' worth (stream, int8), or 8
+// groups for packed int4, whose chunk also holds each group's scale and
+// zero rows of the tile.
+__host__ __device__ constexpr int chunk_groups(int plan, int G) {
+  return plan == PLAN_INT4 ? 8 : 2048 / G;
+}
+
+// Shared memory of the single-row kernel, bytes: the ring [SNST][NW]
+// [THREADS] x 16 (after the loop the row lanes' sums [RLANES][NW][TW]
+// fp32), a chunk's selection inputs [CG][G] of the stream type, (int4)
+// its groups' scale and zero rows [CG][NW][2][TW] fp32, the kept groups
+// and count [cap + 1], the scores [nb], the block_sum scratch and the
+// peers' norm partials, the split sums of the block's columns [S][NW]
+// [TW / S] fp32 (pushed by the cluster's peers). The wrapper's `_sgg_smem`
+// mirrors `total`.
+struct StreamLayout {
+  int tw, cg, xs, sz, idx, scores, misc, part, total;
+  __host__ __device__ StreamLayout(int esz, int plan, int nw, int G, int nb,
+                                   int cap) {
+    tw = PIECE / (plan == PLAN_STREAM ? esz : 1);
+    cg = chunk_groups(plan, G);
+    xs = SNST * nw * THREADS * 16;
+    sz = xs + cg * G * esz;
+    idx = sz + (plan == PLAN_INT4 ? cg * nw * 2 * tw * 4 : 0);
+    scores = idx + pad4(cap + 1) * 4;
+    misc = scores + pad4(nb) * 4;
+    part = misc + SCRATCH * 4;
+    total = part + nw * tw * 4;
+  }
+};
+
+// The single-row plan, from shapes only: S splits of each tile's kept
+// groups (the largest power of two <= SMAXS keeping the grid of tiles * S
+// blocks within one block an SM), C = S * (tiles a cluster) blocks a
+// cluster (the largest power of two <= SMAXC whose tiles divide the
+// grid's), the ring's stages and the shared bytes (-1 where the shapes
+// take no plan). `tiles` counts ceil(n_i / TW) over the weights (mode 2:
+// of gate only, whose tile holds up's columns too).
+struct SggPlan { int S, C, nst, smem; };
+
+SggPlan sgg_plan(int esz, int plan, int nw, int G, const int (&n)[3], int K,
+                 int cap, int n_sms) {
+  SggPlan p = {0, 0, 0, -1};
+  if (G <= 0 || K <= 0 || K % G || cap < 1 || cap > K / G) return p;
+  const StreamLayout lay(esz, plan, nw, G, K / G, cap);
+  const int tiles = nw == 2 ? cdiv(n[0], lay.tw)
+                            : cdiv(n[0], lay.tw) + cdiv(n[1], lay.tw) +
+                                  cdiv(n[2], lay.tw);
+  if (tiles <= 0 || lay.total > SMEM_MAX) return p;
+  int S = 1;
+  while (S < SMAXS && tiles * 2 * S <= n_sms) S *= 2;
+  int tc = 1;
+  while (tc * 2 * S <= SMAXC && tiles % (tc * 2) == 0) tc *= 2;
+  p = {S, tc * S, SNST, lay.total};
+  return p;
+}
+
+// The selection input of a 16-byte chunk of x (and of the gains): x
+// itself, or rnd(rnd(x * rs) * gain) per element, the reference's two
+// roundings (`_norm_fold`); as fp32 in v.
+template <typename T>
+__device__ __forceinline__ void sel_chunk(const uint4& xr, const uint4* gr,
+                                          float rs,
+                                          float (&v)[16 / sizeof(T)]) {
+  constexpr int EPV = 16 / sizeof(T);
+  const T* xe = reinterpret_cast<const T*>(&xr);
+#pragma unroll
+  for (int e = 0; e < EPV; ++e) v[e] = to_f(xe[e]);
+  if (gr != nullptr) {
+    const T* ge = reinterpret_cast<const T*>(gr);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e)
+      v[e] = rnd<T>(rnd<T>(v[e] * rs) * to_f(ge[e]));
+  }
+}
+
+// 16 bytes of the stream type from fp32 values already rounded to it
+template <typename T>
+__device__ __forceinline__ uint4 pack_chunk(const float (&v)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                      __float_as_uint(v[2]), __float_as_uint(v[3]));
+  } else {
+    return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                      pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
 
 template <typename T, int P, bool PAIR, int G>
-__global__ void __launch_bounds__(THREADS) sgg_kernel(Args a) {
-  using S = Shape<T, P>;
-  using E = typename Elem<T, P>::type;
+__global__ void __launch_bounds__(THREADS, 2) sgg_stream_kernel(Args a) {
   constexpr int NW = PAIR ? 2 : 1;
-  extern __shared__ float smem[];
-  const int K = a.K, nb = K / G;
-  float* xs = smem;                             // [K] selected input
-  float* red = xs + K;                          // [SLOTS][NW * TILE]
-  float* scores = red + S::SLOTS * NW * TILE;   // [nb]
-  float* scratch = scores + nb;                 // [32]
-  float* fin = scratch + 32;                    // [NW * TILE]
-  int* idx = reinterpret_cast<int*>(fin + NW * TILE);  // [cap]
-  int* cnt = idx + a.cap;                       // [1]
+  constexpr int ESZ = static_cast<int>(sizeof(T));
+  constexpr int WESZ = P == PLAN_STREAM ? ESZ : 1;
+  constexpr int TW = PIECE / WESZ;          // tile columns
+  constexpr int VEC = 16 / WESZ;            // a chunk's columns
+  constexpr int GROWS = P == PLAN_INT4 ? G / 2 : G;   // slab rows a group
+  constexpr int IPG = GROWS / RLANES;       // a thread's rows of a group
+  constexpr int CG = chunk_groups(P, G);    // groups a chunk
+  constexpr int EPV = 16 / ESZ;             // inputs a 16-byte chunk
+  constexpr int XCH = G / EPV;              // chunks of a group's inputs
+  constexpr int MAXL = 4;                   // prologue chunks kept a thread
+  static_assert(GROWS % RLANES == 0, "whole row lanes a group");
+  static_assert(XCH <= 32 && 32 % XCH == 0, "a group's chunks in a warp");
+  extern __shared__ __align__(128) unsigned char sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int K = a.K, nb = K / G, S = a.S, C = a.C;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const StreamLayout lay(ESZ, P, NW, G, nb, a.cap);
+  uint4* ring = reinterpret_cast<uint4*>(sm);
+  T* xs = reinterpret_cast<T*>(sm + lay.xs);
+  const float* szs = reinterpret_cast<const float*>(sm + lay.sz);
+  int* idx = reinterpret_cast<int*>(sm + lay.idx);
+  float* scores = reinterpret_cast<float*>(sm + lay.scores);
+  float* misc = reinterpret_cast<float*>(sm + lay.misc);
+  float* ssq = misc + 32;                   // [SMAXC] the peers' partials
+  float* part = reinterpret_cast<float*>(sm + lay.part);
   const T* x = static_cast<const T*>(a.x);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // every block reads its layer (and traps on a bad one) before any load
   const size_t layer = read_layer(a);
+  const T* gain = a.norm == nullptr
+                      ? nullptr
+                      : static_cast<const T*>(a.norm) + layer * K;
 
-  // 1. input, with the optional folded rms_norm
-  if (a.norm != nullptr) {
+  // 1. the prologue, once per cluster: block `rank` takes groups [g0, g1)
+  // of x; its sum of squares, then its scores, go into every peer's shared
+  // memory (combined in rank order), so every block keeps the same groups
+  cluster_arrive_relaxed();
+  const int g0 = nb * rank / C, g1 = nb * (rank + 1) / C;
+  const int nch = (g1 - g0) * XCH;          // the block's 16-byte chunks
+  const bool scoring = !a.fixed;
+  uint4 raw[MAXL], graw[MAXL];
+  auto load_chunk = [&](int c, uint4& r, uint4& gr) {
+    r = __ldg(reinterpret_cast<const uint4*>(x + g0 * G) + c);
+    if (gain != nullptr)
+      gr = __ldg(reinterpret_cast<const uint4*>(gain + g0 * G) + c);
+  };
+  // the first MAXL chunks of a thread stay in registers from the norm's
+  // sum of squares to the scores: one pass over x where they cover it
+  if (scoring || gain != nullptr) {
+#pragma unroll
+    for (int i = 0; i < MAXL; ++i)
+      if (tid + i * THREADS < nch)
+        load_chunk(tid + i * THREADS, raw[i], graw[i]);
+  }
+  float rs = 1.f;
+  if (gain != nullptr) {
     float ss = 0.f;
-    for (int k = tid; k < K; k += THREADS) {
-      const float v = to_f(x[k]);
-      ss = fmaf(v, v, ss);
+    auto squares = [&](const uint4& r) {
+      const T* v = reinterpret_cast<const T*>(&r);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) ss = fmaf(to_f(v[e]), to_f(v[e]), ss);
+    };
+#pragma unroll
+    for (int i = 0; i < MAXL; ++i)
+      if (tid + i * THREADS < nch) squares(raw[i]);
+    for (int c = tid + MAXL * THREADS; c < nch; c += THREADS) {
+      uint4 r, gr;
+      load_chunk(c, r, gr);
+      squares(r);
     }
-    ss = block_sum(ss, scratch);
-    const float scale = 1.0f / sqrtf(ss / static_cast<float>(K) + a.eps);
-    const T* g = static_cast<const T*>(a.norm) + layer * K;
-    for (int k = tid; k < K; k += THREADS)
-      xs[k] = rnd<T>(rnd<T>(to_f(x[k]) * scale) * to_f(g[k]));
+    ss = block_sum(ss, misc);
+    cluster_wait();
+    if (tid < C) cluster.map_shared_rank(ssq, tid)[rank] = ss;
+    cluster.sync();
+    // rsqrtf, as the reference's rsqrt rounds on the card (torch.rsqrt)
+    float s = 0.f;
+    for (int r = 0; r < C; ++r) s += ssq[r];
+    rs = rsqrtf(s / static_cast<float>(K) + a.eps);
   } else {
-    for (int k = tid; k < K; k += THREADS) xs[k] = to_f(x[k]);
+    cluster_wait();
   }
-  __syncthreads();
-
-  // 2. group scores
-  for (int gi = a.fixed ? nb : warp; gi < nb; gi += NWARPS) {
-    float m = 0.f;
-    for (int j = lane; j < G; j += 32) m = fmaxf(m, fabsf(xs[gi * G + j]));
-    m = warp_max(m);
-    if (lane == 0) scores[gi] = m;
+  if (scoring) {
+    // a group's XCH chunks are XCH consecutive lanes of one warp: the
+    // max over its chunks by a butterfly, pushed into every peer's scores
+    // by the group's first lanes
+    auto score = [&](int c, const uint4& r, const uint4& gr) {
+      float m = 0.f;
+      if (c < nch) {
+        float v[EPV];
+        sel_chunk<T>(r, gain != nullptr ? &gr : nullptr, rs, v);
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) m = fmaxf(m, fabsf(v[e]));
+      }
+#pragma unroll
+      for (int o = 1; o < XCH; o <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (c < nch)
+        for (int pr = lane % XCH; pr < C; pr += XCH)
+          cluster.map_shared_rank(scores, pr)[g0 + c / XCH] = m;
+    };
+#pragma unroll
+    for (int i = 0; i < MAXL; ++i)
+      if (i * THREADS < nch) score(tid + i * THREADS, raw[i], graw[i]);
+    for (int i = MAXL; i * THREADS < nch; ++i) {
+      const int c = tid + i * THREADS;
+      uint4 r, gr;
+      if (c < nch) load_chunk(c, r, gr);
+      score(c, r, gr);
+    }
+    cluster.sync();
   }
-  __syncthreads();
+  const int count = select_scan(a, scores, nb, idx, idx + a.cap);
 
-  // 3. survivors in ascending order, first `cap` kept
-  const int count = select_scan(a, scores, nb, idx, cnt);
+  // 2. the tile: weights wsel (the pair in mode 2), columns [off, off +
+  // valid) of them, output column c0; this block's share of the kept list
+  const int split = static_cast<int>(blockIdx.x) % S;
+  int t = static_cast<int>(blockIdx.x) / S, wi = 0, c0 = 0;
+  if (!PAIR)
+    while (t >= cdiv(a.n[wi], TW)) {
+      t -= cdiv(a.n[wi], TW);
+      c0 += a.n[wi++];
+    }
+  const int N = a.n[wi], off = t * TW, valid = min(TW, N - off);
+  c0 += off;
+  const int q = tid % CPR, rl = tid / CPR;
+  const bool live = q * VEC < valid;
+  const size_t krows = P == PLAN_INT4 ? K / 2 : K;
+  const unsigned char* wsrc[NW];
+  const float* szsrc[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    wsrc[w] = static_cast<const unsigned char*>(a.w[wi + w]) +
+              ((layer * krows * N + off + q * VEC) * WESZ);
+    szsrc[w] = P == PLAN_INT4 ? a.sz[wi + w] + layer * nb * 2 * N + off
+                              : nullptr;
+  }
+  const int j0 = split_lo(count, S, split);
+  const int mine = split_lo(count, S, split + 1) - j0;
 
-  // 4. gather the kept rows of this block's column tile
-  const int c0 = blockIdx.x * TILE;
-  int wsel[NW];                 // the weights this block reads
-  int off, N;                   // the tile's first column within them
-  tile_weights<NW>(a, c0, wsel, off, N);
-  const int sub = lane % S::LPR;
-  const int slot = warp * S::RPW + lane / S::LPR;
-  float acc[NW][S::VEC];
+  float acc[NW][VEC];
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int e = 0; e < S::VEC; ++e) acc[w][e] = 0.f;
-  if constexpr (P == PLAN_INT4) {
-    constexpr int HALF = G / 2;                 // packed rows a group
-    const int rl = lane / S::LPR;
-    const int8_t* Q[NW];
-    const float* SZ[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      Q[w] = static_cast<const int8_t*>(a.w[wsel[w]]) +
-             layer * (K / 2) * N + off + sub * 8;
-      SZ[w] = a.sz[wsel[w]] + layer * nb * 2 * N + off + sub * 8;
+    for (int e = 0; e < VEC; ++e) acc[w][e] = 0.f;
+
+  for (int cb = 0; cb < mine; cb += CG) {
+    const int ng = min(CG, mine - cb);
+    const int* sidx = idx + j0 + cb;
+    if constexpr (P == PLAN_INT4) {
+      // a scale or zero row's 16-byte chunk ch (columns 4ch..4ch+3: chunk
+      // j = ch % 4 of thread q = ch / 4's 16) lands at j * CPR + q, so a
+      // thread's four loads of a row are conflict-free across a warp
+      constexpr int ZCH = TW / 4;           // 16-byte chunks a sz row
+      for (int c = tid; c < ng * NW * 2 * ZCH; c += THREADS) {
+        const int r = c / ZCH, ch = c % ZCH;   // r = (u * NW + w) * 2 + h
+        const int w = r / 2 % NW, u = r / (2 * NW);
+        if (ch * 4 < valid)
+          cp_async16(sm + lay.sz + (r * ZCH + (ch % 4) * CPR + ch / 4) * 16,
+                     szsrc[w] + (static_cast<size_t>(sidx[u]) * 2 + r % 2) *
+                                    N + ch * 4);
+      }
     }
-    for (int j = warp; j < count; j += NWARPS) {
-      const int g = idx[j];
-      const float* xg = xs + g * G;
-      float p[NW][8], sx = 0.f;
+    cp_async_commit();
+    // this thread's rows, SNST - 1 ahead
+    const int nit = ng * IPG;
+    auto copy_row = [&](int it) {
+      if (it < nit && live) {
+        const size_t row = static_cast<size_t>(sidx[it / IPG]) * GROWS + rl +
+                           (it % IPG) * RLANES;
 #pragma unroll
-      for (int w = 0; w < NW; ++w)
+        for (int w = 0; w < NW; ++w)
+          cp_async16(&ring[((it % SNST) * NW + w) * THREADS + tid],
+                     wsrc[w] + row * N * WESZ);
+      }
+      cp_async_commit();
+    };
 #pragma unroll
-        for (int e = 0; e < 8; ++e) p[w][e] = 0.f;
-#pragma unroll 4
-      for (int i = rl; i < HALF; i += S::RPW) {
-        const float xlo = xg[i], xhi = xg[HALF + i];
+    for (int i = 0; i < SNST - 1; ++i) copy_row(i);
+    // the chunk's selection inputs, while the rows are in flight
+    for (int c = tid; c < ng * XCH; c += THREADS) {
+      const int k = sidx[c / XCH] * G + (c % XCH) * EPV;
+      const uint4 r = __ldg(reinterpret_cast<const uint4*>(x + k));
+      uint4 gr;
+      if (gain != nullptr) gr = __ldg(reinterpret_cast<const uint4*>(gain + k));
+      float v[EPV];
+      sel_chunk<T>(r, gain != nullptr ? &gr : nullptr, rs, v);
+      reinterpret_cast<uint4*>(xs)[c] = pack_chunk<T>(v);
+    }
+    cp_async_wait<SNST - 2>();              // the sz rows and row 0
+    __syncthreads();
+    float p[NW][P == PLAN_INT4 ? VEC : 1], sx = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int e = 0; e < (P == PLAN_INT4 ? VEC : 1); ++e) p[w][e] = 0.f;
+    for (int it = 0; it < nit; ++it) {
+      cp_async_wait<SNST - 2>();            // row it has landed
+      copy_row(it + SNST - 1);              // into the slot row it - 1 left
+      const int u = it / IPG, l = rl + (it % IPG) * RLANES;
+      if constexpr (P == PLAN_INT4) {
+        const float xlo = to_f(xs[u * G + l]);
+        const float xhi = to_f(xs[u * G + G / 2 + l]);
         sx += xlo + xhi;
 #pragma unroll
         for (int w = 0; w < NW; ++w) {
-          float lo[8], hi[8];
-          load_nibbles(Q[w] + static_cast<size_t>(g * HALF + i) * N, lo, hi);
+          const uint4 raw4 = ring[((it % SNST) * NW + w) * THREADS + tid];
+          const uint32_t wd[4] = {raw4.x, raw4.y, raw4.z, raw4.w};
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            p[w][e] = fmaf(xhi, hi[e], fmaf(xlo, lo[e], p[w][e]));
+          for (int h = 0; h < 4; ++h) {
+            const uint32_t lo = wd[h] & 0x0F0F0F0Fu;
+            const uint32_t hi = (wd[h] >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              p[w][h * 4 + k] = fmaf(xhi, nib128_f(hi, k),
+                                     fmaf(xlo, nib128_f(lo, k),
+                                          p[w][h * 4 + k]));
+          }
+        }
+        if (it % IPG == IPG - 1) {          // the group's last row here
+          // (x_lo (128 + nib_lo) + x_hi (128 + nib_hi)) - 128 sum(x), then
+          // the group's scale and zero
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            const float4* sc =
+                reinterpret_cast<const float4*>(szs + (u * NW + w) * 2 * TW) +
+                q;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float4 s4 = sc[j * CPR], z4 = sc[TW / 4 + j * CPR];
+              const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+              const float zv[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int e = j * 4 + k;
+                acc[w][e] = fmaf(fmaf(-128.f, sx, p[w][e]), sv[k],
+                                 fmaf(sx, zv[k], acc[w][e]));
+                p[w][e] = 0.f;
+              }
+            }
+          }
+          sx = 0.f;
+        }
+      } else {
+        const float xv = to_f(xs[u * G + l]);
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          const uint4 raw4 = ring[((it % SNST) * NW + w) * THREADS + tid];
+          if constexpr (P == PLAN_INT8) {
+            const uint32_t wd[4] = {raw4.x, raw4.y, raw4.z, raw4.w};
+#pragma unroll
+            for (int h = 0; h < 4; ++h)
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                acc[w][h * 4 + k] = fmaf(xv, i8_f(wd[h], k),
+                                         acc[w][h * 4 + k]);
+          } else {
+            const T* v = reinterpret_cast<const T*>(&raw4);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              acc[w][e] = fmaf(xv, to_f(v[e]), acc[w][e]);
+          }
         }
       }
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        float sc[8], zr[8];
-        load8(SZ[w] + static_cast<size_t>(g) * 2 * N, sc);
-        load8(SZ[w] + static_cast<size_t>(g) * 2 * N + N, zr);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          acc[w][e] = fmaf(p[w][e], sc[e], fmaf(sx, zr[e], acc[w][e]));
-      }
     }
-  } else {
-    const E* W[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-      W[w] = static_cast<const E*>(a.w[wsel[w]]) + layer * K * N + off +
-             sub * S::VEC;
-    const int R = count * G;
-#pragma unroll 4
-    for (int r = slot; r < R; r += S::SLOTS) {
-      const int k = idx[r / G] * G + (r % G);
-      const float xv = xs[k];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        float v[S::VEC];
-        load_row<E, S::VEC>(W[w] + static_cast<size_t>(k) * N, v);
-#pragma unroll
-        for (int e = 0; e < S::VEC; ++e) acc[w][e] = fmaf(xv, v[e], acc[w][e]);
-      }
-    }
+    cp_async_wait<0>();
+    __syncthreads();                        // the chunk's staging is free
   }
+
+  // 3. fixed-order sums: the row lanes in order, then the tile's S split
+  // blocks in rank order. Split s pushes its sums of the columns block r
+  // finishes (TW / S of the tile's, [r cw, (r + 1) cw)) into that block's
+  // `part` [S][NW][cw] at row s, so one cluster barrier orders them and
+  // each block adds its rows in split order. int8's scale, then the
+  // epilogue.
+  float* red = reinterpret_cast<float*>(sm);        // [RLANES][NW][TW]
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
-    for (int e = 0; e < S::VEC; ++e)
-      red[slot * NW * TILE + w * TILE + sub * S::VEC + e] = acc[w][e];
+    for (int e = 0; e < VEC; ++e)
+      red[(rl * NW + w) * TW + q * VEC + e] = acc[w][e];
   __syncthreads();
-
-  // 5. fixed-order sum over slots, the int8 scale, then the epilogue
-  if (tid < NW * TILE) {
+  const int cw = TW / S, lcw = __ffs(cw) - 1;   // S: a power of two
+  for (int c = tid; c < NW * TW; c += THREADS) {
     float s = 0.f;
-    for (int sl = 0; sl < S::SLOTS; ++sl) s += red[sl * NW * TILE + tid];
-    const float* sc = a.scale[wsel[tid / TILE]];
-    if (sc != nullptr) s *= sc[layer * N + off + tid % TILE];
-    fin[tid] = s;
+#pragma unroll
+    for (int r = 0; r < RLANES; ++r) s += red[r * NW * TW + c];
+    if (S == 1) {
+      part[c] = s;
+    } else {
+      const int w = c / TW, col = c % TW;
+      cluster.map_shared_rank(part, rank - split + (col >> lcw))
+          [(split * NW + w) * cw + (col & (cw - 1))] = s;
+    }
   }
-  __syncthreads();
-  if (tid < TILE) {
-    const int col = c0 + tid;
+  auto finish = [&](int c, float (&f)[NW]) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float* sc = a.scale[wi + w];
+      if (sc != nullptr) f[w] *= sc[layer * N + off + c];
+    }
+    const int col = c0 + c;
     if (a.mode == 0) {
-      static_cast<float*>(a.out)[col] = fin[tid];
+      static_cast<float*>(a.out)[col] = f[0];
     } else if (a.mode == 1) {
       const float r = to_f(static_cast<const T*>(a.res)[col]);
-      static_cast<T*>(a.out)[col] = from_f<T>(fin[tid] + r);
+      static_cast<T*>(a.out)[col] = from_f<T>(f[0] + r);
     } else if (a.mode == 3) {
       // (scaled sums * w) + residual, two roundings as in the reference
       const float r = to_f(static_cast<const T*>(a.res)[col]);
       static_cast<T*>(a.out)[col] =
-          from_f<T>(__fadd_rn(__fmul_rn(fin[tid], a.route_w[a.slot]), r));
+          from_f<T>(__fadd_rn(__fmul_rn(f[0], a.route_w[a.slot]), r));
     } else {
-      const float g = fin[tid], u = fin[NW * TILE - TILE + tid];
       static_cast<T*>(a.out)[col] =
-          from_f<T>(g * (1.0f / (1.0f + expf(-g))) * u);
+          from_f<T>(f[0] * (1.0f / (1.0f + expf(-f[0]))) * f[NW - 1]);
     }
+  };
+  if (S == 1)
+    __syncthreads();
+  else
+    cluster.sync();                         // every split's sums are in
+  for (int c = tid; c < cw; c += THREADS) {
+    float f[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      float s = 0.f;
+      for (int r = 0; r < S; ++r) s += part[(r * NW + w) * cw + c];
+      f[w] = s;
+    }
+    if (split * cw + c < valid) finish(split * cw + c, f);
   }
 }
 
@@ -380,10 +662,7 @@ constexpr int RT = 64;           // output columns a block
 constexpr int MAXC = 8;          // blocks a cluster (the portable size)
 constexpr int MAXS = 4;          // splits of the kept groups of a tile
 constexpr int MAXNST = 8;        // ring stages, at most
-constexpr int SMEM_MAX = 232448; // a block's shared memory on Hopper
 constexpr int SM_SMEM = 233472;  // an SM's, of which 1 KB a resident block's
-
-__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 
 // Shared-memory layout of the rows kernel, bytes from the (128-byte
 // aligned) base. A ring stage holds one kept group: NW weight slabs (rows
@@ -422,17 +701,15 @@ struct RowsLayout {
 // block an SM only 15 clusters of 8 fit the H100 at once), else that fits
 // one block. smem is -1 where the widths are not whole tiles or nothing
 // fits.
-// `splits` > 0 forces S (the card tests' override).
 struct RowsPlan { int S, C, nst, smem; };
 
 RowsPlan rows_plan(int esz, int plan, int nw, int K, int n_out, int cap,
-                   int n_sms, int splits) {
+                   int n_sms) {
   RowsPlan p = {0, 0, 0, -1};
   if (n_out % RT || K % RG || n_out <= 0) return p;
   const int tiles = n_out / RT;
   int S = 1;
   while (S < MAXS && tiles * 2 * S <= n_sms) S *= 2;
-  if (splits > 0) S = splits;
   int tc = 1;
   while (tc * 2 * S <= MAXC && tiles % (tc * 2) == 0) tc *= 2;
   for (int pass = 0; pass < 2; ++pass)
@@ -930,18 +1207,16 @@ struct OccEntry { const void* fn; int C, smem, clusters; };
 OccEntry occ_cache[64];
 int occ_n = 0;
 
-int forced_splits = 0;     // 0: the rule; else S (teal_sgg_rows_force_splits)
-
 // The rows kernel's launch for a0's shapes: its arguments with the plan,
 // its configuration (cfg.attrs points at attr) and the clusters of it
 // that can be resident at once (cudaOccupancyMaxActiveClusters, cached).
 template <typename T, int P, bool PAIR>
-int rows_setup(const Args& a0, int splits, cudaStream_t stream, Args& a,
+int rows_setup(const Args& a0, cudaStream_t stream, Args& a,
                cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1],
                int& clusters) {
   constexpr int NW = PAIR ? 2 : 1;
   const RowsPlan p = rows_plan(sizeof(T), P, NW, a0.K, a0.n_out, a0.cap,
-                               device_sms(), splits);
+                               device_sms());
   if (p.smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   a = a0;
   a.S = p.S;
@@ -987,8 +1262,7 @@ int launch_rows(const Args& a0, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int clusters;
-  const int err = rows_setup<T, P, PAIR>(a0, forced_splits, stream, a, cfg,
-                                         attr, clusters);
+  const int err = rows_setup<T, P, PAIR>(a0, stream, a, cfg, attr, clusters);
   if (err != 0) return err;
   if (clusters < 1) return -1;             // the cluster cannot be placed
   const cudaError_t e = cudaLaunchKernelEx(&cfg, sgg_rows_kernel<T, P, PAIR>,
@@ -998,7 +1272,7 @@ int launch_rows(const Args& a0, cudaStream_t stream) {
 }
 
 template <typename T, int P, bool PAIR>
-int rows_residency(int K, int n_out, int cap, int splits, int* out) {
+int rows_residency(int K, int n_out, int cap, int* out) {
   Args a0 = {};
   a0.K = K;
   a0.n_out = n_out;
@@ -1008,7 +1282,7 @@ int rows_residency(int K, int n_out, int cap, int splits, int* out) {
   cudaLaunchAttribute attr[1];
   int clusters = 0;
   const int err =
-      rows_setup<T, P, PAIR>(a0, splits, nullptr, a, cfg, attr, clusters);
+      rows_setup<T, P, PAIR>(a0, nullptr, a, cfg, attr, clusters);
   out[0] = static_cast<int>(cfg.gridDim.x);
   out[1] = a.C;
   out[2] = clusters;
@@ -1016,58 +1290,87 @@ int rows_residency(int K, int n_out, int cap, int splits, int* out) {
 }
 
 template <typename T, int P>
-int residency_pair(int pair, int K, int n_out, int cap, int splits,
-                   int* out) {
-  return pair ? rows_residency<T, P, true>(K, n_out, cap, splits, out)
-              : rows_residency<T, P, false>(K, n_out, cap, splits, out);
+int residency_pair(int pair, int K, int n_out, int cap, int* out) {
+  return pair ? rows_residency<T, P, true>(K, n_out, cap, out)
+              : rows_residency<T, P, false>(K, n_out, cap, out);
 }
 
 template <typename T>
 int residency_plan(int plan, int pair, int K, int n_out, int cap,
-                   int splits, int* out) {
+                   int* out) {
   switch (plan) {
     case PLAN_STREAM:
-      return residency_pair<T, PLAN_STREAM>(pair, K, n_out, cap, splits, out);
+      return residency_pair<T, PLAN_STREAM>(pair, K, n_out, cap, out);
     case PLAN_INT8:
-      return residency_pair<T, PLAN_INT8>(pair, K, n_out, cap, splits, out);
+      return residency_pair<T, PLAN_INT8>(pair, K, n_out, cap, out);
     case PLAN_INT4:
-      return residency_pair<T, PLAN_INT4>(pair, K, n_out, cap, splits, out);
+      return residency_pair<T, PLAN_INT4>(pair, K, n_out, cap, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The single-row kernel's launch: one cluster launch of tiles * S blocks
+// in clusters of C, with the plan from the shapes.
 template <typename T, int P, bool PAIR, int G>
-int launch(const Args& a, int blocks, cudaStream_t stream) {
-  if constexpr (G == RG) {
-    if (a.B > 1) return launch_rows<T, P, PAIR>(a, stream);
-  }
+int launch_stream(const Args& a0, cudaStream_t stream) {
   constexpr int NW = PAIR ? 2 : 1;
-  const size_t smem =
-      sizeof(float) * (a.K + Shape<T, P>::SLOTS * NW * TILE + a.K / G + 32 +
-                       NW * TILE) +
-      sizeof(int) * (a.cap + 1);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(sgg_kernel<T, P, PAIR, G>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  sgg_kernel<T, P, PAIR, G><<<blocks, THREADS, smem, stream>>>(a);
+  const SggPlan p = sgg_plan(static_cast<int>(sizeof(T)), P, NW, G, a0.n,
+                             a0.K, a0.cap, device_sms());
+  if (p.smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Args a = a0;
+  a.S = p.S;
+  a.C = p.C;
+  auto fn = sgg_stream_kernel<T, P, PAIR, G>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  const int tw = StreamLayout(sizeof(T), P, NW, G, 1, 1).tw;
+  const int tiles = PAIR ? cdiv(a.n[0], tw)
+                         : cdiv(a.n[0], tw) + cdiv(a.n[1], tw) +
+                               cdiv(a.n[2], tw);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * p.S, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int P, bool PAIR, int G>
+int launch(const Args& a, cudaStream_t stream) {
+  if constexpr (G == RG) {
+    if (a.B > 1) return launch_rows<T, P, PAIR>(a, stream);
+  }
+  return launch_stream<T, P, PAIR, G>(a, stream);
+}
+
 template <typename T, int P, int G>
-int launch_mode(const Args& a, int blocks, cudaStream_t s) {
-  return a.mode == 2 ? launch<T, P, true, G>(a, blocks, s)
-                     : launch<T, P, false, G>(a, blocks, s);
+int launch_mode(const Args& a, cudaStream_t s) {
+  return a.mode == 2 ? launch<T, P, true, G>(a, s)
+                     : launch<T, P, false, G>(a, s);
 }
 
 template <typename T, int G>
-int dispatch(int plan, const Args& a, int blocks, cudaStream_t s) {
+int dispatch(int plan, const Args& a, cudaStream_t s) {
   switch (plan) {
-    case PLAN_STREAM: return launch_mode<T, PLAN_STREAM, G>(a, blocks, s);
-    case PLAN_INT8: return launch_mode<T, PLAN_INT8, G>(a, blocks, s);
+    case PLAN_STREAM: return launch_mode<T, PLAN_STREAM, G>(a, s);
+    case PLAN_INT8: return launch_mode<T, PLAN_INT8, G>(a, s);
     case PLAN_INT4:
       if constexpr (G >= 64)
-        return launch_mode<T, PLAN_INT4, G>(a, blocks, s);
+        return launch_mode<T, PLAN_INT4, G>(a, s);
       else
         return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -1075,13 +1378,56 @@ int dispatch(int plan, const Args& a, int blocks, cudaStream_t s) {
 }
 
 template <int G>
-int dispatch_type(int dtype, int plan, const Args& a, int blocks,
-                  cudaStream_t s) {
-  return dtype == 0 ? dispatch<float, G>(plan, a, blocks, s)
-                    : dispatch<__nv_bfloat16, G>(plan, a, blocks, s);
+int dispatch_type(int dtype, int plan, const Args& a, cudaStream_t s) {
+  return dtype == 0 ? dispatch<float, G>(plan, a, s)
+                    : dispatch<__nv_bfloat16, G>(plan, a, s);
 }
 
 }  // namespace
+
+// The single-row kernel's launch plan for a stream of type dtype (0
+// fp32, 1 bf16), weight plan `plan`, `pair` (mode 2: two weights), group
+// size G, output widths n0..n2 (n_w of them), input dim K, cap and an SM
+// count: out = {S, C, ring stages, shared bytes a block}; shared bytes -1
+// where the shapes take no plan.
+extern "C" int teal_sgg_plan(int dtype, int plan, int pair, int G, int n0,
+                             int n1, int n2, int n_w, int K, int cap,
+                             int n_sms, int* out) {
+  const int n[3] = {n0, n_w > 1 ? n1 : 0, n_w > 2 ? n2 : 0};
+  const SggPlan p = sgg_plan(dtype == 0 ? 4 : 2, plan, pair ? 2 : 1, G, n, K,
+                             cap, n_sms);
+  out[0] = p.S;
+  out[1] = p.C;
+  out[2] = p.nst;
+  out[3] = p.smem;
+  return 0;
+}
+
+// The rows form's launch plan for a stream of type dtype (0 fp32, 1
+// bf16), weight plan `plan`, `pair` (mode 2: two weights), input dim K,
+// n_out output columns, cap and an SM count: out = {S, C, ring stages,
+// shared bytes a block}; shared bytes -1 where no plan fits.
+extern "C" int teal_sgg_rows_plan(int dtype, int plan, int pair, int K,
+                                  int n_out, int cap, int n_sms, int* out) {
+  const RowsPlan p = rows_plan(dtype == 0 ? 4 : 2, plan, pair ? 2 : 1, K,
+                               n_out, cap, n_sms);
+  out[0] = p.S;
+  out[1] = p.C;
+  out[2] = p.nst;
+  out[3] = p.smem;
+  return 0;
+}
+
+// On this card, for the rows form's plan: out = {blocks of the grid,
+// blocks a cluster, clusters that can be resident at once}; the card
+// tests check that the whole grid is.
+extern "C" int teal_sgg_rows_residency(int dtype, int plan, int pair, int K,
+                                       int n_out, int cap, int* out) {
+  cudaGetLastError();
+  return dtype == 0
+             ? residency_plan<float>(plan, pair, K, n_out, cap, out)
+             : residency_plan<__nv_bfloat16>(plan, pair, K, n_out, cap, out);
+}
 
 // dtype: 0 fp32, 1 bf16 (the stream x, norm, res and the mode 1/2
 // output). plan: 0 weights of the stream type, 1 int8, 2 packed int4
@@ -1096,47 +1442,9 @@ int dispatch_type(int dtype, int plan, const Args& a, int blocks,
 // groups 0..cap-1. layer_dev: null (read `layer`) or int32 device layers,
 // entry `slot` read by the kernel; L: the stacks' layers. The caller
 // checks shapes: K % G == 0, every n_i % 32 == 0, pointers 16-byte
-// aligned, mode 2 with two weights of equal width, one plan for all
-// weights, a host layer in [0, L), no norm with a device layer.
-// The rows form's launch plan for a stream of type dtype (0 fp32, 1
-// bf16), weight plan `plan`, `pair` (mode 2: two weights), input dim K,
-// n_out output columns, cap, an SM count and `splits` (0: the rule, else
-// S): out = {S, C, ring stages, shared bytes a block}; shared bytes -1
-// where no plan fits.
-extern "C" int teal_sgg_rows_plan(int dtype, int plan, int pair, int K,
-                                  int n_out, int cap, int n_sms, int splits,
-                                  int* out) {
-  const RowsPlan p = rows_plan(dtype == 0 ? 4 : 2, plan, pair ? 2 : 1, K,
-                               n_out, cap, n_sms, splits);
-  out[0] = p.S;
-  out[1] = p.C;
-  out[2] = p.nst;
-  out[3] = p.smem;
-  return 0;
-}
-
-// On this card, for the rows form's plan (`splits` 0: the rule, else S):
-// out = {blocks of the grid, blocks a cluster, clusters that can be
-// resident at once}; the card tests check that the whole grid is.
-extern "C" int teal_sgg_rows_residency(int dtype, int plan, int pair, int K,
-                                       int n_out, int cap, int splits,
-                                       int* out) {
-  cudaGetLastError();
-  return dtype == 0 ? residency_plan<float>(plan, pair, K, n_out, cap,
-                                            splits, out)
-                    : residency_plan<__nv_bfloat16>(plan, pair, K, n_out, cap,
-                                                    splits, out);
-}
-
-// Force the rows form's split count S (1, 2 or 4) for the launches that
-// follow, or restore the rule with 0: the card tests run each S.
-extern "C" int teal_sgg_rows_force_splits(int splits) {
-  if (splits != 0 && splits != 1 && splits != 2 && splits != 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  forced_splits = splits;
-  return 0;
-}
-
+// aligned (x and norm too), mode 2 with two weights of equal width, one
+// plan for all weights, a host layer in [0, L), no norm with a device
+// layer.
 extern "C" int teal_select_gather_gemv(
     int dtype, int plan, const void* x, const void* thr, const void* norm,
     float eps, const void* w0, const void* w1, const void* w2,
@@ -1182,12 +1490,11 @@ extern "C" int teal_select_gather_gemv(
   if (rows < 1 || rows > MAXB || (rows > 1 && (G != RG || mode == 3)) ||
       (mode == 3 && route_w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = n_out / TILE;
   auto s = static_cast<cudaStream_t>(stream);
   switch (G) {
-    case 32: return dispatch_type<32>(dtype, plan, a, blocks, s);
-    case 64: return dispatch_type<64>(dtype, plan, a, blocks, s);
-    case 128: return dispatch_type<128>(dtype, plan, a, blocks, s);
+    case 32: return dispatch_type<32>(dtype, plan, a, s);
+    case 64: return dispatch_type<64>(dtype, plan, a, s);
+    case 128: return dispatch_type<128>(dtype, plan, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,9 +11,11 @@ ascending order. Only the kept groups' weight slabs `[G, N]` are read.
 Two kernels, each launched on CUDA tensors and run as its plain PyTorch
 version (same module) on CPU tensors:
   - K1 `select_gather_gemv` (`csrc/select_gather_gemv.cu`): threshold
-    selection inside the kernel at G in {32, 64, 128}, one input row or
-    up to 16 rows at G = 128 (pooled scores, one kept set; on the card a
-    cluster kernel on the tensor cores, planned by `_rows_plan`),
+    selection inside the kernel at G in {32, 64, 128}, one input row (on
+    the card a cluster kernel streaming the kept slab rows, planned by
+    `_sgg_plan`) or up to 16 rows at G = 128 (pooled scores, one kept
+    set; on the card a cluster kernel on the tensor cores, planned by
+    `_rows_plan`),
     optional folded rms_norm, 1-3 layer-stacked weights `[L, K, N]`
     sharing one selection, and one of three epilogues;
   - K3 `block_gather_gemv_multi` (`csrc/block_gather_gemv.cu`): the
@@ -388,10 +390,6 @@ _ROWS_MAX_STAGES = 8             # ring stages
 _SMEM_BYTES = 232448             # a block's shared memory on Hopper
 _SM_SMEM_BYTES = 233472          # an SM's; a resident block reserves 1 KB
 _H100_SMS = 132
-# None: the split rule; 1, 2 or 4 force S on the card (the card tests
-# monkeypatch it)
-ROWS_SPLITS: Optional[int] = None
-_lib_splits = [0]                # the S the library was last told
 
 
 def _pad4(n: int) -> int:
@@ -416,8 +414,7 @@ def _rows_smem(esz: int, plan: int, nw: int, stages: int, S: int, C: int,
 
 
 def _rows_plan(esz: int, plan: int, nw: int, K: int, n_out: int, cap: int,
-               n_sms: int = _H100_SMS, splits: Optional[int] = None
-               ) -> Optional[Tuple[int, int, int, int]]:
+               n_sms: int = _H100_SMS) -> Optional[Tuple[int, int, int, int]]:
     """The rows kernel's launch plan from shapes only: (S, C, stages,
     shared bytes), or None where the widths are not whole 64-column tiles
     or nothing fits. S (1, 2 or 4) splits each tile's kept groups: the
@@ -425,15 +422,13 @@ def _rows_plan(esz: int, plan: int, nw: int, K: int, n_out: int, cap: int,
     cluster) <= 8: the largest power of two whose tiles divide the output.
     The ring is the deepest (<= 8 stages) that leaves room for two blocks
     an SM (clusters of 8 blocks of one an SM do not all fit the H100's
-    GPCs at once), else the deepest that fits one block. `splits` forces
-    S."""
+    GPCs at once), else the deepest that fits one block."""
     if n_out <= 0 or n_out % ROWS_TILE or K % LANES:
         return None
     tiles = n_out // ROWS_TILE
     S = 1
     while S < _ROWS_MAX_SPLITS and tiles * 2 * S <= n_sms:
         S *= 2
-    S = splits or S
     tc = 1
     while tc * 2 * S <= _ROWS_MAX_CLUSTER and tiles % (tc * 2) == 0:
         tc *= 2
@@ -445,6 +440,64 @@ def _rows_plan(esz: int, plan: int, nw: int, K: int, n_out: int, cap: int,
                     else smem <= _SMEM_BYTES):
                 return S, tc * S, stages, smem
     return None
+
+
+# K1's single row on the card (`csrc/select_gather_gemv.cu`, `StreamLayout`
+# and `sgg_plan`, which `_sgg_smem` and `_sgg_plan` mirror; the card tests
+# hold them together through `teal_sgg_plan`)
+_SGG_PIECE = 256                 # bytes of a slab row a block reads
+_SGG_STAGES = 8                  # ring stages
+_SGG_MAX_SPLITS = 8              # splits of a tile's kept groups
+_SGG_MAX_CLUSTER = 8             # blocks a cluster
+_SGG_THREADS = 256
+
+
+def _sgg_tile(esz: int, plan: int) -> int:
+    """The single row's tile: 256 bytes of each slab row, in columns."""
+    return _SGG_PIECE // (esz if plan == PLAN_STREAM else 1)
+
+
+def _sgg_smem(esz: int, plan: int, nw: int, G: int, nb: int,
+              cap: int) -> int:
+    """The single row's shared memory in bytes: the ring (8 stages of a
+    16-byte chunk of each of the `nw` weights a thread), a chunk's
+    selection inputs (2048 values, or 8 groups for packed int4) of the
+    stream type, (int4) its groups' scale and zero rows of the tile, the
+    kept groups and count, the nb scores, 64 floats of scratch (the
+    block's sum, the peers' norm partials) and the S splits' fp32 sums of
+    the block's tile / S columns."""
+    tw = _sgg_tile(esz, plan)
+    cg = 8 if plan == PLAN_INT4 else 2048 // G
+    return (_SGG_STAGES * nw * _SGG_THREADS * 16 + cg * G * esz
+            + (cg * nw * 2 * tw * 4 if plan == PLAN_INT4 else 0)
+            + _pad4(cap + 1) * 4 + _pad4(nb) * 4 + 64 * 4 + nw * tw * 4)
+
+
+def _sgg_plan(esz: int, plan: int, nw: int, G: int, ns, K: int, cap: int,
+              n_sms: int = _H100_SMS) -> Optional[Tuple[int, int, int, int]]:
+    """K1's single-row launch plan from shapes only: (S, C, ring stages,
+    shared bytes), or None where the shapes take none. A block reads a
+    256-byte tile of each slab row (`nw` = 2: the same columns of gate
+    and up), sum of ceil(N_i / tile) tiles (mode 2: of gate's width); S
+    (a power of two <= 8) splits each tile's kept groups, the largest
+    keeping the grid within one block an SM; a cluster of C = S * (tiles
+    a cluster) <= 8 blocks shares the prologue (the largest power of two
+    whose tiles divide the grid's)."""
+    if G <= 0 or K <= 0 or K % G or not 1 <= cap <= K // G:
+        return None
+    tw = _sgg_tile(esz, plan)
+    tiles = (-(-ns[0] // tw) if nw == 2
+             else sum(-(-n // tw) for n in ns))
+    smem = _sgg_smem(esz, plan, nw, G, K // G, cap)
+    if tiles <= 0 or smem > _SMEM_BYTES:
+        return None
+    S = 1
+    while S < _SGG_MAX_SPLITS and tiles * 2 * S <= n_sms:
+        S *= 2
+    tc = 1
+    while tc * 2 * S <= _SGG_MAX_CLUSTER and tiles % (tc * 2) == 0:
+        tc *= 2
+    return S, tc * S, _SGG_STAGES, smem
 
 
 def selection_input(x, norm, layer: int, norm_eps: float):
@@ -635,22 +688,23 @@ def select_gather_gemv(x: torch.Tensor, thr: torch.Tensor, ws, layer,
     n_out = n[0] if silu else sum(n)
     rows = x.numel() // x.shape[-1]
     lib = _build.load()["select_gather_gemv"]
+    sms = _build.sm_count(x.device.index)
+    nw = 2 if silu else 1
     if rows > 1:
-        if _rows_plan(x.element_size(), plan, 2 if silu else 1, x.shape[-1],
-                      n_out, cap, _build.sm_count(x.device.index),
-                      ROWS_SPLITS) is None \
-                or any(n_i % ROWS_TILE for n_i in n):
+        if _rows_plan(x.element_size(), plan, nw, x.shape[-1], n_out, cap,
+                      sms) is None or any(n_i % ROWS_TILE for n_i in n):
             raise ValueError(f"the rows kernel takes widths that are "
                              f"multiples of {ROWS_TILE} and a plan that fits "
                              f"shared memory; got widths {n}, K = "
                              f"{x.shape[-1]}, cap {cap}")
-        if x.data_ptr() % 16 or (norm is not None and norm.data_ptr() % 16):
-            raise ValueError("the rows kernel copies x and norm in 16-byte "
-                             "chunks: both must be 16-byte aligned")
-        if (ROWS_SPLITS or 0) != _lib_splits[0]:
-            _build.check(lib.teal_sgg_rows_force_splits(ROWS_SPLITS or 0),
-                         "select_gather_gemv (forced splits)")
-            _lib_splits[0] = ROWS_SPLITS or 0
+    elif _sgg_plan(x.element_size(), plan, nw, G, n, x.shape[-1], cap,
+                   sms) is None:
+        raise ValueError(f"the single-row kernel has no plan that fits "
+                         f"shared memory for widths {n}, K = {x.shape[-1]}, "
+                         f"G = {G}, cap {cap}")
+    if x.data_ptr() % 16 or (norm is not None and norm.data_ptr() % 16):
+        raise ValueError("K1 reads x and norm in 16-byte chunks: both must "
+                         "be 16-byte aligned")
     out = torch.empty((*x.shape[:-1], n_out), device=x.device,
                       dtype=torch.float32 if mode == 0 else x.dtype)
     sel = torch.empty(cap + 1, dtype=torch.int32, device=x.device)

@@ -8,6 +8,10 @@ in interpret mode; then `forward` at B > 1 with the main-path config
 (the batched token path) against the JAX whole-token kernel in interpret
 mode, and `Generator(batch=3)` against the JAX Generator. fp32 logits and
 caches within 2e-5, except where a test's docstring says otherwise.
+
+The JAX interpret-mode references run in one subprocess for the module
+(`jax_subprocess.jax_results`, `jax_reference` below), so a hang of the
+interpreter fails these cases instead of stalling the run.
 """
 
 import functools
@@ -18,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax_subprocess import jax_results
 
 from teal_tpu.config import SparsityConfig as JSparsityConfig
 from teal_tpu.config import get_model_config as jget_model_config
@@ -110,23 +115,23 @@ def _jax_sums(xs, idx, jws, layer, cap):
     return np.concatenate(outs)
 
 
-@pytest.mark.parametrize("B,plan,epilogue,fixed", [
+ROWS_CASES = [
     (1, "fp32", "qkv", False), (3, "fp32", "qkv", False),
     (8, "fp32", "qkv", False), (12, "fp32", "qkv", False),
     (16, "fp32", "qkv", False), (12, "fp32", "res", False),
     (5, "fp32", "silu", False), (3, "int8", "silu", False),
     (12, "int8", "res", False), (3, "int4", "qkv", False),
     (12, "int4", "silu", False), (16, "fp32", "qkv", True),
-    (3, "int8", "res", True)])
-def test_k1_rows_match_jax(B, plan, epilogue, fixed):
-    """K1's plain version with B rows: the kept set is the JAX batched
-    selection's on the per-row folded norm (pooled max over rows, the
-    unified threshold + cap rule; `fixed`: groups 0..cap-1), and the
-    outputs are the JAX gather kernel's fp32 sums over it with the
-    epilogue (int8 scale, residual or silu) applied in fp32, within 1e-5
-    of scale (another summation order)."""
+    (3, "int8", "res", True)]
+ROWS_L, ROWS_NB, ROWS_LAYER, ROWS_CAP = 2, 6, 1, 4
+
+
+def _rows_inputs(B, plan, epilogue, fixed):
+    """One rows case's inputs, from its seed: (x, gain, ws, xs, thr, idx,
+    res, ns); idx is the JAX batched selection's kept set (`fixed`:
+    groups 0..cap-1)."""
     rng = np.random.default_rng(100 * B + len(plan) + len(epilogue))
-    L, nb, layer, cap = 2, 6, 1, 4
+    L, nb, layer, cap = ROWS_L, ROWS_NB, ROWS_LAYER, ROWS_CAP
     K = nb * G
     ns = {"qkv": (256, 128, 128), "res": (256,), "silu": (128, 128)}[epilogue]
     norm = epilogue != "res"
@@ -141,14 +146,29 @@ def test_k1_rows_match_jax(B, plan, epilogue, fixed):
         mask = np.asarray(jbg.batched_group_mask(
             jnp.asarray(xs), G, cap, threshold=jnp.float32(thr)))[0]
         idx = np.nonzero(mask.reshape(nb, G)[:, 0])[0].astype(np.int32)
-        if B <= 8:
-            jidx, _ = jbg.select_groups_batched(jnp.asarray(xs), G, cap,
-                                                threshold=jnp.float32(thr))
-            np.testing.assert_array_equal(idx, np.asarray(jidx)[:len(idx)])
     else:
         idx = np.arange(cap, dtype=np.int32)
     res = (rng.standard_normal((B, sum(ns))).astype(np.float32)
            if epilogue == "res" else None)
+    return x, gain, ws, xs, thr, idx, res, ns
+
+
+@pytest.mark.parametrize("B,plan,epilogue,fixed", ROWS_CASES)
+def test_k1_rows_match_jax(B, plan, epilogue, fixed, jax_refs):
+    """K1's plain version with B rows: the kept set is the JAX batched
+    selection's on the per-row folded norm (pooled max over rows, the
+    unified threshold + cap rule; `fixed`: groups 0..cap-1), and the
+    outputs are the JAX gather kernel's fp32 sums over it with the
+    epilogue (int8 scale, residual or silu) applied in fp32, within 1e-5
+    of scale (another summation order)."""
+    L, nb, layer, cap = ROWS_L, ROWS_NB, ROWS_LAYER, ROWS_CAP
+    norm = epilogue != "res"
+    x, gain, ws, xs, thr, idx, res, ns = _rows_inputs(B, plan, epilogue,
+                                                      fixed)
+    if not fixed and B <= 8:
+        jidx, _ = jbg.select_groups_batched(jnp.asarray(xs), G, cap,
+                                            threshold=jnp.float32(thr))
+        np.testing.assert_array_equal(idx, np.asarray(jidx)[:len(idx)])
     scales = ([_t(s) for _, _, s in ws] if plan == "int8" else None)
     xt = _t(x if B > 1 else x[0])
     got, gidx, gcnt = tbg.select_gather_gemv(
@@ -159,7 +179,7 @@ def test_k1_rows_match_jax(B, plan, epilogue, fixed):
     assert int(gcnt[0]) == len(idx)
     np.testing.assert_array_equal(_np(gidx)[:len(idx)], idx)
     assert (_np(gidx)[len(idx):] == -1).all()
-    acc = _jax_sums(xs, idx, [jw for _, jw, _ in ws], layer, cap)
+    acc = jax_refs[_rows_key(B, plan, epilogue, fixed)]["acc"]
     accs = np.split(acc, np.cumsum(ns)[:-1], axis=1)
     if plan == "int8":
         accs = [a * s[layer] for a, (_, _, s) in zip(accs, ws)]
@@ -210,11 +230,64 @@ def _cache(cfg, B, seed):
             rng.standard_normal(shape).astype(np.float32) * 0.1)
 
 
-def _both(cfg, jcfg, params, jparams, toks, pos, th, k, v, dtype=None):
-    """(port, JAX) decode of toks [B, 1] at positions pos [B]: logits and
-    both caches, the JAX token kernel in interpret mode."""
-    tdt = torch.float32 if dtype is None else torch.bfloat16
+def _decode_inputs(name):
+    """A batched decode case's inputs, from its seeds: (cfg, jcfg, params,
+    jparams, toks [B, 1], pos [B], th, k, v, dtype); "gqa" / "mha": B = 3
+    at [2, 9, 14]; "b12": B = 12 at random positions; "int8" / "int4":
+    the quantized copies of a one-layer bf16 model at B = 3."""
+    if name in ("int8", "int4"):
+        kw = dict(n_layers=1, n_heads=2, n_kv_heads=1, dim=256,
+                  intermediate_size=384, vocab_size=128)
+        cfg = get_model_config("tiny", **kw)
+        jcfg = jget_model_config("tiny", **kw)
+        jp = jllama.init_params(jcfg, jax.random.PRNGKey(41), jnp.bfloat16)
+        params = {"int8": _q8, "int4": _q4}[name](llama.params_from_numpy(
+            jax.tree.map(np.asarray, jp), device="cpu",
+            dtype=torch.bfloat16))
+        rng = np.random.default_rng(9)
+        shape = (1, 3, 1, T, 128)
+        k, v = (np.asarray(jnp.asarray(rng.standard_normal(shape) * 0.1,
+                                       jnp.bfloat16), np.float32)
+                for _ in range(2))
+        return (cfg, jcfg, params, _to_jax(params), np.array([[3], [7], [11]]),
+                [2, 9, 14], np.tile(MAIN_TH, (1, 1)), k, v, "bf16")
+    if name == "b12":
+        cfg, jcfg, params, jparams = _model(2, 2)
+        rng = np.random.default_rng(7)
+        pos = rng.integers(1, 15, 12)
+        toks = rng.integers(1, 120, (12, 1))
+        k, v = _cache(cfg, 12, 43)
+    else:
+        n_kv_heads = {"gqa": 1, "mha": 2}[name]
+        cfg, jcfg, params, jparams = _model(2, n_kv_heads)
+        pos, toks = [2, 9, 14], np.array([[3], [7], [11]])
+        k, v = _cache(cfg, 3, 11 + n_kv_heads)
+    return (cfg, jcfg, params, jparams, toks, pos,
+            np.tile(MAIN_TH, (cfg.n_layers, 1)), k, v, None)
+
+
+def _jax_decode(name):
+    """The JAX forward of a decode case through the batched whole-token
+    kernel in interpret mode: logits and both caches (run by
+    `jax_results` in the subprocess)."""
+    _, jcfg, _, jparams, toks, pos, th, k, v, dtype = _decode_inputs(name)
     jdt = jnp.float32 if dtype is None else jnp.bfloat16
+    with pltpu.force_tpu_interpret_mode():
+        want, wc = jllama.forward(
+            jparams, jnp.asarray(toks, jnp.int32),
+            jllama.KVCache(jnp.asarray(k, jdt), jnp.asarray(v, jdt)),
+            jnp.asarray(pos, jnp.int32), jnp.asarray(th), cfg=jcfg,
+            sp=JSparsityConfig(**JMAIN))
+    return {"logits": np.asarray(want, np.float32),
+            "k": np.asarray(wc.k, np.float32),
+            "v": np.asarray(wc.v, np.float32)}
+
+
+def _both(name, jax_refs):
+    """(port, JAX) decode of a case's toks [B, 1] at positions pos [B]:
+    logits and both caches, the JAX token kernel's from `jax_refs`."""
+    cfg, _, params, _, toks, pos, th, k, v, dtype = _decode_inputs(name)
+    tdt = torch.float32 if dtype is None else torch.bfloat16
     sp = SparsityConfig(**MAIN)
     B = len(pos)
     assert llama.can_token_decode(params, cfg, sp, 1, B, tdt)
@@ -222,41 +295,25 @@ def _both(cfg, jcfg, params, jparams, toks, pos, th, k, v, dtype=None):
     got, cache = llama.forward(params, torch.from_numpy(toks).long(), cache,
                                list(pos), torch.from_numpy(th), cfg=cfg,
                                sp=sp)
-    with pltpu.force_tpu_interpret_mode():
-        want, wc = jllama.forward(
-            jparams, jnp.asarray(toks, jnp.int32),
-            jllama.KVCache(jnp.asarray(k, jdt), jnp.asarray(v, jdt)),
-            jnp.asarray(pos, jnp.int32), jnp.asarray(th), cfg=jcfg,
-            sp=JSparsityConfig(**JMAIN))
-    return ((_np(got), np.asarray(want, np.float32)),
-            (_np(cache.k), np.asarray(wc.k, np.float32)),
-            (_np(cache.v), np.asarray(wc.v, np.float32)))
+    want = jax_refs[f"decode-{name}"]
+    return ((_np(got), want["logits"]), (_np(cache.k), want["k"]),
+            (_np(cache.v), want["v"]))
 
 
 @pytest.mark.parametrize("n_kv_heads", [1, 2], ids=["gqa", "mha"])
-def test_batched_token_path_matches_jax_token_kernel(n_kv_heads):
+def test_batched_token_path_matches_jax_token_kernel(n_kv_heads, jax_refs):
     """B = 3 at positions [2, 9, 14] with nonzero thresholds: `forward`
     (the batched token path, plain K1/K2) == the JAX forward through the
     batched whole-token kernel, in logits and both caches."""
-    cfg, jcfg, params, jparams = _model(2, n_kv_heads)
-    th = np.tile(MAIN_TH, (cfg.n_layers, 1))
-    k, v = _cache(cfg, 3, 11 + n_kv_heads)
-    toks = np.array([[3], [7], [11]])
-    for got, want in _both(cfg, jcfg, params, jparams, toks, [2, 9, 14], th,
-                           k, v):
+    name = {1: "gqa", 2: "mha"}[n_kv_heads]
+    for got, want in _both(name, jax_refs):
         np.testing.assert_allclose(got, want, **TOL)
 
 
-def test_b12_two_row_tiles_match_jax_token_kernel():
+def test_b12_two_row_tiles_match_jax_token_kernel(jax_refs):
     """B = 12 (the reference's two sublane tiles) at random positions with
     nonzero thresholds == the JAX whole-token kernel."""
-    cfg, jcfg, params, jparams = _model(2, 2)
-    rng = np.random.default_rng(7)
-    pos = rng.integers(1, 15, 12)
-    toks = rng.integers(1, 120, (12, 1))
-    th = np.tile(MAIN_TH, (cfg.n_layers, 1))
-    k, v = _cache(cfg, 12, 43)
-    for got, want in _both(cfg, jcfg, params, jparams, toks, pos, th, k, v):
+    for got, want in _both("b12", jax_refs):
         np.testing.assert_allclose(got, want, **TOL)
 
 
@@ -303,48 +360,77 @@ def _to_jax(tree):
     return jnp.asarray(tree.numpy())
 
 
-@pytest.mark.parametrize("quantize", [_q8, _q4], ids=["int8", "int4"])
-def test_quantized_batched_token_path_matches_jax(quantize):
+@pytest.mark.parametrize("quantize", ["int8", "int4"])
+def test_quantized_batched_token_path_matches_jax(quantize, jax_refs):
     """int8 and packed int4 (G = 128) at B = 3, positions [2, 9, 14], one
     layer, bf16 (the quantized paths' compute type): logits and caches
     within 2^-7 of scale of the JAX batched whole-token kernel (bf16
     rounds at the same points in another summation order, as in
     `tests/test_torch_quant.py`; the JAX suite's own int8/int4 batched
     checks, `tests/test_kernels.py:1090` and `:1130`, allow 5e-2)."""
-    kw = dict(n_layers=1, n_heads=2, n_kv_heads=1, dim=256,
-              intermediate_size=384, vocab_size=128)
-    cfg, jcfg = get_model_config("tiny", **kw), jget_model_config("tiny", **kw)
-    jp = jllama.init_params(jcfg, jax.random.PRNGKey(41), jnp.bfloat16)
-    params = quantize(llama.params_from_numpy(jax.tree.map(np.asarray, jp),
-                                              device="cpu",
-                                              dtype=torch.bfloat16))
-    rng = np.random.default_rng(9)
-    shape = (1, 3, 1, T, 128)
-    k, v = (np.asarray(jnp.asarray(rng.standard_normal(shape) * 0.1,
-                                   jnp.bfloat16), np.float32)
-            for _ in range(2))
-    th = np.tile(MAIN_TH, (1, 1))
-    for got, want in _both(cfg, jcfg, params, _to_jax(params),
-                           np.array([[3], [7], [11]]), [2, 9, 14], th, k, v,
-                           dtype="bf16"):
+    for got, want in _both(quantize, jax_refs):
         _close(got, want, 2 ** -7)
 
 
-def test_batched_generator_matches_jax():
+GEN_PROMPT = np.array([[3, 17, 42, 8, 99], [5, 1, 7, 2, 9],
+                       [60, 61, 62, 63, 64]], np.int64)
+
+
+def _jax_generate():
+    """The JAX Generator (batch 3) through its batched whole-token kernel
+    in interpret mode (run by `jax_results` in the subprocess)."""
+    _, jcfg, _, jparams = _model(2, 1)
+    th = np.tile(MAIN_TH, (jcfg.n_layers, 1))
+    jgen = JGenerator(jcfg, jparams, sp=JSparsityConfig(**JMAIN), max_seq=T,
+                      batch=3, cache_dtype=jnp.float32, temperature=0.0)
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = jgen.generate(GEN_PROMPT, 5, thresholds=jnp.asarray(th))
+    return {"tokens": np.asarray(want)}
+
+
+def test_batched_generator_matches_jax(jax_refs):
     """`Generator(batch=3)` with the main-path config (dense prefill, then
     the batched token path every step) == the JAX Generator through its
     batched whole-token kernel, token for token (greedy, fp32)."""
-    cfg, jcfg, params, jparams = _model(2, 1)
-    prompt = np.array([[3, 17, 42, 8, 99], [5, 1, 7, 2, 9],
-                       [60, 61, 62, 63, 64]], np.int64)
+    cfg, _, params, _ = _model(2, 1)
     th = np.tile(MAIN_TH, (cfg.n_layers, 1))
     gen = Generator(cfg, params, sp=SparsityConfig(**MAIN), max_seq=T,
                     batch=3, cache_dtype=torch.float32, temperature=0.0,
                     device="cpu")
-    got, stats = gen.generate(prompt, 5, thresholds=torch.from_numpy(th))
-    jgen = JGenerator(jcfg, jparams, sp=JSparsityConfig(**JMAIN), max_seq=T,
-                      batch=3, cache_dtype=jnp.float32, temperature=0.0)
-    with pltpu.force_tpu_interpret_mode():
-        want, _ = jgen.generate(prompt, 5, thresholds=jnp.asarray(th))
-    np.testing.assert_array_equal(got, want)
+    got, stats = gen.generate(GEN_PROMPT, 5, thresholds=torch.from_numpy(th))
+    np.testing.assert_array_equal(got, jax_refs["generate"]["tokens"])
     assert stats.new_tokens == 5
+
+
+# --- the JAX references, in one subprocess for the module -------------------
+
+DECODE_NAMES = ("gqa", "mha", "b12", "int8", "int4")
+
+
+def _rows_key(B, plan, epilogue, fixed):
+    return f"rows-{B}-{plan}-{epilogue}-{int(fixed)}"
+
+
+def jax_reference(kind, **kw):
+    """Every interpret-mode reference of this module, by kind: "rows"
+    (the JAX gather kernel's sums of a rows case), "decode" (a batched
+    decode case), "generate" (run by `jax_results` in the subprocess)."""
+    if kind == "rows":
+        _, _, ws, xs, _, idx, _, _ = _rows_inputs(**kw)
+        return {"acc": _jax_sums(xs, idx, [jw for _, jw, _ in ws],
+                                 ROWS_LAYER, ROWS_CAP)}
+    if kind == "decode":
+        return _jax_decode(**kw)
+    return _jax_generate()
+
+
+@pytest.fixture(scope="module")
+def jax_refs(tmp_path_factory):
+    cases = {_rows_key(*c): dict(kind="rows", B=c[0], plan=c[1],
+                                 epilogue=c[2], fixed=c[3])
+             for c in ROWS_CASES}
+    cases.update({f"decode-{n}": dict(kind="decode", name=n)
+                  for n in DECODE_NAMES})
+    cases["generate"] = dict(kind="generate")
+    return jax_results(__file__, "jax_reference", cases,
+                       tmp_path_factory.mktemp("jax_batched"))

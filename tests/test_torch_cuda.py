@@ -507,20 +507,47 @@ def test_k1_rows_match_plain(cuda, dtype, plan, epilogue, B):
     _rows_case(cuda, g, dtype, plan, epilogue, B)
 
 
+def _rows_widths_for_splits(epilogue, splits, sms):
+    """Widths whose 64-column tile count brings the rows form's plan to
+    `splits` on a card of `sms` SMs (S = 4 up to sms // 4 tiles, 2 up to
+    sms // 2, 1 beyond): at 132 SMs res 3 / 34 / 67 tiles (clusters of 4,
+    4, 1 blocks), qkv 16 / 66 / 72 (8, 4, 8) and silu 33 / 36 / 67 (4, 8,
+    1)."""
+    lo, hi = {4: (1, sms // 4), 2: (sms // 4 + 1, sms // 2),
+              1: (sms // 2 + 1, 2 * sms)}[splits]
+    tiles = {"res": {4: min(3, hi), 2: lo, 1: lo},
+             "qkv": {4: min(16, hi), 2: hi, 1: (lo // 8 + 1) * 8},
+             "silu": {4: hi, 2: min(hi, (lo // 4 + 1) * 4), 1: lo}
+             }[epilogue][splits]
+    if epilogue == "res":
+        return (64 * tiles,)
+    if epilogue == "silu":
+        return (64 * tiles, 64 * tiles)
+    a = max(1, tiles // 4)
+    return (64 * (tiles - 2 * a), 64 * a, 64 * a)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("plan", ["stream", "int8", "int4"])
 @pytest.mark.parametrize("splits", [1, 2, 4])
-def test_k1_rows_splits_match_plain(cuda, monkeypatch, dtype, plan, splits):
-    """K1's rows form with its split count S forced (each tile's kept
-    groups over S blocks of a cluster, their sums added in split order):
-    3, 16 and 17 column tiles (clusters of S, 8 and S blocks); K = 11008
-    (86 groups: more than a warp each in a block of the prologue), 2816
-    (an odd group count) and 1024; B = 2, 9 and 16."""
-    monkeypatch.setattr(bg, "ROWS_SPLITS", splits)
+def test_k1_rows_splits_match_plain(cuda, dtype, plan, splits):
+    """K1's rows form at each split count S (each tile's kept groups over
+    S blocks of a cluster, their sums added in split order), reached
+    through the widths at this card's SM count (`_rows_widths_for_splits`:
+    clusters of S, 8 or 2 blocks); K = 11008 (86 groups: more than a warp
+    each in a block of the prologue), 2816 (an odd group count) and 1024;
+    B = 2, 9 and 16."""
     g = torch.Generator(device=cuda).manual_seed(300 + splits)
-    for epilogue, ns, K, cap in (("res", (192,), 11008, 4),
-                                 ("qkv", (512, 256, 256), 2816, 4),
-                                 ("silu", (1088, 1088), 1024, 4)):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    esz = torch.finfo(dtype).bits // 8
+    code = {"stream": bg.PLAN_STREAM, "int8": bg.PLAN_INT8,
+            "int4": bg.PLAN_INT4}[plan]
+    for epilogue, K, cap in (("res", 11008, 4), ("qkv", 2816, 4),
+                             ("silu", 1024, 4)):
+        ns = _rows_widths_for_splits(epilogue, splits, sms)
+        nw = 2 if epilogue == "silu" else 1
+        assert bg._rows_plan(esz, code, nw, K, ns[0] if nw == 2 else sum(ns),
+                             cap, sms)[0] == splits, (epilogue, ns)
         for B in (2, 9, 16):
             _rows_case(cuda, g, dtype, plan, epilogue, B, ns=ns, K=K,
                        cap=cap)
@@ -529,9 +556,8 @@ def test_k1_rows_splits_match_plain(cuda, monkeypatch, dtype, plan, splits):
 def test_k1_rows_plan_matches_kernel(cuda):
     """The wrapper's `_rows_plan` (splits, cluster, ring stages, shared
     bytes) equals the kernel's `rows_plan` over the 7B stage shapes and
-    small ones, both stream types, the three weight plans, forced and
-    ruled splits and two SM counts; the rule's plans at 7B keep every
-    block of the grid resident."""
+    small ones, both stream types, the three weight plans and two SM
+    counts."""
     lib = _build.load()["select_gather_gemv"]
     out = (torch.zeros(4, dtype=torch.int32))
     shapes = [(4096, 12288, 1), (4096, 4096, 1), (4096, 11008, 2),
@@ -543,17 +569,15 @@ def test_k1_rows_plan_matches_kernel(cuda):
             for code, esz in ((0, 4), (1, 2)):
                 for plan in (0, 1, 2):
                     for sms in (114, 132):
-                        for splits in (None, 1, 2, 4):
-                            want = bg._rows_plan(esz, plan, nw, K, n_out,
-                                                 cap, sms, splits)
-                            lib.teal_sgg_rows_plan(
-                                code, plan, int(nw == 2), K, n_out, cap,
-                                sms, splits or 0, out.data_ptr())
-                            got = tuple(int(v) for v in out)
-                            assert (got[3] == -1 if want is None
-                                    else got == want), (K, n_out, nw, cap,
-                                                        esz, plan, sms,
-                                                        splits)
+                        want = bg._rows_plan(esz, plan, nw, K, n_out, cap,
+                                             sms)
+                        lib.teal_sgg_rows_plan(code, plan, int(nw == 2), K,
+                                               n_out, cap, sms,
+                                               out.data_ptr())
+                        got = tuple(int(v) for v in out)
+                        assert (got[3] == -1 if want is None
+                                else got == want), (K, n_out, nw, cap, esz,
+                                                    plan, sms)
 
 
 def test_k1_rows_grid_resident_at_7b(cuda):
@@ -566,11 +590,144 @@ def test_k1_rows_grid_resident_at_7b(cuda):
                               (4096, 11008, 2, 16), (11008, 4096, 1, 43)):
         for plan in (0, 1, 2):
             assert lib.teal_sgg_rows_residency(1, plan, int(nw == 2), K,
-                                               n_out, cap, 0,
+                                               n_out, cap,
                                                out.data_ptr()) == 0
             grid, C, clusters = (int(v) for v in out)
             assert grid % C == 0 and clusters * C >= grid, \
                 (K, n_out, plan, grid, C, clusters)
+
+
+# K1's single row: (K, widths, weights of one tile) at the 7B stages,
+# Mixtral's expert stages, and small shapes with masked last tiles
+K1_PLAN_SHAPES = [(4096, (4096, 4096, 4096), 1), (4096, (4096,), 1),
+                  (4096, (11008, 11008), 2), (11008, (4096,), 1),
+                  (4096, (14336, 14336), 2), (14336, (4096,), 1),
+                  (1024, (512, 256, 256), 1), (1024, (1024,), 1),
+                  (1024, (512, 512), 2), (512, (768, 768), 2),
+                  (768, (512,), 1), (256, (32,), 1), (256, (96, 64), 1),
+                  (2048, (4064, 96, 32), 1)]
+
+
+def test_k1_plan_matches_kernel(cuda):
+    """The wrapper's `_sgg_plan` (splits, cluster, ring stages, shared
+    bytes) equals the kernel's `sgg_plan` over the 7B stage shapes,
+    Mixtral's expert shapes and small ones, every G, caps 1 to nb, both
+    stream types, the three weight plans and two SM counts."""
+    lib = _build.load()["select_gather_gemv"]
+    out = torch.zeros(4, dtype=torch.int32)
+    for K, ns, nw in K1_PLAN_SHAPES:
+        padded = list(ns) + [0] * (3 - len(ns))
+        for G in bg.GROUP_SIZES:
+            nb = K // G
+            for cap in sorted({1, nb // 2 or 1, nb}):
+                for code, esz in ((0, 4), (1, 2)):
+                    for plan in (0, 1, 2):
+                        for sms in (114, 132):
+                            want = bg._sgg_plan(esz, plan, nw, G, ns, K, cap,
+                                                sms)
+                            lib.teal_sgg_plan(code, plan, int(nw == 2), G,
+                                              *padded, len(ns), K, cap, sms,
+                                              out.data_ptr())
+                            got = tuple(int(v) for v in out)
+                            assert (got[3] == -1 if want is None
+                                    else got == want), (K, ns, G, cap, esz,
+                                                        plan, sms)
+
+
+def _k1_threshold(x, norm, layer, G, n_surv):
+    """A group threshold with about `n_surv` survivors (the first count
+    from n_surv on whose cut lies more than 2% from both neighbouring
+    scores of the plain version's selection input), so the kept set
+    does not turn on rounding."""
+    xs = bg.selection_input(x, norm, layer, 1e-5).float()
+    v = xs.abs().reshape(-1, G).amax(-1).sort(descending=True).values
+    for i in range(n_surv, v.numel()):
+        if float(v[i - 1]) > 1.02 * float(v[i]):
+            return torch.tensor(float((v[i - 1] * v[i]).sqrt()),
+                                device=x.device)
+    return torch.tensor(float(v[-1]) * 0.5, device=x.device)
+
+
+def _k1_widths_for_splits(esz, plan, mode, splits, sms):
+    """Widths of one K1 call in `mode` whose 256-byte tiles (the last one
+    masked: 32 columns short) bring the single row's plan to `splits` on
+    this card (the largest power of two <= 8 with tiles * S <= SMs): mode
+    0 three weights (a masked first tile and two 96 / 32-column ones),
+    modes 1 and 3 one weight, mode 2 a pair."""
+    tw = bg._sgg_tile(esz, plan)
+    tiles = sms // splits if splits > 1 else sms
+    if mode == 0:
+        rest = -(-96 // tw) + -(-32 // tw)
+        return ((tiles - rest) * tw - 32, 96, 32)
+    n = tiles * tw - 32
+    return (n, n) if mode == 2 else (n,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plan", ["stream", "int8", "int4"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_k1_splits_match_plain(cuda, dtype, plan, splits):
+    """K1's single row at each split count S (each tile's kept groups
+    over S blocks of a cluster, added in rank order), reached through the
+    widths at this card's SM count, in every mode: q|k|v (three weights,
+    also `fixed`), the residual, silu(gate) * up, and the MoE weighted
+    residual on a device layer; cap 1, below S and 13 (uneven shares) at
+    threshold 0 (the first cap groups) and one with about 9 survivors,
+    2% from every score (`_k1_threshold`); the same kept sets as
+    the plain version, outputs within 1e-5 of scale (fp32 stream), 1e-4
+    (bf16 stream, fp32 sums) or 2^-7 (bf16 outputs), two calls
+    bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(700 + splits)
+    L, K, G, layer = 2, 2048, 64, 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    esz = torch.finfo(dtype).bits // 8
+    code = {"stream": bg.PLAN_STREAM, "int8": bg.PLAN_INT8,
+            "int4": bg.PLAN_INT4}[plan]
+    x = torch.randn(K, generator=g, device=cuda).to(dtype)
+    norm = (1 + 0.1 * torch.randn(L, K, generator=g, device=cuda)).to(dtype)
+    for mode in (0, 1, 2, 3):
+        ns = _k1_widths_for_splits(esz, code, mode, splits, sms)
+        nw = 2 if mode == 2 else 1
+        assert bg._sgg_plan(esz, code, nw, G, ns, K, 13, sms)[0] == splits, \
+            (mode, ns)
+        if plan == "stream":
+            ws = [(torch.randn(L, K, n, generator=g, device=cuda) * 0.05)
+                  .to(dtype) for n in ns]
+        else:
+            ws = _plan_weights(g, cuda, plan, L, K, ns, G)
+        scales = ([torch.rand(L, n, generator=g, device=cuda) * 1e-3
+                   for n in ns] if plan == "int8" else None)
+        n_out = ns[0] if mode == 2 else sum(ns)
+        kw = dict(G=G, scales=scales, silu=mode == 2,
+                  norm=norm if mode in (0, 2) else None,
+                  res=(torch.randn(n_out, generator=g, device=cuda).to(dtype)
+                       if mode in (1, 3) else None))
+        lay = layer
+        if mode == 3:
+            lay = torch.tensor([0, layer], dtype=torch.int32, device=cuda)
+            kw.update(slot=1, route_w=torch.tensor([0.25, 0.75],
+                                                   device=cuda))
+        mid = _k1_threshold(x, kw["norm"], layer, G, 9)
+        for cap in sorted({1, max(1, splits // 2), 13}):
+            for thr, fixed in ((0.0, False), (mid, False), (mid, mode == 0)):
+                t = torch.as_tensor(thr, dtype=torch.float32, device=cuda)
+                before = bg.select_gather_gemv.launches
+                got, gidx, gcnt = bg.select_gather_gemv(x, t, ws, lay, cap,
+                                                        fixed=fixed, **kw)
+                again, aidx, acnt = bg.select_gather_gemv(x, t, ws, lay, cap,
+                                                          fixed=fixed, **kw)
+                assert bg.select_gather_gemv.launches == before + 2
+                want, widx, wcnt = bg.select_gather_gemv_plain(
+                    x, t, ws, lay, cap, fixed=fixed, **kw)
+                case = (mode, cap, float(thr), fixed)
+                assert torch.equal(gcnt, wcnt) and torch.equal(gidx, widx), \
+                    case
+                assert torch.equal(got, again) and torch.equal(gidx, aidx) \
+                    and torch.equal(gcnt, acnt), f"{case}: two calls differ"
+                rel = (1e-5 if dtype == torch.float32 else
+                       1e-4 if got.dtype == torch.float32 else 2 ** -7)
+                ok, err = _close(got, want, rel)
+                assert ok, (case, err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -21,7 +21,11 @@ routed, head dim 128):
     `Generator.model_bytes`.
 The seeds give top-2 router margins far above the two frameworks'
 summation-order differences (checked where the test sees the logits).
-Each JAX interpret-mode reference runs once per module."""
+The JAX interpret-mode references run once per module, in one subprocess
+(`jax_subprocess.jax_results`, `jax_reference` below), so a hang of the
+interpreter fails these cases instead of stalling the run."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax_subprocess import jax_results
 
 from teal_tpu.config import SparsityConfig as JSparsityConfig
 from teal_tpu.config import get_model_config as jget_model_config
@@ -78,6 +83,11 @@ def _cache(seed, L=CFG_KW["n_layers"], dtype=np.float32):
 
 @pytest.fixture(scope="module")
 def model():
+    return _model()
+
+
+@functools.lru_cache(maxsize=None)
+def _model():
     cfg = get_model_config("tiny", **CFG_KW)
     jcfg = jget_model_config("tiny", **CFG_KW)
     assert cfg.head_dim == 128
@@ -162,31 +172,45 @@ LOOP_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(LOOP_CASES))
-def test_layer_loop_decode_matches_jax(model, case):
-    """Single-token decode that the token path does not take (token_fused
-    False, the top-k config, batch 2) runs the layer loop: logits and both
-    caches as JAX's layer loop (its Pallas kernels in interpret mode)."""
-    cfg, jcfg, params, jparams = model
+def _loop_inputs(case):
+    """A layer-loop case's (sparsity kwargs, batch, toks, k, v, th)."""
     sp_kw, b = LOOP_CASES[case]
-    sp = SparsityConfig(**sp_kw)
-    assert not llama.can_token_decode(params, cfg, sp, 1, b, torch.float32)
     k, v = _cache(7)
     k, v = np.repeat(k, b, axis=1), np.repeat(v, b, axis=1)
-    toks = np.arange(3, 3 + b)[:, None]
-    th = _thresholds(True)
-    cache = llama.KVCache.from_numpy(k, v, device="cpu")
-    got, gc = llama.forward(params, torch.from_numpy(toks), cache, 5,
-                            torch.from_numpy(th), cfg=cfg, sp=sp)
+    return sp_kw, b, np.arange(3, 3 + b)[:, None], k, v, _thresholds(True)
+
+
+def _jax_loop(case):
+    """JAX's layer loop on a `LOOP_CASES` entry, its Pallas kernels in
+    interpret mode (run by `jax_results` in the subprocess)."""
+    _, jcfg, _, jparams = _model()
+    sp_kw, _, toks, k, v, th = _loop_inputs(case)
     with pltpu.force_tpu_interpret_mode():
         want, wc = jllama.forward(
             jparams, jnp.asarray(toks, jnp.int32),
             jllama.KVCache(jnp.asarray(k), jnp.asarray(v)), 5,
             jnp.asarray(th), cfg=jcfg,
             sp=JSparsityConfig(**sp_kw, fused_decode_attention=True))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    np.testing.assert_allclose(gc.k.numpy(), np.asarray(wc.k), **TOL)
-    np.testing.assert_allclose(gc.v.numpy(), np.asarray(wc.v), **TOL)
+    return {"logits": np.asarray(want), "k": np.asarray(wc.k),
+            "v": np.asarray(wc.v)}
+
+
+@pytest.mark.parametrize("case", list(LOOP_CASES))
+def test_layer_loop_decode_matches_jax(model, case, jax_refs):
+    """Single-token decode that the token path does not take (token_fused
+    False, the top-k config, batch 2) runs the layer loop: logits and both
+    caches as JAX's layer loop (its Pallas kernels in interpret mode)."""
+    cfg, jcfg, params, jparams = model
+    sp_kw, b, toks, k, v, th = _loop_inputs(case)
+    sp = SparsityConfig(**sp_kw)
+    assert not llama.can_token_decode(params, cfg, sp, 1, b, torch.float32)
+    cache = llama.KVCache.from_numpy(k, v, device="cpu")
+    got, gc = llama.forward(params, torch.from_numpy(toks), cache, 5,
+                            torch.from_numpy(th), cfg=cfg, sp=sp)
+    want = jax_refs[f"loop-{case}"]
+    np.testing.assert_allclose(got.numpy(), want["logits"], **TOL)
+    np.testing.assert_allclose(gc.k.numpy(), want["k"], **TOL)
+    np.testing.assert_allclose(gc.v.numpy(), want["v"], **TOL)
 
 
 def test_prefill_matches_jax(model):
@@ -210,22 +234,28 @@ def test_prefill_matches_jax(model):
 TOKEN_CASES = [(0, False), (0, True), (5, False), (5, True)]
 
 
-@pytest.fixture(scope="module")
-def jax_token_runs(model):
-    """JAX's whole-token kernel (interpret mode) for every TOKEN_CASES
-    entry, run once: {(pos, col6): (logits, k, v)}."""
-    _, jcfg, _, jparams = model
+def _jax_token(p, col6):
+    """JAX's whole-token kernel (interpret mode) at a TOKEN_CASES entry
+    (run by `jax_results` in the subprocess)."""
+    _, jcfg, _, jparams = _model()
     sp = JSparsityConfig(**MAIN, fused_decode_attention=True)
-    out = {}
+    k, v = _cache(p)
     with pltpu.force_tpu_interpret_mode():
-        for p, col6 in TOKEN_CASES:
-            k, v = _cache(p)
-            lg, c = jllama.forward(
-                jparams, jnp.asarray([[3 + p]], jnp.int32),
-                jllama.KVCache(jnp.asarray(k), jnp.asarray(v)), p,
-                jnp.asarray(_thresholds(col6)), cfg=jcfg, sp=sp)
-            out[p, col6] = tuple(np.asarray(a) for a in (lg, c.k, c.v))
-    return out
+        lg, c = jllama.forward(
+            jparams, jnp.asarray([[3 + p]], jnp.int32),
+            jllama.KVCache(jnp.asarray(k), jnp.asarray(v)), p,
+            jnp.asarray(_thresholds(col6)), cfg=jcfg, sp=sp)
+    return {"logits": np.asarray(lg), "k": np.asarray(c.k),
+            "v": np.asarray(c.v)}
+
+
+@pytest.fixture(scope="module")
+def jax_token_runs(jax_refs):
+    """JAX's whole-token kernel for every TOKEN_CASES entry, from the
+    module's subprocess: {(pos, col6): (logits, k, v)}."""
+    return {(p, col6): tuple(jax_refs[f"token-{p}-{int(col6)}"][n]
+                             for n in ("logits", "k", "v"))
+            for p, col6 in TOKEN_CASES}
 
 
 @pytest.mark.parametrize("p,col6", TOKEN_CASES,
@@ -283,10 +313,9 @@ def test_token_path_launch_plan(model):
 
 # --- int8 ---------------------------------------------------------------
 
-def test_int8_token_path_matches_jax_one_layer():
-    """int8 Mixtral at one layer in bf16: the port's token path (int8
-    scales in K1's epilogue, expert scale stacks as [L*E, N]) against
-    JAX's int8 whole-token kernel, within 2^-7 of scale."""
+def _int8_model():
+    """int8 Mixtral at one layer (the JAX quantization): (cfg, jcfg,
+    params, jparams)."""
     kw = dict(CFG_KW, n_layers=1)
     cfg, jcfg = get_model_config("tiny", **kw), jget_model_config("tiny",
                                                                   **kw)
@@ -294,6 +323,32 @@ def test_int8_token_path_matches_jax_one_layer():
         jllama.init_params(jcfg, jax.random.PRNGKey(17), jnp.bfloat16))
     params = llama.params_from_numpy(jax.tree.map(np.asarray, jp),
                                      device="cpu", dtype=torch.bfloat16)
+    return cfg, jcfg, params, jp
+
+
+def _jax_int8():
+    """JAX's int8 whole-token kernel (interpret mode) at one layer (run
+    by `jax_results` in the subprocess)."""
+    _, jcfg, _, jp = _int8_model()
+    k, v = _cache(11, L=1)
+    th = _thresholds(True)[:1]
+    with pltpu.force_tpu_interpret_mode():
+        want, wc = jllama.forward(
+            jp, jnp.asarray([[9]], jnp.int32),
+            jllama.KVCache(jnp.asarray(k, jnp.bfloat16),
+                           jnp.asarray(v, jnp.bfloat16)), 5,
+            jnp.asarray(th), cfg=jcfg,
+            sp=JSparsityConfig(**MAIN, fused_decode_attention=True))
+    return {"logits": np.asarray(want, np.float32),
+            "k": np.asarray(wc.k, np.float32),
+            "v": np.asarray(wc.v, np.float32)}
+
+
+def test_int8_token_path_matches_jax_one_layer(jax_refs):
+    """int8 Mixtral at one layer in bf16: the port's token path (int8
+    scales in K1's epilogue, expert scale stacks as [L*E, N]) against
+    JAX's int8 whole-token kernel, within 2^-7 of scale."""
+    cfg, _, params, _ = _int8_model()
     assert params["layers"]["wgate"]["q"].dtype == torch.int8
     assert params["layers"]["wgate"]["scale"].shape == (1, 4, 384)
     sp = SparsityConfig(**MAIN)
@@ -304,16 +359,10 @@ def test_int8_token_path_matches_jax_one_layer():
                           torch.from_numpy(v).bfloat16())
     got, gc = llama.forward(params, torch.tensor([[9]]), cache, 5,
                             torch.from_numpy(th), cfg=cfg, sp=sp)
-    with pltpu.force_tpu_interpret_mode():
-        want, wc = jllama.forward(
-            jp, jnp.asarray([[9]], jnp.int32),
-            jllama.KVCache(jnp.asarray(k, jnp.bfloat16),
-                           jnp.asarray(v, jnp.bfloat16)), 5,
-            jnp.asarray(th), cfg=jcfg,
-            sp=JSparsityConfig(**MAIN, fused_decode_attention=True))
-    _close(got.float().numpy(), np.asarray(want, np.float32), 2 ** -7)
-    _close(gc.k.float().numpy(), np.asarray(wc.k, np.float32), 2 ** -7)
-    _close(gc.v.float().numpy(), np.asarray(wc.v, np.float32), 2 ** -7)
+    want = jax_refs["int8"]
+    _close(got.float().numpy(), want["logits"], 2 ** -7)
+    _close(gc.k.float().numpy(), want["k"], 2 ** -7)
+    _close(gc.v.float().numpy(), want["v"], 2 ** -7)
 
 
 # --- K5's rule --------------------------------------------------------------
@@ -375,3 +424,26 @@ def test_model_bytes_counts_router(model):
     assert got - params["layers"]["router"].numel() * 4 == sum(
         params["layers"][n].numel() * 4 for n in llama._WEIGHTS)
 
+
+# --- the JAX references, in one subprocess for the module -------------------
+
+def jax_reference(kind, **kw):
+    """Every interpret-mode reference of this module, by kind: "loop" (a
+    `LOOP_CASES` entry), "token" (a TOKEN_CASES entry), "int8" (run by
+    `jax_results` in the subprocess)."""
+    if kind == "loop":
+        return _jax_loop(**kw)
+    if kind == "token":
+        return _jax_token(**kw)
+    return _jax_int8()
+
+
+@pytest.fixture(scope="module")
+def jax_refs(tmp_path_factory):
+    cases = {f"loop-{c}": dict(kind="loop", case=c) for c in LOOP_CASES}
+    cases.update({f"token-{p}-{int(col6)}": dict(kind="token", p=p,
+                                                 col6=col6)
+                  for p, col6 in TOKEN_CASES})
+    cases["int8"] = dict(kind="int8")
+    return jax_results(__file__, "jax_reference", cases,
+                       tmp_path_factory.mktemp("jax_moe"))

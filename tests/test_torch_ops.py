@@ -435,19 +435,63 @@ def test_k1_rows_plan_at_7b(stage, sms):
 
 def test_k1_rows_plan_limits():
     """Widths that are not whole 64-column tiles have no plan (the card
-    wrapper raises on them; the CPU path takes them); a forced split
-    keeps its S and a cluster that is a multiple of it."""
+    wrapper raises on them; the CPU path takes them); the split rule
+    reaches S = 4, 2 and 1 through the widths (up to 33, 66 and beyond
+    at 132 SMs), each with a cluster that is a multiple of S and divides
+    the grid."""
     assert tbg._rows_plan(2, 0, 1, 256, 96, 1) is None
     assert tbg._rows_plan(2, 0, 1, 200, 64, 1) is None
-    for splits in (1, 2, 4):
-        for tiles in (1, 3, 16, 17, 172, 192):
-            S, C, _, smem = tbg._rows_plan(2, 0, 1, 4096, 64 * tiles, 16,
-                                           splits=splits)
-            assert S == splits and C % S == 0 and (tiles * S) % C == 0
-            assert smem <= 232448
+    for tiles, splits in ((1, 4), (3, 4), (16, 4), (33, 4), (34, 2),
+                          (66, 2), (67, 1), (172, 1), (192, 1)):
+        S, C, _, smem = tbg._rows_plan(2, 0, 1, 4096, 64 * tiles, 16)
+        assert S == splits and C % S == 0 and (tiles * S) % C == 0
+        assert smem <= 232448
     out, _, _ = tbg.select_gather_gemv(torch.ones(2, 256), torch.tensor(0.0),
                                        [torch.zeros(1, 256, 96)], 0, 1)
     assert out.shape == (2, 96)
+
+
+# the same stages as K1's single row reads them: (K, widths, weights of
+# one tile), caps at keep 0.5
+_K1_7B_ROW = {"qkv": (4096, (4096, 4096, 4096), 1), "o": (4096, (4096,), 1),
+              "gate|up": (4096, (11008, 11008), 2),
+              "down": (11008, (4096,), 1)}
+
+
+@pytest.mark.parametrize("stage", list(_K1_7B_ROW))
+@pytest.mark.parametrize("sms", [114, 132])
+def test_k1_plan_at_7b(stage, sms):
+    """K1's single-row plan as a pure function of shapes: at the 7B
+    stages, every G, both stream types and every weight plan, S (a power
+    of two <= 8) fills the card -- the grid of tiles * S blocks within one
+    block an SM, and no doubling of S that would still be -- a cluster of
+    C <= 8 blocks that is a multiple of S and divides the grid, and shared
+    memory for two blocks an SM (the kernel's launch bounds) within the
+    227 KB of one; at 132 SMs bf16 G = 128 takes S = 1 for q|k|v (96
+    tiles) and gate|up (86), 4 for o and down (32)."""
+    K, ns, nw = _K1_7B_ROW[stage]
+    for G in tbg.GROUP_SIZES:
+        nb = K // G
+        for esz in (2, 4):
+            for plan in (tbg.PLAN_STREAM, tbg.PLAN_INT8, tbg.PLAN_INT4):
+                if plan == tbg.PLAN_INT4 and G < 64:
+                    continue
+                for cap in (1, tbg.block_capacity(nb, 0.5), nb):
+                    S, C, stages, smem = tbg._sgg_plan(esz, plan, nw, G, ns,
+                                                       K, cap, sms)
+                    tw = tbg._sgg_tile(esz, plan)
+                    tiles = (-(-ns[0] // tw) if nw == 2
+                             else sum(-(-n // tw) for n in ns))
+                    assert S in (1, 2, 4, 8) and tiles * S <= max(sms, tiles)
+                    assert S == 8 or tiles * 2 * S > sms
+                    assert C in (1, 2, 4, 8) and C % S == 0
+                    assert (tiles * S) % C == 0 and stages == 8
+                    assert smem == tbg._sgg_smem(esz, plan, nw, G, nb, cap)
+                    assert 2 * (smem + 1024) <= 233472
+    if sms == 132:
+        want = {"qkv": (1, 8), "o": (4, 8), "gate|up": (1, 2),
+                "down": (4, 8)}[stage]
+        assert tbg._sgg_plan(2, 0, nw, 128, ns, K, 16)[:2] == want
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

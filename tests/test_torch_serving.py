@@ -2,7 +2,11 @@
 JAX package's on the CPU, greedy in fp32: identical tokens for every
 request. With the main-path config each decode step is one pass of the
 batched token path over all slots (the JAX side through its batched
-whole-token kernel in interpret mode), inactive slots included."""
+whole-token kernel in interpret mode), inactive slots included.
+
+The JAX interpret-mode servers run in one subprocess for the module
+(`jax_subprocess.jax_results`, `jax_reference` below), so a hang of the
+interpreter fails these cases instead of stalling the run."""
 
 import functools
 
@@ -12,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax_subprocess import jax_results
 
 from teal_tpu.config import SparsityConfig as JSparsityConfig
 from teal_tpu.config import get_model_config as jget_model_config
@@ -71,27 +76,59 @@ def _jax(prompts, new, slots, **kw):
         return [r.out for r in sorted(eng.run(), key=lambda r: r.id)]
 
 
-@pytest.mark.parametrize("slots,n_req", [(2, 2), (10, 10), (3, 7)],
-                         ids=["2-slots", "10-slots", "more-requests"])
-def test_server_matches_jax(slots, n_req):
+SERVER_CASES = {"2-slots": (2, 2), "10-slots": (10, 10),
+                "more-requests": (3, 7)}
+CHUNKED_PROMPTS = [[1, 2, 3], list(range(1, 20)), [4, 5, 6, 9]]
+
+
+def jax_reference(case):
+    """The JAX server's tokens for a case of this module, every request's
+    concatenated with their lengths (run by `jax_results` in the
+    subprocess): a `SERVER_CASES` entry, or "chunked" (prefill_chunk=8)."""
+    if case == "chunked":
+        outs = _jax(CHUNKED_PROMPTS, 5, 2, prefill_chunk=8)
+    else:
+        slots, n_req = SERVER_CASES[case]
+        outs = _jax(_prompts(n_req, slots), 5, slots)
+    return {"tokens": np.array([t for o in outs for t in o], np.int64),
+            "lens": np.array([len(o) for o in outs], np.int64)}
+
+
+@pytest.fixture(scope="module")
+def jax_servers(tmp_path_factory):
+    """{case: the JAX server's tokens a request}."""
+    cases = {c: dict(case=c) for c in (*SERVER_CASES, "chunked")}
+    got = jax_results(__file__, "jax_reference", cases,
+                      tmp_path_factory.mktemp("jax_serving"))
+    out = {}
+    for c, r in got.items():
+        ends = np.cumsum(r["lens"]).tolist()
+        out[c] = [r["tokens"][e - n:e].tolist()
+                  for e, n in zip(ends, r["lens"].tolist())]
+    return out
+
+
+@pytest.mark.parametrize("slots,n_req", list(SERVER_CASES.values()),
+                         ids=list(SERVER_CASES))
+def test_server_matches_jax(slots, n_req, jax_servers):
     """2 slots (one row tile), 10 slots (two row tiles), and 7 requests
     on 3 slots: requests join as slots free up, and inactive slots ride
     in the pooled selection at token 0, position 0, as in the
     reference."""
     prompts = _prompts(n_req, slots)
     got = _port(prompts, 5, slots)
-    assert got == _jax(prompts, 5, slots)
+    case = next(c for c, v in SERVER_CASES.items() if v == (slots, n_req))
+    assert got == jax_servers[case]
     assert all(len(o) == 5 for o in got)
 
 
-def test_chunked_admission_matches_oneshot_and_jax():
+def test_chunked_admission_matches_oneshot_and_jax(jax_servers):
     """prefill_chunk=8 admission (one chunk per engine step, interleaved
     with decode) gives one-shot admission's tokens, and the JAX chunked
     server's."""
-    prompts = [[1, 2, 3], list(range(1, 20)), [4, 5, 6, 9]]
-    got = _port(prompts, 5, 2, prefill_chunk=8)
-    assert got == _port(prompts, 5, 2)
-    assert got == _jax(prompts, 5, 2, prefill_chunk=8)
+    got = _port(CHUNKED_PROMPTS, 5, 2, prefill_chunk=8)
+    assert got == _port(CHUNKED_PROMPTS, 5, 2)
+    assert got == jax_servers["chunked"]
 
 
 def test_chunked_admission_interleaves_decode():
