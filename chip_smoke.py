@@ -102,9 +102,14 @@ Phases:
      beside their bound (and the share of it), plain version and library
      call at B = 8 and 16;
  10. Mixtral-8x7B (MoE) on the token path, after the 7B weights are freed:
-     K5 (`moe_route`) against its plain version on a bf16 stream and fp32
-     routers (identical routed experts, also where two router columns tie:
-     the lower expert wins; xn within one bf16 ulp; weights within 1e-6);
+     K5's launch plan in the wrapper equal to the kernel's; K5
+     (`moe_route`) against its plain version on a bf16 stream and fp32
+     routers at Mixtral's D = 4096 with (E, k) = (8, 2), (4, 1), (16, 4),
+     (64, 8), at D = 1020 (no multiple of the cluster's 8 blocks) and at
+     D = 1000, E = 1 (router slabs off 16 bytes): identical routed
+     experts, also where two router columns tie (the lower expert wins);
+     xn within one bf16 ulp, with the count of elements that differ at
+     all; weights within 1e-6;
      then an int8 copy at all 32 layers and a bf16 copy at 8 layers, full
      width, each built on the card one layer at a time (int8: drawn in
      bf16 and quantized layer by layer; peak memory logged): K1's MoE
@@ -116,7 +121,8 @@ Phases:
      routed experts), three greedy requests with 6*L K1 + L K2 + L K5
      launches a decoded token (256 at 32 layers), tok/s at keep 0.5
      against 1.0, the decode step's device and wall time, and K5's and the
-     MoE K1 calls' times beside their bound and yardsticks; K2 at
+     MoE K1 calls' times beside their bound and yardsticks (K5 beside an
+     empty launch of one block and of an 8-block cluster); K2 at
      Mixtral's heads (GQA 32/8) at pos 511 and 2047 beside SDPA with
      `enable_gqa` and its bound;
  11. long prompts (run before phase 10, on the resident bf16 7B params):
@@ -803,14 +809,15 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3,
         k1 = sum(t for k, t in rows if "sgg_" in k)
         k3 = sum(t for k, t in rows if "bgg_" in k)
         k4 = sum(t for k, t in rows if "rgg_kernel" in k)
+        k5 = sum(t for k, t in rows if "route_kernel" in k)
         out[kind] = dict(device_ms=dev, wall_ms=wall,
                          idle_share=max(0.0, 1.0 - dev / wall), k2_ms=k2,
-                         k1_ms=k1, k3_ms=k3, k4_ms=k4)
+                         k1_ms=k1, k3_ms=k3, k4_ms=k4, k5_ms=k5)
         log(f"[time] one {kind} decode step (batch {b}): device "
             f"{dev:.3f} ms (sum of kernel times), wall {wall:.3f} ms, "
             f"device idle {out[kind]['idle_share']:.1%}; K1 {k1:.3f} ms, "
             f"K2 {k2:.3f} ms ({k2 / dev:.1%} of device), K3 {k3:.3f} ms, "
-            f"K4 {k4:.3f} ms; top: "
+            f"K4 {k4:.3f} ms, K5 {k5:.3f} ms; top: "
             + "; ".join(f"{k[:48]} {t:.3f} ms" for k, t in rows[:4]))
     return out
 
@@ -3016,52 +3023,108 @@ def mixtral_params(cfg, gen, device, int8: bool):
     return params, time.perf_counter() - t0
 
 
-def check_k5(cfg, device, gen):
-    """K5 against its plain version at Mixtral's routing shapes (D, E = 8,
-    2 routed) on a bf16 stream and fp32 routers of `MOE_ROUTE_LAYERS`
-    layers: identical routed pseudo-layers, xn within one bf16 ulp,
-    weights within 1e-6; with two equal router columns on top (3 and 6)
-    and tied for second place (2 and 5, under expert 0) the lower expert
-    must win. Returns the largest absolute error."""
+# K5's check shapes (D, E, k_exp): Mixtral's and three (E, k) at its D,
+# a D that is no multiple of the cluster's split (1020 over 8 blocks), and
+# D = 1000 at E = 1, whose blocks' router slabs start off 16 bytes
+K5_CHECK_SHAPES = ((4096, 8, 2), (4096, 4, 1), (4096, 16, 4), (4096, 64, 8),
+                   (1020, 8, 2), (1000, 1, 1))
+# K5's plan held to the kernel's at these D and E
+K5_PLAN_D = (1, 100, 255, 1000, 1020, 1024, 4096, 6144, 8192, 16384)
+K5_PLAN_E = (1, 4, 8, 16, 64, 65)
+
+
+def check_k5_plan():
+    """The wrapper's K5 plan (`token_block._route_plan`: cluster, rows a
+    block, shared bytes) equal to the kernel's (`teal_moe_route_plan`)."""
+    import torch
+
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.ops import token_block as tb
+
+    lib = _build.load()["moe_route"]
+    out = torch.zeros(3, dtype=torch.int32)
+    for D in K5_PLAN_D:
+        for E in K5_PLAN_E:
+            lib.teal_moe_route_plan(D, E, out.data_ptr())
+            got, want = tuple(int(v) for v in out), tb._route_plan(D, E)
+            check(got[2] == -1 if want is None else got == want,
+                  f"K5 plan at D = {D}, E = {E}: kernel {got}, wrapper "
+                  f"{want}")
+    log(f"[k5] plan equal to the kernel's at D in {K5_PLAN_D}, E in "
+        f"{K5_PLAN_E}")
+
+
+def k5_cases(E: int, k: int):
+    """K5's check cases at E experts: (name, {expert: router column as a
+    multiple of xn}, the experts expected first): random routers; experts
+    1 and E - 1 equal and on top; expert 0 on top and 1, E - 1 tied for
+    second (the lower expert must win each tie)."""
+    cases = [("random", {}, None)]
+    if E >= 3:
+        cases += [("tie first", {1: 4e-3, E - 1: 4e-3}, [1, E - 1]),
+                  ("tie second", {0: 8e-3, 1: 4e-3, E - 1: 4e-3},
+                   [0, 1, E - 1])]
+    return [(n, cols, None if want is None else want[:k])
+            for n, cols, want in cases]
+
+
+def check_k5(device, gen, shapes=K5_CHECK_SHAPES, plan: bool = True):
+    """K5 against its plain version on a bf16 stream and fp32 routers of
+    `MOE_ROUTE_LAYERS` layers at each (D, E, k_exp) of `shapes`:
+    identical routed pseudo-layers, xn within one bf16 ulp, weights
+    within 1e-6, the lower expert winning every tie (`k5_cases`). Logs
+    how many xn elements differ from the plain version's at all. With
+    `plan`, first `check_k5_plan`. Returns (the largest absolute error,
+    {shape: (differing xn elements, xn elements)})."""
     import torch
 
     from teal_tpu_torch.ops import token_block as tb
 
-    D, E, k = cfg.dim, cfg.n_experts, cfg.n_experts_per_tok
+    if plan:
+        check_k5_plan()
     Lr = MOE_ROUTE_LAYERS
-    router = torch.randn(Lr, D, E, generator=gen, device=device) * 0.02
-    norm = (1 + 0.1 * torch.randn(Lr, D, generator=gen, device=device)
-            ).bfloat16()
-    worst = 0.0
-    for li in range(Lr):
-        x = torch.randn(D, generator=gen, device=device).bfloat16()
-        xn = tb.moe_route_plain(x, norm, router, li, 1)[0].float()
-        for case, cols, want_e in (("random", {}, None),
-                                   ("tie first", {3: 4e-3, 6: 4e-3}, [3, 6]),
-                                   ("tie second", {0: 8e-3, 2: 4e-3,
-                                                   5: 4e-3}, [0, 2])):
-            r = router.clone()
-            for e, c in cols.items():
-                r[li, :, e] = xn * c
-            got = tb.moe_route(x, norm, r, li, k)
-            want = tb.moe_route_plain(x, norm, r, li, k)
-            ge = [e - li * E for e in got[1].tolist()]
-            we = [e - li * E for e in want[1].tolist()]
-            check(ge == we and (want_e is None or ge == want_e[:k]),
-                  f"K5 layer {li} {case}: experts {ge}, plain {we}, "
-                  f"expected {want_e}")
-            ulp = torch.finfo(torch.bfloat16).eps * want[0].float().abs()
-            d_xn = (got[0].float() - want[0].float()).abs()
-            check(bool((d_xn <= ulp).all()), f"K5 layer {li} {case}: xn "
-                  f"differs by more than one bf16 ulp")
-            d_w = float((got[2] - want[2]).abs().max())
-            check(d_w <= 1e-6, f"K5 layer {li} {case}: weights differ by "
-                  f"{d_w:.3e}")
-            worst = max(worst, d_w, float(d_xn.max()))
-            log(f"[k5] layer {li} {case:10s} experts {ge} weights "
-                f"{[round(w, 6) for w in got[2].tolist()]} xn max_abs_err "
-                f"{float(d_xn.max()):.3e} weights max_abs_err {d_w:.3e}")
-    return worst
+    worst, differ = 0.0, {}
+    for D, E, k in shapes:
+        router = torch.randn(Lr, D, E, generator=gen, device=device) * 0.02
+        norm = (1 + 0.1 * torch.randn(Lr, D, generator=gen, device=device)
+                ).bfloat16()
+        n_diff = n_all = 0
+        for li in range(Lr):
+            x = torch.randn(D, generator=gen, device=device).bfloat16()
+            xn = tb.moe_route_plain(x, norm, router, li, 1)[0].float()
+            for case, cols, want_e in k5_cases(E, k):
+                r = router.clone()
+                for e, c in cols.items():
+                    r[li, :, e] = xn * c
+                got = tb.moe_route(x, norm, r, li, k)
+                want = tb.moe_route_plain(x, norm, r, li, k)
+                ge = [e - li * E for e in got[1].tolist()]
+                we = [e - li * E for e in want[1].tolist()]
+                what = f"K5 D {D} E {E} k {k} layer {li} {case}"
+                check(ge == we and (want_e is None
+                                    or ge[:len(want_e)] == want_e),
+                      f"{what}: experts {ge}, plain {we}, expected "
+                      f"{want_e}")
+                ulp = torch.finfo(torch.bfloat16).eps * want[0].float().abs()
+                d_xn = (got[0].float() - want[0].float()).abs()
+                check(bool((d_xn <= ulp).all()), f"{what}: xn differs by "
+                      f"more than one bf16 ulp")
+                d_w = float((got[2] - want[2]).abs().max())
+                check(d_w <= 1e-6, f"{what}: weights differ by {d_w:.3e}")
+                worst = max(worst, d_w, float(d_xn.max()))
+                n_diff += int((d_xn > 0).sum())
+                n_all += D
+                if li == 0:
+                    log(f"[k5] {what:32s} experts {ge} weights "
+                        f"{[round(w, 6) for w in got[2].tolist()]} xn "
+                        f"max_abs_err {float(d_xn.max()):.3e} weights "
+                        f"max_abs_err {d_w:.3e}")
+        differ[f"{D}x{E}k{k}"] = (n_diff, n_all)
+        log(f"[k5] D {D} E {E} k {k}: routed experts equal to the plain "
+            f"version's in {Lr} layers x {len(k5_cases(E, k))} cases; xn "
+            f"elements that differ from the plain version's at all: "
+            f"{n_diff} of {n_all} (each within one bf16 ulp)")
+    return worst, differ
 
 
 def moe_stage_specs(params, cfg):
@@ -3138,33 +3201,83 @@ def check_k1_moe(params, cfg, caps, device, gen, plan):
     return worst
 
 
+K5_TIME_BYTES = 96e6             # a timing's router stack: twice the L2
+K5_TIME_ITERS = 64
+
+
+def launch_floor_ms():
+    """The least a launch of K5's shape costs, timed as K5 is (queued,
+    back to back): an empty kernel of one block and an empty cluster of
+    8 blocks (256 threads each). Returns (one block ms, cluster ms)."""
+    import torch
+
+    from teal_tpu_torch import _build
+
+    lib = _build.load()["moe_route"]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def empty(blocks, cluster):
+        _build.check(lib.teal_empty_launch(blocks, cluster, stream),
+                     "empty launch")
+
+    return tuple(cuda_ms(lambda i, b=b, c=c: empty(b, c), K5_TIME_ITERS)[0]
+                 for b, c in ((1, 0), (8, 1)))
+
+
+def time_k5(D, E, k, dtype, device, gen, what, eps=1e-5):
+    """K5 at (D, E, k) on a `dtype` stream, each call on another layer of
+    a router stack of at least `K5_TIME_BYTES` (and twice a timing's
+    calls), so that no call finds its router in L2, as none does in a
+    decode step: kernel (queued), plain version, bound and the launch
+    floor (`launch_floor_ms`). Returns the row."""
+    import torch
+
+    from teal_tpu_torch.ops import token_block as tb
+
+    Lr = max(2 * (K5_TIME_ITERS + 2), math.ceil(K5_TIME_BYTES / (D * E * 4)))
+    router = torch.randn(Lr, D, E, generator=gen, device=device) * 0.02
+    norm = (1 + 0.1 * torch.randn(Lr, D, generator=gen, device=device)
+            ).to(dtype)
+    x = torch.randn(D, generator=gen, device=device).to(dtype)
+    base = [0]
+
+    def call(i):
+        base[0] += 1
+        return tb.moe_route(x, norm, router, base[0] % Lr, k, eps)
+
+    esz = x.element_size()
+    nbytes = 3 * D * esz + D * E * 4 + 2 * k * 4
+    b_ms, b_by = bound_ms(nbytes, 2 * D * E)
+    ms, host = cuda_ms(call, K5_TIME_ITERS)
+    p_ms, _ = cuda_ms(lambda i: tb.moe_route_plain(
+        x, norm, router, i % Lr, k, eps), 5, warmup=1, queued=False)
+    one, cluster = launch_floor_ms()
+    log(f"[time] {what} D {D} E {E} k {k} {str(dtype)[6:]}: kernel "
+        f"{ms:.4f} ms (host enqueue {host:.4f} ms)  plain {p_ms:.4f} ms  "
+        f"bound {b_ms:.6f} ms ({b_by}, {nbytes / 1e6:.3f} MB)  launch floor "
+        f"{one:.4f} ms one block, {cluster:.4f} ms an 8-block cluster "
+        f"(K5 {ms / cluster:.2f}x the cluster's)")
+    del router, norm
+    return dict(ms=ms, host_ms=host, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, mbytes=nbytes / 1e6,
+                floor_one_block_ms=one, floor_cluster_ms=cluster)
+
+
 def time_moe_kernels(params, cfg, caps, device, gen, plan):
-    """K5 and K1's two MoE calls at Mixtral's shapes (count == cap), each
-    call on another layer or pseudo-layer (no L2 reuse): kernel, plain
-    version, bound and yardsticks (K1: `torch.matmul` of the bf16 expert
-    weights at full keep, and `torch._weight_int8pack_mm` for int8; K5:
-    none, no single PyTorch call routes). Returns (K5 row, K1 rows)."""
+    """K5 (`time_k5`) and K1's two MoE calls at Mixtral's shapes (count ==
+    cap), each call on another layer or pseudo-layer (no L2 reuse):
+    kernel, plain version, bound and yardsticks (K1: `torch.matmul` of the
+    bf16 expert weights at full keep, and `torch._weight_int8pack_mm` for
+    int8; K5: the launch floor, no single PyTorch call routes). Returns
+    (K5 row, K1 rows)."""
     import torch
 
     from teal_tpu_torch.ops import block_gemv as bg
-    from teal_tpu_torch.ops import token_block as tb
 
-    lay = params["layers"]
-    L, D, E, k = cfg.n_layers, cfg.dim, cfg.n_experts, cfg.n_experts_per_tok
+    L, E = cfg.n_layers, cfg.n_experts
     LE, esz = L * E, 2
-    x = torch.randn(D, generator=gen, device=device).bfloat16()
-    nbytes = 3 * D * esz + D * E * 4 + 2 * k * 4
-    b_ms, b_by = bound_ms(nbytes, 2 * D * E)
-    ms, host = cuda_ms(lambda i: tb.moe_route(
-        x, lay["mlp_norm"], lay["router"], i % L, k, cfg.norm_eps), 64)
-    p_ms, _ = cuda_ms(lambda i: tb.moe_route_plain(
-        x, lay["mlp_norm"], lay["router"], i % L, k, cfg.norm_eps), 5,
-        warmup=1, queued=False)
-    k5 = dict(ms=ms, host_ms=host, plain_ms=p_ms, bound_ms=b_ms,
-              bound_by=b_by, library_ms=None, mbytes=nbytes / 1e6)
-    log(f"[time] K5 moe_route [{plan}] kernel {ms:.4f} ms (host enqueue "
-        f"{host:.4f} ms)  plain {p_ms:.4f} ms  bound {b_ms:.6f} ms ({b_by}, "
-        f"{nbytes / 1e6:.3f} MB; a launch costs more)")
+    k5 = time_k5(cfg.dim, E, cfg.n_experts_per_tok, torch.bfloat16, device,
+                 gen, f"K5 moe_route [{plan}]", cfg.norm_eps)
     rows = []
     for name, cap in (("gate|up", caps[2]), ("down", caps[3])):
         spec = moe_stage_specs(params, cfg)[name]
@@ -3302,7 +3415,7 @@ def moe_phase(device, gen, seed):
 
     full = get_model_config(MOE_MODEL)
     rope = llama.precompute_rope(full, MAX_SEQ, device)
-    err_k5 = check_k5(full, device, gen)
+    err_k5, k5_differ = check_k5(device, gen)
     entries, results, k5_rows = [], {}, {}
     src = "teal_tpu_torch/csrc/"
     for plan, layers in MOE_RUNS:
@@ -3326,11 +3439,14 @@ def moe_phase(device, gen, seed):
         launches_per_token=r8["launches"][4] / r8["decoded"],
         max_abs_err=err_k5, kernel_ms=k5_rows["int8"]["ms"],
         timed=f"{MOE_MODEL} int8: one layer's routing (D = {full.dim}, E = "
-              f"{full.n_experts}, {full.n_experts_per_tok} routed); bf16 "
-              "copy under bf16",
+              f"{full.n_experts}, {full.n_experts_per_tok} routed, bf16 "
+              "stream), each call on another layer of a router stack twice "
+              "the L2; bf16 copy under bf16; floor: empty launches",
         bf16={k: k5_rows["bf16"][k] for k in ("ms", "plain_ms")},
-        **{k: k5_rows["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")}))
+        xn_differ=k5_differ,
+        **{k: k5_rows["int8"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "floor_one_block_ms", "floor_cluster_ms")}))
     # K2 at Mixtral's heads (GQA 32/8), launched on the int8 path above
     rope = llama.precompute_rope(full, 2048, device)
     for T in (MAX_SEQ, 2048):

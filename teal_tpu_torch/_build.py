@@ -101,6 +101,12 @@ SIGNATURES = {
         _P, _P, _P,             # xn, pseudo-layers, weights (outputs)
         _I, _I, _I, _I, _P,     # D, E, k_exp, layer, stream
     ],
+    ("moe_route", "teal_moe_route_plan"): [
+        _I, _I, _P,             # D, E, out int32 [3]
+    ],
+    ("moe_route", "teal_empty_launch"): [
+        _I, _I, _P,             # blocks, in one cluster (0: no), stream
+    ],
     ("flash_prefill", "teal_flash_prefill"): [
         _I, _P, _P, _P, _P,     # dtype code, q, k, v, out
         _I, _I, _I, _I, _F,     # B, Hq, Hkv, S, scale

@@ -57,8 +57,45 @@ from teal_tpu_torch.ops.block_gemv import (_DTYPE_CODE, _check_launch_device,
                                            _weight_kind, select_gather_gemv,
                                            selection_input)
 
-MAX_EXPERTS = 64                 # K5's taken mask
+MAX_EXPERTS = 64                 # K5: two experts a lane of one warp
 MAX_ROUTED = 8                   # routed experts a token
+
+# K5's launch plan on the card (`csrc/moe_route.cu`, `RouteLayout` and
+# `route_plan`, which `_route_smem` and `_route_plan` mirror; the card
+# tests hold them together through `teal_moe_route_plan`)
+_ROUTE_THREADS = 256
+_ROUTE_MAX_CLUSTER = 8           # blocks a cluster (the portable size)
+_ROUTE_MIN_ROWS = 64             # rows a block at least, where D allows
+_ROUTE_MAX_ROWS = 4 * _ROUTE_THREADS   # rows a block at most (registers)
+_SMEM_BYTES = 232448             # a block's shared memory on Hopper
+
+
+def _route_smem(rows: int, E: int) -> int:
+    """K5's shared memory a block in bytes: its router slab (rows * E
+    fp32, +3 floats that keep the slab's offset within 16 bytes, padded
+    to 4), xn as fp32 [rows], the threads' partial logits [256], the
+    peers' partial logits [8][E] and 32 floats of scratch."""
+    return 4 * (-(-(rows * E + 3) // 4) * 4 + rows + _ROUTE_THREADS
+                + _ROUTE_MAX_CLUSTER * E + 32)
+
+
+def _route_plan(D: int, E: int) -> Optional[Tuple[int, int, int]]:
+    """K5's launch plan from D and E only: (C, rows, shared bytes), or
+    None where none fits (more than 1024 rows a block, or a router slab
+    past shared memory). One cluster of C blocks (the largest power of
+    two <= 8 leaving each block 64 rows, at least 1); block s takes rows
+    `gather_gemv.split_range(D, C, s)` of x, the gain and the router, at
+    most `rows` = ceil(D / C) of them."""
+    if D < 1 or not 1 <= E <= MAX_EXPERTS:
+        return None
+    C = _ROUTE_MAX_CLUSTER
+    while C > 1 and D < C * _ROUTE_MIN_ROWS:
+        C //= 2
+    rows = -(-D // C)
+    smem = _route_smem(rows, E)
+    if rows > _ROUTE_MAX_ROWS or smem > _SMEM_BYTES:
+        return None
+    return C, rows, smem
 
 
 def moe_route_plain(x: torch.Tensor, norm: torch.Tensor,
@@ -131,6 +168,11 @@ def moe_route(x: torch.Tensor, norm: torch.Tensor, router: torch.Tensor,
     if x.device.type == "cpu":
         return moe_route_plain(x, norm, router, layer, k_exp, norm_eps)
     _check_launch_device(x, "moe_route")
+    D, E = x.shape[0], router.shape[2]
+    if _route_plan(D, E) is None:
+        raise ValueError(f"K5 has no launch plan for D = {D}, E = {E}: "
+                         f"more than {_ROUTE_MAX_ROWS} rows a block, or a "
+                         f"block's router slab past shared memory")
     lib = _build.load()["moe_route"]
     xn = torch.empty_like(x)
     eidx = torch.empty(k_exp, dtype=torch.int32, device=x.device)
@@ -138,8 +180,7 @@ def moe_route(x: torch.Tensor, norm: torch.Tensor, router: torch.Tensor,
     err = lib.teal_moe_route(
         _DTYPE_CODE[x.dtype], x.data_ptr(), norm.data_ptr(), norm_eps,
         router.data_ptr(), xn.data_ptr(), eidx.data_ptr(), w.data_ptr(),
-        x.shape[0], router.shape[2], k_exp, layer,
-        torch.cuda.current_stream().cuda_stream)
+        D, E, k_exp, layer, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "moe_route")
     moe_route.launches += 1
     return xn, eidx, w

@@ -7,9 +7,11 @@ needs such references names a function of its own that computes them
 (keyword arguments in, a dict of numpy arrays out) and the cases to run;
 `jax_results` runs every case in one child Python process, which pins
 JAX to the CPU as `conftest.py` does, and hands the arrays back through
-an `.npz` file in `out_dir`. A hang or a crash of the child raises in
-the caller (the module fixture), so it fails the tests that needed the
-results and the run goes on.
+an `.npz` file in `out_dir`. A child that hangs (the deadlock strikes a
+fresh process too, at random) is killed after `timeout` seconds and
+started once more; a crash, or a second hang, raises in the caller (the
+module fixture), so it fails the tests that needed the results and the
+run goes on.
 
 Run as a script by `jax_results` only:
     python jax_subprocess.py SPEC.json
@@ -27,7 +29,8 @@ from typing import Dict
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
-DEFAULT_TIMEOUT_S = 600.0
+DEFAULT_TIMEOUT_S = 400.0         # an attempt; the longest child takes ~2 min
+ATTEMPTS = 2
 
 
 def jax_results(module_file: str, fn: str, cases: Dict[str, dict],
@@ -35,21 +38,26 @@ def jax_results(module_file: str, fn: str, cases: Dict[str, dict],
                 ) -> Dict[str, Dict[str, np.ndarray]]:
     """{case: fn(**cases[case])} for every case, computed by the function
     `fn` of the module at `module_file` in one child process (killed
-    after `timeout` seconds). Case arguments must be JSON values."""
+    after `timeout` seconds and started again, `ATTEMPTS` times at
+    most). Case arguments must be JSON values."""
     out_dir = Path(out_dir)
     spec = out_dir / "spec.json"
     out = out_dir / "results.npz"
     spec.write_text(json.dumps(dict(module=str(module_file), fn=fn,
                                     cases=cases, out=str(out))))
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    try:
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), str(spec)],
-            cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=timeout)
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"the JAX reference {fn} of {module_file} did not "
-                           f"finish in {timeout:.0f} s (killed)") from e
+    for attempt in range(1, ATTEMPTS + 1):
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), str(spec)],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=timeout)
+            break
+        except subprocess.TimeoutExpired as e:
+            if attempt == ATTEMPTS:
+                raise RuntimeError(
+                    f"the JAX reference {fn} of {module_file} did not finish "
+                    f"in {timeout:.0f} s, {ATTEMPTS} times (killed)") from e
     if proc.returncode != 0:
         raise RuntimeError(f"the JAX reference {fn} of {module_file} failed "
                            f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")

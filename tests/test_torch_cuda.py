@@ -758,15 +758,18 @@ def test_k2_seq_block_matches_plain(cuda, dtype, Hq, Hkv, window, p0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("E,k_exp", [(8, 2), (4, 1), (16, 4)])
-def test_k5_route_matches_plain(cuda, dtype, E, k_exp):
+@pytest.mark.parametrize("E,k_exp", [(8, 2), (4, 1), (16, 4), (64, 8),
+                                     (5, 2)])
+@pytest.mark.parametrize("D", [1024, 1000, 1020])
+def test_k5_route_matches_plain(cuda, dtype, E, k_exp, D):
     """K5 (`moe_route`): the same experts in the same order as the plain
     version, xn within one ulp of a bf16 stream (4 of an fp32 one: the two
     sum the squares of the norm in other orders, and xn rounds twice),
     weights within 1e-6; with two equal router columns at the top the
-    lower expert comes first."""
-    g = torch.Generator(device=cuda).manual_seed(10 + E)
-    L, D = 3, 1024
+    lower expert comes first. D = 1020 is no multiple of the cluster's 8
+    blocks; at E = 5 most blocks' router slabs start off 16 bytes."""
+    g = torch.Generator(device=cuda).manual_seed(10 + E + D)
+    L = 3
     router = torch.randn(L, D, E, generator=g, device=cuda) * 0.05
     norm = (1 + 0.1 * torch.randn(L, D, generator=g, device=cuda)).to(dtype)
     x = torch.randn(D, generator=g, device=cuda).to(dtype)
@@ -789,6 +792,20 @@ def test_k5_route_matches_plain(cuda, dtype, E, k_exp):
                 if k_exp > 1:
                     assert int(got[1][1]) == layer * E + E - 1
                     assert float((got[2][0] - got[2][1]).abs()) == 0.0
+
+
+def test_k5_plan_matches_kernel(cuda):
+    """The wrapper's `_route_plan` (cluster, rows a block, shared bytes)
+    equals the kernel's `route_plan` (`teal_moe_route_plan`), None where
+    the kernel has none."""
+    lib = _build.load()["moe_route"]
+    out = torch.zeros(3, dtype=torch.int32)
+    for D in (1, 63, 64, 100, 255, 256, 1000, 1020, 1024, 4096, 6144, 8192,
+              16384):
+        for E in (1, 2, 4, 8, 16, 60, 64, 65):
+            lib.teal_moe_route_plan(D, E, out.data_ptr())
+            got, want = tuple(int(v) for v in out), tb._route_plan(D, E)
+            assert (got[2] == -1 if want is None else got == want), (D, E)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -7,9 +7,13 @@ variants the port refuses. The JAX projections run their Pallas kernels
 in interpret mode; attention runs on the JAX package's XLA route and, in
 one case per path, through its fused decode-attention kernels
 (`fused_decode_attention=True`, interpret mode). Tolerance 2e-5: fp32
-sums of the same products in another order."""
+sums of the same products in another order. The JAX interpret-mode
+references run once per module, in one subprocess
+(`jax_subprocess.jax_results`, `jax_reference` below), so a hang of the
+interpreter fails these cases instead of stalling the run."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax_subprocess import jax_results
 
 from teal_tpu.config import SparsityConfig as JSparsityConfig
 from teal_tpu.config import get_model_config as jget_model_config
@@ -39,10 +44,16 @@ T = 16
 POS = 9
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_model(n_layers):
+    jcfg = jget_model_config("tiny", **dict(CFG_KW, n_layers=n_layers))
+    return jcfg, jllama.init_params(jcfg, jax.random.PRNGKey(11),
+                                    jnp.float32)
+
+
 def _model(n_layers):
-    kw = dict(CFG_KW, n_layers=n_layers)
-    cfg, jcfg = get_model_config("tiny", **kw), jget_model_config("tiny", **kw)
-    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(11), jnp.float32)
+    cfg = get_model_config("tiny", **dict(CFG_KW, n_layers=n_layers))
+    jcfg, jparams = _jax_model(n_layers)
     params = llama.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                      device="cpu")
     return cfg, jcfg, params, jparams
@@ -90,24 +101,51 @@ def _thresholds(cfg, params, k, v, toks, rule):
     return th
 
 
-def _run_both(model, sp_kw, b, th, seed, jax_fused=False):
-    cfg, jcfg, params, jparams = model
+def _decode_inputs(cfg, b, seed):
+    """One decode step's caches and tokens (b rows) from `seed`."""
     k, v = _cache(cfg, b, seed)
     toks = (np.arange(b)[:, None] * 5 + 3 + seed) % cfg.vocab_size
-    th = th(cfg, params, k, v, toks) if callable(th) else th
+    return k, v, toks
+
+
+def _case_th(model, b, th, seed):
+    """A case's [L, 7] thresholds: `th` itself, or computed by it from
+    the port's dense layer loop on the case's inputs."""
+    cfg, _, params, _ = model
+    k, v, toks = _decode_inputs(cfg, b, seed)
+    return th(cfg, params, k, v, toks) if callable(th) else th
+
+
+def _jax_decode(n_layers, sp_kw, b, th, seed, jax_fused):
+    """JAX's forward on a decode case, its Pallas kernels in interpret
+    mode (run by `jax_results` in the subprocess)."""
+    jcfg, jparams = _jax_model(n_layers)
+    k, v, toks = _decode_inputs(jcfg, b, seed)
+    kw = dict(sp_kw, fused_decode_attention=True) if jax_fused else sp_kw
+    with pltpu.force_tpu_interpret_mode():
+        want, wc = jllama.forward(
+            jparams, jnp.asarray(toks, jnp.int32),
+            jllama.KVCache(jnp.asarray(k), jnp.asarray(v)), POS,
+            jnp.asarray(np.asarray(th, np.float32)), cfg=jcfg,
+            sp=JSparsityConfig(**kw))
+    return {"logits": np.asarray(want), "k": np.asarray(wc.k),
+            "v": np.asarray(wc.v)}
+
+
+def _run_both(model, sp_kw, b, th, seed, want, jax_fused=False):
+    """The port's forward on a decode case against JAX's results `want`
+    (`_jax_decode` on the same case)."""
+    cfg, _, params, _ = model
+    k, v, toks = _decode_inputs(cfg, b, seed)
+    th = _case_th(model, b, th, seed)
     kw = dict(sp_kw, fused_decode_attention=True) if jax_fused else sp_kw
     cache = llama.KVCache.from_numpy(k, v, device="cpu")
     got, cache = llama.forward(params, torch.from_numpy(toks), cache, POS,
                                torch.from_numpy(th), cfg=cfg,
                                sp=SparsityConfig(**kw))
-    with pltpu.force_tpu_interpret_mode():
-        want, wc = jllama.forward(
-            jparams, jnp.asarray(toks, jnp.int32),
-            jllama.KVCache(jnp.asarray(k), jnp.asarray(v)), POS,
-            jnp.asarray(th), cfg=jcfg, sp=JSparsityConfig(**kw))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    np.testing.assert_allclose(cache.k.numpy(), np.asarray(wc.k), **TOL)
-    np.testing.assert_allclose(cache.v.numpy(), np.asarray(wc.v), **TOL)
+    np.testing.assert_allclose(got.numpy(), want["logits"], **TOL)
+    np.testing.assert_allclose(cache.k.numpy(), want["k"], **TOL)
+    np.testing.assert_allclose(cache.v.numpy(), want["v"], **TOL)
 
 
 def _group_th(cfg, params, k, v, toks):
@@ -137,21 +175,29 @@ CASES = {
 }
 
 
+FUSED_CASES = ["A", "B", "MAIN-packed_pipeline-off"]
+
+
+def _elem_th(cfg, params, k, v, toks):
+    return _thresholds(cfg, params, k, v, toks, rule="elem")
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_layer_loop_matches_jax(model, case):
+def test_layer_loop_matches_jax(model, case, jax_refs):
     """Logits and both caches after one decode step at pos 9 == the JAX
     forward (Pallas projections in interpret mode, XLA attention)."""
     sp_kw, b, th = CASES[case]
-    _run_both(model, sp_kw, b, th, seed=len(case))
+    _run_both(model, sp_kw, b, th, len(case), jax_refs[f"loop-{case}"])
 
 
-@pytest.mark.parametrize("case", ["A", "B", "MAIN-packed_pipeline-off"])
-def test_layer_loop_matches_jax_fused_attention(model, case):
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_layer_loop_matches_jax_fused_attention(model, case, jax_refs):
     """The same with `fused_decode_attention=True`: the JAX package runs
     its decode-attention / attention-block Pallas kernels (interpret
     mode), the port K2 (and the attention stage)."""
     sp_kw, b, th = CASES[case]
-    _run_both(model, sp_kw, b, th, seed=40 + len(case), jax_fused=True)
+    _run_both(model, sp_kw, b, th, 40 + len(case),
+              jax_refs[f"fused-{case}"], jax_fused=True)
 
 
 @pytest.fixture(scope="module")
@@ -162,13 +208,12 @@ def shallow():
 
 
 @pytest.mark.parametrize("jax_fused", [False, True], ids=["xla", "fused"])
-def test_gather_path_matches_jax(shallow, jax_fused):
+def test_gather_path_matches_jax(shallow, jax_fused, jax_refs):
     """Path C (unstructured gather: K4 for the seven projections),
     elementwise thresholds at the median |x|; with jax_fused the
     attention of both runs through the fused decode-attention kernels."""
-    _run_both(shallow, PATH_C, 1,
-              lambda *a: _thresholds(*a, rule="elem"), seed=5,
-              jax_fused=jax_fused)
+    _run_both(shallow, PATH_C, 1, _elem_th, 5,
+              jax_refs[f"gather-{int(jax_fused)}"], jax_fused=jax_fused)
 
 
 def test_route_gates_follow_reference_flags(model):
@@ -195,21 +240,31 @@ def test_route_gates_follow_reference_flags(model):
         fused_attn=False)
 
 
-def test_generator_greedy_path_a_matches_jax(model):
-    """Dense prefill + 5 greedy tokens on path A: the port's Generator ==
-    the JAX Generator (interpret mode), token for token."""
-    cfg, jcfg, params, jparams = model
-    prompt = np.array([3, 17, 42, 8, 99], np.int64)
-    gen = Generator(cfg, params, sp=SparsityConfig(**PATH_A), max_seq=T,
-                    cache_dtype=torch.float32, temperature=0.0,
-                    device="cpu")
-    got, stats = gen.generate(prompt, 5)
+GREEDY_PROMPT = [3, 17, 42, 8, 99]
+
+
+def _jax_greedy():
+    """JAX's Generator on path A (interpret mode): the greedy tokens (run
+    by `jax_results` in the subprocess)."""
+    jcfg, jparams = _jax_model(CFG_KW["n_layers"])
     with pltpu.force_tpu_interpret_mode():
         jgen = JGenerator(jcfg, jparams, sp=JSparsityConfig(**PATH_A),
                           max_seq=T, cache_dtype=jnp.float32,
                           temperature=0.0)
-        want, _ = jgen.generate(prompt, 5)
-    np.testing.assert_array_equal(got, want)
+        want, _ = jgen.generate(np.array(GREEDY_PROMPT, np.int64), 5)
+    return {"tokens": np.asarray(want)}
+
+
+def test_generator_greedy_path_a_matches_jax(model, jax_refs):
+    """Dense prefill + 5 greedy tokens on path A: the port's Generator ==
+    the JAX Generator (interpret mode), token for token."""
+    cfg, jcfg, params, jparams = model
+    prompt = np.array(GREEDY_PROMPT, np.int64)
+    gen = Generator(cfg, params, sp=SparsityConfig(**PATH_A), max_seq=T,
+                    cache_dtype=torch.float32, temperature=0.0,
+                    device="cpu")
+    got, stats = gen.generate(prompt, 5)
+    np.testing.assert_array_equal(got, jax_refs["greedy"]["tokens"])
     assert stats.new_tokens == 5
 
 
@@ -251,3 +306,41 @@ def test_unported_variants_raise(model):
         lg = fwd(mp, moe, sp, b)
         assert lg.shape == (b, 1, cfg.vocab_size)
         assert bool(torch.isfinite(lg).all())
+
+
+# --- the JAX references, in one subprocess for the module -------------------
+
+def jax_reference(kind, **kw):
+    """Every interpret-mode reference of this module, by kind: "loop" (a
+    `CASES` entry with its seed and thresholds), "gather" (path C on one
+    layer), "greedy" (run by `jax_results` in the subprocess)."""
+    if kind == "loop":
+        sp_kw, b, _ = CASES[kw["case"]]
+        return _jax_decode(CFG_KW["n_layers"], sp_kw, b, kw["th"],
+                           kw["seed"], kw["fused"])
+    if kind == "gather":
+        return _jax_decode(1, PATH_C, 1, kw["th"], 5, kw["fused"])
+    return _jax_greedy()
+
+
+@pytest.fixture(scope="module")
+def jax_refs(model, shallow, tmp_path_factory):
+    """The module's JAX references, each case's thresholds computed here
+    (from the port's dense layer loop where a case computes them) and
+    passed to the subprocess."""
+    cases = {}
+    for tag, names, off, fused in (("loop", CASES, 0, False),
+                                   ("fused", FUSED_CASES, 40, True)):
+        for case in names:
+            sp_kw, b, th = CASES[case]
+            seed = off + len(case)
+            cases[f"{tag}-{case}"] = dict(
+                kind="loop", case=case, seed=seed, fused=fused,
+                th=_case_th(model, b, th, seed).tolist())
+    for fused in (False, True):
+        cases[f"gather-{int(fused)}"] = dict(
+            kind="gather", fused=fused,
+            th=_case_th(shallow, 1, _elem_th, 5).tolist())
+    cases["greedy"] = dict(kind="greedy")
+    return jax_results(__file__, "jax_reference", cases,
+                       tmp_path_factory.mktemp("jax_loop"))

@@ -2,15 +2,18 @@
 CPU in fp32: the selection twins, K1 at group sizes 32 and 64, K3
 (`block_gather_gemv_multi`), K4 (`row_gather_gemv`) with its compaction,
 and the projections built on them. The JAX Pallas kernels run in
-interpret mode; the port's wrappers run their plain versions. Inputs come
-from seeded numpy. Tolerance 2e-5: fp32 sums of the same products in
-another order."""
+interpret mode, once per module in one subprocess
+(`jax_subprocess.jax_results`, `jax_reference` below), so a hang of the
+interpreter fails these cases instead of stalling the run; the port's
+wrappers run their plain versions. Inputs come from seeded numpy.
+Tolerance 2e-5: fp32 sums of the same products in another order."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax_subprocess import jax_results
 
 from teal_tpu.config import SparsityConfig as JSparsityConfig
 from teal_tpu.models import llama as jllama
@@ -91,20 +94,26 @@ def _k1_case(seed, G, L=3, nb=8, norm=True, n_ws=(64, 32, 32)):
     return x, (gain if norm else None), ws
 
 
-@pytest.mark.parametrize("G,norm", [(32, True), (64, False)])
-def test_k1_plain_at_group_size_matches_jax_kernel(G, norm):
-    """K1's plain version at G = 32 / 64 == the JAX Pallas kernel
-    `fused_select_gather_gemv` (interpret mode), with and without the
-    folded norm."""
+K1_KERNEL_CASES = [(32, True), (64, False)]
+
+
+def _k1_kernel_case(G, norm):
+    """test_k1_plain_at_group_size_matches_jax_kernel's inputs: x, gain,
+    ws, layer, cap and a threshold with 5 survivors (cap 4)."""
     x, gain, ws = _k1_case(11 + G, G, norm=norm)
     layer, cap = 2, 4
     xs = x if gain is None else np.asarray(jllama.rms_norm(
         jnp.asarray(x[None]), jnp.asarray(gain[layer]), 1e-5))[0]
     scores = np.abs(xs).reshape(-1, G).max(-1)
     thr = np.float32(np.sort(scores)[2] + 1e-3)      # 5 survivors, cap 4
-    got = tbg.fused_select_gather_gemv(
-        _t(x), torch.tensor(thr), [_t(w) for w in ws], layer, G, cap,
-        norm=None if gain is None else _t(gain))
+    return x, gain, ws, layer, cap, thr
+
+
+def _jax_k1_kernel(G, norm):
+    """The JAX Pallas kernel `fused_select_gather_gemv` (interpret mode)
+    on a K1_KERNEL_CASES entry (run by `jax_results` in the
+    subprocess)."""
+    x, gain, ws, layer, cap, thr = _k1_kernel_case(G, norm)
     with pltpu.force_tpu_interpret_mode():
         want = jbg.fused_select_gather_gemv(
             jbg.pack_x3(jnp.asarray(x[None]), G), jnp.asarray([thr]),
@@ -112,8 +121,20 @@ def test_k1_plain_at_group_size_matches_jax_kernel(G, norm):
             out_dtype=jnp.float32, layer=layer,
             norm3=None if gain is None else jbg.pack_norm3(
                 jnp.asarray(gain), G))
-    np.testing.assert_allclose(
-        _np(got), np.concatenate([np.asarray(o)[0] for o in want]), **TOL)
+    return {"out": np.concatenate([np.asarray(o)[0] for o in want])}
+
+
+@pytest.mark.parametrize("G,norm", K1_KERNEL_CASES)
+def test_k1_plain_at_group_size_matches_jax_kernel(G, norm, jax_refs):
+    """K1's plain version at G = 32 / 64 == the JAX Pallas kernel
+    `fused_select_gather_gemv` (interpret mode), with and without the
+    folded norm."""
+    x, gain, ws, layer, cap, thr = _k1_kernel_case(G, norm)
+    got = tbg.fused_select_gather_gemv(
+        _t(x), torch.tensor(thr), [_t(w) for w in ws], layer, G, cap,
+        norm=None if gain is None else _t(gain))
+    np.testing.assert_allclose(_np(got), jax_refs[f"k1-{G}-{int(norm)}"]
+                               ["out"], **TOL)
 
 
 @pytest.mark.parametrize("G", [32, 64])
@@ -142,14 +163,13 @@ def test_k1_plain_at_group_size_matches_jax_twin(G, regime):
     np.testing.assert_allclose(_np(out), np.concatenate(want), **TOL)
 
 
-@pytest.mark.parametrize("G,rows,n_ws", [(32, 1, (64, 32, 32)),
-                                         (64, 1, (96,)),
-                                         (32, 8, (64,)),
-                                         (64, 8, (32, 64))])
-def test_k3_plain_matches_jax_kernel(G, rows, n_ws):
-    """K3's plain version == the JAX Pallas kernel
-    `block_gather_gemv_multi` (interpret mode) on the same idx / xpack:
-    1-3 layer-stacked weights at a layer index, 1 or 8 input rows."""
+K3_KERNEL_CASES = [(32, 1, (64, 32, 32)), (64, 1, (96,)), (32, 8, (64,)),
+                   (64, 8, (32, 64))]
+
+
+def _k3_kernel_case(G, rows, n_ws):
+    """test_k3_plain_matches_jax_kernel's inputs: the JAX selection's
+    idx / xpack, ws, layer and k_keep."""
     rng = np.random.default_rng(G + rows + len(n_ws))
     L, nb, k_keep, layer = 3, 8, 5, 1
     x = _spiky(rng, max(rows, 1), nb, G)
@@ -159,77 +179,107 @@ def test_k3_plain_matches_jax_kernel(G, rows, n_ws):
         jidx, jxp = jbg.select_groups(jnp.asarray(x), G, k_keep)
     else:
         jidx, jxp = jbg.select_groups_batched(jnp.asarray(x), G, k_keep)
-    got = tbg.block_gather_gemv_multi(_t(jidx), _t(jxp),
-                                      [_t(w) for w in ws], layer, G, rows)
+    return jidx, jxp, ws, layer, k_keep
+
+
+def _jax_k3_kernel(G, rows, n_ws):
+    """The JAX Pallas kernel `block_gather_gemv_multi` (interpret mode) on
+    a K3_KERNEL_CASES entry (run by `jax_results` in the subprocess)."""
+    jidx, jxp, ws, layer, k_keep = _k3_kernel_case(G, rows, tuple(n_ws))
     with pltpu.force_tpu_interpret_mode():
         want = jbg.block_gather_gemv_multi(
             jidx, jxp, [jnp.asarray(w) for w in ws], G=G, k_keep=k_keep,
             out_dtype=jnp.float32, layer=layer, out_rows=rows)
+    return {"out": np.concatenate([np.asarray(o) for o in want], axis=1)}
+
+
+@pytest.mark.parametrize("G,rows,n_ws", K3_KERNEL_CASES)
+def test_k3_plain_matches_jax_kernel(G, rows, n_ws, jax_refs):
+    """K3's plain version == the JAX Pallas kernel
+    `block_gather_gemv_multi` (interpret mode) on the same idx / xpack:
+    1-3 layer-stacked weights at a layer index, 1 or 8 input rows."""
+    jidx, jxp, ws, layer, _ = _k3_kernel_case(G, rows, n_ws)
+    got = tbg.block_gather_gemv_multi(_t(jidx), _t(jxp),
+                                      [_t(w) for w in ws], layer, G, rows)
     np.testing.assert_allclose(
-        _np(got), np.concatenate([np.asarray(o) for o in want], axis=1),
-        **TOL)
+        _np(got), jax_refs[f"k3-{G}-{rows}-{len(n_ws)}"]["out"], **TOL)
 
 
-def test_projections_match_jax():
-    """project_many (threshold with the folded norm: K1; top-k: K3),
-    project_many_batched (pooled top-k and threshold: K3) and
-    block_sparse_matmul against the JAX package's (interpret mode)."""
+def _projection_case():
+    """test_projections_match_jax's inputs: x [3, K], gain, two weights,
+    layer, threshold."""
     rng = np.random.default_rng(31)
     L, K, layer = 2, 384, 1
     x = _spiky(rng, 3, K // 32, 32) * 1.3
     gain = (1 + 0.1 * rng.standard_normal((L, K))).astype(np.float32)
     ws = [(rng.standard_normal((L, K, n)) * 0.1).astype(np.float32)
           for n in (128, 32)]
-    tw, jw = [_t(w) for w in ws], [jnp.asarray(w) for w in ws]
-    thr = np.float32(1.95)
+    return x, gain, ws, layer, np.float32(1.95)
 
-    def check(got, want):
-        for g, w in zip(got, want):
-            np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
 
+def _projection_calls(x, gain, ws, layer, thr, jax: bool):
+    """project_many (threshold with the folded norm; top-k),
+    project_many_batched (pooled top-k and threshold) and
+    block_sparse_matmul of one package: a list of their outputs."""
+    if jax:
+        w, arr, scalar = [jnp.asarray(a) for a in ws], jnp.asarray, \
+            jnp.float32
+        bg, norm_kw = jbg, dict(norm3=jbg.pack_norm3(jnp.asarray(gain), 32))
+    else:
+        w, arr, scalar = [_t(a) for a in ws], _t, torch.tensor
+        bg, norm_kw = tbg, dict(norm=_t(gain))
+    outs = list(bg.project_many(arr(x[:1]), w, 32, 0.5, layer=layer,
+                                threshold=scalar(thr), **norm_kw))
+    outs += bg.project_many(arr(x[1:2]), w, 64, 0.5, layer=layer)
+    for t in (None, thr):
+        outs += bg.project_many_batched(
+            arr(x), w, 32, 0.5, layer=layer,
+            threshold=None if t is None else scalar(t))
+    outs.append(bg.block_sparse_matmul(arr(x[:1]), w[0][layer], None, 32,
+                                       0.25))
+    return outs
+
+
+def _jax_projections():
+    """The JAX package's projections (interpret mode) on
+    `_projection_case` (run by `jax_results` in the subprocess)."""
     with pltpu.force_tpu_interpret_mode():
-        check(tbg.project_many(_t(x[:1]), tw, 32, 0.5, layer=layer,
-                               threshold=torch.tensor(thr), norm=_t(gain)),
-              jbg.project_many(jnp.asarray(x[:1]), jw, 32, 0.5, layer=layer,
-                               threshold=jnp.float32(thr),
-                               norm3=jbg.pack_norm3(jnp.asarray(gain), 32)))
-        check(tbg.project_many(_t(x[1:2]), tw, 64, 0.5, layer=layer),
-              jbg.project_many(jnp.asarray(x[1:2]), jw, 64, 0.5,
-                               layer=layer))
-        for t in (None, thr):
-            check(tbg.project_many_batched(
-                _t(x), tw, 32, 0.5, layer=layer,
-                threshold=None if t is None else torch.tensor(t)),
-                jbg.project_many_batched(
-                    jnp.asarray(x), jw, 32, 0.5, layer=layer,
-                    threshold=None if t is None else jnp.float32(t)))
-        got = tbg.block_sparse_matmul(_t(x[:1]), tw[0][layer], None, 32, 0.25)
-        want = jbg.block_sparse_matmul(jnp.asarray(x[:1]), jw[0][layer], None,
-                                       32, 0.25)
-        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+        outs = _projection_calls(*_projection_case(), jax=True)
+    return {str(i): np.asarray(o) for i, o in enumerate(outs)}
 
 
-@pytest.mark.parametrize("frac", [0.3, 0.7])
-def test_k4_plain_and_compaction_match_jax_kernel(frac):
-    """compact_indices and K4's plain version == the JAX package's
-    compaction and Pallas `row_gather_gemv` (interpret mode), with the
-    survivor count above (frac 0.3) and below (0.7) nnz_cap; and the
-    gather dispatch of `sparse_matmul` == the JAX one."""
+def test_projections_match_jax(jax_refs):
+    """project_many (threshold with the folded norm: K1; top-k: K3),
+    project_many_batched (pooled top-k and threshold: K3) and
+    block_sparse_matmul against the JAX package's (interpret mode)."""
+    got = _projection_calls(*_projection_case(), jax=False)
+    want = jax_refs["projections"]
+    assert len(got) == len(want)
+    for i, g in enumerate(got):
+        np.testing.assert_allclose(_np(g), want[str(i)], **TOL)
+
+
+K4_FRACS = [0.3, 0.7]
+
+
+def _k4_case(frac):
+    """test_k4_plain_and_compaction_match_jax_kernel's inputs: x, w,
+    threshold, nnz_cap and the JAX compaction's idx / values."""
     rng = np.random.default_rng(int(frac * 10))
     K, N, thr = 256, 128, np.float32(0.6)
     x = rng.standard_normal((1, 1, K)).astype(np.float32)
     w = (rng.standard_normal((K, N)) * 0.1).astype(np.float32)
     nnz_cap = max(1, int(K * frac))
-    n_surv = int((np.abs(x) > thr).sum())
-    assert (n_surv > nnz_cap) == (frac == 0.3)
-    idx, vals = tgg.compact_indices(_t(x), torch.tensor(thr), nnz_cap)
     jidx, jvals = jgg.compact_indices(jnp.asarray(x), jnp.float32(thr),
                                       nnz_cap)
-    np.testing.assert_array_equal(_np(idx), np.asarray(jidx))
-    np.testing.assert_array_equal(_np(vals), np.asarray(jvals))
-    got = tgg.row_gather_gemv(idx, vals, _t(w))
-    sp = SparsityConfig(enabled=True, kernel="gather", gather_cap_frac=frac)
-    got_mm = tsg.sparse_matmul(_t(x), _t(w), torch.tensor(thr), sp)
+    return x, w, thr, nnz_cap, jidx, jvals
+
+
+def _jax_k4(frac):
+    """The JAX Pallas `row_gather_gemv` and the gather dispatch of
+    `sparse_matmul` (interpret mode) on a K4_FRACS entry (run by
+    `jax_results` in the subprocess)."""
+    x, w, thr, nnz_cap, jidx, jvals = _k4_case(frac)
     with pltpu.force_tpu_interpret_mode():
         want = jgg.row_gather_gemv(jidx, jvals, jgg.pack_weight_rows(
             jnp.asarray(w)), nnz_cap=nnz_cap, out_dtype=jnp.float32)
@@ -237,8 +287,27 @@ def test_k4_plain_and_compaction_match_jax_kernel(frac):
             jnp.asarray(x), jnp.asarray(w), jnp.float32(thr),
             JSparsityConfig(enabled=True, kernel="gather",
                             gather_cap_frac=frac))
-    np.testing.assert_allclose(_np(got), np.asarray(want)[0], **TOL)
-    np.testing.assert_allclose(_np(got_mm), np.asarray(want_mm), **TOL)
+    return {"gemv": np.asarray(want)[0], "mm": np.asarray(want_mm)}
+
+
+@pytest.mark.parametrize("frac", K4_FRACS)
+def test_k4_plain_and_compaction_match_jax_kernel(frac, jax_refs):
+    """compact_indices and K4's plain version == the JAX package's
+    compaction and Pallas `row_gather_gemv` (interpret mode), with the
+    survivor count above (frac 0.3) and below (0.7) nnz_cap; and the
+    gather dispatch of `sparse_matmul` == the JAX one."""
+    x, w, thr, nnz_cap, jidx, jvals = _k4_case(frac)
+    n_surv = int((np.abs(x) > thr).sum())
+    assert (n_surv > nnz_cap) == (frac == 0.3)
+    idx, vals = tgg.compact_indices(_t(x), torch.tensor(thr), nnz_cap)
+    np.testing.assert_array_equal(_np(idx), np.asarray(jidx))
+    np.testing.assert_array_equal(_np(vals), np.asarray(jvals))
+    got = tgg.row_gather_gemv(idx, vals, _t(w))
+    sp = SparsityConfig(enabled=True, kernel="gather", gather_cap_frac=frac)
+    got_mm = tsg.sparse_matmul(_t(x), _t(w), torch.tensor(thr), sp)
+    want = jax_refs[f"k4-{frac}"]
+    np.testing.assert_allclose(_np(got), want["gemv"], **TOL)
+    np.testing.assert_allclose(_np(got_mm), want["mm"], **TOL)
     with pytest.raises(NotImplementedError):
         tsg.sparse_matmul(_t(np.repeat(x, 2, axis=0)), _t(w),
                           torch.tensor(thr), sp)
@@ -263,3 +332,26 @@ def test_k3_k4_wrapper_checks():
         kw = dict(dict(idx=idx, xc=xc, w=w[0]), **bad)
         with pytest.raises(ValueError):
             tgg.row_gather_gemv(**kw)
+
+
+# --- the JAX references, in one subprocess for the module -------------------
+
+def jax_reference(kind, **kw):
+    """Every interpret-mode reference of this module, by kind: "k1", "k3"
+    (an entry of K1_KERNEL_CASES / K3_KERNEL_CASES), "projections", "k4"
+    (a K4_FRACS entry) (run by `jax_results` in the subprocess)."""
+    return {"k1": _jax_k1_kernel, "k3": _jax_k3_kernel,
+            "projections": _jax_projections, "k4": _jax_k4}[kind](**kw)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(tmp_path_factory):
+    cases = {f"k1-{G}-{int(norm)}": dict(kind="k1", G=G, norm=norm)
+             for G, norm in K1_KERNEL_CASES}
+    cases.update({f"k3-{G}-{rows}-{len(n_ws)}": dict(
+        kind="k3", G=G, rows=rows, n_ws=list(n_ws))
+        for G, rows, n_ws in K3_KERNEL_CASES})
+    cases["projections"] = dict(kind="projections")
+    cases.update({f"k4-{f}": dict(kind="k4", frac=f) for f in K4_FRACS})
+    return jax_results(__file__, "jax_reference", cases,
+                       tmp_path_factory.mktemp("jax_layer_ops"))

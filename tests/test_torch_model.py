@@ -3,8 +3,10 @@ the main decode path (token path, K1/K2 plain versions) against the JAX
 masked-dense group twin and against the JAX whole-token Pallas kernel in
 interpret mode; dense prefill and decode; greedy generation;
 `debug_fixed_selection` on the token path (against the JAX token kernel
-in interpret mode, run in a subprocess by `jax_subprocess.jax_results`)
-and on the layer loop, where it changes nothing."""
+in interpret mode) and on the layer loop, where it changes nothing. The
+interpret-mode references run once per module, in one subprocess
+(`jax_subprocess.jax_results`, `jax_reference` below), so a hang of the
+interpreter fails these cases instead of stalling the run."""
 
 import jax
 import jax.numpy as jnp
@@ -85,22 +87,39 @@ def test_token_path_matches_jax_group_twin(model, p):
     np.testing.assert_allclose(gv, np.asarray(wc.v), **TOL)
 
 
-@pytest.mark.parametrize("p", [0, 5, 15])
-def test_token_path_matches_jax_token_kernel(model, p):
+TOKEN_POS = [0, 5, 15]
+
+
+def _jax_model():
+    jcfg = jget_model_config("tiny", **CFG_KW)
+    return jcfg, jllama.init_params(jcfg, jax.random.PRNGKey(7), jnp.float32)
+
+
+def jax_token_kernel(p):
+    """JAX's whole-token kernel in interpret mode at a TOKEN_POS entry
+    (run by `jax_results` in the subprocess)."""
+    jcfg, jparams = _jax_model()
+    k, v = _cache(100 + p)
+    with pltpu.force_tpu_interpret_mode():
+        want, wc = jllama.forward(
+            jparams, jnp.asarray([[9 + p]], jnp.int32),
+            jllama.KVCache(jnp.asarray(k), jnp.asarray(v)), p,
+            jnp.asarray(_thresholds(jcfg)), cfg=jcfg,
+            sp=JSparsityConfig(**MAIN, fused_decode_attention=True))
+    return dict(logits=want, k=wc.k, v=wc.v)
+
+
+@pytest.mark.parametrize("p", TOKEN_POS)
+def test_token_path_matches_jax_token_kernel(model, jax_refs, p):
     """Port main path == the JAX whole-token Pallas kernel
     (token_block.token_decode), run in interpret mode on the CPU."""
     cfg, jcfg, params, jparams, th = model
     k, v = _cache(100 + p)
     got, gk, gv = _port_decode(cfg, params, th, k, v, 9 + p, p)
-    with pltpu.force_tpu_interpret_mode():
-        want, wc = jllama.forward(
-            jparams, jnp.asarray([[9 + p]], jnp.int32),
-            jllama.KVCache(jnp.asarray(k), jnp.asarray(v)), p,
-            jnp.asarray(th), cfg=jcfg,
-            sp=JSparsityConfig(**MAIN, fused_decode_attention=True))
-    np.testing.assert_allclose(got, np.asarray(want), **TOL)
-    np.testing.assert_allclose(gk, np.asarray(wc.k), **TOL)
-    np.testing.assert_allclose(gv, np.asarray(wc.v), **TOL)
+    want = jax_refs[f"token-{p}"]
+    np.testing.assert_allclose(got, want["logits"], **TOL)
+    np.testing.assert_allclose(gk, want["k"], **TOL)
+    np.testing.assert_allclose(gv, want["v"], **TOL)
 
 
 @pytest.mark.parametrize("sp_kw", [dict(), dict(enabled=True, mode="teal"),
@@ -194,8 +213,7 @@ def jax_fixed_selection(b):
     """JAX's token path with `debug_fixed_selection` (the whole-token
     kernel's fixed_sel) in interpret mode, run by `jax_results` in the
     subprocess."""
-    jcfg = jget_model_config("tiny", **CFG_KW)
-    jparams = jllama.init_params(jcfg, jax.random.PRNGKey(7), jnp.float32)
+    jcfg, jparams = _jax_model()
     k, v, toks, pos = _fixed_inputs(b)
     with pltpu.force_tpu_interpret_mode():
         want, wc = jllama.forward(
@@ -207,15 +225,25 @@ def jax_fixed_selection(b):
     return dict(logits=want, k=wc.k, v=wc.v)
 
 
+def jax_reference(kind, **kw):
+    """Every interpret-mode reference of this module, by kind: "token"
+    (`jax_token_kernel`), "fixed" (`jax_fixed_selection`) (run by
+    `jax_results` in the subprocess)."""
+    if kind == "token":
+        return jax_token_kernel(**kw)
+    return jax_fixed_selection(**kw)
+
+
 @pytest.fixture(scope="module")
-def jax_fixed(tmp_path_factory):
-    return jax_results(__file__, "jax_fixed_selection",
-                       {str(b): dict(b=b) for b in (1, 2)},
-                       tmp_path_factory.mktemp("jax_fixed"))
+def jax_refs(tmp_path_factory):
+    cases = {f"token-{p}": dict(kind="token", p=p) for p in TOKEN_POS}
+    cases.update({f"fixed-{b}": dict(kind="fixed", b=b) for b in (1, 2)})
+    return jax_results(__file__, "jax_reference", cases,
+                       tmp_path_factory.mktemp("jax_model"))
 
 
 @pytest.mark.parametrize("b", [1, 2])
-def test_debug_fixed_selection_matches_jax(model, jax_fixed, b):
+def test_debug_fixed_selection_matches_jax(model, jax_refs, b):
     """`debug_fixed_selection` on the token path (batch 1, and the
     batched rows at two positions): every stage keeps groups 0..cap-1,
     as the reference's token kernel does with fixed_sel; logits and
@@ -231,7 +259,7 @@ def test_debug_fixed_selection_matches_jax(model, jax_fixed, b):
             params, torch.from_numpy(toks), cache, pos, torch.from_numpy(th),
             cfg=cfg, sp=sp.replace(debug_fixed_selection=fixed))
         out[fixed] = (lg.numpy(), cache.k.numpy(), cache.v.numpy())
-    want = jax_fixed[str(b)]
+    want = jax_refs[f"fixed-{b}"]
     for got, name in zip(out[True], ("logits", "k", "v")):
         np.testing.assert_allclose(got, want[name], **TOL)
     assert np.abs(out[True][0] - out[False][0]).max() > 1e-3

@@ -14,7 +14,10 @@ One layer is held within 2^-7 of scale (bf16 rounds at the same points
 in another summation order); two layers within the JAX suite's own
 tolerances between its int8/int4 routes (5e-2 logits, 2e-2 caches,
 `tests/test_kernels.py`), on inputs whose top-k selections have no near
-tie."""
+tie. The JAX interpret-mode references run once per module, in one
+subprocess (`jax_subprocess.jax_results`, `jax_reference` below), so a
+hang of the interpreter fails these cases instead of stalling the
+run."""
 
 import functools
 
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from jax_subprocess import jax_results
 
 from teal_tpu.config import SparsityConfig as JSparsityConfig
 from teal_tpu.config import get_model_config as jget_model_config
@@ -181,14 +185,16 @@ def _plan_weights(rng, plan, L, K, ns, G):
     return out
 
 
-@pytest.mark.parametrize("plan,G,norm", [("int8", 32, True),
-                                         ("int8", 128, False),
-                                         ("int4", 64, True),
-                                         ("int4", 128, False)])
-def test_k1_plans_match_jax_kernel(plan, G, norm):
-    """K1's plain version with int8 / packed-int4 weights == the JAX
-    Pallas kernel `fused_select_gather_gemv` (interpret mode), with and
-    without the folded norm; kept set == the JAX selection."""
+K1_PLAN_CASES = [("int8", 32, True), ("int8", 128, False),
+                 ("int4", 64, True), ("int4", 128, False)]
+K3_PLAN_CASES = [("int8", 32, 1), ("int8", 64, 8), ("int4", 64, 1),
+                 ("int4", 128, 8)]
+
+
+def _k1_plan_case(plan, G, norm):
+    """test_k1_plans_match_jax_kernel's inputs: x, gain, the (port, JAX)
+    weights, the selection input xs, layer, cap and a threshold with 5
+    survivors (cap 4)."""
     rng = np.random.default_rng(G + len(plan))
     L, nb, layer, cap = 3, 8, 2, 4
     K = nb * G
@@ -200,6 +206,28 @@ def test_k1_plans_match_jax_kernel(plan, G, norm):
         if norm else x
     scores = np.abs(xs).reshape(-1, G).max(-1)
     thr = np.float32(np.sort(scores)[2] + 1e-3)      # 5 survivors, cap 4
+    return x, gain, ws, xs, layer, cap, thr
+
+
+def _jax_k1_plan(plan, G, norm):
+    """The JAX Pallas kernel `fused_select_gather_gemv` (interpret mode)
+    on a K1_PLAN_CASES entry (run by `jax_results` in the subprocess)."""
+    x, gain, ws, _, layer, cap, thr = _k1_plan_case(plan, G, norm)
+    with pltpu.force_tpu_interpret_mode():
+        want = jbg.fused_select_gather_gemv(
+            jbg.pack_x3(jnp.asarray(x[None]), G), jnp.asarray([thr]),
+            [jw for _, jw in ws], G=G, cap=cap, out_dtype=jnp.float32,
+            layer=layer,
+            norm3=jbg.pack_norm3(jnp.asarray(gain), G) if norm else None)
+    return {"out": np.concatenate([np.asarray(o)[0] for o in want])}
+
+
+@pytest.mark.parametrize("plan,G,norm", K1_PLAN_CASES)
+def test_k1_plans_match_jax_kernel(plan, G, norm, jax_refs):
+    """K1's plain version with int8 / packed-int4 weights == the JAX
+    Pallas kernel `fused_select_gather_gemv` (interpret mode), with and
+    without the folded norm; kept set == the JAX selection."""
+    x, gain, ws, xs, layer, cap, thr = _k1_plan_case(plan, G, norm)
     got, idx, count = tbg.select_gather_gemv(
         _t(x), torch.tensor(thr), [w for w, _ in ws], layer, cap, G=G,
         norm=_t(gain) if norm else None)
@@ -207,35 +235,41 @@ def test_k1_plans_match_jax_kernel(plan, G, norm):
                                 threshold=jnp.float32(thr))
     assert int(count[0]) == cap
     np.testing.assert_array_equal(_np(idx).astype(np.int32), np.asarray(jidx))
-    with pltpu.force_tpu_interpret_mode():
-        want = jbg.fused_select_gather_gemv(
-            jbg.pack_x3(jnp.asarray(x[None]), G), jnp.asarray([thr]),
-            [jw for _, jw in ws], G=G, cap=cap, out_dtype=jnp.float32,
-            layer=layer,
-            norm3=jbg.pack_norm3(jnp.asarray(gain), G) if norm else None)
-    _close(_np(got), np.concatenate([np.asarray(o)[0] for o in want]), 1e-5)
+    _close(_np(got), jax_refs[f"k1-{plan}-{G}-{int(norm)}"]["out"], 1e-5)
 
 
-@pytest.mark.parametrize("plan,G,rows", [("int8", 32, 1), ("int8", 64, 8),
-                                         ("int4", 64, 1), ("int4", 128, 8)])
-def test_k3_plans_match_jax_kernel(plan, G, rows):
-    """K3's plain version with int8 / packed-int4 weights == the JAX
-    Pallas kernel `block_gather_gemv_multi` (interpret mode) on the same
-    idx / xpack, 1 or 8 input rows."""
+def _k3_plan_case(plan, G, rows):
+    """test_k3_plans_match_jax_kernel's inputs: the (port, JAX) weights,
+    the JAX selection's idx / xpack, layer and k_keep."""
     rng = np.random.default_rng(G + rows + len(plan))
     L, nb, k_keep, layer = 3, 8, 5, 1
     x = _spiky(rng, rows, nb, G)
     ws = _plan_weights(rng, plan, L, nb * G, (64, 32), G)
     sel = jbg.select_groups if rows == 1 else jbg.select_groups_batched
     jidx, jxp = sel(jnp.asarray(x), G, k_keep)
-    got = tbg.block_gather_gemv_multi(_t(jidx), _t(jxp), [w for w, _ in ws],
-                                      layer, G, rows)
+    return ws, jidx, jxp, layer, k_keep
+
+
+def _jax_k3_plan(plan, G, rows):
+    """The JAX Pallas kernel `block_gather_gemv_multi` (interpret mode) on
+    a K3_PLAN_CASES entry (run by `jax_results` in the subprocess)."""
+    ws, jidx, jxp, layer, k_keep = _k3_plan_case(plan, G, rows)
     with pltpu.force_tpu_interpret_mode():
         want = jbg.block_gather_gemv_multi(
             jidx, jxp, [jw for _, jw in ws], G=G, k_keep=k_keep,
             out_dtype=jnp.float32, layer=layer, out_rows=rows)
-    _close(_np(got), np.concatenate([np.asarray(o) for o in want], axis=1),
-           1e-5)
+    return {"out": np.concatenate([np.asarray(o) for o in want], axis=1)}
+
+
+@pytest.mark.parametrize("plan,G,rows", K3_PLAN_CASES)
+def test_k3_plans_match_jax_kernel(plan, G, rows, jax_refs):
+    """K3's plain version with int8 / packed-int4 weights == the JAX
+    Pallas kernel `block_gather_gemv_multi` (interpret mode) on the same
+    idx / xpack, 1 or 8 input rows."""
+    ws, jidx, jxp, layer, _ = _k3_plan_case(plan, G, rows)
+    got = tbg.block_gather_gemv_multi(_t(jidx), _t(jxp), [w for w, _ in ws],
+                                      layer, G, rows)
+    _close(_np(got), jax_refs[f"k3-{plan}-{G}-{rows}"]["out"], 1e-5)
 
 
 def test_k1_int8_scale_epilogue():
@@ -329,47 +363,70 @@ def _quant_model(n_layers, quantize, seed=7):
     return cfg, jcfg, params, _to_jax(params)
 
 
-def _decode_both(path, n_layers, tok=9):
-    quantize, sp_kw, base_th, token_path = PATHS[path]
-    cfg, jcfg, params, jparams = _quant_model(n_layers, quantize)
+def _decode_inputs(n_layers):
+    """The decode step's caches: bf16 values, as fp32."""
     rng = np.random.default_rng(7)
     shape = (n_layers, 1, 1, T, 128)
-    k, v = (np.asarray(jnp.asarray(rng.standard_normal(shape) * 0.1,
-                                   jnp.bfloat16), np.float32)
-            for _ in range(2))
-    th = (np.tile(base_th, (n_layers, 1)) if base_th is not None
-          else np.zeros((n_layers, 7), np.float32))
+    return tuple(np.asarray(jnp.asarray(rng.standard_normal(shape) * 0.1,
+                                        jnp.bfloat16), np.float32)
+                 for _ in range(2))
+
+
+def _path_th(path, n_layers):
+    """A PATHS entry's [L, 7] thresholds (its base row, or zeros)."""
+    base_th = PATHS[path][2]
+    return (np.tile(base_th, (n_layers, 1)) if base_th is not None
+            else np.zeros((n_layers, 7), np.float32))
+
+
+def _jax_decode(path, n_layers, tok=9):
+    """JAX's forward (interpret mode) on the quantized model of a PATHS
+    entry: logits and both caches as fp32 (run by `jax_results` in the
+    subprocess)."""
+    quantize, sp_kw, _, _ = PATHS[path]
+    _, jcfg, _, jparams = _quant_model(n_layers, quantize)
+    k, v = _decode_inputs(n_layers)
+    with pltpu.force_tpu_interpret_mode():
+        want, wc = jllama.forward(
+            jparams, jnp.asarray([[tok]], jnp.int32),
+            jllama.KVCache(jnp.asarray(k, jnp.bfloat16),
+                           jnp.asarray(v, jnp.bfloat16)), POS,
+            jnp.asarray(_path_th(path, n_layers)), cfg=jcfg,
+            sp=JSparsityConfig(**sp_kw, fused_decode_attention=True))
+    return {"logits": np.asarray(want, np.float32),
+            "k": np.asarray(wc.k, np.float32),
+            "v": np.asarray(wc.v, np.float32)}
+
+
+def _decode_both(path, n_layers, refs, tok=9):
+    quantize, sp_kw, _, token_path = PATHS[path]
+    cfg, _, params, _ = _quant_model(n_layers, quantize)
+    k, v = _decode_inputs(n_layers)
+    th = _path_th(path, n_layers)
     sp = SparsityConfig(**sp_kw)
     assert llama.can_token_decode(params, cfg, sp, 1, 1,
                                   torch.bfloat16) == token_path
     cache = llama.KVCache.from_numpy(k, v, device="cpu", dtype=torch.bfloat16)
     got, cache = llama.forward(params, torch.tensor([[tok]]), cache, POS,
                                torch.from_numpy(th), cfg=cfg, sp=sp)
-    with pltpu.force_tpu_interpret_mode():
-        want, wc = jllama.forward(
-            jparams, jnp.asarray([[tok]], jnp.int32),
-            jllama.KVCache(jnp.asarray(k, jnp.bfloat16),
-                           jnp.asarray(v, jnp.bfloat16)), POS,
-            jnp.asarray(th), cfg=jcfg,
-            sp=JSparsityConfig(**sp_kw, fused_decode_attention=True))
-    return ((_np(got), np.asarray(want)),
-            (_np(cache.k), np.asarray(wc.k, np.float32)),
-            (_np(cache.v), np.asarray(wc.v, np.float32)))
+    want = refs[f"decode-{path}-{n_layers}"]
+    return ((_np(got), want["logits"]), (_np(cache.k), want["k"]),
+            (_np(cache.v), want["v"]))
 
 
 @pytest.mark.parametrize("path", list(PATHS))
-def test_quantized_decode_one_layer_matches_jax(path):
+def test_quantized_decode_one_layer_matches_jax(path, jax_refs):
     """One decode step at pos 9, one layer: logits and caches within 2^-7
     of scale of the JAX forward."""
-    for got, want in _decode_both(path, 1):
+    for got, want in _decode_both(path, 1, jax_refs):
         _close(got, want, 2 ** -7)
 
 
 @pytest.mark.parametrize("path", list(PATHS))
-def test_quantized_decode_two_layers_matches_jax(path):
+def test_quantized_decode_two_layers_matches_jax(path, jax_refs):
     """Two layers: within the JAX suite's tolerances between its
     quantized routes (5e-2 logits, 2e-2 caches)."""
-    (lg, lw), *caches = _decode_both(path, 2)
+    (lg, lw), *caches = _decode_both(path, 2, jax_refs)
     np.testing.assert_allclose(lg, lw, rtol=5e-2, atol=5e-2)
     for got, want in caches:
         np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
@@ -393,24 +450,41 @@ def test_quantized_dense_prefill_matches_jax(quantize):
     _close(_np(cache.k), np.asarray(wc.k, np.float32), 2 ** -7)
 
 
-def test_int8_block_proj_ignores_threshold_like_jax():
-    """`_proj` with int8 weights in block mode outside the block route runs
-    top-k and ignores the threshold, as the reference does."""
+_PROJ_KW = dict(enabled=True, kernel="block", block_thresholding=True)
+
+
+def _int8_proj_case():
+    """test_int8_block_proj_ignores_threshold_like_jax's input x and int8
+    weight (JAX's quantization)."""
     rng = np.random.default_rng(9)
     x = _spiky(rng, 1, 8, 32).reshape(1, 1, 256)
     w8 = jq.quantize_int8(jnp.asarray(rng.standard_normal((256, 64)) * 0.05,
                                       jnp.float32))
-    sp_kw = dict(enabled=True, kernel="block", block_thresholding=True)
-    tw = {"q": _t(np.asarray(w8.q)), "scale": _t(np.asarray(w8.scale))}
-    xb = jnp.asarray(x, jnp.bfloat16)
+    return x, w8
+
+
+def _jax_int8_proj():
+    """JAX's `_proj` of the int8 weight in block mode (interpret mode; run
+    by `jax_results` in the subprocess)."""
+    x, w8 = _int8_proj_case()
     with pltpu.force_tpu_interpret_mode():
-        want = jllama._proj(xb, {"q": w8.q, "scale": w8.scale},
-                            jnp.float32(1e9), JSparsityConfig(**sp_kw),
+        want = jllama._proj(jnp.asarray(x, jnp.bfloat16),
+                            {"q": w8.q, "scale": w8.scale},
+                            jnp.float32(1e9), JSparsityConfig(**_PROJ_KW),
                             proj="q")
+    return {"out": np.asarray(want, np.float32)}
+
+
+def test_int8_block_proj_ignores_threshold_like_jax(jax_refs):
+    """`_proj` with int8 weights in block mode outside the block route runs
+    top-k and ignores the threshold, as the reference does."""
+    x, w8 = _int8_proj_case()
+    tw = {"q": _t(np.asarray(w8.q)), "scale": _t(np.asarray(w8.scale))}
+    want = jax_refs["int8-proj"]["out"]
     got = llama._proj(_t(x).bfloat16(), tw, torch.tensor(1e9),
-                      SparsityConfig(**sp_kw))
-    _close(_np(got), np.asarray(want, np.float32), 2 ** -7)
-    assert np.abs(np.asarray(want, np.float32)).max() > 0
+                      SparsityConfig(**_PROJ_KW))
+    _close(_np(got), want, 2 ** -7)
+    assert np.abs(want).max() > 0
 
 
 @pytest.mark.parametrize("quantize", [jq.quantize_params_int8,
@@ -482,3 +556,28 @@ def test_token_path_gate_follows_jax_for_quantized_weights():
         got = llama.can_token_decode(p, cfg, SparsityConfig(**sp_kw), 1, 1,
                                      torch.bfloat16)
         assert got == want, sp_kw
+
+
+# --- the JAX references, in one subprocess for the module -------------------
+
+def jax_reference(kind, **kw):
+    """Every interpret-mode reference of this module, by kind: "k1", "k3"
+    (an entry of K1_PLAN_CASES / K3_PLAN_CASES), "decode" (a PATHS entry
+    at one or two layers), "int8-proj" (run by `jax_results` in the
+    subprocess)."""
+    return {"k1": _jax_k1_plan, "k3": _jax_k3_plan, "decode": _jax_decode,
+            "int8-proj": _jax_int8_proj}[kind](**kw)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(tmp_path_factory):
+    cases = {f"k1-{p}-{G}-{int(n)}": dict(kind="k1", plan=p, G=G, norm=n)
+             for p, G, n in K1_PLAN_CASES}
+    cases.update({f"k3-{p}-{G}-{r}": dict(kind="k3", plan=p, G=G, rows=r)
+                  for p, G, r in K3_PLAN_CASES})
+    cases.update({f"decode-{path}-{n}": dict(kind="decode", path=path,
+                                             n_layers=n)
+                  for path in PATHS for n in (1, 2)})
+    cases["int8-proj"] = dict(kind="int8-proj")
+    return jax_results(__file__, "jax_reference", cases,
+                       tmp_path_factory.mktemp("jax_quant"))
