@@ -130,7 +130,8 @@ Phases:
      (`flash_prefill_attention`) against its plain version, each
      (head, query) row within a tolerance of its own largest value: bf16
      at S = 256, 320 (a last half query tile), 2048, 2560 (Hq/Hkv 32/32
-     and 32/8, 2^-6 a row) and fp32 at S = 256 (1e-4 a row), a second
+     and 32/8, 2^-6 a row) and at phase 12's capture shape (B 2, S 2048,
+     32/32), fp32 at S = 256 (1e-4 a row), a second
      call bit-identical to the first; every layer of a 2048-token
      prefill through K6 held to the plain path on the same layer input
      (the attention
@@ -149,7 +150,34 @@ Phases:
      and its bound, and the share of the bound; K2 at pos 2047 of a
      2048-row cache and K2's split sweep (S forced to 1, 2, 4, 8 at pos
      40, 511 and 2047, 7B heads);
-all printed as one `kernels` JSON line, with the card in it.
+ 12. calibration (run after phase 11, on the resident bf16 7B params):
+     `calibration.calibrate` over all 32 layers with 2 x 2048 seeded
+     tokens (the reference takes 10 x 2048), group sizes 32, 64 and 128,
+     each layer's capture attention through K6 (exactly 32 K6 launches
+     and no other kernel), and its peak memory; every layer's capture at
+     that shape (B 2, S 2048) held to the plain path, its kernel side
+     timed alone to split calibrate's seconds into device capture and
+     host histograms; uniform group thresholds at
+     sparsity 0.5 (`group_thresholds_for_uniform`, G 128) decoding phase
+     4's three prompts on the main path (128 K1 + 32 K2 launches a token;
+     every layer of a step held to the plain path at those thresholds,
+     the kept counts equal to the plain path's, or apart by one group
+     whose score lies within two ulps of the threshold, the plain layer
+     then run again on the kernel's count; each stage's surviving and
+     kept shares printed, not gated); on a 2-layer cut of the same
+     weights at full widths with 2048 tokens: `run_greedy` to effective
+     sparsity 0.5 (K6 once a layer forward), the greedy elementwise and
+     group thresholds, the cut decoded at the greedy group thresholds;
+     magnitude channel permutations (G 128) folded in, the permuted
+     model's dense logits on an fp32 copy within 1e-4 of scale of the
+     unpermuted ones, the permuted cut calibrated and decoded; GPTQ
+     (sequential, group 128) with every projection's reconstruction error
+     below round-to-nearest's on the same inputs, packed and decoded on
+     Q4-main through K1's int4 plan; every decode held layer by layer;
+all printed as one `kernels` JSON line, with the card in it (and the
+calibration phase's results under "calibration"); besides, one main-path
+decode step with every kernel swapped for its plain version is profiled
+("decode_step_ms" "sparse, plain kernels").
 
 The line before the last is the card's name and power limit from
 `nvidia-smi`; the last line is
@@ -159,8 +187,10 @@ The line before the last is the card's name and power limit from
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1317,15 +1347,77 @@ def picking_k1(x, thr, ws, layer, cap, *, G=128, norm=None, norm_eps=1e-5,
                                        norm=norm, norm_eps=norm_eps, **kw)
 
 
+def recording_k1(rec, override=None):
+    """K1's plain version that appends, for each call, (its group scores
+    [nb] fp32, its threshold, its kept count, the selection input's type)
+    to `rec`; with `override` {call: threshold}, that call of the block
+    selects at the given threshold instead."""
+    import torch
+
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    def k1(x, thr, ws, layer, cap, *, G=128, norm=None, norm_eps=1e-5,
+           **kw):
+        if override is not None and len(rec) in override:
+            thr = torch.full_like(thr, override[len(rec)])
+        out = bg.select_gather_gemv_plain(x, thr, ws, layer, cap, G=G,
+                                          norm=norm, norm_eps=norm_eps, **kw)
+        xs = bg.selection_input(x, norm, layer, norm_eps)
+        nb = xs.shape[-1] // G
+        scores = xs.float().abs().reshape(-1, nb, G).amax(-1).amax(0)
+        rec.append((scores, float(thr), int(out[2]), xs.dtype))
+        return out
+    return k1
+
+
+def explain_count_flip(rec, got, want):
+    """Whether the kernel path's kept counts `got` differ from the plain
+    path's `want` (one layer's K1 calls, recorded by `recording_k1` in
+    `rec`) by a threshold flip that rounding explains: exactly one call
+    kept one group more or fewer, and the plain path's nearest group score
+    on the other side of that call's threshold is within FLIP_ULPS units
+    in the last place (of the selection input's type) of it. Returns
+    (explained, what was measured, {call: the threshold at which the plain
+    path keeps the kernel path's count})."""
+    import numpy as np
+
+    moved = [j for j in range(len(want)) if got[j] != want[j]]
+    if len(moved) != 1 or abs(int(got[moved[0]]) - int(want[moved[0]])) != 1:
+        return False, f"kept counts {got} vs {want}", {}
+    j = moved[0]
+    scores, thr, _, dt = rec[j]
+    more = int(got[j]) > int(want[j])
+    side = scores[scores <= thr] if more else scores[scores > thr]
+    if side.numel() == 0:
+        return False, f"call {j}: no group on the other side", {}
+    s = float(side.max() if more else side.min())
+    ulps = abs(s - thr) / _ulp(abs(thr), dt)
+    new = (float(np.nextafter(np.float32(s), np.float32(-np.inf)))
+           if more else s)
+    what = (f"call {j}: the kernel kept {'one more' if more else 'one fewer'}"
+            f" group; the plain path's nearest score {s:.6e} is {ulps:.2f} "
+            f"ulps from the threshold {thr:.6e}")
+    return ulps <= FLIP_ULPS, what, {j: new}
+
+
 def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
-                      verify: bool = False):
+                      verify: bool = False, th=None, shares=None):
     """For one decode step of the token path on a cache after prefills,
     layer by layer: run the plain token-path layer (`layer_decode` under
     `plain_path`), each K1 stage picking its threshold from the input it
-    sees (pooled over the rows); then run the kernel path's layer on the
-    same layer input and hold its output and written cache rows to the
-    plain layer's within 2e-2 of their largest magnitude, and its kept
-    counts to [1, cap].
+    sees (pooled over the rows), or at the given thresholds `th` [L, 7]
+    (calibrated ones; with `shares`, each K1 call's survivors and kept
+    count recorded by `recording_k1`); then run the kernel path's layer
+    on the same layer input and hold its output and written cache rows to
+    the plain layer's within 2e-2 of their largest magnitude, and its kept
+    counts to [1, cap] (picked thresholds) or to the plain path's kept
+    counts, at most cap (given thresholds, which may keep no group).
+    Where at given thresholds one K1 call kept one group more or fewer
+    than the plain path and a plain score lies within FLIP_ULPS of the
+    threshold (`explain_count_flip`), the plain layer runs again at a
+    threshold moved past that score, must keep the kernel path's counts,
+    and the kernel layer is held to that at the same 2e-2; any other
+    difference fails.
 
     tok: B tokens, one per row; pos: B positions (an int for B = 1). Each
     row is a sequence in its own cache row, or with `verify` the rows are
@@ -1346,7 +1438,11 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
     ws = tuple(lay[n] for n in PROJ_NAMES)
     caps = ((cfg.dim // 128,) * 3 + (cfg.intermediate_size // 128,)
             if verify else llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP)))
-    th = torch.zeros((cfg.n_layers, 7), dtype=torch.float32, device=device)
+    picked = th is None
+    if picked:
+        th = torch.zeros((cfg.n_layers, 7), dtype=torch.float32,
+                         device=device)
+        k1 = None if verify else picking_k1
     k, v = cache.k.clone(), cache.v.clone()            # plain path
     kk, vk = cache.k.clone(), cache.v.clone()          # kernel path
     pos_t = torch.as_tensor(np.asarray(pos).reshape(-1),
@@ -1365,16 +1461,42 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
         ws = (*ws[:4], *(token_block.expert_stacks(w) for w in ws[4:]))
         kw.update(router=lay["router"], k_exp=cfg.n_experts_per_tok)
         cap_cols = caps[:2] + caps[2:] * cfg.n_experts_per_tok
-    counts, worst = [], 0.0
+    counts, plain_counts, worst = [], [], 0.0
     for i in range(cfg.n_layers):
         routes = ([], [])                       # plain, kernel
-        with plain_path(k1=None if verify else picking_k1):
+        rec = []
+        with plain_path(k1=k1 if picked else recording_k1(rec)):
             want = token_block.layer_decode(
                 h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], rows, k, v,
-                pos_t, routes=routes[0], **kw)
+                pos_t, counts=plain_counts, routes=routes[0], **kw)
         got = token_block.layer_decode(
             h, i, th, ws, lay["attn_norm"], lay["mlp_norm"], rows, kk, vk,
             pos_t, counts=counts, routes=routes[1], **kw)
+        held = want
+        if not picked:
+            if shares is not None:
+                shares.extend((float((sc > t).float().mean()), c,
+                               sc.numel()) for sc, t, c, _ in rec)
+            g_kept = counts[-1].tolist()
+            if g_kept != plain_counts[-1].tolist():
+                ok, what, override = explain_count_flip(
+                    rec, g_kept, plain_counts[-1].tolist())
+                log(f"[calib] layer {i}: {what}; "
+                    f"{'a flip' if ok else 'not a flip'} within {FLIP_ULPS} "
+                    "ulps")
+                check(ok, f"layer {i}: kept counts {g_kept} vs the plain "
+                      f"path's {plain_counts[-1].tolist()}: {what}")
+                again = []
+                with plain_path(k1=recording_k1([], override)):
+                    held = token_block.layer_decode(
+                        h, i, th, ws, lay["attn_norm"], lay["mlp_norm"],
+                        rows, k, v, pos_t, counts=again, **kw)
+                check(again[0].tolist() == g_kept, f"layer {i}: the plain "
+                      f"layer run again keeps {again[0].tolist()}, the "
+                      f"kernel path {g_kept}")
+                plain_counts[-1] = again[0]
+                log(f"[calib] layer {i}: the plain layer run again at the "
+                    f"moved threshold keeps the kernel path's counts")
         if cfg.n_experts:
             check(all(torch.equal(a, b) for a, b in zip(*routes)),
                   f"layer {i}: routed pseudo-layers {routes[1][0].tolist()} "
@@ -1383,17 +1505,29 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
                 log(f"[moe] layer {i}: routed experts "
                     f"{[e - i * cfg.n_experts for e in routes[1][0].tolist()]}"
                     " on both paths")
-        for what, g, w in (("hidden", got, want),
+        for what, g, w in (("hidden", got, held),
                            ("k rows", kk[i, cb, :, pl], k[i, cb, :, pl]),
                            ("v rows", vk[i, cb, :, pl], v[i, cb, :, pl])):
             err = rel_check(f"token path (B={B}{', verify' if verify else ''})"
                             f" layer {i} {what}: kernel vs plain", g, w, 2e-2)
-            worst = max(worst, err / float(w.float().abs().max()))
+            # a qkv stage that keeps no group writes zero rows (given
+            # thresholds); rel_check then required err == 0
+            scale = float(w.float().abs().max())
+            worst = max(worst, err / scale if scale else 0.0)
         h = want
     kept = torch.stack(counts).cpu()              # [L, len(cap_cols)]
-    check(bool((kept >= 1).all()) and all(
-        bool((kept[:, j] <= c).all()) for j, c in enumerate(cap_cols)),
-        f"kept counts outside [1, cap]: {kept.tolist()}")
+    check(all(bool((kept[:, j] <= c).all()) for j, c in enumerate(cap_cols)),
+          f"kept counts above cap: {kept.tolist()}")
+    if picked:
+        check(bool((kept >= 1).all()), f"kept counts below 1: "
+              f"{kept.tolist()}")
+    else:
+        # given thresholds may keep no group of a stage (see phase 12);
+        # the kernel must keep what the plain path keeps (after a flip,
+        # the plain layer run again)
+        want_kept = torch.stack(plain_counts).cpu()
+        check(torch.equal(kept, want_kept), f"kept counts {kept.tolist()} "
+              f"vs the plain path's {want_kept.tolist()}")
     log(f"[token] B={B}{' verify' if verify else ''}: kept groups a K1 "
         f"call, mean over the {cfg.n_layers} layers "
         f"{[round(float(c), 2) for c in kept.float().mean(0)]} of caps "
@@ -2586,11 +2720,11 @@ PPL_CONTEXT, PPL_WINDOW, PPL_TOKENS = 2048, 512, 4096
 K6_BF16_ROW_TOL = 2 ** -6
 
 
-def k6_inputs(S, Hq, Hkv, gen, device, dtype):
-    """Random q [1, Hq, S, 128] and k / v [1, Hkv, S, 128]."""
+def k6_inputs(S, Hq, Hkv, gen, device, dtype, B=1):
+    """Random q [B, Hq, S, 128] and k / v [B, Hkv, S, 128]."""
     import torch
 
-    return tuple(torch.randn(1, h, S, 128, generator=gen,
+    return tuple(torch.randn(B, h, S, 128, generator=gen,
                              device=device).to(dtype)
                  for h in (Hq, Hkv, Hkv))
 
@@ -2627,36 +2761,39 @@ def check_k6_plan():
 
 def check_k6(device, gen):
     """K6 against its plain version, each (head, query) row held alone:
-    bf16 at `K6_CHECK_S`, MHA and GQA, the row's largest error within
-    `K6_BF16_ROW_TOL` of the row's largest |value|; fp32 at S = 256 within
-    1e-4 of it (the FMA path: fp32 throughout, only the order of the sums
-    differs); a second call bit-identical to the first. Returns the
-    largest absolute error in bf16."""
+    bf16 at `K6_CHECK_S`, MHA and GQA, and at the calibration capture's
+    shape (phase 12: B, S = `CALIB_BATCH`, the 7B's heads), the row's
+    largest error within `K6_BF16_ROW_TOL` of the row's largest |value|;
+    fp32 at S = 256 within 1e-4 of it (the FMA path: fp32 throughout, only
+    the order of the sums differs); a second call bit-identical to the
+    first. Returns the largest absolute error in bf16."""
     import torch
 
     from teal_tpu_torch.ops.flash_prefill import (
         flash_prefill_attention, flash_prefill_attention_plain)
 
+    cases = [(torch.bfloat16, 1, S, Hq, Hkv, K6_BF16_ROW_TOL)
+             for S in K6_CHECK_S for Hq, Hkv in K6_HEADS]
+    cases.append((torch.bfloat16, *CALIB_BATCH, *K6_HEADS[0],
+                  K6_BF16_ROW_TOL))
+    cases += [(torch.float32, 1, 256, Hq, Hkv, 1e-4) for Hq, Hkv in K6_HEADS]
     worst = 0.0
-    for dt, sizes, rel in ((torch.bfloat16, K6_CHECK_S, K6_BF16_ROW_TOL),
-                           (torch.float32, (256,), 1e-4)):
-        for S in sizes:
-            for Hq, Hkv in K6_HEADS:
-                q, k, v = k6_inputs(S, Hq, Hkv, gen, device, dt)
-                got = flash_prefill_attention(q, k, v)
-                want = flash_prefill_attention_plain(q, k, v)
-                check(got.dtype == dt and got.shape == q.shape,
-                      f"K6 {dt} S={S}: output {got.dtype} {tuple(got.shape)}")
-                check(torch.equal(flash_prefill_attention(q, k, v), got),
-                      f"K6 {dt} S={S} Hq={Hq} Hkv={Hkv}: two calls differ")
-                err, ratio = row_check(f"K6 {dt} S={S} Hq={Hq} Hkv={Hkv}",
-                                       got, want, rel)
-                if dt == torch.bfloat16:
-                    worst = max(worst, err)
-                log(f"[k6] {str(dt)[6:]:8s} S={S:4d} Hq={Hq} Hkv={Hkv:2d} "
-                    f"max_abs_err={err:.3e}, worst row {ratio:.3e} of the "
-                    f"row's largest value (tolerance {rel:g} a row); two "
-                    f"calls bit-identical")
+    for dt, B, S, Hq, Hkv, rel in cases:
+        what = f"K6 {dt} B={B} S={S} Hq={Hq} Hkv={Hkv}"
+        q, k, v = k6_inputs(S, Hq, Hkv, gen, device, dt, B)
+        got = flash_prefill_attention(q, k, v)
+        want = flash_prefill_attention_plain(q, k, v)
+        check(got.dtype == dt and got.shape == q.shape,
+              f"{what}: output {got.dtype} {tuple(got.shape)}")
+        check(torch.equal(flash_prefill_attention(q, k, v), got),
+              f"{what}: two calls differ")
+        err, ratio = row_check(what, got, want, rel)
+        if dt == torch.bfloat16:
+            worst = max(worst, err)
+        log(f"[k6] {str(dt)[6:]:8s} B={B} S={S:4d} Hq={Hq} Hkv={Hkv:2d} "
+            f"max_abs_err={err:.3e}, worst row {ratio:.3e} of the row's "
+            f"largest value (tolerance {rel:g} a row); two calls "
+            f"bit-identical")
     return worst
 
 
@@ -2709,14 +2846,16 @@ def time_k6(device, gen, launches, prefills, err):
                     "library_ms")})
 
 
-def hold_prefill_layers(params, cfg, toks, rope, device):
-    """Every layer of a pos-0 dense prefill of toks [1, S] through K6
-    (`layer_forward` with `causal_prefill`) held to the plain path (the
-    same layer under `plain_path`: K6's plain version) on the same layer
-    input: the attention output (attn h2) a (head, query) row at a time
-    within `K6_BF16_ROW_TOL` of the row's largest value, the layer's
-    output within 2e-2 of scale, one K6 launch a layer. Returns the worst
-    row ratio of the attention output."""
+def hold_prefill_layers(params, cfg, toks, rope, device, tag="[long]"):
+    """Every layer of a pos-0 dense prefill of toks [B, S] through K6
+    (`layer_forward` with `causal_prefill` and `capture`: what
+    `calibrate` runs a layer) held to the plain path (the same layer
+    under `plain_path`: K6's plain version) on the same layer input: the
+    attention output (attn h2) a (head, query) row at a time within
+    `K6_BF16_ROW_TOL` of the row's largest value, the layer's output
+    within 2e-2 of scale, one K6 launch a layer. Returns (the worst row
+    ratio of the attention output, the seconds of the kernel path's
+    layers, each synchronised)."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -2727,12 +2866,12 @@ def hold_prefill_layers(params, cfg, toks, rope, device):
     sp = SparsityConfig()
     th = torch.zeros(7, dtype=torch.float32, device=device)
     pos_t = torch.zeros(b, dtype=torch.int64, device=device)
-    positions = torch.arange(s, device=device)[None]
+    positions = torch.arange(s, device=device).expand(b, s)
     cos, sin = rope[0][positions], rope[1][positions]
     h = params["embed"][toks].to(dt)
     shape = (b, cfg.n_kv_heads, s, cfg.head_dim)
     heads = (b, s, cfg.n_heads, cfg.head_dim)
-    worst = 0.0
+    worst, kernel_s = 0.0, 0.0
     for i in range(cfg.n_layers):
         lp = {n: llama._leaf(w, lambda a: a[i])
               for n, w in params["layers"].items()}
@@ -2743,26 +2882,30 @@ def hold_prefill_layers(params, cfg, toks, rope, device):
                 h, lp, caches[0], caches[1], pos_t, cos, sin, cfg, sp, th,
                 capture=True, causal_prefill=True)
         before = read_launches()[5]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         got, _, _, gcap = llama.layer_forward(
             h, lp, caches[2], caches[3], pos_t, cos, sin, cfg, sp, th,
             capture=True, causal_prefill=True)
+        torch.cuda.synchronize()
+        kernel_s += time.perf_counter() - t0
         check(read_launches()[5] == before + 1,
               f"prefill layer {i}: K6 launched {read_launches()[5] - before} "
               "times, expected once")
         err, ratio = row_check(
-            f"prefill S={s} layer {i} attention: kernel vs plain",
+            f"prefill B={b} S={s} layer {i} attention: kernel vs plain",
             gcap["self_attn"]["h2"].reshape(heads),
             wcap["self_attn"]["h2"].reshape(heads), K6_BF16_ROW_TOL)
         worst = max(worst, ratio)
-        h_err = rel_check(f"prefill S={s} layer {i} output: kernel vs plain",
-                          got, want, 2e-2)
+        h_err = rel_check(f"prefill B={b} S={s} layer {i} output: kernel vs "
+                          "plain", got, want, 2e-2)
         if i in (0, cfg.n_layers - 1):
-            log(f"[long] prefill layer {i} kernel vs plain: attention "
+            log(f"{tag} prefill B={b} layer {i} kernel vs plain: attention "
                 f"max_abs_err={err:.3e}, worst row {ratio:.3e} of its "
                 f"largest value; layer output max_abs_err={h_err:.3e} "
                 f"(scale {float(want.float().abs().max()):.3e})")
         h = want
-    return worst
+    return worst, kernel_s
 
 
 def long_prompt_run(params, cfg, device, seed, th):
@@ -2795,7 +2938,7 @@ def long_prompt_run(params, cfg, device, seed, th):
     padded[0, :LONG_PROMPT] = torch.from_numpy(prompt)
     padded = padded.to(device)
     t0 = time.perf_counter()
-    worst = hold_prefill_layers(params, cfg, padded, gen.rope, device)
+    worst, _ = hold_prefill_layers(params, cfg, padded, gen.rope, device)
     log(f"[long] every layer of the {T}-token prefill through K6 held to the "
         f"plain path (attention: worst row {worst:.2e} of its largest value, "
         f"tolerance {K6_BF16_ROW_TOL:g} a row) in "
@@ -2966,6 +3109,327 @@ def long_prompt_phase(params, cfg, device, gen, seed, th):
     sweep = k2_sweep(cfg, device, gen, rope)
     log(f"[long] phase 11 in {time.perf_counter() - t0:.1f} s")
     return entries, dict(long_prompt=long, ppl=ppl_res, k2_sweep=sweep)
+
+
+# --- phase 12: calibration, the greedy allocation, permutations, GPTQ -------
+
+CALIB_BATCH = (2, 2048)          # tokens; the reference takes 10 x 2048
+CALIB_SPARSITY = 0.5             # uniform group sparsity of part 2
+CUT_LAYERS = 2                   # the greedy / permutation / GPTQ cut
+CUT_BATCH = (1, 2048)
+GREEDY_TARGET = 0.5              # effective sparsity of the greedy run
+CALIB_DIR = ROOT / "build" / "chip_smoke_calibration"
+
+
+def calib_decode(params, cfg, th, device, seed, what, shares=None):
+    """Hold every layer of one main-path decode step (the first prompt's
+    next token after a dense prefill) at thresholds `th` [L, 7] to the
+    plain path (`hold_token_layers`), then decode phase 4's three prompts
+    on the main path with them, counts set to 0 just before: 4*L K1 and
+    L K2 a decoded token. Returns (worst hold error, tok/s per prompt)."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.models import llama
+
+    dt = llama.compute_dtype(params)
+    gen = Generator(cfg, params, sp=SparsityConfig(**MAIN_SP),
+                    max_seq=MAX_SEQ, cache_dtype=dt, temperature=0.0,
+                    device=device)
+    prompts = main_prompts(cfg, seed)
+    cache, tok, pos = calibration_token(params, cfg, prompts[0],
+                                        gen.new_cache(), gen.rope, device)
+    _, worst, _ = hold_token_layers(params, cfg, cache, tok, pos, gen.rope,
+                                    device, th=th, shares=shares)
+    gen.generate(prompts[0], 4, thresholds=th)              # warm-up
+    reset_launches()
+    outs = [gen.generate(p, NEW_TOKENS, thresholds=th) for p in prompts]
+    decoded = len(prompts) * (NEW_TOKENS - 1)
+    check_launches(read_launches(), cfg.n_layers, decoded)
+    for p, (toks, _) in zip(prompts, outs):
+        check(toks.shape == (1, len(p) + NEW_TOKENS)
+              and bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
+              f"{what}: bad tokens {toks.shape}")
+    tok_s = [st.tokens_per_s for _, st in outs]
+    log(f"[calib] {what}: every layer of a decode step held to the plain "
+        f"path (worst error {worst:.2e} of scale, tolerance 2e-2); "
+        f"{len(prompts)} requests, {decoded} decoded tokens, "
+        f"{4 * cfg.n_layers} K1 + {cfg.n_layers} K2 launches a token; "
+        f"tok/s {', '.join(f'{t:.2f}' for t in tok_s)}")
+    return worst, tok_s
+
+
+def stage_shares(shares, L: int, target: float):
+    """Each stage's mean share of surviving groups (before the cap) and of
+    kept groups over the L layers of one held step, beside the target."""
+    out = {}
+    for j, name in enumerate(STAGES):
+        rows = shares[j::4]
+        check(len(rows) == L, f"{len(shares)} K1 calls recorded for {L} "
+              "layers")
+        surv = sum(r[0] for r in rows) / L
+        kept = sum(r[1] / r[2] for r in rows) / L
+        out[name] = dict(survivors=surv, kept=kept)
+        log(f"[calib] {name:8s}: surviving groups {surv:.3f}, kept "
+            f"{kept:.3f} (cap {MAIN_SP['block_keep_frac']}), target kept "
+            f"share {1 - target:.2f}")
+    return out
+
+
+def phase_launches(what: str, k6: int):
+    """The counts since the last reset: `k6` K6 launches, nothing else."""
+    counts = read_launches()
+    check(counts == (0, 0, 0, 0, 0, k6), f"{what}: launches (K1, K2, K3, "
+          f"K4, K5, K6) {counts}, expected {(0, 0, 0, 0, 0, k6)}")
+    return counts
+
+
+def greedy_forwards(rows) -> int:
+    """The layer forwards `greedyopt.process_layer` ran for one layer, read
+    from its results.csv rows: the dense target, then each step's trials
+    (one for each projection still below sparsity 1 at the step's start)
+    and its uniform baseline."""
+    from teal_tpu_torch.calibration.thresholds import PROJS
+
+    n, prev = 1, {p: 0.0 for p in PROJS}
+    for row in rows:
+        n += sum(prev[p] < 1 for p in PROJS) + 1
+        prev = row
+    return n
+
+
+def gptq_vs_rtn(seen):
+    """Each projection's GPTQ reconstruction error below round-to-nearest's
+    (`tests/test_gptq.py::test_gptq_beats_rtn`'s claim) on the input
+    `gptq_quantize_model` calibrated it on: `seen` holds its
+    `on_projection` calls (layer, name, w, x, GPTQ weight). Returns
+    {projection: [(gptq, rtn) per layer]}."""
+    from teal_tpu_torch.ops import gptq
+
+    errs = {}
+    for l, name, w, x, wq in seen:
+        e_g = gptq.reconstruction_error(w, wq, x)
+        e_r = gptq.reconstruction_error(w, gptq.rtn_quantize_int4(w, wq.group),
+                                        x)
+        check(e_g < e_r, f"GPTQ layer {l} {name}: reconstruction error "
+              f"{e_g:.4e} not below round-to-nearest's {e_r:.4e}")
+        errs.setdefault(name, []).append((e_g, e_r))
+    log("[calib] GPTQ's reconstruction error over round-to-nearest's, "
+        "each projection (layer 0 / 1 / ...): "
+        + ", ".join(f"{n} " + " / ".join(f"{g / r:.3f}" for g, r in v)
+                    for n, v in errs.items()))
+    return errs
+
+
+def calibration_phase(params, cfg, device, seed):
+    """Phase 12 on the resident bf16 7B params: the port's calibration run
+    as a user of TEAL runs it, its captures through K6.
+      1. `calibrate` over all layers with `CALIB_BATCH` tokens (group
+         sizes `model_group_sizes(cfg, 32)` and 128): L K6 launches and no
+         other; its seconds and peak memory; then every layer's capture at
+         that shape held to the plain path (`hold_prefill_layers`), whose
+         kernel side, timed alone, splits calibrate's seconds into device
+         capture and host histograms;
+      2. uniform group thresholds at `CALIB_SPARSITY` (G 128) on the main
+         path (`calib_decode`), with each stage's survivor and kept shares;
+      3. on a `CUT_LAYERS`-layer cut of the same weights at full widths:
+         `calibrate` with the layer inputs saved and `run_greedy` to an
+         effective sparsity of `GREEDY_TARGET` (K6 once per layer forward),
+         `thresholds_for_greedy` / `group_thresholds_for_greedy`, and the
+         cut decoded on the main path at the greedy group thresholds;
+      4. `compute_permutations` (magnitude, G 128) and
+         `apply_permutations` on the cut: the permuted model's dense
+         logits on an fp32 copy within 1e-4 of scale of the unpermuted
+         ones; the permuted cut calibrated and decoded on the main path;
+      5. `gptq_quantize_model(sequential=True)` on the cut (`CUT_BATCH`
+         tokens), every projection's error below round-to-nearest's on its
+         calibration input (`gptq_vs_rtn`), `pack_int4_params` and Q4-main
+         decode through K1's int4 plan.
+    Every decode holds every layer of a step to the plain path. Returns
+    the results for the JSON line."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.calibration import calibrate, greedyopt, thresholds
+    from teal_tpu_torch.calibration.gptq_runner import gptq_quantize_model
+    from teal_tpu_torch.calibration.permute import (apply_permutations,
+                                                    compute_permutations)
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import quant
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    rng = np.random.default_rng(seed + 12)
+    gs = tuple(sorted(set(thresholds.model_group_sizes(cfg, 32)) | {128}))
+    shutil.rmtree(CALIB_DIR, ignore_errors=True)
+    res = {"batch": list(CALIB_BATCH), "group_sizes": list(gs),
+           "cut_layers": CUT_LAYERS, "cut_batch": list(CUT_BATCH)}
+
+    def secs(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # 1. calibrate over every layer
+    out = str(CALIB_DIR / "full")
+    tokens = rng.integers(1, cfg.vocab_size, CALIB_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    calibrate(params, cfg, tokens, out, group_sizes=gs,
+              save_layer_inputs=False)
+    res["calibrate_s"] = secs(t0)
+    res["calibrate_launches"] = phase_launches("calibrate", L)
+    res["calibrate_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    worst, capture_s = hold_prefill_layers(
+        params, cfg, torch.from_numpy(tokens).to(device),
+        llama.precompute_rope(cfg, CALIB_BATCH[1], device), device,
+        tag="[calib]")
+    log(f"[calib] every layer's capture at B={CALIB_BATCH[0]} "
+        f"S={CALIB_BATCH[1]} through K6 held to the plain path (attention: "
+        f"worst row {worst:.2e} of its largest value, tolerance "
+        f"{K6_BF16_ROW_TOL:g} a row) in {time.perf_counter() - t0:.2f} s")
+    res["capture_hold_worst_row"] = worst
+    res["calibrate_capture_s"] = capture_s
+    res["calibrate_host_s"] = res["calibrate_s"] - capture_s
+    log(f"[calib] calibrate: {L} layers x {CALIB_BATCH[0]} x "
+        f"{CALIB_BATCH[1]} tokens, group sizes {gs}, in "
+        f"{res['calibrate_s']:.2f} s (device capture "
+        f"{capture_s:.2f} s, the same {L} captures timed alone in the "
+        f"hold; host histograms and files {res['calibrate_host_s']:.2f} s), "
+        f"peak {res['calibrate_peak_gib']:.2f} GiB allocated; launches "
+        f"(K1..K6) {res['calibrate_launches']}")
+
+    # 2. uniform calibrated group thresholds on the main path
+    th_np = thresholds.group_thresholds_for_uniform(
+        os.path.join(out, "histograms"), cfg, CALIB_SPARSITY, group_size=128)
+    check(th_np.shape == (L, 7) and bool(np.isfinite(th_np).all())
+          and bool((th_np > 0).all()), f"calibrated thresholds {th_np}")
+    log("[calib] group thresholds at sparsity 0.5 (qkv, o, gate|up, down) "
+        "min/max over layers: " + ", ".join(
+            f"{th_np[:, c].min():.4g}/{th_np[:, c].max():.4g}"
+            for c in (0, 3, 4, 6)))
+    shares = []
+    worst, tok_s = calib_decode(params, cfg, torch.from_numpy(th_np).to(
+        device), device, seed, f"calibrated decode ({L} layers)", shares)
+    res["decode"] = dict(worst=worst, tok_s=tok_s,
+                         shares=stage_shares(shares, L, CALIB_SPARSITY))
+
+    # 3. the greedy allocation on a cut of the same weights
+    ccfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    cut = dict(params, layers={k: v[:CUT_LAYERS]
+                               for k, v in params["layers"].items()})
+    root = str(CALIB_DIR / "cut")
+    ctoks = rng.integers(1, cfg.vocab_size, CUT_BATCH)
+    reset_launches()
+    t0 = time.perf_counter()
+    calibrate(cut, ccfg, ctoks, root, group_sizes=gs)
+    res["cut_calibrate_s"] = secs(t0)
+    t0 = time.perf_counter()
+    greedyopt.run_greedy(cut, ccfg, root, target_sparsity=GREEDY_TARGET)
+    res["greedy_s"] = secs(t0)
+    steps, n_fwd = [], 0
+    for l in range(CUT_LAYERS):
+        rows = thresholds.read_greedy_csv(
+            os.path.join(root, "lookup", f"layer-{l}", "results.csv"))
+        check(rows and rows[-1]["Effective Sparsity"] >= GREEDY_TARGET,
+              f"greedy layer {l} stopped short of {GREEDY_TARGET}")
+        steps.append(len(rows))
+        n_fwd += greedy_forwards(rows)
+        log(f"[calib] greedy layer {l}: {len(rows)} steps to effective "
+            f"sparsity {rows[-1]['Effective Sparsity']:.4f}, error "
+            f"{rows[-1]['Activation Error']:.4g} (uniform baseline "
+            f"{rows[-1]['Baseline Error']:.4g}), sparsities "
+            + " ".join(f"{p} {rows[-1][p]:.3f}" for p in thresholds.PROJS))
+    res["greedy_launches"] = phase_launches("calibrate + run_greedy",
+                                            CUT_LAYERS + n_fwd)
+    res["greedy_steps"] = steps
+    res["greedy_forwards"] = n_fwd
+    log(f"[calib] cut calibrate {res['cut_calibrate_s']:.2f} s, run_greedy "
+        f"{res['greedy_s']:.2f} s ({n_fwd} layer forwards, "
+        f"{res['greedy_launches'][5]} K6 launches with the calibration's)")
+    th_e = thresholds.thresholds_for_greedy(root, ccfg, GREEDY_TARGET)
+    th_g = thresholds.group_thresholds_for_greedy(root, ccfg, GREEDY_TARGET,
+                                                  block_size=128)
+    for name, t in (("elementwise", th_e), ("group", th_g)):
+        check(t.shape == (CUT_LAYERS, 7) and bool(np.isfinite(t).all())
+              and bool((t >= 0).all()), f"greedy {name} thresholds {t}")
+    log(f"[calib] greedy thresholds at {GREEDY_TARGET}: elementwise "
+        f"{np.round(th_e, 4).tolist()}, group {np.round(th_g, 4).tolist()}")
+    worst, tok_s = calib_decode(cut, ccfg, torch.from_numpy(th_g).to(device),
+                                device, seed, "greedy decode (cut)")
+    res["greedy_decode"] = dict(worst=worst, tok_s=tok_s)
+    th_cut = torch.from_numpy(thresholds.group_thresholds_for_uniform(
+        os.path.join(root, "histograms"), ccfg, CALIB_SPARSITY,
+        group_size=128)).to(device)
+
+    # 4. channel permutations on the cut
+    reset_launches()
+    t0 = time.perf_counter()
+    perms = compute_permutations(cut, ccfg, ctoks, method="magnitude",
+                                 block_size=128)
+    pcut = apply_permutations(cut, perms, ccfg)
+    res["permute_s"] = secs(t0)
+    phase_launches("compute_permutations", CUT_LAYERS)
+    ids = torch.from_numpy(ctoks[:, :64]).to(device)
+    logits = []
+    for tree in (cut, pcut):
+        f32 = to_fp32(tree)
+        cache = llama.KVCache.init(ccfg, 1, ids.shape[1], torch.float32,
+                                   device)
+        lg, _ = llama.forward(f32, ids, cache, 0,
+                              llama.zero_thresholds(ccfg, device), cfg=ccfg,
+                              sp=SparsityConfig())
+        logits.append(lg)
+        del f32, cache
+    err = float((logits[1] - logits[0]).abs().max())
+    scale = float(logits[0].abs().max())
+    check(err <= 1e-4 * scale, f"permuted fp32 logits off by {err:.3e} "
+          f"(scale {scale:.3e}, tolerance 1e-4 of it)")
+    res["permuted_fp32_err"] = err / scale
+    log(f"[calib] permutations (magnitude, G 128) computed and folded in "
+        f"{res['permute_s']:.2f} s; permuted fp32 dense logits vs "
+        f"unpermuted: max error {err:.3e} of scale {scale:.3e}")
+    pout = str(CALIB_DIR / "permuted")
+    calibrate(pcut, ccfg, ctoks, pout, group_sizes=(128,),
+              save_layer_inputs=False)
+    th_p = torch.from_numpy(thresholds.group_thresholds_for_uniform(
+        os.path.join(pout, "histograms"), ccfg, CALIB_SPARSITY,
+        group_size=128)).to(device)
+    worst, tok_s = calib_decode(pcut, ccfg, th_p, device, seed,
+                                "permuted decode (cut)")
+    res["permuted_decode"] = dict(worst=worst, tok_s=tok_s)
+    del pcut, logits
+
+    # 5. GPTQ on the cut
+    reset_launches()
+    seen = []
+    t0 = time.perf_counter()
+    q = gptq_quantize_model(cut, ccfg, ctoks, group=128, sequential=True,
+                            on_projection=lambda *a: seen.append(a))
+    res["gptq_s_per_layer"] = secs(t0) / CUT_LAYERS
+    phase_launches("gptq_quantize_model", 2 * CUT_LAYERS)
+    log(f"[calib] GPTQ (sequential, group 128, {CUT_BATCH[1]} tokens): "
+        f"{res['gptq_s_per_layer']:.2f} s a layer")
+    errs = gptq_vs_rtn(seen)
+    del seen
+    res["gptq_over_rtn"] = {n: [g / r for g, r in v] for n, v in errs.items()}
+    q4 = quant.pack_int4_params(q, block_size=128)
+    del q
+    worst, tok_s = calib_decode(q4, ccfg, th_cut, device, seed,
+                                "GPTQ Q4-main decode (cut)")
+    res["gptq_decode"] = dict(worst=worst, tok_s=tok_s)
+    del q4, cut
+    torch.cuda.empty_cache()
+    shutil.rmtree(CALIB_DIR, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[calib] phase 12 in {res['phase_s']:.1f} s")
+    return res
 
 
 # --- phase 10: Mixtral-8x7B on the token path's MoE branch -----------------
@@ -3512,6 +3976,10 @@ def main() -> int:
         params, cfg, [("sparse", MAIN_SP, 1, th), ("dense", {}, 1, th)]
         + [(f"path {n}", sp_kw, b, loop[n]["th"])
            for n, (sp_kw, b) in LOOP_PATHS.items()], device, rope)
+    with plain_path():          # row 2's plain version: one plain step
+        step.update(time_decode_step(
+            params, cfg, [("sparse, plain kernels", MAIN_SP, 1, th)],
+            device, rope))
     line = time_kernels(params, cfg, caps, device, gen, rope, launches,
                         (e1, e2))
     line["kernels"] += time_loop_kernels(params, cfg, device, gen, loop,
@@ -3532,6 +4000,7 @@ def main() -> int:
     l_entries, line["long_prompts"] = long_prompt_phase(params, cfg, device,
                                                         gen, seed, th)
     line["kernels"] += l_entries
+    line["calibration"] = calibration_phase(params, cfg, device, seed)
     # phase 10 needs the card's memory for int8 Mixtral-8x7B (46 GB)
     del params
     torch.cuda.empty_cache()

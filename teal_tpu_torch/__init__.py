@@ -22,7 +22,11 @@ prefill and the generation engine; Mixtral's MoE decode (K5
 `ops/token_block.moe_route`); the causal prefill of prompts of 256 or
 more tokens through `ops/flash_prefill.flash_prefill_attention` (K6),
 which `Generator`, the server's one-shot admission and the perplexity
-harness `eval/ppl.py` take. ROADMAP.md lists what is still to port.
+harness `eval/ppl.py` take; calibration (`calibration/`: activation
+histograms through the native library `native/histogram.cpp`, TEAL
+thresholds, the greedy allocation, channel permutations) and GPTQ
+(`ops/gptq.py`, `calibration/gptq_runner.py`), whose captures take K6.
+ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

@@ -18,7 +18,7 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "teal_tpu_torch"
@@ -144,12 +144,45 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def _target(src: Path) -> Path:
+def library_path(stem: str, inputs: List[Path], flags: List[str],
+                 build_dir: Path = BUILD_DIR) -> Path:
+    """Where a build of `inputs` with `flags` is cached:
+    `build_dir/lib<stem>_<hash of the inputs and flags>.so`."""
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [src]:
+    for f in inputs:
         h.update(f.read_bytes())
-    h.update(" ".join(FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return build_dir / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
+def start_build(cmd: List[str], out: Path):
+    """Start `cmd -o <tmp>` (a compiler command without its output), the
+    tmp file pid-suffixed beside `out`. Returns a job for `finish_build`."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def finish_build(job, timeout: Optional[float] = None) -> Tuple[int, str]:
+    """Wait for a `start_build` job; on success move its output into
+    place. Returns (exit code, the compiler's output). A job past
+    `timeout` seconds is killed and raises subprocess.TimeoutExpired."""
+    out, tmp, proc = job
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode == 0:
+        os.replace(tmp, out)
+    return proc.returncode, text
+
+
+def _target(src: Path) -> Path:
+    return library_path(src.stem, sorted(CSRC.glob("*.cuh")) + [src], FLAGS)
 
 
 def load() -> Dict[str, ctypes.CDLL]:
@@ -160,26 +193,16 @@ def load() -> Dict[str, ctypes.CDLL]:
         return _libs
     t0 = time.perf_counter()
     srcs = sorted(CSRC.glob("*.cu"))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for src in srcs:
-        so = _target(src)
-        if so.exists():
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(src)]
-        jobs.append((src, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+    jobs = [(src, start_build([_nvcc(), *FLAGS, str(src)], _target(src)))
+            for src in srcs if not _target(src).exists()]
     errors = []
-    for src, so, tmp, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
+    for src, job in jobs:
+        rc, out = finish_build(job)
+        if rc != 0:
             errors.append(f"nvcc failed for {src.name}:\n{out}")
             continue
         ptxas_report.extend(line for line in out.splitlines()
                             if "ptxas" in line)
-        os.replace(tmp, so)
     if errors:
         raise RuntimeError("\n".join(errors))
     for src in srcs:

@@ -1057,3 +1057,87 @@ def test_k2_smem_matches_kernel_layout(cuda):
                         assert da._smem_bytes(esz, GH, slots, nreb, T, S) == \
                             lib.teal_decode_attention_smem(code, GH, slots,
                                                            nreb, T, S)
+
+
+# -- calibration on the card --------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [256, 512])
+def test_capture_through_k6_matches_masked(cuda, dtype, S):
+    """A calibration capture (`grab_acts._layer_capture`, one K6 launch)
+    against the same layer with `causal_prefill=False` (the masked
+    attention): the attention output (attn h2) each (position, head) row
+    within 2^-6 (bf16) or 1e-5 (fp32) of its row's largest value, attn h1
+    equal, and the later captures and the layer output within 2e-2 (bf16)
+    or 1e-5 (fp32) of their scale."""
+    from teal_tpu_torch.calibration import grab_acts
+    from teal_tpu_torch.config import SparsityConfig, get_model_config
+
+    cfg = get_model_config("tiny", n_layers=1, n_heads=4, n_kv_heads=2,
+                           dim=512, intermediate_size=768, vocab_size=128)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    params = llama.init_params(cfg, g, dtype, cuda)
+    lp = grab_acts._layer_params(params, 0)
+    h = torch.randn(2, S, cfg.dim, generator=g, device=cuda).to(dtype)
+    before = flash_prefill_attention.launches
+    out, caps = grab_acts._layer_capture(lp, h, cfg)
+    assert flash_prefill_attention.launches == before + 1
+    cos, sin = llama.precompute_rope(cfg, S, cuda)
+    kc = torch.zeros((2, cfg.n_kv_heads, S, cfg.head_dim), dtype=dtype,
+                     device=cuda)
+    want, _, _, wcaps = llama.layer_forward(
+        h, lp, kc, kc.clone(), torch.zeros(2, dtype=torch.int64, device=cuda),
+        cos.expand(2, S, -1), sin.expand(2, S, -1), cfg,
+        SparsityConfig(enabled=False), torch.zeros(7, device=cuda),
+        capture=True, causal_prefill=False)
+    assert flash_prefill_attention.launches == before + 1
+    assert torch.equal(caps["self_attn"]["h1"], wcaps["self_attn"]["h1"])
+    rows = (caps["self_attn"]["h2"].float().reshape(2, S, cfg.n_heads, -1),
+            wcaps["self_attn"]["h2"].float().reshape(2, S, cfg.n_heads, -1))
+    diff = (rows[0] - rows[1]).abs().amax(-1)
+    scale = rows[1].abs().amax(-1)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -6
+    assert bool((diff <= rel * scale).all()), \
+        float((diff / scale.clamp_min(1e-30)).max())
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, ref in ((out, want), (caps["mlp"]["h1"], wcaps["mlp"]["h1"]),
+                     (caps["mlp"]["h2"], wcaps["mlp"]["h2"])):
+        ok, err = _close(got, ref, rel)
+        assert ok, err
+
+
+def test_accumulate_counts_on_card_matches_cpu(cuda):
+    """Streaming histogram counts on the card equal the CPU's."""
+    from teal_tpu_torch.ops.distribution import accumulate_counts
+
+    g = torch.Generator().manual_seed(0)
+    edges = torch.linspace(-3, 3, 1001)
+    counts = torch.zeros(1000, dtype=torch.float64)
+    dcounts = counts.to(cuda)
+    for i in range(3):
+        v = torch.randn(4096, 11, generator=g) * (1 + i)
+        counts = accumulate_counts(edges, v, counts)
+        dcounts = accumulate_counts(edges.to(cuda), v.to(cuda), dcounts)
+    assert torch.equal(dcounts.cpu(), counts)
+    assert float(counts.sum()) == 3 * 4096 * 11
+
+
+@pytest.mark.parametrize("K,N,group", [(512, 256, 128), (1024, 384, 64)])
+def test_gptq_on_card_matches_cpu(cuda, K, N, group):
+    """GPTQ in float64 on the card: the CPU's codes, scale and zero within
+    1e-6."""
+    from teal_tpu_torch.ops import gptq
+
+    g = torch.Generator().manual_seed(K)
+    basis = torch.randn(32, K, generator=g, dtype=torch.float64)
+    x = (torch.randn(2048, 32, generator=g, dtype=torch.float64) @ basis
+         + 0.1 * torch.randn(2048, K, generator=g, dtype=torch.float64))
+    x[:, 3] = 0.0                                     # a dead input
+    w = torch.randn(K, N, generator=g) * 0.02
+    want = gptq.gptq_quantize_int4(w, x, group=group)
+    got = gptq.gptq_quantize_int4(w.to(cuda), x.to(cuda), group=group)
+    assert got.q.device.type == "cuda"
+    assert torch.equal(got.q.cpu(), want.q)
+    for key in ("scale", "zero"):
+        assert float((getattr(got, key).cpu() - getattr(want, key))
+                     .abs().max()) <= 1e-6
