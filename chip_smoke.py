@@ -174,8 +174,34 @@ Phases:
      (sequential, group 128) with every projection's reconstruction error
      below round-to-nearest's on the same inputs, packed and decoded on
      Q4-main through K1's int4 plan; every decode held layer by layer;
+ 13. speculative decoding (run after phase 12, on the resident bf16 7B
+     params at phase 4's thresholds; `speculative_phase`): self-speculation
+     with one shared cache at k = 4, the draft the main-path config (K1's
+     single row, K2), the dense verify through `block_verify` (K1's fixed
+     rows form, K2's seq_block): phase 4's three prompts and the third
+     again with the draft at keep 1.0, 32 tokens each at temperature 0,
+     4*L K1 + L K2 launches a draft step and a verify chunk, every emitted
+     token the argmax of its verify row and the cache rows of the emitted
+     tokens the verify's bit for bit; the first round's verify rerun equal
+     to the recorded one, each layer held to the plain path (2e-2), and
+     on an fp32 copy held to the plain path (2e-2 of scale); t_round,
+     tok/s beside dense decode in turns, mean accepted; `forced_alpha`
+     0.5 and 0.9, the realized acceptance within 4 binomial standard
+     deviations; `device_loop=True, adaptive_k=True` giving the host
+     loop's tokens;
+ 14. the CLI (`teal_tpu_torch.cli.main` in-process, `cli_phase`) on a
+     2-layer cut of the 7B config at full widths, random weights from
+     seed 0: generate dense, calibrate (2 x 2048 tokens, 1 K6 launch a
+     layer), generate sparse at its thresholds (`--kernel block
+     --group-thresholds --block-size 128`), self-speculation with
+     --metrics and --profile (a non-empty trace), ppl at 2048 + 512, eval
+     of a task file whose contexts pass 128 tokens (K6), quantize int4
+     and generate from its store (K1's int4 plan), each command's launch
+     counts asserted, its seconds and peak memory printed; and one sparse
+     `python -m teal_tpu_torch.cli generate` as a subprocess, exit 0;
 all printed as one `kernels` JSON line, with the card in it (and the
-calibration phase's results under "calibration"); besides, one main-path
+results of phases 12-14 under "calibration", "speculative" and "cli");
+besides, one main-path
 decode step with every kernel swapped for its plain version is profiled
 ("decode_step_ms" "sparse, plain kernels").
 
@@ -3432,6 +3458,491 @@ def calibration_phase(params, cfg, device, seed):
     return res
 
 
+# --- phase 13: speculative decoding at 7B ------------------------------------
+
+SPEC_K = 4
+SPEC_NEW_TOKENS = 32
+SPEC_ALPHAS = (0.5, 0.9)
+SPEC_ALPHA_NEW_TOKENS = 96
+# a temperature-0 draw (probs at temperature 1e-5) takes a token other
+# than the argmax with a probability below exp(-20) unless its logit lies
+# within this of the largest
+SPEC_NEAR_TIE = 20 * 1e-5
+
+
+@contextlib.contextmanager
+def recording_verify(rec):
+    """Inside the block, each `llama.block_verify` call appends (its first
+    position, its logits [S, V] fp32, the cache it wrote into, and the K/V
+    rows it wrote) to `rec`."""
+    from teal_tpu_torch.models import llama
+
+    orig = llama.block_verify
+
+    def verify(params, tokens, cache, pos, *a, **kw):
+        lg, c = orig(params, tokens, cache, pos, *a, **kw)
+        s = tokens.shape[1]
+        rec.append(dict(pos=int(pos), tokens=tokens.clone(),
+                        logits=lg[0].float().clone(), cache=c,
+                        k=c.k[:, 0, :, pos:pos + s].clone(),
+                        v=c.v[:, 0, :, pos:pos + s].clone()))
+        return lg, c
+
+    llama.block_verify = verify
+    try:
+        yield
+    finally:
+        llama.block_verify = orig
+
+
+def check_spec_rounds(rec, toks, what):
+    """The checks of one temperature-0 speculative generation (all tokens
+    `toks`) against its recorded verifies: every token a round emitted is
+    the argmax of its verify row (or lies within `SPEC_NEAR_TIE` of it,
+    counted), and the cache rows pos..pos+m-1 of the round's m emitted
+    tokens hold the verify's K/V bit for bit at the end. Returns (rounds
+    checked, tokens checked, near ties)."""
+    import torch
+
+    cache = rec[0]["cache"]
+    n_tok = near = 0
+    for r, v in enumerate(rec):
+        pos = v["pos"]
+        end = rec[r + 1]["pos"] if r + 1 < len(rec) else len(toks) - 1
+        m = end - pos
+        check(1 <= m <= v["logits"].shape[0], f"{what} round {r}: {m} "
+              f"tokens emitted by a verify of {v['logits'].shape[0]}")
+        lg = v["logits"][:m]
+        emitted = torch.as_tensor(toks[pos + 1:pos + 1 + m],
+                                  device=lg.device)
+        top = lg.max(-1).values
+        got = lg.gather(-1, emitted[:, None])[:, 0]
+        exact = lg.argmax(-1) == emitted
+        check(bool((exact | (got >= top - SPEC_NEAR_TIE)).all()),
+              f"{what} round {r}: emitted {emitted.tolist()}, verify argmax "
+              f"{lg.argmax(-1).tolist()}")
+        near += int((~exact).sum())
+        n_tok += m
+        for name in ("k", "v"):
+            rows = getattr(cache, name)[:, 0, :, pos:pos + m]
+            check(torch.equal(rows, v[name][:, :, :m]), f"{what} round {r}: "
+                  f"cache {name} rows {pos}..{pos + m - 1} are not the "
+                  "verify's")
+    return len(rec), n_tok, near
+
+
+def spec_launches(got, L: int, live: int, rounds: int, what: str):
+    """K1 4*L and K2 L a live draft step and a verify chunk (k + 1 <= 8
+    positions: one chunk a round), no other kernel."""
+    want = (4 * L * (live + rounds), L * (live + rounds), 0, 0, 0, 0)
+    check(tuple(got) == want, f"{what}: launches (K1, K2, K3, K4, K5, K6) "
+          f"{tuple(got)}, expected {want} for {live} draft steps and "
+          f"{rounds} verifies")
+
+
+def spec_run(params, cfg, prompt, n, device, th, seed, draft=MAIN_SP,
+             **kw):
+    """One speculative generation on the resident 7B: self-speculation on
+    one shared cache, the draft the `draft` config (the main path's) at
+    `th`, the dense verify through `block_verify`, synchronised and timed.
+    Returns (tokens, stats, wall seconds)."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine.speculative import speculative_generate
+    from teal_tpu_torch.models import llama
+
+    kw.setdefault("temperature", 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, st = speculative_generate(
+        params, params, cfg, cfg, prompt, n, speculate_k=SPEC_K,
+        max_seq=MAX_SEQ, draft_sp=SparsityConfig(**draft),
+        draft_thresholds=th, cache_dtype=llama.compute_dtype(params),
+        generator=torch.Generator(device=device).manual_seed(seed),
+        device=device, **kw)
+    torch.cuda.synchronize()
+    return toks, st, time.perf_counter() - t0
+
+
+def speculative_phase(params, cfg, device, seed, th, speeds):
+    """Phase 13 on the resident bf16 7B at phase 4's thresholds `th`:
+    self-speculation with a shared cache (k = `SPEC_K`; the draft the
+    main-path config, the dense verify through `block_verify`):
+      1. phase 4's three prompts, `SPEC_NEW_TOKENS` new tokens each, and
+         the third again with the draft at keep 1.0 and zero thresholds
+         (whose proposals the verify accepts; at least one must be), at
+         temperature 0 with every verify recorded (`recording_verify`):
+         per round 4*L K1 + L K2 a draft step and a verify chunk
+         (`spec_launches`); every emitted token the argmax of its verify
+         row and the cache rows of the emitted tokens the verify's
+         (`check_spec_rounds`); then the same generation unrecorded and
+         timed (the same tokens): t_round, tok/s, mean accepted;
+      2. the first round's verify rerun on the final cache (the rows
+         before it are the prefill's): the logits equal to the recorded
+         ones, every layer of the chunk held to the plain path
+         (`hold_token_layers(verify=True)`, 2e-2 of scale); the bf16
+         logits beside the plain path's reported; the same verify on an
+         fp32 copy of the weights and cache through the kernels held to
+         the plain path within 2e-2 of scale (in bf16 the 32 random
+         layers drift the logits several 1e-2 apart, phase 9);
+      3. dense decode (`Generator`) and speculation on the 40-token prompt
+         in turns; `forced_alpha` at `SPEC_ALPHAS` (`SPEC_ALPHA_NEW_TOKENS`
+         tokens): tok/s and the realized acceptance (accepted over
+         attempted draws), within 4 binomial standard deviations of alpha;
+      4. `device_loop=True, adaptive_k=True`: the host loop's tokens,
+         k_eff_final and alpha_hat_final.
+    Returns the results for the JSON line."""
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    prompts = main_prompts(cfg, seed)
+    res = {"k": SPEC_K, "new_tokens": SPEC_NEW_TOKENS, "runs": []}
+    spec_run(params, cfg, prompts[0], 8, device, th, seed)      # warm-up
+
+    # 1. three requests, and the third again with the draft at keep 1.0
+    # (zero thresholds: a dense draft through the same kernels, whose
+    # proposals the verify accepts), checked, then timed
+    host_toks = []
+    zero = llama.zero_thresholds(cfg, device)
+    cases = [(f"prompt {len(p)}", p, MAIN_SP, th) for p in prompts]
+    cases.append((f"prompt {len(prompts[2])} keep 1.0", prompts[2],
+                  dict(MAIN_SP, block_keep_frac=1.0), zero))
+    for i, (what, p, draft, dth) in enumerate(cases):
+        rec = []
+        reset_launches()
+        with recording_verify(rec):
+            toks, st, _ = spec_run(params, cfg, p, SPEC_NEW_TOKENS, device,
+                                   dth, seed, draft=draft)
+        got = read_launches()
+        rounds = len(st["accepted_per_step"])
+        check(len(rec) == rounds, f"spec {what}: {len(rec)} block_verify "
+              f"calls for {rounds} rounds")
+        spec_launches(got, L, SPEC_K * rounds, rounds, f"spec {what}")
+        check(toks.shape == (len(p) + SPEC_NEW_TOKENS,)
+              and bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
+              f"spec {what}: bad tokens {toks.shape}")
+        _, n_tok, near = check_spec_rounds(rec, toks, f"spec {what}")
+        toks2, st2, wall = spec_run(params, cfg, p, SPEC_NEW_TOKENS, device,
+                                    dth, seed, draft=draft)
+        check(np.array_equal(toks, toks2) and st2 == st, f"spec {what}: the "
+              "timed run differs from the checked one")
+        run = dict(what=what, prompt=len(p), rounds=rounds,
+                   mean_accepted=st["mean_accepted"],
+                   accepted=st["accepted_per_step"], launches=got,
+                   wall_s=wall, t_round_ms=wall * 1e3 / rounds,
+                   tok_s=st["new_tokens"] / wall, near_ties=near,
+                   new_tokens=toks[len(p):].tolist())
+        res["runs"].append(run)
+        host_toks.append(toks)
+        log(f"[spec] {what}: {rounds} rounds, mean accepted "
+            f"{st['mean_accepted']:.3f} {st['accepted_per_step']}; launches "
+            f"(K1, K2, K3, K4, K5, K6) {got} = {SPEC_K + 1} x (4L K1 + L K2) "
+            f"a round; {n_tok} emitted tokens each the argmax of its verify "
+            f"row ({near} within {SPEC_NEAR_TIE:g} of it), the emitted "
+            f"rows of the cache the verifies' bit for bit; t_round "
+            f"{run['t_round_ms']:.2f} ms, {run['tok_s']:.2f} tok/s")
+        if i == 0:
+            first = rec[0]
+        del rec
+    check(res["runs"][-1]["mean_accepted"] > 0, "spec: the keep-1.0 draft "
+          "had no proposal accepted")
+    res["keep1_same_tokens"] = bool(np.array_equal(host_toks[2],
+                                                   host_toks[3]))
+    log(f"[spec] the keep-1.0 draft's tokens equal the main-path draft's on "
+        f"the same prompt (both the dense verify's argmax; reported): "
+        f"{res['keep1_same_tokens']}")
+
+    # 2. the first round's verify on the same inputs
+    pos, stoks = first["pos"], first["tokens"]
+    S = stoks.shape[1]
+    rope = llama.precompute_rope(cfg, MAX_SEQ, device)
+    base = first["cache"]
+    c = llama.KVCache(base.k.clone(), base.v.clone())
+    lg, _ = llama.block_verify(params, stoks, c, pos, zero, cfg=cfg,
+                               rope=rope)
+    check(torch.equal(lg[0].float(), first["logits"]), "spec: the first "
+          "round's verify rerun differs from the recorded one")
+    _, worst, _ = hold_token_layers(
+        params, cfg, llama.KVCache(base.k.clone(), base.v.clone()),
+        stoks[0], list(range(pos, pos + S)), rope, device, verify=True)
+    with plain_path():
+        plg, _ = llama.block_verify(
+            params, stoks, llama.KVCache(base.k.clone(), base.v.clone()),
+            pos, zero, cfg=cfg, rope=rope)
+    bf16_rel = float((lg - plg).abs().max() / plg.abs().max())
+    del c, plg
+    p32 = to_fp32(params)
+    lgs = []
+    for plain in (False, True):
+        c = llama.KVCache(base.k.float(), base.v.float())
+        with plain_path() if plain else contextlib.nullcontext():
+            lgs.append(llama.block_verify(p32, stoks, c, pos, zero, cfg=cfg,
+                                          rope=rope)[0])
+        del c
+    err = rel_check("spec: fp32 verify logits vs the plain path", lgs[0],
+                    lgs[1], 2e-2)
+    fp32_rel = err / float(lgs[1].abs().max())
+    del p32, lgs, first, base
+    torch.cuda.empty_cache()
+    res.update(verify_worst=worst, verify_bf16_rel_plain=bf16_rel,
+               verify_fp32_rel_plain=fp32_rel)
+    log(f"[spec] first round's verify (S = {S} at pos {pos}) rerun on the "
+        f"final cache: logits equal to the recorded ones; every layer held "
+        f"to the plain path (worst {worst:.2e} of scale, tolerance 2e-2); "
+        f"bf16 logits vs the plain path {bf16_rel:.2e} of scale (reported); "
+        f"fp32 copy through the kernels vs the plain path {fp32_rel:.2e} of "
+        f"scale (tolerance 2e-2)")
+
+    # 3. dense decode and speculation in turns; forced acceptance rates
+    dense = Generator(cfg, params, sp=SparsityConfig(), max_seq=MAX_SEQ,
+                      cache_dtype=llama.compute_dtype(params),
+                      temperature=0.0,
+                      device=device)
+    turns = {"dense": [], "spec": []}
+    for kind in ("dense", "spec", "spec", "dense"):
+        if kind == "dense":
+            turns[kind].append(dense.generate(
+                prompts[2], SPEC_NEW_TOKENS)[1].tokens_per_s)
+        else:
+            _, st, wall = spec_run(params, cfg, prompts[2], SPEC_NEW_TOKENS,
+                                   device, th, seed)
+            turns[kind].append(st["new_tokens"] / wall)
+    res["tok_s_in_turns"] = turns
+    res["phase4_tok_s"] = speeds
+    log(f"[spec] tok/s in turns (prompt 40, {SPEC_NEW_TOKENS} tokens; "
+        f"speculation counts the prefill in its wall): dense decode "
+        f"{turns['dense']}, speculation {turns['spec']}; phase 4: dense "
+        f"{speeds['dense']}, main-path sparse {speeds['sparse']}")
+    res["forced"] = {}
+    for alpha in SPEC_ALPHAS:
+        reset_launches()
+        _, st, wall = spec_run(params, cfg, prompts[2],
+                               SPEC_ALPHA_NEW_TOKENS, device, th, seed,
+                               forced_alpha=alpha)
+        acc = np.asarray(st["accepted_per_step"])
+        rounds = len(acc)
+        spec_launches(read_launches(), L, SPEC_K * rounds, rounds,
+                      f"spec forced_alpha {alpha}")
+        att = acc + (acc < SPEC_K)
+        rate, n = float(acc.sum() / att.sum()), int(att.sum())
+        sd = math.sqrt(alpha * (1 - alpha) / n)
+        check(abs(rate - alpha) <= 4 * sd, f"spec forced_alpha {alpha}: "
+              f"realized acceptance {rate:.4f} over {n} draws, more than 4 "
+              f"standard deviations ({sd:.4f}) away")
+        res["forced"][str(alpha)] = dict(
+            rounds=rounds, mean_accepted=st["mean_accepted"], rate=rate,
+            draws=n, sd=sd, wall_s=wall, t_round_ms=wall * 1e3 / rounds,
+            tok_s=st["new_tokens"] / wall)
+        log(f"[spec] forced_alpha {alpha}: {rounds} rounds, mean accepted "
+            f"{st['mean_accepted']:.3f}, realized acceptance {rate:.4f} over "
+            f"{n} draws (alpha {alpha} +- 4 x {sd:.4f}); t_round "
+            f"{wall * 1e3 / rounds:.2f} ms, {st['new_tokens'] / wall:.2f} "
+            "tok/s")
+
+    # 4. the device loop with adaptive depth
+    reset_launches()
+    toks, st, wall = spec_run(params, cfg, prompts[0], SPEC_NEW_TOKENS,
+                              device, th, seed, device_loop=True,
+                              adaptive_k=True)
+    k1, k2, *rest = got = read_launches()
+    check(np.array_equal(toks, host_toks[0]), "spec: the adaptive device "
+          "loop's tokens differ from the host loop's")
+    r = st["rounds"]
+    check(k1 == 4 * k2 and 4 * L * r <= k1 <= 4 * L * (SPEC_K + 1) * r
+          and not any(rest), f"spec adaptive: launches {got} for {r} rounds")
+    res["adaptive"] = dict(rounds=r, k_eff_final=st["k_eff_final"],
+                           alpha_hat_final=st["alpha_hat_final"],
+                           mean_accepted=st["mean_accepted"],
+                           draft_steps=k2 // L - r, wall_s=wall,
+                           tok_s=st["new_tokens"] / wall, launches=got)
+    log(f"[spec] device_loop + adaptive_k (prompt 5): the host loop's "
+        f"tokens; {r} rounds, {k2 // L - r} draft steps, k_eff_final "
+        f"{st['k_eff_final']}, alpha_hat_final {st['alpha_hat_final']:.4f}, "
+        f"mean accepted {st['mean_accepted']:.3f}, "
+        f"{st['new_tokens'] / wall:.2f} tok/s")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[spec] phase 13 in {res['phase_s']:.1f} s")
+    return res
+
+
+# --- phase 14: the CLI at 7B widths -------------------------------------------
+
+CLI_MODEL = ("7B", 2)             # --model, --n-layers
+CLI_DIR = ROOT / "build" / "chip_smoke_cli"
+CLI_CALIB = (2, 2048)            # calibrate --batch, --seq-len
+CLI_PPL = (4096, 2048, 512)      # ppl --num-tokens, --context-size,
+                                 # --window-size
+CLI_NEW_TOKENS = 16
+CLI_QUERY = ("A long context for the scorer: " * 8).strip()  # 247 bytes
+
+
+def cli_run(argv, what):
+    """`teal_tpu_torch.cli.main(argv)` in-process with its output captured,
+    the launch counts reset just before and read just after. Returns
+    (stdout, stderr, seconds, launches, peak GiB)."""
+    import io
+
+    import torch
+
+    from teal_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(argv)
+    except SystemExit as e:
+        raise SmokeFailure(f"cli {what}: exit {e.code}\n{err.getvalue()}")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[cli] {what}: {secs:.2f} s, peak {peak:.2f} GiB, launches (K1, K2, "
+        f"K3, K4, K5, K6) {got}; stderr tail "
+        f"{err.getvalue().strip().splitlines()[-1:]}")
+    return out.getvalue(), err.getvalue(), secs, got, peak
+
+
+def gen_count(err: str) -> int:
+    """The new-token count of `generate`'s stats line on stderr."""
+    return int(err.split("[")[-1].split(" tokens")[0])
+
+
+def cli_phase(device):
+    """Phase 14: `teal_tpu_torch.cli.main` in-process at the 7B widths on a
+    `CLI_MODEL[1]`-layer cut (`--random-init`, seed 0), each command with
+    the launch counts reset just before and read just after, its seconds
+    and peak memory: generate dense (no kernel); calibrate (`CLI_CALIB`
+    synthetic tokens, group size 128: one K6 launch a layer); generate
+    sparse at its group thresholds (`--kernel block --group-thresholds
+    --block-size 128`: 4*L K1 + L K2 a decoded token, with --metrics);
+    self-speculation (`--speculate-k 4 --self-speculate`, with --metrics
+    and --profile: a non-empty trace directory; (k + 1) * (4*L K1 + L K2)
+    a round); ppl at `CLI_PPL` (K6 L a window); eval of a task file whose
+    contexts pass 128 tokens (K6 L a scored sequence and L for the
+    generated one's prefill); quantize --mode int4, then generate from
+    its store (K1's int4 plan after the repack, 4*L K1 + L K2 a token);
+    and one sparse generate as a subprocess, `python -m
+    teal_tpu_torch.cli`, exit 0. Returns the results for the JSON line."""
+    import shutil
+
+    import torch
+
+    from teal_tpu_torch.eval.ppl import windows
+
+    t_phase = time.perf_counter()
+    model, L = CLI_MODEL
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    base = ["--model", model, "--n-layers", str(L), "--device", device.type]
+    init = base + ["--random-init"]
+    gen = ["--prompt", "Hello, my name is", "--max-new-tokens",
+           str(CLI_NEW_TOKENS), "--temperature", "0", "--max-seq", "512"]
+    hist = str(CLI_DIR / "calib" / "histograms")
+    sparse = ["--kernel", "block", "--block-size", "128",
+              "--group-thresholds", "--sparsity", "0.5", "--hist-path", hist]
+    metrics, prof = CLI_DIR / "metrics.jsonl", CLI_DIR / "trace"
+    decoded = CLI_NEW_TOKENS - 1
+    res = {}
+
+    def run(name, argv, want=None):
+        out, err, secs, got, peak = cli_run(argv, name)
+        if want is not None:
+            check(got == want, f"cli {name}: launches {got}, expected {want}")
+        res[name] = dict(s=secs, peak_gib=peak, launches=got)
+        return out, err, got
+
+    _, err, _ = run("generate dense", ["generate"] + init + gen,
+                    (0, 0, 0, 0, 0, 0))
+    check(gen_count(err) == CLI_NEW_TOKENS, f"cli generate dense: {err}")
+    out, _, _ = run("calibrate", ["calibrate"] + init + [
+        "--output-path", str(CLI_DIR / "calib"), "--batch",
+        str(CLI_CALIB[0]), "--seq-len", str(CLI_CALIB[1]),
+        "--no-layer-inputs", "--group-sizes", "128"], (0, 0, 0, 0, 0, L))
+    check(all(os.path.isdir(os.path.join(hist, f"layer-{l}"))
+              for l in range(L)), f"cli calibrate: no histograms in {hist}")
+    tok_path = (4 * L * decoded, L * decoded, 0, 0, 0, 0)
+    _, err, _ = run("generate sparse", ["generate"] + init + gen + sparse
+                    + ["--metrics", str(metrics)], tok_path)
+    check(gen_count(err) == CLI_NEW_TOKENS, f"cli generate sparse: {err}")
+    _, err, got = run("generate speculative", ["generate"] + init + gen + [
+        "--speculate-k", "4", "--self-speculate", "--block-size", "128",
+        "--metrics", str(metrics), "--profile", str(prof)])
+    per_round = 5 * 4 * L
+    check(got[0] > 0 and got[0] % per_round == 0 and got[0] == 4 * got[1]
+          and not any(got[2:]), f"cli speculative: launches {got}")
+    check(f"{CLI_NEW_TOKENS} tokens" in err and "mean accepted" in err,
+          f"cli speculative: {err}")
+    check(prof.is_dir() and any(prof.iterdir()), "cli speculative: empty "
+          "trace directory")
+    lines = [json.loads(l) for l in metrics.read_text().splitlines()]
+    check(len(lines) == 2 and lines[1]["speculate_k"] == 4,
+          f"cli metrics: {lines}")
+    res["generate speculative"].update(
+        rounds=got[0] // per_round,
+        mean_accepted=lines[1]["mean_accepted"],
+        trace_files=sorted(p.name for p in prof.iterdir()))
+    n_tok, ctx, win = CLI_PPL
+    n_win = len(list(windows(n_tok, ctx, win)))
+    out, _, _ = run("ppl", ["ppl"] + init + [
+        "--num-tokens", str(n_tok), "--context-size", str(ctx),
+        "--window-size", str(win)], (0, 0, 0, 0, 0, L * n_win))
+    ppl = float(out.split("dense ppl: ")[1].split()[0])
+    check(math.isfinite(ppl) and ppl > 1, f"cli ppl: {out}")
+    res["ppl"]["value"] = ppl
+    task = CLI_DIR / "task.json"
+    task.write_text(json.dumps([
+        {"name": "mc", "type": "multiple_choice", "docs": [
+            {"query": CLI_QUERY, "choices": [" one", " two"], "gold": 0},
+            {"query": CLI_QUERY + "?", "choices": [" yes", " no"],
+             "gold": 1}]},
+        {"name": "gen", "type": "generate", "until": ["\n"],
+         "max_gen_toks": 4, "docs": [{"query": CLI_QUERY, "target": "x"}]}]))
+    out, _, _ = run("eval", ["eval"] + init + ["--task-file", str(task)],
+                    (0, 0, 0, 0, 0, 5 * L))
+    ev = json.loads(out)
+    check(sorted(ev) == ["gen", "mc"] and 0 <= ev["mc"]["acc"] <= 1,
+          f"cli eval: {ev}")
+    res["eval"]["results"] = ev
+    q4 = str(CLI_DIR / "q4")
+    run("quantize int4", ["quantize"] + init + ["--mode", "int4",
+                                                "--output-path", q4],
+        (0, 0, 0, 0, 0, 0))
+    _, err, _ = run("generate int4", ["generate"] + base + [
+        "--checkpoint", q4] + gen + sparse, tok_path)
+    check(gen_count(err) == CLI_NEW_TOKENS, f"cli generate int4: {err}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "teal_tpu_torch.cli", "generate"] + init
+        + gen + sparse, cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli subprocess: exit {proc.returncode}\n"
+          f"{proc.stderr[-3000:]}")
+    check(gen_count(proc.stderr) == CLI_NEW_TOKENS,
+          f"cli subprocess: {proc.stderr[-2000:]}")
+    res["subprocess generate sparse"] = dict(s=secs, rc=proc.returncode)
+    log(f"[cli] python -m teal_tpu_torch.cli generate (sparse, "
+        f"{CLI_NEW_TOKENS} tokens) as a subprocess: exit 0 in {secs:.2f} s; "
+        f"stderr tail {proc.stderr.strip().splitlines()[-1:]}")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[cli] phase 14 in {res['phase_s']:.1f} s")
+    return res
+
+
 # --- phase 10: Mixtral-8x7B on the token path's MoE branch -----------------
 
 MOE_MODEL = "Mixtral-8x7B"
@@ -4001,6 +4512,9 @@ def main() -> int:
                                                         gen, seed, th)
     line["kernels"] += l_entries
     line["calibration"] = calibration_phase(params, cfg, device, seed)
+    line["speculative"] = speculative_phase(params, cfg, device, seed, th,
+                                            speeds)
+    line["cli"] = cli_phase(device)
     # phase 10 needs the card's memory for int8 Mixtral-8x7B (46 GB)
     del params
     torch.cuda.empty_cache()

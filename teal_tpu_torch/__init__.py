@@ -25,8 +25,15 @@ which `Generator`, the server's one-shot admission and the perplexity
 harness `eval/ppl.py` take; calibration (`calibration/`: activation
 histograms through the native library `native/histogram.cpp`, TEAL
 thresholds, the greedy allocation, channel permutations) and GPTQ
-(`ops/gptq.py`, `calibration/gptq_runner.py`), whose captures take K6.
-ROADMAP.md lists what is still to port.
+(`ops/gptq.py`, `calibration/gptq_runner.py`), whose captures take K6;
+speculative decoding (`engine/speculative.py`: self-speculation drafts on
+the main path and verifies through `block_verify`); and the user's entry
+points: checkpoints (`utils/checkpoint.py`: HF safetensors through the
+port's own reader, and the JAX package's native store), tokenizers, text
+sources and profiling (`utils/`), the lm-eval harness and its shim
+(`eval/harness.py`, `eval/lm_eval_shim.py`) and the CLI, `python -m
+teal_tpu_torch.cli` (`--device cpu` for the CPU). ROADMAP.md lists what
+is still to port.
 """
 
 __version__ = "0.1.0"

@@ -6,8 +6,10 @@ and are masked out until decode overwrites them, as in the reference;
 the prefill starts at pos 0, so it runs with `causal_prefill` and a
 prompt padded to 256 or more takes kernel K6),
 then one `forward` per new token in a Python loop. Tokens stay on the
-device until the end, so the loop never waits for the card. A CUDA graph
-of the decode step is later work.
+device until the end, so the loop never waits for the card. `warmup`
+runs one short generation first, as the reference's does. The
+reference's on-device token loop (`generate(on_device_loop=)`) has its
+Hopper form in a CUDA graph of the decode step, which is later work.
 """
 
 from __future__ import annotations
@@ -79,6 +81,14 @@ class Generator:
     def new_cache(self) -> KVCache:
         return KVCache.init(self.cfg, self.batch, self.max_seq,
                             self.cache_dtype, self.device)
+
+    def warmup(self, prompt_len: int = 4, new_tokens: int = 2) -> None:
+        """Run one short generation so that later `generate` timings are
+        warm: the kernels built and loaded, the allocator's blocks in
+        place (the reference times 5 samples after a warm-up sample,
+        gpt-fast/generate.py:431-497)."""
+        prompt = np.ones((self.batch, prompt_len), np.int64)
+        self.generate(prompt, new_tokens)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

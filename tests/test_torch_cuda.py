@@ -1141,3 +1141,116 @@ def test_gptq_on_card_matches_cpu(cuda, K, N, group):
     for key in ("scale", "zero"):
         assert float((getattr(got, key).cpu() - getattr(want, key))
                      .abs().max()) <= 1e-6
+
+
+def _spec_head128(device, dsp, margins=None):
+    """Self-speculation on a head-128 config in fp32 on `device` (the
+    weights drawn on the CPU from a seed): the main path's draft at G =
+    128 and the verify through block_verify, temperature 0. With
+    `margins` (a list), each logits row's top-2 margin is appended."""
+    from teal_tpu_torch.config import get_model_config
+    from teal_tpu_torch.engine import speculative as spec
+
+    cfg = get_model_config("tiny", n_layers=2, n_heads=2, n_kv_heads=2,
+                           dim=256, intermediate_size=384, vocab_size=128)
+    p = llama.init_params(cfg, torch.Generator().manual_seed(1),
+                          torch.float32, "cpu")
+    p = {k: ({n: w.to(device) for n, w in v.items()} if isinstance(v, dict)
+             else v.to(device)) for k, v in p.items()}
+    orig = spec.logits_to_probs
+
+    def rec(logits, *a):
+        if margins is not None:
+            top = torch.topk(logits.float(), 2, dim=-1).values
+            margins.append(float((top[..., 0] - top[..., 1]).min()))
+        return orig(logits, *a)
+
+    spec.logits_to_probs = rec
+    try:
+        out = [spec.speculative_generate(
+            p, p, cfg, cfg, [5, 2, 7], 12, speculate_k=3, temperature=0.0,
+            max_seq=64, draft_sp=dsp, cache_dtype=torch.float32,
+            device=device, **kw) for kw in ({}, {"device_loop": True,
+                                                 "adaptive_k": True})]
+    finally:
+        spec.logits_to_probs = orig
+    return out
+
+
+def test_speculative_on_card_matches_cpu(cuda):
+    """speculative_generate at temperature 0 in fp32 through K1 (the
+    draft's single row and the verify's fixed rows form) and K2 gives
+    the CPU run's tokens and stats, host loop and adaptive device loop;
+    every logits row's top-2 margin exceeds 1e-4 on the CPU."""
+    from teal_tpu_torch.config import SparsityConfig
+
+    dsp = SparsityConfig(enabled=True, kernel="block", block_size=128,
+                         block_keep_frac=0.75, block_thresholding=True)
+    margins = []
+    want = _spec_head128("cpu", dsp, margins)
+    assert min(margins) > 1e-4
+    before = (bg.select_gather_gemv.launches, da.decode_attention.launches)
+    got = _spec_head128(cuda, dsp)
+    assert bg.select_gather_gemv.launches > before[0]
+    assert da.decode_attention.launches > before[1]
+    assert 0.0 < want[0][1]["mean_accepted"] < 3.0
+    for (t, st), (wt, wst) in zip(got, want):
+        assert (t == wt).all() and st == wst
+
+
+def _write_safetensors(path, tensors):
+    """A safetensors file written by hand (8-byte header length, JSON
+    header, raw data): the card's machine has no safetensors package."""
+    import json
+    import struct
+
+    import numpy as np
+
+    header, blobs, off = {}, [], 0
+    for name, a in tensors.items():
+        kind = {np.float32: "F32", np.float16: "F16"}[a.dtype.type]
+        b = np.ascontiguousarray(a).tobytes()
+        header[name] = {"dtype": kind, "shape": list(a.shape),
+                        "data_offsets": [off, off + len(b)]}
+        blobs.append(b)
+        off += len(b)
+    h = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h + b"".join(blobs))
+
+
+@pytest.mark.parametrize("stored", ["float32", "float16"])
+def test_safetensors_reader_on_card(cuda, tmp_path, stored):
+    """load_hf_checkpoint onto the card gives the CPU's tensors."""
+    import numpy as np
+
+    from teal_tpu_torch.config import get_model_config
+    from teal_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = get_model_config("tiny")
+    rng = np.random.default_rng(0)
+    D, I, KV, V = cfg.dim, cfg.intermediate_size, cfg.kv_dim, cfg.vocab_size
+    shapes = {"model.embed_tokens.weight": (V, D), "model.norm.weight": (D,)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        shapes.update({
+            p + "input_layernorm.weight": (D,),
+            p + "post_attention_layernorm.weight": (D,),
+            p + "self_attn.q_proj.weight": (D, D),
+            p + "self_attn.k_proj.weight": (KV, D),
+            p + "self_attn.v_proj.weight": (KV, D),
+            p + "self_attn.o_proj.weight": (D, D),
+            p + "mlp.gate_proj.weight": (I, D),
+            p + "mlp.up_proj.weight": (I, D),
+            p + "mlp.down_proj.weight": (D, I)})
+    _write_safetensors(tmp_path / "model.safetensors", {
+        k: rng.normal(0, 0.02, s).astype(stored) for k, s in shapes.items()})
+    for dtype in (torch.float32, torch.bfloat16):
+        want = ckpt._flatten(ckpt.load_hf_checkpoint(str(tmp_path), cfg,
+                                                     dtype, "cpu"))
+        got = ckpt._flatten(ckpt.load_hf_checkpoint(str(tmp_path), cfg,
+                                                    dtype, cuda))
+        assert sorted(got) == sorted(want)
+        for k, t in got.items():
+            assert t.device.type == "cuda" and t.dtype == want[k].dtype
+            assert torch.equal(t.cpu(), want[k]), k
