@@ -199,8 +199,39 @@ Phases:
      and generate from its store (K1's int4 plan), each command's launch
      counts asserted, its seconds and peak memory printed; and one sparse
      `python -m teal_tpu_torch.cli generate` as a subprocess, exit 0;
+ 15. parallelism (`teal_tpu_torch/parallel/`, `parallel_phase`, last, with
+     no model of the main process on the card): a group of 4 rank
+     processes on cuda:0 through gloo (`p15_spawn`; a rank that fails or
+     a group that outlives its timeout fails the phase and the other
+     ranks are killed), each building its shard of random weights a layer
+     at a time from the seed: tp 2 at Llama-2-7B's full widths and 32
+     layers (`tp_prefill` of 256 tokens, L K6 launches a rank; 16 greedy
+     `tp_kernel_decode` steps at thresholds picked on the plain path, 4*L
+     K1 + L K2 a step a rank), packed int4 at tp 2 (the down shard
+     5504 = 43 x 128 through K1's int4 plan), tp 4 at batch 1 (down at G
+     64) and at batch 4 with per-row positions through K3 (4*L K3 + L K2
+     a step), Mixtral's widths at tp 2 in bf16 (qkv and o through K1, each
+     routed expert's gate|up and down through K3: 2*L K1 + 4*L K3 + L K2
+     a step), on 2-layer cuts; each run's launches counted just around its
+     prefill and decode steps, the logits the same on every rank, and one
+     more step held layer by layer to the plain path of the same TP
+     function on the same input (`p15_hold`: the stream after the o and
+     the down reductions and the cache rows within 2e-2 of scale, K1's
+     kept counts the plain path's or a flip `explain_count_flip`
+     explains, the streams bit-identical across ranks); `sp_prefill` of
+     2048 tokens at sp 2 and `pp_forward` at pp 2 (4 layers, 2
+     microbatches), fp32, held to single-device prefill / `forward`
+     within 1e-4 of scale; then NCCL at world size 1 in this process (one
+     `tp_kernel_decode` step held to the layer loop, 2e-2); then, alone
+     on the card, K1 at the tp 2 and tp 4 stage shapes against its plain
+     version (three selection regimes) and timed beside its bound and
+     `torch.matmul` at full keep, K2 at 16 heads beside SDPA and K6 at 16
+     heads and S = 2048 beside SDPA; each run's seconds and each rank's
+     peak memory, and the tp 2 decode tok/s labelled as a number of 2
+     ranks sharing one card through gloo, not a TP speed;
 all printed as one `kernels` JSON line, with the card in it (and the
-results of phases 12-14 under "calibration", "speculative" and "cli");
+results of phases 12-15 under "calibration", "speculative", "cli" and
+"parallel");
 besides, one main-path
 decode step with every kernel swapped for its plain version is profiled
 ("decode_step_ms" "sparse, plain kernels").
@@ -1114,6 +1145,7 @@ def plain_path(k1=None):
     from teal_tpu_torch.ops import decode_attention as da
     from teal_tpu_torch.ops import flash_prefill as fp
     from teal_tpu_torch.ops import gather_gemv as gg
+    from teal_tpu_torch.parallel import tp_kernel
 
     k1 = k1 or bg.select_gather_gemv_plain
     swaps = [(bg, "select_gather_gemv", k1),
@@ -1124,6 +1156,7 @@ def plain_path(k1=None):
              (gg, "row_gather_gemv", gg.row_gather_gemv_plain),
              (llama, "decode_attention", da.decode_attention_plain),
              (attn_block, "decode_attention", da.decode_attention_plain),
+             (tp_kernel, "decode_attention", da.decode_attention_plain),
              (token_block, "moe_route", token_block.moe_route_plain),
              (llama, "flash_prefill_attention",
               fp.flash_prefill_attention_plain)]
@@ -2823,11 +2856,12 @@ def check_k6(device, gen):
     return worst
 
 
-def time_k6(device, gen, launches, prefills, err):
-    """K6 at the 7B and GQA shapes, S in `K6_TIME_S`, bf16, `K6_SETS`
+def time_k6(device, gen, launches, prefills, err, seqs=K6_TIME_S,
+            heads=K6_HEADS, name="flash_prefill_attention"):
+    """K6 at the 7B and GQA shapes (`heads`), S in `seqs`, bf16, `K6_SETS`
     input sets in turn: kernel, plain version, SDPA (causal, GQA) and the
     bound (the causal half of QK^T and PV at the bf16 peak; q, k, v and
-    the output once). Returns the `kernels` entry (S = 2048 at 7B at its
+    the output once). Returns the `kernels` entry (the first shape at its
     top level, every shape under "shapes")."""
     import torch
     import torch.nn.functional as F
@@ -2836,8 +2870,8 @@ def time_k6(device, gen, launches, prefills, err):
         flash_prefill_attention, flash_prefill_attention_plain)
 
     rows = []
-    for S in K6_TIME_S:
-        for Hq, Hkv in K6_HEADS:
+    for S in seqs:
+        for Hq, Hkv in heads:
             sets = [k6_inputs(S, Hq, Hkv, gen, device, torch.bfloat16)
                     for _ in range(K6_SETS)]
             flops = 4 * 128 * Hq * S * (S + 1) / 2
@@ -2859,7 +2893,7 @@ def time_k6(device, gen, launches, prefills, err):
                 f"plain {p_ms:.4f} ms  SDPA {lib:.4f} ms  bound {b_ms:.4f} ms "
                 f"({b_by}, {nbytes / 1e6:.1f} MB)")
     top = rows[0]
-    return dict(name="flash_prefill_attention", route="cuda",
+    return dict(name=name, route="cuda",
                 source="teal_tpu_torch/csrc/flash_prefill.cu",
                 replaces="teal_tpu/models/llama.py:138", launches=launches,
                 launches_per_prefill=launches / prefills, max_abs_err=err,
@@ -4432,6 +4466,709 @@ def moe_phase(device, gen, seed):
     return entries, results
 
 
+# --- phase 15: parallelism on torch.distributed ------------------------
+
+P15_WORLD = 4                    # rank processes sharing the card (gloo)
+P15_DEPTH = 32                   # layers of the tp 2 run at 7B widths
+P15_PROMPT = 256                 # its tp_prefill (K6 on 16 heads a layer)
+P15_STEPS = 16                   # its decode steps
+P15_CUT = 2                      # layers of the int4, tp 4 and Mixtral runs
+P15_CUT_PROMPT = 8
+P15_CUT_STEPS = 4
+P15_B4_PROMPT = 40               # tp 4, batch 4: decode at pos 40, 37, 33, 29
+P15_SP_TOKENS = 2048             # sp 2 prefill of a 2-layer cut (fp32)
+P15_PP = dict(layers=4, n_micro=2, batch=2, tokens=64)   # pp 2 (fp32)
+P15_TIMEOUT_S = 480              # the rank group, start-up included
+P15_DIR = ROOT / "build" / "chip_smoke_parallel"
+P15_SHARD_LAYERS = 8             # weight stacks of the shard timings (> L2)
+P15_LABEL = ("2 ranks sharing one card through gloo, host-staged "
+             "collectives; not a TP speed")
+
+
+def _p15_sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p15_peak(device, reset: bool = False) -> float:
+    """Peak GiB allocated on the card since the last reset (0 on the CPU,
+    where a rehearsal runs)."""
+    import torch
+
+    if device.type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def p15_layer(cfg, i, seed, device, dtype, int4=False):
+    """Layer i's full weights as one-layer stacks, drawn on the card from a
+    generator seeded by (seed, i): the same on every rank. int4: the seven
+    projections packed at group 128 (`quant.pack_int4`)."""
+    import torch
+
+    from teal_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(seed * 1000 + i)
+    D, I, KV, E = cfg.dim, cfg.intermediate_size, cfg.kv_dim, cfg.n_experts
+
+    def w(k, n):
+        return (torch.randn((k, n), generator=gen, device=device)
+                * 0.02).to(dtype)
+
+    lay = {"attn_norm": torch.ones((1, D), dtype=dtype, device=device),
+           "mlp_norm": torch.ones((1, D), dtype=dtype, device=device),
+           "wq": w(D, D)[None], "wk": w(D, KV)[None], "wv": w(D, KV)[None],
+           "wo": w(D, D)[None]}
+    shapes = {"wgate": (D, I), "wup": (D, I), "wdown": (I, D)}
+    if E:
+        lay["router"] = torch.randn((1, D, E), generator=gen,
+                                    device=device) * 0.02
+        for n, (k, m) in shapes.items():
+            lay[n] = torch.stack([w(k, m) for _ in range(E)])[None]
+    else:
+        lay.update({n: w(k, m)[None] for n, (k, m) in shapes.items()})
+    if int4:
+        for n in PROJ_NAMES:
+            p = quant.pack_int4(quant.quantize_int4(lay[n][0].float(), 128))
+            lay[n] = {k: v[None] for k, v in p.items()}
+    return lay
+
+
+def _stack_into(dst, src, i, L):
+    """Layer i of the stacks `dst` (made on first use) from `src`'s
+    one-layer stacks; returns dst."""
+    import torch
+
+    if isinstance(src, dict):
+        dst = {} if dst is None else dst
+        for k, v in src.items():
+            dst[k] = _stack_into(dst.get(k), v, i, L)
+        return dst
+    if dst is None:
+        dst = torch.empty((L,) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+    dst[i] = src[0]
+    return dst
+
+
+def p15_model(cfg, mesh, seed, device, dtype=None, int4=False):
+    """Random weights of `cfg` from `seed`, a layer at a time: this rank's
+    tp shards (`tp.param_specs`; the head colwise, the embedding and the
+    final norm whole), or with mesh None the whole tree."""
+    import torch
+
+    from teal_tpu_torch.parallel import tp
+
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(seed * 1000 + 999)
+    V, D = cfg.vocab_size, cfg.dim
+    embed = (torch.randn((V, D), generator=gen, device=device)
+             * 0.02).to(dtype)
+    head = (torch.randn((D, V), generator=gen, device=device)
+            * 0.02).to(dtype)
+    if mesh is not None:
+        tp.check_divisible(cfg, mesh.axis_size("tp"))
+    layers = None
+    for i in range(cfg.n_layers):
+        lay = p15_layer(cfg, i, seed, device, dtype, int4)
+        if mesh is not None:
+            specs = tp.param_specs(cfg, {"layers": lay, "lm_head": head})
+            lay = tp.shard_tree(lay, specs["layers"], mesh)
+        layers = _stack_into(layers, lay, i, cfg.n_layers)
+    if mesh is not None:
+        head = tp.shard_tensor(head, tp.param_specs(cfg)["lm_head"], mesh)
+    return {"embed": embed, "layers": layers,
+            "final_norm": torch.ones((D,), dtype=dtype, device=device),
+            "lm_head": head}
+
+
+def p15_cache(cfg, mesh, batch, T, device, dtype=None):
+    """A zero cache: this rank's heads (tp) of every layer, or the whole
+    cache with mesh None."""
+    import torch
+
+    from teal_tpu_torch.models.llama import KVCache
+
+    tp = 1 if mesh is None else mesh.axis_size("tp")
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads // tp, T, cfg.head_dim)
+    return KVCache(*(torch.zeros(shape, dtype=dtype or torch.bfloat16,
+                                 device=device) for _ in range(2)))
+
+
+def p15_hold(params, cfg, sp, mesh, tok, pos, cache, th, what):
+    """One decode step of `tp_decode_layer`, layer by layer: the plain
+    path (every kernel swapped for its plain version) and the kernel path
+    on the same layer input and cache; the stream after the o and the
+    down reductions and the written cache rows held within 2e-2 of scale,
+    K1's kept counts equal to the plain path's (or one group apart by a
+    flip `explain_count_flip` measures within FLIP_ULPS, the plain layer
+    then run again past that score on every rank); and the kernel path's
+    streams the same on every rank bit for bit. Returns the worst error
+    relative to scale."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.models.llama import KVCache
+    from teal_tpu_torch.ops import block_gemv as bg
+    from teal_tpu_torch.parallel import tp_kernel
+
+    g = mesh.group("tp")
+    dev = tok.device
+    B = tok.shape[0]
+    pos_b = torch.tensor([pos] * B if isinstance(pos, int) else pos,
+                         dtype=torch.int32, device=dev)
+    cos, sin = llama.precompute_rope(cfg, cache.max_seq, dev)
+    rope = llama._rope_rows(cos, sin, pos_b)
+    h = params["embed"][tok].to(llama.compute_dtype(params))
+    real_k1 = bg.select_gather_gemv
+    rows = torch.arange(B, device=dev)
+    pl = pos_b.long()
+    kw = dict(cfg=cfg, sp=sp, mesh=mesh)
+
+    def clone():
+        return KVCache(cache.k.clone(), cache.v.clone())
+
+    worst = 0.0
+    for i in range(cfg.n_layers):
+        rec, kept = [], []
+        cp, ck = clone(), clone()
+        with plain_path(k1=recording_k1(rec)):
+            mid_p, out_p = tp_kernel.tp_decode_layer(params, h, cp, i, pos_b,
+                                                     rope, th, **kw)
+
+        def counting(*a, **k):
+            out = real_k1(*a, **k)
+            kept.append(int(out[2].reshape(-1)[0]))
+            return out
+
+        # the wrapper counts its launches under the module's name
+        counting.launches = 0
+        bg.select_gather_gemv = counting
+        try:
+            mid_k, out_k = tp_kernel.tp_decode_layer(params, h, ck, i, pos_b,
+                                                     rope, th, **kw)
+        finally:
+            bg.select_gather_gemv = real_k1
+        want = [r[2] for r in rec]
+        override = {}
+        if kept != want:
+            ok, msg, override = explain_count_flip(rec, kept, want)
+            log(f"[p15] {what} layer {i}: {msg}; "
+                f"{'a flip' if ok else 'not a flip'} within {FLIP_ULPS} ulps")
+            check(ok, f"{what} layer {i}: kept counts {kept} vs the plain "
+                  f"path's {want}: {msg}")
+        # a rerun runs the layer's reductions, so every rank takes part
+        flips = g.reduce_sum(torch.tensor([float(bool(override))],
+                                          device=dev))
+        if float(flips[0]) > 0:
+            again = []
+            cp = clone()
+            with plain_path(k1=recording_k1(again, override)):
+                mid_p, out_p = tp_kernel.tp_decode_layer(
+                    params, h, cp, i, pos_b, rope, th, **kw)
+            check([r[2] for r in again] == kept, f"{what} layer {i}: the "
+                  f"plain layer run again keeps {[r[2] for r in again]}, "
+                  f"the kernel path {kept}")
+        for name, got, ref in (
+                ("stream after o", mid_k, mid_p),
+                ("stream after down", out_k, out_p),
+                ("k rows", ck.k[i, rows, :, pl], cp.k[i, rows, :, pl]),
+                ("v rows", ck.v[i, rows, :, pl], cp.v[i, rows, :, pl])):
+            err = rel_check(f"{what} layer {i} {name}: kernel vs plain", got,
+                            ref, 2e-2)
+            scale = float(ref.float().abs().max())
+            worst = max(worst, err / scale if scale else 0.0)
+        for name, t in (("o", mid_k), ("down", out_k)):
+            check(all(torch.equal(p, t) for p in g.parts(t)),
+                  f"{what} layer {i}: the stream after the {name} reduction "
+                  "differs between ranks")
+        h = out_p
+    return worst
+
+
+def p15_tp_run(what, cfg, mesh, seed, device, *, prompt, steps, batch=1,
+               int4=False, batch_pos=None):
+    """One TP configuration on this rank: weights, thresholds picked on
+    the plain path for one step after a prefill (each rank's rowwise
+    picks replaced by tp rank 0's), then the counted main path --
+    `tp_prefill` of the prompt and `steps` greedy `tp_kernel_decode`
+    steps, the launch counts reset just before and read just after --
+    the logits the same on every rank, and one more step held layer by
+    layer (`p15_hold`). batch_pos: the rows' positions of a batched step
+    after a prompt of `prompt` tokens for every row (each row decodes
+    at its own depth)."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.parallel import tp_kernel
+
+    if not mesh.member:
+        return None
+    _p15_peak(device, reset=True)
+    t0 = time.perf_counter()
+    params = p15_model(cfg, mesh, seed, device, int4=int4)
+    L, T = cfg.n_layers, MAX_SEQ
+    sp = SparsityConfig(**MAIN_SP)
+    g = mesh.group("tp")
+    gen = torch.Generator(device=device).manual_seed(seed + 15)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=device)
+    th = torch.zeros((L, 7), dtype=torch.float32, device=device)
+    args = dict(cfg=cfg, sp=sp, mesh=mesh)
+    # K1's thresholds, picked on row 0 at its first decode position (a
+    # batch of rows runs K3 at the same table)
+    scratch = p15_cache(cfg, mesh, 1, T, device)
+    logits, _ = tp_kernel.tp_prefill(params, toks[:1], scratch, th, **args)
+    with plain_path(k1=picking_k1):
+        tp_kernel.tp_kernel_decode(params, torch.argmax(logits[:, -1:], -1),
+                                   scratch, prompt, th, **args)
+    th = g.broadcast(th, 0)
+    del scratch
+    build_s = time.perf_counter() - t0
+
+    cache = p15_cache(cfg, mesh, batch, T, device)
+    _p15_sync(device)
+    reset_launches()
+    t1 = time.perf_counter()
+    logits, cache = tp_kernel.tp_prefill(params, toks, cache, th, **args)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    _p15_sync(device)
+    t2 = time.perf_counter()
+    prefill_counts = read_launches()
+    for s in range(steps):
+        p = [q + s for q in batch_pos] if batch_pos else prompt + s
+        logits, cache = tp_kernel.tp_kernel_decode(params, tok, cache, p, th,
+                                                   **args)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+    _p15_sync(device)
+    t3 = time.perf_counter()
+    counts = tuple(a - b for a, b in zip(read_launches(), prefill_counts))
+    long = llama._can_flash_prefill(prompt, cfg.head_dim,
+                                    cfg.sliding_window)
+    # K3: four stages a layer for a batch of rows; gate|up and down of
+    # each routed expert
+    k3 = (4 if batch > 1 else 0) + 2 * cfg.n_experts_per_tok
+    k1 = 0 if batch > 1 else (2 if cfg.n_experts else 4)
+    want = (k1 * L * steps, L * steps, k3 * L * steps, 0, 0, 0)
+    want_pre = (0, 0, 0, 0, 0, L if long else 0)
+    if device.type != "cuda":   # a rehearsal: plain versions count nothing
+        want, want_pre = (0,) * 6, (0,) * 6
+    check(prefill_counts == want_pre, f"{what}: the prefill launched "
+          f"{prefill_counts}, expected {want_pre}")
+    check(counts == want, f"{what}: {steps} decode steps launched (K1, K2, "
+          f"K3, K4, K5, K6) {counts}, expected {want}")
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+        batch, 1, cfg.vocab_size), f"{what}: logits {tuple(logits.shape)}")
+    check(all(torch.equal(p, logits) for p in g.parts(logits)),
+          f"{what}: the logits differ between ranks")
+    nxt = [q + steps for q in batch_pos] if batch_pos else prompt + steps
+    worst = p15_hold(params, cfg, sp, mesh, tok, nxt, cache, th, what)
+    res = dict(layers=L, build_s=build_s, prefill_s=t2 - t1,
+               decode_s=t3 - t2, tok_s=steps * batch / (t3 - t2),
+               prefill_launches=list(prefill_counts), launches=list(counts),
+               steps=steps, worst_rel=worst, peak_gib=_p15_peak(device),
+               seconds=time.perf_counter() - t0)
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def p15_sp_run(cfg, mesh, seed, device):
+    """`sp_prefill` of P15_SP_TOKENS tokens over the sp ranks (fp32, whole
+    params on each); on sp rank 0 the cache and the last chunk's logits
+    held to single-device `forward` with `causal_prefill` (K6's fp32 path)
+    within 1e-4 of scale; the logits and cache the same on every rank."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.parallel import sp as spm
+
+    if not mesh.member:
+        return None
+    _p15_peak(device, reset=True)
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    params = p15_model(cfg, None, seed, device, dtype=f32)
+    S = P15_SP_TOKENS
+    gen = torch.Generator(device=device).manual_seed(seed + 16)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                         device=device)
+    th = llama.zero_thresholds(cfg, device)
+    sp = SparsityConfig()
+    cache = p15_cache(cfg, None, 1, S, device, f32)
+    reset_launches()
+    t1 = time.perf_counter()
+    logits, cache = spm.sp_prefill(params, toks, cache, 0, th, cfg=cfg,
+                                   sp=sp, mesh=mesh)
+    _p15_sync(device)
+    t2 = time.perf_counter()
+    check(read_launches() == (0,) * 6, f"sp prefill launched "
+          f"{read_launches()}: K6 is skipped under seq_group")
+    g = mesh.group("sp")
+    for name, t in (("logits", logits), ("k", cache.k), ("v", cache.v)):
+        check(all(torch.equal(p, t) for p in g.parts(t)),
+              f"sp prefill: {name} differ between ranks")
+    errs = {}
+    if g.index == 0:
+        ref_cache = p15_cache(cfg, None, 1, S, device, f32)
+        ref, ref_cache = llama.forward(params, toks, ref_cache, 0, th,
+                                       cfg=cfg, sp=sp, causal_prefill=True)
+        half = S // g.size * (g.size - 1)
+        for name, got, want in (
+                ("last chunk's logits", logits[:, half:], ref[:, half:]),
+                ("k cache", cache.k, ref_cache.k),
+                ("v cache", cache.v, ref_cache.v)):
+            errs[name] = rel_check(f"sp prefill {name} vs single-device "
+                                   "prefill", got, want, 1e-4) / float(
+                                       want.abs().max())
+    res = dict(layers=cfg.n_layers, tokens=S, prefill_s=t2 - t1,
+               rel_err=errs, peak_gib=_p15_peak(device),
+               seconds=time.perf_counter() - t0)
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def p15_pp_run(cfg, mesh, seed, device):
+    """`pp_forward` over the pp ranks (fp32, P15_PP's microbatches), the
+    logits the same on every rank; on each stage its cache slab and the
+    logits held to single-device `forward` within 1e-4 of scale."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.parallel import pp as ppm
+
+    if not mesh.member:
+        return None
+    _p15_peak(device, reset=True)
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    full = p15_model(cfg, None, seed, device, dtype=f32)
+    local = ppm.pp_shard_params(full, mesh, cfg)
+    B, S, T = P15_PP["batch"], P15_PP["tokens"], 2 * P15_PP["tokens"]
+    gen = torch.Generator(device=device).manual_seed(seed + 17)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=device)
+    th = llama.zero_thresholds(cfg, device)
+    sp = SparsityConfig()
+    cache = ppm.pp_shard_cache(p15_cache(cfg, None, B, T, device, f32), mesh)
+    t1 = time.perf_counter()
+    logits, cache = ppm.pp_forward(local, toks, cache, 0, th, cfg=cfg, sp=sp,
+                                   mesh=mesh, n_micro=P15_PP["n_micro"])
+    _p15_sync(device)
+    t2 = time.perf_counter()
+    g = mesh.group("pp")
+    check(all(torch.equal(p, logits) for p in g.parts(logits)),
+          "pp forward: the logits differ between ranks")
+    ref_cache = p15_cache(cfg, None, B, T, device, f32)
+    ref, ref_cache = llama.forward(full, toks, ref_cache, 0, th, cfg=cfg,
+                                   sp=sp)
+    lo = g.index * cache.k.shape[0]
+    errs = {}
+    for name, got, want in (
+            ("logits", logits, ref),
+            ("k slab", cache.k, ref_cache.k[lo:lo + cache.k.shape[0]]),
+            ("v slab", cache.v, ref_cache.v[lo:lo + cache.v.shape[0]])):
+        errs[name] = rel_check(f"pp stage {g.index} {name} vs single-device "
+                               "forward", got, want, 1e-4) / float(
+                                   want.abs().max())
+    res = dict(layers=cfg.n_layers, stage=g.index, forward_s=t2 - t1,
+               rel_err=errs, peak_gib=_p15_peak(device),
+               seconds=time.perf_counter() - t0)
+    del full, local, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def p15_rank(rank: int, world: int, init: str, out_dir: str, seed: int,
+             device: str = "cuda:0", shrink=None) -> None:
+    """A rank of phase 15's gloo group on `device` (every rank on cuda:0):
+    every run in turn (each builds its mesh on every rank; ranks outside
+    it wait), then its results as JSON in out_dir. Runs in a process
+    `p15_spawn` started. shrink: ModelConfig overrides for both models
+    (a CPU rehearsal at small widths)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.config import get_model_config
+    from teal_tpu_torch.parallel import (initialize_distributed, make_pp_mesh,
+                                         make_sp_mesh, make_tp_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = initialize_distributed(init_method=f"file://{init}",
+                                    world_size=world, rank=rank,
+                                    backend="gloo", device=device)
+    if device.type == "cuda":
+        _build.load()
+    rep = dataclasses.replace
+    b7 = get_model_config("7B", **(shrink or {}))
+    cut = rep(b7, n_layers=P15_CUT)
+    moe = get_model_config("Mixtral-8x7B", n_layers=P15_CUT,
+                           **(shrink or {}))
+    runs = (
+        ("tp2 7B", lambda: p15_tp_run(
+            "tp2 7B", rep(b7, n_layers=P15_DEPTH),
+            make_tp_mesh(2, ranks=[0, 1]), seed, device, prompt=P15_PROMPT,
+            steps=P15_STEPS)),
+        ("tp2 7B int4", lambda: p15_tp_run(
+            "tp2 7B int4", cut, make_tp_mesh(2, ranks=[0, 1]), seed, device,
+            prompt=P15_CUT_PROMPT, steps=P15_CUT_STEPS, int4=True)),
+        ("tp4 7B", lambda: p15_tp_run(
+            "tp4 7B", cut, make_tp_mesh(4), seed, device,
+            prompt=P15_CUT_PROMPT, steps=P15_CUT_STEPS)),
+        ("tp4 7B batch 4", lambda: p15_tp_run(
+            "tp4 7B batch 4", cut, make_tp_mesh(4), seed, device,
+            prompt=P15_B4_PROMPT, steps=P15_CUT_STEPS, batch=4,
+            batch_pos=[P15_B4_PROMPT - d for d in (0, 3, 7, 11)])),
+        ("tp2 Mixtral", lambda: p15_tp_run(
+            "tp2 Mixtral", moe, make_tp_mesh(2, ranks=[0, 1]), seed, device,
+            prompt=P15_CUT_PROMPT, steps=P15_CUT_STEPS)),
+        ("sp2", lambda: p15_sp_run(cut, make_sp_mesh(2, ranks=[0, 1]), seed,
+                                   device)),
+        ("pp2", lambda: p15_pp_run(
+            rep(b7, n_layers=P15_PP["layers"]),
+            make_pp_mesh(2, ranks=[0, 1]), seed, device)),
+    )
+    out = {}
+    for name, run in runs:
+        res = run()
+        if res is not None:
+            out[name] = res
+            log(f"[p15 r{rank}] {name}: {res['seconds']:.1f} s, peak "
+                f"{res['peak_gib']:.2f} GiB")
+    tmp = Path(out_dir) / f"rank{rank}.json.tmp"
+    tmp.write_text(json.dumps(out))
+    tmp.rename(Path(out_dir) / f"rank{rank}.json")
+    torch.distributed.destroy_process_group()
+
+
+def p15_spawn(seed: int, device: str = "cuda:0", shrink=None):
+    """Phase 15's gloo group: P15_WORLD rank processes on `device`
+    (`p15_rank`). A rank that exits non-zero, or a group that outlives
+    P15_TIMEOUT_S, fails the phase, and every other rank is killed.
+    Returns each rank's results."""
+    import multiprocessing
+    import shutil
+
+    shutil.rmtree(P15_DIR, ignore_errors=True)
+    P15_DIR.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=p15_rank, args=(
+        r, P15_WORLD, str(P15_DIR / "init"), str(P15_DIR), seed, device,
+        shrink)) for r in range(P15_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        while True:
+            codes = [p.exitcode for p in procs]
+            if any(c not in (None, 0) for c in codes):
+                raise SmokeFailure(f"phase 15: a rank failed (exit codes "
+                                   f"{codes})")
+            if all(c == 0 for c in codes):
+                break
+            if time.perf_counter() - t0 > P15_TIMEOUT_S:
+                raise SmokeFailure(f"phase 15: the ranks did not finish in "
+                                   f"{P15_TIMEOUT_S} s (exit codes {codes})")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    res = [json.loads((P15_DIR / f"rank{r}.json").read_text())
+           for r in range(P15_WORLD)]
+    log(f"[p15] the group of {P15_WORLD} ranks took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def p15_nccl(device, seed, shrink=None):
+    """NCCL at world size 1 in this process: one `tp_kernel_decode` step on
+    a 2-layer cut at 7B widths (zero thresholds: every group survives, the
+    first cap kept, so both paths keep the same groups), its launches
+    (K1 4*L, K2 L), its logits and cache rows held to the single-device
+    layer loop (`forward` off the token path) within 2e-2 of scale."""
+    import torch
+    import torch.distributed as dist
+
+    from teal_tpu_torch.config import SparsityConfig, get_model_config
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.parallel import initialize_distributed, tp_kernel
+
+    init = P15_DIR / "nccl_init"
+    initialize_distributed(init_method=f"file://{init}", world_size=1,
+                           rank=0, device=str(device))
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        cfg = get_model_config("7B", n_layers=P15_CUT, **(shrink or {}))
+        mesh = tp_kernel.make_tp_mesh(1)
+        params = p15_model(cfg, mesh, seed, device)
+        sp = SparsityConfig(**MAIN_SP)
+        th = llama.zero_thresholds(cfg, device)
+        tok = torch.tensor([[7]], device=device)
+        c_tp = p15_cache(cfg, mesh, 1, MAX_SEQ, device)
+        c_ref = p15_cache(cfg, None, 1, MAX_SEQ, device)
+        reset_launches()
+        got, c_tp = tp_kernel.tp_kernel_decode(params, tok, c_tp, 0, th,
+                                               cfg=cfg, sp=sp, mesh=mesh)
+        counts = read_launches()
+        L = cfg.n_layers
+        check(counts == (4 * L, L, 0, 0, 0, 0), f"NCCL tp 1: launches "
+              f"{counts}, expected {(4 * L, L, 0, 0, 0, 0)}")
+        loop = sp.replace(packed_pipeline=False, token_fused=False)
+        check(not llama.can_token_decode(params, cfg, loop, 1, 1,
+                                         torch.bfloat16), "the reference "
+              "forward must run the layer loop")
+        want, c_ref = llama.forward(params, tok, c_ref, 0, th, cfg=cfg,
+                                    sp=loop)
+        errs = {name: rel_check(f"NCCL tp 1 {name} vs the layer loop", g, w,
+                                2e-2) / float(w.float().abs().max())
+                for name, g, w in (("logits", got, want),
+                                   ("k row", c_tp.k[:, :, :, 0],
+                                    c_ref.k[:, :, :, 0]),
+                                   ("v row", c_tp.v[:, :, :, 0],
+                                    c_ref.v[:, :, :, 0]))}
+        log(f"[p15] NCCL world 1: one tp_kernel_decode step, launches "
+            f"{counts}; relative errors against the layer loop "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        del params
+        return dict(launches=list(counts), rel_err=errs)
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def p15_shard_specs(cfg, tp: int):
+    """The four K1 calls of a layer of `tp_kernel_decode` on a tp shard:
+    (stage, K, output widths)."""
+    D, I, KV = cfg.dim, cfg.intermediate_size, cfg.kv_dim
+    return (("qkv", D, (D // tp, KV // tp, KV // tp)), ("o", D // tp, (D,)),
+            ("gate|up", D, (I // tp, I // tp)), ("down", I // tp, (D,)))
+
+
+def p15_time_k1(cfg, device, gen, tp: int):
+    """K1 as `tp_kernel_decode` calls it on a tp shard (no norm fold, no
+    epilogue, fp32 sums; G from `effective_block_size(128, K)`, cap at
+    keep 0.5) at the 7B's stage shapes: against its plain version in the
+    three selection regimes (identical kept sets, 1e-4 of scale), then
+    timed at count == cap, each call on another of P15_SHARD_LAYERS
+    layers: kernel, plain version, `torch.matmul` at full keep, and the
+    bytes bound. Returns (the stage rows, the largest error)."""
+    import torch
+
+    from teal_tpu_torch.ops import block_gemv as bg
+
+    rows, worst, Lw = [], 0.0, P15_SHARD_LAYERS
+    for name, K, Ns in p15_shard_specs(cfg, tp):
+        G = bg.effective_block_size(128, K)
+        nb = K // G
+        cap = bg.block_capacity(nb, 0.5)
+        ws = [(torch.randn((Lw, K, N), generator=gen, device=device)
+               * 0.02).bfloat16() for N in Ns]
+        for case, n_surv in (("count<cap", max(1, cap // 2)),
+                             ("count==cap", cap),
+                             ("overflow", min(nb, cap + max(1, nb // 4)))):
+            x = spiky_input(K, gen, device, torch.bfloat16, G)
+            thr, margin = threshold_for(bg.group_scores(x.float()[None], G),
+                                        n_surv)
+            check(margin > 1e-2, f"a group score lies within {margin:.2e} "
+                  "of the threshold")
+            thr = torch.tensor(thr, dtype=torch.float32, device=device)
+            got, gidx, gcnt = bg.select_gather_gemv(x, thr, ws, 1, cap, G=G)
+            want, widx, wcnt = bg.select_gather_gemv_plain(x, thr, ws, 1,
+                                                           cap, G=G)
+            check(int(gcnt[0]) == int(wcnt[0]) == min(n_surv, cap)
+                  and bool((gidx == widx).all()),
+                  f"K1 tp{tp} {name} {case}: kept sets differ")
+            err = rel_check(f"K1 tp{tp} {name} {case}", got, want, 1e-4)
+            worst = max(worst, err)
+        nbytes = cap * G * sum(Ns) * 2 + K * 2 + sum(Ns) * 4
+        x2 = x.reshape(1, K)
+        lib = sum(cuda_ms(lambda i, w=w: torch.matmul(x2, w[i % Lw]), 64)[0]
+                  for w in ws)
+        rows.append(_plan_row(
+            f"K1[tp{tp}] {name} G={G}", nbytes, 2 * cap * G * sum(Ns),
+            lambda i: bg.select_gather_gemv(x, thr, ws, i % Lw, cap, G=G),
+            lambda i: bg.select_gather_gemv_plain(x, thr, ws, i % Lw, cap,
+                                                  G=G),
+            lib, None, K=K, N=sum(Ns), cap=cap, G=G))
+        del ws
+    return rows, worst
+
+
+def parallel_phase(device, gen, seed, card, shrink=None):
+    """Phase 15: the gloo rank group (`p15_spawn`: TP at 7B widths through
+    K1, K2 and K6, packed int4, tp 4 with K3 at batch 4, Mixtral's
+    experts through K3, sp and pp prefill), NCCL at world size 1
+    (`p15_nccl`), then, alone on the card, the shard-shape kernels' times
+    (K1 at the tp 2 and tp 4 stage shapes, K2 at 16 heads, K6 at 16 heads
+    and S = 2048). Returns (kernels entries, results)."""
+    import torch
+
+    from teal_tpu_torch.config import get_model_config
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops.flash_prefill import (
+        flash_prefill_attention, flash_prefill_attention_plain)
+
+    torch.cuda.empty_cache()
+    ranks = p15_spawn(seed, str(device), shrink)
+    r0 = ranks[0]
+    for name, res in r0.items():
+        peaks = [round(r[name]["peak_gib"], 2) for r in ranks if name in r]
+        log(f"[p15] {name}: {res['seconds']:.1f} s on rank 0, peak GiB a "
+            f"rank {peaks}; " + ", ".join(
+                f"{k} {v}" for k, v in res.items()
+                if k not in ("seconds", "peak_gib")))
+    main = r0["tp2 7B"]
+    log(f"[p15] tp2 7B ({main['layers']} layers): {main['tok_s']:.2f} tok/s "
+        f"over {main['steps']} decode steps ({P15_LABEL}; {card})")
+    nccl = p15_nccl(device, seed, shrink) if device.type == "cuda" else None
+
+    cfg = get_model_config("7B", **(shrink or {}))
+    k1 = {}
+    for tp in (2, 4):
+        k1[tp] = p15_time_k1(cfg, device, gen, tp)
+    steps = main["steps"]
+    src = "teal_tpu_torch/csrc/"
+    entries = [_summed(
+        k1[2][0], "select_gather_gemv[tp2 shard]", src +
+        "select_gather_gemv.cu", "teal_tpu/ops/block_gemv.py:682",
+        main["launches"][0], steps, k1[2][1],
+        "one layer's four calls of tp_kernel_decode on a tp 2 shard of the "
+        "7B (qkv N 6144, o K 2048, gate|up N 11008, down K 5504 at G 128) "
+        "at count == cap, summed; launches of the tp2 7B run, a rank")]
+    tp4 = r0["tp4 7B"]
+    entries.append(_summed(
+        k1[4][0], "select_gather_gemv[tp4 shard]", src +
+        "select_gather_gemv.cu", "teal_tpu/ops/block_gemv.py:682",
+        tp4["launches"][0], tp4["steps"], k1[4][1],
+        "the same on a tp 4 shard (qkv N 3072, o K 1024, gate|up N 5504, "
+        "down K 2752 at G 64); launches of the tp4 7B run (2 layers), a "
+        "rank"))
+    rope = llama.precompute_rope(cfg, MAX_SEQ, device)
+    entries.append(time_k2(cfg, device, gen, rope, main["launches"][1],
+                           steps, 0.0, "decode_attention[tp2: 16 heads]",
+                           heads=(16, 16)))
+    q, k, v = k6_inputs(2048, 16, 16, gen, device, torch.bfloat16)
+    err6, _ = row_check("K6 S=2048 Hq=Hkv=16", flash_prefill_attention(
+        q, k, v), flash_prefill_attention_plain(q, k, v), K6_BF16_ROW_TOL)
+    entries.append(time_k6(device, gen, main["prefill_launches"][5], 1, err6,
+                           seqs=(2048,), heads=((16, 16),),
+                           name="flash_prefill_attention[tp2: 16 heads]"))
+    return entries, dict(ranks=ranks, nccl=nccl, label=P15_LABEL)
+
+
 def main() -> int:
     import torch
 
@@ -4520,6 +5257,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     m_entries, line["moe"] = moe_phase(device, gen, seed)
     line["kernels"] += m_entries
+    p_entries, line["parallel"] = parallel_phase(device, gen, seed, card)
+    line["kernels"] += p_entries
     line["card"] = card
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)

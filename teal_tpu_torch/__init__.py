@@ -32,8 +32,11 @@ points: checkpoints (`utils/checkpoint.py`: HF safetensors through the
 port's own reader, and the JAX package's native store), tokenizers, text
 sources and profiling (`utils/`), the lm-eval harness and its shim
 (`eval/harness.py`, `eval/lm_eval_shim.py`) and the CLI, `python -m
-teal_tpu_torch.cli` (`--device cpu` for the CPU). ROADMAP.md lists what
-is still to port.
+teal_tpu_torch.cli` (`--device cpu` for the CPU); and parallelism on
+`torch.distributed` (`parallel/`: one process a rank; tensor-parallel
+decode through the kernels on each rank's shard, the sharded forward,
+sequence- and pipeline-parallel prefill). ROADMAP.md lists what is still
+to port.
 """
 
 __version__ = "0.1.0"

@@ -34,6 +34,11 @@ and with `causal_prefill` a pos-0 prompt's attention on K6 where
 `_can_flash_prefill` holds.
 Packed int4 weights always decode through the block route (at keep 1.0
 when sparsity is off), as in the reference.
+
+`forward` and `layer_forward` also run on a rank's tensor-parallel shard
+(`tp_group`: the layer loop on the rank's heads and channels, the rowwise
+outputs summed over the group; `parallel/tp.py`) and on a rank's chunk
+of a prompt (`seq_group`, the reference's `seq_axis`; `parallel/sp.py`).
 """
 
 from __future__ import annotations
@@ -223,14 +228,17 @@ def _can_flash_prefill(s: int, head_dim: int, sliding_window) -> bool:
 
 
 def can_fused_decode(s: int, b: int, cfg: ModelConfig, max_seq: int,
-                     sp: SparsityConfig, block_path: bool) -> bool:
+                     sp: SparsityConfig, block_path: bool,
+                     tp_size: int = 1) -> bool:
     """Gate for kernel K2 on the layer loop (the reference's
-    `_can_fused_decode`): single-token decode at shapes the kernel takes;
-    `sp.fused_decode_attention` True forces it, False refuses it, and
-    auto (None) turns it on for the block path. Decided from the config
-    and shapes alone, never from the device, so that the CPU runs the
-    composition the card runs."""
-    if sp.fused_decode_attention is False:
+    `_can_fused_decode`): single-token decode at shapes the kernel takes,
+    on a forward that is not sharded (`tp_size` 1: the reference's
+    single-device condition; `parallel/tp_kernel.py` runs K2 on a rank's
+    heads itself); `sp.fused_decode_attention` True forces it, False
+    refuses it, and auto (None) turns it on for the block path. Decided
+    from the config and shapes alone, never from the device, so that
+    the CPU runs the composition the card runs."""
+    if sp.fused_decode_attention is False or tp_size > 1:
         return False
     if not (s == 1 and b <= 16 and cfg.head_dim == 128 and max_seq % 8 == 0
             and cfg.n_heads % cfg.n_kv_heads == 0):
@@ -238,10 +246,62 @@ def can_fused_decode(s: int, b: int, cfg: ModelConfig, max_seq: int,
     return bool(sp.fused_decode_attention) or block_path
 
 
+def _dense_f32(x, w) -> torch.Tensor:
+    """x @ w with fp32 sums, before any cast: an array, an int8 dict (the
+    scale on the sums), or int4 weights dequantized to x's type."""
+    if _is_int8(w):
+        return quant.matmul_f32(x, w["q"]) * w["scale"]
+    if _is_int4_packed(w):
+        w = quant.unpack_int4(w["qp"], w["sz"], x.dtype)
+    elif isinstance(w, dict):
+        w = quant.dequantize_int4_dict(w, x.dtype)
+    return quant.matmul_f32(x, w)
+
+
+def _rowwise(x, w, thresh, sp: SparsityConfig, tp_group):
+    """A rowwise projection (o, down): `_proj`, and on a tp shard the sum
+    of every rank's partial product. x then holds this rank's input
+    channels; the group rule ("group" mode: a cap or top-k over the whole
+    input) is not shard-local, so it runs on the gathered input and each
+    rank keeps its part of the single-device selection. The partials are
+    summed in fp32 and rounded once, as XLA's partitioner reduces a
+    dot's output before the cast."""
+    if tp_group is None or tp_group.size == 1:
+        return _proj(x, w, thresh, sp)
+    if sp.enabled and sp.mode == "group":
+        n = x.shape[-1]
+        xs = apply_sparsity(tp_group.all_gather(x, -1), thresh, sp).narrow(
+            -1, tp_group.index * n, n)
+    else:
+        xs = apply_sparsity(x, thresh, sp)
+    return tp_group.reduce_sum(_dense_f32(xs, w)).to(x.dtype)
+
+
+def check_sharded(params, cfg: ModelConfig, sp: SparsityConfig,
+                  s: int) -> None:
+    """Refuse what the sharded layer loop cannot run with single-device
+    semantics: the single-token kernels select over a rank's input
+    channels (block or gather mode, packed int4 weights), and a Mixtral
+    expert's group rule is not shard-local."""
+    lay = params["layers"]
+    if s == 1 and ((sp.enabled and sp.kernel != "masked_dense")
+                   or _is_int4_packed(lay["wq"])):
+        raise ValueError(
+            "single-token decode through the sparse kernels on a tp shard "
+            "selects over the rank's channels: run it through "
+            "parallel.tp_kernel.tp_kernel_decode, or use "
+            "kernel='masked_dense'")
+    if cfg.n_experts > 0 and sp.enabled and sp.mode == "group":
+        raise ValueError("a Mixtral expert's group rule is not shard-local "
+                         "on a tp shard: use mode='teal' or "
+                         "parallel.tp_kernel.tp_kernel_decode")
+
+
 def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
                   pos: torch.Tensor, cos, sin, cfg: ModelConfig,
                   sp: SparsityConfig, thresholds, capture: bool = False,
-                  fused_attn: bool = False, causal_prefill: bool = False):
+                  fused_attn: bool = False, causal_prefill: bool = False,
+                  tp_group=None, seq_group=None):
     """One transformer block of the layer loop. h: [B, S, D]; lp: this
     layer's parameters (a quantized weight is a dict of this layer's
     arrays); kc/vc: this layer's [B, Hkv, T, Dh] cache views,
@@ -251,6 +311,15 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
     (`can_fused_decode`); causal_prefill: the caller guarantees pos 0
     and an empty cache, so a prompt that `_can_flash_prefill` takes runs
     its attention through K6 over the fresh k/v (after the cache write).
+
+    tp_group (`parallel.mesh.AxisGroup`): lp and the caches hold this
+    rank's tensor-parallel shard (its heads and intermediate channels;
+    `parallel/tp.py`), and the o and down outputs are summed over the
+    group (`_rowwise`). seq_group: sequence-parallel prefill (the
+    reference's `seq_axis`, `parallel/sp.py`): h holds this rank's chunk
+    of the prompt at its global positions pos; the k/v chunks of the
+    group are gathered and written at the prompt's base, and the local
+    queries attend to the whole cache (never through K6).
 
     A single-token input with B <= 8 in block mode (or with packed int4
     weights, at keep 1.0 without block sparsity) takes the reference's
@@ -334,7 +403,7 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
             k = _proj(x, lp["wk"], t["k"], sp)
             v = _proj(x, lp["wv"], t["v"], sp)
         hkv = kc.shape[1]
-        q = q.reshape(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+        q = q.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
         k = k.reshape(b, s, hkv, cfg.head_dim).transpose(1, 2)
         v = v.reshape(b, s, hkv, cfg.head_dim).transpose(1, 2)
         q = apply_rope(q, cos, sin)
@@ -346,12 +415,18 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
                 v[:, :, 0].float().contiguous(), kc[None], vc[None], 0,
                 pos.to(torch.int32), window=cfg.sliding_window)[:, :, None]
         else:
-            rows = pos[:, None] + torch.arange(s, device=h.device)[None, :]
+            kw, vw, base = k, v, pos
+            if seq_group is not None:
+                kw, vw = (seq_group.all_gather(t.to(kc.dtype), 2)
+                          for t in (k, v))
+                base = pos - seq_group.index * s
+            rows = base[:, None] + torch.arange(
+                kw.shape[2], device=h.device)[None, :]
             for bi in range(b):
-                kc[bi].index_copy_(1, rows[bi], k[bi].to(kc.dtype))
-                vc[bi].index_copy_(1, rows[bi], v[bi].to(vc.dtype))
-            if causal_prefill and s > 1 and _can_flash_prefill(
-                    s, cfg.head_dim, cfg.sliding_window):
+                kc[bi].index_copy_(1, rows[bi], kw[bi].to(kc.dtype))
+                vc[bi].index_copy_(1, rows[bi], vw[bi].to(vc.dtype))
+            if causal_prefill and s > 1 and seq_group is None and \
+                    _can_flash_prefill(s, cfg.head_dim, cfg.sliding_window):
                 attn = _flash_prefill_attention(q, k.to(kc.dtype),
                                                 v.to(vc.dtype))
             else:
@@ -362,12 +437,13 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
         (o_out,) = blockproj(attn, ("o",), kf[3])
         h = h + o_out
     else:
-        h = h + _proj(attn, lp["wo"], t["o"], sp)
+        h = h + _rowwise(attn, lp["wo"], t["o"], sp, tp_group)
 
     if cfg.n_experts > 0:
         y = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)             # mlp h1
-        h = h + moe.moe_ffn(y, lp, cfg, sp, th_gu=t["gate"],
-                            th_down=t["down"])
+        out = moe.moe_ffn(y, lp, cfg, sp, th_gu=t["gate"], th_down=t["down"])
+        h = h + (out if tp_group is None or tp_group.size == 1
+                 else tp_group.reduce_sum(out))
         caps = ({"self_attn": {"h1": x, "h2": attn}, "mlp": {"h1": y}}
                 if capture else None)
         return h, kc, vc, caps
@@ -383,7 +459,7 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
         (d_out,) = blockproj(inter, ("down",), kf[6])
         h = h + d_out
     else:
-        h = h + _proj(inter, lp["wdown"], t["down"], sp)
+        h = h + _rowwise(inter, lp["wdown"], t["down"], sp, tp_group)
     caps = None
     if capture:
         caps = {"self_attn": {"h1": x, "h2": attn},
@@ -456,7 +532,7 @@ def compute_dtype(params) -> torch.dtype:
 def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             *, cfg: ModelConfig, sp: SparsityConfig,
             rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            causal_prefill: bool = False):
+            causal_prefill: bool = False, tp_group=None, seq_group=None):
     """Full forward. tokens: [B, S] int; pos: start position shared by the
     batch (int) or one per sequence (continuous batching: each row decodes
     at its own depth); thresholds: [L, 7] fp32 on the
@@ -470,6 +546,14 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
     keeps groups 0..cap-1 at every stage of the token path (K1's `fixed`
     selection) and is ignored on every other route, as in the reference.
 
+    tp_group / seq_group (`parallel.mesh.AxisGroup`): the sharded forward
+    (`parallel/tp.py`: params and cache are this rank's shards, the
+    logits gathered over the group) and sequence-parallel prefill
+    (`parallel/sp.py`: tokens are this rank's chunk at pos, the logits
+    gathered along S); see `layer_forward`. A sharded forward (a tp group
+    of more than one rank) takes neither the token path nor K2
+    (`check_sharded` says what it refuses).
+
     Returns (logits [B, S, V] fp32, cache)."""
     dev = tokens.device
     h = params["embed"][tokens].to(compute_dtype(params))
@@ -482,10 +566,14 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
     lay = params["layers"]
     block_path = ((sp.enabled and sp.kernel == "block")
                   or _is_int4_packed(lay["wq"]))
-    fused_attn = can_fused_decode(s, b, cfg, cache.max_seq, sp, block_path)
+    tp_size = 1 if tp_group is None else tp_group.size
+    if tp_size > 1:
+        check_sharded(params, cfg, sp, s)
+    fused_attn = seq_group is None and can_fused_decode(
+        s, b, cfg, cache.max_seq, sp, block_path, tp_size)
 
-    if can_token_decode(params, cfg, sp, s, b, cache.k.dtype,
-                        fused_attn=fused_attn):
+    if tp_size == 1 and seq_group is None and can_token_decode(
+            params, cfg, sp, s, b, cache.k.dtype, fused_attn=fused_attn):
         from teal_tpu_torch.ops import token_block
 
         if b == 1:
@@ -521,9 +609,16 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             h, _, _, _ = layer_forward(h, lp, cache.k[i], cache.v[i], pos_t,
                                        cos, sin, cfg, sp, thresholds[i],
                                        fused_attn=fused_attn,
-                                       causal_prefill=causal_prefill)
+                                       causal_prefill=causal_prefill,
+                                       tp_group=tp_group,
+                                       seq_group=seq_group)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _lm_head(params, h), cache
+    logits = _lm_head(params, h)
+    if tp_group is not None:
+        logits = tp_group.all_gather(logits, -1)
+    if seq_group is not None:
+        logits = seq_group.all_gather(logits, 1)
+    return logits, cache
 
 
 def _rope_rows(cos_full, sin_full, pos: torch.Tensor) -> torch.Tensor:
