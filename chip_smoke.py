@@ -229,9 +229,30 @@ Phases:
      heads and S = 2048 beside SDPA; each run's seconds and each rank's
      peak memory, and the tp 2 decode tok/s labelled as a number of 2
      ranks sharing one card through gloo, not a TP speed;
+ 16. the server on a tp group (`serving_tp_phase`, after phase 15): two
+     rank processes started as torchrun starts them on two nodes of one
+     rank each (RANK r, WORLD_SIZE 2, LOCAL_RANK 0, GROUP_RANK r,
+     MASTER_ADDR / MASTER_PORT), through `env://` and gloo, both on
+     cuda:0 from LOCAL_RANK (`p16_spawn`); on `global_mesh(tp=2)`
+     `ContinuousBatchingEngine(mesh=...)` at Llama-2-7B's widths and 32
+     layers in bf16 (4 slots; a one-shot server of a 300-token prompt,
+     padded to 512 and admitted through K6 on the rank's 16 heads, L
+     launches a rank, and three short ones; a chunked server,
+     `prefill_chunk=16`, of a 40-token prompt and a short one; 8 new
+     tokens each): launches counted around each server, every forward's
+     stream and every token bit-identical across ranks, the rank's cache
+     on 16 heads, the first decode step's logits within 2e-2 of scale of
+     the single-process server on the same weights (`p16_first_step`);
+     the same on a 2-layer fp32 cut, whose tokens must equal the single
+     process's; then the kernel-tp leg (`p15_tp_run` at tp 2 on the cut,
+     K1 and K2, held layer by layer); its seconds, peak GiB and tok/s
+     (labelled as 2 processes sharing one card); K6 timed at S 512 and 16
+     heads; and, on the resident 7B after phase 4, one main-path decode
+     step timed by `utils.bench_utils.bench_chained` (16 vs 64 steps)
+     beside `time_decode_step`'s reading (`p16_bench_step`);
 all printed as one `kernels` JSON line, with the card in it (and the
-results of phases 12-15 under "calibration", "speculative", "cli" and
-"parallel");
+results of phases 12-16 under "calibration", "speculative", "cli",
+"parallel" and "serving_tp");
 besides, one main-path
 decode step with every kernel swapped for its plain version is profiled
 ("decode_step_ms" "sparse, plain kernels").
@@ -4952,20 +4973,19 @@ def p15_rank(rank: int, world: int, init: str, out_dir: str, seed: int,
     torch.distributed.destroy_process_group()
 
 
-def p15_spawn(seed: int, device: str = "cuda:0", shrink=None):
-    """Phase 15's gloo group: P15_WORLD rank processes on `device`
-    (`p15_rank`). A rank that exits non-zero, or a group that outlives
-    P15_TIMEOUT_S, fails the phase, and every other rank is killed.
-    Returns each rank's results."""
+def run_group(target, arglists, out_dir: Path, timeout: float, what: str):
+    """A gloo group: one spawned process a rank running target(*args) for
+    each args of `arglists`, each rank writing rank<r>.json into out_dir.
+    A rank that exits non-zero, or a group that outlives `timeout`, fails
+    the phase, and every other rank is killed. Returns each rank's
+    results."""
     import multiprocessing
     import shutil
 
-    shutil.rmtree(P15_DIR, ignore_errors=True)
-    P15_DIR.mkdir(parents=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=p15_rank, args=(
-        r, P15_WORLD, str(P15_DIR / "init"), str(P15_DIR), seed, device,
-        shrink)) for r in range(P15_WORLD)]
+    procs = [ctx.Process(target=target, args=args) for args in arglists]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
@@ -4973,24 +4993,33 @@ def p15_spawn(seed: int, device: str = "cuda:0", shrink=None):
         while True:
             codes = [p.exitcode for p in procs]
             if any(c not in (None, 0) for c in codes):
-                raise SmokeFailure(f"phase 15: a rank failed (exit codes "
+                raise SmokeFailure(f"{what}: a rank failed (exit codes "
                                    f"{codes})")
             if all(c == 0 for c in codes):
                 break
-            if time.perf_counter() - t0 > P15_TIMEOUT_S:
-                raise SmokeFailure(f"phase 15: the ranks did not finish in "
-                                   f"{P15_TIMEOUT_S} s (exit codes {codes})")
+            if time.perf_counter() - t0 > timeout:
+                raise SmokeFailure(f"{what}: the ranks did not finish in "
+                                   f"{timeout} s (exit codes {codes})")
             time.sleep(0.5)
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
             p.join(30)
-    res = [json.loads((P15_DIR / f"rank{r}.json").read_text())
-           for r in range(P15_WORLD)]
-    log(f"[p15] the group of {P15_WORLD} ranks took "
+    res = [json.loads((out_dir / f"rank{r}.json").read_text())
+           for r in range(len(procs))]
+    log(f"[{what}] the group of {len(procs)} ranks took "
         f"{time.perf_counter() - t0:.1f} s")
     return res
+
+
+def p15_spawn(seed: int, device: str = "cuda:0", shrink=None):
+    """Phase 15's gloo group: P15_WORLD rank processes on `device`
+    (`p15_rank`, through `run_group`). Returns each rank's results."""
+    return run_group(p15_rank, [
+        (r, P15_WORLD, str(P15_DIR / "init"), str(P15_DIR), seed, device,
+         shrink) for r in range(P15_WORLD)], P15_DIR, P15_TIMEOUT_S,
+        "phase 15")
 
 
 def p15_nccl(device, seed, shrink=None):
@@ -5169,6 +5198,458 @@ def parallel_phase(device, gen, seed, card, shrink=None):
     return entries, dict(ranks=ranks, nccl=nccl, label=P15_LABEL)
 
 
+# --- phase 16: the server on a tp group, launched over two "nodes" ---------
+
+P16_WORLD = 2                    # two "nodes" of one rank each, both cuda:0
+P16_DEPTH = 32                   # layers of the bf16 server at 7B widths
+P16_CUT = 2                      # layers of the fp32 server and kernel-tp
+P16_SLOTS = 4
+P16_MAX_SEQ = 640
+P16_LONG = 300                   # tokens; padded to 512: K6 at admission
+P16_CHUNKED = 40                 # tokens, admitted under prefill_chunk=16
+P16_CHUNK = 16
+P16_SHORT = (5, 11, 17, 9)
+P16_NEW = 8                      # new tokens a request
+P16_LOGIT_TOL = 2e-2             # first decode step vs single process
+P16_TIMEOUT_S = 480              # the rank group, start-up included
+P16_DIR = ROOT / "build" / "chip_smoke_serving_tp"
+P16_BENCH = dict(n_short=16, n_long=64, reps=5)
+P16_LABEL = ("2 processes sharing one card through gloo, host-staged "
+             "collectives; not a TP speed")
+
+
+def p16_requests(cfg, seed):
+    """Phase 16's six seeded requests of P16_NEW tokens: the one-shot
+    server's (short, P16_LONG tokens, short, short) and the chunked
+    server's (short, P16_CHUNKED tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 16)
+
+    def req(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist(), P16_NEW
+
+    s = P16_SHORT
+    return ([req(s[0]), req(P16_LONG), req(s[1]), req(s[2])],
+            [req(s[3]), req(P16_CHUNKED)])
+
+
+@contextlib.contextmanager
+def p16_recording():
+    """Records, while open, the final-normed stream of every `forward`
+    (the input of `llama._lm_head`), the top two logits at every position
+    of every prompt forward, and the input tokens and logits of every
+    decode step (one token a slot)."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+
+    rec = dict(streams=[], prompts=[], decode=[])
+    head, fwd = llama._lm_head, llama.forward
+
+    def lm_head(params, h):
+        rec["streams"].append(h.clone())
+        return head(params, h)
+
+    def forward(params, tokens, *a, **k):
+        out = fwd(params, tokens, *a, **k)
+        if tokens.shape[1] == 1:
+            rec["decode"].append((tokens.clone(), out[0].clone()))
+        else:
+            rec["prompts"].append(torch.topk(out[0][0], 2, dim=-1).values)
+        return out
+
+    llama._lm_head, llama.forward = lm_head, forward
+    try:
+        yield rec
+    finally:
+        llama._lm_head, llama.forward = head, fwd
+
+
+def p16_serve(cfg, params, device, mesh, subs, chunk):
+    """Serve `subs` to their end: (each request's tokens, seconds, the
+    engine)."""
+    from teal_tpu_torch.engine import ContinuousBatchingEngine
+    from teal_tpu_torch.models import llama
+
+    eng = ContinuousBatchingEngine(
+        cfg, params, slots=P16_SLOTS, max_seq=P16_MAX_SEQ,
+        cache_dtype=llama.compute_dtype(params), prefill_chunk=chunk,
+        device=device, mesh=mesh)
+    for prompt, n in subs:
+        eng.submit(prompt, n)
+    _p15_sync(device)
+    t0 = time.perf_counter()
+    done = eng.run()
+    _p15_sync(device)
+    secs = time.perf_counter() - t0
+    outs = [r.out for r in sorted(done, key=lambda r: r.id)]
+    check([len(o) for o in outs] == [n for _, n in subs],
+          f"served {[len(o) for o in outs]} tokens, expected "
+          f"{[n for _, n in subs]}")
+    return outs, secs, eng
+
+
+def p16_first_step(rec, ref):
+    """The first decode step of the one-shot server on the tp group (`rec`)
+    against the single process's (`ref`): the largest error relative to
+    the scale of the single process's logits, over the slots whose input
+    tokens agree, and how many agree."""
+    (tok, got), (rtok, want) = rec["decode"][0], ref["decode"][0]
+    same = (tok == rtok).reshape(-1)
+    if not bool(same.any()):
+        return None, 0
+    scale = float(want[same].abs().max())
+    return float((got[same] - want[same]).abs().max()) / scale, \
+        int(same.sum())
+
+
+def p16_hold(shard, full, cfg, mesh, eng, one, rec, device):
+    """The tp server's layers held to the single process's on the same
+    input, one layer at a time (on tp rank 0, which holds the whole
+    weights `full`; both ranks run the sharded layer, and each layer's
+    next input is the single process's output, broadcast): the long
+    prompt's admission prefill (`causal_prefill`, K6 on the rank's heads
+    against K6 on every head; the layer output and the cache rows it
+    writes, gathered over the heads), then the one-shot server's first
+    decode step (slot b holds request b at pos len(prompt b), its cache
+    as the engine left it, gathered; the layer output), then the head.
+    Each within P16_LOGIT_TOL of scale. Returns the worst errors
+    relative to scale."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine.generate import _pad_len
+    from teal_tpu_torch.models import llama
+
+    g = mesh.group("tp")
+    sp = SparsityConfig()
+    th = llama.zero_thresholds(cfg, device)
+    dt = llama.compute_dtype(shard)
+    worst = dict(prefill=0.0, decode=0.0, head=0.0)
+
+    def layer(tree, i):
+        return {k: llama._leaf(v, lambda a: a[i])
+                for k, v in tree["layers"].items()}
+
+    def held(what, pairs):
+        for name, got, want in pairs:
+            err = rel_check(f"{what} {name}: tp 2 vs one process", got, want,
+                            P16_LOGIT_TOL)
+            scale = float(want.float().abs().max())
+            key = what.split()[0]
+            worst[key] = max(worst[key], err / scale if scale else 0.0)
+
+    prompt = one[1][0]
+    S = _pad_len(len(prompt))
+    toks = torch.zeros((1, S), dtype=torch.long, device=device)
+    toks[0, :len(prompt)] = torch.tensor(prompt, device=device)
+    cos_t, sin_t = llama.precompute_rope(cfg, S, device)
+    at = torch.arange(S, device=device)[None]
+    pos0 = torch.zeros(1, dtype=torch.long, device=device)
+    h = shard["embed"][toks].to(dt)
+    Dh, H = cfg.head_dim, cfg.n_kv_heads
+    for i in range(cfg.n_layers):
+        kc, vc = (torch.zeros((1, H // g.size, S, Dh), dtype=dt,
+                              device=device) for _ in range(2))
+        out, kc, vc, _ = llama.layer_forward(
+            h, layer(shard, i), kc, vc, pos0, cos_t[at], sin_t[at], cfg, sp,
+            th[i], causal_prefill=True, tp_group=g)
+        kg, vg = g.all_gather(kc, 1), g.all_gather(vc, 1)
+        ref = torch.empty_like(out)
+        if full is not None:
+            kr, vr = (torch.zeros((1, H, S, Dh), dtype=dt, device=device)
+                      for _ in range(2))
+            ref, kr, vr, _ = llama.layer_forward(
+                h, layer(full, i), kr, vr, pos0, cos_t[at], sin_t[at], cfg,
+                sp, th[i], causal_prefill=True)
+            held(f"prefill layer {i}", (("output", out, ref), ("k", kg, kr),
+                                        ("v", vg, vr)))
+        h = g.broadcast(ref, 0)
+
+    pos = torch.tensor([len(p) for p, _ in one], device=device)
+    T = int(pos.max()) + 1
+    cos_t, sin_t = llama.precompute_rope(cfg, T, device)
+    cos, sin = cos_t[pos[:, None]], sin_t[pos[:, None]]
+    h = shard["embed"][rec["decode"][0][0]].to(dt)
+    for i in range(cfg.n_layers):
+        kc = eng.cache.k[i, :, :, :T].clone()
+        vc = eng.cache.v[i, :, :, :T].clone()
+        kg, vg = g.all_gather(kc, 1), g.all_gather(vc, 1)
+        out, _, _, _ = llama.layer_forward(h, layer(shard, i), kc, vc, pos,
+                                           cos, sin, cfg, sp, th[i],
+                                           tp_group=g)
+        ref = torch.empty_like(out)
+        if full is not None:
+            ref, _, _, _ = llama.layer_forward(h, layer(full, i), kg, vg, pos,
+                                               cos, sin, cfg, sp, th[i])
+            held(f"decode layer {i}", (("output", out, ref),))
+        h = g.broadcast(ref, 0)
+    logits = g.all_gather(llama._lm_head(shard, llama.rms_norm(
+        h, shard["final_norm"], cfg.norm_eps)), -1)
+    if full is not None:
+        held("head", (("logits", logits, llama._lm_head(full, llama.rms_norm(
+            h, full["final_norm"], cfg.norm_eps))),))
+    return worst
+
+
+def p16_serve_run(what, cfg, mesh, seed, device, dtype, exact: bool):
+    """The server on the tp group at `cfg` (weights drawn a layer at a
+    time from the seed, this rank's shards): the one-shot and the chunked
+    server, their launches counted around each run (K6 once a layer for
+    the long prompt, nothing else), the cache on n_kv_heads / tp heads,
+    every forward's stream and every request's tokens the same on every
+    rank bit for bit; the layers held to the single process's on the same
+    inputs (`p16_hold`); then on tp rank 0 the single-process servers on
+    the whole weights: with `exact`, the same tokens and the first decode
+    step's logits within P16_LOGIT_TOL of scale (in bf16 both are
+    measured: rounding at other points compounds over the layers)."""
+    import torch
+
+    g = mesh.group("tp")
+    L = cfg.n_layers
+    card = device.type == "cuda"
+    one, chunked = p16_requests(cfg, seed)
+    _p15_peak(device, reset=True)
+    t0 = time.perf_counter()
+    params = p15_model(cfg, mesh, seed, device, dtype=dtype)
+    build_s = time.perf_counter() - t0
+    res = dict(layers=L, dtype=str(dtype).split(".")[-1], build_s=build_s)
+    with p16_recording() as rec:
+        reset_launches()
+        outs1, s1, eng1 = p16_serve(cfg, params, device, mesh, one, None)
+        res["launches"] = list(read_launches())
+        reset_launches()
+        outs2, s2, eng2 = p16_serve(cfg, params, device, mesh, chunked,
+                                    P16_CHUNK)
+        res["chunked_launches"] = list(read_launches())
+    want = (0, 0, 0, 0, 0, L if card else 0)
+    check(tuple(res["launches"]) == want, f"{what}: the one-shot server "
+          f"launched (K1, K2, K3, K4, K5, K6) {res['launches']}, expected "
+          f"{want}")
+    check(tuple(res["chunked_launches"]) == (0,) * 6, f"{what}: the chunked "
+          f"server launched {res['chunked_launches']}, expected none")
+    heads = cfg.n_kv_heads // g.size
+    for eng in (eng1, eng2):
+        check(eng.cache.k.shape[2] == heads, f"{what}: the rank's cache has "
+              f"{eng.cache.k.shape[2]} heads, expected {heads}")
+    res["peak_gib"] = _p15_peak(device)
+    for i, t in enumerate(rec["streams"]):
+        check(all(torch.equal(p, t) for p in g.parts(t)),
+              f"{what}: forward {i}'s stream differs between ranks")
+    flat = torch.tensor([t for o in outs1 + outs2 for t in o], device=device)
+    check(all(torch.equal(p, flat) for p in g.parts(flat)),
+          f"{what}: the sampled tokens differ between ranks")
+    n_new = sum(len(o) for o in outs1 + outs2)
+    res.update(seconds_oneshot=s1, seconds_chunked=s2,
+               tok_s=n_new / (s1 + s2), streams=len(rec["streams"]),
+               outs=outs1 + outs2)
+    full = (p15_model(cfg, None, seed, device, dtype=dtype)
+            if g.index == 0 else None)
+    t1 = time.perf_counter()
+    res["hold_rel"] = p16_hold(params, full, cfg, mesh, eng1, one, rec,
+                               device)
+    res["hold_s"] = time.perf_counter() - t1
+    del params, eng1, eng2
+    if card:
+        torch.cuda.empty_cache()
+    if full is not None:
+        with p16_recording() as ref:
+            souts1, ss1, _ = p16_serve(cfg, full, device, None, one, None)
+            souts2, ss2, _ = p16_serve(cfg, full, device, None, chunked,
+                                       P16_CHUNK)
+        agree = sum(a == b for o, so in zip(outs1 + outs2, souts1 + souts2)
+                    for a, b in zip(o, so))
+        err, rows = p16_first_step(rec, ref)
+        res.update(single_tok_s=n_new / (ss1 + ss2), tokens_agree=agree,
+                   tokens=n_new, first_step_rel_err=err,
+                   first_step_rows=rows)
+        log(f"[p16] {what}: {agree} of {n_new} tokens as in one process; "
+            f"the first decode step {err if err is None else f'{err:.2e}'} "
+            f"of scale over {rows} slots; "
+            "layers held to one process (worst, of scale): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in res["hold_rel"].items()))
+        if exact:
+            check(outs1 + outs2 == souts1 + souts2, f"{what}: tokens "
+                  f"{outs1 + outs2} on the tp group, {souts1 + souts2} in "
+                  "one process")
+            check(err is not None and err <= P16_LOGIT_TOL, f"{what}: the "
+                  f"first decode step's logits are {err} of scale from the "
+                  "single process's")
+        del full, ref
+        if card:
+            torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def p16_rank(rank: int, env: dict, out_dir: str, seed: int,
+             device: str = "cuda", shrink=None) -> None:
+    """A rank of phase 16's group, started as torchrun starts a rank on
+    its own node (`env`: RANK, WORLD_SIZE, LOCAL_RANK 0, ...), through
+    `env://`: the bf16 server at P16_DEPTH layers, the fp32 server on a
+    P16_CUT-layer cut, then the kernel-tp leg (`p15_tp_run`) on the same
+    cut, then its results as JSON in out_dir. Runs in a process
+    `p16_spawn` started."""
+    import torch
+
+    os.environ.update(env)
+    sys.path.insert(0, str(ROOT))
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.config import get_model_config
+    from teal_tpu_torch.parallel import global_mesh, initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = initialize_distributed(backend="gloo", device=device,
+                                 timeout=P16_TIMEOUT_S)
+    import torch.distributed.distributed_c10d as c10d
+
+    check(c10d._default_pg_init_method == "env://" and
+          torch.distributed.get_rank() == rank,
+          f"rank {rank} started through {c10d._default_pg_init_method}")
+    if dev.type == "cuda":
+        check(dev == torch.device("cuda", 0), f"rank {rank} on {dev}: "
+              "LOCAL_RANK is 0 on every node")
+        _build.load()
+    mesh = global_mesh(tp=P16_WORLD)
+    b7 = get_model_config("7B", **(shrink or {}))
+    rep = dataclasses.replace
+    cut = rep(b7, n_layers=P16_CUT)
+    out = dict(device=str(dev), env={k: os.environ[k] for k in env})
+    out["serve"] = p16_serve_run("tp2 server 7B bf16",
+                                 rep(b7, n_layers=P16_DEPTH), mesh, seed,
+                                 dev, torch.bfloat16, exact=False)
+    out["serve_fp32"] = p16_serve_run("tp2 server 7B fp32 cut", cut, mesh,
+                                      seed, dev, torch.float32, exact=True)
+    out["kernel_tp"] = p15_tp_run("p16 kernel-tp tp2 7B", cut, mesh, seed,
+                                  dev, prompt=P15_CUT_PROMPT,
+                                  steps=P15_CUT_STEPS)
+    for name in ("serve", "serve_fp32", "kernel_tp"):
+        log(f"[p16 r{rank}] {name}: {out[name]['seconds']:.1f} s, peak "
+            f"{out[name]['peak_gib']:.2f} GiB")
+    tmp = Path(out_dir) / f"rank{rank}.json.tmp"
+    tmp.write_text(json.dumps(out))
+    tmp.rename(Path(out_dir) / f"rank{rank}.json")
+    torch.distributed.destroy_process_group()
+
+
+def p16_spawn(seed: int, device: str = "cuda", shrink=None):
+    """Phase 16's group: P16_WORLD ranks as torchrun starts them on as many
+    nodes of one rank each (RANK r, WORLD_SIZE, LOCAL_RANK 0,
+    LOCAL_WORLD_SIZE 1, GROUP_RANK r, MASTER_ADDR 127.0.0.1 and a free
+    MASTER_PORT), through `run_group`."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    envs = [dict(RANK=str(r), WORLD_SIZE=str(P16_WORLD), LOCAL_RANK="0",
+                 LOCAL_WORLD_SIZE="1", GROUP_RANK=str(r),
+                 GROUP_WORLD_SIZE=str(P16_WORLD), ROLE_RANK=str(r),
+                 ROLE_WORLD_SIZE=str(P16_WORLD), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port)) for r in range(P16_WORLD)]
+    return run_group(p16_rank, [(r, envs[r], str(P16_DIR), seed, device,
+                                 shrink) for r in range(P16_WORLD)],
+                     P16_DIR, P16_TIMEOUT_S, "phase 16")
+
+
+def p16_bench_step(params, cfg, th, device, rope, step):
+    """One main-path decode step (the token path at pos 40, phase 4's
+    thresholds `th`) timed by `bench_chained` (each step's token the
+    argmax of the step before, the thresholds the carry's float leaf),
+    beside `time_decode_step`'s reading `step`; its launches counted
+    around it (4*L K1 and L K2 a step)."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.utils.bench_utils import bench_chained
+
+    sp = SparsityConfig(**MAIN_SP)
+    cache = llama.KVCache.init(cfg, 1, MAX_SEQ, llama.compute_dtype(params),
+                               device)
+
+    def one(c):
+        logits, _ = llama.forward(params, c["tok"], cache, 40, c["th"],
+                                  cfg=cfg, sp=sp, rope=rope)
+        return {"tok": torch.argmax(logits[:, -1:], dim=-1), "th": c["th"]}
+
+    reset_launches()
+    s = bench_chained(one, {"tok": torch.full((1, 1), 7, device=device),
+                            "th": th}, **P16_BENCH)
+    counts = read_launches()
+    n = (P16_BENCH["n_short"] + P16_BENCH["n_long"]) * (P16_BENCH["reps"]
+                                                         + 1)
+    L = cfg.n_layers
+    want = (4 * L * n, L * n, 0, 0, 0, 0) if device.type == "cuda" \
+        else (0,) * 6
+    check(counts == want, f"bench_chained's steps launched {counts}, "
+          f"expected {want}")
+    ref = step["sparse"]
+    log(f"[p16] bench_chained: one main-path decode step {s * 1e3:.4f} ms "
+        f"(median slope of {P16_BENCH['n_long']} vs {P16_BENCH['n_short']} "
+        f"host-loop steps, {P16_BENCH['reps']} pairs; includes the host's "
+        f"launches); time_decode_step: wall {ref['wall_ms']:.4f} ms, device "
+        f"{ref['device_ms']:.4f} ms")
+    return dict(ms=s * 1e3, time_decode_step_wall_ms=ref["wall_ms"],
+                time_decode_step_device_ms=ref["device_ms"],
+                launches=list(counts), **P16_BENCH)
+
+
+def serving_tp_phase(device, gen, seed, card, p_entries, bench, shrink=None):
+    """Phase 16: the group of `p16_spawn` (the tp 2 server at 7B widths,
+    bf16 at P16_DEPTH layers and fp32 on a cut, then the kernel-tp leg),
+    then K6 alone at the server's admission shape (S 512, 16 heads).
+    p_entries: phase 15's kernels entries, whose K1 / K2 tp 2 times stand
+    beside this phase's kernel-tp launches. Returns (kernels entries,
+    results)."""
+    import torch
+
+    from teal_tpu_torch.ops.flash_prefill import (
+        flash_prefill_attention, flash_prefill_attention_plain)
+
+    ranks = p16_spawn(seed, "cuda" if device.type == "cuda" else "cpu",
+                      shrink)
+    r0 = ranks[0]
+    for name in ("serve", "serve_fp32", "kernel_tp"):
+        peaks = [round(r[name]["peak_gib"], 2) for r in ranks]
+        res = r0[name]
+        log(f"[p16] {name} ({res['layers']} layers): {res['seconds']:.1f} s on "
+            f"rank 0, peak GiB a rank {peaks}; launches (K1, K2, K3, K4, K5, "
+            f"K6) a rank: {res['launches']}"
+            + (f", chunked {res['chunked_launches']}"
+               if "chunked_launches" in res else ""))
+    for name in ("serve", "serve_fp32"):
+        res = r0[name]
+        log(f"[p16] {name}: {res['tok_s']:.2f} tok/s on the tp 2 group "
+            f"({P16_LABEL}), {res['single_tok_s']:.2f} tok/s in one process; "
+            f"{card}")
+    entries = []
+    launches = r0["serve"]["launches"][5]
+    if device.type == "cuda":
+        q, k, v = k6_inputs(512, 16, 16, gen, device, torch.bfloat16)
+        err, _ = row_check("K6 S=512 Hq=Hkv=16", flash_prefill_attention(
+            q, k, v), flash_prefill_attention_plain(q, k, v),
+            K6_BF16_ROW_TOL)
+        entries.append(time_k6(
+            device, gen, launches, 1, err, seqs=(512,), heads=((16, 16),),
+            name="flash_prefill_attention[p16 server tp2: 16 heads, S 512]"))
+        ktp = r0["kernel_tp"]
+        for e in p_entries:
+            if e["name"] in ("select_gather_gemv[tp2 shard]",
+                             "decode_attention[tp2: 16 heads]"):
+                i = 0 if e["name"].startswith("select") else 1
+                entries.append(dict(
+                    e, name=e["name"].replace("[", "[p16 kernel-tp, "),
+                    launches=ktp["launches"][i],
+                    launches_per_token=ktp["launches"][i] / ktp["steps"],
+                    timed=e.get("timed", "") + "; times of phase 15 in this "
+                    "run, launches of phase 16's kernel-tp leg (2 layers), a "
+                    "rank"))
+    return entries, dict(ranks=ranks, bench=bench, label=P16_LABEL)
+
+
 def main() -> int:
     import torch
 
@@ -5228,6 +5709,7 @@ def main() -> int:
         step.update(time_decode_step(
             params, cfg, [("sparse, plain kernels", MAIN_SP, 1, th)],
             device, rope))
+    bench = p16_bench_step(params, cfg, th, device, rope, step)
     line = time_kernels(params, cfg, caps, device, gen, rope, launches,
                         (e1, e2))
     line["kernels"] += time_loop_kernels(params, cfg, device, gen, loop,
@@ -5259,6 +5741,9 @@ def main() -> int:
     line["kernels"] += m_entries
     p_entries, line["parallel"] = parallel_phase(device, gen, seed, card)
     line["kernels"] += p_entries
+    s_entries, line["serving_tp"] = serving_tp_phase(device, gen, seed, card,
+                                                     p_entries, bench)
+    line["kernels"] += s_entries
     line["card"] = card
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line), flush=True)

@@ -21,6 +21,18 @@ the same tokens as one-shot admission.
 
 Sampling draws from an explicit `torch.Generator` (temperature > 0);
 temperature 0 is greedy argmax. The cache is updated in place.
+
+On a tensor-parallel group (`mesh=`, the counterpart of the reference
+engine run on `tp.shard_params` trees and a `tp.shard_cache` cache) the
+params are this rank's shards, every `forward` runs the sharded layer
+loop on the group, and the cache and every admission sub-cache hold only
+the rank's n_kv_heads / tp heads. Every rank runs this same host loop on
+the same submissions, as the reference's SPMD host code does; the logits
+reach every rank by the rank-ordered gather, so greedy tokens agree, and
+at temperature > 0 each rank's generator, seeded alike (the default
+seeds 0), draws the same tokens in the same order. The sharded forward
+refuses what `llama.check_sharded` refuses (a decode step through the
+sparse single-token kernels raises at the first step).
 """
 
 from __future__ import annotations
@@ -50,14 +62,29 @@ class Request:
 
 
 class ContinuousBatchingEngine:
+    """The server. mesh: a `parallel.mesh.Mesh` whose one split axis is
+    "tp" (`make_mesh(tp=n)`, `make_tp_mesh(n)`); `params` are then this
+    rank's shards (`parallel.tp.shard_params`)."""
+
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_seq: int = 2048, sp: SparsityConfig = SparsityConfig(),
                  thresholds: Optional[torch.Tensor] = None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  eos_id: Optional[int] = None, cache_dtype=torch.bfloat16,
                  prefill_chunk: Optional[int] = None, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         self.device = llama._device(device)
+        self.tp_group = None
+        if mesh is not None:
+            if not mesh.member:
+                raise ValueError("this rank is not in the server's mesh")
+            wide = {a: n for a, n in mesh.shape.items()
+                    if a != "tp" and n > 1}
+            if wide:
+                raise ValueError(f"the server shards over tp only; the mesh "
+                                 f"also splits {wide}")
+            self.tp_group = mesh.group("tp")
+        self.tp = 1 if self.tp_group is None else self.tp_group.size
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -72,7 +99,7 @@ class ContinuousBatchingEngine:
         self.generator = (generator if generator is not None else
                           torch.Generator(self.device).manual_seed(0))
         self.cache = KVCache.init(cfg, slots, max_seq, cache_dtype,
-                                  self.device)
+                                  self.device, tp=self.tp)
         self.rope = llama.precompute_rope(cfg, max_seq, self.device)
         self.prefill_sp = sp if sp.apply_prefill else sp.replace(enabled=False)
 
@@ -142,13 +169,14 @@ class ContinuousBatchingEngine:
         tokens = torch.from_numpy(self.cur[:, None]).to(self.device)
         logits, _ = llama.forward(self.params, tokens, self.cache, self.pos,
                                   self.thresholds, cfg=self.cfg, sp=self.sp,
-                                  rope=self.rope)
+                                  rope=self.rope, tp_group=self.tp_group)
         return self._sample(logits[:, 0]).cpu().numpy()
 
     def _sub_cache(self, length: int) -> KVCache:
-        """A batch-1 cache of `length` positions for one admission."""
+        """A batch-1 cache of `length` positions (the rank's heads) for one
+        admission."""
         return KVCache.init(self.cfg, 1, length, self.cache.k.dtype,
-                            self.device)
+                            self.device, tp=self.tp)
 
     def _scatter_slot(self, sub: KVCache, slot: int) -> None:
         """Copy a sub-cache into positions [0, its length) of `slot`."""
@@ -181,7 +209,8 @@ class ContinuousBatchingEngine:
                                                                   pad),
                                         sub, 0, self.thresholds,
                                         cfg=self.cfg, sp=self.prefill_sp,
-                                        causal_prefill=True)
+                                        causal_prefill=True,
+                                        tp_group=self.tp_group)
             self._scatter_slot(sub, b)
             self._activate(b, req, int(self._sample(logits[:, t - 1])[0]))
 
@@ -209,7 +238,8 @@ class ContinuousBatchingEngine:
         i = p["chunk"]
         logits, p["sub"] = llama.forward(
             self.params, p["tokens"][:, i * C:(i + 1) * C], p["sub"], i * C,
-            self.thresholds, cfg=self.cfg, sp=self.prefill_sp)
+            self.thresholds, cfg=self.cfg, sp=self.prefill_sp,
+            tp_group=self.tp_group)
         p["chunk"] = i + 1
         if p["chunk"] < p["n_chunks"]:
             return

@@ -109,9 +109,15 @@ class KVCache(NamedTuple):
 
     @classmethod
     def init(cls, cfg: ModelConfig, batch: int, max_seq: int,
-             dtype=torch.bfloat16, device="cuda"):
+             dtype=torch.bfloat16, device="cuda", tp: int = 1):
+        """A zero cache; with tp > 1 a tensor-parallel rank's block of it
+        (n_kv_heads / tp heads), allocated at that size."""
         device = _device(device)
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+        if cfg.n_kv_heads % tp:
+            raise ValueError(f"n_kv_heads={cfg.n_kv_heads} not divisible by "
+                             f"tp={tp}")
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads // tp, max_seq,
+                 cfg.head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -532,7 +538,8 @@ def compute_dtype(params) -> torch.dtype:
 def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             *, cfg: ModelConfig, sp: SparsityConfig,
             rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            causal_prefill: bool = False, tp_group=None, seq_group=None):
+            causal_prefill: bool = False, tp_group=None, seq_group=None,
+            return_hidden: bool = False):
     """Full forward. tokens: [B, S] int; pos: start position shared by the
     batch (int) or one per sequence (continuous batching: each row decodes
     at its own depth); thresholds: [L, 7] fp32 on the
@@ -554,7 +561,11 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
     of more than one rank) takes neither the token path nor K2
     (`check_sharded` says what it refuses).
 
-    Returns (logits [B, S, V] fp32, cache)."""
+    return_hidden: return the final-normed hidden state [B, S, dim] (in
+    the activation type, the same on every rank of a tp group) in place
+    of the logits, on every route.
+
+    Returns (logits [B, S, V] fp32 or the hidden state, cache)."""
     dev = tokens.device
     h = params["embed"][tokens].to(compute_dtype(params))
     b, s = tokens.shape
@@ -613,12 +624,15 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
                                        tp_group=tp_group,
                                        seq_group=seq_group)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = _lm_head(params, h)
-    if tp_group is not None:
-        logits = tp_group.all_gather(logits, -1)
+    if return_hidden:
+        out = h
+    else:
+        out = _lm_head(params, h)
+        if tp_group is not None:
+            out = tp_group.all_gather(out, -1)
     if seq_group is not None:
-        logits = seq_group.all_gather(logits, 1)
-    return logits, cache
+        out = seq_group.all_gather(out, 1)
+    return out, cache
 
 
 def _rope_rows(cos_full, sin_full, pos: torch.Tensor) -> torch.Tensor:

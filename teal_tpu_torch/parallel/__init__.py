@@ -16,11 +16,11 @@ from teal_tpu_torch.parallel.tp_kernel import (make_tp_mesh, tp_kernel_decode,
                                                tp_prefill)
 from teal_tpu_torch.parallel.distributed import (global_mesh,
                                                  initialize_distributed,
-                                                 is_primary)
+                                                 is_primary, local_card)
 
 __all__ = ["make_mesh", "shard_params", "shard_cache", "param_specs",
            "make_pp_mesh", "pp_forward", "pp_shard_cache", "pp_shard_params",
            "make_sp_mesh", "sp_prefill", "make_tp_mesh",
            "tp_kernel_decode", "tp_prefill", "sharded_forward",
            "pp_param_specs", "initialize_distributed", "global_mesh",
-           "is_primary", "Mesh", "AxisGroup"]
+           "is_primary", "local_card", "Mesh", "AxisGroup"]

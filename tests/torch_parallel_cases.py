@@ -5,7 +5,12 @@ from a seed, so that the JAX package and the port get the same weights.
 `Ranks` starts a group of real gloo ranks on the CPU (one spawned
 process a rank, started by the port's `initialize_distributed` from
 torchrun's RANK / WORLD_SIZE and `init_method="file://..."`, so that no
-port is taken; one thread a rank) that runs every case of a test module once; a case is a
+port is taken; one thread a rank) that runs every case of a test module
+once. With `nodes=n` it starts them as torchrun does on n nodes instead
+(`torchrun_env`: RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
+GROUP_RANK, MASTER_ADDR = 127.0.0.1 and a free MASTER_PORT), and each
+rank calls `initialize_distributed()` with no arguments, so the group
+starts through `env://`. A case is a
 function of this module run on every rank, which returns a dict of
 numpy arrays (an exception is the case's result: `{"error": "Type:
 message"}`). A module starts its group in its fixture, computes its JAX
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import json
 import multiprocessing
+import socket
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -122,8 +128,28 @@ def _np(t) -> np.ndarray:
 
 # --- the rank group ---------------------------------------------------------
 
+def free_port() -> int:
+    """A TCP port of 127.0.0.1 that nothing listens on (just now)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_env(rank: int, world: int, nodes: int, port: int) -> dict:
+    """The variables torchrun sets for `rank` of `world` ranks launched
+    node by node over `nodes` nodes (`--nnodes nodes --nproc-per-node
+    world/nodes`), node 0 the rendezvous host at 127.0.0.1:port."""
+    per = world // nodes
+    return dict(RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_RANK=str(rank % per), LOCAL_WORLD_SIZE=str(per),
+                GROUP_RANK=str(rank // per), GROUP_WORLD_SIZE=str(nodes),
+                ROLE_RANK=str(rank), ROLE_WORLD_SIZE=str(world),
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
 def _rank_main(rank: int, world: int, init_file: str, spec_path: str,
-               out_dir: str) -> None:
+               out_dir: str, env=None, timeout: float = RANK_TIMEOUT_S
+               ) -> None:
     import os
 
     import torch
@@ -132,10 +158,16 @@ def _rank_main(rank: int, world: int, init_file: str, spec_path: str,
     from teal_tpu_torch.parallel import initialize_distributed
 
     torch.set_num_threads(1)
-    # torchrun's variables, read by initialize_distributed
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank))
-    initialize_distributed(init_method=f"file://{init_file}", device="cpu")
+    if env is not None:
+        # torchrun's variables of a launch over nodes: env://
+        os.environ.update(env)
+        initialize_distributed(device="cpu", timeout=timeout)
+    else:
+        # torchrun's variables, read by initialize_distributed
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank))
+        initialize_distributed(init_method=f"file://{init_file}",
+                               device="cpu")
     spec = json.loads(Path(spec_path).read_text())
     arrays = {}
     for case, (fn, kwargs) in spec.items():
@@ -153,10 +185,12 @@ def _rank_main(rank: int, world: int, init_file: str, spec_path: str,
 
 class Ranks:
     """A group of `world` gloo ranks running `cases` ({case: (function
-    name in this module, kwargs)}) in order, every case on every rank."""
+    name in this module, kwargs)}) in order, every case on every rank;
+    nodes: start them as torchrun does on that many nodes, through
+    `env://` (else through a `file://` rendezvous)."""
 
     def __init__(self, world: int, cases: Dict[str, tuple], out_dir,
-                 timeout: float = RANK_TIMEOUT_S):
+                 timeout: float = RANK_TIMEOUT_S, nodes=None):
         self.out_dir = Path(out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.cases = cases
@@ -164,10 +198,13 @@ class Ranks:
         spec = self.out_dir / "cases.json"
         spec.write_text(json.dumps({k: list(v) for k, v in cases.items()}))
         ctx = multiprocessing.get_context("spawn")
+        port = free_port() if nodes else None
         self.procs = [ctx.Process(
             target=_rank_main,
             args=(r, world, str(self.out_dir / "init"), str(spec),
-                  str(self.out_dir)), daemon=True) for r in range(world)]
+                  str(self.out_dir),
+                  torchrun_env(r, world, nodes, port) if nodes else None,
+                  timeout), daemon=True) for r in range(world)]
         self.t0 = time.monotonic()
         for p in self.procs:
             p.start()
@@ -485,4 +522,252 @@ def dist_probe():
             out[f"err/{what}"] = np.array("")
         except ValueError as e:
             out[f"err/{what}"] = np.array(f"ValueError: {e}")
+    return out
+
+
+# --- cases: the server on a tp group (engine/serving.py) -------------------
+
+def _serve(cfg, params, submissions, mesh=None, **kw):
+    """A port server (fp32, CPU) on `params` (this rank's shards where a
+    mesh is given), every submission [prompt, new tokens] run to its end:
+    {out<id>: tokens} and the shapes of the caches it allocated."""
+    import torch
+
+    from teal_tpu_torch.engine import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model_config(cfg), params, mesh=mesh,
+                                   cache_dtype=torch.float32, device="cpu",
+                                   **kw)
+    subs, make_sub = [], eng._sub_cache
+
+    def sub_cache(n):
+        sub = make_sub(n)
+        subs.append(tuple(sub.k.shape))
+        return sub
+
+    eng._sub_cache = sub_cache
+    for prompt, n in submissions:
+        eng.submit(prompt, n)
+    out = {f"out{r.id}": np.array(r.out) for r in eng.run()}
+    out["cache_shape"] = np.array(eng.cache.k.shape)
+    out["sub_shapes"] = np.array(subs)
+    return out
+
+
+def serve_tp(cfg, seed, tp, submissions, slots=2, max_seq=32,
+             prefill_chunk=None, temperature=0.0, sp=None, th=None,
+             single=False):
+    """The server on a ("dp", "tp") mesh of ranks 0..tp-1 (dp 1): every
+    request's tokens on every rank, the shapes of the rank's cache and
+    admission sub-caches, and the q shapes of every K6 call (plain on
+    the CPU); with `single`, rank 0 also runs the single-process server
+    on the full params ("single_" keys). A decode step the sharded
+    forward refuses is the case's result: "raised", with the steps done
+    and the tokens out before it."""
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.parallel import make_mesh, tp as tpm
+
+    mesh = make_mesh(tp=tp, ranks=range(tp))
+    c = model_config(cfg)
+    params = port_params(cfg, seed)
+    local = tpm.shard_params(params, mesh, c)
+    if not mesh.member:
+        return {}
+    kw = dict(slots=slots, max_seq=max_seq, prefill_chunk=prefill_chunk,
+              temperature=temperature, sp=_sparsity(sp),
+              thresholds=_thresholds(cfg, th))
+    k6, real = [], llama.flash_prefill_attention
+
+    def counting(q, k, v, *a, **k2):
+        k6.append(tuple(q.shape))
+        return real(q, k, v, *a, **k2)
+
+    llama.flash_prefill_attention = counting
+    try:
+        if sp is not None and sp.get("kernel") == "block":
+            return _serve_refused(c, local, submissions, mesh, kw)
+        out = _serve(cfg, local, submissions, mesh, **kw)
+        out["k6_q"] = np.array(k6)
+        if single and mesh.coord("tp") == 0:
+            k6.clear()
+            ref = _serve(cfg, params, submissions, **kw)
+            out.update({f"single_{k}": v for k, v in ref.items()})
+            out["single_k6_q"] = np.array(k6)
+    finally:
+        llama.flash_prefill_attention = real
+    return out
+
+
+def _serve_refused(c, local, submissions, mesh, kw):
+    import torch
+
+    from teal_tpu_torch.engine import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(c, local, mesh=mesh, device="cpu",
+                                   cache_dtype=torch.float32, **kw)
+    for prompt, n in submissions:
+        eng.submit(prompt, n)
+    steps = 0
+    try:
+        while eng.has_work():
+            eng.step()
+            steps += 1
+    except ValueError as e:
+        n_out = sum(len(r.out) for r in eng.active if r is not None)
+        return {"raised": np.array(f"ValueError: {e}"),
+                "steps": np.array(steps),
+                "tokens_out": np.array(n_out + len(eng.finished))}
+    return {}
+
+
+# --- cases: forward(return_hidden=True) on a tp group ----------------------
+
+def hidden_tp(cfg, seed, tp, tokens, next_tokens, max_seq=16):
+    """The sharded forward with `return_hidden` on a tp mesh of ranks
+    0..tp-1: the hidden states of a prefill and a decode step, every
+    rank's copy, and the single-process forward's."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.parallel import make_mesh, tp as tpm
+
+    mesh = make_mesh(tp=tp, ranks=range(tp))
+    c = model_config(cfg)
+    params = port_params(cfg, seed)
+    local = tpm.shard_params(params, mesh, c)
+    if not mesh.member:
+        return {}
+    toks, nxt = torch.tensor(tokens), torch.tensor(next_tokens)
+    th, sp = _thresholds(cfg, None), _sparsity(None)
+    out = {}
+    for name, p, m in (("", local, mesh), ("single_", params, None)):
+        cache = port_cache(cfg, toks.shape[0], max_seq)
+        if m is not None:
+            cache = tpm.shard_cache(cache, m)
+        g = None if m is None else m.group("tp")
+        h, cache = llama.forward(p, toks, cache, 0, th, cfg=c, sp=sp,
+                                 tp_group=g, return_hidden=True)
+        h2, _ = llama.forward(p, nxt, cache, toks.shape[1], th, cfg=c, sp=sp,
+                              tp_group=g, return_hidden=True)
+        out[name + "hidden"], out[name + "hidden2"] = _np(h), _np(h2)
+    return out
+
+
+# --- cases: a launch over two nodes (torchrun's env://) ---------------------
+
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                 "GROUP_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def mh_env(tp, dp):
+    """How this rank was started: torchrun's variables, the rendezvous
+    `init_process_group` was given, the card `local_card` names (read
+    from the environment; no card is touched), the group's rank, world
+    and backend, and `global_mesh(tp, dp)`'s layout and groups with a
+    sum over each."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+
+    from teal_tpu_torch.parallel import distributed
+
+    out = {f"env/{v}": np.array(os.environ.get(v, "")) for v in
+           TORCHRUN_VARS}
+    out["init_method"] = np.array(str(c10d._default_pg_init_method))
+    out["card"] = np.array(distributed.local_card().index)
+    out["rank"] = np.array([dist.get_rank(), dist.get_world_size()])
+    out["backend"] = np.array(dist.get_backend())
+    mesh = distributed.global_mesh(tp=tp, dp=dp)
+    out["mesh"] = mesh.ranks
+    for axis in ("dp", "tp"):
+        g = mesh.group(axis)
+        out[f"{axis}/ranks"] = np.array(g.ranks + (g.index,))
+        out[f"{axis}/sum"] = g.reduce_sum(
+            torch.tensor([float(dist.get_rank())])).numpy()
+    return out
+
+
+def mh_gspmd(cfg, seed, tp, dp, tokens, next_tokens, sp=None, th=None,
+             max_seq=16):
+    """The sharded forward on `global_mesh(tp, dp)` (dp over the nodes):
+    `tp_forward`'s results on the same layout."""
+    from teal_tpu_torch.parallel import distributed, make_mesh
+
+    want = make_mesh(tp=tp, dp=dp, ranks=range(dp * tp)).ranks
+    got = distributed.global_mesh(tp=tp, dp=dp).ranks
+    if not np.array_equal(got, want):
+        raise AssertionError(f"global_mesh {got.tolist()} != {want.tolist()}")
+    return tp_forward(cfg, seed, tp, dp, tokens, max_seq=max_seq, sp=sp,
+                      th=th, next_tokens=next_tokens)
+
+
+def mh_kernel_tp(cfg, seed, tp, sp, th, prompt, steps, max_seq=16):
+    """`tpk_run` over the whole world (tp across the nodes), then on every
+    rank the single-process path on the full params: a dense prefill and
+    `forward` at each step's token (the token path where
+    `can_token_decode` holds; the kernels' plain versions on the CPU)."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+
+    out = tpk_run(cfg, seed, tp, sp=sp, th=th, max_seq=max_seq,
+                  prompt=prompt, steps=steps)
+    if not out:
+        return out
+    c = model_config(cfg)
+    params = port_params(cfg, seed)
+    spc, thr = _sparsity(sp), _thresholds(cfg, th)
+    cache = port_cache(cfg, 1, max_seq)
+    dense = spc.replace(enabled=False)
+    logits, cache = llama.forward(params, torch.tensor(prompt), cache, 0, thr,
+                                  cfg=c, sp=dense, causal_prefill=True)
+    out["single_prefill"] = _np(logits)
+    token_path = []
+    for j, (_, pos) in enumerate(steps):
+        tok = torch.from_numpy(out[f"tok{j}"])
+        token_path.append(llama.can_token_decode(params, c, spc, 1, 1,
+                                                 cache.k.dtype))
+        logits, cache = llama.forward(params, tok, cache, pos, thr, cfg=c,
+                                      sp=spc)
+        out[f"single_logits{j}"] = _np(logits)
+    out["single_k"], out["single_v"] = _np(cache.k), _np(cache.v)
+    out["single_token_path"] = np.array(token_path)
+    return out
+
+
+def mh_serving(cfg, seed, tp, submissions, slots, max_seq, prefill_chunk):
+    """The server on `global_mesh(tp)` over the whole world (tp across the
+    nodes, chunked admission), and the single-process server on rank 0."""
+    from teal_tpu_torch.parallel import distributed, tp as tpm
+
+    mesh = distributed.global_mesh(tp=tp, dp=1)
+    c = model_config(cfg)
+    params = port_params(cfg, seed)
+    kw = dict(slots=slots, max_seq=max_seq, prefill_chunk=prefill_chunk,
+              temperature=0.0)
+    out = _serve(cfg, tpm.shard_params(params, mesh, c), submissions, mesh,
+                 **kw)
+    if mesh.coord("tp") == 0:
+        ref = _serve(cfg, params, submissions, **kw)
+        out.update({f"single_{k}": v for k, v in ref.items()})
+    return out
+
+
+def mh_pp(cfg, seed, pp, tp, n_micro, tokens, max_seq=16):
+    """`pp_run` on a (1, pp, tp) mesh of the whole world (the stages over
+    the nodes), and the single-process forward on the full params."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+
+    out = pp_run(cfg, seed, pp, n_micro, tokens, tp=tp, max_seq=max_seq)
+    toks = torch.tensor(tokens)
+    cache = port_cache(cfg, toks.shape[0], max_seq)
+    logits, cache = llama.forward(port_params(cfg, seed), toks, cache, 0,
+                                  _thresholds(cfg, None), cfg=model_config(cfg),
+                                  sp=_sparsity(None))
+    out["single_logits"] = _np(logits)
+    out["single_k"], out["single_v"] = _np(cache.k), _np(cache.v)
     return out
