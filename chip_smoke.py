@@ -188,13 +188,22 @@ Phases:
      tok/s beside dense decode in turns, mean accepted; `forced_alpha`
      0.5 and 0.9, the realized acceptance within 4 binomial standard
      deviations; `device_loop=True, adaptive_k=True` giving the host
-     loop's tokens;
+     loop's tokens (the wrappers launching each captured depth's round
+     twice, at its warm-up and its capture); the round graphs
+     (`device_loop=True`) against the host round loop at temperature 0,
+     at temperature 1 from one seed and at forced_alpha 0.9, in turns:
+     the same tokens, new_tokens, mean accepted and rounds, the wrappers'
+     launches those of the warm-up and the capture, one replayed round's
+     kernels from the profiler (at most (k + 1) x (4*L K1 + L K2)),
+     t_round of both loops;
  14. the CLI (`teal_tpu_torch.cli.main` in-process, `cli_phase`) on a
      2-layer cut of the 7B config at full widths, random weights from
      seed 0: generate dense, calibrate (2 x 2048 tokens, 1 K6 launch a
      layer), generate sparse at its thresholds (`--kernel block
-     --group-thresholds --block-size 128`), self-speculation with
-     --metrics and --profile (a non-empty trace), ppl at 2048 + 512, eval
+     --group-thresholds --block-size 128`; through the decode step's
+     CUDA graph: the wrappers launch at the capture only, 3 x (4*L K1 +
+     L K2), where the host loop would launch that a token),
+     self-speculation with --metrics and --profile (a non-empty trace), ppl at 2048 + 512, eval
      of a task file whose contexts pass 128 tokens (K6), quantize int4
      and generate from its store (K1's int4 plan), each command's launch
      counts asserted, its seconds and peak memory printed; and one sparse
@@ -250,9 +259,29 @@ Phases:
      heads; and, on the resident 7B after phase 4, one main-path decode
      step timed by `utils.bench_utils.bench_chained` (16 vs 64 steps)
      beside `time_decode_step`'s reading (`p16_bench_step`);
+ 17. the on-device decode loop (`Generator.generate(on_device_loop=True)`,
+     the default: the decode step captured once as a CUDA graph and
+     replayed once a token; `graph_route`), on every route the script's
+     `Generator` drives, inside the phase that holds its params: the main
+     path and dense decode on the resident bf16 7B after phase 4 at its
+     thresholds (`device_loop_phase`), paths A, A-b4, B and C (phase 6),
+     Q8-main, Q8-main-b16, Q8-loop, Q4-main, Q4-main-b16 and Q4-loop
+     (phase 8), Mixtral int8 at 32 layers and bf16 at 8 (phase 10): the
+     launch counts reset just before the capture and read just after (two
+     warm-up steps and the captured one: 3 x the step's launches); three
+     prompts x 16 tokens (8 on the paths of phases 6 and 8) from the host
+     loop and from the graph, at
+     temperature 0 and at 0.8 from one generator seed, the tokens equal;
+     one replay's K1-K6 executions from the profiler's kernel records,
+     never more than the step's launches (main: 4*L K1 + L K2 = 160,
+     gated equal; Mixtral: 6*L K1 + L K2 + L K5 = 256; later phases'
+     traces have dropped a few records, reported); the replayed step's
+     device time, wall
+     time and idle share; tok/s of both loops in three turns (of twice
+     those tokens);
 all printed as one `kernels` JSON line, with the card in it (and the
-results of phases 12-16 under "calibration", "speculative", "cli",
-"parallel" and "serving_tp");
+results of phases 12-17 under "calibration", "speculative", "cli",
+"parallel", "serving_tp" and "device_loop");
 besides, one main-path
 decode step with every kernel swapped for its plain version is profiled
 ("decode_step_ms" "sparse, plain kernels").
@@ -821,10 +850,12 @@ def end_to_end(params, cfg, caps, device, seed):
             f"max {int(kept[:, j].max())} of cap {caps[j]}")
 
     # the main path: three requests, counts reset just before
-    sparse.generate(prompts[0], 4, thresholds=th)          # warm-up
-    dense.generate(prompts[0], 4)
+    sparse.generate(prompts[0], 4, thresholds=th,
+                    on_device_loop=False)                   # warm-up
+    dense.generate(prompts[0], 4, on_device_loop=False)
     reset_launches()
-    outs = [sparse.generate(p, NEW_TOKENS, thresholds=th) for p in prompts]
+    outs = [sparse.generate(p, NEW_TOKENS, thresholds=th,
+                            on_device_loop=False) for p in prompts]
     k1, k2, *_ = counts = read_launches()
     decoded = len(prompts) * (NEW_TOKENS - 1)
     check_launches(counts, L, decoded)         # short prompts: no K6
@@ -850,7 +881,8 @@ def end_to_end(params, cfg, caps, device, seed):
     for kind in ("dense", "sparse", "sparse", "dense"):
         g = dense if kind == "dense" else sparse
         _, st = g.generate(prompts[2], 32,
-                           thresholds=None if kind == "dense" else th)
+                           thresholds=None if kind == "dense" else th,
+                           on_device_loop=False)
         speeds[kind].append(st.tokens_per_s)
     return (k1, k2, decoded), speeds, th
 
@@ -1654,10 +1686,11 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
         gen = Generator(cfg, params, sp=SparsityConfig(**sp_kw),
                         max_seq=MAX_SEQ, batch=b, cache_dtype=dt,
                         temperature=0.0, device=device)
-        gen.generate(prompts[0], 3, thresholds=th)          # warm-up
+        gen.generate(prompts[0], 3, thresholds=th,
+                     on_device_loop=False)                  # warm-up
         reset_launches()
-        outs = [gen.generate(p, LOOP_NEW_TOKENS, thresholds=th)
-                for p in prompts]
+        outs = [gen.generate(p, LOOP_NEW_TOKENS, thresholds=th,
+                             on_device_loop=False) for p in prompts]
         counts = read_launches()
         steps = len(prompts) * (LOOP_NEW_TOKENS - 1)
         want = tuple(n * L * steps for n in launches[name])
@@ -1674,8 +1707,13 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
             + ", ".join(f"{st.tokens_per_s * b:.2f}" for _, st in outs)
             + f"; first request's new tokens "
             f"{outs[0][0][0, prompts[0].shape[1]:].tolist()}")
+        del gen
+        graph = graph_route(f"path {name}", cfg, params, sp_kw, b, th, device,
+                            prompts, launches[name], seed,
+                            n_new=LOOP_NEW_TOKENS)
         out[name] = dict(th=th, worst=worst, launches=counts, steps=steps,
-                         tok_s=[st.tokens_per_s * b for _, st in outs])
+                         tok_s=[st.tokens_per_s * b for _, st in outs],
+                         graph=graph)
     return out
 
 
@@ -3025,9 +3063,11 @@ def long_prompt_run(params, cfg, device, seed, th):
         f"tolerance {K6_BF16_ROW_TOL:g} a row) in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    gen.generate(prompt[:300], 2, thresholds=th)           # warm-up
+    gen.generate(prompt[:300], 2, thresholds=th,
+                 on_device_loop=False)                      # warm-up
     reset_launches()
-    toks, st = gen.generate(prompt, LONG_NEW_TOKENS, thresholds=th)
+    toks, st = gen.generate(prompt, LONG_NEW_TOKENS, thresholds=th,
+                            on_device_loop=False)
     counts = read_launches()
     decoded = LONG_NEW_TOKENS - 1
     check_launches(counts, L, decoded, long_prefills=1)
@@ -3223,9 +3263,11 @@ def calib_decode(params, cfg, th, device, seed, what, shares=None):
                                         gen.new_cache(), gen.rope, device)
     _, worst, _ = hold_token_layers(params, cfg, cache, tok, pos, gen.rope,
                                     device, th=th, shares=shares)
-    gen.generate(prompts[0], 4, thresholds=th)              # warm-up
+    gen.generate(prompts[0], 4, thresholds=th,
+                 on_device_loop=False)                      # warm-up
     reset_launches()
-    outs = [gen.generate(p, NEW_TOKENS, thresholds=th) for p in prompts]
+    outs = [gen.generate(p, NEW_TOKENS, thresholds=th, on_device_loop=False)
+            for p in prompts]
     decoded = len(prompts) * (NEW_TOKENS - 1)
     check_launches(read_launches(), cfg.n_layers, decoded)
     for p, (toks, _) in zip(prompts, outs):
@@ -3620,6 +3662,109 @@ def spec_run(params, cfg, prompt, n, device, th, seed, draft=MAIN_SP,
     return toks, st, time.perf_counter() - t0
 
 
+def spec_round_kernels(L: int, k_eff) -> tuple:
+    """K1-K6 launches of one self-speculative round of the 7B's main-path
+    draft at depth k_eff (None: `SPEC_K`): k_eff draft steps and one verify
+    chunk, 4L K1 + L K2 each."""
+    d = SPEC_K if k_eff is None else k_eff
+    return ((d + 1) * 4 * L, (d + 1) * L, 0, 0, 0, 0)
+
+
+@contextlib.contextmanager
+def timed_rounds(rec, count=None):
+    """Time each speculative round on the host clock; each ends in the
+    round's one read of its tokens and n_valid, which waits for the card.
+    rec["host"]: the host loop's rounds (the round called from Python,
+    `speculative._Rounds.round(replay=False)`); rec["replay"]: the device
+    loop's replayed rounds; rec["capture"]: (k_eff, seconds) of the rounds
+    that captured their depth's graph first. With count = (what, L), each
+    captured graph's K1-K6 kernel nodes, read after its round, must equal
+    `spec_round_kernels(L, k_eff)` (`graph_counts`; rec["counts"][k_eff])."""
+    from teal_tpu_torch.engine import speculative as spec
+
+    orig_round = spec._Rounds.round
+    for key in ("host", "replay", "capture"):
+        rec.setdefault(key, [])
+
+    def round_(self, k_eff, replay=True):
+        graphed = replay and self.token.device.type == "cuda"
+        new = graphed and k_eff not in self.graphs
+        t0 = time.perf_counter()
+        out = orig_round(self, k_eff, replay)
+        dt = time.perf_counter() - t0
+        if not graphed:
+            rec["host"].append(dt)
+        elif new:
+            rec["capture"].append((k_eff, dt))
+            if count is not None:
+                rec.setdefault("counts", {})[k_eff] = graph_counts(
+                    self.graphs[k_eff], f"{count[0]} depth {k_eff}",
+                    spec_round_kernels(count[1], k_eff))[0]
+        else:
+            rec["replay"].append(dt)
+        return out
+
+    spec._Rounds.round = round_
+    try:
+        yield rec
+    finally:
+        spec._Rounds.round = orig_round
+
+
+def spec_graph_runs(params, cfg, device, seed, th, prompt):
+    """Phase 13's round graphs (`device_loop=True`) against the host round
+    loop on `prompt` at temperature 0, at temperature 1 from one seed and
+    at forced_alpha 0.9, in turns (host, graph, graph, host): the same
+    tokens, new_tokens, mean_accepted and rounds in every run; the
+    wrappers' launches of a graph run are its warm-up round and its
+    capture, 2 x (k + 1) x (4L K1 + L K2); the round's graph holds (k + 1)
+    x (4L K1 + L K2) kernel nodes, what one replay launches
+    (`timed_rounds`' count). t_round of both loops (the graph's replayed
+    rounds only; its capture apart). Returns the results."""
+    import numpy as np
+
+    L = cfg.n_layers
+    per_round = spec_round_kernels(L, None)
+    out = {}
+    for what, kw in (("temperature 0", {}),
+                     ("temperature 1", dict(temperature=1.0)),
+                     ("forced_alpha 0.9", dict(forced_alpha=0.9))):
+        runs, rec = [], {}
+        for dl in (False, True, True, False):
+            reset_launches()
+            with timed_rounds(rec, (f"spec {what}", L)):
+                toks, st, wall = spec_run(params, cfg, prompt,
+                                          SPEC_NEW_TOKENS, device, th, seed,
+                                          device_loop=dl, **kw)
+            got = read_launches()
+            rounds = st["rounds"] if dl else len(st["accepted_per_step"])
+            if dl:
+                check(got == tuple(2 * n for n in per_round),
+                      f"spec graph {what}: launches {got} at the capture, "
+                      f"expected {tuple(2 * n for n in per_round)}")
+            runs.append((toks, st["new_tokens"], st["mean_accepted"],
+                         rounds))
+        for r in runs[1:]:
+            check(np.array_equal(r[0], runs[0][0]) and r[1:] == runs[0][1:],
+                  f"spec graph {what}: the graph loop's tokens or stats "
+                  f"{r[1:]} differ from the host loop's {runs[0][1:]}")
+        host_ms = 1e3 * float(np.mean(rec["host"]))
+        graph_ms = 1e3 * float(np.mean(rec["replay"]))
+        cap_ms = 1e3 * float(np.mean([t for _, t in rec["capture"]]))
+        res = dict(rounds=runs[0][3], mean_accepted=runs[0][2],
+                   t_round_host_ms=host_ms, t_round_graph_ms=graph_ms,
+                   first_round_capture_ms=cap_ms,
+                   graph_kernel_nodes=rec["counts"][None])
+        out[what] = res
+        log(f"[spec] device_loop=True, {what} (prompt {len(prompt)}): the "
+            f"host loop's tokens and stats ({runs[0][3]} rounds, mean "
+            f"accepted {runs[0][2]:.3f}); t_round host {host_ms:.2f} ms, "
+            f"graph {graph_ms:.2f} ms (replays; a capture round "
+            f"{cap_ms:.1f} ms); the graph's (K1, K2, K3, K4, K5, K6) "
+            f"kernel nodes {res['graph_kernel_nodes']}")
+    return out
+
+
 def speculative_phase(params, cfg, device, seed, th, speeds):
     """Phase 13 on the resident bf16 7B at phase 4's thresholds `th`:
     self-speculation with a shared cache (k = `SPEC_K`; the draft the
@@ -3646,7 +3791,10 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
          tokens): tok/s and the realized acceptance (accepted over
          attempted draws), within 4 binomial standard deviations of alpha;
       4. `device_loop=True, adaptive_k=True`: the host loop's tokens,
-         k_eff_final and alpha_hat_final.
+         k_eff_final and alpha_hat_final; the wrappers launch each
+         captured depth's round twice (warm-up and capture);
+      5. the round graphs against the host round loop
+         (`spec_graph_runs`).
     Returns the results for the JSON line."""
     import numpy as np
     import torch
@@ -3764,7 +3912,8 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
     for kind in ("dense", "spec", "spec", "dense"):
         if kind == "dense":
             turns[kind].append(dense.generate(
-                prompts[2], SPEC_NEW_TOKENS)[1].tokens_per_s)
+                prompts[2], SPEC_NEW_TOKENS,
+                on_device_loop=False)[1].tokens_per_s)
         else:
             _, st, wall = spec_run(params, cfg, prompts[2], SPEC_NEW_TOKENS,
                                    device, th, seed)
@@ -3801,27 +3950,35 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
             f"{wall * 1e3 / rounds:.2f} ms, {st['new_tokens'] / wall:.2f} "
             "tok/s")
 
-    # 4. the device loop with adaptive depth
+    # 4. the device loop with adaptive depth: each depth's round graph is
+    # captured on its first round, the wrappers run each captured round
+    # twice (warm-up and capture)
     reset_launches()
-    toks, st, wall = spec_run(params, cfg, prompts[0], SPEC_NEW_TOKENS,
-                              device, th, seed, device_loop=True,
-                              adaptive_k=True)
+    with timed_rounds({}, ("spec adaptive", L)) as rec:
+        toks, st, wall = spec_run(params, cfg, prompts[0], SPEC_NEW_TOKENS,
+                                  device, th, seed, device_loop=True,
+                                  adaptive_k=True)
     k1, k2, *rest = got = read_launches()
     check(np.array_equal(toks, host_toks[0]), "spec: the adaptive device "
           "loop's tokens differ from the host loop's")
     r = st["rounds"]
-    check(k1 == 4 * k2 and 4 * L * r <= k1 <= 4 * L * (SPEC_K + 1) * r
-          and not any(rest), f"spec adaptive: launches {got} for {r} rounds")
+    depths = sorted(k for k, _ in rec["capture"])
+    check(k1 == 4 * k2 and k2 == 2 * L * sum(d + 1 for d in depths)
+          and not any(rest), f"spec adaptive: launches {got} for the "
+          f"captures of depths {depths}")
     res["adaptive"] = dict(rounds=r, k_eff_final=st["k_eff_final"],
                            alpha_hat_final=st["alpha_hat_final"],
                            mean_accepted=st["mean_accepted"],
-                           draft_steps=k2 // L - r, wall_s=wall,
+                           depths_captured=depths, wall_s=wall,
+                           graph_kernel_nodes={str(d): c for d, c in
+                                               rec["counts"].items()},
                            tok_s=st["new_tokens"] / wall, launches=got)
     log(f"[spec] device_loop + adaptive_k (prompt 5): the host loop's "
-        f"tokens; {r} rounds, {k2 // L - r} draft steps, k_eff_final "
+        f"tokens; {r} rounds, depths captured {depths}, k_eff_final "
         f"{st['k_eff_final']}, alpha_hat_final {st['alpha_hat_final']:.4f}, "
         f"mean accepted {st['mean_accepted']:.3f}, "
         f"{st['new_tokens'] / wall:.2f} tok/s")
+    res["graph"] = spec_graph_runs(params, cfg, device, seed, th, prompts[2])
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"[spec] phase 13 in {res['phase_s']:.1f} s")
     return res
@@ -3926,7 +4083,10 @@ def cli_phase(device):
         "--no-layer-inputs", "--group-sizes", "128"], (0, 0, 0, 0, 0, L))
     check(all(os.path.isdir(os.path.join(hist, f"layer-{l}"))
               for l in range(L)), f"cli calibrate: no histograms in {hist}")
-    tok_path = (4 * L * decoded, L * decoded, 0, 0, 0, 0)
+    # generate decodes through the step's CUDA graph: the wrappers launch
+    # at the capture only (2 warm-up steps and the captured one), whatever
+    # the tokens decoded; a host loop would launch a step's worth a token
+    tok_path = (4 * L * 3, L * 3, 0, 0, 0, 0)
     _, err, _ = run("generate sparse", ["generate"] + init + gen + sparse
                     + ["--metrics", str(metrics)], tok_path)
     check(gen_count(err) == CLI_NEW_TOKENS, f"cli generate sparse: {err}")
@@ -4386,10 +4546,11 @@ def moe_run(cfg, plan, device, gen, seed, rope):
         cache_dtype=torch.bfloat16, temperature=0.0, device=device)
         for keep in (0.5, 1.0)}
     zero = llama.zero_thresholds(cfg, device)
-    gens[0.5].generate(prompts[0], 3, thresholds=th)          # warm-up
+    gens[0.5].generate(prompts[0], 3, thresholds=th,
+                       on_device_loop=False)                # warm-up
     reset_launches()
-    outs = [gens[0.5].generate(p, NEW_TOKENS, thresholds=th)
-            for p in prompts]
+    outs = [gens[0.5].generate(p, NEW_TOKENS, thresholds=th,
+                               on_device_loop=False) for p in prompts]
     got = read_launches()
     decoded = len(prompts) * (NEW_TOKENS - 1)
     k_exp = cfg.n_experts_per_tok
@@ -4413,7 +4574,7 @@ def moe_run(cfg, plan, device, gen, seed, rope):
     speeds = {0.5: [], 1.0: []}
     for keep in (1.0, 0.5, 0.5, 1.0):
         _, st = gens[keep].generate(prompts[2], 32, thresholds=(
-            th if keep == 0.5 else zero))
+            th if keep == 0.5 else zero), on_device_loop=False)
         speeds[keep].append(st.tokens_per_s)
     log(f"[moe {plan}] decode tok/s (prompt 40, 32 new tokens, in turns): "
         f"keep 0.5 {speeds[0.5]}, keep 1.0 {speeds[1.0]}")
@@ -4422,7 +4583,10 @@ def moe_run(cfg, plan, device, gen, seed, rope):
         (f"moe {plan} keep 1.0", dict(MAIN_SP, block_keep_frac=1.0), 1,
          zero)], device, rope)
     k5, k1_rows = time_moe_kernels(params, cfg, caps, device, gen, plan)
+    graph = graph_route(f"moe {plan}", cfg, params, MAIN_SP, 1, th, device,
+                        prompts, (2 + 2 * k_exp, 1, 0, 0, 1, 0), seed)
     results = dict(layers=L, build_s=build_s, worst=worst, launches=got,
+                   graph=graph,
                    decoded=decoded, err_k1=err_k1,
                    tok_s={str(k): v for k, v in speeds.items()},
                    decode_step_ms=step,
@@ -5650,6 +5814,155 @@ def serving_tp_phase(device, gen, seed, card, p_entries, bench, shrink=None):
     return entries, dict(ranks=ranks, bench=bench, label=P16_LABEL)
 
 
+# --- phase 17: the on-device decode loops (CUDA graphs) ---------------------
+
+# substrings of K1-K6's kernel names, in the profiler's (demangled) and
+# the CUDA driver's (mangled) form
+KERNEL_NAMES = ("sgg_", "attn_kernel", "bgg_", "rgg_kernel", "route_kernel",
+                "flash_prefill_")
+GRAPH_TEMPS = (0.0, 0.8)          # the token checks: greedy, and seeded
+GRAPH_TURNS = 3                   # host / graph tok/s turns a route
+GRAPH_REPLAYS = 10                # replays a profile, and a wall timing
+GRAPH_POS = 40                    # the position of the timed replays
+
+
+def graph_counts(graph, what: str, per_replay):
+    """K1-K6 kernel nodes of a captured graph, read from the CUDA driver
+    (`profiling.graph_kernels`): exactly what each replay launches. They
+    must equal `per_replay`. Returns (counts, all kernel nodes)."""
+    from teal_tpu_torch.utils.profiling import graph_kernels
+
+    nodes = graph_kernels(graph)
+    counts = tuple(sum(c for k, c in nodes.items() if name in k)
+                   for name in KERNEL_NAMES)
+    check(counts == tuple(per_replay),
+          f"graph {what}: the graph holds (K1, K2, K3, K4, K5, K6) "
+          f"{counts} kernel nodes, expected {tuple(per_replay)}")
+    return counts, sum(nodes.values())
+
+
+def profile_replays(loop, iters: int):
+    """`iters` replays of a `Generator`'s decode graph (`loop`, its
+    `_DecodeLoop`) from position `GRAPH_POS`: (device ms a replay, the sum
+    of its kernel times from the profiler; wall ms a replay, host clock,
+    synchronised, without the profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loop.pos.fill_(GRAPH_POS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            loop.graph.replay()
+        torch.cuda.synchronize()
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)) / 1e3
+    loop.pos.fill_(GRAPH_POS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loop.graph.replay()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
+    loop.pos.fill_(GRAPH_POS)
+    return dev / iters, wall
+
+
+def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
+                seed, n_new: int = NEW_TOKENS):
+    """Phase 17 on one route the script's `Generator` drives (sparsity
+    kwargs `sp_kw`, batch b, thresholds th, `per_step` K1-K6 launches a
+    layer and step): the decode step's capture, counts set to 0 just
+    before and read just after (two warm-up steps and the captured one go
+    through the wrappers: 3 x per_step x L); every prompt decoded
+    `n_new` tokens by the host loop and by the graph at each
+    temperature of `GRAPH_TEMPS` from one generator seed, the tokens
+    equal; the graph's K1-K6 kernel nodes, what one replay launches,
+    equal to per_step x L (`graph_counts`); the replayed step's device and
+    wall time and idle share (1 - device / wall, unclamped: device time
+    above wall time is reported as it is, with a note); tok/s of both
+    loops in `GRAPH_TURNS` turns of 2 x n_new tokens. Returns the
+    results."""
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.models import llama
+
+    L = cfg.n_layers
+    gens = {temp: Generator(cfg, params, sp=SparsityConfig(**sp_kw),
+                            max_seq=MAX_SEQ, batch=b,
+                            cache_dtype=llama.compute_dtype(params),
+                            temperature=temp, device=device)
+            for temp in GRAPH_TEMPS}
+    g0 = gens[GRAPH_TEMPS[0]]
+    reset_launches()
+    t0 = time.perf_counter()
+    g0.warmup()
+    capture_s = time.perf_counter() - t0
+    got = read_launches()
+    want = tuple(3 * n * L for n in per_step)
+    check(got == want, f"graph {what}: launches (K1, K2, K3, K4, K5, K6) at "
+          f"the capture {got}, expected {want} (2 warm-up steps and the "
+          "captured one)")
+    for temp, g in gens.items():
+        for i, p in enumerate(prompts):
+            outs = [g.generate(p, n_new, thresholds=th, generator=(
+                torch.Generator(device=device).manual_seed(seed + i)),
+                on_device_loop=dl)[0] for dl in (False, True)]
+            check(np.array_equal(outs[0], outs[1]), f"graph {what}: "
+                  f"temperature {temp}, prompt {i}: the graph's tokens "
+                  f"{outs[1][..., -n_new:].tolist()} differ from the "
+                  f"host loop's {outs[0][..., -n_new:].tolist()}")
+    dev, wall = profile_replays(g0._loop, GRAPH_REPLAYS)
+    counts, total = graph_counts(g0._loop.graph, what,
+                                 [n * L for n in per_step])
+    tok_s = {"host": [], "graph": []}
+    for i in range(GRAPH_TURNS):
+        for kind in (("host", "graph") if i % 2 == 0 else ("graph", "host")):
+            _, st = g0.generate(prompts[-1], 2 * n_new, thresholds=th,
+                                on_device_loop=kind == "graph")
+            tok_s[kind].append(st.tokens_per_s * b)
+    res = dict(batch=b, capture_launches=got, replay_launches=counts,
+               replay_kernels=total, replay_device_ms=dev,
+               replay_wall_ms=wall, replay_idle_share=1 - dev / wall,
+               first_generate_s=capture_s, tok_s=tok_s)
+    log(f"[graph] {what} (batch {b}): the graph's tokens equal the host "
+        f"loop's for {len(prompts)} prompts x {n_new} tokens at "
+        f"temperatures {GRAPH_TEMPS}; capture launches {got}; one replay: "
+        f"(K1, K2, K3, K4, K5, K6) {counts} of {total} kernel nodes, device "
+        f"{dev:.3f} ms, wall {wall:.3f} ms, idle "
+        f"{res['replay_idle_share']:.1%}"
+        + (" (device time above wall time: the profiled and the unprofiled "
+           "replays' clocks disagree)" if dev > wall else "")
+        + "; tok/s in turns host "
+        f"{[round(t, 2) for t in tok_s['host']]} graph "
+        f"{[round(t, 2) for t in tok_s['graph']]}")
+    del gens, g0
+    torch.cuda.empty_cache()
+    return res
+
+
+def device_loop_phase(params, cfg, device, seed, th):
+    """Phase 17 on the resident bf16 7B after phase 4, at its thresholds:
+    `graph_route` on the main path (4*L K1 + L K2 a replay) and on dense
+    decode (none of the port's kernels), phase 4's three prompts. Returns
+    {route: results}."""
+    t0 = time.perf_counter()
+    prompts = main_prompts(cfg, seed)
+    res = {"main": graph_route("main", cfg, params, MAIN_SP, 1, th, device,
+                               prompts, (4, 1, 0, 0, 0, 0), seed),
+           "dense": graph_route("dense", cfg, params, {}, 1, th, device,
+                                prompts, (0, 0, 0, 0, 0, 0), seed)}
+    log(f"[graph] phase 17 (main and dense) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5700,6 +6013,7 @@ def main() -> int:
     log(f"[e2e] decode tok/s (prompt 40, 32 new tokens, Python loop, no "
         f"CUDA graph): dense {speeds['dense']} sparse {speeds['sparse']} "
         f"on {card}")
+    graphs = device_loop_phase(params, cfg, device, seed, th)
     loop = loop_paths(params, cfg, device, seed, rope)
     step = time_decode_step(
         params, cfg, [("sparse", MAIN_SP, 1, th), ("dense", {}, 1, th)]
@@ -5717,6 +6031,9 @@ def main() -> int:
     line["lm_head_ms"] = time_lm_head(params, cfg, device, gen)
     line["decode_tok_s"] = speeds
     line["decode_tok_s_loop_paths"] = {n: r["tok_s"] for n, r in loop.items()}
+    line["device_loop"] = graphs
+    line["device_loop"].update({f"path {n}": r.pop("graph")
+                                for n, r in loop.items()})
     line["decode_step_ms"] = step
     b_entries, line["batched"], _ = batched_phase(params, cfg, caps, device,
                                                   gen, seed, rope)
@@ -5726,6 +6043,7 @@ def main() -> int:
     line["kernels"] += q_entries
     line["decode_tok_s_quant_paths"] = {n: r["tok_s"]
                                         for n, r in q_runs.items()}
+    line["device_loop"].update({n: r.pop("graph") for n, r in q_runs.items()})
     line["quant"] = q_extra
     l_entries, line["long_prompts"] = long_prompt_phase(params, cfg, device,
                                                         gen, seed, th)
@@ -5738,6 +6056,9 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     m_entries, line["moe"] = moe_phase(device, gen, seed)
+    line["device_loop"].update({f"moe {p}": r.pop("graph")
+                                for p, r in line["moe"].items()
+                                if isinstance(r, dict) and "graph" in r})
     line["kernels"] += m_entries
     p_entries, line["parallel"] = parallel_phase(device, gen, seed, card)
     line["kernels"] += p_entries

@@ -4,12 +4,30 @@ Port of `teal_tpu/engine/generate.py`: a dense prefill over the prompt
 padded to `_pad_len` (the padded rows' cache entries lie past the prompt
 and are masked out until decode overwrites them, as in the reference;
 the prefill starts at pos 0, so it runs with `causal_prefill` and a
-prompt padded to 256 or more takes kernel K6),
-then one `forward` per new token in a Python loop. Tokens stay on the
-device until the end, so the loop never waits for the card. `warmup`
-runs one short generation first, as the reference's does. The
-reference's on-device token loop (`generate(on_device_loop=)`) has its
-Hopper form in a CUDA graph of the decode step, which is later work.
+prompt padded to 256 or more takes kernel K6), then the decode steps.
+Tokens stay on the device until the end. `warmup` runs one short
+generation first, as the reference's does.
+
+The decode is one step function over static buffers (`_DecodeLoop`:
+the token, the position as an int32 device tensor, the thresholds, a
+cache the `Generator` allocates once, an output row indexed by the
+device position), which runs the embedding, `forward`, the draw, the
+token's write and `pos += 1`. It draws from a private generator, into
+which the caller's generator state is copied before the decode and back
+after it. Two loops run it, as in the reference (`generate(
+on_device_loop=)`):
+  - the on-device loop (the default; the reference's `lax.scan`,
+    `decode_scan_fn`): on a CUDA device the step is captured once per
+    `Generator` as a CUDA graph (after a warm-up on a side stream that
+    builds and loads every kernel; the private generator registered with
+    it) and replayed once a token: the CUDA driver issues the step's
+    launches, with no Python, ctypes or allocator work a token. A
+    capture that fails raises; nothing carries on in the host loop.
+  - the host loop (`on_device_loop=False`, and either loop on the CPU):
+    the step called from Python once a token.
+Kernel launch counters (`select_gather_gemv.launches`, ...) count where
+a wrapper launches, which in the graph is the warm-up and the capture,
+not the replays: count a replay's kernels from the profiler's records.
 """
 
 from __future__ import annotations
@@ -64,6 +82,7 @@ class Generator:
         self.temperature = temperature
         self.top_k = top_k
         self.rope = llama.precompute_rope(cfg, self.max_seq, self.device)
+        self._loop = None    # the on-device loop, made on its first use
 
         def leaf_bytes(w):
             ts = w.values() if isinstance(w, dict) else (w,)
@@ -85,7 +104,8 @@ class Generator:
     def warmup(self, prompt_len: int = 4, new_tokens: int = 2) -> None:
         """Run one short generation so that later `generate` timings are
         warm: the kernels built and loaded, the allocator's blocks in
-        place (the reference times 5 samples after a warm-up sample,
+        place and, on a CUDA device, the decode step's graph captured
+        (the reference times 5 samples after a warm-up sample,
         gpt-fast/generate.py:431-497)."""
         prompt = np.ones((self.batch, prompt_len), np.int64)
         self.generate(prompt, new_tokens)
@@ -96,9 +116,14 @@ class Generator:
 
     def generate(self, prompt_tokens, max_new_tokens: int, *,
                  thresholds: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 on_device_loop: bool = True
                  ) -> Tuple[np.ndarray, GenerateStats]:
-        """prompt_tokens: [B, T] or [T] ints. Returns (all tokens, stats)."""
+        """prompt_tokens: [B, T] or [T] ints. Returns (all tokens, stats).
+        on_device_loop: decode by replays of the step's CUDA graph on a
+        CUDA device, else by calling the step from Python once a token
+        (module docstring); both give the same tokens from the same
+        generator state, and on the CPU both run the step eagerly."""
         if thresholds is None:
             thresholds = llama.zero_thresholds(self.cfg, self.device)
         prompt = torch.as_tensor(np.asarray(prompt_tokens), dtype=torch.int64)
@@ -114,7 +139,9 @@ class Generator:
         padded = torch.zeros((b, _pad_len(t)), dtype=torch.int64)
         padded[:, :t] = prompt
         padded = padded.to(self.device)
-        cache = self.new_cache()
+        if self._loop is None:
+            self._loop = _DecodeLoop(self)
+        cache = self._loop.begin(thresholds)
         prefill_sp = self.sp if self.sp.apply_prefill \
             else self.sp.replace(enabled=False)
 
@@ -129,15 +156,8 @@ class Generator:
         self._sync()
         t1 = time.perf_counter()
 
-        toks = [tok]
-        for pos in range(t, t + max_new_tokens - 1):
-            logits, cache = llama.forward(self.params, tok[:, None], cache,
-                                          pos, thresholds, cfg=self.cfg,
-                                          sp=self.sp, rope=self.rope)
-            tok = sampling.sample(logits[:, 0], self.temperature,
-                                  self.top_k, generator)
-            toks.append(tok)
-        out = torch.stack(toks, dim=1).cpu().numpy()   # waits for the card
+        out = self._loop.run(tok, t, max_new_tokens, generator,
+                             replay=on_device_loop)
         t2 = time.perf_counter()
 
         decode_s = t2 - t1
@@ -148,3 +168,107 @@ class Generator:
             tokens_per_s=tps,
             bandwidth_gb_s=self.model_bytes * tps / 1e9)
         return np.concatenate([prompt.numpy(), out], axis=1), stats
+
+
+def capture_graph(fn, rng: torch.Generator, warmups: int,
+                  pool=None) -> "torch.cuda.CUDAGraph":
+    """Capture fn() (launches on the current stream of a CUDA device) as
+    a CUDA graph that draws from `rng`: fn runs `warmups` times first on
+    a side stream, which builds and loads every kernel and makes the
+    libraries' handles, as capture requires; the warm-up's writes are
+    the caller's to undo. pool: a memory pool shared with other graphs
+    (`torch.cuda.graph_pool_handle`). The graph keeps its captured
+    `cudaGraph_t` (`raw_cuda_graph()`), whose kernel nodes say what a
+    replay launches. A failed capture raises."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmups):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.register_generator_state(rng)
+    with torch.cuda.graph(graph, pool=pool):
+        fn()
+    graph.instantiate()
+    return graph
+
+
+def _default_generator(device: torch.device) -> torch.Generator:
+    """The generator a draw with `generator=None` takes on `device`."""
+    if device.type == "cuda":
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        return torch.cuda.default_generators[index]
+    return torch.default_generator
+
+
+class _DecodeLoop:
+    """The on-device decode loop of one `Generator` (module docstring):
+    its static buffers, its step, and on a CUDA device the step's graph,
+    captured on the first `run` that replays."""
+
+    def __init__(self, gen: Generator):
+        dev = self.device = gen.device
+        # what the step reads of the Generator, not the Generator itself:
+        # no reference cycle keeps a dropped Generator's graph and cache
+        # on the card until the cyclic collector runs
+        self.params, self.cfg, self.sp, self.rope = (gen.params, gen.cfg,
+                                                     gen.sp, gen.rope)
+        self.temperature, self.top_k = gen.temperature, gen.top_k
+        self.cache = gen.new_cache()
+        self.tok = torch.zeros(gen.batch, dtype=torch.int64, device=dev)
+        self.pos = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.th = llama.zero_thresholds(gen.cfg, dev)
+        # a token's column is its position: up to max_seq for the last
+        self.out = torch.zeros((gen.batch, gen.max_seq + 1),
+                               dtype=torch.int64, device=dev)
+        self.rng = torch.Generator(device=dev)
+        self.graph = None
+
+    def begin(self, thresholds: torch.Tensor) -> KVCache:
+        """Reset the cache and take this generation's thresholds; returns
+        the cache for the prefill."""
+        self.cache.k.zero_()
+        self.cache.v.zero_()
+        self.th.copy_(thresholds)
+        return self.cache
+
+    def step(self) -> None:
+        """One decode step on the static buffers: the token at `pos` in,
+        the next token written at `pos + 1` of `out`, `pos` advanced."""
+        logits, _ = llama.forward(self.params, self.tok[:, None],
+                                  self.cache, self.pos, self.th,
+                                  cfg=self.cfg, sp=self.sp, rope=self.rope)
+        tok = sampling.sample(logits[:, 0], self.temperature, self.top_k,
+                              self.rng)
+        self.tok.copy_(tok)
+        self.pos += 1
+        self.out.index_copy_(1, self.pos.long(), tok[:, None])
+
+    def run(self, tok: torch.Tensor, t: int, n: int,
+            generator: Optional[torch.Generator],
+            replay: bool = True) -> np.ndarray:
+        """Decode n - 1 tokens after the prefill's `tok` at position t, by
+        replays of the step's graph (`replay` on a CUDA device) or by
+        calling the step; returns the n new tokens [B, n] (one read at
+        the end)."""
+        dev = self.device
+        replay = replay and dev.type == "cuda"
+        if replay and self.graph is None and n > 1:
+            # the warm-up writes the cache and the buffers, set afresh
+            # below; the private generator takes the caller's state
+            self.pos.fill_(t)
+            self.graph = capture_graph(self.step, self.rng, warmups=2)
+        src = generator if generator is not None else _default_generator(dev)
+        self.rng.set_state(src.get_state())
+        self.tok.copy_(tok)
+        self.pos.fill_(t)
+        self.out[:, t] = tok
+        for _ in range(n - 1):
+            if replay:
+                self.graph.replay()
+            else:
+                self.step()
+        src.set_state(self.rng.get_state())
+        return self.out[:, t:t + n].cpu().numpy()       # waits for the card

@@ -28,14 +28,26 @@ its rows at pos..pos+k-1, the dense verify then overwrites pos..pos+k,
 so no top-up forward is needed, the cache memory halves and the draft
 conditions on exact history.
 
-Form. Each round is a host loop of kernel launches; the host waits for
-the card once a round, for the round's tokens and n_valid (the next
-round's positions depend on them). `device_loop=True` keeps the
+Form. A round (`build_speculative_step`: the draft steps, the verify,
+the acceptance and the residual's draw) reads nothing back to the host.
+Both loops run it over static buffers (`_Rounds`: the last token, the
+position, the round's tokens and n_valid, all on the device; the round
+itself moves the token and the position on) and read the round's k + 2
+ints once a round, for the next round's bound (the reference's host loop
+waits there too). The host loop (`device_loop=False`) calls the round
+from Python. `device_loop=True` (`build_speculative_loop`) keeps the
 reference's on-device loop's semantics and stats (its `while` bound,
-`n_target`, the adaptive depth) but runs as the same host round loop; its
-CUDA-graph form is later work. Draws come from an explicit
+`n_target`, the adaptive depth) and, on a CUDA device, replays a CUDA
+graph of the round, captured once for each depth k_eff it runs, into
+one memory pool. Its one read a round drives the controller and the
+bound, where the reference's `while_loop` reads once a generation: a
+graph cannot branch on the device without conditional nodes. On the CPU
+it calls the round as the host loop does. Draws come from an explicit
 `torch.Generator` in a fixed order: the prefill's token, then per round
-one draw per live draft step, k uniforms, and the residual's draw.
+one draw per live draft step, k uniforms, and the residual's draw; the
+rounds draw from a private generator (registered with the graphs), which
+takes the caller's state before the first round and hands it back after
+the last.
 
 `forced_alpha` is a measurement harness only: each in-depth draft is
 accepted with that probability instead of the q/p rule, so that
@@ -51,7 +63,9 @@ import numpy as np
 import torch
 
 from teal_tpu_torch.config import ModelConfig, SparsityConfig
-from teal_tpu_torch.engine.sampling import logits_to_probs
+from teal_tpu_torch.engine.generate import (_default_generator,
+                                            capture_graph)
+from teal_tpu_torch.engine.sampling import draw, logits_to_probs
 from teal_tpu_torch.models import llama
 from teal_tpu_torch.models.llama import KVCache
 
@@ -63,8 +77,8 @@ _PRIOR = (np.float32(4.0), np.float32(5.0))
 def _sample_probs(probs: torch.Tensor, generator) -> torch.Tensor:
     """One draw from probs [V] as a [1] int64 tensor: the reference's
     categorical over log(probs + 1e-30), so an all-zero row draws
-    uniformly."""
-    return torch.multinomial(probs + 1e-30, 1, generator=generator)
+    uniformly (`sampling.draw`: no host read, so a graph captures it)."""
+    return draw(probs + 1e-30, generator)
 
 
 def _verify_round(dtoks: torch.Tensor, dprobs: torch.Tensor,
@@ -109,8 +123,8 @@ def _round_tokens(dtoks: torch.Tensor, acc_len: torch.Tensor,
                                    torch.zeros_like(next_token)))
 
 
-def _spec_step(pt, pd, cache_t, cache_d, token, pos: int, th_t, th_d,
-               generator, *, k: int, temperature: float, top_k,
+def _spec_step(pt, pd, cache_t, cache_d, token, pos: torch.Tensor, th_t,
+               th_d, generator, *, k: int, temperature: float, top_k,
                target_cfg: ModelConfig, draft_cfg: ModelConfig,
                target_sp: SparsityConfig, draft_sp: SparsityConfig,
                rope_t, rope_d, shared_cache: bool = False,
@@ -119,6 +133,7 @@ def _spec_step(pt, pd, cache_t, cache_d, token, pos: int, th_t, th_d,
     """One draft-propose / target-verify round.
 
     token: [1] int64 on the device (the last emitted token, at pos);
+    pos: int32 [1] on the device, read there only;
     shared_cache: one cache for both roles (`cache_d` must be None): the
     draft writes its rows into `cache_t` and the dense verify overwrites
     them. k_eff (adaptive depth, shared cache only): draft steps
@@ -195,14 +210,17 @@ def build_speculative_step(
     max_seq: int = 2048,
     device="cuda",
 ):
-    """Returns a step
-    (pt, pd, cache_t, cache_d, token [1], pos, th_t, th_d, generator)
-      -> (tokens [k+1] int64, n_valid int, cache_t, cache_d)
-    with the RoPE tables for `max_seq` positions built once.
+    """Returns a round
+    step(pt, pd, cache_t, cache_d, token [1], pos [1], th_t, th_d,
+         generator, k_eff=None) -> (tokens [k+1] int64, n_valid int64 [])
+    with the RoPE tables for `max_seq` positions built once. token and
+    pos (int32) are device tensors, and so are the results: the round
+    reads nothing back to the host, so a CUDA graph captures it
+    (`_Rounds`). The caches are updated in place.
 
     shared_cache (requires shared_params): one cache for draft and
-    target; the caller's cache_d is ignored and the returned cache_d is
-    cache_t. forced_alpha: the measurement harness (module docstring)."""
+    target; the caller's cache_d is ignored. forced_alpha: the
+    measurement harness (module docstring)."""
     if shared_cache:
         assert shared_params, "shared_cache requires shared params"
     device = llama._device(device)
@@ -212,18 +230,14 @@ def build_speculative_step(
 
     def step(pt, pd, cache_t, cache_d, token, pos, th_t, th_d, generator,
              k_eff=None):
-        toks, n_valid = _spec_step(
+        return _spec_step(
             pt, pt if shared_params else pd, cache_t,
-            None if shared_cache else cache_d, token, int(pos), th_t, th_d,
+            None if shared_cache else cache_d, token, pos, th_t, th_d,
             generator, k=speculate_k, temperature=temperature, top_k=top_k,
             target_cfg=target_cfg, draft_cfg=draft_cfg,
             target_sp=target_sp, draft_sp=draft_sp, rope_t=rope_t,
             rope_d=rope_d, shared_cache=shared_cache, k_eff=k_eff,
             forced_alpha=forced_alpha)
-        # one wait for the card a round: the tokens and n_valid together
-        host = torch.cat([toks, n_valid.reshape(1)]).tolist()
-        return (torch.tensor(host[:-1], dtype=torch.int64), host[-1],
-                cache_t, cache_t if shared_cache else cache_d)
 
     return step
 
@@ -269,7 +283,8 @@ def build_speculative_loop(
     device="cuda",
 ):
     """The whole generation loop (the reference's on-device `while_loop`
-    program, here a host round loop with the same semantics). Returns
+    program, here a round loop with the same semantics whose rounds are
+    CUDA graph replays on a CUDA device, `_Rounds`). Returns
     run(pt, pd, cache_t, cache_d, token [1], pos, th_t, th_d, generator,
     n_target=max_new_tokens) -> (out_buf, n_out, n_rounds, pos_final[,
     k_eff_final, alpha_hat_final with adaptive_k]): out_buf holds n_out
@@ -287,6 +302,7 @@ def build_speculative_loop(
     if adaptive_k:
         assert shared_cache, "adaptive_k requires shared_cache " \
             "(a separate draft cache would go stale on skipped steps)"
+    device = llama._device(device)
     step = build_speculative_step(
         target_cfg, draft_cfg, speculate_k=k, temperature=temperature,
         top_k=top_k, target_sp=target_sp, draft_sp=draft_sp,
@@ -301,15 +317,20 @@ def build_speculative_loop(
         pos, n_out, rounds = int(pos), 0, 0
         acc_w, att_w = _PRIOR
         out = []
+
+        src = (generator if generator is not None
+               else _default_generator(device))
+        rs = _Rounds(lambda tok, p, rng, k_eff: step(
+            pt, pd, cache_t, cache_d, tok, p, th_t, th_d, rng, k_eff),
+            k, token, pos, src)
         while n_out < bound and pos + k + 1 < max_seq:
             k_eff = None
             if adaptive_k:
                 k_eff, _ = _controller(acc_w, att_w, **ctl)
                 if rounds % probe_every == 0:
                     k_eff = max(k_eff, 1)
-            toks, n_valid, cache_t, cache_d = step(
-                pt, pd, cache_t, cache_d, token, pos, th_t, th_d,
-                generator, k_eff=k_eff)
+            host = rs.round(k_eff)
+            n_valid = host[-1]
             if adaptive_k:
                 # truncated-geometric counters, discounted: n_valid - 1
                 # accepted out of that (+1 where a rejection was seen)
@@ -317,15 +338,75 @@ def build_speculative_loop(
                 att = acc + np.float32((n_valid - 1) < k_eff)
                 acc_w = _DISCOUNT * acc_w + acc
                 att_w = _DISCOUNT * att_w + att
-            out.extend(toks[:n_valid].tolist())
-            token = toks[n_valid - 1:n_valid].to(cache_t.k.device)
+            out.extend(host[:n_valid])
             n_out, pos, rounds = n_out + n_valid, pos + n_valid, rounds + 1
+        src.set_state(rs.rng.get_state())
         res = (out, n_out, rounds, pos)
         if adaptive_k:
             res += _controller(acc_w, att_w, **ctl)
         return res
 
     return run
+
+
+class _Rounds:
+    """The rounds of both speculative loops over static buffers: the last
+    token [1], the position int32 [1] and the round's result [k + 2] (its
+    k + 1 tokens, then n_valid), all on the device. A round runs
+    `round_fn(token, pos, rng, k_eff)` (`build_speculative_step`'s
+    round), writes its result and moves the token and the position on:
+    a call from Python, or on a CUDA device a replay of the graph
+    captured for its k_eff (captured on first use, all depths in one
+    memory pool). `rng` is a private generator registered with every
+    graph; it starts at the state of `src`, and the caller hands its
+    final state back."""
+
+    def __init__(self, round_fn, k: int, token: torch.Tensor, pos: int,
+                 src: torch.Generator):
+        dev = token.device
+        self.round_fn = round_fn
+        self.token = token.reshape(1).clone()
+        self.pos = torch.full((1,), pos, dtype=torch.int32, device=dev)
+        self.res = torch.zeros(k + 2, dtype=torch.int64, device=dev)
+        self.rng = torch.Generator(device=dev)
+        self.rng.set_state(src.get_state())
+        self.graphs = {}
+        self.pool = None
+
+    def body(self, k_eff) -> None:
+        toks, n_valid = self.round_fn(self.token, self.pos, self.rng, k_eff)
+        self.res[:-1].copy_(toks)
+        self.res[-1:].copy_(n_valid.reshape(1))
+        self.token.copy_(toks.index_select(0, (n_valid - 1).reshape(1)))
+        self.pos += n_valid.to(torch.int32)
+
+    def _capture(self, k_eff) -> torch.cuda.CUDAGraph:
+        """Capture the round at depth k_eff (`capture_graph`, one warm-up
+        round). The warm-up writes the cache rows that the round itself
+        writes next (they are written again before anything reads
+        them); the token, the position and the generator are put
+        back."""
+        saved = (self.token.clone(), self.pos.clone(), self.rng.get_state())
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = capture_graph(lambda: self.body(k_eff), self.rng, warmups=1,
+                              pool=self.pool)
+        self.token.copy_(saved[0])
+        self.pos.copy_(saved[1])
+        self.rng.set_state(saved[2])
+        return graph
+
+    def round(self, k_eff, replay: bool = True) -> list:
+        """Run one round, by a replay of its depth's graph (`replay` on a
+        CUDA device) or by calling the body; returns its k + 1 tokens and
+        n_valid as host ints (the one read a round)."""
+        if not replay or self.token.device.type != "cuda":
+            self.body(k_eff)
+        else:
+            if k_eff not in self.graphs:
+                self.graphs[k_eff] = self._capture(k_eff)
+            self.graphs[k_eff].replay()
+        return self.res.tolist()
 
 
 def speculative_generate(
@@ -427,20 +508,22 @@ def speculative_generate(
                                np.asarray(new, np.int64)]), stats
 
     step = build_speculative_step(target_cfg, draft_cfg, **common)
+    rs = _Rounds(lambda tok, p, rng, k_eff: step(
+        target_params, draft_params, cache_t, cache_d, tok, p, th_t, th_d,
+        rng, k_eff), speculate_k, cur, t, generator)
     out = [int(cur)]
     pos = t
     accept_counts = []
     while len(out) < max_new_tokens:
-        toks, n, cache_t, cache_d = step(
-            target_params, draft_params, cache_t, cache_d, cur, pos,
-            th_t, th_d, generator)
+        host = rs.round(None, replay=False)
+        n = host[-1]
         accept_counts.append(n - 1)
         take = min(n, max_new_tokens - len(out))
-        out.extend(toks[:take].tolist())
+        out.extend(host[:take])
         pos += n
-        cur = toks[n - 1:n].to(device)
         if pos + speculate_k + 1 >= max_seq:
             break
+    generator.set_state(rs.rng.get_state())
     stats = {
         "accepted_per_step": accept_counts,
         "mean_accepted": (float(np.mean(accept_counts)) if accept_counts

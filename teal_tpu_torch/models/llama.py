@@ -542,7 +542,9 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             return_hidden: bool = False):
     """Full forward. tokens: [B, S] int; pos: start position shared by the
     batch (int) or one per sequence (continuous batching: each row decodes
-    at its own depth); thresholds: [L, 7] fp32 on the
+    at its own depth), or an int tensor of 1 or B entries, which no
+    route reads back to the host (`_positions`: the decode step of a CUDA
+    graph keeps its position on the device); thresholds: [L, 7] fp32 on the
     parameters' device; rope: optional (cos, sin) tables from
     `precompute_rope` (computed here when absent). The cache is updated
     in place.
@@ -569,10 +571,7 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
     dev = tokens.device
     h = params["embed"][tokens].to(compute_dtype(params))
     b, s = tokens.shape
-    if isinstance(pos, torch.Tensor):
-        pos = pos.reshape(-1).tolist()
-    pos = [int(p) for p in np.atleast_1d(pos)]
-    pos = pos * b if len(pos) == 1 else pos
+    pos_t = _positions(pos, b, dev, cache.max_seq)
     cos_full, sin_full = rope or precompute_rope(cfg, cache.max_seq, dev)
     lay = params["layers"]
     block_path = ((sp.enabled and sp.kernel == "block")
@@ -587,32 +586,22 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             params, cfg, sp, s, b, cache.k.dtype, fused_attn=fused_attn):
         from teal_tpu_torch.ops import token_block
 
-        if b == 1:
-            p = pos[0]
-            rows, pos_arg = h.reshape(cfg.dim), p
-            rope_rows = torch.stack([cos_full[p], sin_full[p]])[None]
-        else:
-            # one launch per stage for all rows: one pooled selection, the
-            # kept weights read once for the batch
-            rows = h.reshape(b, cfg.dim)
-            pos_arg = (torch.full((b,), pos[0], dtype=torch.int32,
-                                  device=dev) if len(set(pos)) == 1
-                       else torch.tensor(pos, dtype=torch.int32, device=dev))
-            rope_rows = _rope_rows(cos_full, sin_full, pos_arg)
+        # rows (batch > 1): one launch per stage for all rows, one pooled
+        # selection, the kept weights read once for the batch
+        pos_arg = pos_t.to(torch.int32)
         moe_kw = (dict(router=lay["router"],
                        n_experts_per_tok=cfg.n_experts_per_tok)
                   if cfg.n_experts > 0 else {})
         h1 = token_block.token_decode(
-            rows, thresholds, tuple(lay[n] for n in _WEIGHTS),
-            lay["attn_norm"], lay["mlp_norm"], rope_rows, cache.k, cache.v,
+            h.reshape(cfg.dim) if b == 1 else h.reshape(b, cfg.dim),
+            thresholds, tuple(lay[n] for n in _WEIGHTS),
+            lay["attn_norm"], lay["mlp_norm"],
+            _rope_rows(cos_full, sin_full, pos_arg), cache.k, cache.v,
             pos_arg, caps=token_path_caps(cfg, sp), n_heads=cfg.n_heads,
             norm_eps=cfg.norm_eps, window=cfg.sliding_window,
             fixed_sel=sp.debug_fixed_selection, **moe_kw)
         h = h1.reshape(b, 1, cfg.dim)
     else:
-        # one fill, not a host-to-device copy, when the batch shares pos
-        pos_t = (torch.full((b,), pos[0], dtype=torch.int64, device=dev)
-                 if len(set(pos)) == 1 else torch.tensor(pos, device=dev))
         positions = pos_t[:, None] + torch.arange(s, device=dev)[None, :]
         cos, sin = cos_full[positions], sin_full[positions]
         for i in range(cfg.n_layers):
@@ -633,6 +622,27 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
     if seq_group is not None:
         out = seq_group.all_gather(out, 1)
     return out, cache
+
+
+def _positions(pos, b: int, dev, max_seq: int) -> torch.Tensor:
+    """`forward`'s start positions as an int64 [B] tensor on `dev`, from a
+    host int or list (one fill where the batch shares it; each must lie
+    in [0, max_seq), else a ValueError) or from a tensor of one or B
+    entries, which is read on the device only: a CUDA graph of the step
+    then replays at the positions the tensor holds at each replay, not
+    at the ones it held at capture (K2 traps one out of range)."""
+    if isinstance(pos, torch.Tensor):
+        p = pos.reshape(-1).to(device=dev, dtype=torch.int64)
+    else:
+        vals = [int(v) for v in np.atleast_1d(pos)]
+        for v in vals:
+            if not 0 <= v < max_seq:
+                raise ValueError(f"pos {v} out of range [0, {max_seq})")
+        p = (torch.full((1,), vals[0], dtype=torch.int64, device=dev)
+             if len(set(vals)) == 1 else torch.tensor(vals, device=dev))
+    if p.numel() not in (1, b):
+        raise ValueError(f"{p.numel()} positions for a batch of {b}")
+    return p.expand(b).contiguous() if p.numel() < b else p
 
 
 def _rope_rows(cos_full, sin_full, pos: torch.Tensor) -> torch.Tensor:
@@ -661,7 +671,7 @@ def can_block_verify(params, cfg: ModelConfig, s: int) -> bool:
                                 (("wgate", "wup"), D), (("wdown",), I)))
 
 
-def block_verify(params, tokens: torch.Tensor, cache: KVCache, pos: int,
+def block_verify(params, tokens: torch.Tensor, cache: KVCache, pos,
                  thresholds, *, cfg: ModelConfig,
                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Dense forward over S consecutive positions pos..pos+S-1 of ONE
@@ -673,9 +683,10 @@ def block_verify(params, tokens: torch.Tensor, cache: KVCache, pos: int,
     -> 6 + 6) in order; a later chunk attends to the earlier ones through
     the cache. Gate with `can_block_verify`.
 
-    tokens: [1, S] int; pos: the first position; thresholds: [L, 7]
-    (unused by the fixed selection, passed through as the reference
-    does); the cache (batch 1) is updated in place at pos..pos+S-1.
+    tokens: [1, S] int; pos: the first position (an int, or an int
+    tensor read on the device only, as `forward` reads it); thresholds:
+    [L, 7] (unused by the fixed selection, passed through as the
+    reference does); the cache (batch 1) is updated in place at pos..pos+S-1.
     Returns (logits [1, S, V] fp32, cache)."""
     from teal_tpu_torch.ops import token_block
 
@@ -683,12 +694,17 @@ def block_verify(params, tokens: torch.Tensor, cache: KVCache, pos: int,
     if b != 1 or s < 2:
         raise ValueError(f"block_verify takes one sequence of S >= 2 "
                          f"tokens; got {tuple(tokens.shape)}")
-    pos = int(pos)
-    if not (0 <= pos and pos + s <= cache.max_seq):
-        raise ValueError(f"positions {pos}..{pos + s - 1} out of range "
-                         f"[0, {cache.max_seq})")
-    lay = params["layers"]
     dev = tokens.device
+    if isinstance(pos, torch.Tensor):
+        # read on the device only (K2 traps a position out of range)
+        start = pos.reshape(-1)[:1].to(device=dev, dtype=torch.int32)
+    else:
+        pos = int(pos)
+        if not (0 <= pos and pos + s <= cache.max_seq):
+            raise ValueError(f"positions {pos}..{pos + s - 1} out of range "
+                             f"[0, {cache.max_seq})")
+        start = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    lay = params["layers"]
     cos_full, sin_full = rope or precompute_rope(cfg, cache.max_seq, dev)
     n_chunks = -(-s // 8)
     base, rem = divmod(s, n_chunks)
@@ -697,8 +713,8 @@ def block_verify(params, tokens: torch.Tensor, cache: KVCache, pos: int,
     hs, off = [], 0
     for ss in sizes:
         h = params["embed"][tokens[0, off:off + ss]].to(compute_dtype(params))
-        positions = torch.arange(pos + off, pos + off + ss, dtype=torch.int32,
-                                 device=dev)
+        positions = start + torch.arange(off, off + ss, dtype=torch.int32,
+                                         device=dev)
         hs.append(token_block.token_decode(
             h, thresholds, tuple(lay[n] for n in _WEIGHTS),
             lay["attn_norm"], lay["mlp_norm"],

@@ -1254,3 +1254,89 @@ def test_safetensors_reader_on_card(cuda, tmp_path, stored):
         for k, t in got.items():
             assert t.device.type == "cuda" and t.dtype == want[k].dtype
             assert torch.equal(t.cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_decode_graph_matches_host_loop(cuda, b, temperature):
+    """The decode step captured as a CUDA graph (`on_device_loop=True`) on
+    the token path (K1 and K2; K1's rows form at batch 4) gives the host
+    loop's tokens from one generator seed, and leaves the generator where
+    the host loop does; the graph holds the step's 4*L K1 + L K2."""
+    from teal_tpu_torch.config import SparsityConfig, get_model_config
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.utils.profiling import graph_kernels
+
+    cfg = get_model_config("tiny", n_layers=2, n_heads=2, n_kv_heads=1,
+                           dim=256, intermediate_size=384, vocab_size=128)
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(
+        0), torch.bfloat16, cuda)
+    sp = SparsityConfig(enabled=True, kernel="block", block_size=128,
+                        block_keep_frac=0.5, block_thresholding=True)
+    gen = Generator(cfg, params, sp=sp, max_seq=64, batch=b,
+                    temperature=temperature, device=cuda)
+    th = torch.full((cfg.n_layers, 7), 0.5, device=cuda)
+    prompt = torch.randint(1, cfg.vocab_size, (b, 5),
+                           generator=torch.Generator().manual_seed(b)).numpy()
+    outs, states = [], []
+    for dl in (False, True, True):
+        g = torch.Generator(device=cuda).manual_seed(3)
+        outs.append(gen.generate(prompt, 12, thresholds=th, generator=g,
+                                 on_device_loop=dl)[0])
+        states.append(g.get_state())
+    assert gen._loop.graph is not None
+    for got, state in zip(outs[1:], states[1:]):
+        assert (got == outs[0]).all()
+        assert torch.equal(state, states[0])
+    # the graph's kernel nodes, read from the CUDA driver: what a replay runs
+    nodes = graph_kernels(gen._loop.graph)
+    assert [sum(c for k, c in nodes.items() if name in k)
+            for name in ("sgg_", "attn_kernel")] == [
+        4 * cfg.n_layers, cfg.n_layers], nodes
+
+
+@pytest.mark.parametrize("kw", [dict(temperature=1.0),
+                                dict(temperature=1.0, adaptive_k=True)],
+                         ids=["sampled", "adaptive"])
+def test_round_graphs_match_host_round_loop(cuda, kw):
+    """Speculative `device_loop=True` (each round a replay of its depth's
+    CUDA graph) gives the tokens and stats of the host round loop, draw
+    for draw (adaptive depth: of the eager round loop with the graphs
+    turned off)."""
+    from teal_tpu_torch.config import SparsityConfig, get_model_config
+    from teal_tpu_torch.engine import speculative as spec
+
+    cfg = get_model_config("tiny", n_layers=2, n_heads=2, n_kv_heads=2,
+                           dim=256, intermediate_size=384, vocab_size=128)
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(
+        1), torch.bfloat16, cuda)
+    draft = SparsityConfig(enabled=True, kernel="block", block_size=128,
+                           block_keep_frac=0.5, block_thresholding=True)
+    th = torch.zeros((cfg.n_layers, 7), device=cuda)
+
+    def run(device_loop):
+        return spec.speculative_generate(
+            params, params, cfg, cfg, [1, 5, 9, 2], 24, speculate_k=4,
+            max_seq=128, draft_sp=draft, draft_thresholds=th,
+            generator=torch.Generator(device=cuda).manual_seed(3),
+            device_loop=device_loop, device=cuda, **kw)
+
+    toks, st = run(True)
+    if kw.get("adaptive_k"):
+        eager = spec._Rounds.round
+
+        def no_graph(self, k_eff, replay=True):
+            return eager(self, k_eff, replay=False)
+
+        spec._Rounds.round = no_graph
+        try:
+            want, wst = run(True)
+        finally:
+            spec._Rounds.round = eager
+        assert wst == st
+    else:
+        want, wst = run(False)
+        assert (wst["new_tokens"], wst["mean_accepted"]) == (
+            st["new_tokens"], st["mean_accepted"])
+        assert len(wst["accepted_per_step"]) == st["rounds"]
+    assert (toks == want).all()
