@@ -279,9 +279,33 @@ Phases:
      device time, wall
      time and idle share; tok/s of both loops in three turns (of twice
      those tokens);
+ 18. K7, the whole token in one launch (`k7_phase`, on the resident bf16 7B
+     after phase 17, at phase 4's thresholds). The batch-1 bf16 checks of
+     phases 4-17 pin the K1/K2 loop (`LOOP_SP`: `token_fused=False`, the
+     reference's packed pipeline) and check what they checked before K7;
+     batched, int8, int4 and Mixtral routes keep `MAIN_SP` (K7 does not
+     take them); the CLI of phase 14 builds its own config and takes K7
+     (one launch a step, k a speculative round). Phase 18 drives the main
+     path as a user calls it (`MAIN_SP`, token_fused unset): K7's plan in
+     the wrapper equal to the
+     kernel's (`check_k7_plan`: 7B, Mistral-7B with its window, the tiny
+     test configs); every layer of K7 alone, on a one-layer slice of the
+     stack, held to the plain layer on the same input (output and written
+     K/V rows within 2e-2 of scale, kept counts and groups equal or a
+     one-group flip `explain_count_flip` explains; `hold_k7_layers`); the
+     same for 2 layers at pos 2047 of a 2048-row cache, and one 2-layer
+     launch against `token_kernel_plain`; phase 4's three prompts through
+     K7 (host loop, counts set to 0 just before: one K7 and no K1-K6 a
+     decoded token) and through the K1/K2 loop: bf16 agreement reported,
+     tokens equal on a 2-layer fp32 cut at 7B widths; the two decode
+     graphs' nodes (one K7 node; 4 L K1 + L K2) and, in turns, a replay's
+     device and wall ms, idle share and tok/s; K7's kernel ms, plain ms,
+     bound (this token's kept groups), barrier floor (`empty`) and block
+     0's trace of the layer phases; self-speculation with the K7 draft
+     (k K7 launches and one verify a round);
 all printed as one `kernels` JSON line, with the card in it (and the
-results of phases 12-17 under "calibration", "speculative", "cli",
-"parallel", "serving_tp" and "device_loop");
+results of phases 12-18 under "calibration", "speculative", "cli",
+"parallel", "serving_tp", "device_loop" and "k7");
 besides, one main-path
 decode step with every kernel swapped for its plain version is profiled
 ("decode_step_ms" "sparse, plain kernels").
@@ -309,6 +333,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 MAIN_SP = dict(enabled=True, kernel="block", block_size=128,
                block_keep_frac=0.5, block_thresholding=True)
+# the K1/K2 loop at batch 1 (`token_fused=False`, the reference's packed
+# pipeline, where MAIN_SP takes K7 for bf16 / fp32 arrays): the batch-1
+# checks of phases 4-17 hold it as they did before K7; batched, int8,
+# int4 and Mixtral routes keep MAIN_SP, whose route K7 leaves unchanged
+# (token_fused=False would send them to the layer loop)
+LOOP_SP = dict(MAIN_SP, token_fused=False)
 TWIN_SP = dict(MAIN_SP, kernel="masked_dense", mode="group")
 STAGES = ("qkv", "o", "gate|up", "down")
 PROMPT_LENS = (5, 17, 40)
@@ -770,8 +800,19 @@ def _wrappers():
 
 
 def reset_launches():
+    """Set the launch counts of K1-K6 and K7 to 0."""
+    from teal_tpu_torch.ops.token_block import token_kernel
+
     for f in _wrappers():
         f.launches = 0
+    token_kernel.launches = 0
+
+
+def k7_launches() -> int:
+    """K7's launch count (phases 14 and 18 read it beside K1-K6's)."""
+    from teal_tpu_torch.ops.token_block import token_kernel
+
+    return token_kernel.launches
 
 
 def read_launches():
@@ -824,7 +865,7 @@ def end_to_end(params, cfg, caps, device, seed):
 
     dt = params["layers"]["wq"].dtype
     prompts = main_prompts(cfg, seed)
-    sparse = Generator(cfg, params, sp=SparsityConfig(**MAIN_SP),
+    sparse = Generator(cfg, params, sp=SparsityConfig(**LOOP_SP),
                        max_seq=MAX_SEQ, cache_dtype=dt, temperature=0.0,
                        device=device)
     dense = Generator(cfg, params, sp=SparsityConfig(), max_seq=MAX_SEQ,
@@ -871,7 +912,7 @@ def end_to_end(params, cfg, caps, device, seed):
     # logits of one more sparse step: finite, of the expected shape
     lg, _ = llama.forward(params, torch.tensor([[tok]], device=device),
                           llama.KVCache(cache.k.clone(), cache.v.clone()),
-                          pos, th, cfg=cfg, sp=SparsityConfig(**MAIN_SP),
+                          pos, th, cfg=cfg, sp=SparsityConfig(**LOOP_SP),
                           rope=sparse.rope)
     check(tuple(lg.shape) == (1, 1, cfg.vocab_size)
           and bool(torch.isfinite(lg).all()), "sparse logits not finite")
@@ -1211,10 +1252,11 @@ def plain_path(k1=None):
              (attn_block, "decode_attention", da.decode_attention_plain),
              (tp_kernel, "decode_attention", da.decode_attention_plain),
              (token_block, "moe_route", token_block.moe_route_plain),
+             (token_block, "token_kernel", token_block.token_kernel_plain),
              (llama, "flash_prefill_attention",
               fp.flash_prefill_attention_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
-    before = read_launches()
+    before = read_launches(), k7_launches()
     for m, n, f in swaps:
         setattr(m, n, f)
     try:
@@ -1222,7 +1264,8 @@ def plain_path(k1=None):
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
-    check(read_launches() == before, "the plain path launched a kernel")
+    check((read_launches(), k7_launches()) == before,
+          "the plain path launched a kernel")
 
 
 FLIP_ULPS = 2                    # a flip's input: rounding-level apart
@@ -2397,7 +2440,9 @@ def check_step_launches(params, cfg, th, device, rope):
         reset_launches()
         lg, _ = llama.forward(params, torch.full((b, 1), 7, device=device),
                               cache, pos, th, cfg=cfg,
-                              sp=SparsityConfig(**MAIN_SP), rope=rope)
+                              sp=SparsityConfig(**(LOOP_SP if b == 1
+                                                   else MAIN_SP)),
+                              rope=rope)
         got = read_launches()
         check(got == (4 * L, L, 0, 0, 0, 0), f"batch {b}: launches (K1, K2, "
               f"K3, K4, K5, K6) {got} in one decode step, expected "
@@ -2770,7 +2815,8 @@ def step_kept_counts(params, cfg, th, device, rope, b: int = 16):
             recording
         llama.forward(params, torch.full((b, 1), 7, device=device), cache,
                       [40 + 4 * i for i in range(b)], th, cfg=cfg,
-                      sp=SparsityConfig(**MAIN_SP), rope=rope)
+                      sp=SparsityConfig(**(LOOP_SP if b == 1 else MAIN_SP)),
+                      rope=rope)
     finally:
         token_block.select_gather_gemv = attn_block.select_gather_gemv = real
     kept = torch.cat(counts).reshape(cfg.n_layers, 4).cpu()
@@ -2790,7 +2836,8 @@ def batched_phase(params, cfg, caps, device, gen, seed, rope):
     th, serve = server_phase(params, cfg, device, seed, rope)
     verify = verify_phase(params, cfg, device, seed, rope)
     steps = time_decode_step(
-        params, cfg, [(f"server batch {b}", MAIN_SP, b, th,
+        params, cfg, [(f"server batch {b}",
+                       LOOP_SP if b == 1 else MAIN_SP, b, th,
                        [40 + 4 * i for i in range(b)]) for b in STEP_BATCHES],
         device, rope)
     for b in STEP_BATCHES:
@@ -3050,7 +3097,7 @@ def long_prompt_run(params, cfg, device, seed, th):
           "the K6 gate: the long prompt must take it, the short ones not")
     prompt = np.random.default_rng(seed + 11).integers(1, cfg.vocab_size,
                                                        LONG_PROMPT)
-    gen = Generator(cfg, params, sp=SparsityConfig(**MAIN_SP), max_seq=T,
+    gen = Generator(cfg, params, sp=SparsityConfig(**LOOP_SP), max_seq=T,
                     cache_dtype=torch.bfloat16, temperature=0.0,
                     device=device)
     padded = torch.zeros((1, T), dtype=torch.int64)
@@ -3129,7 +3176,7 @@ def long_prompt_run(params, cfg, device, seed, th):
                               causal_prefill=True)
     tok = lg[:, LONG_PROMPT - 1:LONG_PROMPT].argmax(-1)
     del lg
-    step = time_decode_step(params, cfg, [(f"pos {LONG_PROMPT}", MAIN_SP, 1,
+    step = time_decode_step(params, cfg, [(f"pos {LONG_PROMPT}", LOOP_SP, 1,
                                            th, LONG_PROMPT)], device,
                             gen.rope, cache=cache, tok=tok)
     del cache
@@ -3255,7 +3302,7 @@ def calib_decode(params, cfg, th, device, seed, what, shares=None):
     from teal_tpu_torch.models import llama
 
     dt = llama.compute_dtype(params)
-    gen = Generator(cfg, params, sp=SparsityConfig(**MAIN_SP),
+    gen = Generator(cfg, params, sp=SparsityConfig(**LOOP_SP),
                     max_seq=MAX_SEQ, cache_dtype=dt, temperature=0.0,
                     device=device)
     prompts = main_prompts(cfg, seed)
@@ -3637,7 +3684,7 @@ def spec_launches(got, L: int, live: int, rounds: int, what: str):
           f"{rounds} verifies")
 
 
-def spec_run(params, cfg, prompt, n, device, th, seed, draft=MAIN_SP,
+def spec_run(params, cfg, prompt, n, device, th, seed, draft=LOOP_SP,
              **kw):
     """One speculative generation on the resident 7B: self-speculation on
     one shared cache, the draft the `draft` config (the main path's) at
@@ -3814,9 +3861,9 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
     # proposals the verify accepts), checked, then timed
     host_toks = []
     zero = llama.zero_thresholds(cfg, device)
-    cases = [(f"prompt {len(p)}", p, MAIN_SP, th) for p in prompts]
+    cases = [(f"prompt {len(p)}", p, LOOP_SP, th) for p in prompts]
     cases.append((f"prompt {len(prompts[2])} keep 1.0", prompts[2],
-                  dict(MAIN_SP, block_keep_frac=1.0), zero))
+                  dict(LOOP_SP, block_keep_frac=1.0), zero))
     for i, (what, p, draft, dth) in enumerate(cases):
         rec = []
         reset_launches()
@@ -3998,7 +4045,7 @@ CLI_QUERY = ("A long context for the scorer: " * 8).strip()  # 247 bytes
 def cli_run(argv, what):
     """`teal_tpu_torch.cli.main(argv)` in-process with its output captured,
     the launch counts reset just before and read just after. Returns
-    (stdout, stderr, seconds, launches, peak GiB)."""
+    (stdout, stderr, seconds, launches (K1-K6), peak GiB, K7 launches)."""
     import io
 
     import torch
@@ -4017,12 +4064,12 @@ def cli_run(argv, what):
         raise SmokeFailure(f"cli {what}: exit {e.code}\n{err.getvalue()}")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    got = read_launches()
+    got, k7 = read_launches(), k7_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[cli] {what}: {secs:.2f} s, peak {peak:.2f} GiB, launches (K1, K2, "
-        f"K3, K4, K5, K6) {got}; stderr tail "
+        f"K3, K4, K5, K6) {got}, K7 {k7}; stderr tail "
         f"{err.getvalue().strip().splitlines()[-1:]}")
-    return out.getvalue(), err.getvalue(), secs, got, peak
+    return out.getvalue(), err.getvalue(), secs, got, peak, k7
 
 
 def gen_count(err: str) -> int:
@@ -4037,13 +4084,15 @@ def cli_phase(device):
     and peak memory: generate dense (no kernel); calibrate (`CLI_CALIB`
     synthetic tokens, group size 128: one K6 launch a layer); generate
     sparse at its group thresholds (`--kernel block --group-thresholds
-    --block-size 128`: 4*L K1 + L K2 a decoded token, with --metrics);
-    self-speculation (`--speculate-k 4 --self-speculate`, with --metrics
-    and --profile: a non-empty trace directory; (k + 1) * (4*L K1 + L K2)
-    a round); ppl at `CLI_PPL` (K6 L a window); eval of a task file whose
+    --block-size 128`: the main path, one K7 launch a step, captured in
+    the step's graph, with --metrics); self-speculation (`--speculate-k 4
+    --self-speculate`, with --metrics and --profile: a non-empty trace
+    directory; k K7 draft steps and 4*L K1 + L K2 for the verify a
+    round); ppl at `CLI_PPL` (K6 L a window); eval of a task file whose
     contexts pass 128 tokens (K6 L a scored sequence and L for the
     generated one's prefill); quantize --mode int4, then generate from
-    its store (K1's int4 plan after the repack, 4*L K1 + L K2 a token);
+    its store (K1's int4 plan after the repack: the K1/K2 loop, 4*L K1 +
+    L K2 a step);
     and one sparse generate as a subprocess, `python -m
     teal_tpu_torch.cli`, exit 0. Returns the results for the JSON line."""
     import shutil
@@ -4067,17 +4116,20 @@ def cli_phase(device):
     decoded = CLI_NEW_TOKENS - 1
     res = {}
 
-    def run(name, argv, want=None):
-        out, err, secs, got, peak = cli_run(argv, name)
+    def run(name, argv, want=None, want_k7=0):
+        out, err, secs, got, peak, k7 = cli_run(argv, name)
         if want is not None:
             check(got == want, f"cli {name}: launches {got}, expected {want}")
-        res[name] = dict(s=secs, peak_gib=peak, launches=got)
-        return out, err, got
+        if want_k7 is not None:
+            check(k7 == want_k7, f"cli {name}: {k7} K7 launches, expected "
+                  f"{want_k7}")
+        res[name] = dict(s=secs, peak_gib=peak, launches=got, k7_launches=k7)
+        return out, err, got, k7
 
-    _, err, _ = run("generate dense", ["generate"] + init + gen,
-                    (0, 0, 0, 0, 0, 0))
+    _, err, _, _ = run("generate dense", ["generate"] + init + gen,
+                       (0, 0, 0, 0, 0, 0))
     check(gen_count(err) == CLI_NEW_TOKENS, f"cli generate dense: {err}")
-    out, _, _ = run("calibrate", ["calibrate"] + init + [
+    out, _, _, _ = run("calibrate", ["calibrate"] + init + [
         "--output-path", str(CLI_DIR / "calib"), "--batch",
         str(CLI_CALIB[0]), "--seq-len", str(CLI_CALIB[1]),
         "--no-layer-inputs", "--group-sizes", "128"], (0, 0, 0, 0, 0, L))
@@ -4085,17 +4137,23 @@ def cli_phase(device):
               for l in range(L)), f"cli calibrate: no histograms in {hist}")
     # generate decodes through the step's CUDA graph: the wrappers launch
     # at the capture only (2 warm-up steps and the captured one), whatever
-    # the tokens decoded; a host loop would launch a step's worth a token
+    # the tokens decoded; a host loop would launch a step's worth a token.
+    # The bf16 model's main path is K7 (one launch a step), the int4
+    # model's the K1/K2 loop (4 L K1 + L K2 a step)
     tok_path = (4 * L * 3, L * 3, 0, 0, 0, 0)
-    _, err, _ = run("generate sparse", ["generate"] + init + gen + sparse
-                    + ["--metrics", str(metrics)], tok_path)
+    _, err, _, _ = run("generate sparse", ["generate"] + init + gen + sparse
+                       + ["--metrics", str(metrics)], (0,) * 6, 3)
     check(gen_count(err) == CLI_NEW_TOKENS, f"cli generate sparse: {err}")
-    _, err, got = run("generate speculative", ["generate"] + init + gen + [
-        "--speculate-k", "4", "--self-speculate", "--block-size", "128",
-        "--metrics", str(metrics), "--profile", str(prof)])
-    per_round = 5 * 4 * L
+    _, err, got, k7 = run("generate speculative", ["generate"] + init + gen
+                          + ["--speculate-k", "4", "--self-speculate",
+                             "--block-size", "128", "--metrics",
+                             str(metrics), "--profile", str(prof)],
+                          want_k7=None)
+    # a round: 4 draft steps (K7 each) and one verify chunk (4 L K1 + L K2)
+    per_round = 4 * L
     check(got[0] > 0 and got[0] % per_round == 0 and got[0] == 4 * got[1]
-          and not any(got[2:]), f"cli speculative: launches {got}")
+          and not any(got[2:]) and k7 == 4 * (got[0] // per_round),
+          f"cli speculative: launches {got}, K7 {k7}")
     check(f"{CLI_NEW_TOKENS} tokens" in err and "mean accepted" in err,
           f"cli speculative: {err}")
     check(prof.is_dir() and any(prof.iterdir()), "cli speculative: empty "
@@ -4109,7 +4167,7 @@ def cli_phase(device):
         trace_files=sorted(p.name for p in prof.iterdir()))
     n_tok, ctx, win = CLI_PPL
     n_win = len(list(windows(n_tok, ctx, win)))
-    out, _, _ = run("ppl", ["ppl"] + init + [
+    out, _, _, _ = run("ppl", ["ppl"] + init + [
         "--num-tokens", str(n_tok), "--context-size", str(ctx),
         "--window-size", str(win)], (0, 0, 0, 0, 0, L * n_win))
     ppl = float(out.split("dense ppl: ")[1].split()[0])
@@ -4123,8 +4181,8 @@ def cli_phase(device):
              "gold": 1}]},
         {"name": "gen", "type": "generate", "until": ["\n"],
          "max_gen_toks": 4, "docs": [{"query": CLI_QUERY, "target": "x"}]}]))
-    out, _, _ = run("eval", ["eval"] + init + ["--task-file", str(task)],
-                    (0, 0, 0, 0, 0, 5 * L))
+    out, _, _, _ = run("eval", ["eval"] + init + ["--task-file", str(task)],
+                       (0, 0, 0, 0, 0, 5 * L))
     ev = json.loads(out)
     check(sorted(ev) == ["gen", "mc"] and 0 <= ev["mc"]["acc"] <= 1,
           f"cli eval: {ev}")
@@ -4133,7 +4191,7 @@ def cli_phase(device):
     run("quantize int4", ["quantize"] + init + ["--mode", "int4",
                                                 "--output-path", q4],
         (0, 0, 0, 0, 0, 0))
-    _, err, _ = run("generate int4", ["generate"] + base + [
+    _, err, _, _ = run("generate int4", ["generate"] + base + [
         "--checkpoint", q4] + gen + sparse, tok_path)
     check(gen_count(err) == CLI_NEW_TOKENS, f"cli generate int4: {err}")
 
@@ -5207,7 +5265,7 @@ def p15_nccl(device, seed, shrink=None):
         cfg = get_model_config("7B", n_layers=P15_CUT, **(shrink or {}))
         mesh = tp_kernel.make_tp_mesh(1)
         params = p15_model(cfg, mesh, seed, device)
-        sp = SparsityConfig(**MAIN_SP)
+        sp = SparsityConfig(**LOOP_SP)
         th = llama.zero_thresholds(cfg, device)
         tok = torch.tensor([[7]], device=device)
         c_tp = p15_cache(cfg, mesh, 1, MAX_SEQ, device)
@@ -5730,7 +5788,7 @@ def p16_bench_step(params, cfg, th, device, rope, step):
     from teal_tpu_torch.models import llama
     from teal_tpu_torch.utils.bench_utils import bench_chained
 
-    sp = SparsityConfig(**MAIN_SP)
+    sp = SparsityConfig(**LOOP_SP)
     cache = llama.KVCache.init(cfg, 1, MAX_SEQ, llama.compute_dtype(params),
                                device)
 
@@ -5954,13 +6012,458 @@ def device_loop_phase(params, cfg, device, seed, th):
     {route: results}."""
     t0 = time.perf_counter()
     prompts = main_prompts(cfg, seed)
-    res = {"main": graph_route("main", cfg, params, MAIN_SP, 1, th, device,
+    res = {"main": graph_route("main", cfg, params, LOOP_SP, 1, th, device,
                                prompts, (4, 1, 0, 0, 0, 0), seed),
            "dense": graph_route("dense", cfg, params, {}, 1, th, device,
                                 prompts, (0, 0, 0, 0, 0, 0), seed)}
     log(f"[graph] phase 17 (main and dense) in "
         f"{time.perf_counter() - t0:.1f} s")
     return res
+
+
+# --- phase 18: K7, the whole token in one launch ----------------------------
+
+K7_TOKEN_TOL = 2e-2              # a layer's output and cache rows, of scale
+K7_LONG = (2047, 2048)           # (pos, T) of the long-context 2-layer run
+K7_CUT = 2                       # layers of the fp32 cut at 7B widths
+K7_TIME_ITERS = 20
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+
+
+def check_k7_plan():
+    """K7's plan in the wrapper (`token_block._token_plan`) equal to the
+    kernel's (`teal_token_plan`) on this card, fp32 and bf16: Llama-2-7B
+    at T 512 / 2048 / 4096, Mistral-7B (GQA 32/8, window 4096) at T 8192,
+    and the tests' head-128 tiny configs; each within shared memory."""
+    import ctypes
+
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.ops import token_block as tb
+
+    lib = _build.load()["token_decode"]
+    sms = _build.sm_count(0)
+    shapes = [(4096, 11008, 32, 32, T, None, 43, 32) for T in
+              (512, 2048, 4096)] + [(4096, 14336, 32, 8, 8192, 4096, 56, 32),
+                                    (256, 384, 2, 1, 16, None, 3, 3),
+                                    (256, 384, 2, 2, 64, 8, 3, 3)]
+    plans = {}
+    for D, I, Hq, Hkv, T, win, cm, L in shapes:
+        for code, esz in ((0, 4), (1, 2)):
+            out = (ctypes.c_int * 7)()
+            rc = lib.teal_token_plan(code, D, I, Hq, Hkv, T, win or 0, cm,
+                                     sms, L, out)
+            want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms)
+            check(rc == 0 and want is not None and tuple(out) == tuple(want)
+                  and want.smem <= tb._SMEM_BYTES,
+                  f"K7 plan {(D, I, Hq, Hkv, T, win, cm, L, esz)}: kernel "
+                  f"{rc} {list(out)}, wrapper {want}")
+            plans[f"{D}/{I}/{Hq}/{Hkv}/T{T}/w{win}/{esz}B"] = list(out)
+    log(f"[k7] plan equal in the wrapper and the kernel for {len(plans)} "
+        f"shapes on {sms} SMs; 7B bf16 T 512: "
+        f"{plans['4096/11008/32/32/T512/wNone/2B']} "
+        "(grid, threads, shared bytes, workspace bytes, grid barriers, "
+        "kv-head barriers, SA)")
+    return plans
+
+
+def k7_recorder(rec, idx_rec, override=None):
+    """`recording_k1` that also appends each call's kept groups (in order)
+    to `idx_rec`."""
+    base = recording_k1(rec, override)
+
+    def k1(*args, **kw):
+        out = base(*args, **kw)
+        idx_rec.append(out[1][:int(out[2])])
+        return out
+    return k1
+
+
+def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
+                   tag="[k7]"):
+    """Every layer of K7 run alone on a one-layer slice of the stack
+    (weights, gains, thresholds and cache layer `i:i+1`), on the plain
+    path's input to that layer and the pre-step cache: its output and
+    written K/V rows within `K7_TOKEN_TOL` of their largest magnitude of
+    the plain layer's (`layer_decode` under `plain_path`, the same
+    thresholds), its kept counts and groups (K7's `sel`) equal to the
+    plain path's. Where one stage kept one group more or fewer and a plain
+    score lies within FLIP_ULPS of the threshold (`explain_count_flip`, as
+    phase 4), the plain layer runs again past that score and K7 is held to
+    that. Returns (worst relative error, worst absolute error of the
+    output, flips explained)."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block as tb
+
+    lay = params["layers"]
+    ws = tuple(lay[n] for n in PROJ_NAMES)
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+              window=cfg.sliding_window)
+    k, v = cache.k.clone(), cache.v.clone()            # plain path
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=device)
+    rows = llama._rope_rows(rope[0], rope[1], pos_t)
+    h = params["embed"][torch.as_tensor([tok], device=device)].to(
+        llama.compute_dtype(params)).reshape(cfg.dim)
+    worst = worst_abs = 0.0
+    flips, kept = 0, []
+    for i in range(cfg.n_layers):
+        rec, idx_rec, counts = [], [], []
+        with plain_path(k1=k7_recorder(rec, idx_rec)):
+            want = tb.layer_decode(h, i, th, ws, lay["attn_norm"],
+                                   lay["mlp_norm"], rows, k, v, pos_t,
+                                   counts=counts, **kw)
+        sl = slice(i, i + 1)
+        kk, vk = cache.k[sl].clone(), cache.v[sl].clone()
+        sel = torch.zeros((1, 4, 1 + max(caps)), dtype=torch.int32,
+                          device=device)
+        got = tb.token_kernel(h, th[sl].contiguous(),
+                              tuple(w[sl] for w in ws), lay["attn_norm"][sl],
+                              lay["mlp_norm"][sl], rows, kk, vk, pos_t,
+                              sel=sel, **kw)
+        g_cnt = [int(c) for c in sel[0, :, 0].tolist()]
+        w_cnt = [int(c) for c in counts[-1].tolist()]
+        held = want
+        if g_cnt != w_cnt:
+            ok, what, override = explain_count_flip(rec, g_cnt, w_cnt)
+            log(f"{tag} layer {i}: {what}; {'a flip' if ok else 'not a flip'}"
+                f" within {FLIP_ULPS} ulps")
+            check(ok, f"{tag} layer {i}: K7 kept {g_cnt}, the plain path "
+                  f"{w_cnt}: {what}")
+            rec, idx_rec, again = [], [], []
+            with plain_path(k1=k7_recorder(rec, idx_rec, override)):
+                held = tb.layer_decode(h, i, th, ws, lay["attn_norm"],
+                                       lay["mlp_norm"], rows, k, v, pos_t,
+                                       counts=again, **kw)
+            check([int(c) for c in again[0].tolist()] == g_cnt,
+                  f"{tag} layer {i}: the plain layer run again keeps "
+                  f"{again[0].tolist()}, K7 {g_cnt}")
+            flips += 1
+        for st, c in enumerate(g_cnt):
+            check(torch.equal(sel[0, st, 1:1 + c], idx_rec[st].int()),
+                  f"{tag} layer {i} stage {STAGES[st]}: K7 kept "
+                  f"{sel[0, st, 1:1 + c].tolist()}, the plain path "
+                  f"{idx_rec[st].tolist()}")
+        kept.append(g_cnt)
+        for what, g, w in (("hidden", got, held),
+                           ("k row", kk[0, 0, :, pos], k[i, 0, :, pos]),
+                           ("v row", vk[0, 0, :, pos], v[i, 0, :, pos])):
+            err = rel_check(f"{tag} layer {i} {what}: K7 vs plain", g, w,
+                            K7_TOKEN_TOL)
+            scale = float(w.float().abs().max())
+            worst = max(worst, err / scale if scale else 0.0)
+            if what == "hidden":
+                worst_abs = max(worst_abs, err)
+        h = want
+    mean = [round(sum(c[j] for c in kept) / len(kept), 2) for j in range(4)]
+    log(f"{tag} {cfg.n_layers} layers at pos {pos}: each K7 layer held to "
+        f"the plain layer (worst {worst:.2e} of scale, tolerance "
+        f"{K7_TOKEN_TOL}); kept groups identical ({flips} one-group flips "
+        f"explained); mean kept (qkv, o, gate|up, down) {mean} of caps "
+        f"{list(caps)}")
+    return worst, worst_abs, flips
+
+
+def k7_long_run(params, cfg, device, gen, th):
+    """K7 on the first two layers at pos 2047 of a 2048-row cache of random
+    rows (`K7_LONG`): each layer held alone (`hold_k7_layers`), then one
+    2-layer launch against `token_kernel_plain` on the same input, output
+    and cache within `K7_TOKEN_TOL` of scale where both keep the same
+    groups. Returns the results."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block as tb
+
+    pos, T = K7_LONG
+    ccfg = dataclasses.replace(cfg, n_layers=2)
+    cut = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    dt = llama.compute_dtype(params)
+    shape = (2, 1, cfg.n_kv_heads, T, 128)
+    cache = llama.KVCache(
+        torch.randn(shape, generator=gen, device=device).to(dt),
+        torch.randn(shape, generator=gen, device=device).to(dt))
+    rope = llama.precompute_rope(cfg, T, device)
+    worst, _, flips = hold_k7_layers(cut, ccfg, cache, 7, pos, rope,
+                                     th[:2].contiguous(), device,
+                                     tag="[k7 long]")
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=device)
+    rows = llama._rope_rows(rope[0], rope[1], pos_t)
+    h = cut["embed"][7].to(dt)
+    lay = cut["layers"]
+    args = (h, th[:2].contiguous(), tuple(lay[n] for n in PROJ_NAMES),
+            lay["attn_norm"], lay["mlp_norm"], rows)
+    kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+              window=cfg.sliding_window)
+    sels = [torch.zeros((2, 4, 1 + max(caps)), dtype=torch.int32,
+                        device=device) for _ in range(2)]
+    caches = [(cache.k.clone(), cache.v.clone()) for _ in range(2)]
+    got = tb.token_kernel(*args, *caches[0], pos_t, sel=sels[0], **kw)
+    want = tb.token_kernel_plain(*args, *caches[1], pos_t, sel=sels[1], **kw)
+    res = dict(pos=pos, T=T, layer_worst=worst, flips=flips,
+               same_kept=bool(torch.equal(*sels)))
+    if res["same_kept"]:
+        res["err"] = rel_check("[k7 long] 2 layers in one launch: K7 vs "
+                               "plain", got, want, K7_TOKEN_TOL)
+        for i, name in enumerate(("k", "v")):
+            rel_check(f"[k7 long] {name} cache after the launch",
+                      caches[0][i], caches[1][i], K7_TOKEN_TOL)
+    log(f"[k7 long] pos {pos} of a {T}-row cache, 2 layers: "
+        + (f"one launch within {res['err']:.3e} of the plain version, the "
+           "same kept groups" if res["same_kept"] else
+           "the 2-layer launch kept other groups than the plain version "
+           "(a flip the layer holds explained); held layer by layer"))
+    return res
+
+
+def k7_tokens(params, cfg, device, seed, th):
+    """Phase 4's three prompts, `NEW_TOKENS` greedy tokens each, through the
+    main path as a user calls it (`Generator` with `MAIN_SP`: K7) and through
+    the K1/K2 loop (`LOOP_SP`): on the resident bf16 7B the agreement is
+    reported; on a `K7_CUT`-layer fp32 cut at the 7B widths the tokens
+    must be equal. The bf16 K7 run decodes on the host loop with the
+    launch counts set to 0 just before and read just after: one K7 and no
+    K1-K6 launch a decoded token. Returns (results, K7 launches, the two
+    bf16 Generators)."""
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.models import llama
+
+    prompts = main_prompts(cfg, seed)
+    res = {}
+
+    def gens(p, c, dt):
+        return [Generator(c, p, sp=SparsityConfig(**sp), max_seq=MAX_SEQ,
+                          cache_dtype=dt, temperature=0.0, device=device)
+                for sp in (MAIN_SP, LOOP_SP)]
+
+    k7, loop = gens(params, cfg, torch.bfloat16)
+    k7.generate(prompts[0], 4, thresholds=th, on_device_loop=False)
+    reset_launches()
+    outs = [k7.generate(p, NEW_TOKENS, thresholds=th,
+                        on_device_loop=False)[0] for p in prompts]
+    got, n7 = read_launches(), k7_launches()
+    decoded = len(prompts) * (NEW_TOKENS - 1)
+    check(got == (0,) * 6 and n7 == decoded, f"[k7] main path: launches "
+          f"(K1-K6) {got} and {n7} K7 for {decoded} decoded tokens, "
+          f"expected none and {decoded}")
+    refs = [loop.generate(p, NEW_TOKENS, thresholds=th)[0] for p in prompts]
+    agree = [int((a[0, len(p):] == b[0, len(p):]).sum())
+             for a, b, p in zip(outs, refs, prompts)]
+    res["bf16"] = dict(agree=agree, of=NEW_TOKENS,
+                       k7=[o[0, len(p):].tolist()
+                           for o, p in zip(outs, prompts)],
+                       loop=[o[0, len(p):].tolist()
+                             for o, p in zip(refs, prompts)])
+    log(f"[k7] main path (K7, host loop): {decoded} decoded tokens, "
+        f"{n7} K7 launches, no K1-K6; bf16 greedy tokens equal to the K1/K2 "
+        f"loop's: {agree} of {NEW_TOKENS} a prompt")
+    ccfg = dataclasses.replace(cfg, n_layers=K7_CUT)
+    cut = to_fp32(dict(params, layers={k: v[:K7_CUT] for k, v in
+                                       params["layers"].items()}))
+    ck7, cloop = gens(cut, ccfg, torch.float32)
+    cth = th[:K7_CUT].contiguous()
+    for p in prompts:
+        a = ck7.generate(p, NEW_TOKENS, thresholds=cth,
+                         on_device_loop=False)[0]
+        b = cloop.generate(p, NEW_TOKENS, thresholds=cth,
+                           on_device_loop=False)[0]
+        check(np.array_equal(a, b), f"[k7] fp32 {K7_CUT}-layer cut, prompt "
+              f"{len(p)}: K7's tokens {a[0, len(p):].tolist()} differ from "
+              f"the K1/K2 loop's {b[0, len(p):].tolist()}")
+    res["fp32_cut_equal"] = True
+    log(f"[k7] fp32 {K7_CUT}-layer cut at the 7B widths: K7's greedy tokens "
+        f"equal the K1/K2 loop's for {len(prompts)} prompts x {NEW_TOKENS}")
+    del cut, ck7, cloop
+    torch.cuda.empty_cache()
+    return res, n7, (k7, loop)
+
+
+def k7_graphs(gens, cfg, th, prompts):
+    """The decode graphs of K7 and of the K1/K2 loop (the two `Generator`s
+    of `k7_tokens`): their kernel nodes from the driver (one K7 and no
+    K1/K2 node; 4 L K1 + L K2), then in turns a replay's device ms
+    (profiler), wall ms, idle share and tok/s (`GRAPH_TURNS` turns of 2 x
+    `NEW_TOKENS` tokens)."""
+    from teal_tpu_torch.utils.profiling import graph_kernels
+
+    L = cfg.n_layers
+    res = {}
+    for name, g, want in (("k7", gens[0], (0, 0, 1)),
+                          ("loop", gens[1], (4 * L, L, 0))):
+        g.generate(prompts[0], 4, thresholds=th)          # the capture
+        nodes = graph_kernels(g._loop.graph)
+        counts = tuple(sum(c for k, c in nodes.items() if n in k)
+                       for n in ("sgg_", "attn_kernel", "token_kernel"))
+        check(counts == want, f"[k7] {name} graph: (K1, K2, K7) nodes "
+              f"{counts}, expected {want}")
+        res[name] = dict(nodes=counts, kernel_nodes=sum(nodes.values()),
+                         device_ms=[], wall_ms=[], idle=[], tok_s=[])
+    for i in range(GRAPH_TURNS):
+        for name in (("k7", "loop") if i % 2 == 0 else ("loop", "k7")):
+            g = gens[0] if name == "k7" else gens[1]
+            dev, wall = profile_replays(g._loop, GRAPH_REPLAYS)
+            _, st = g.generate(prompts[-1], 2 * NEW_TOKENS, thresholds=th)
+            r = res[name]
+            r["device_ms"].append(dev)
+            r["wall_ms"].append(wall)
+            r["idle"].append(1 - dev / wall)
+            r["tok_s"].append(st.tokens_per_s)
+    for name, r in res.items():
+        log(f"[k7] {name} decode graph: (K1, K2, K7) nodes {r['nodes']} of "
+            f"{r['kernel_nodes']} kernel nodes; in turns device "
+            f"{[round(x, 3) for x in r['device_ms']]} ms, wall "
+            f"{[round(x, 3) for x in r['wall_ms']]} ms, idle "
+            f"{[round(x, 4) for x in r['idle']]}, tok/s "
+            f"{[round(x, 2) for x in r['tok_s']]}")
+    return res
+
+
+def k7_bound(sel, cfg, pos: int, esz: int):
+    """(bytes, flops) one K7 token must move and do at the kept counts of
+    `sel` [L, 4, ...]: each kept group's slab rows of the stage's weights
+    read once, the live K/V rows read and the token's rows written, the
+    gains, thresholds and the stream in and out; 2 flops a weight element
+    read, 4 a head and live row."""
+    D, I, kvw = cfg.dim, cfg.intermediate_size, cfg.n_kv_heads * 128
+    widths = (D + 2 * kvw, D, 2 * I, D)
+    kept = sel[:, :, 0].double().cpu()
+    elems = float(sum((kept[:, j] * 128 * widths[j]).sum() for j in range(4)))
+    live = min(pos, cfg.sliding_window - 1) if cfg.sliding_window else pos
+    kv = cfg.n_layers * (2 * kvw * live + 2 * kvw) * esz
+    nbytes = elems * esz + kv + cfg.n_layers * (2 * D * esz + 28) + 2 * D * esz
+    flops = 2 * elems + 4 * cfg.n_layers * cfg.n_heads * 128 * (live + 1)
+    return nbytes, flops
+
+
+def k7_times(params, cfg, device, seed, th, launches, err):
+    """K7 at the 7B's main step (pos 40 after a prefill of phase 4's first
+    prompt, phase 4's thresholds): kernel ms (`cuda_ms`), its plain
+    version's, the bound of this token's kept groups, the barrier floor
+    (the empty K7: the same barriers, no work) and block 0's trace of the
+    layer phases. Returns the `kernels` entry."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block as tb
+
+    dt = llama.compute_dtype(params)
+    prompts = main_prompts(cfg, seed)
+    rope = llama.precompute_rope(cfg, MAX_SEQ, device)
+    cache, tok, pos = calibration_token(
+        params, cfg, prompts[2], llama.KVCache.init(cfg, 1, MAX_SEQ, dt,
+                                                    device), rope, device)
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    lay = params["layers"]
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=device)
+    args = (params["embed"][tok].to(dt), th, tuple(lay[n] for n in PROJ_NAMES),
+            lay["attn_norm"], lay["mlp_norm"],
+            llama._rope_rows(rope[0], rope[1], pos_t), cache.k, cache.v, pos_t)
+    kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+              window=cfg.sliding_window)
+    L = cfg.n_layers
+    sel = torch.zeros((L, 4, 1 + max(caps)), dtype=torch.int32, device=device)
+    stamps = torch.zeros((L, tb.K7_STAMPS), dtype=torch.int64, device=device)
+    tb.token_kernel(*args, sel=sel, stamps=stamps, **kw)
+    torch.cuda.synchronize()
+    phases = tb.k7_phases(stamps)
+    ms, _ = cuda_ms(lambda i: tb.token_kernel(*args, **kw), K7_TIME_ITERS)
+    floor, _ = cuda_ms(lambda i: tb.token_kernel(*args, empty=True, **kw),
+                       K7_TIME_ITERS)
+    plain, _ = cuda_ms(lambda i: tb.token_kernel_plain(*args, **kw), 2,
+                       warmup=1, queued=False)
+    nbytes, flops = k7_bound(sel, cfg, pos, params["embed"].element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                             "operations")
+    kept = sel[:, :, 0].float().mean(0).tolist()
+    log(f"[k7] K7 at the 7B main step (pos {pos}, bf16, 32 layers): "
+        f"{ms:.4f} ms a token (bound {bound:.4f} ms by {by}: "
+        f"{nbytes / 1e6:.1f} MB, {ms and bound / ms:.1%} of it), plain {plain:.3f} ms, barrier "
+        f"floor {floor:.4f} ms ({L} x ({tb._TOK_GRID_BARRIERS} grid + "
+        f"{tb._TOK_HEAD_BARRIERS} kv-head) barriers); mean kept "
+        f"{[round(k, 2) for k in kept]}; block 0's trace, us summed over "
+        f"the layers (phases: work/whole; spans): "
+        + ", ".join(f"{k} {v[0]:.1f}/{v[1]:.1f}" if isinstance(v, tuple)
+                    else f"{k} {v:.1f}" for k, v in phases.items()))
+    return dict(name="token_kernel", route="cuda",
+                source="teal_tpu_torch/csrc/token_decode.cu",
+                replaces="teal_tpu/ops/token_block.py:518",
+                launches=launches, max_abs_err=err, ms=ms, kernel_ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, barrier_floor_ms=floor,
+                phases_us=phases, kept_mean=kept, pos=pos,
+                timed="one 7B token (32 layers, bf16) at pos "
+                      f"{pos} at phase 4's thresholds; launches: the main "
+                      "path's host-loop run of phase 18")
+
+
+def k7_speculative(params, cfg, device, seed, th):
+    """Self-speculation with the main path as its draft (`MAIN_SP`): a draft
+    step is one K7 launch, a verify chunk 4 L K1 + L K2 (`block_verify`),
+    the counts set to 0 just before and read just after."""
+    import numpy as np
+
+    L = cfg.n_layers
+    prompt = main_prompts(cfg, seed)[1]
+    reset_launches()
+    _, st, wall = spec_run(params, cfg, prompt, 2 * SPEC_K, device, th, seed,
+                           draft=MAIN_SP)
+    got, n7 = read_launches(), k7_launches()
+    rounds = len(np.asarray(st["accepted_per_step"]))
+    want = (4 * L * rounds, L * rounds, 0, 0, 0, 0)
+    check(got == want and n7 == SPEC_K * rounds, f"[k7] speculative, K7 "
+          f"draft: launches (K1-K6) {got}, K7 {n7}; expected {want} and "
+          f"{SPEC_K * rounds} for {rounds} rounds of {SPEC_K} draft steps")
+    log(f"[k7] self-speculation with the K7 draft: {rounds} rounds, {n7} K7 "
+        f"draft steps, K1 {got[0]} and K2 {got[1]} for the verifies, "
+        f"{wall:.2f} s")
+    return dict(rounds=rounds, k7_launches=n7, launches=got, wall_s=wall)
+
+
+def k7_phase(params, cfg, device, gen, seed, th):
+    """Phase 18 on the resident bf16 7B after phase 4, at its thresholds:
+    K7's plan; every layer of K7 alone held to the plain path on phase 4's
+    calibration token; a 2-layer run at pos 2047 of a 2048-row cache; the
+    main path's tokens against the K1/K2 loop's (bf16 reported, an fp32
+    cut gated) and its launches; both decode graphs' nodes and times in
+    turns; K7's kernel, plain, bound and barrier-floor times; the K7 draft
+    of self-speculation. Returns (kernels entry, results)."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    res = {"plans": check_k7_plan()}
+    dt = llama.compute_dtype(params)
+    prompts = main_prompts(cfg, seed)
+    rope = llama.precompute_rope(cfg, MAX_SEQ, device)
+    cache, tok, pos = calibration_token(
+        params, cfg, prompts[0], llama.KVCache.init(cfg, 1, MAX_SEQ, dt,
+                                                    device), rope, device)
+    worst, err, flips = hold_k7_layers(params, cfg, cache, tok, pos, rope,
+                                       th, device)
+    res["layers"] = dict(worst=worst, max_abs_err=err, flips=flips, pos=pos)
+    del cache
+    res["long"] = k7_long_run(params, cfg, device, gen, th)
+    res["tokens"], n7, gens = k7_tokens(params, cfg, device, seed, th)
+    res["graphs"] = k7_graphs(gens, cfg, th, prompts)
+    del gens
+    torch.cuda.empty_cache()
+    entry = k7_times(params, cfg, device, seed, th, n7, err)
+    res["speculative"] = k7_speculative(params, cfg, device, seed, th)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"[k7] phase 18 in {res['phase_s']:.1f} s")
+    return entry, res
 
 
 def main() -> int:
@@ -6014,20 +6517,23 @@ def main() -> int:
         f"CUDA graph): dense {speeds['dense']} sparse {speeds['sparse']} "
         f"on {card}")
     graphs = device_loop_phase(params, cfg, device, seed, th)
+    k7_entry, k7_res = k7_phase(params, cfg, device, gen, seed, th)
     loop = loop_paths(params, cfg, device, seed, rope)
     step = time_decode_step(
-        params, cfg, [("sparse", MAIN_SP, 1, th), ("dense", {}, 1, th)]
+        params, cfg, [("sparse", LOOP_SP, 1, th), ("dense", {}, 1, th)]
         + [(f"path {n}", sp_kw, b, loop[n]["th"])
            for n, (sp_kw, b) in LOOP_PATHS.items()], device, rope)
     with plain_path():          # row 2's plain version: one plain step
         step.update(time_decode_step(
-            params, cfg, [("sparse, plain kernels", MAIN_SP, 1, th)],
+            params, cfg, [("sparse, plain kernels", LOOP_SP, 1, th)],
             device, rope))
     bench = p16_bench_step(params, cfg, th, device, rope, step)
     line = time_kernels(params, cfg, caps, device, gen, rope, launches,
                         (e1, e2))
     line["kernels"] += time_loop_kernels(params, cfg, device, gen, loop,
                                          e_loop)
+    line["kernels"].append(k7_entry)
+    line["k7"] = k7_res
     line["lm_head_ms"] = time_lm_head(params, cfg, device, gen)
     line["decode_tok_s"] = speeds
     line["decode_tok_s_loop_paths"] = {n: r["tok_s"] for n, r in loop.items()}

@@ -116,6 +116,23 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _P,  # dtype code, B, Hq, S, SM count,
                                 # out int32 [4]
     ],
+    ("token_decode", "teal_token_decode"): [
+        _I, _P, _P, _P, _P,     # dtype code, x, thresholds, pos, cos|sin
+        _P, _P,                 # attention / mlp norm gains
+        _P, _P, _P, _P,         # wq, wk, wv, wo
+        _P, _P, _P,             # wgate, wup, wdown
+        _P, _P, _P, _P,         # kc, vc, out, sel (or null)
+        _P, _P,                 # trace stamps (or null), workspace
+        _I, _I, _I, _I, _I,     # L, D, I, Hq, Hkv
+        _I, _I,                 # T, window (0: none)
+        _I, _I, _I, _I, _I,     # caps (qkv, o, gate|up, down), fixed
+        _F, _I, _I, _P,         # norm_eps, SM count, empty, stream
+    ],
+    ("token_decode", "teal_token_plan"): [
+        _I, _I, _I, _I, _I,     # dtype code, D, I, Hq, Hkv
+        _I, _I, _I, _I, _I,     # T, window, largest cap, SM count, L
+        _P,                     # out int32 [7]
+    ],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -199,6 +199,56 @@ __device__ __forceinline__ void cp_async_wait_dyn(int n) {
   }
 }
 
+// --- shared by the token path's kernels: selection, RoPE, row chunks -----
+
+// THE selection rule on nb group scores (`_select_scan`), called by one
+// whole warp: survivors are score > t, taken in ascending group order, the
+// first `cap` kept; a ballot + popcount prefix over the groups, 32 a step,
+// keeps exactly the serial scan's groups. `fixed` keeps groups 0..cap-1
+// without scores. Fills idx [cap]; returns the count (every lane).
+__device__ __forceinline__ int ballot_select(const float* scores, int nb,
+                                             float t, int cap, bool fixed,
+                                             int* idx) {
+  const int lane = threadIdx.x & 31;
+  if (fixed) {
+    for (int j = lane; j < cap; j += 32) idx[j] = j;
+    return cap;
+  }
+  int c = 0;
+  for (int base = 0; base < nb; base += 32) {
+    const int i = base + lane;
+    const bool s = i < nb && scores[i] > t;
+    const unsigned m = __ballot_sync(0xffffffffu, s);
+    const int r = c + __popc(m & ((1u << lane) - 1u));
+    if (s && r < cap) idx[r] = i;
+    c += __popc(m);
+  }
+  return c < cap ? c : cap;
+}
+
+// One element of HF rotate-half RoPE, x * cos + rot * sin with rot the
+// partner element (negated in the first half), rounded as two products and
+// a sum (no fused multiply-add), so that a written cache row matches the
+// plain version bit for bit.
+__device__ __forceinline__ float rope_term(float x, float rot, float c,
+                                           float s) {
+  return __fadd_rn(__fmul_rn(x, c), __fmul_rn(rot, s));
+}
+
+// A 16-byte chunk of fp32 or bf16 values as fp32.
+__device__ __forceinline__ void unpack16(const uint4& r, float (&v)[4]) {
+  v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& r, float (&v)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // element 2i is the low half of word i
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 // --- the gather GEMVs' split of their slots or kept groups ---------------
 
 // The first item of split s of S over `count` items: split s takes

@@ -145,23 +145,13 @@ __device__ __forceinline__ float rope(const float* row, int d, float c,
                                       float s) {
   const float rot =
       d < D / 2 ? -__ldg(row + d + D / 2) : __ldg(row + d - D / 2);
-  return __fadd_rn(__fmul_rn(__ldg(row + d), c), __fmul_rn(rot, s));
+  return rope_term(__ldg(row + d), rot, c, s);
 }
 
 // One 16-byte chunk of shared memory as fp32.
-__device__ __forceinline__ void chunk(const float* p, float (&v)[4]) {
-  const float4 r = *reinterpret_cast<const float4*>(p);
-  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-__device__ __forceinline__ void chunk(const __nv_bfloat16* p,
-                                      float (&v)[8]) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {   // element 2i is the low half of word i
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+template <typename T, int N>
+__device__ __forceinline__ void chunk(const T* p, float (&v)[N]) {
+  unpack16(*reinterpret_cast<const uint4*>(p), v);
 }
 
 // Thread 0: copy `bytes` contiguous bytes from global `src` into the

@@ -171,22 +171,9 @@ __device__ int select_scan(const Args& a, const float* scores, int nb,
                            int* idx, int* cnt) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (warp == 0) {
-    if (a.fixed) {
-      for (int j = lane; j < a.cap; j += 32) idx[j] = j;
-      if (lane == 0) *cnt = a.cap;
-    } else {
-      const float t = *a.thr;
-      int c = 0;
-      for (int base = 0; base < nb; base += 32) {
-        const int i = base + lane;
-        const bool s = i < nb && scores[i] > t;
-        const unsigned m = __ballot_sync(0xffffffffu, s);
-        const int r = c + __popc(m & ((1u << lane) - 1u));
-        if (s && r < a.cap) idx[r] = i;
-        c += __popc(m);
-      }
-      if (lane == 0) *cnt = min(c, a.cap);
-    }
+    const int c = ballot_select(scores, nb, a.fixed ? 0.f : *a.thr, a.cap,
+                                a.fixed != 0, idx);
+    if (lane == 0) *cnt = c;
   }
   __syncthreads();
   const int count = *cnt;

@@ -586,8 +586,11 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             params, cfg, sp, s, b, cache.k.dtype, fused_attn=fused_attn):
         from teal_tpu_torch.ops import token_block
 
-        # rows (batch > 1): one launch per stage for all rows, one pooled
-        # selection, the kept weights read once for the batch
+        # batch 1 in K7's form with token_fused not False: K7, one launch
+        # a token (the reference's `_token_kernel`); token_fused False:
+        # the K1/K2 loop (its `_packed_layer`). rows (batch > 1): one
+        # launch per stage for all rows, one pooled selection, the kept
+        # weights read once for the batch
         pos_arg = pos_t.to(torch.int32)
         moe_kw = (dict(router=lay["router"],
                        n_experts_per_tok=cfg.n_experts_per_tok)
@@ -599,7 +602,8 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             _rope_rows(cos_full, sin_full, pos_arg), cache.k, cache.v,
             pos_arg, caps=token_path_caps(cfg, sp), n_heads=cfg.n_heads,
             norm_eps=cfg.norm_eps, window=cfg.sliding_window,
-            fixed_sel=sp.debug_fixed_selection, **moe_kw)
+            fixed_sel=sp.debug_fixed_selection, token_fused=sp.token_fused,
+            **moe_kw)
         h = h1.reshape(b, 1, cfg.dim)
     else:
         positions = pos_t[:, None] + torch.arange(s, device=dev)[None, :]

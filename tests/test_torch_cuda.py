@@ -1178,9 +1178,9 @@ def _spec_head128(device, dsp, margins=None):
 
 
 def test_speculative_on_card_matches_cpu(cuda):
-    """speculative_generate at temperature 0 in fp32 through K1 (the
-    draft's single row and the verify's fixed rows form) and K2 gives
-    the CPU run's tokens and stats, host loop and adaptive device loop;
+    """speculative_generate at temperature 0 in fp32 through K7 (the
+    draft step) and K1's fixed rows form and K2 (the verify) gives the
+    CPU run's tokens and stats, host loop and adaptive device loop;
     every logits row's top-2 margin exceeds 1e-4 on the CPU."""
     from teal_tpu_torch.config import SparsityConfig
 
@@ -1189,10 +1189,12 @@ def test_speculative_on_card_matches_cpu(cuda):
     margins = []
     want = _spec_head128("cpu", dsp, margins)
     assert min(margins) > 1e-4
-    before = (bg.select_gather_gemv.launches, da.decode_attention.launches)
+    before = (bg.select_gather_gemv.launches, da.decode_attention.launches,
+              tb.token_kernel.launches)
     got = _spec_head128(cuda, dsp)
     assert bg.select_gather_gemv.launches > before[0]
     assert da.decode_attention.launches > before[1]
+    assert tb.token_kernel.launches > before[2]
     assert 0.0 < want[0][1]["mean_accepted"] < 3.0
     for (t, st), (wt, wst) in zip(got, want):
         assert (t == wt).all() and st == wst
@@ -1260,9 +1262,11 @@ def test_safetensors_reader_on_card(cuda, tmp_path, stored):
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
 def test_decode_graph_matches_host_loop(cuda, b, temperature):
     """The decode step captured as a CUDA graph (`on_device_loop=True`) on
-    the token path (K1 and K2; K1's rows form at batch 4) gives the host
-    loop's tokens from one generator seed, and leaves the generator where
-    the host loop does; the graph holds the step's 4*L K1 + L K2."""
+    the K1/K2 loop (at batch 1 `token_fused=False`; K1's rows form at
+    batch 4) gives the host loop's tokens from one generator seed, and
+    leaves the generator where the host loop does; the graph holds the
+    step's 4*L K1 + L K2 (K7's graph:
+    `test_k7_decode_graph_matches_host_loop`)."""
     from teal_tpu_torch.config import SparsityConfig, get_model_config
     from teal_tpu_torch.engine import Generator
     from teal_tpu_torch.utils.profiling import graph_kernels
@@ -1272,7 +1276,8 @@ def test_decode_graph_matches_host_loop(cuda, b, temperature):
     params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(
         0), torch.bfloat16, cuda)
     sp = SparsityConfig(enabled=True, kernel="block", block_size=128,
-                        block_keep_frac=0.5, block_thresholding=True)
+                        block_keep_frac=0.5, block_thresholding=True,
+                        token_fused=False if b == 1 else None)
     gen = Generator(cfg, params, sp=sp, max_seq=64, batch=b,
                     temperature=temperature, device=cuda)
     th = torch.full((cfg.n_layers, 7), 0.5, device=cuda)
@@ -1340,3 +1345,115 @@ def test_round_graphs_match_host_round_loop(cuda, kw):
             st["new_tokens"], st["mean_accepted"])
         assert len(wst["accepted_per_step"]) == st["rounds"]
     assert (toks == want).all()
+
+
+# --- K7: the whole token in one launch --------------------------------------
+
+K7_WS = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
+
+
+def _k7_inputs(cuda, dtype, Hq, Hkv, L=2, T=64, seed=0):
+    """Random 2-layer weights (D = 128 Hq, I = 3 D / 2), gains, caches,
+    stream and RoPE row on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    D, I = 128 * Hq, 192 * Hq
+
+    def r(*shape, sc=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * sc).to(dtype)
+    shapes = ((D, D), (D, 128 * Hkv), (D, 128 * Hkv), (D, D), (D, I),
+              (D, I), (I, D))
+    ws = tuple(r(L, k, n, sc=0.05) for k, n in shapes)
+    norms = tuple((1 + 0.1 * torch.randn(L, D, generator=g, device=cuda))
+                  .to(dtype) for _ in range(2))
+    kc, vc = r(L, 1, Hkv, T, 128), r(L, 1, Hkv, T, 128)
+    rope = torch.rand(1, 2, 128, generator=g, device=cuda)
+    return r(D), ws, norms, rope, kc, vc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,window,fixed", [
+    (4, 4, None, False), (8, 2, None, False), (8, 2, 24, False),
+    (4, 4, None, True)], ids=["mha", "gqa", "gqa-window", "fixed"])
+@pytest.mark.parametrize("pos", [0, 40])
+def test_k7_matches_plain(cuda, dtype, Hq, Hkv, window, fixed, pos):
+    """K7 on 2 layers against its plain version (`token_kernel_plain`) on
+    the same inputs: the same kept counts and groups at every stage, the
+    stream and both caches within 1e-5 (fp32) or 2e-2 (bf16: the partial
+    sums are added in other orders, a bf16 ulp is 2^-8) of their largest
+    value. fp32 selects at thresholds between the stages' group scores;
+    bf16 at 0 (every group survives, the first cap kept), where a one-ulp
+    drift of a score cannot flip a group."""
+    h, ws, (na, nm), rope, kc, vc = _k7_inputs(cuda, dtype, Hq, Hkv)
+    L, D, I = 2, h.shape[0], ws[4].shape[-1]
+    th = torch.zeros((L, 7), device=cuda)
+    if dtype == torch.float32:
+        th[:, 0], th[:, 3], th[:, 4], th[:, 6] = 2.2, 0.05, 2.2, 0.02
+    caps = (D // 256, D // 256, D // 256, I // 256)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    kw = dict(caps=caps, n_heads=Hq, window=window, fixed_sel=fixed)
+    out, sels, caches = [], [], []
+    for f in (tb.token_kernel, tb.token_kernel_plain):
+        sel = torch.zeros((L, 4, 1 + max(caps)), dtype=torch.int32,
+                          device=cuda)
+        k, v = kc.clone(), vc.clone()
+        out.append(f(h, th, ws, na, nm, rope, k, v, pos_t, sel=sel, **kw))
+        sels.append(sel)
+        caches.append((k, v))
+    assert torch.equal(sels[0], sels[1]), (sels[0][..., :4], sels[1][..., :4])
+    assert int(sels[0][:, :, 0].min()) >= 1
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, want in ((out[0], out[1]), (caches[0][0], caches[1][0]),
+                      (caches[0][1], caches[1][1])):
+        ok, err = _close(got, want, rel)
+        assert ok, err
+
+
+def test_k7_plan_matches_kernel(cuda):
+    """`teal_token_plan` (the kernel's plan) equal to `_token_plan` (the
+    wrapper's) on this card at 7B, Mistral-7B with its window and the
+    tiny configs, fp32 and bf16."""
+    import ctypes
+
+    lib = _build.load()["token_decode"]
+    sms = _build.sm_count(cuda.index)
+    for D, I, Hq, Hkv, T, win, cm, L in (
+            (4096, 11008, 32, 32, 4096, None, 43, 32),
+            (4096, 14336, 32, 8, 32768, 4096, 56, 32),
+            (256, 384, 2, 1, 16, None, 2, 3),
+            (512, 768, 4, 2, 64, 24, 3, 2)):
+        for code, esz in ((0, 4), (1, 2)):
+            out = (ctypes.c_int * 7)()
+            rc = lib.teal_token_plan(code, D, I, Hq, Hkv, T, win or 0, cm,
+                                     sms, L, out)
+            want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms)
+            assert rc == 0 and tuple(out) == tuple(want), (D, esz)
+
+
+def test_k7_decode_graph_matches_host_loop(cuda):
+    """The main path's decode step (K7 at batch 1) captured as a CUDA graph
+    gives the host loop's greedy tokens; the graph holds one K7 node and
+    no K1 or K2 node; the host loop launches one K7 a decoded token."""
+    from teal_tpu_torch.config import SparsityConfig, get_model_config
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.utils.profiling import graph_kernels
+
+    cfg = get_model_config("tiny", n_layers=2, n_heads=4, n_kv_heads=2,
+                           dim=512, intermediate_size=768, vocab_size=128)
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(
+        0), torch.bfloat16, cuda)
+    sp = SparsityConfig(enabled=True, kernel="block", block_size=128,
+                        block_keep_frac=0.5, block_thresholding=True)
+    gen = Generator(cfg, params, sp=sp, max_seq=64, temperature=0.0,
+                    device=cuda)
+    th = torch.full((cfg.n_layers, 7), 0.5, device=cuda)
+    prompt = [3, 9, 1, 7, 5]
+    gen.generate(prompt, 2, thresholds=th, on_device_loop=False)
+    before = (tb.token_kernel.launches, bg.select_gather_gemv.launches)
+    host = gen.generate(prompt, 12, thresholds=th, on_device_loop=False)[0]
+    assert (tb.token_kernel.launches - before[0],
+            bg.select_gather_gemv.launches - before[1]) == (11, 0)
+    graph = gen.generate(prompt, 12, thresholds=th)[0]
+    assert (graph == host).all()
+    nodes = graph_kernels(gen._loop.graph)
+    assert [sum(c for k, c in nodes.items() if name in k)
+            for name in ("token_kernel", "sgg_", "attn_kernel")] == [1, 0, 0]

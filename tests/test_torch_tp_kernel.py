@@ -174,7 +174,9 @@ def results(tmp_path_factory):
     cases.update({n: ("tpk_run", kw) for n, (kw, _, _) in ERRORS.items()})
     cases["streams"] = ("tpk_streams", STREAMS)
     cases["int4-g64"] = ("tpk_run", INT4_G64)
-    ranks = Ranks(WORLD, cases, d / "ranks")
+    # the group is joined after the JAX child: the group took up to 213 s
+    # in the builder's 6-worker runs; twice that
+    ranks = Ranks(WORLD, cases, d / "ranks", timeout=430.0)
     try:
         jcases = {n: kw for n, (kw, _, _) in DECODE.items()}
         jcases.update({n: kw for n, (kw, _, _) in ERRORS.items()})
