@@ -287,21 +287,25 @@ Phases:
      take them); the CLI of phase 14 builds its own config and takes K7
      (one launch a step, k a speculative round). Phase 18 drives the main
      path as a user calls it (`MAIN_SP`, token_fused unset): K7's plan in
-     the wrapper equal to the
-     kernel's (`check_k7_plan`: 7B, Mistral-7B with its window, the tiny
-     test configs); every layer of K7 alone, on a one-layer slice of the
+     the wrapper equal to the kernel's on the card's resident clusters
+     (`check_k7_plan`: 7B, Mistral-7B with its window, the tiny test
+     configs; the 7B's head-owned, 4 grid and no kv-head barriers a
+     layer); every layer of K7 alone, on a one-layer slice of the
      stack, held to the plain layer on the same input (output and written
      K/V rows within 2e-2 of scale, kept counts and groups equal or a
      one-group flip `explain_count_flip` explains; `hold_k7_layers`); the
      same for 2 layers at pos 2047 of a 2048-row cache, and one 2-layer
-     launch against `token_kernel_plain`; phase 4's three prompts through
+     launch against `token_kernel_plain`; each layer of a 2-layer GQA
+     model at the 7B's width (Hq 32 / Hkv 8, random weights) held the same
+     way at pos 2047 (`k7_gqa_hold`); phase 4's three prompts through
      K7 (host loop, counts set to 0 just before: one K7 and no K1-K6 a
      decoded token) and through the K1/K2 loop: bf16 agreement reported,
      tokens equal on a 2-layer fp32 cut at 7B widths; the two decode
      graphs' nodes (one K7 node; 4 L K1 + L K2) and, in turns, a replay's
      device and wall ms, idle share and tok/s; K7's kernel ms, plain ms,
-     bound (this token's kept groups), barrier floor (`empty`) and block
-     0's trace of the layer phases; self-speculation with the K7 draft
+     bound (this token's kept groups), barrier floor (`empty`) and the
+     trace (`stamps`: block 0's layer phases, every block's arrival at
+     every grid barrier); self-speculation with the K7 draft
      (k K7 launches and one verify a round);
 all printed as one `kernels` JSON line, with the card in it (and the
 results of phases 12-18 under "calibration", "speculative", "cli",
@@ -6031,38 +6035,49 @@ FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 
 
 def check_k7_plan():
-    """K7's plan in the wrapper (`token_block._token_plan`) equal to the
-    kernel's (`teal_token_plan`) on this card, fp32 and bf16: Llama-2-7B
-    at T 512 / 2048 / 4096, Mistral-7B (GQA 32/8, window 4096) at T 8192,
-    and the tests' head-128 tiny configs; each within shared memory."""
+    """K7's plan in the wrapper (`token_block._token_plan` on the card's
+    resident clusters, `token_block.k7_clusters`) equal to the kernel's
+    (`teal_token_plan`) on this card, fp32 and bf16: Llama-2-7B at T 512 /
+    2048 / 4096, Mistral-7B (GQA 32/8, window 4096) at T 8192, and the
+    tests' head-128 tiny configs; each within shared memory; the 7B's plan
+    head-owned with 4 grid barriers and no kv-head barrier a layer."""
     import ctypes
+
+    import torch
 
     from teal_tpu_torch import _build
     from teal_tpu_torch.ops import token_block as tb
 
     lib = _build.load()["token_decode"]
     sms = _build.sm_count(0)
+    dev = torch.device("cuda", 0)
     shapes = [(4096, 11008, 32, 32, T, None, 43, 32) for T in
               (512, 2048, 4096)] + [(4096, 14336, 32, 8, 8192, 4096, 56, 32),
                                     (256, 384, 2, 1, 16, None, 3, 3),
                                     (256, 384, 2, 2, 64, 8, 3, 3)]
     plans = {}
     for D, I, Hq, Hkv, T, win, cm, L in shapes:
-        for code, esz in ((0, 4), (1, 2)):
-            out = (ctypes.c_int * 7)()
+        for code, esz, dt in ((0, 4, torch.float32), (1, 2, torch.bfloat16)):
+            out = (ctypes.c_int * 11)()
             rc = lib.teal_token_plan(code, D, I, Hq, Hkv, T, win or 0, cm,
                                      sms, L, out)
-            want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms)
+            want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms,
+                                  tb.k7_clusters(dev, dt, Hq // Hkv))
             check(rc == 0 and want is not None and tuple(out) == tuple(want)
                   and want.smem <= tb._SMEM_BYTES,
                   f"K7 plan {(D, I, Hq, Hkv, T, win, cm, L, esz)}: kernel "
                   f"{rc} {list(out)}, wrapper {want}")
             plans[f"{D}/{I}/{Hq}/{Hkv}/T{T}/w{win}/{esz}B"] = list(out)
+    p7 = plans["4096/11008/32/32/T512/wNone/2B"]
+    check(p7[8] == 1 and p7[4] == 4 * 32 and p7[5] == 0,
+          f"the 7B's K7 plan {p7}: expected head-owned, 4 grid barriers and "
+          "no kv-head barrier a layer")
     log(f"[k7] plan equal in the wrapper and the kernel for {len(plans)} "
-        f"shapes on {sms} SMs; 7B bf16 T 512: "
-        f"{plans['4096/11008/32/32/T512/wNone/2B']} "
-        "(grid, threads, shared bytes, workspace bytes, grid barriers, "
-        "kv-head barriers, SA)")
+        f"shapes on {sms} SMs, resident clusters of C = 2..16: "
+        f"{list(tb.k7_clusters(dev, torch.bfloat16, 1).values())}; 7B bf16 "
+        f"T 512: {p7} (grid, threads, shared bytes, workspace bytes, grid "
+        "barriers, kv-head barriers, C, clusters, head-owned, ring slots, "
+        "score rows)")
     return plans
 
 
@@ -6220,6 +6235,41 @@ def k7_long_run(params, cfg, device, gen, th):
     return res
 
 
+def k7_gqa_hold(cfg, device, gen, th):
+    """K7 at GQA 32/8 at the 7B's width (the plan Mistral-7B's heads take
+    on this card): a 2-layer model of random bf16 weights (`cfg` with 8
+    kv heads), each layer held alone to the plain path (`hold_k7_layers`)
+    at pos 2047 of a 2048-row cache of random rows, at phase 4's first two
+    layers' thresholds. Returns the results."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block as tb
+
+    ccfg = dataclasses.replace(cfg, n_layers=2, n_kv_heads=8)
+    params = llama.init_params(ccfg, gen, torch.bfloat16, device)
+    pos, T = K7_LONG
+    shape = (2, 1, ccfg.n_kv_heads, T, 128)
+    cache = llama.KVCache(
+        torch.randn(shape, generator=gen, device=device).to(torch.bfloat16),
+        torch.randn(shape, generator=gen, device=device).to(torch.bfloat16))
+    lay = params["layers"]
+    plan = tb.token_plan(params["embed"][0], cache.k,
+                         tuple(lay[n] for n in PROJ_NAMES), ccfg.n_heads,
+                         llama.token_path_caps(ccfg,
+                                               SparsityConfig(**MAIN_SP)))
+    worst, err, flips = hold_k7_layers(
+        params, ccfg, cache, 7, pos, llama.precompute_rope(ccfg, T, device),
+        th[:2].contiguous(), device, tag="[k7 gqa 32/8]")
+    log(f"[k7 gqa 32/8] D {ccfg.dim}, Hq {ccfg.n_heads} / Hkv "
+        f"{ccfg.n_kv_heads}: plan {plan}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(worst=worst, max_abs_err=err, flips=flips, pos=pos,
+                plan=plan._asdict())
+
+
 def k7_tokens(params, cfg, device, seed, th):
     """Phase 4's three prompts, `NEW_TOKENS` greedy tokens each, through the
     main path as a user calls it (`Generator` with `MAIN_SP`: K7) and through
@@ -6371,7 +6421,10 @@ def k7_times(params, cfg, device, seed, th, launches, err):
               window=cfg.sliding_window)
     L = cfg.n_layers
     sel = torch.zeros((L, 4, 1 + max(caps)), dtype=torch.int32, device=device)
-    stamps = torch.zeros((L, tb.K7_STAMPS), dtype=torch.int64, device=device)
+    stamps = tb.token_trace(args[0], cache.k, args[2], cfg.n_heads, caps,
+                            cfg.sliding_window)
+    plan = tb.token_plan(args[0], cache.k, args[2], cfg.n_heads, caps,
+                         cfg.sliding_window)
     tb.token_kernel(*args, sel=sel, stamps=stamps, **kw)
     torch.cuda.synchronize()
     phases = tb.k7_phases(stamps)
@@ -6389,10 +6442,12 @@ def k7_times(params, cfg, device, seed, th, launches, err):
     log(f"[k7] K7 at the 7B main step (pos {pos}, bf16, 32 layers): "
         f"{ms:.4f} ms a token (bound {bound:.4f} ms by {by}: "
         f"{nbytes / 1e6:.1f} MB, {ms and bound / ms:.1%} of it), plain {plain:.3f} ms, barrier "
-        f"floor {floor:.4f} ms ({L} x ({tb._TOK_GRID_BARRIERS} grid + "
-        f"{tb._TOK_HEAD_BARRIERS} kv-head) barriers); mean kept "
-        f"{[round(k, 2) for k in kept]}; block 0's trace, us summed over "
-        f"the layers (phases: work/whole; spans): "
+        f"floor {floor:.4f} ms ({plan.grid_barriers} grid barriers, "
+        f"{plan.head_barriers} kv-head; {plan.clusters} clusters of "
+        f"{plan.C}, head-owned {plan.head_owned}); mean kept "
+        f"{[round(k, 2) for k in kept]}; the trace, us summed over the "
+        f"layers (block 0's phases: work/whole; spans; every block's "
+        f"barrier arrivals): "
         + ", ".join(f"{k} {v[0]:.1f}/{v[1]:.1f}" if isinstance(v, tuple)
                     else f"{k} {v:.1f}" for k, v in phases.items()))
     return dict(name="token_kernel", route="cuda",
@@ -6402,6 +6457,7 @@ def k7_times(params, cfg, device, seed, th, launches, err):
                 plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=None, barrier_floor_ms=floor,
                 phases_us=phases, kept_mean=kept, pos=pos,
+                plan=plan._asdict(),
                 timed="one 7B token (32 layers, bf16) at pos "
                       f"{pos} at phase 4's thresholds; launches: the main "
                       "path's host-loop run of phase 18")
@@ -6434,6 +6490,7 @@ def k7_phase(params, cfg, device, gen, seed, th):
     """Phase 18 on the resident bf16 7B after phase 4, at its thresholds:
     K7's plan; every layer of K7 alone held to the plain path on phase 4's
     calibration token; a 2-layer run at pos 2047 of a 2048-row cache; the
+    same holds on a 2-layer GQA 32/8 model at the 7B's width; the
     main path's tokens against the K1/K2 loop's (bf16 reported, an fp32
     cut gated) and its launches; both decode graphs' nodes and times in
     turns; K7's kernel, plain, bound and barrier-floor times; the K7 draft
@@ -6455,6 +6512,7 @@ def k7_phase(params, cfg, device, gen, seed, th):
     res["layers"] = dict(worst=worst, max_abs_err=err, flips=flips, pos=pos)
     del cache
     res["long"] = k7_long_run(params, cfg, device, gen, th)
+    res["gqa"] = k7_gqa_hold(cfg, device, gen, th)
     res["tokens"], n7, gens = k7_tokens(params, cfg, device, seed, th)
     res["graphs"] = k7_graphs(gens, cfg, th, prompts)
     del gens

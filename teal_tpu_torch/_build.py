@@ -131,7 +131,10 @@ SIGNATURES = {
     ("token_decode", "teal_token_plan"): [
         _I, _I, _I, _I, _I,     # dtype code, D, I, Hq, Hkv
         _I, _I, _I, _I, _I,     # T, window, largest cap, SM count, L
-        _P,                     # out int32 [7]
+        _P,                     # out int32 [11]
+    ],
+    ("token_decode", "teal_token_clusters"): [
+        _I, _I, _I,             # dtype code, query heads a kv head, C
     ],
 }
 

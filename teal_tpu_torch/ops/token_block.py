@@ -360,100 +360,190 @@ def token_decode(h: torch.Tensor, thresholds: torch.Tensor,
 # --- K7: the whole token in one launch --------------------------------------
 
 # K7's launch plan on the card (`csrc/token_decode.cu`: `token_plan`,
-# `Layout` and `WsLayout`, which `_token_smem`, `_token_ws` and
-# `_token_plan` mirror; the card tests hold them together through
+# `Layout` and `WsLayout`, which `_token_plan`, `_token_smem` and
+# `_token_ws` mirror; the card tests hold them together through
 # `teal_token_plan`)
-_TOK_THREADS = 256
-_TOK_PIECE = 256                 # bytes of a slab row a tile reads
-_TOK_RING = 64 * 1024            # the cp.async ring: 16 x 16 bytes a thread
-_TOK_RLANES = 16                 # slab rows a step
+_TOK_THREADS = 288               # 8 worker warps + the TMA producer warp
+_TOK_WORKERS = 256
+_TOK_UB = 256                    # bytes of a slab row in a TMA box: a
+                                 # unit of a stage's columns
+_TOK_BR = 32                     # slab rows of a TMA box
+_TOK_SLOT = 2 * _TOK_BR * _TOK_UB    # bytes of a ring slot (two boxes)
+_TOK_MAX_SLOTS = 8
 _TOK_MAXCH = 8                   # 16-byte chunks of h a thread at most
-_TOK_MAX_SA = 16                 # attention blocks a kv head
-_TOK_GRID_BARRIERS = 6           # a layer
-_TOK_HEAD_BARRIERS = 2           # a layer, a kv head's blocks
+_TOK_MIN_C, _TOK_MAX_C = 2, 8    # blocks a cluster (the portable sizes)
+_TOK_BARRIER_SLOTS = 5           # q|k|v (other plan), attention, o,
+                                 # gate|up, down
+_TOK_TRACE_ROWS = _TOK_BARRIER_SLOTS + 4    # a block's trace: barrier
+                                 # arrivals, then its gathers' ends
+
+# Resident clusters of C blocks of K7 (one block an SM) on an NVIDIA H100
+# 80GB HBM3 (132 SMs), from `cudaOccupancyMaxActiveClusters`
+# (`tools/k7_cluster_probe.py`): the table the CPU tests plan with. On the
+# card the wrapper asks the CUDA runtime (`teal_token_clusters`).
+H100_CLUSTERS = {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 
 
 class TokenPlan(NamedTuple):
-    grid: int                    # blocks (one an SM)
+    grid: int                    # blocks (one an SM): clusters * C
     threads: int
-    smem: int                    # shared bytes a block
+    smem: int                    # shared bytes a block uses
     ws_bytes: int                # workspace bytes
     grid_barriers: int           # a token
-    head_barriers: int           # a token, among a kv head's SA blocks
-    SA: int                      # attention blocks a kv head
+    head_barriers: int           # a token, among a kv head's blocks (0)
+    C: int                       # blocks a cluster
+    clusters: int
+    head_owned: bool             # a cluster a kv head: q|k|v + attention
+    slots: int                   # ring slots of `_TOK_SLOT` bytes
+    NS: int                      # a block's score slice (cache rows)
 
 
 def _al(n: int, a: int) -> int:
     return -(-n // a) * a
 
 
-def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int,
-                NS: int) -> int:
-    """K7's shared memory a block in bytes: the cp.async ring (attention's
-    row-lane PV sums), the row lanes' sums of a tile, the stream h [D] and
-    a stage's selection input [max(D, I)] of the stream type, the group
-    scores, the kept groups and count, 64 floats of scratch, attention's
-    raw q|k|v sums and RoPE'd q|k (fp32), q rounded, four [8] fp32 and
-    the score slice [GH][NS]."""
-    tw = _TOK_PIECE // esz
-    n = _TOK_RING + _TOK_RLANES * 2 * tw * 4
+def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int, NS: int,
+                partf: int, slots: int) -> int:
+    """K7's shared memory a block in bytes: the ring (attention's row-lane
+    PV sums), its full and empty mbarriers, the block's partial sums
+    (`partf` fp32, read by the cluster's peers), the warps' sums of a
+    tile, the stream h [D] and a stage's selection input [max(D, I)] of
+    the stream type, the group scores, the kept groups and count, 64
+    floats of scratch, attention's q|k|v sums and RoPE'd q|k (fp32), q
+    rounded, four [8] fp32, the block's maxima and partial PV with its
+    denominators (fp32, read by the peers) and the score slice [GH][NS]."""
+    n = slots * _TOK_SLOT + 2 * _TOK_MAX_SLOTS * 8 + partf * 4
+    n += 8 * 2 * (_TOK_UB // esz) * 4
     n += _al(D * esz, 16) + _al(max(D, I) * esz, 16)
     n += _al(max(D, I) // HEAD_DIM, 4) * 4 + _al(capmax + 1, 4) * 4 + 64 * 4
     n += (GH + 2) * HEAD_DIM * 4 + (GH + 1) * HEAD_DIM * 4
-    n += _al(GH * HEAD_DIM * esz, 16) + 4 * MAX_GROUP * 4
+    n += _al(GH * HEAD_DIM * esz, 16) + 4 * MAX_GROUP * 4 + MAX_GROUP * 4
+    n += (GH * HEAD_DIM + MAX_GROUP) * 4
     return n + GH * NS * 4
 
 
-def _token_segs(P: int, tiles: int) -> int:
-    """Partial slots a tile: at most P / tiles + 2 blocks' ranges meet one
-    tile of a stage cut into P equal ranges."""
-    return P // tiles + 2
-
-
-def _token_ws(esz: int, D: int, I: int, Hq: int, Hkv: int, P: int,
-              SA: int) -> int:
-    """K7's workspace in bytes (256-byte aligned regions): the barrier
-    counters (1 + Hkv, a 128-byte line each), the partials [tiles][slots]
-    [NW][tile] fp32 of the q|k|v, o, gate|up (NW 2) and down stages,
-    attention's maxima, sums and partial PV of the Hkv x SA blocks
-    (fp32), the attention output [Hq * 128] and the intermediate [I] of
+def _token_ws(esz: int, D: int, I: int, Hq: int, Hkv: int) -> int:
+    """K7's workspace in bytes (256-byte aligned regions): the grid
+    barrier's counter (a 128-byte line), the q|k|v sums [(Hq + 2 Hkv) *
+    128] fp32 (the other plan's), the stream after o and after down [D]
+    (two buffers, so that a stage that keeps no group can skip its
+    barrier), the attention output [Hq * 128] and the intermediate [I] of
     the stream type."""
-    tw, GH = _TOK_PIECE // esz, Hq // Hkv
-    nq, nd, ni = (Hq + 2 * Hkv) * HEAD_DIM // tw, D // tw, I // tw
-    parts = (nq * _token_segs(P, nq) * tw, nd * _token_segs(P, nd) * tw,
-             ni * _token_segs(P, ni) * 2 * tw, nd * _token_segs(P, nd) * tw,
-             Hkv * SA * GH, Hkv * SA * GH, Hkv * SA * GH * HEAD_DIM)
-    n = _al((1 + Hkv) * 128, 256)
-    for p in parts:
-        n = _al(n + p * 4, 256)
-    n = _al(n + Hq * HEAD_DIM * esz, 256)
+    n = _al(256 + (Hq + 2 * Hkv) * HEAD_DIM * 4, 256)
+    for part in (D * esz, D * esz, Hq * HEAD_DIM * esz):
+        n = _al(n + part, 256)
     return _al(n + I * esz, 256)
+
+
+def _token_structure(Hkv: int, n_sms: int, clusters) -> Optional[Tuple[int,
+                                                                      bool]]:
+    """(C, head-owned) from the resident clusters of each size C <= 8: the
+    head-owned plan (Hkv clusters, one a kv head) with the largest C of
+    which Hkv clusters fit, where they hold at least half the SMs; else
+    the other plan with the largest C whose grid is within 1/16 of the
+    largest grid. None where no cluster fits."""
+    nc = {c: clusters.get(c, 0) for c in range(_TOK_MIN_C, _TOK_MAX_C + 1)}
+    best = max(c * nc[c] for c in nc)
+    ch = max((c for c in nc if nc[c] >= Hkv), default=0)
+    if ch and 2 * ch * Hkv >= n_sms:
+        return ch, True
+    co = next((c for c in range(_TOK_MAX_C, _TOK_MIN_C - 1, -1)
+               if best > 0 and 16 * c * nc[c] >= 15 * best), 0)
+    return (co, False) if co else None
 
 
 def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
                 window: Optional[int], capmax: int, L: int,
-                n_sms: int = _H100_SMS) -> Optional[TokenPlan]:
-    """K7's launch plan from shapes only, or None where they take none
-    (among them a stream of more than 32 KB: a thread holds at most
-    `_TOK_MAXCH` 16-byte chunks of it): a grid of one block an SM; SA =
-    min(16, SMs / Hkv) blocks a kv head share its live rows, each holding
-    the scores of at most ceil((min(T, window) - 1) / SA) rows (padded to
-    4); 6 grid barriers a layer and 2 among a kv head's blocks."""
+                n_sms: int = _H100_SMS,
+                clusters=None) -> Optional[TokenPlan]:
+    """K7's launch plan from shapes and the card's resident clusters of
+    each size (`clusters`: {C: clusters}, default `H100_CLUSTERS`), or
+    None where they take none (among them a stream of more than 36 KB: a
+    thread holds at most `_TOK_MAXCH` 16-byte chunks of it). The grid is
+    clusters * C blocks (`_token_structure` picks C and the structure:
+    Hkv clusters head-owned, else as many as fit);
+    NS = ceil((min(T, window) - 1) / C) rows of scores a block (padded to
+    4); the ring takes what shared memory the rest leaves, up to 8 slots,
+    at least 2 and at least attention's PV sums. Grid barriers a layer: 4
+    head-owned, 5 in the other plan; none among a kv head's blocks."""
     if (D <= 0 or I <= 0 or D % HEAD_DIM or I % HEAD_DIM or Hkv <= 0
             or Hq != D // HEAD_DIM or Hq % Hkv or MAX_GROUP % (Hq // Hkv)
-            or Hkv > n_sms or T < 1 or L < 1
+            or T < 1 or L < 1
             or not 1 <= capmax <= max(D, I) // HEAD_DIM
             or D * esz > 16 * _TOK_MAXCH * _TOK_THREADS):
         return None
-    SA = min(_TOK_MAX_SA, n_sms // Hkv)
-    live = window if window and window < T else T
-    NS = _al(-(-max(live - 1, 1) // SA), 4)
-    smem = _token_smem(esz, D, I, Hq // Hkv, capmax, NS)
-    if smem > _SMEM_BYTES:
+    st = _token_structure(Hkv, n_sms, H100_CLUSTERS if clusters is None
+                          else clusters)
+    if st is None:
         return None
-    return TokenPlan(n_sms, _TOK_THREADS, smem,
-                     _token_ws(esz, D, I, Hq, Hkv, n_sms, SA),
-                     _TOK_GRID_BARRIERS * L, _TOK_HEAD_BARRIERS * L, SA)
+    C, head = st
+    NC = Hkv if head else (H100_CLUSTERS if clusters is None
+                           else clusters)[C]
+    GH = Hq // Hkv
+    live = window if window and window < T else T
+    NS = _al(-(-max(live - 1, 1) // C), 4)
+    uw = _TOK_UB // esz
+
+    def most(cols, nw):
+        return nw * -(-(cols // uw) // NC) * uw
+    partf = max(most(D, 1), most(I, 2),
+                (GH + 2) * HEAD_DIM if head
+                else most((Hq + 2 * Hkv) * HEAD_DIM, 1))
+    rest = _token_smem(esz, D, I, GH, capmax, NS, partf, 0)
+    slots = min(_TOK_MAX_SLOTS, (_SMEM_BYTES - rest) // _TOK_SLOT)
+    rpi = _TOK_WORKERS // (HEAD_DIM * esz // 16)
+    if slots < 2 or slots * _TOK_SLOT < rpi * GH * HEAD_DIM * 4:
+        return None
+    return TokenPlan(NC * C, _TOK_THREADS,
+                     _token_smem(esz, D, I, GH, capmax, NS, partf, slots),
+                     _token_ws(esz, D, I, Hq, Hkv),
+                     (_TOK_BARRIER_SLOTS - 1 if head else _TOK_BARRIER_SLOTS)
+                     * L, 0, C, NC, head, slots, NS)
+
+
+def _split_lo(count: int, S: int, s: int) -> int:
+    return count * s // S
+
+
+def token_columns(plan: TokenPlan, esz: int, D: int, I: int, Hq: int,
+                  Hkv: int):
+    """Each cluster's output columns of each gather stage under `plan`, as
+    the kernel cuts them: {stage: [[(weight, first, end), ...] a
+    cluster]}
+    over the weights wq, wk, wv, wo, wgate, wup, wdown; a cluster owns a
+    contiguous range of the stage's 64-byte units (as even as they
+    allow); in the head-owned plan cluster c < Hkv owns q|k|v of kv head
+    c (its Hq / Hkv query heads' q columns, its k and v columns) and the
+    other clusters none. Also {"attention": [kv heads a cluster]}."""
+    uw, GH, kvw = _TOK_UB // esz, Hq // Hkv, Hkv * HEAD_DIM
+
+    def cut(pieces):
+        cols = sum(n for _, _, n in pieces)
+        out = []
+        for c in range(plan.clusters):
+            u0 = _split_lo(cols // uw, plan.clusters, c)
+            u1 = _split_lo(cols // uw, plan.clusters, c + 1)
+            got, off = [], 0
+            for name, c0, n in pieces:
+                a, b = max(u0 * uw, off), min(u1 * uw, off + n)
+                if a < b:
+                    got.append((name, c0 + a - off, c0 + b - off))
+                off += n
+            out.append(got)
+        return out
+    if plan.head_owned:
+        qkv = [[("wq", c * GH * HEAD_DIM, (c + 1) * GH * HEAD_DIM),
+                ("wk", c * HEAD_DIM, (c + 1) * HEAD_DIM),
+                ("wv", c * HEAD_DIM, (c + 1) * HEAD_DIM)] if c < Hkv else []
+               for c in range(plan.clusters)]
+    else:
+        qkv = cut([("wq", 0, D), ("wk", 0, kvw), ("wv", 0, kvw)])
+    gu = [[(w, a, b) for _, a, b in got for w in ("wgate", "wup")]
+          for got in cut([("wgate", 0, I)])]
+    return {"qkv": qkv, "o": cut([("wo", 0, D)]), "gate|up": gu,
+            "down": cut([("wdown", 0, D)]),
+            "attention": [list(range(c, Hkv, plan.clusters))
+                          for c in range(plan.clusters)]}
 
 
 def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
@@ -586,6 +676,49 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
     return h
 
 
+def k7_clusters(device: torch.device, dtype: torch.dtype,
+                GH: int) -> dict:
+    """The card's resident clusters of C blocks of K7 for (dtype, GH query
+    heads a kv head): {C: clusters} for C in [2, 8] from the CUDA runtime
+    (`teal_token_clusters`, asked once)."""
+    key = (device.index, dtype, GH)
+    if key not in _CLUSTERS:
+        lib = _build.load()["token_decode"]
+        with torch.cuda.device(device):
+            _CLUSTERS[key] = {c: lib.teal_token_clusters(_DTYPE_CODE[dtype],
+                                                         GH, c)
+                              for c in range(_TOK_MIN_C, _TOK_MAX_C + 1)}
+    return _CLUSTERS[key]
+
+
+_CLUSTERS: dict = {}
+
+
+def token_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
+               window: Optional[int] = None) -> Optional[TokenPlan]:
+    """K7's plan for a `token_kernel` call on h's card (None where the
+    shapes take none)."""
+    L, _, Hkv, T, _ = kc.shape
+    return _token_plan(h.element_size(), h.shape[0], ws[4].shape[-1],
+                       n_heads, Hkv, T, window, max(caps), L,
+                       _build.sm_count(h.device.index),
+                       k7_clusters(h.device, h.dtype, n_heads // Hkv))
+
+
+def token_trace(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
+                window: Optional[int] = None) -> torch.Tensor:
+    """A zeroed `stamps` tensor for a `token_kernel` call on the card:
+    int64 [L, K7_STAMPS + 9 * grid] (block 0's points, then every block's
+    arrival at each of the five barrier slots and the end of its share of
+    each of the four gather stages)."""
+    plan = token_plan(h, kc, ws, n_heads, caps, window)
+    if plan is None:
+        raise ValueError("K7 has no launch plan for these shapes")
+    return torch.zeros((kc.shape[0], K7_STAMPS
+                        + _TOK_TRACE_ROWS * plan.grid),
+                       dtype=torch.int64, device=h.device)
+
+
 def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
                  norm_attn: torch.Tensor, norm_mlp: torch.Tensor,
                  rope: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
@@ -609,11 +742,13 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
           and groups (-1 past the count)
     empty: launch the kernel with its barriers alone (their floor; no
           output is written)
-    stamps: optional int64 [L, K7_STAMPS] on the card: block 0's
-          %globaltimer (ns) at each layer's start, at the arrival at and
-          the exit from each of the layer's six grid barriers, at each
-          gather's start and at three points of attention (`k7_phases`
-          reads it)
+    stamps: optional int64 [L, K7_STAMPS + 9 * grid] on the card
+          (`token_trace` makes one): block 0's %globaltimer (ns) at each
+          layer's start, at the arrival at and the exit from each grid
+          barrier, at each gather's start and end, at the end of each
+          stage's cluster sums and at five points of attention; then
+          every block's arrival at each barrier slot and the end of its
+          share of each gather stage (`k7_phases` reads it)
 
     Returns the stream after the last layer [D]. On CPU tensors this runs
     `token_kernel_plain`; on a CUDA tensor it launches K7 or raises."""
@@ -632,18 +767,18 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
                                   sel=sel)
     _check_launch_device(h, "token_kernel")
     sms = _build.sm_count(h.device.index)
-    plan = _token_plan(h.element_size(), D, I, n_heads, Hkv, T, window,
-                       max(caps), L, sms)
+    plan = token_plan(h, kc, ws, n_heads, caps, window)
     if plan is None:
         raise ValueError(f"K7 has no launch plan for D = {D}, I = {I}, "
                          f"{n_heads}/{Hkv} heads, T = {T}, window {window}, "
                          f"caps {tuple(caps)} on {sms} SMs")
-    if stamps is not None and (stamps.shape != (L, K7_STAMPS)
+    width = K7_STAMPS + _TOK_TRACE_ROWS * plan.grid
+    if stamps is not None and (stamps.shape != (L, width)
                                or stamps.dtype != torch.int64
                                or stamps.device != h.device
                                or not stamps.is_contiguous()):
-        raise ValueError(f"stamps must be a contiguous int64 [{L}, "
-                         f"{K7_STAMPS}] tensor on h's device")
+        raise ValueError(f"stamps must be a contiguous int64 [{L}, {width}] "
+                         f"tensor on h's device (`token_trace`)")
     lib = _build.load()["token_decode"]
     out = torch.empty_like(h)
     work = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=h.device)
@@ -654,12 +789,11 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
         vc.data_ptr(), out.data_ptr(),
         None if sel is None else sel.data_ptr(),
         None if stamps is None else stamps.data_ptr(), work.data_ptr(), L, D,
-        I,
-        n_heads, Hkv, T, window or 0, *caps, int(fixed_sel), norm_eps, sms,
-        int(empty), torch.cuda.current_stream().cuda_stream)
+        I, n_heads, Hkv, T, window or 0, *caps, int(fixed_sel), norm_eps,
+        sms, int(empty), torch.cuda.current_stream().cuda_stream)
     if err == -1:
-        raise RuntimeError(f"token_kernel: a block of {plan.smem} shared "
-                           f"bytes cannot be resident on this card")
+        raise RuntimeError("token_kernel: no plan or no TMA map for these "
+                           "weights on this card")
     _build.check(err, "token_kernel")
     if not empty:
         token_kernel.launches += 1
@@ -668,39 +802,75 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
 
 token_kernel.launches = 0
 
-K7_STAMPS = 1 + 2 * _TOK_GRID_BARRIERS + 4 + 5 + 2
-K7_PHASES = ("qkv", "attention", "o", "gate|up", "intermediate", "down")
+K7_STAMPS = 1 + 2 * _TOK_BARRIER_SLOTS + 4 + 4 + 4 + 5
+K7_BARRIERS = ("qkv", "attention", "o", "gate|up", "down")
 
 
 def k7_phases(stamps: torch.Tensor):
     """Microseconds summed over the layers from a K7 trace (`token_kernel`'s
-    `stamps`, block 0's clock): for each phase, (block 0's work, from the
-    previous grid barrier's exit -- the layer's start for q|k|v -- to its
-    arrival at the next; the whole phase, exit to exit); each gather
-    stage's prologue (from the phase's start to the gather's start) and,
-    within it, the stream update of o and of down (the latter closes a
-    layer); attention's spans: the q|k|v sums and RoPE, the scores, the
-    maxima's exchange, the weights and PV, the PV's exchange, the
-    combine."""
+    `stamps`): block 0's phases between grid barriers, for each (block 0's
+    work, from the previous barrier's exit -- the layer's start for the
+    first -- to its arrival at the next; the whole phase, exit to exit):
+    "qkv" in the other plan only, "attention" (with q|k|v in the
+    head-owned plan), "o", "gate|up", "down"; for each gather stage the
+    layers that ran it (kept a group) and, over them, its prologue (phase
+    start to gather start), gather (to its last slot used) and cluster
+    sums (to the stage's values written); attention's spans (the
+    q|k|v sums or loads and RoPE, the scores and local max, the maxima's
+    exchange, the weights and PV, the PV's exchange, the combine); for
+    each barrier, from every block's arrival (the layers that ran it):
+    the spread (last arrival - first, summed), block 0's wait (last
+    arrival - block 0's) and the block that arrived last most often; and
+    for each gather stage the spread of its blocks' ends."""
     s = stamps.cpu().double() / 1e3
-    G = 1 + 2 * _TOK_GRID_BARRIERS
-    A, U = G + 4, G + 9
+    grid = (s.shape[1] - K7_STAMPS) // _TOK_TRACE_ROWS
+    head = bool((stamps[:, 1] == 0).all())
+    G, E, Z, A = (1 + 2 * _TOK_BARRIER_SLOTS, 1 + 2 * _TOK_BARRIER_SLOTS + 4,
+                  1 + 2 * _TOK_BARRIER_SLOTS + 8,
+                  1 + 2 * _TOK_BARRIER_SLOTS + 12)
 
-    def span(a, b):
-        return float((s[:, b] - s[:, a]).sum())
+    def span(a, b, ran=None):
+        d = s[:, b] - s[:, a]
+        return float((d if ran is None else d[ran]).sum())
     out = {}
-    for i, name in enumerate(K7_PHASES):
-        start = 0 if i == 0 else 2 * i
-        out[name] = (span(start, 1 + 2 * i), span(start, 2 + 2 * i))
-    for j, (name, start) in enumerate((("qkv", 0), ("o", 4),
-                                       ("gate|up", 6), ("down", 10))):
-        out[f"{name} prologue"] = span(start, G + j)
-    out["o stream update"] = span(6, U)
-    out["down stream update"] = span(12, U + 1)
-    for name, a, b in (("sums+rope", 2, A), ("scores", A, A + 3),
-                       ("max exchange", A + 3, A + 1),
-                       ("weights+pv", A + 1, A + 4),
-                       ("pv exchange", A + 4, A + 2),
-                       ("combine", A + 2, 3)):
+    prev = 0
+    for b, name in enumerate(K7_BARRIERS):
+        if b == 0 and head:
+            continue
+        out[name] = (span(prev, 1 + 2 * b), span(prev, 2 + 2 * b))
+        prev = 2 + 2 * b
+    for j, (name, start) in enumerate((("qkv", 0), ("o", 4), ("gate|up", 6),
+                                       ("down", 8))):
+        ran = (stamps[:, G + j] != 0).cpu()    # the layers that ran it
+        out[f"{name} layers"] = int(ran.sum())
+        out[f"{name} prologue"] = span(start, G + j, ran)
+        out[f"{name} gather"] = span(G + j, E + j, ran)
+        out[f"{name} sums"] = span(E + j, Z + j, ran)
+    for name, a, b in (("qkv+rope", Z if head else 2, A),
+                       ("scores", A, A + 1), ("max exchange", A + 1, A + 2),
+                       ("weights+pv", A + 2, A + 3),
+                       ("pv exchange", A + 3, A + 4), ("combine", A + 4, 3)):
         out[f"attention {name}"] = span(a, b)
+    def rows(r):                 # every block's row r of the trace
+        return s[:, K7_STAMPS + r * grid:K7_STAMPS + (r + 1) * grid]
+    for b, name in enumerate(K7_BARRIERS):
+        arr = rows(b)
+        used = (stamps[:, K7_STAMPS + b * grid] != 0).cpu()
+        if not bool(used.any()):
+            continue
+        arr = arr[used]
+        last = arr.max(1).values
+        out[f"{name} barrier spread"] = float((last - arr.min(1).values).sum())
+        out[f"{name} barrier block 0 wait"] = float((last - arr[:, 0]).sum())
+        out[f"{name} barrier last block"] = int(
+            torch.mode(arr.argmax(1)).values)
+    for j, name in enumerate(("qkv", "o", "gate|up", "down")):
+        ends = rows(_TOK_BARRIER_SLOTS + j)
+        used = (stamps[:, K7_STAMPS + (_TOK_BARRIER_SLOTS + j) * grid]
+                != 0).cpu()
+        if bool(used.any()):
+            e = ends[used]
+            e = e[:, (e != 0).all(0)]          # blocks that ran the stage
+            out[f"{name} gather end spread"] = float(
+                (e.max(1).values - e.min(1).values).sum())
     return out

@@ -1373,7 +1373,8 @@ def _k7_inputs(cuda, dtype, Hq, Hkv, L=2, T=64, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,window,fixed", [
     (4, 4, None, False), (8, 2, None, False), (8, 2, 24, False),
-    (4, 4, None, True)], ids=["mha", "gqa", "gqa-window", "fixed"])
+    (4, 4, None, True), (32, 32, None, False), (32, 4, None, False)],
+    ids=["mha", "gqa", "gqa-window", "fixed", "7b-heads", "gqa-32-4"])
 @pytest.mark.parametrize("pos", [0, 40])
 def test_k7_matches_plain(cuda, dtype, Hq, Hkv, window, fixed, pos):
     """K7 on 2 layers against its plain version (`token_kernel_plain`) on
@@ -1382,9 +1383,14 @@ def test_k7_matches_plain(cuda, dtype, Hq, Hkv, window, fixed, pos):
     sums are added in other orders, a bf16 ulp is 2^-8) of their largest
     value. fp32 selects at thresholds between the stages' group scores;
     bf16 at 0 (every group survives, the first cap kept), where a one-ulp
-    drift of a score cannot flip a group."""
+    drift of a score cannot flip a group. At the 7B's width the 32 kv
+    heads take the head-owned plan (a cluster a kv head), 4 kv heads the
+    other plan (q|k|v column-owned, a grid barrier before attention)."""
     h, ws, (na, nm), rope, kc, vc = _k7_inputs(cuda, dtype, Hq, Hkv)
     L, D, I = 2, h.shape[0], ws[4].shape[-1]
+    if Hq == 32:
+        plan = tb.token_plan(h, kc, ws, Hq, (D // 256,) * 3 + (I // 256,))
+        assert plan.head_owned == (Hkv == 32), plan
     th = torch.zeros((L, 7), device=cuda)
     if dtype == torch.float32:
         th[:, 0], th[:, 3], th[:, 4], th[:, 6] = 2.2, 0.05, 2.2, 0.02
@@ -1410,8 +1416,9 @@ def test_k7_matches_plain(cuda, dtype, Hq, Hkv, window, fixed, pos):
 
 def test_k7_plan_matches_kernel(cuda):
     """`teal_token_plan` (the kernel's plan) equal to `_token_plan` (the
-    wrapper's) on this card at 7B, Mistral-7B with its window and the
-    tiny configs, fp32 and bf16."""
+    wrapper's, on the card's resident clusters from `k7_clusters`) on this
+    card at 7B, Mistral-7B with its window, GQA 32/4 and the tiny configs,
+    fp32 and bf16."""
     import ctypes
 
     lib = _build.load()["token_decode"]
@@ -1419,14 +1426,18 @@ def test_k7_plan_matches_kernel(cuda):
     for D, I, Hq, Hkv, T, win, cm, L in (
             (4096, 11008, 32, 32, 4096, None, 43, 32),
             (4096, 14336, 32, 8, 32768, 4096, 56, 32),
+            (4096, 11008, 32, 4, 2048, None, 43, 32),
             (256, 384, 2, 1, 16, None, 2, 3),
             (512, 768, 4, 2, 64, 24, 3, 2)):
-        for code, esz in ((0, 4), (1, 2)):
-            out = (ctypes.c_int * 7)()
+        for dtype, code, esz in ((torch.float32, 0, 4),
+                                 (torch.bfloat16, 1, 2)):
+            out = (ctypes.c_int * 11)()
             rc = lib.teal_token_plan(code, D, I, Hq, Hkv, T, win or 0, cm,
                                      sms, L, out)
-            want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms)
-            assert rc == 0 and tuple(out) == tuple(want), (D, esz)
+            want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms,
+                                  tb.k7_clusters(cuda, dtype, Hq // Hkv))
+            assert rc == 0 and tuple(out) == tuple(want), (D, esz, list(out),
+                                                           want)
 
 
 def test_k7_decode_graph_matches_host_loop(cuda):

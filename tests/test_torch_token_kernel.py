@@ -307,43 +307,84 @@ PLANS = {
     "tiny-gqa": (4, 256, 384, 2, 1, 16, None, (1, 1, 1, 2), 3),
     "tiny-mha-window": (2, 256, 384, 2, 2, 16, 4, (1, 1, 1, 2), 3),
 }
+ONE_CLUSTER = {c: 1 for c in range(2, 9)}
+SMEM = 232448
+
+
+def _check_columns(p, esz, D, I, Hq, Hkv):
+    """Each stage's clusters cover its weights' columns exactly once; in
+    the head-owned plan cluster c's q columns are those of kv head c's
+    query heads; every kv head's attention runs on one cluster."""
+    cols = tb.token_columns(p, esz, D, I, Hq, Hkv)
+    widths = {"wq": D, "wk": Hkv * 128, "wv": Hkv * 128, "wo": D,
+              "wgate": I, "wup": I, "wdown": D}
+    stages = {"qkv": ("wq", "wk", "wv"), "o": ("wo",),
+              "gate|up": ("wgate", "wup"), "down": ("wdown",)}
+    for stage, names in stages.items():
+        assert len(cols[stage]) == p.clusters
+        seen = {n: np.zeros(widths[n], np.int64) for n in names}
+        for got in cols[stage]:
+            for name, a, b in got:
+                assert a < b and a % (tb._TOK_UB // esz) == 0, (stage,
+                                                                name, a, b)
+                seen[name][a:b] += 1
+        for name in names:
+            assert (seen[name] == 1).all(), (stage, name)
+    GH = Hq // Hkv
+    if p.head_owned:
+        for c, got in enumerate(cols["qkv"]):
+            heads = {a // (128 * GH) for name, a, _ in got if name == "wq"}
+            kv = {a // 128 for name, a, _ in got if name in ("wk", "wv")}
+            assert (heads, kv) == (({c}, {c}) if c < Hkv else (set(), set()))
+    owners = sorted(h for hs in cols["attention"] for h in hs)
+    assert owners == list(range(Hkv))
 
 
 @pytest.mark.parametrize("name", list(PLANS))
 def test_token_plan(name):
-    """`_token_plan` for 132 SMs: a block an SM, SA = min(16, 132 / Hkv),
-    shared memory within a block's 232448 bytes, the workspace of its
-    regions (each 256-byte aligned; a barrier counter a 128-byte line),
-    6 grid and 2 kv-head barriers a layer."""
+    """`_token_plan` for 132 SMs and the H100's resident clusters: the grid
+    is clusters * C blocks within the SMs; the 7B takes the head-owned
+    plan (a cluster of 3 a kv head: 32 of the 39 clusters of 3 that fit,
+    30 of 4 would not) with 4 grid barriers a layer, Mistral-7B's 8 kv
+    heads the other plan (2 blocks a cluster, all 66 clusters) with 5; no
+    kv-head barrier; shared
+    memory within a block's 232448 bytes and equal to its layout's; the
+    workspace of its regions (each 256-byte aligned); the columns of every
+    stage covered once."""
     esz, D, I, Hq, Hkv, T_, window, caps, L = PLANS[name]
     p = tb._token_plan(esz, D, I, Hq, Hkv, T_, window, max(caps), L, 132)
     assert p is not None
-    SA = min(16, 132 // Hkv)
-    assert (p.grid, p.threads, p.SA) == (132, 256, SA)
-    assert p.smem <= 232448
-    assert (p.grid_barriers, p.head_barriers) == (6 * L, 2 * L)
+    assert p.threads == 288 and p.grid == p.C * p.clusters <= 132
+    head = Hkv == 32
+    assert p.clusters == (Hkv if head else tb.H100_CLUSTERS[p.C])
+    assert (p.head_owned, p.C) == ((True, 3) if head else (False, 2))
+    assert (p.grid_barriers, p.head_barriers) == ((4 if head else 5) * L, 0)
+    assert 2 <= p.slots <= 8 and p.smem <= SMEM
+    GH = Hq // Hkv
+    live = min(T_, window or T_)
+    assert p.NS == -(-(-(-(live - 1) // p.C)) // 4) * 4
 
     def al(n):
         return -(-n // 256) * 256
-    tw, GH = 256 // esz, Hq // Hkv
-    tiles = {"qkv": (Hq + 2 * Hkv) * 128 // tw, "o": D // tw,
-             "gu": I // tw, "down": D // tw}
-    n = al((1 + Hkv) * 128)
-    for stage, nw in (("qkv", 1), ("o", 1), ("gu", 2), ("down", 1)):
-        n = al(n + tiles[stage] * (132 // tiles[stage] + 2) * nw * tw * 4)
-    for part in (Hkv * SA * GH, Hkv * SA * GH, Hkv * SA * GH * 128):
-        n = al(n + 4 * part)
-    n = al(n + Hq * 128 * esz)
+    n = al(256 + (Hq + 2 * Hkv) * 128 * 4)
+    n = al(al(al(n + D * esz) + D * esz) + Hq * 128 * esz)
     assert p.ws_bytes == al(n + I * esz)
-    # a window caps the score slice; without one a long cache may not fit
-    live = min(T_, window or T_)
-    assert -(-(live - 1) // SA) * GH * 4 <= p.smem
+    uw = tb._TOK_UB // esz
+
+    def most(cols, nw):
+        return nw * -(-(cols // uw) // p.clusters) * uw
+    partf = max(most(D, 1), most(I, 2),
+                (GH + 2) * 128 if head else most((Hq + 2 * Hkv) * 128, 1))
+    assert p.smem == tb._token_smem(esz, D, I, GH, max(caps), p.NS, partf,
+                                    p.slots)
+    _check_columns(p, esz, D, I, Hq, Hkv)
 
 
 def test_token_plan_refuses():
     """No plan where the shapes do not fit: a score slice past shared
     memory (no window, a long cache, 8 query heads a kv head), a head_dim
-    other than 128, a cap above the groups, 3 query heads a kv head."""
+    other than 128, a cap above the groups, 3 query heads a kv head, a
+    stream past 36 KB, no cluster that can be resident."""
     assert tb._token_plan(2, 4096, 11008, 32, 4, 1 << 20, None, 16, 32,
                           132) is None
     assert tb._token_plan(2, 4096, 11008, 64, 8, 4096, None, 16, 32,
@@ -353,3 +394,77 @@ def test_token_plan_refuses():
     # 3 query heads a kv head: K7 takes 1, 2, 4 or 8 (the loop the rest)
     assert tb._token_plan(2, 3072, 8192, 24, 8, 4096, None, 12, 32,
                           132) is None
+    assert tb._token_plan(2, 32768, 11008, 256, 32, 64, None, 16, 2,
+                          132) is None
+    assert tb._token_plan(2, 4096, 11008, 32, 32, 512, None, 16, 32, 132,
+                          {c: 0 for c in range(1, 17)}) is None
+
+
+def _sweep_shapes(GH):
+    """(esz, D, I, Hkv) for Hkv 1-32 at GH query heads a kv head: D = 128
+    GH Hkv and I = D * 8 / 3 rounded up to 128, in fp32 and bf16."""
+    for Hkv in range(1, 33):
+        D = 128 * GH * Hkv
+        I = -(-(D * 8 // 3) // 128) * 128
+        for esz in (2, 4):
+            yield esz, D, I, Hkv
+
+
+@pytest.mark.parametrize("GH", [1, 2, 4, 8])
+@pytest.mark.parametrize("edge", ["h100", "one-cluster", "64-sms"])
+def test_token_plan_covers_every_column(GH, edge):
+    """Over Hkv 1-32 at 1, 2, 4 and 8 query heads a kv head, fp32 and
+    bf16, every D `_token_plan` takes (a stream of at most 36 KB): on the
+    H100 (132 SMs and its resident clusters), at the edge of one resident
+    cluster of each size, and on half the SMs, the plan either raises
+    (None) because two ring slots and the rest (the stream, the selection
+    input, the cluster's partial sums) pass a block's shared memory, or
+    its clusters cover every q, k, v, o, gate, up and down column exactly
+    once, each head-owned cluster's q columns belong to its kv head, and
+    its shared bytes stay within 232448."""
+    clusters, sms = {"h100": (tb.H100_CLUSTERS, 132),
+                     "one-cluster": (ONE_CLUSTER, 132),
+                     "64-sms": ({c: n // 2 for c, n in
+                                 tb.H100_CLUSTERS.items()}, 66)}[edge]
+    planned = 0
+    for esz, D, I, Hkv in _sweep_shapes(GH):
+        Hq, cap = GH * Hkv, min(8, D // 128)
+        p = tb._token_plan(esz, D, I, Hq, Hkv, 512, None, cap, 2, sms,
+                           clusters)
+        if D * esz > 16 * 8 * 288:
+            assert p is None
+            continue
+        if p is None:
+            C, head = tb._token_structure(Hkv, sms, clusters)
+            uw, NC = tb._TOK_UB // esz, Hkv if head else clusters[C]
+            partf = max(2 * -(-(I // uw) // NC) * uw,
+                        (GH + 2) * 128 if head
+                        else -(-((Hq + 2 * Hkv) * 128 // uw) // NC) * uw)
+            NS = -(-(-(-511 // C)) // 4) * 4
+            # at least two slots, and room for attention's PV sums
+            least = max(2, -(-(256 // (128 * esz // 16)) * GH * 512 // 16384))
+            assert tb._token_smem(esz, D, I, GH, cap, NS, partf,
+                                  least) > SMEM, (esz, D, I, Hkv)
+            continue
+        planned += 1
+        assert p.smem <= SMEM and p.grid <= sms
+        _check_columns(p, esz, D, I, Hq, Hkv)
+    assert planned > 0
+
+
+def test_token_plan_one_cluster_raises_past_shared_memory():
+    """At the edge of one resident cluster a cluster owns every column:
+    the 7B still plans (one cluster of 8; bf16 with six ring slots, fp32
+    with four), but a 70B-wide fp32 layer's gate|up partial sums (2 x
+    28672 fp32) beside its stream pass shared memory, so no plan; the tiny
+    config plans too."""
+    assert tb._token_plan(4, 8192, 28672, 64, 8, 512, None, 43, 32, 132,
+                          ONE_CLUSTER) is None
+    for esz, slots in ((2, 6), (4, 4)):
+        p = tb._token_plan(esz, 4096, 11008, 32, 32, 512, None, 43, 32, 132,
+                           ONE_CLUSTER)
+        assert (p.C, p.clusters, p.slots) == (8, 1, slots)
+        _check_columns(p, esz, 4096, 11008, 32, 32)
+    p = tb._token_plan(4, 256, 384, 2, 1, 16, None, 2, 3, 132, ONE_CLUSTER)
+    assert (p.C, p.clusters, p.grid, p.head_owned) == (8, 1, 8, False)
+    _check_columns(p, 4, 256, 384, 2, 1)

@@ -35,7 +35,10 @@ import numpy as np
 # a whole group's run, start-up included: twice the longest a group took
 # in the builder's 6-worker runs (40 s), at least 120 s
 # (test_torch_tp_kernel.py's group, joined after its JAX child, takes its
-# own); measured through `TEAL_TEST_CHILD_LOG`
+# own); measured through `TEAL_TEST_CHILD_LOG`. The group is killed when
+# its ranks' CPU time stops growing for `jax_subprocess.STALL_S` (a hung
+# collective leaves them blocked), or after `CAP_FACTOR` times this, so
+# that a machine with fewer or slower cores does not cut a healthy group.
 RANK_TIMEOUT_S = 120.0
 
 
@@ -216,9 +219,16 @@ class Ranks:
 
     def join(self) -> Dict[str, List[Dict[str, np.ndarray]]]:
         """{case: [rank 0's results, rank 1's, ...]}; raises when a rank
-        failed or the group outlived its timeout (the ranks are killed)."""
-        for p in self.procs:
-            p.join(max(0.0, self.timeout - (time.monotonic() - self.t0)))
+        failed or the group stalled or outlived `CAP_FACTOR` times its
+        timeout (the ranks are killed)."""
+        from jax_subprocess import CAP_FACTOR, POLL_S, Watch
+
+        watch = Watch([p.pid for p in self.procs],
+                      CAP_FACTOR * self.timeout)
+        watch.t0 = time.perf_counter() - (time.monotonic() - self.t0)
+        while (any(p.is_alive() for p in self.procs)
+               and not watch.hung()):
+            time.sleep(POLL_S)
         alive = [p for p in self.procs if p.is_alive()]
         log = os.environ.get("TEAL_TEST_CHILD_LOG")
         if log:     # the measurement behind the group timeouts
@@ -232,8 +242,9 @@ class Ranks:
             p.kill()
             p.join(10)
         if alive:
-            raise RuntimeError(f"{len(alive)} of {len(self.procs)} ranks did "
-                               f"not finish in {self.timeout:.0f} s (killed)")
+            raise RuntimeError(f"{len(alive)} of {len(self.procs)} ranks "
+                               "stalled or ran past "
+                               f"{CAP_FACTOR * self.timeout:.0f} s (killed)")
         bad = [p.exitcode for p in self.procs if p.exitcode != 0]
         if bad:
             raise RuntimeError(f"ranks exited with {bad}")

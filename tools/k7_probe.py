@@ -67,6 +67,8 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--save", help="write the trace (int64 [L, width]) "
+                    "there as .npy")
     args = ap.parse_args()
 
     import torch
@@ -90,11 +92,14 @@ def main() -> int:
 
     L, D, I, Hq, Hkv, T = args.layers, 4096, 11008, 32, 32, 512
     caps = (16, 16, 16, 43)
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 11)()
     rc = _build.load()["token_decode"].teal_token_plan(
         1, D, I, Hq, Hkv, T, 0, max(caps), sms, L, out)
-    print(f"plan: kernel {rc} {list(out)}, wrapper "
-          f"{tb._token_plan(2, D, I, Hq, Hkv, T, None, max(caps), L, sms)}")
+    clusters = tb.k7_clusters(dev, torch.bfloat16, Hq // Hkv)
+    print(f"resident clusters of C blocks: {clusters}")
+    want = tb._token_plan(2, D, I, Hq, Hkv, T, None, max(caps), L, sms,
+                          clusters)
+    print(f"plan: kernel {rc} {list(out)}, wrapper {want}")
 
     g = torch.Generator(device=dev).manual_seed(1)
     dt = torch.bfloat16
@@ -144,12 +149,16 @@ def main() -> int:
                   f" ms a token")
     floor = events_ms(torch, lambda: tb.token_kernel(*args7, empty=True,
                                                      **kw), args.iters)
-    stamps = torch.zeros(L, tb.K7_STAMPS, dtype=torch.int64, device=dev)
+    stamps = tb.token_trace(h, kc, ws, Hq, caps)
     tb.token_kernel(*args7, stamps=stamps, **kw)
     torch.cuda.synchronize()
     print(f"barrier floor {floor:.4f} ms a token")
-    print("block 0's trace, us summed over the layers (phases: work/whole; "
-          "spans): " + ", ".join(
+    if args.save:
+        import numpy as np
+
+        np.save(args.save, stamps.cpu().numpy())
+    print("the trace, us summed over the layers (block 0's phases: "
+          "work/whole; spans; every block's barrier arrivals): " + ", ".join(
               f"{k} {v[0]:.1f}/{v[1]:.1f}" if isinstance(v, tuple)
               else f"{k} {v:.1f}" for k, v in tb.k7_phases(stamps).items()))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
