@@ -337,10 +337,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 MAIN_SP = dict(enabled=True, kernel="block", block_size=128,
                block_keep_frac=0.5, block_thresholding=True)
-# the K1/K2 loop at batch 1 (`token_fused=False`, the reference's packed
-# pipeline, where MAIN_SP takes K7 for bf16 / fp32 arrays): the batch-1
-# checks of phases 4-17 hold it as they did before K7; batched, int8,
-# int4 and Mixtral routes keep MAIN_SP, whose route K7 leaves unchanged
+# the loop at batch 1 (`token_fused=False`, the reference's packed
+# pipeline, where MAIN_SP takes K7 for fp32 / bf16 arrays and, with a bf16
+# stream, all-int8 and packed int4 at group 128): the batch-1 checks of
+# phases 4-17 and phase 8's Q8-main and Q4-main hold it as they did before
+# K7 (Q4-main: the K1/K2 loop; Q8-main: the model's layer loop, where the
+# reference sends int8 with token_fused False, also 4 K1 + 1 K2 a layer);
+# batched and Mixtral routes keep MAIN_SP, whose route K7 leaves unchanged
 # (token_fused=False would send them to the layer loop)
 LOOP_SP = dict(MAIN_SP, token_fused=False)
 TWIN_SP = dict(MAIN_SP, kernel="masked_dense", mode="group")
@@ -369,10 +372,10 @@ STAGE_WEIGHTS = {"qkv": ("wq", "wk", "wv"), "o": ("wo",),
 # "int4-g128" / "int4-g64": int4 at that group, packed at block size 128 /
 # 32 (quant group == gather group: no requantization)
 QUANT_PATHS = {
-    "Q8-main": ("int8", MAIN_SP, 1),
+    "Q8-main": ("int8", LOOP_SP, 1),
     "Q8-main-b16": ("int8", MAIN_SP, 16),
     "Q8-loop": ("int8", LOOP_PATHS["A"][0], 1),
-    "Q4-main": ("int4-g128", MAIN_SP, 1),
+    "Q4-main": ("int4-g128", LOOP_SP, 1),
     "Q4-main-b16": ("int4-g128", MAIN_SP, 16),
     "Q4-loop": ("int4-g64", LOOP_PATHS["A"][0], 1),
 }
@@ -1390,11 +1393,12 @@ def prefill(params, cfg, toks, device, rope):
     return cache, logits[:, t - 1].argmax(-1)[:, None], t
 
 
-def loop_thresholds(caps, rule: str, th_row, stage: int):
+def loop_thresholds(caps, rule: str, th_row, stage: int,
+                    block_size: int = 32):
     """Set the threshold columns of stage `stage` (q|k|v, o, gate|up, down)
     from its captured input: "group" picks a group threshold at the
-    stage's group size and capacity (`pick_threshold`), "elem" the
-    median |x|."""
+    stage's group size (the effective one of `block_size`) and capacity
+    (`pick_threshold`), "elem" the median |x|."""
     from teal_tpu_torch.ops.block_gemv import (block_capacity,
                                                effective_block_size,
                                                group_scores)
@@ -1404,7 +1408,7 @@ def loop_thresholds(caps, rule: str, th_row, stage: int):
                        ("mlp", "h2", (6,)))[stage]
     x = caps[grp][name].float().reshape(-1)
     if rule == "group":
-        G = effective_block_size(32, x.numel())
+        G = effective_block_size(block_size, x.numel())
         thr = pick_threshold(group_scores(x[None], G),
                              block_capacity(x.numel() // G, 0.5))
     else:
@@ -1431,7 +1435,7 @@ def hold_loop_layers(params, cfg, name, sp, b, cache, toks, pos, rope,
 
     from teal_tpu_torch.models import llama
 
-    rule = {"B": "group", "C": "elem"}.get(name)
+    rule = {"B": "group", "C": "elem", "Q8-main": "group"}.get(name)
     fused = llama.can_fused_decode(1, b, cfg, MAX_SEQ, sp,
                                    sp.kernel == "block")
     th = torch.zeros((cfg.n_layers, 7), dtype=torch.float32, device=device)
@@ -1450,7 +1454,7 @@ def hold_loop_layers(params, cfg, name, sp, b, cache, toks, pos, rope,
                 _, _, _, caps = llama.layer_forward(
                     h, lp, k[i], v[i], *args, th[i], capture=True,
                     fused_attn=fused)
-                loop_thresholds(caps, rule, th[i], stage)
+                loop_thresholds(caps, rule, th[i], stage, sp.block_size)
             with topk_selections() as want_sel:
                 want, _, _, _ = llama.layer_forward(h, lp, k[i], v[i], *args,
                                                     th[i], fused_attn=fused)
@@ -2263,6 +2267,10 @@ def quant_paths(params, cfg, caps, device, gen, seed, rope):
         if kind != "int4-g64":
             extra[f"lm_head {plan}"] = time_quant_head(qp, plan, cfg,
                                                        device, gen)
+            main = next(n for n in names if n.endswith("-main"))
+            e7, extra.setdefault("k7", {})[plan] = k7_quant(
+                qp, cfg, device, gen, seed, runs[main]["th"], plan)
+            entries.append(e7)
         extra[f"peak_gib {kind}"] = torch.cuda.max_memory_allocated() / 2**30
         log(f"[quant] {kind}: peak {extra[f'peak_gib {kind}']:.2f} GiB "
             "allocated")
@@ -3293,12 +3301,16 @@ GREEDY_TARGET = 0.5              # effective sparsity of the greedy run
 CALIB_DIR = ROOT / "build" / "chip_smoke_calibration"
 
 
-def calib_decode(params, cfg, th, device, seed, what, shares=None):
+def calib_decode(params, cfg, th, device, seed, what, shares=None,
+                 k7: bool = False):
     """Hold every layer of one main-path decode step (the first prompt's
     next token after a dense prefill) at thresholds `th` [L, 7] to the
     plain path (`hold_token_layers`), then decode phase 4's three prompts
-    on the main path with them, counts set to 0 just before: 4*L K1 and
-    L K2 a decoded token. Returns (worst hold error, tok/s per prompt)."""
+    on the K1/K2 loop (`LOOP_SP`) with them, counts set to 0 just before:
+    4*L K1 and L K2 a decoded token. With `k7`, the user's route instead
+    (`MAIN_SP`: K7): every layer of K7 alone held to the plain layer
+    (`hold_k7_layers`), one K7 and no K1-K6 launch a decoded token.
+    Returns (worst hold error, tok/s per prompt)."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -3306,21 +3318,33 @@ def calib_decode(params, cfg, th, device, seed, what, shares=None):
     from teal_tpu_torch.models import llama
 
     dt = llama.compute_dtype(params)
-    gen = Generator(cfg, params, sp=SparsityConfig(**LOOP_SP),
+    gen = Generator(cfg, params, sp=SparsityConfig(**(MAIN_SP if k7
+                                                       else LOOP_SP)),
                     max_seq=MAX_SEQ, cache_dtype=dt, temperature=0.0,
                     device=device)
     prompts = main_prompts(cfg, seed)
     cache, tok, pos = calibration_token(params, cfg, prompts[0],
                                         gen.new_cache(), gen.rope, device)
-    _, worst, _ = hold_token_layers(params, cfg, cache, tok, pos, gen.rope,
-                                    device, th=th, shares=shares)
+    if k7:
+        worst, _, _ = hold_k7_layers(params, cfg, cache, tok, pos, gen.rope,
+                                     th, device, tag=f"[calib] {what}:")
+    else:
+        _, worst, _ = hold_token_layers(params, cfg, cache, tok, pos,
+                                        gen.rope, device, th=th,
+                                        shares=shares)
     gen.generate(prompts[0], 4, thresholds=th,
                  on_device_loop=False)                      # warm-up
     reset_launches()
     outs = [gen.generate(p, NEW_TOKENS, thresholds=th, on_device_loop=False)
             for p in prompts]
     decoded = len(prompts) * (NEW_TOKENS - 1)
-    check_launches(read_launches(), cfg.n_layers, decoded)
+    if k7:
+        got, n7 = read_launches(), k7_launches()
+        check(got == (0,) * 6 and n7 == decoded, f"{what}: launches (K1-K6) "
+              f"{got} and {n7} K7 for {decoded} decoded tokens, expected "
+              f"none and {decoded}")
+    else:
+        check_launches(read_launches(), cfg.n_layers, decoded)
     for p, (toks, _) in zip(prompts, outs):
         check(toks.shape == (1, len(p) + NEW_TOKENS)
               and bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
@@ -3329,8 +3353,9 @@ def calib_decode(params, cfg, th, device, seed, what, shares=None):
     log(f"[calib] {what}: every layer of a decode step held to the plain "
         f"path (worst error {worst:.2e} of scale, tolerance 2e-2); "
         f"{len(prompts)} requests, {decoded} decoded tokens, "
-        f"{4 * cfg.n_layers} K1 + {cfg.n_layers} K2 launches a token; "
-        f"tok/s {', '.join(f'{t:.2f}' for t in tok_s)}")
+        + ("one K7 launch a token; " if k7 else
+           f"{4 * cfg.n_layers} K1 + {cfg.n_layers} K2 launches a token; ")
+        + f"tok/s {', '.join(f'{t:.2f}' for t in tok_s)}")
     return worst, tok_s
 
 
@@ -3596,7 +3621,7 @@ def calibration_phase(params, cfg, device, seed):
     q4 = quant.pack_int4_params(q, block_size=128)
     del q
     worst, tok_s = calib_decode(q4, ccfg, th_cut, device, seed,
-                                "GPTQ Q4-main decode (cut)")
+                                "GPTQ Q4-main decode (cut)", k7=True)
     res["gptq_decode"] = dict(worst=worst, tok_s=tok_s)
     del q4, cut
     torch.cuda.empty_cache()
@@ -4142,9 +4167,8 @@ def cli_phase(device):
     # generate decodes through the step's CUDA graph: the wrappers launch
     # at the capture only (2 warm-up steps and the captured one), whatever
     # the tokens decoded; a host loop would launch a step's worth a token.
-    # The bf16 model's main path is K7 (one launch a step), the int4
-    # model's the K1/K2 loop (4 L K1 + L K2 a step)
-    tok_path = (4 * L * 3, L * 3, 0, 0, 0, 0)
+    # The bf16 model's main path is K7 (one launch a step), and so is the
+    # int4 model's (packed at group 128: K7's int4 plan)
     _, err, _, _ = run("generate sparse", ["generate"] + init + gen + sparse
                        + ["--metrics", str(metrics)], (0,) * 6, 3)
     check(gen_count(err) == CLI_NEW_TOKENS, f"cli generate sparse: {err}")
@@ -4196,7 +4220,7 @@ def cli_phase(device):
                                                 "--output-path", q4],
         (0, 0, 0, 0, 0, 0))
     _, err, _, _ = run("generate int4", ["generate"] + base + [
-        "--checkpoint", q4] + gen + sparse, tok_path)
+        "--checkpoint", q4] + gen + sparse, (0,) * 6, 3)
     check(gen_count(err) == CLI_NEW_TOKENS, f"cli generate int4: {err}")
 
     t0 = time.perf_counter()
@@ -6034,13 +6058,15 @@ K7_TIME_ITERS = 20
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 
 
-def check_k7_plan():
+def check_k7_plan(wplan: int = 0):
     """K7's plan in the wrapper (`token_block._token_plan` on the card's
     resident clusters, `token_block.k7_clusters`) equal to the kernel's
-    (`teal_token_plan`) on this card, fp32 and bf16: Llama-2-7B at T 512 /
-    2048 / 4096, Mistral-7B (GQA 32/8, window 4096) at T 8192, and the
-    tests' head-128 tiny configs; each within shared memory; the 7B's plan
-    head-owned with 4 grid barriers and no kv-head barrier a layer."""
+    (`teal_token_plan`) on this card, fp32 and bf16 arrays (wplan 0), or
+    int8 (1) or packed int4 (2) with a bf16 stream (`teal_token_plan_q`):
+    Llama-2-7B at T 512 / 2048 / 4096, Mistral-7B (GQA 32/8, window 4096)
+    at T 8192, and the tests' head-128 tiny configs; each within shared
+    memory; the 7B's plan head-owned with 4 grid barriers and no kv-head
+    barrier a layer."""
     import ctypes
 
     import torch
@@ -6048,7 +6074,8 @@ def check_k7_plan():
     from teal_tpu_torch import _build
     from teal_tpu_torch.ops import token_block as tb
 
-    lib = _build.load()["token_decode"]
+    lib = _build.load()["token_decode" if wplan == 0
+                        else "token_decode_quant"]
     sms = _build.sm_count(0)
     dev = torch.device("cuda", 0)
     shapes = [(4096, 11008, 32, 32, T, None, 43, 32) for T in
@@ -6056,13 +6083,20 @@ def check_k7_plan():
                                     (256, 384, 2, 1, 16, None, 3, 3),
                                     (256, 384, 2, 2, 64, 8, 3, 3)]
     plans = {}
+    forms = (((0, 4, torch.float32), (1, 2, torch.bfloat16)) if wplan == 0
+             else ((1, 2, torch.bfloat16),))
     for D, I, Hq, Hkv, T, win, cm, L in shapes:
-        for code, esz, dt in ((0, 4, torch.float32), (1, 2, torch.bfloat16)):
+        for code, esz, dt in forms:
             out = (ctypes.c_int * 11)()
-            rc = lib.teal_token_plan(code, D, I, Hq, Hkv, T, win or 0, cm,
-                                     sms, L, out)
+            if wplan == 0:
+                rc = lib.teal_token_plan(code, D, I, Hq, Hkv, T, win or 0, cm,
+                                         sms, L, out)
+            else:
+                rc = lib.teal_token_plan_q(wplan, D, I, Hq, Hkv, T, win or 0,
+                                           cm, sms, L, out)
             want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms,
-                                  tb.k7_clusters(dev, dt, Hq // Hkv))
+                                  tb.k7_clusters(dev, dt, Hq // Hkv, wplan),
+                                  wplan)
             check(rc == 0 and want is not None and tuple(out) == tuple(want)
                   and want.smem <= tb._SMEM_BYTES,
                   f"K7 plan {(D, I, Hq, Hkv, T, win, cm, L, esz)}: kernel "
@@ -6072,12 +6106,13 @@ def check_k7_plan():
     check(p7[8] == 1 and p7[4] == 4 * 32 and p7[5] == 0,
           f"the 7B's K7 plan {p7}: expected head-owned, 4 grid barriers and "
           "no kv-head barrier a layer")
-    log(f"[k7] plan equal in the wrapper and the kernel for {len(plans)} "
-        f"shapes on {sms} SMs, resident clusters of C = 2..16: "
-        f"{list(tb.k7_clusters(dev, torch.bfloat16, 1).values())}; 7B bf16 "
-        f"T 512: {p7} (grid, threads, shared bytes, workspace bytes, grid "
-        "barriers, kv-head barriers, C, clusters, head-owned, ring slots, "
-        "score rows)")
+    log(f"[k7] plan (weight plan {wplan}) equal in the wrapper and the "
+        f"kernel for {len(plans)} shapes on {sms} SMs, resident clusters of "
+        f"C = 2..8: "
+        f"{list(tb.k7_clusters(dev, torch.bfloat16, 1, wplan).values())}; "
+        f"7B bf16 T 512: {p7} (grid, threads, shared bytes, workspace "
+        "bytes, grid barriers, kv-head barriers, C, clusters, head-owned, "
+        "ring slots, score rows)")
     return plans
 
 
@@ -6135,7 +6170,8 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
         sel = torch.zeros((1, 4, 1 + max(caps)), dtype=torch.int32,
                           device=device)
         got = tb.token_kernel(h, th[sl].contiguous(),
-                              tuple(w[sl] for w in ws), lay["attn_norm"][sl],
+                              tuple(llama._leaf(w, lambda a: a[sl])
+                                    for w in ws), lay["attn_norm"][sl],
                               lay["mlp_norm"][sl], rows, kk, vk, pos_t,
                               sel=sel, **kw)
         g_cnt = [int(c) for c in sel[0, :, 0].tolist()]
@@ -6181,7 +6217,7 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
     return worst, worst_abs, flips
 
 
-def k7_long_run(params, cfg, device, gen, th):
+def k7_long_run(params, cfg, device, gen, th, tag="[k7 long]"):
     """K7 on the first two layers at pos 2047 of a 2048-row cache of random
     rows (`K7_LONG`): each layer held alone (`hold_k7_layers`), then one
     2-layer launch against `token_kernel_plain` on the same input, output
@@ -6195,7 +6231,8 @@ def k7_long_run(params, cfg, device, gen, th):
 
     pos, T = K7_LONG
     ccfg = dataclasses.replace(cfg, n_layers=2)
-    cut = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    cut = dict(params, layers={k: llama._leaf(v, lambda a: a[:2])
+                               for k, v in params["layers"].items()})
     dt = llama.compute_dtype(params)
     shape = (2, 1, cfg.n_kv_heads, T, 128)
     cache = llama.KVCache(
@@ -6203,8 +6240,7 @@ def k7_long_run(params, cfg, device, gen, th):
         torch.randn(shape, generator=gen, device=device).to(dt))
     rope = llama.precompute_rope(cfg, T, device)
     worst, _, flips = hold_k7_layers(cut, ccfg, cache, 7, pos, rope,
-                                     th[:2].contiguous(), device,
-                                     tag="[k7 long]")
+                                     th[:2].contiguous(), device, tag=tag)
     caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
     pos_t = torch.tensor([pos], dtype=torch.int32, device=device)
     rows = llama._rope_rows(rope[0], rope[1], pos_t)
@@ -6222,12 +6258,12 @@ def k7_long_run(params, cfg, device, gen, th):
     res = dict(pos=pos, T=T, layer_worst=worst, flips=flips,
                same_kept=bool(torch.equal(*sels)))
     if res["same_kept"]:
-        res["err"] = rel_check("[k7 long] 2 layers in one launch: K7 vs "
+        res["err"] = rel_check(f"{tag} 2 layers in one launch: K7 vs "
                                "plain", got, want, K7_TOKEN_TOL)
         for i, name in enumerate(("k", "v")):
-            rel_check(f"[k7 long] {name} cache after the launch",
+            rel_check(f"{tag} {name} cache after the launch",
                       caches[0][i], caches[1][i], K7_TOKEN_TOL)
-    log(f"[k7 long] pos {pos} of a {T}-row cache, 2 layers: "
+    log(f"{tag} pos {pos} of a {T}-row cache, 2 layers: "
         + (f"one launch within {res['err']:.3e} of the plain version, the "
            "same kept groups" if res["same_kept"] else
            "the 2-layer launch kept other groups than the plain version "
@@ -6270,15 +6306,16 @@ def k7_gqa_hold(cfg, device, gen, th):
                 plan=plan._asdict())
 
 
-def k7_tokens(params, cfg, device, seed, th):
+def k7_tokens(params, cfg, device, seed, th, fp32_cut: bool = True,
+              tag: str = "[k7]"):
     """Phase 4's three prompts, `NEW_TOKENS` greedy tokens each, through the
     main path as a user calls it (`Generator` with `MAIN_SP`: K7) and through
-    the K1/K2 loop (`LOOP_SP`): on the resident bf16 7B the agreement is
-    reported; on a `K7_CUT`-layer fp32 cut at the 7B widths the tokens
-    must be equal. The bf16 K7 run decodes on the host loop with the
-    launch counts set to 0 just before and read just after: one K7 and no
-    K1-K6 launch a decoded token. Returns (results, K7 launches, the two
-    bf16 Generators)."""
+    the loop (`LOOP_SP`): on the resident 7B (bf16, or a quantized copy
+    with a bf16 stream) the agreement is reported; with `fp32_cut`, on a
+    `K7_CUT`-layer fp32 cut at the 7B widths the tokens must be equal. The
+    K7 run decodes on the host loop with the launch counts set to 0 just
+    before and read just after: one K7 and no K1-K6 launch a decoded
+    token. Returns (results, K7 launches, the two bf16 Generators)."""
     import numpy as np
     import torch
 
@@ -6301,7 +6338,7 @@ def k7_tokens(params, cfg, device, seed, th):
                         on_device_loop=False)[0] for p in prompts]
     got, n7 = read_launches(), k7_launches()
     decoded = len(prompts) * (NEW_TOKENS - 1)
-    check(got == (0,) * 6 and n7 == decoded, f"[k7] main path: launches "
+    check(got == (0,) * 6 and n7 == decoded, f"{tag} main path: launches "
           f"(K1-K6) {got} and {n7} K7 for {decoded} decoded tokens, "
           f"expected none and {decoded}")
     refs = [loop.generate(p, NEW_TOKENS, thresholds=th)[0] for p in prompts]
@@ -6312,9 +6349,11 @@ def k7_tokens(params, cfg, device, seed, th):
                            for o, p in zip(outs, prompts)],
                        loop=[o[0, len(p):].tolist()
                              for o, p in zip(refs, prompts)])
-    log(f"[k7] main path (K7, host loop): {decoded} decoded tokens, "
-        f"{n7} K7 launches, no K1-K6; bf16 greedy tokens equal to the K1/K2 "
+    log(f"{tag} main path (K7, host loop): {decoded} decoded tokens, "
+        f"{n7} K7 launches, no K1-K6; bf16 greedy tokens equal to the "
         f"loop's: {agree} of {NEW_TOKENS} a prompt")
+    if not fp32_cut:
+        return res, n7, (k7, loop)
     ccfg = dataclasses.replace(cfg, n_layers=K7_CUT)
     cut = to_fp32(dict(params, layers={k: v[:K7_CUT] for k, v in
                                        params["layers"].items()}))
@@ -6336,7 +6375,7 @@ def k7_tokens(params, cfg, device, seed, th):
     return res, n7, (k7, loop)
 
 
-def k7_graphs(gens, cfg, th, prompts):
+def k7_graphs(gens, cfg, th, prompts, tag="[k7]"):
     """The decode graphs of K7 and of the K1/K2 loop (the two `Generator`s
     of `k7_tokens`): their kernel nodes from the driver (one K7 and no
     K1/K2 node; 4 L K1 + L K2), then in turns a replay's device ms
@@ -6352,7 +6391,7 @@ def k7_graphs(gens, cfg, th, prompts):
         nodes = graph_kernels(g._loop.graph)
         counts = tuple(sum(c for k, c in nodes.items() if n in k)
                        for n in ("sgg_", "attn_kernel", "token_kernel"))
-        check(counts == want, f"[k7] {name} graph: (K1, K2, K7) nodes "
+        check(counts == want, f"{tag} {name} graph: (K1, K2, K7) nodes "
               f"{counts}, expected {want}")
         res[name] = dict(nodes=counts, kernel_nodes=sum(nodes.values()),
                          device_ms=[], wall_ms=[], idle=[], tok_s=[])
@@ -6367,7 +6406,7 @@ def k7_graphs(gens, cfg, th, prompts):
             r["idle"].append(1 - dev / wall)
             r["tok_s"].append(st.tokens_per_s)
     for name, r in res.items():
-        log(f"[k7] {name} decode graph: (K1, K2, K7) nodes {r['nodes']} of "
+        log(f"{tag} {name} decode graph: (K1, K2, K7) nodes {r['nodes']} of "
             f"{r['kernel_nodes']} kernel nodes; in turns device "
             f"{[round(x, 3) for x in r['device_ms']]} ms, wall "
             f"{[round(x, 3) for x in r['wall_ms']]} ms, idle "
@@ -6376,29 +6415,42 @@ def k7_graphs(gens, cfg, th, prompts):
     return res
 
 
-def k7_bound(sel, cfg, pos: int, esz: int):
+def k7_bound(sel, cfg, pos: int, esz: int, wplan: int = 0):
     """(bytes, flops) one K7 token must move and do at the kept counts of
     `sel` [L, 4, ...]: each kept group's slab rows of the stage's weights
-    read once, the live K/V rows read and the token's rows written, the
-    gains, thresholds and the stream in and out; 2 flops a weight element
-    read, 4 a head and live row."""
+    read once (arrays: esz bytes a weight; int8: 1, and each stage's
+    per-channel scales once where it kept a group; packed int4: half a
+    byte, and each kept group's [scale, zero] rows, 8 bytes a column), the
+    live K/V rows read and the token's rows written, the gains, thresholds
+    and the stream in and out; 2 flops a weight element read, 4 a head and
+    live row."""
     D, I, kvw = cfg.dim, cfg.intermediate_size, cfg.n_kv_heads * 128
     widths = (D + 2 * kvw, D, 2 * I, D)
     kept = sel[:, :, 0].double().cpu()
     elems = float(sum((kept[:, j] * 128 * widths[j]).sum() for j in range(4)))
     live = min(pos, cfg.sliding_window - 1) if cfg.sliding_window else pos
     kv = cfg.n_layers * (2 * kvw * live + 2 * kvw) * esz
-    nbytes = elems * esz + kv + cfg.n_layers * (2 * D * esz + 28) + 2 * D * esz
+    if wplan == 0:
+        wbytes = elems * esz
+    elif wplan == 1:
+        wbytes = elems + float(sum(((kept[:, j] > 0).double() * 4
+                                    * widths[j]).sum() for j in range(4)))
+    else:
+        wbytes = elems / 2 + float(sum((kept[:, j] * 8 * widths[j]).sum()
+                                       for j in range(4)))
+    nbytes = wbytes + kv + cfg.n_layers * (2 * D * esz + 28) + 2 * D * esz
     flops = 2 * elems + 4 * cfg.n_layers * cfg.n_heads * 128 * (live + 1)
     return nbytes, flops
 
 
-def k7_times(params, cfg, device, seed, th, launches, err):
+def k7_times(params, cfg, device, seed, th, launches, err, wplan: int = 0):
     """K7 at the 7B's main step (pos 40 after a prefill of phase 4's first
-    prompt, phase 4's thresholds): kernel ms (`cuda_ms`), its plain
-    version's, the bound of this token's kept groups, the barrier floor
-    (the empty K7: the same barriers, no work) and block 0's trace of the
-    layer phases. Returns the `kernels` entry."""
+    prompt, phase 4's thresholds, or a quantized copy's at the thresholds
+    of its phase 8 hold; `wplan` 0 arrays, 1 int8, 2 packed int4): kernel
+    ms (`cuda_ms`), its plain version's, the bound of this token's kept
+    groups, the barrier floor (the empty K7: the same barriers, no work)
+    and block 0's trace of the layer phases. Returns the `kernels`
+    entry."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -6433,13 +6485,17 @@ def k7_times(params, cfg, device, seed, th, launches, err):
                        K7_TIME_ITERS)
     plain, _ = cuda_ms(lambda i: tb.token_kernel_plain(*args, **kw), 2,
                        warmup=1, queued=False)
-    nbytes, flops = k7_bound(sel, cfg, pos, params["embed"].element_size())
+    nbytes, flops = k7_bound(sel, cfg, pos, llama.compute_dtype(
+        params).itemsize, wplan)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
     kept = sel[:, :, 0].float().mean(0).tolist()
-    log(f"[k7] K7 at the 7B main step (pos {pos}, bf16, 32 layers): "
+    plan_name = ("bf16", "int8", "int4")[wplan] if dt == torch.bfloat16 \
+        else "fp32"
+    tag = "[k7]" if wplan == 0 else f"[k7 {plan_name}]"
+    log(f"{tag} K7 at the 7B main step (pos {pos}, {plan_name}, 32 layers): "
         f"{ms:.4f} ms a token (bound {bound:.4f} ms by {by}: "
         f"{nbytes / 1e6:.1f} MB, {ms and bound / ms:.1%} of it), plain {plain:.3f} ms, barrier "
         f"floor {floor:.4f} ms ({plan.grid_barriers} grid barriers, "
@@ -6450,17 +6506,68 @@ def k7_times(params, cfg, device, seed, th, launches, err):
         f"barrier arrivals): "
         + ", ".join(f"{k} {v[0]:.1f}/{v[1]:.1f}" if isinstance(v, tuple)
                     else f"{k} {v:.1f}" for k, v in phases.items()))
-    return dict(name="token_kernel", route="cuda",
-                source="teal_tpu_torch/csrc/token_decode.cu",
+    return dict(name="token_kernel" if wplan == 0
+                else f"token_kernel[{plan_name}]", route="cuda",
+                source="teal_tpu_torch/csrc/token_decode"
+                + (".cu" if wplan == 0 else "_quant.cu"),
                 replaces="teal_tpu/ops/token_block.py:518",
                 launches=launches, max_abs_err=err, ms=ms, kernel_ms=ms,
                 plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=None, barrier_floor_ms=floor,
                 phases_us=phases, kept_mean=kept, pos=pos,
                 plan=plan._asdict(),
-                timed="one 7B token (32 layers, bf16) at pos "
+                timed=f"one 7B token (32 layers, {plan_name}) at pos "
                       f"{pos} at phase 4's thresholds; launches: the main "
-                      "path's host-loop run of phase 18")
+                      "path's host-loop run of phase 18" if wplan == 0
+                else f"one 7B token (32 layers, {plan_name} weights, bf16 "
+                     f"stream) at pos {pos} at the thresholds of phase 8's "
+                     f"hold; launches: phase 8's {plan_name} main-path "
+                     "host-loop run")
+
+
+def k7_quant(qp, cfg, device, gen, seed, th, plan_name: str):
+    """Phase 8's K7 checks on one quantized copy of the 7B (Q8-main: int8,
+    Q4-main: packed int4 at group 128; a bf16 stream), at the thresholds
+    its loop path was held at (`th`): K7's plan in the wrapper equal to
+    the kernel's (`check_k7_plan`); every one of the L layers through K7
+    alone, on a one-layer slice, held to the plain layer on the same input
+    (`hold_k7_layers`); each of 2 layers at pos 2047 of a 2048-row cache,
+    and one 2-layer launch against `token_kernel_plain` (`k7_long_run`);
+    phase 4's three prompts through K7 (one K7 and no K1-K6 launch a
+    decoded token) and through the loop (`LOOP_SP`), agreement reported
+    (`k7_tokens`); both decode graphs' nodes (one K7 node; 4 L K1 + L K2)
+    and, in turns, a replay's device and wall ms, idle share and tok/s
+    (`k7_graphs`); K7's kernel, plain, floor and bound times (`k7_times`).
+    Returns (kernels entry, results)."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+
+    t0 = time.perf_counter()
+    wplan = {"int8": 1, "int4": 2}[plan_name]
+    tag = f"[k7 {plan_name}]"
+    res = {"plans": check_k7_plan(wplan)}
+    prompts = main_prompts(cfg, seed)
+    rope = llama.precompute_rope(cfg, MAX_SEQ, device)
+    cache, tok, pos = calibration_token(
+        qp, cfg, prompts[0], llama.KVCache.init(cfg, 1, MAX_SEQ,
+                                                torch.bfloat16, device),
+        rope, device)
+    worst, err, flips = hold_k7_layers(qp, cfg, cache, tok, pos, rope, th,
+                                       device, tag=tag)
+    res["layers"] = dict(worst=worst, max_abs_err=err, flips=flips, pos=pos)
+    del cache
+    res["long"] = k7_long_run(qp, cfg, device, gen, th,
+                              tag=f"[k7 {plan_name} long]")
+    res["tokens"], n7, gens = k7_tokens(qp, cfg, device, seed, th,
+                                        fp32_cut=False, tag=tag)
+    res["graphs"] = k7_graphs(gens, cfg, th, prompts, tag=tag)
+    del gens
+    torch.cuda.empty_cache()
+    entry = k7_times(qp, cfg, device, seed, th, n7, err, wplan)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"{tag} K7's {plan_name} checks in {res['phase_s']:.1f} s")
+    return entry, res
 
 
 def k7_speculative(params, cfg, device, seed, th):
@@ -6608,6 +6715,7 @@ def main() -> int:
     line["decode_tok_s_quant_paths"] = {n: r["tok_s"]
                                         for n, r in q_runs.items()}
     line["device_loop"].update({n: r.pop("graph") for n, r in q_runs.items()})
+    line["k7"].update(q_extra.pop("k7"))
     line["quant"] = q_extra
     l_entries, line["long_prompts"] = long_prompt_phase(params, cfg, device,
                                                         gen, seed, th)

@@ -136,6 +136,28 @@ SIGNATURES = {
     ("token_decode", "teal_token_clusters"): [
         _I, _I, _I,             # dtype code, query heads a kv head, C
     ],
+    ("token_decode_quant", "teal_token_decode_q"): [
+        _I, _P, _P, _P, _P,     # plan (1 int8, 2 int4), x, thresholds,
+                                # pos, cos|sin
+        _P, _P,                 # attention / mlp norm gains
+        *[_P] * 7,              # the seven q (int8) or qp (int4) stacks
+        *[_P] * 7,              # int4's seven sz stacks (or null)
+        *[_P] * 7,              # int8's seven scale stacks (or null)
+        _P, _P, _P, _P,         # kc, vc, out, sel (or null)
+        _P, _P,                 # trace stamps (or null), workspace
+        _I, _I, _I, _I, _I,     # L, D, I, Hq, Hkv
+        _I, _I,                 # T, window (0: none)
+        _I, _I, _I, _I, _I,     # caps (qkv, o, gate|up, down), fixed
+        _F, _I, _I, _P,         # norm_eps, SM count, empty, stream
+    ],
+    ("token_decode_quant", "teal_token_plan_q"): [
+        _I, _I, _I, _I, _I,     # plan, D, I, Hq, Hkv
+        _I, _I, _I, _I, _I,     # T, window, largest cap, SM count, L
+        _P,                     # out int32 [11]
+    ],
+    ("token_decode_quant", "teal_token_clusters_q"): [
+        _I, _I, _I,             # plan, query heads a kv head, C
+    ],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

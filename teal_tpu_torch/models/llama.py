@@ -586,8 +586,10 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
             params, cfg, sp, s, b, cache.k.dtype, fused_attn=fused_attn):
         from teal_tpu_torch.ops import token_block
 
-        # batch 1 in K7's form with token_fused not False: K7, one launch
-        # a token (the reference's `_token_kernel`); token_fused False:
+        # batch 1 in K7's form with token_fused not False (arrays of the
+        # stream type, or with a bf16 stream all seven int8 or packed int4
+        # at quant group 128): K7, one launch a token (the reference's
+        # `_token_kernel` in its three weight plans); token_fused False:
         # the K1/K2 loop (its `_packed_layer`). rows (batch > 1): one
         # launch per stage for all rows, one pooled selection, the kept
         # weights read once for the batch

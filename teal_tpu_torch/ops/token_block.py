@@ -5,12 +5,15 @@ Port of `teal_tpu/ops/token_block.py:token_decode`. The JAX package runs
 every layer in one Pallas launch (`_token_kernel`), or with `token_fused`
 False in the 4-launch packed pipeline (`models/llama.py:_packed_layer`).
 Here two routes, decided by the call's form alone:
-  - K7 `token_kernel` (`csrc/token_decode.cu`): one persistent launch a
-    token through every layer, for one row (batch 1) with weights that are
-    arrays of the stream type, the cache of that type, no MoE, head_dim
-    128 and Hq / Hkv <= 8, where `token_fused` is not False. Its plain
-    version, `token_kernel_plain`, runs each stage through K1's and K2's
-    plain versions (on CPU tensors the wrapper runs it);
+  - K7 `token_kernel` (`csrc/token_decode.cuh`, built by `token_decode.cu`
+    for the arrays and `token_decode_quant.cu` for int8 and int4): one
+    persistent launch a token through every layer, for one row (batch 1)
+    with weights that are arrays of the stream type (the cache of that
+    type), or with a bf16 stream and cache all seven int8 dicts or all
+    seven packed int4 dicts at quant group 128; no MoE, head_dim 128 and
+    Hq / Hkv <= 8, where `token_fused` is not False. Its plain version,
+    `token_kernel_plain`, runs each stage through K1's and K2's plain
+    versions (on CPU tensors the wrapper runs it);
   - the layer loop below, every other form and `token_fused=False`: a
     host loop runs, per layer, five kernel launches whatever the batch
     (160 a step at 7B):
@@ -64,6 +67,7 @@ import torch
 from teal_tpu_torch import _build
 from teal_tpu_torch.ops.attn_block import attn_stage
 from teal_tpu_torch.ops.block_gemv import (_DTYPE_CODE, _H100_SMS,
+                                           PLAN_INT4, PLAN_INT8, PLAN_STREAM,
                                            _check_launch_device,
                                            _weight_kind, select_gather_gemv,
                                            select_gather_gemv_plain,
@@ -365,10 +369,12 @@ def token_decode(h: torch.Tensor, thresholds: torch.Tensor,
 # `teal_token_plan`)
 _TOK_THREADS = 288               # 8 worker warps + the TMA producer warp
 _TOK_WORKERS = 256
-_TOK_UB = 256                    # bytes of a slab row in a TMA box: a
-                                 # unit of a stage's columns
-_TOK_BR = 32                     # slab rows of a TMA box
-_TOK_SLOT = 2 * _TOK_BR * _TOK_UB    # bytes of a ring slot (two boxes)
+_TOK_UB = 256                    # bytes of an array's slab row in a TMA
+                                 # box: a unit of a stage's columns
+_TOK_QUB = 128                   # the same for int8 and packed int4
+_TOK_BOX = 8192                  # bytes of a TMA box (every weight plan)
+_TOK_SZB = 2 * HEAD_DIM * 4      # int4: a group's [scale, zero] rows of a
+                                 # unit's 128 columns
 _TOK_MAX_SLOTS = 8
 _TOK_MAXCH = 8                   # 16-byte chunks of h a thread at most
 _TOK_MIN_C, _TOK_MAX_C = 2, 8    # blocks a cluster (the portable sizes)
@@ -394,7 +400,7 @@ class TokenPlan(NamedTuple):
     C: int                       # blocks a cluster
     clusters: int
     head_owned: bool             # a cluster a kv head: q|k|v + attention
-    slots: int                   # ring slots of `_TOK_SLOT` bytes
+    slots: int                   # ring slots of `_tok_slot` bytes
     NS: int                      # a block's score slice (cache rows)
 
 
@@ -402,20 +408,35 @@ def _al(n: int, a: int) -> int:
     return -(-n // a) * a
 
 
+def _tok_unit(esz: int, plan: int = PLAN_STREAM) -> int:
+    """Columns of a K7 unit (a TMA box's slab row): 256 bytes of arrays
+    (128 bf16 or 64 fp32 columns), 128 bytes (columns) of int8 or packed
+    int4."""
+    return _TOK_UB // esz if plan == PLAN_STREAM else _TOK_QUB
+
+
+def _tok_slot(plan: int = PLAN_STREAM) -> int:
+    """Bytes of a K7 ring slot: two boxes, and for int4 two groups' scale
+    and zero rows."""
+    return 2 * _TOK_BOX + (2 * _TOK_SZB if plan == PLAN_INT4 else 0)
+
+
 def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int, NS: int,
-                partf: int, slots: int) -> int:
+                partf: int, slots: int, plan: int = PLAN_STREAM) -> int:
     """K7's shared memory a block in bytes: the ring (attention's row-lane
     PV sums), its full and empty mbarriers, the block's partial sums
     (`partf` fp32, read by the cluster's peers), the warps' sums of a
-    tile, the stream h [D] and a stage's selection input [max(D, I)] of
-    the stream type, the group scores, the kept groups and count, 64
-    floats of scratch, attention's q|k|v sums and RoPE'd q|k (fp32), q
-    rounded, four [8] fp32, the block's maxima and partial PV with its
-    denominators (fp32, read by the peers) and the score slice [GH][NS]."""
-    n = slots * _TOK_SLOT + 2 * _TOK_MAX_SLOTS * 8 + partf * 4
-    n += 8 * 2 * (_TOK_UB // esz) * 4
+    unit, the stream h [D] and a stage's selection input [max(D, I)] of
+    the stream type, the group scores, the kept groups and count, (int4)
+    each kept group's sum [capmax] fp32, 64 floats of scratch,
+    attention's q|k|v sums and RoPE'd q|k (fp32), q rounded, four [8]
+    fp32, the block's maxima and partial PV with its denominators (fp32,
+    read by the peers) and the score slice [GH][NS]."""
+    n = slots * _tok_slot(plan) + 2 * _TOK_MAX_SLOTS * 8 + partf * 4
+    n += 8 * 2 * _tok_unit(esz, plan) * 4
     n += _al(D * esz, 16) + _al(max(D, I) * esz, 16)
     n += _al(max(D, I) // HEAD_DIM, 4) * 4 + _al(capmax + 1, 4) * 4 + 64 * 4
+    n += _al(capmax, 4) * 4 if plan == PLAN_INT4 else 0
     n += (GH + 2) * HEAD_DIM * 4 + (GH + 1) * HEAD_DIM * 4
     n += _al(GH * HEAD_DIM * esz, 16) + 4 * MAX_GROUP * 4 + MAX_GROUP * 4
     n += (GH * HEAD_DIM + MAX_GROUP) * 4
@@ -454,19 +475,23 @@ def _token_structure(Hkv: int, n_sms: int, clusters) -> Optional[Tuple[int,
 
 def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
                 window: Optional[int], capmax: int, L: int,
-                n_sms: int = _H100_SMS,
-                clusters=None) -> Optional[TokenPlan]:
-    """K7's launch plan from shapes and the card's resident clusters of
-    each size (`clusters`: {C: clusters}, default `H100_CLUSTERS`), or
-    None where they take none (among them a stream of more than 36 KB: a
-    thread holds at most `_TOK_MAXCH` 16-byte chunks of it). The grid is
+                n_sms: int = _H100_SMS, clusters=None,
+                plan: int = PLAN_STREAM) -> Optional[TokenPlan]:
+    """K7's launch plan from shapes, the weight plan (`block_gemv`'s
+    PLAN_*; int8 and int4 with a bf16 stream, esz 2) and the card's
+    resident clusters of each size (`clusters`: {C: clusters}, default
+    `H100_CLUSTERS`), or None where they take none (among them a stream
+    of more than 36 KB: a thread holds at most `_TOK_MAXCH` 16-byte
+    chunks of it). The grid is
     clusters * C blocks (`_token_structure` picks C and the structure:
     Hkv clusters head-owned, else as many as fit);
     NS = ceil((min(T, window) - 1) / C) rows of scores a block (padded to
     4); the ring takes what shared memory the rest leaves, up to 8 slots,
     at least 2 and at least attention's PV sums. Grid barriers a layer: 4
     head-owned, 5 in the other plan; none among a kv head's blocks."""
-    if (D <= 0 or I <= 0 or D % HEAD_DIM or I % HEAD_DIM or Hkv <= 0
+    if ((plan != PLAN_STREAM and esz != 2)
+            or plan not in (PLAN_STREAM, PLAN_INT8, PLAN_INT4)
+            or D <= 0 or I <= 0 or D % HEAD_DIM or I % HEAD_DIM or Hkv <= 0
             or Hq != D // HEAD_DIM or Hq % Hkv or MAX_GROUP % (Hq // Hkv)
             or T < 1 or L < 1
             or not 1 <= capmax <= max(D, I) // HEAD_DIM
@@ -482,20 +507,21 @@ def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
     GH = Hq // Hkv
     live = window if window and window < T else T
     NS = _al(-(-max(live - 1, 1) // C), 4)
-    uw = _TOK_UB // esz
+    uw = _tok_unit(esz, plan)
 
     def most(cols, nw):
         return nw * -(-(cols // uw) // NC) * uw
     partf = max(most(D, 1), most(I, 2),
                 (GH + 2) * HEAD_DIM if head
                 else most((Hq + 2 * Hkv) * HEAD_DIM, 1))
-    rest = _token_smem(esz, D, I, GH, capmax, NS, partf, 0)
-    slots = min(_TOK_MAX_SLOTS, (_SMEM_BYTES - rest) // _TOK_SLOT)
+    rest = _token_smem(esz, D, I, GH, capmax, NS, partf, 0, plan)
+    slots = min(_TOK_MAX_SLOTS, (_SMEM_BYTES - rest) // _tok_slot(plan))
     rpi = _TOK_WORKERS // (HEAD_DIM * esz // 16)
-    if slots < 2 or slots * _TOK_SLOT < rpi * GH * HEAD_DIM * 4:
+    if slots < 2 or slots * _tok_slot(plan) < rpi * GH * HEAD_DIM * 4:
         return None
     return TokenPlan(NC * C, _TOK_THREADS,
-                     _token_smem(esz, D, I, GH, capmax, NS, partf, slots),
+                     _token_smem(esz, D, I, GH, capmax, NS, partf, slots,
+                                 plan),
                      _token_ws(esz, D, I, Hq, Hkv),
                      (_TOK_BARRIER_SLOTS - 1 if head else _TOK_BARRIER_SLOTS)
                      * L, 0, C, NC, head, slots, NS)
@@ -506,16 +532,16 @@ def _split_lo(count: int, S: int, s: int) -> int:
 
 
 def token_columns(plan: TokenPlan, esz: int, D: int, I: int, Hq: int,
-                  Hkv: int):
-    """Each cluster's output columns of each gather stage under `plan`, as
-    the kernel cuts them: {stage: [[(weight, first, end), ...] a
-    cluster]}
-    over the weights wq, wk, wv, wo, wgate, wup, wdown; a cluster owns a
-    contiguous range of the stage's 64-byte units (as even as they
-    allow); in the head-owned plan cluster c < Hkv owns q|k|v of kv head
-    c (its Hq / Hkv query heads' q columns, its k and v columns) and the
-    other clusters none. Also {"attention": [kv heads a cluster]}."""
-    uw, GH, kvw = _TOK_UB // esz, Hq // Hkv, Hkv * HEAD_DIM
+                  Hkv: int, wplan: int = PLAN_STREAM):
+    """Each cluster's output columns of each gather stage under `plan`
+    (weight plan `wplan`), as the kernel cuts them: {stage: [[(weight,
+    first, end), ...] a cluster]} over the weights wq, wk, wv, wo, wgate,
+    wup, wdown; a cluster owns a contiguous range of the stage's units
+    (`_tok_unit` columns; as even as they allow); in the head-owned plan
+    cluster c < Hkv owns q|k|v of kv head c (its Hq / Hkv query heads' q
+    columns, its k and v columns) and the other clusters none. Also
+    {"attention": [kv heads a cluster]}."""
+    uw, GH, kvw = _tok_unit(esz, wplan), Hq // Hkv, Hkv * HEAD_DIM
 
     def cut(pieces):
         cols = sum(n for _, _, n in pieces)
@@ -546,17 +572,57 @@ def token_columns(plan: TokenPlan, esz: int, D: int, I: int, Hq: int,
                           for c in range(plan.clusters)]}
 
 
+def k7_weight_plan(ws) -> Optional[int]:
+    """K7's weight plan of seven projections, from their form alone:
+    PLAN_STREAM (seven arrays), PLAN_INT8 (seven {"q", "scale"} dicts) or
+    PLAN_INT4 (seven {"qp", "sz"} dicts at quant group 128); None for
+    any other set (a mix, unpacked int4, int4 at another group)."""
+    if len(ws) != 7:
+        return None
+    if all(isinstance(w, torch.Tensor) for w in ws):
+        return PLAN_STREAM
+    if not all(isinstance(w, dict) for w in ws):
+        return None
+    if all(set(w) == {"q", "scale"} for w in ws):
+        return PLAN_INT8
+    if all(set(w) == {"qp", "sz"} and w["sz"].dim() == 4
+           and w["qp"].dim() == 3
+           and w["sz"].shape[1] * HEAD_DIM == 2 * w["qp"].shape[1]
+           for w in ws):
+        return PLAN_INT4
+    return None
+
+
+def _k7_stacks(ws, plan: int):
+    """The tensors K7 reads for each weight: (weights, sz, scales), the
+    quantized dicts' q or qp stacks with int4's sz and int8's scale stacks
+    (None where the plan has none)."""
+    if plan == PLAN_INT8:
+        return (tuple(w["q"] for w in ws), None,
+                tuple(w["scale"] for w in ws))
+    if plan == PLAN_INT4:
+        return tuple(w["qp"] for w in ws), tuple(w["sz"] for w in ws), None
+    return tuple(ws), None, None
+
+
 def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
             router=None, seq_block: bool = False) -> bool:
     """Whether a `token_decode` call is of the form K7 covers (decided by
-    the form alone): one row of fp32 or bf16, the seven weights arrays of
-    that type, the cache of that type with one row and head_dim 128, MHA
-    or GQA with 1, 2, 4 or 8 (a divisor of `MAX_GROUP`) query heads a kv
-    head, no MoE router, no seq_block."""
-    return (router is None and not seq_block and h.dim() == 1
-            and h.dtype in _DTYPE_CODE and len(ws) == 7
-            and all(isinstance(w, torch.Tensor) and w.dtype == h.dtype
-                    for w in ws)
+    the form alone): one row, the cache of the stream type with one row
+    and head_dim 128, MHA or GQA with 1, 2, 4 or 8 (a divisor of
+    `MAX_GROUP`) query heads a kv head, no MoE router, no seq_block, and
+    the seven weights arrays of the stream type (fp32 or bf16), or with a
+    bf16 stream all seven int8 dicts or all seven packed int4 dicts at
+    quant group 128 (`k7_weight_plan`)."""
+    plan = k7_weight_plan(ws)
+    if plan is None:
+        return False
+    if plan == PLAN_STREAM:
+        types = h.dtype in _DTYPE_CODE and all(w.dtype == h.dtype
+                                               for w in ws)
+    else:
+        types = h.dtype == torch.bfloat16
+    return (router is None and not seq_block and h.dim() == 1 and types
             and kc.dim() == 5 and kc.dtype == h.dtype and kc.shape[1] == 1
             and kc.shape[4] == HEAD_DIM and n_heads % kc.shape[2] == 0
             and MAX_GROUP % (n_heads // kc.shape[2]) == 0)
@@ -582,17 +648,32 @@ def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {list(kc.shape)} "
                              f"cache of h's type on h's device")
-    if len(ws) != 7 or not all(isinstance(w, torch.Tensor) for w in ws):
-        raise ValueError("K7 takes the seven projections as arrays")
-    I = ws[4].shape[-1]
+    plan = k7_weight_plan(ws)
+    if plan is None:
+        raise ValueError("K7 takes the seven projections as arrays, as "
+                         "seven int8 {'q', 'scale'} dicts or as seven packed "
+                         "int4 {'qp', 'sz'} dicts at quant group 128")
+    if plan != PLAN_STREAM and dt != torch.bfloat16:
+        raise ValueError(f"K7's int8 and int4 weights take a bf16 stream; "
+                         f"got {dt}")
+    wts, szs, scs = _k7_stacks(ws, plan)
+    I = wts[4].shape[-1]
     shapes = ((D, D), (D, Hkv * HEAD_DIM), (D, Hkv * HEAD_DIM), (D, D),
               (D, I), (D, I), (I, D))
-    for w, (k, n) in zip(ws, shapes):
-        if (w.shape != (L, k, n) or w.dtype != dt or w.device != dev
-                or not w.is_contiguous() or w.data_ptr() % 16):
-            raise ValueError(f"weights must be contiguous, 16-byte aligned "
-                             f"[{L}, {k}, {n}] stacks of h's type; got "
-                             f"{w.dtype} {tuple(w.shape)}")
+    for i, (k, n) in enumerate(shapes):
+        want = [(wts[i], (L, k, n) if plan != PLAN_INT4 else (L, k // 2, n),
+                 dt if plan == PLAN_STREAM else torch.int8)]
+        if plan == PLAN_INT4:
+            want.append((szs[i], (L, k // HEAD_DIM, 2, n), torch.float32))
+        if plan == PLAN_INT8:
+            want.append((scs[i], (L, n), torch.float32))
+        for t, shape, tdt in want:
+            if (t.shape != shape or t.dtype != tdt or t.device != dev
+                    or not t.is_contiguous() or t.data_ptr() % 16):
+                raise ValueError(
+                    f"weights must be contiguous, 16-byte aligned stacks on "
+                    f"h's device: {tdt} {list(shape)}; got {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}")
     if I % HEAD_DIM or D % HEAD_DIM:
         raise ValueError(f"D = {D} and I = {I} must be multiples of "
                          f"{HEAD_DIM}")
@@ -645,16 +726,22 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
                        sel: Optional[torch.Tensor] = None):
     """K7 in plain PyTorch (same arguments and result as `token_kernel`):
     each layer's four stages through K1's and K2's plain versions, as the
-    layer loop runs them (the same cast points). A device position is
-    read to the host here (this version is no fast path)."""
+    layer loop runs them (the same cast points; int8's scales on each
+    stage's fp32 sums, packed int4 through its factored affine). A device
+    position is read to the host here (this version is no fast path)."""
     _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
               caps, n_heads, sel)
-    wq, wk, wv, wo, wgate, wup, wdown = ws
+    ops, sc = stage_operands(ws)
+    wq, wk, wv, wo, wgate, wup, wdown = ops
+
+    def scales(*i):
+        return None if sc is None else tuple(sc[j] for j in i)
     nq, nk = n_heads * HEAD_DIM, kc.shape[2] * HEAD_DIM
     for layer in range(kc.shape[0]):
         qkv, i0, c0 = select_gather_gemv_plain(
             h, thresholds[layer, 0], (wq, wk, wv), layer, caps[0],
-            norm=norm_attn, norm_eps=norm_eps, fixed=fixed_sel)
+            norm=norm_attn, norm_eps=norm_eps, scales=scales(0, 1, 2),
+            fixed=fixed_sel)
         attn = decode_attention_plain(
             qkv[:nq].view(1, n_heads, HEAD_DIM),
             qkv[nq:nq + nk].view(1, -1, HEAD_DIM),
@@ -662,13 +749,14 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
             window=window, rope=rope).reshape(nq)
         h, i1, c1 = select_gather_gemv_plain(
             attn, thresholds[layer, 3], (wo,), layer, caps[1], res=h,
-            fixed=fixed_sel)
+            scales=scales(3), fixed=fixed_sel)
         inter, i2, c2 = select_gather_gemv_plain(
             h, thresholds[layer, 4], (wgate, wup), layer, caps[2],
-            norm=norm_mlp, norm_eps=norm_eps, silu=True, fixed=fixed_sel)
+            norm=norm_mlp, norm_eps=norm_eps, silu=True,
+            scales=scales(4, 5), fixed=fixed_sel)
         h, i3, c3 = select_gather_gemv_plain(
             inter, thresholds[layer, 6], (wdown,), layer, caps[3], res=h,
-            fixed=fixed_sel)
+            scales=scales(6), fixed=fixed_sel)
         if sel is not None:
             for st, (i, c) in enumerate(((i0, c0), (i1, c1), (i2, c2),
                                          (i3, c3))):
@@ -676,18 +764,22 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
     return h
 
 
-def k7_clusters(device: torch.device, dtype: torch.dtype,
-                GH: int) -> dict:
-    """The card's resident clusters of C blocks of K7 for (dtype, GH query
-    heads a kv head): {C: clusters} for C in [2, 8] from the CUDA runtime
-    (`teal_token_clusters`, asked once)."""
-    key = (device.index, dtype, GH)
+def k7_clusters(device: torch.device, dtype: torch.dtype, GH: int,
+                plan: int = PLAN_STREAM) -> dict:
+    """The card's resident clusters of C blocks of K7 for (weight plan,
+    dtype, GH query heads a kv head): {C: clusters} for C in [2, 8] from
+    the CUDA runtime (`teal_token_clusters`, or `teal_token_clusters_q`
+    for int8 and int4; asked once)."""
+    key = (device.index, dtype, GH, plan)
     if key not in _CLUSTERS:
-        lib = _build.load()["token_decode"]
+        libs = _build.load()
         with torch.cuda.device(device):
-            _CLUSTERS[key] = {c: lib.teal_token_clusters(_DTYPE_CODE[dtype],
-                                                         GH, c)
-                              for c in range(_TOK_MIN_C, _TOK_MAX_C + 1)}
+            _CLUSTERS[key] = {
+                c: (libs["token_decode"].teal_token_clusters(
+                    _DTYPE_CODE[dtype], GH, c) if plan == PLAN_STREAM
+                    else libs["token_decode_quant"].teal_token_clusters_q(
+                        plan, GH, c))
+                for c in range(_TOK_MIN_C, _TOK_MAX_C + 1)}
     return _CLUSTERS[key]
 
 
@@ -697,12 +789,17 @@ _CLUSTERS: dict = {}
 def token_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
                window: Optional[int] = None) -> Optional[TokenPlan]:
     """K7's plan for a `token_kernel` call on h's card (None where the
-    shapes take none)."""
+    shapes or the weights take none)."""
     L, _, Hkv, T, _ = kc.shape
-    return _token_plan(h.element_size(), h.shape[0], ws[4].shape[-1],
-                       n_heads, Hkv, T, window, max(caps), L,
+    plan = k7_weight_plan(ws)
+    if plan is None:
+        return None
+    return _token_plan(h.element_size(), h.shape[0],
+                       _k7_stacks(ws, plan)[0][4].shape[-1], n_heads, Hkv,
+                       T, window, max(caps), L,
                        _build.sm_count(h.device.index),
-                       k7_clusters(h.device, h.dtype, n_heads // Hkv))
+                       k7_clusters(h.device, h.dtype, n_heads // Hkv, plan),
+                       plan)
 
 
 def token_trace(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
@@ -731,7 +828,11 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
 
     h:    [D] raw residual stream (the token's embedding), fp32 or bf16
     thresholds: [L, 7] fp32 group thresholds, read on the device
-    ws:   (wq, wk, wv, wo, wgate, wup, wdown), [L, K, N] arrays of h's type
+    ws:   (wq, wk, wv, wo, wgate, wup, wdown), [L, K, N] arrays of h's
+          type, or with bf16 h all seven int8 {"q" [L, K, N], "scale"
+          [L, N] fp32} or all seven packed int4 {"qp" [L, K/2, N] int8,
+          "sz" [L, K/128, 2, N] fp32} (the layouts `quant` produces, read
+          as they are)
     norm_attn/norm_mlp: [L, D] rms_norm gains of h's type
     rope: [1, 2, 128] fp32 (cos, sin) row at pos
     kc/vc: [L, 1, Hkv, T, 128] caches of h's type, updated in place
@@ -779,18 +880,27 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
                                or not stamps.is_contiguous()):
         raise ValueError(f"stamps must be a contiguous int64 [{L}, {width}] "
                          f"tensor on h's device (`token_trace`)")
-    lib = _build.load()["token_decode"]
     out = torch.empty_like(h)
     work = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=h.device)
-    err = lib.teal_token_decode(
-        _DTYPE_CODE[h.dtype], h.data_ptr(), thresholds.data_ptr(),
-        pos.data_ptr(), rope.data_ptr(), norm_attn.data_ptr(),
-        norm_mlp.data_ptr(), *(w.data_ptr() for w in ws), kc.data_ptr(),
-        vc.data_ptr(), out.data_ptr(),
-        None if sel is None else sel.data_ptr(),
-        None if stamps is None else stamps.data_ptr(), work.data_ptr(), L, D,
-        I, n_heads, Hkv, T, window or 0, *caps, int(fixed_sel), norm_eps,
-        sms, int(empty), torch.cuda.current_stream().cuda_stream)
+    wplan = k7_weight_plan(ws)
+    wts, szs, scs = _k7_stacks(ws, wplan)
+    head = (h.data_ptr(), thresholds.data_ptr(), pos.data_ptr(),
+            rope.data_ptr(), norm_attn.data_ptr(), norm_mlp.data_ptr(),
+            *(w.data_ptr() for w in wts))
+    tail = (kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+            None if sel is None else sel.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), work.data_ptr(), L,
+            D, I, n_heads, Hkv, T, window or 0, *caps, int(fixed_sel),
+            norm_eps, sms, int(empty), torch.cuda.current_stream().cuda_stream)
+    if wplan == PLAN_STREAM:
+        err = _build.load()["token_decode"].teal_token_decode(
+            _DTYPE_CODE[h.dtype], *head, *tail)
+    else:
+        none = (None,) * 7
+        err = _build.load()["token_decode_quant"].teal_token_decode_q(
+            wplan, *head,
+            *(none if szs is None else (t.data_ptr() for t in szs)),
+            *(none if scs is None else (t.data_ptr() for t in scs)), *tail)
     if err == -1:
         raise RuntimeError("token_kernel: no plan or no TMA map for these "
                            "weights on this card")

@@ -1352,9 +1352,29 @@ def test_round_graphs_match_host_round_loop(cuda, kw):
 K7_WS = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
 
 
+def _k7_quantize(ws, plan):
+    """Seven bf16 [L, K, N] stacks as the port's int8 dicts ("int8") or
+    packed int4 dicts at quant group 128 ("int4"), quantized on the card
+    by `ops/quant` as a params tree is."""
+    from teal_tpu_torch.ops import quant
+
+    tree = {"lm_head": ws[0][0], "layers": dict(zip(K7_WS, ws))}
+    if plan == "int8":
+        tree = quant.quantize_params_int8(tree)
+    else:
+        tree = quant.pack_int4_params(quant.quantize_params_int4(tree, 128),
+                                      128)
+    return tuple(tree["layers"][n] for n in K7_WS)
+
+
 def _k7_inputs(cuda, dtype, Hq, Hkv, L=2, T=64, seed=0):
     """Random 2-layer weights (D = 128 Hq, I = 3 D / 2), gains, caches,
-    stream and RoPE row on the card."""
+    stream and RoPE row on the card; dtype "int8" or "int4": bf16 with
+    the weights quantized (`_k7_quantize`)."""
+    if dtype in ("int8", "int4"):
+        h, ws, norms, rope, kc, vc = _k7_inputs(cuda, torch.bfloat16, Hq,
+                                                Hkv, L, T, seed)
+        return h, _k7_quantize(ws, dtype), norms, rope, kc, vc
     g = torch.Generator(device=cuda).manual_seed(seed)
     D, I = 128 * Hq, 192 * Hq
 
@@ -1370,7 +1390,8 @@ def _k7_inputs(cuda, dtype, Hq, Hkv, L=2, T=64, seed=0):
     return r(D), ws, norms, rope, kc, vc
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8",
+                                   "int4"])
 @pytest.mark.parametrize("Hq,Hkv,window,fixed", [
     (4, 4, None, False), (8, 2, None, False), (8, 2, 24, False),
     (4, 4, None, True), (32, 32, None, False), (32, 4, None, False)],
@@ -1379,15 +1400,16 @@ def _k7_inputs(cuda, dtype, Hq, Hkv, L=2, T=64, seed=0):
 def test_k7_matches_plain(cuda, dtype, Hq, Hkv, window, fixed, pos):
     """K7 on 2 layers against its plain version (`token_kernel_plain`) on
     the same inputs: the same kept counts and groups at every stage, the
-    stream and both caches within 1e-5 (fp32) or 2e-2 (bf16: the partial
-    sums are added in other orders, a bf16 ulp is 2^-8) of their largest
-    value. fp32 selects at thresholds between the stages' group scores;
-    bf16 at 0 (every group survives, the first cap kept), where a one-ulp
-    drift of a score cannot flip a group. At the 7B's width the 32 kv
-    heads take the head-owned plan (a cluster a kv head), 4 kv heads the
-    other plan (q|k|v column-owned, a grid barrier before attention)."""
+    stream and both caches within 1e-5 (fp32) or 2e-2 (bf16, and the
+    int8 and packed-int4 weights with a bf16 stream: the partial sums are
+    added in other orders, a bf16 ulp is 2^-8) of their largest value.
+    fp32 selects at thresholds between the stages' group scores; bf16 at
+    0 (every group survives, the first cap kept), where a one-ulp drift
+    of a score cannot flip a group. At the 7B's width the 32 kv heads
+    take the head-owned plan (a cluster a kv head), 4 kv heads the other
+    plan (q|k|v column-owned, a grid barrier before attention)."""
     h, ws, (na, nm), rope, kc, vc = _k7_inputs(cuda, dtype, Hq, Hkv)
-    L, D, I = 2, h.shape[0], ws[4].shape[-1]
+    L, D, I = 2, h.shape[0], 192 * Hq
     if Hq == 32:
         plan = tb.token_plan(h, kc, ws, Hq, (D // 256,) * 3 + (I // 256,))
         assert plan.head_owned == (Hkv == 32), plan
@@ -1397,6 +1419,7 @@ def test_k7_matches_plain(cuda, dtype, Hq, Hkv, window, fixed, pos):
     caps = (D // 256, D // 256, D // 256, I // 256)
     pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
     kw = dict(caps=caps, n_heads=Hq, window=window, fixed_sel=fixed)
+    assert tb.k7_form(h, ws, kc, Hq)
     out, sels, caches = [], [], []
     for f in (tb.token_kernel, tb.token_kernel_plain):
         sel = torch.zeros((L, 4, 1 + max(caps)), dtype=torch.int32,
@@ -1418,10 +1441,12 @@ def test_k7_plan_matches_kernel(cuda):
     """`teal_token_plan` (the kernel's plan) equal to `_token_plan` (the
     wrapper's, on the card's resident clusters from `k7_clusters`) on this
     card at 7B, Mistral-7B with its window, GQA 32/4 and the tiny configs,
-    fp32 and bf16."""
+    fp32 and bf16 arrays, and int8 and packed int4 with a bf16 stream
+    (`teal_token_plan_q`)."""
     import ctypes
 
     lib = _build.load()["token_decode"]
+    qlib = _build.load()["token_decode_quant"]
     sms = _build.sm_count(cuda.index)
     for D, I, Hq, Hkv, T, win, cm, L in (
             (4096, 11008, 32, 32, 4096, None, 43, 32),
@@ -1438,6 +1463,15 @@ def test_k7_plan_matches_kernel(cuda):
                                   tb.k7_clusters(cuda, dtype, Hq // Hkv))
             assert rc == 0 and tuple(out) == tuple(want), (D, esz, list(out),
                                                            want)
+        for plan in (bg.PLAN_INT8, bg.PLAN_INT4):
+            out = (ctypes.c_int * 11)()
+            rc = qlib.teal_token_plan_q(plan, D, I, Hq, Hkv, T, win or 0, cm,
+                                        sms, L, out)
+            want = tb._token_plan(2, D, I, Hq, Hkv, T, win, cm, L, sms,
+                                  tb.k7_clusters(cuda, torch.bfloat16,
+                                                 Hq // Hkv, plan), plan)
+            assert rc == 0 and tuple(out) == tuple(want), (D, plan,
+                                                           list(out), want)
 
 
 def test_k7_decode_graph_matches_host_loop(cuda):
@@ -1452,6 +1486,42 @@ def test_k7_decode_graph_matches_host_loop(cuda):
                            dim=512, intermediate_size=768, vocab_size=128)
     params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(
         0), torch.bfloat16, cuda)
+    sp = SparsityConfig(enabled=True, kernel="block", block_size=128,
+                        block_keep_frac=0.5, block_thresholding=True)
+    gen = Generator(cfg, params, sp=sp, max_seq=64, temperature=0.0,
+                    device=cuda)
+    th = torch.full((cfg.n_layers, 7), 0.5, device=cuda)
+    prompt = [3, 9, 1, 7, 5]
+    gen.generate(prompt, 2, thresholds=th, on_device_loop=False)
+    before = (tb.token_kernel.launches, bg.select_gather_gemv.launches)
+    host = gen.generate(prompt, 12, thresholds=th, on_device_loop=False)[0]
+    assert (tb.token_kernel.launches - before[0],
+            bg.select_gather_gemv.launches - before[1]) == (11, 0)
+    graph = gen.generate(prompt, 12, thresholds=th)[0]
+    assert (graph == host).all()
+    nodes = graph_kernels(gen._loop.graph)
+    assert [sum(c for k, c in nodes.items() if name in k)
+            for name in ("token_kernel", "sgg_", "attn_kernel")] == [1, 0, 0]
+
+
+@pytest.mark.parametrize("plan", ["int8", "int4"])
+def test_k7_quant_decode_graph_matches_host_loop(cuda, plan):
+    """The main path's decode step on int8 or packed int4 (group 128)
+    weights with a bf16 stream: K7 at batch 1, captured as a CUDA graph,
+    gives the host loop's greedy tokens; the graph holds one K7 node and
+    no K1 or K2 node; the host loop launches one K7 a decoded token."""
+    from teal_tpu_torch.config import SparsityConfig, get_model_config
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.ops import quant
+    from teal_tpu_torch.utils.profiling import graph_kernels
+
+    cfg = get_model_config("tiny", n_layers=2, n_heads=4, n_kv_heads=2,
+                           dim=512, intermediate_size=768, vocab_size=128)
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(
+        0), torch.bfloat16, cuda)
+    params = (quant.quantize_params_int8(params) if plan == "int8" else
+              quant.pack_int4_params(quant.quantize_params_int4(params, 128),
+                                     128))
     sp = SparsityConfig(enabled=True, kernel="block", block_size=128,
                         block_keep_frac=0.5, block_thresholding=True)
     gen = Generator(cfg, params, sp=sp, max_seq=64, temperature=0.0,

@@ -5,7 +5,9 @@ plans against the JAX Pallas kernels (interpret mode; same kept sets, fp32
 outputs within 1e-5 of scale), and the quantized decode paths of the model
 on the head-dim-128 tiny config in bf16:
   - Q8-main / Q4-main: int8 / packed int4 (G = 128) on the main-path
-    config, the token path (the JAX whole-token kernel in interpret mode);
+    config, the token path: K7's int8 and int4 plans, through K7's plain
+    version `token_kernel_plain` on the CPU (the JAX whole-token kernel
+    `_token_kernel` in interpret mode);
   - Q4-loop: packed int4 at G = 64 on the block top-k config, and with
     sparsity off (the gather kernel at keep 1.0), the layer loop;
   - Q8-loop: int8 on the block top-k config, the layer loop with the
@@ -38,6 +40,7 @@ from teal_tpu_torch.config import SparsityConfig, get_model_config
 from teal_tpu_torch.models import llama
 from teal_tpu_torch.ops import block_gemv as tbg
 from teal_tpu_torch.ops import quant as tq
+from teal_tpu_torch.ops import token_block as ttb
 
 CFG_KW = dict(n_heads=2, n_kv_heads=1, dim=256, intermediate_size=384,
               vocab_size=128)
@@ -398,7 +401,10 @@ def _jax_decode(path, n_layers, tok=9):
             "v": np.asarray(wc.v, np.float32)}
 
 
-def _decode_both(path, n_layers, refs, tok=9):
+def _decode_both(path, n_layers, refs, monkeypatch, tok=9):
+    """The port's forward on a PATHS entry beside JAX's; a token-path
+    entry (Q8-main, Q4-main) runs K7's plain version once (K7's int8 or
+    int4 plan), a layer-loop entry never."""
     quantize, sp_kw, _, token_path = PATHS[path]
     cfg, _, params, _ = _quant_model(n_layers, quantize)
     k, v = _decode_inputs(n_layers)
@@ -406,27 +412,35 @@ def _decode_both(path, n_layers, refs, tok=9):
     sp = SparsityConfig(**sp_kw)
     assert llama.can_token_decode(params, cfg, sp, 1, 1,
                                   torch.bfloat16) == token_path
+    calls = []
+    plain = ttb.token_kernel_plain
+    monkeypatch.setattr(ttb, "token_kernel_plain",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
     cache = llama.KVCache.from_numpy(k, v, device="cpu", dtype=torch.bfloat16)
     got, cache = llama.forward(params, torch.tensor([[tok]]), cache, POS,
                                torch.from_numpy(th), cfg=cfg, sp=sp)
+    assert len(calls) == (1 if token_path else 0)
     want = refs[f"decode-{path}-{n_layers}"]
     return ((_np(got), want["logits"]), (_np(cache.k), want["k"]),
             (_np(cache.v), want["v"]))
 
 
 @pytest.mark.parametrize("path", list(PATHS))
-def test_quantized_decode_one_layer_matches_jax(path, jax_refs):
+def test_quantized_decode_one_layer_matches_jax(path, jax_refs, monkeypatch):
     """One decode step at pos 9, one layer: logits and caches within 2^-7
-    of scale of the JAX forward."""
-    for got, want in _decode_both(path, 1, jax_refs):
+    of scale of the JAX forward (Q8-main and Q4-main through K7's plain
+    version)."""
+    for got, want in _decode_both(path, 1, jax_refs, monkeypatch):
         _close(got, want, 2 ** -7)
 
 
 @pytest.mark.parametrize("path", list(PATHS))
-def test_quantized_decode_two_layers_matches_jax(path, jax_refs):
+def test_quantized_decode_two_layers_matches_jax(path, jax_refs,
+                                                 monkeypatch):
     """Two layers: within the JAX suite's tolerances between its
-    quantized routes (5e-2 logits, 2e-2 caches)."""
-    (lg, lw), *caches = _decode_both(path, 2, jax_refs)
+    quantized routes (5e-2 logits, 2e-2 caches); Q8-main and Q4-main
+    through K7's plain version."""
+    (lg, lw), *caches = _decode_both(path, 2, jax_refs, monkeypatch)
     np.testing.assert_allclose(lg, lw, rtol=5e-2, atol=5e-2)
     for got, want in caches:
         np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)

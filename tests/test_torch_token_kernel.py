@@ -164,39 +164,77 @@ MOE = dict(n_layers=2, n_heads=2, n_kv_heads=2, dim=256,
            intermediate_size=384, vocab_size=128, n_experts=4,
            n_experts_per_tok=2)
 ROUTES = {
-    # case: (config overrides, params, batch, token_fused, K7 expected)
-    "k7": (GQA, "float32", 1, None, True),
-    "k7-token-fused-true": (GQA, "float32", 1, True, True),
-    "k7-bf16": (GQA, "bfloat16", 1, None, True),
-    "k7-window": (WINDOW, "float32", 1, None, True),
-    "loop-token-fused-false": (GQA, "float32", 1, False, False),
-    "loop-int8": (GQA, "int8", 1, None, False),
-    "loop-int4": (GQA, "int4", 1, None, False),
-    "loop-rows": (GQA, "float32", 2, None, False),
-    "loop-moe": (MOE, "float32", 1, None, False),
+    # case: (config overrides, params, batch, SparsityConfig overrides,
+    # route): "k7" one K7 launch, "loop" the K1/K2 loop (`layer_decode`),
+    # "layers" the model's layer loop (`can_token_decode` refuses), "raises"
+    # a ValueError. The cases named loop-int8 and loop-int4 keep their
+    # names from before K7 took the quantized plans: all seven int8, or
+    # all seven packed int4 at quant group 128, now take K7 like arrays.
+    "k7": (GQA, "float32", 1, {}, "k7"),
+    "k7-token-fused-true": (GQA, "float32", 1, dict(token_fused=True), "k7"),
+    "k7-bf16": (GQA, "bfloat16", 1, {}, "k7"),
+    "k7-window": (WINDOW, "float32", 1, {}, "k7"),
+    "loop-token-fused-false": (GQA, "float32", 1, dict(token_fused=False),
+                               "loop"),
+    "loop-int8": (GQA, "int8", 1, {}, "k7"),
+    "loop-int4": (GQA, "int4", 1, {}, "k7"),
+    "k7-int8-token-fused-true": (GQA, "int8", 1, dict(token_fused=True),
+                                 "k7"),
+    "k7-int4-window": (WINDOW, "int4", 1, {}, "k7"),
+    # int8 with token_fused False: only the whole-token kernel applies
+    # int8 scales in the reference, so the model's layer loop runs it
+    "layers-int8-token-fused-false": (GQA, "int8", 1,
+                                      dict(token_fused=False), "layers"),
+    "loop-int4-token-fused-false": (GQA, "int4", 1, dict(token_fused=False),
+                                    "loop"),
+    # int8 beside one array projection: the token path refuses the mix
+    "raises-int8-mixed": (GQA, "int8-mixed", 1, {}, "raises"),
+    # int4 at quant group 64 (packed at block size 32): at block size 64
+    # the layer loop, at 128 the K1/K2 loop refuses the groups
+    "layers-int4-g64": (GQA, "int4-g64", 1, dict(block_size=64), "layers"),
+    "raises-int4-g64-main": (GQA, "int4-g64", 1, {}, "raises"),
+    "loop-rows": (GQA, "float32", 2, {}, "loop"),
+    "loop-moe": (MOE, "float32", 1, {}, "loop"),
 }
+
+
+def _route_params(cfg, kind):
+    """Random params of a ROUTES kind: fp32 or bf16 arrays, int8, packed
+    int4 at quant group 128 (packed at block size 128) or 64 (at block
+    size 32), or int8 with wq left a bf16 array."""
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               torch.float32 if kind == "float32"
+                               else torch.bfloat16, device="cpu")
+    if kind.startswith("int8"):
+        q = quant.quantize_params_int8(params)
+        if kind == "int8-mixed":
+            q["layers"]["wq"] = params["layers"]["wq"]
+        return q
+    if kind == "int4":
+        return quant.pack_int4_params(quant.quantize_params_int4(params, 128),
+                                      128)
+    if kind == "int4-g64":
+        return quant.pack_int4_params(quant.quantize_params_int4(params, 64),
+                                      32)
+    return params
 
 
 @pytest.mark.parametrize("case", list(ROUTES))
 def test_route(monkeypatch, case):
     """`llama.forward` at one decode position takes K7 (its wrapper,
-    `token_kernel`) exactly for K7's form with token_fused not False, and
-    the K1/K2 loop (`layer_decode`) for token_fused False, int8, int4,
-    rows and MoE; the route is decided by the form alone."""
-    cfg_kw, kind, b, fused, k7 = ROUTES[case]
+    `token_kernel`) exactly for K7's form with token_fused not False
+    (arrays, all seven int8, all seven packed int4 at quant group 128),
+    the K1/K2 loop (`layer_decode`) for token_fused False, rows and MoE,
+    the model's layer loop where `can_token_decode` refuses, and raises
+    where the token path refuses the weights; the route is decided by the
+    form alone."""
+    cfg_kw, kind, b, sp_kw, route = ROUTES[case]
     cfg = get_model_config("tiny", **cfg_kw)
-    dt = torch.bfloat16 if kind in ("bfloat16", "int8", "int4") \
-        else torch.float32
-    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
-                               torch.float32 if kind == "float32"
-                               else torch.bfloat16, device="cpu")
-    if kind == "int8":
-        params = quant.quantize_params_int8(params)
-    elif kind == "int4":
-        params = quant.pack_int4_params(quant.quantize_params_int4(params,
-                                                                   128), 128)
-    calls = {"k7": 0, "loop": 0}
-    kernel, layer = tb.token_kernel, tb.layer_decode
+    dt = torch.float32 if kind == "float32" else torch.bfloat16
+    params = _route_params(cfg, kind)
+    calls = {"k7": 0, "loop": 0, "layers": 0}
+    kernel, layer, block = tb.token_kernel, tb.layer_decode, \
+        llama.layer_forward
 
     def spy(name, f):
         def g(*a, **kw):
@@ -205,16 +243,24 @@ def test_route(monkeypatch, case):
         return g
     monkeypatch.setattr(tb, "token_kernel", spy("k7", kernel))
     monkeypatch.setattr(tb, "layer_decode", spy("loop", layer))
-    sp = SparsityConfig(**dict(MAIN, **({} if fused is None
-                                        else dict(token_fused=fused))))
+    monkeypatch.setattr(llama, "layer_forward", spy("layers", block))
+    sp = SparsityConfig(**dict(MAIN, **sp_kw))
     cache = llama.KVCache.init(cfg, b, T, dt, "cpu")
-    assert llama.can_token_decode(params, cfg, sp, 1, b, dt)
+    assert llama.can_token_decode(params, cfg, sp, 1, b, dt) == (
+        route != "layers")
     th = torch.zeros((cfg.n_layers, 7))
-    logits, _ = llama.forward(params, torch.full((b, 1), 3), cache,
-                              [4] * b if b > 1 else 4, th, cfg=cfg, sp=sp)
+    args = (params, torch.full((b, 1), 3), cache, [4] * b if b > 1 else 4,
+            th)
+    if route == "raises":
+        with pytest.raises(ValueError):
+            llama.forward(*args, cfg=cfg, sp=sp)
+        assert calls["k7"] == 0
+        return
+    logits, _ = llama.forward(*args, cfg=cfg, sp=sp)
     assert torch.isfinite(logits).all()
-    assert calls == ({"k7": 1, "loop": 0} if k7
-                     else {"k7": 0, "loop": cfg.n_layers})
+    want = {"k7": 0, "loop": 0, "layers": 0}
+    want[route] = 1 if route == "k7" else cfg.n_layers
+    assert calls == want
 
 
 def test_route_seq_block_takes_the_loop(monkeypatch):
@@ -270,6 +316,52 @@ def test_k7_raises_rather_than_falls_back():
                         caps=(1, 1, 1, 9), n_heads=cfg.n_heads)
 
 
+def test_k7_quantized_form_and_checks():
+    """K7's form from the weights alone: seven int8 dicts or seven packed
+    int4 dicts at quant group 128 with a bf16 stream and cache (not at
+    group 64, not a mix, not with an fp32 stream); `token_kernel` refuses
+    a wrong scale or sz stack with a ValueError rather than falling back,
+    and takes the seven dicts as `quant` makes them."""
+    cfg = get_model_config("tiny", **GQA)
+    params = _route_params(cfg, "bfloat16")
+    names = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
+    forms = {k: tuple(_route_params(cfg, k)["layers"][n] for n in names)
+             for k in ("int8", "int4", "int4-g64", "int8-mixed")}
+    h = params["embed"][3]
+    cache = llama.KVCache.init(cfg, 1, T, torch.bfloat16, "cpu")
+    assert tb.k7_weight_plan(forms["int8"]) == 1
+    assert tb.k7_weight_plan(forms["int4"]) == 2
+    assert tb.k7_form(h, forms["int8"], cache.k, cfg.n_heads)
+    assert tb.k7_form(h, forms["int4"], cache.k, cfg.n_heads)
+    for bad in ("int4-g64", "int8-mixed"):
+        assert tb.k7_weight_plan(forms[bad]) is None
+        assert not tb.k7_form(h, forms[bad], cache.k, cfg.n_heads)
+    assert not tb.k7_form(h.float(), forms["int8"],
+                          cache.k.float(), cfg.n_heads)
+    lay = params["layers"]
+    cos, sin = llama.precompute_rope(cfg, T, "cpu")
+    pos = torch.tensor([4], dtype=torch.int32)
+    args = (h, torch.zeros((cfg.n_layers, 7)))
+    rest = (lay["attn_norm"], lay["mlp_norm"], llama._rope_rows(cos, sin, pos),
+            cache.k, cache.v, pos)
+    kw = dict(caps=(1, 1, 1, 2), n_heads=cfg.n_heads)
+    for kind in ("int8", "int4"):
+        out = tb.token_kernel(*args, forms[kind], *rest, **kw)
+        assert out.shape == h.shape and torch.isfinite(out).all()
+    bad8 = tuple(dict(w, scale=w["scale"].double()) if i == 3 else w
+                 for i, w in enumerate(forms["int8"]))
+    bad4 = tuple(dict(w, sz=w["sz"][:, :, :1].contiguous()) if i == 5 else w
+                 for i, w in enumerate(forms["int4"]))
+    for ws in (bad8, bad4, forms["int4-g64"]):
+        with pytest.raises(ValueError, match="weights|K7 takes"):
+            tb.token_kernel(*args, ws, *rest, **kw)
+    with pytest.raises(ValueError, match="bf16"):
+        tb.token_kernel(h.float(), args[1], forms["int8"],
+                        lay["attn_norm"].float(), lay["mlp_norm"].float(),
+                        *rest[2:3], cache.k.float(), cache.v.float(), pos,
+                        **kw)
+
+
 def test_plain_records_kept_groups():
     """`token_kernel_plain(sel=)` records each stage's kept count and
     groups, -1 past the count, as K7 does on the card."""
@@ -311,11 +403,12 @@ ONE_CLUSTER = {c: 1 for c in range(2, 9)}
 SMEM = 232448
 
 
-def _check_columns(p, esz, D, I, Hq, Hkv):
-    """Each stage's clusters cover its weights' columns exactly once; in
-    the head-owned plan cluster c's q columns are those of kv head c's
-    query heads; every kv head's attention runs on one cluster."""
-    cols = tb.token_columns(p, esz, D, I, Hq, Hkv)
+def _check_columns(p, esz, D, I, Hq, Hkv, wplan=0):
+    """Each stage's clusters cover its weights' columns exactly once (in
+    units of the weight plan `wplan`); in the head-owned plan cluster c's
+    q columns are those of kv head c's query heads; every kv head's
+    attention runs on one cluster."""
+    cols = tb.token_columns(p, esz, D, I, Hq, Hkv, wplan)
     widths = {"wq": D, "wk": Hkv * 128, "wv": Hkv * 128, "wo": D,
               "wgate": I, "wup": I, "wdown": D}
     stages = {"qkv": ("wq", "wk", "wv"), "o": ("wo",),
@@ -325,8 +418,8 @@ def _check_columns(p, esz, D, I, Hq, Hkv):
         seen = {n: np.zeros(widths[n], np.int64) for n in names}
         for got in cols[stage]:
             for name, a, b in got:
-                assert a < b and a % (tb._TOK_UB // esz) == 0, (stage,
-                                                                name, a, b)
+                assert a < b and a % tb._tok_unit(esz, wplan) == 0, (
+                    stage, name, a, b)
                 seen[name][a:b] += 1
         for name in names:
             assert (seen[name] == 1).all(), (stage, name)
@@ -378,6 +471,56 @@ def test_token_plan(name):
     assert p.smem == tb._token_smem(esz, D, I, GH, max(caps), p.NS, partf,
                                     p.slots)
     _check_columns(p, esz, D, I, Hq, Hkv)
+
+
+@pytest.mark.parametrize("wplan", [1, 2], ids=["int8", "int4"])
+@pytest.mark.parametrize("name", ["7B-bf16", "mistral-7B-bf16", "tiny-gqa",
+                                  "tiny-mha-window"])
+def test_token_plan_quantized(name, wplan):
+    """K7's int8 and packed-int4 plans (a bf16 stream) for 132 SMs and the
+    H100's resident clusters: the structure of the arrays' plan (the 7B
+    head-owned with clusters of 3, Mistral-7B the other plan), units of
+    128 columns (128 bytes of a slab row), so that the 7B's o and down
+    fall one unit a cluster and gate|up 86 units over 32 clusters; ring
+    slots of 16 KB (int4: 18 KB with two groups' scale and zero rows);
+    shared memory equal to the layout's and within a block's; every column
+    of every stage covered once."""
+    _, D, I, Hq, Hkv, T_, window, caps, L = PLANS[name]
+    esz = 2
+    p = tb._token_plan(esz, D, I, Hq, Hkv, T_, window, max(caps), L, 132,
+                       plan=wplan)
+    arrays = tb._token_plan(esz, D, I, Hq, Hkv, T_, window, max(caps), L,
+                            132)
+    assert p is not None and tb._tok_unit(esz, wplan) == 128
+    assert (p.grid, p.C, p.clusters, p.head_owned, p.grid_barriers,
+            p.NS) == (arrays.grid, arrays.C, arrays.clusters,
+                      arrays.head_owned, arrays.grid_barriers, arrays.NS)
+    assert tb._tok_slot(wplan) == (16384 if wplan == 1 else 18432)
+    assert 2 <= p.slots <= 8 and p.smem <= SMEM
+    GH = Hq // Hkv
+
+    def most(cols, nw):
+        return nw * -(-(cols // 128) // p.clusters) * 128
+    partf = max(most(D, 1), most(I, 2), (GH + 2) * 128 if p.head_owned
+                else most((Hq + 2 * Hkv) * 128, 1))
+    assert p.smem == tb._token_smem(esz, D, I, GH, max(caps), p.NS, partf,
+                                    p.slots, wplan)
+    _check_columns(p, esz, D, I, Hq, Hkv, wplan)
+    if name == "7B-bf16":
+        cols = tb.token_columns(p, esz, D, I, Hq, Hkv, wplan)
+        assert [b - a for got in cols["o"] for _, a, b in got] == [128] * 32
+        units = sorted({sum(b - a for _, a, b in got) // 256
+                        for got in cols["gate|up"]})
+        assert units == [2, 3]           # 86 units: 3 or 2 a cluster
+
+
+def test_token_plan_quantized_refuses():
+    """No quantized plan for an fp32 stream (the int8 and int4 plans take
+    bf16), nor for an unknown weight plan."""
+    assert tb._token_plan(4, 4096, 11008, 32, 32, 4096, None, 43, 32, 132,
+                          plan=1) is None
+    assert tb._token_plan(2, 4096, 11008, 32, 32, 4096, None, 43, 32, 132,
+                          plan=3) is None
 
 
 def test_token_plan_refuses():

@@ -5,11 +5,14 @@ loop's decode graph.
 Run from the repository root on a machine with one card and the CUDA
 toolkit:
 
-    python3 tools/k7_probe.py [--layers 32] [--turns 2] [--iters 20]
+    python3 tools/k7_probe.py [--plan bf16|int8|int4] [--layers 32]
+        [--turns 2] [--iters 20]
 
-On Llama-2-7B shapes (bf16 weights N(0, 0.02^2) from a seed, a zero
-cache of 512 rows, pos 40, thresholds at which every stage keeps its cap:
-the most work a token can take), it prints:
+On Llama-2-7B shapes (bf16 weights N(0, 0.02^2) from a seed, with
+`--plan int8` or `int4` quantized on the card by `ops/quant` as the
+Q8-main and Q4-main parameters are, int4 at quant group 128; a bf16
+stream; a zero cache of 512 rows, pos 40, thresholds at which every
+stage keeps its cap: the most work a token can take), it prints:
   - the build's seconds and K7's registers and stack from `ptxas`;
   - K7's plan from the kernel (`teal_token_plan`) beside the wrapper's;
   - K7 against its plain version on 2 layers at pos 2047 of a 2048-row
@@ -64,6 +67,8 @@ def graph_of(torch, fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--plan", choices=("bf16", "int8", "int4"),
+                    default="bf16")
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--iters", type=int, default=20)
@@ -78,6 +83,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from teal_tpu_torch import _build
+    from teal_tpu_torch.ops import block_gemv as bg
+    from teal_tpu_torch.ops import quant
     from teal_tpu_torch.ops import token_block as tb
     from teal_tpu_torch.utils.profiling import graph_kernels
 
@@ -92,13 +99,19 @@ def main() -> int:
 
     L, D, I, Hq, Hkv, T = args.layers, 4096, 11008, 32, 32, 512
     caps = (16, 16, 16, 43)
+    wplan = {"bf16": bg.PLAN_STREAM, "int8": bg.PLAN_INT8,
+             "int4": bg.PLAN_INT4}[args.plan]
     out = (ctypes.c_int * 11)()
-    rc = _build.load()["token_decode"].teal_token_plan(
-        1, D, I, Hq, Hkv, T, 0, max(caps), sms, L, out)
-    clusters = tb.k7_clusters(dev, torch.bfloat16, Hq // Hkv)
-    print(f"resident clusters of C blocks: {clusters}")
+    if wplan == bg.PLAN_STREAM:
+        rc = _build.load()["token_decode"].teal_token_plan(
+            1, D, I, Hq, Hkv, T, 0, max(caps), sms, L, out)
+    else:
+        rc = _build.load()["token_decode_quant"].teal_token_plan_q(
+            wplan, D, I, Hq, Hkv, T, 0, max(caps), sms, L, out)
+    clusters = tb.k7_clusters(dev, torch.bfloat16, Hq // Hkv, wplan)
+    print(f"plan {args.plan}: resident clusters of C blocks: {clusters}")
     want = tb._token_plan(2, D, I, Hq, Hkv, T, None, max(caps), L, sms,
-                          clusters)
+                          clusters, wplan)
     print(f"plan: kernel {rc} {list(out)}, wrapper {want}")
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -106,6 +119,20 @@ def main() -> int:
     ws = tuple((torch.randn(L, k, n, generator=g, device=dev) * 0.02).to(dt)
                for k, n in ((D, D), (D, 128 * Hkv), (D, 128 * Hkv), (D, D),
                             (D, I), (D, I), (I, D)))
+    if wplan != bg.PLAN_STREAM:
+        names = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
+        tree = {"lm_head": ws[0][0], "layers": dict(zip(names, ws))}
+        del ws
+        tree = (quant.quantize_params_int8(tree) if wplan == bg.PLAN_INT8
+                else quant.pack_int4_params(
+                    quant.quantize_params_int4(tree, 128), 128))
+        ws = tuple(tree["layers"][n] for n in names)
+        del tree
+        torch.cuda.empty_cache()
+
+    def first(w, n):
+        return ({k: v[:n] for k, v in w.items()} if isinstance(w, dict)
+                else w[:n])
     na = torch.ones(L, D, device=dev, dtype=dt)
     nm = torch.ones(L, D, device=dev, dtype=dt)
     h = torch.randn(D, generator=g, device=dev).to(dt)
@@ -120,7 +147,7 @@ def main() -> int:
     outs, sels = [], []
     for f in (tb.token_kernel, tb.token_kernel_plain):
         sel = torch.zeros(2, 4, 1 + max(caps), dtype=torch.int32, device=dev)
-        outs.append(f(h, th[:2].contiguous(), tuple(w[:2] for w in ws),
+        outs.append(f(h, th[:2].contiguous(), tuple(first(w, 2) for w in ws),
                       na[:2], nm[:2], rope, kc.clone(), vc.clone(), p,
                       sel=sel, **kw))
         sels.append(sel)

@@ -59,8 +59,10 @@ import chip_smoke as cs  # noqa: E402
 
 TURNS = ("this", "older", "older", "this")
 SOURCE = "token_decode.cu"
+HEADER = "token_decode.cuh"      # the kernel's body since it took the
+                                 # quantized plans (absent in the parent)
 
-# (anchor, replacement) cuts of this tree's source
+# (anchor, replacement) cuts of this tree's source (its .cu and header)
 VARIANTS = {
     "L2 promotion none": [(
         "CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
@@ -97,7 +99,8 @@ VARIANTS = {
         "__device__ __forceinline__ void attention(",
         "__device__ __noinline__ void attention(")],
     "no cluster sums (wrong results)": [(
-        "    epilogue<T>(kind, st, part, rank, C, h, dst, dst2);\n", "")],
+        "    epilogue<T, P>(a, kind, st, part, rank, C, l, h, dst, dst2);\n",
+        "")],
 }
 
 
@@ -122,12 +125,16 @@ def build_all(jobs):
         src = Path(src_dir)
         out = ROOT / "build" / f"k7_{tag}"
         out.mkdir(parents=True, exist_ok=True)
-        text = (src / SOURCE).read_text()
+        files = [SOURCE] + ([HEADER] if (src / HEADER).exists() else [])
+        texts = {f: (src / f).read_text() for f in files}
         for anchor, repl in cuts:
-            if anchor not in text:
+            hit = [f for f in files if anchor in texts[f]]
+            if not hit:
                 raise SystemExit(f"anchor not found: {anchor!r}")
-            text = text.replace(anchor, repl)
-        (out / SOURCE).write_text(text)
+            for f in hit:
+                texts[f] = texts[f].replace(anchor, repl)
+        for f, text in texts.items():
+            (out / f).write_text(text)
         (out / "common.cuh").write_text((src / "common.cuh").read_text())
         so = out / f"libk7_{tag}.so"
         procs[tag] = (so, subprocess.Popen(
