@@ -283,8 +283,9 @@ Phases:
      after phase 17, at phase 4's thresholds). The batch-1 bf16 checks of
      phases 4-17 pin the K1/K2 loop (`LOOP_SP`: `token_fused=False`, the
      reference's packed pipeline) and check what they checked before K7;
-     batched, int8, int4 and Mixtral routes keep `MAIN_SP` (K7 does not
-     take them); the CLI of phase 14 builds its own config and takes K7
+     batched, int8, int4 and Mixtral routes keep `MAIN_SP` (K7 takes the
+     batched bf16 rows since phase 19's slice: the server's step is one
+     K7 launch); the CLI of phase 14 builds its own config and takes K7
      (one launch a step, k a speculative round). Phase 18 drives the main
      path as a user calls it (`MAIN_SP`, token_fused unset): K7's plan in
      the wrapper equal to the kernel's on the card's resident clusters
@@ -305,8 +306,26 @@ Phases:
      device and wall ms, idle share and tok/s; K7's kernel ms, plain ms,
      bound (this token's kept groups), barrier floor (`empty`) and the
      trace (`stamps`: block 0's layer phases, every block's arrival at
-     every grid barrier); self-speculation with the K7 draft
-     (k K7 launches and one verify a round);
+     every grid barrier), and its time at pos 2047 of a 2048-row cache;
+     self-speculation with the K7 draft (k K7 launches and one verify a
+     round); a 2-layer cut of llama-3-70b's widths (64/8 heads, D 8192,
+     I 28672; random weights, packed int4 at group 128) at pos 8191 of
+     an 8192-row cache, which K7 could not plan before its attention
+     walked the cache in chunks (`k7_fault31`: the plan in the wrapper
+     equal to the kernel's, the route K7, each layer held to the plain
+     path, one launch against the K1/K2 loop);
+ 19. K7's rows form (`token_decode_rows.cu`), inside phase 9 after the
+     server picked its thresholds: its plan in the wrapper equal to the
+     kernel's (`check_k7_rows_plan`: B 2, 8, 16 at the 7B, Mistral-7B and
+     llama-3-70b's widths); every 7B layer held to the plain path at B =
+     2, 8 and 16, row i at 40 + 4 i on a cache of random rows (output and
+     each row's written K/V within 2e-2 of scale, kept groups equal or an
+     explained one-group flip), and the first two layers in fp32 at B =
+     16 (`k7_rows_holds`); the server's one-shot and chunked runs with one
+     K7 launch a decode step and no K1-K6; the B = 16 step through K7 and
+     with token_fused=False in turns (device and wall ms, idle, tok/s;
+     `server_turns`); K7's rows form's kernel ms, plain ms and bound at B =
+     16 (`k7_rows_times`);
 all printed as one `kernels` JSON line, with the card in it (and the
 results of phases 12-18 under "calibration", "speculative", "cli",
 "parallel", "serving_tp", "device_loop" and "k7");
@@ -998,14 +1017,16 @@ def time_decode_step(params, cfg, runs, device, rope, iters: int = 3,
         k3 = sum(t for k, t in rows if "bgg_" in k)
         k4 = sum(t for k, t in rows if "rgg_kernel" in k)
         k5 = sum(t for k, t in rows if "route_kernel" in k)
+        k7 = sum(t for k, t in rows if "token_kernel" in k
+                 or "token_rows_kernel" in k)
         out[kind] = dict(device_ms=dev, wall_ms=wall,
                          idle_share=max(0.0, 1.0 - dev / wall), k2_ms=k2,
-                         k1_ms=k1, k3_ms=k3, k4_ms=k4, k5_ms=k5)
+                         k1_ms=k1, k3_ms=k3, k4_ms=k4, k5_ms=k5, k7_ms=k7)
         log(f"[time] one {kind} decode step (batch {b}): device "
             f"{dev:.3f} ms (sum of kernel times), wall {wall:.3f} ms, "
             f"device idle {out[kind]['idle_share']:.1%}; K1 {k1:.3f} ms, "
             f"K2 {k2:.3f} ms ({k2 / dev:.1%} of device), K3 {k3:.3f} ms, "
-            f"K4 {k4:.3f} ms, K5 {k5:.3f} ms; top: "
+            f"K4 {k4:.3f} ms, K5 {k5:.3f} ms, K7 {k7:.3f} ms; top: "
             + "; ".join(f"{k[:48]} {t:.3f} ms" for k, t in rows[:4]))
     return out
 
@@ -2438,31 +2459,39 @@ def check_k2_rows(cfg, device, gen, rope):
 
 def check_step_launches(params, cfg, th, device, rope):
     """One batched decode `forward` at every B of `STEP_BATCHES` (distinct
-    positions): exactly 4*L K1 and L K2 launches, no other port kernel,
-    finite logits of the expected shape."""
+    positions): at B = 1 with `LOOP_SP` exactly 4*L K1 and L K2 launches,
+    at B > 1 with `MAIN_SP` one K7 launch (its rows form), no other port
+    kernel; finite logits of the expected shape. Then B = 16 with
+    token_fused=False (the model's layer loop): its launch counts, read.
+    Returns them."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
     from teal_tpu_torch.models import llama
 
     L = cfg.n_layers
-    for b in STEP_BATCHES:
+
+    def step(b, sp):
         cache = llama.KVCache.init(cfg, b, MAX_SEQ, torch.bfloat16, device)
-        pos = [40 + 4 * i for i in range(b)]
         reset_launches()
         lg, _ = llama.forward(params, torch.full((b, 1), 7, device=device),
-                              cache, pos, th, cfg=cfg,
-                              sp=SparsityConfig(**(LOOP_SP if b == 1
-                                                   else MAIN_SP)),
-                              rope=rope)
-        got = read_launches()
-        check(got == (4 * L, L, 0, 0, 0, 0), f"batch {b}: launches (K1, K2, "
-              f"K3, K4, K5, K6) {got} in one decode step, expected "
-              f"{(4 * L, L, 0, 0, 0, 0)}")
+                              cache, row_positions(b), th, cfg=cfg,
+                              sp=SparsityConfig(**sp), rope=rope)
         check(tuple(lg.shape) == (b, 1, cfg.vocab_size)
               and bool(torch.isfinite(lg).all()), f"batch {b}: bad logits")
+        return read_launches(), k7_launches()
+
+    for b in STEP_BATCHES:
+        got = step(b, LOOP_SP if b == 1 else MAIN_SP)
+        want = ((4 * L, L, 0, 0, 0, 0), 0) if b == 1 else ((0,) * 6, 1)
+        check(got == want, f"batch {b}: launches ((K1, K2, K3, K4, K5, K6), "
+              f"K7) {got} in one decode step, expected {want}")
+    loop = step(16, LOOP_SP)
     log(f"[serve] one decode step at batch {STEP_BATCHES}: launches (K1, "
-        f"K2, K3, K4, K5, K6) = {(4 * L, L, 0, 0, 0, 0)} each")
+        f"K2, K3, K4, K5, K6) = {(4 * L, L, 0, 0, 0, 0)} at batch 1 "
+        f"(token_fused=False), one K7 and nothing else at batch > 1; batch "
+        f"16 with token_fused=False (the layer loop): {loop}")
+    return loop[0]
 
 
 def server_phase(params, cfg, device, seed, rope):
@@ -2473,8 +2502,8 @@ def server_phase(params, cfg, device, seed, rope):
     step, every layer of which is held to the plain path at B = 16. Then
     the workload runs with one-shot admission and with
     `prefill_chunk=SERVER_CHUNK`, launch counts reset just before and read
-    just after: 4*L K1 + L K2 per decode step, nothing else. Returns
-    (thresholds, results)."""
+    just after: one K7 launch (its rows form) per decode step, nothing
+    else. Returns (thresholds, results)."""
     import numpy as np
     import torch
 
@@ -2486,7 +2515,6 @@ def server_phase(params, cfg, device, seed, rope):
                for n in rng.integers(SERVER_PROMPT[0], SERVER_PROMPT[1] + 1,
                                      SERVER_REQUESTS)]
     new = [int(n) for n in rng.integers(8, 17, SERVER_REQUESTS)]
-    L = cfg.n_layers
 
     def engine(th=None, chunk=None):
         return ContinuousBatchingEngine(
@@ -2513,9 +2541,10 @@ def server_phase(params, cfg, device, seed, rope):
         device, rope, cache=eng.cache,
         tok=torch.from_numpy(eng.cur[:, None]).to(device))
     del eng
-    check_step_launches(params, cfg, th, device, rope)
+    loop_step = check_step_launches(params, cfg, th, device, rope)
 
-    out = {"worst": worst, "admitted_step": admitted}
+    out = {"worst": worst, "admitted_step": admitted,
+           "loop_step_launches": loop_step}
     for chunk in (None, SERVER_CHUNK):
         eng = engine(th, chunk)
         decode = []                   # (active slots, wall s) per step
@@ -2536,12 +2565,12 @@ def server_phase(params, cfg, device, seed, rope):
         t0 = time.perf_counter()
         done = eng.run()
         wall = time.perf_counter() - t0
-        got = read_launches()
+        got, n7 = read_launches(), k7_launches()
         steps = len(decode)
         # prompts of at most 120 tokens: no K6 in one-shot admission
-        want = (4 * L * steps, L * steps, 0, 0, 0, 0)
-        check(got == want, f"server (chunk {chunk}): launches (K1, K2, K3, "
-              f"K4, K5, K6) {got}, expected {want} for {steps} decode steps")
+        check(got == (0,) * 6 and n7 == steps, f"server (chunk {chunk}): "
+              f"launches (K1, K2, K3, K4, K5, K6) {got} and {n7} K7, "
+              f"expected none and {steps} for {steps} decode steps")
         check(len(done) == SERVER_REQUESTS and all(
             len(r.out) == n and all(0 <= t < cfg.vocab_size for t in r.out)
             for r, n in zip(sorted(done, key=lambda r: r.id), new)),
@@ -2550,15 +2579,16 @@ def server_phase(params, cfg, device, seed, rope):
         dec_s = sum(t for _, t in decode)
         key = "oneshot" if chunk is None else f"chunk{chunk}"
         out[key] = dict(
-            steps=steps, launches=got, wall_s=wall, decode_tokens=toks,
+            steps=steps, launches=got, k7_launches=n7, wall_s=wall,
+            decode_tokens=toks,
             decode_s=dec_s, decode_tok_s=toks / dec_s,
             step_ms_full=1e3 * float(np.mean([t for n, t in decode
                                                if n == SERVER_SLOTS] or [0])),
             steps_full=sum(n == SERVER_SLOTS for n, _ in decode),
             outs=[r.out for r in sorted(done, key=lambda r: r.id)])
         log(f"[serve] {key}: {SERVER_REQUESTS} requests in {wall:.2f} s, "
-            f"{steps} decode steps (launches K1 {got[0]}, K2 {got[1]}: "
-            f"{got[0] // steps} + {got[1] // steps} a step), {toks} decoded "
+            f"{steps} decode steps ({n7} K7 launches: one a step, no K1-K6),"
+            f" {toks} decoded "
             f"tokens, aggregate decode {toks / dec_s:.1f} tok/s, a step with "
             f"all {SERVER_SLOTS} slots active "
             + (f"{out[key]['step_ms_full']:.2f} ms" if out[key]["step_ms_full"]
@@ -2803,36 +2833,34 @@ def time_k2_rows(cfg, device, gen, rope, launches, steps, err, name):
 
 
 def step_kept_counts(params, cfg, th, device, rope, b: int = 16):
-    """The kept count of every K1 call in one server decode step at batch
-    b (the step `time_decode_step` times: token 7 at positions 40, 44, ...
-    on an empty cache, the server's thresholds), read from the kernels'
-    count outputs. Returns [L, 4] counts (qkv, o, gate|up, down)."""
+    """The kept count of every stage in one server decode step at batch b
+    (the step `time_decode_step` times: token 7 at positions 40, 44, ...
+    on an empty cache, the server's thresholds), read from K7's `sel`.
+    Returns [L, 4] counts (qkv, o, gate|up, down)."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
     from teal_tpu_torch.models import llama
-    from teal_tpu_torch.ops import attn_block, token_block
+    from teal_tpu_torch.ops import token_block
 
-    counts = []
-    real = token_block.select_gather_gemv
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    sel = torch.zeros((cfg.n_layers, 4, 1 + max(caps)), dtype=torch.int32,
+                      device=device)
+    real = token_block.token_kernel
 
     def recording(*args, **kw):
-        out = real(*args, **kw)
-        counts.append(out[2])
-        return out
+        return real(*args, sel=sel, **kw)
+    recording.launches = 0       # the wrapper counts into the module's name
 
     cache = llama.KVCache.init(cfg, b, MAX_SEQ, torch.bfloat16, device)
     try:
-        token_block.select_gather_gemv = attn_block.select_gather_gemv = \
-            recording
+        token_block.token_kernel = recording
         llama.forward(params, torch.full((b, 1), 7, device=device), cache,
-                      [40 + 4 * i for i in range(b)], th, cfg=cfg,
-                      sp=SparsityConfig(**(LOOP_SP if b == 1 else MAIN_SP)),
-                      rope=rope)
+                      row_positions(b), th, cfg=cfg,
+                      sp=SparsityConfig(**MAIN_SP), rope=rope)
     finally:
-        token_block.select_gather_gemv = attn_block.select_gather_gemv = real
-    kept = torch.cat(counts).reshape(cfg.n_layers, 4).cpu()
-    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+        token_block.token_kernel = real
+    kept = sel[:, :, 0].cpu()
     for j, name in enumerate(STAGES):
         c = kept[:, j].float()
         log(f"[serve] kept groups in one batch-{b} decode step, {name}: "
@@ -2841,40 +2869,82 @@ def step_kept_counts(params, cfg, th, device, rope, b: int = 16):
     return kept
 
 
+def server_turns(params, cfg, th, device, rope, b: int = 16):
+    """The server's B-row decode step (token 7 at `row_positions` on an
+    empty cache) through K7's rows form (`MAIN_SP`) and with
+    token_fused=False (`LOOP_SP`: the model's layer loop) in turns,
+    `K7_ROWS_TURNS` times each: device ms, wall ms, idle share and tok/s
+    from the wall time. Returns {route: [readings]}."""
+    out = {"k7": [], "token_fused=False": []}
+    for i in range(K7_ROWS_TURNS):
+        order = (("k7", MAIN_SP), ("token_fused=False", LOOP_SP))
+        for name, sp in (order if i % 2 == 0 else order[::-1]):
+            r = time_decode_step(params, cfg, [(f"server batch {b}, {name}",
+                                               sp, b, th, row_positions(b))],
+                                 device, rope)[f"server batch {b}, {name}"]
+            r["tok_s"] = b / r["wall_ms"] * 1e3
+            out[name].append(r)
+    for name, rs in out.items():
+        log(f"[serve] batch-{b} step, {name}, in turns: device "
+            f"{[round(r['device_ms'], 3) for r in rs]} ms, wall "
+            f"{[round(r['wall_ms'], 3) for r in rs]} ms, idle "
+            f"{[round(r['idle_share'], 4) for r in rs]}, tok/s "
+            f"{[round(r['tok_s'], 1) for r in rs]}")
+    return out
+
+
 def batched_phase(params, cfg, caps, device, gen, seed, rope):
-    """Phase 9 on the bf16 params. Returns (kernels entries, results)."""
+    """Phase 9 on the bf16 params, with phase 19 (K7's rows form: its
+    plan, every 7B layer held at B = 2, 8 and 16 and an fp32 cut, its
+    times) after the server picked its thresholds. Returns (kernels
+    entries, results, thresholds)."""
+    t0 = time.perf_counter()
     e_k1 = check_k1_rows(params, cfg, caps, device, gen)
     e_k2 = check_k2_rows(cfg, device, gen, rope)
     th, serve = server_phase(params, cfg, device, seed, rope)
+    rows_plans = check_k7_rows_plan()
+    holds = k7_rows_holds(params, cfg, device, gen, th)
+    e_k7 = k7_rows_times(params, cfg, device, gen, th)
+    one = serve["oneshot"]
+    e_k7.update(launches=one["k7_launches"], steps=one["steps"],
+                max_abs_err=max(v[1] for v in holds.values()))
     verify = verify_phase(params, cfg, device, seed, rope)
     steps = time_decode_step(
         params, cfg, [(f"server batch {b}",
                        LOOP_SP if b == 1 else MAIN_SP, b, th,
-                       [40 + 4 * i for i in range(b)]) for b in STEP_BATCHES],
+                       row_positions(b)) for b in STEP_BATCHES],
         device, rope)
     for b in STEP_BATCHES:
         r = steps[f"server batch {b}"]
         log(f"[serve] decode step at batch {b}: {b / r['wall_ms'] * 1e3:.1f} "
             f"tok/s from its wall time ({r['wall_ms']:.3f} ms wall, "
             f"{r['device_ms']:.3f} ms device, idle {r['idle_share']:.1%})")
+    turns = server_turns(params, cfg, th, device, rope)
     kept = step_kept_counts(params, cfg, th, device, rope)
-    one = serve["oneshot"]
-    v_launch = sum(r["launches"][1] for r in verify.values())
+    v_launch = [sum(r["launches"][j] for r in verify.values())
+                for j in (0, 1)]
     v_steps = sum(-(-S // 8) for S in VERIFY_S)
+    loop_step = serve["loop_step_launches"]
     entries = [
         time_rows_kernels(params, params, cfg, caps, device, gen, rope,
-                          "bf16", one["launches"][0], one["steps"], e_k1),
-        time_k2_rows(cfg, device, gen, rope, one["launches"][1],
-                     one["steps"], e_k2, "B=16"),
-        time_k2_rows(cfg, device, gen, rope, v_launch, v_steps, e_k2,
+                          "bf16", v_launch[0], v_steps, e_k1),
+        time_k2_rows(cfg, device, gen, rope, loop_step[1], 1, e_k2, "B=16"),
+        time_k2_rows(cfg, device, gen, rope, v_launch[1], v_steps, e_k2,
                      "seq_block"),
+        e_k7,
     ]
     results = dict(
         server={k: ({kk: vv for kk, vv in v.items() if kk != "outs"}
                     if isinstance(v, dict) else v) for k, v in serve.items()},
-        verify=verify, decode_step_ms=steps,
+        verify=verify, decode_step_ms=steps, server_turns=turns,
         step_kept_b16={name: kept[:, j].tolist()
-                       for j, name in enumerate(STAGES)})
+                       for j, name in enumerate(STAGES)},
+        k7_rows=dict(plans=rows_plans,
+                     holds={str(k): dict(worst=v[0], max_abs_err=v[1],
+                                         flips=v[2])
+                            for k, v in holds.items()}),
+        phase_s=time.perf_counter() - t0)
+    log(f"[serve] phases 9 and 19 in {results['phase_s']:.1f} s")
     return entries, results, th
 
 
@@ -6139,8 +6209,10 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
     plain path's. Where one stage kept one group more or fewer and a plain
     score lies within FLIP_ULPS of the threshold (`explain_count_flip`, as
     phase 4), the plain layer runs again past that score and K7 is held to
-    that. Returns (worst relative error, worst absolute error of the
-    output, flips explained)."""
+    that. `tok` and `pos` as lists of B > 1 (the cache of B rows): K7's
+    rows form, one row a sequence at its own position, the written K/V
+    rows held at each. Returns (worst relative error, worst absolute error
+    of the output, flips explained)."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -6153,10 +6225,14 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
     kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
               window=cfg.sliding_window)
     k, v = cache.k.clone(), cache.v.clone()            # plain path
-    pos_t = torch.tensor([pos], dtype=torch.int32, device=device)
+    poss = [pos] if isinstance(pos, int) else list(pos)
+    B = len(poss)
+    pos_t = torch.tensor(poss, dtype=torch.int32, device=device)
     rows = llama._rope_rows(rope[0], rope[1], pos_t)
-    h = params["embed"][torch.as_tensor([tok], device=device)].to(
-        llama.compute_dtype(params)).reshape(cfg.dim)
+    h = params["embed"][torch.as_tensor(
+        [tok] if B == 1 else list(tok), device=device)].to(
+        llama.compute_dtype(params)).reshape(
+        (cfg.dim,) if B == 1 else (B, cfg.dim))
     worst = worst_abs = 0.0
     flips, kept = 0, []
     for i in range(cfg.n_layers):
@@ -6199,8 +6275,10 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
                   f"{idx_rec[st].tolist()}")
         kept.append(g_cnt)
         for what, g, w in (("hidden", got, held),
-                           ("k row", kk[0, 0, :, pos], k[i, 0, :, pos]),
-                           ("v row", vk[0, 0, :, pos], v[i, 0, :, pos])):
+                           *((f"k row {b}", kk[0, b, :, p], k[i, b, :, p])
+                             for b, p in enumerate(poss)),
+                           *((f"v row {b}", vk[0, b, :, p], v[i, b, :, p])
+                             for b, p in enumerate(poss))):
             err = rel_check(f"{tag} layer {i} {what}: K7 vs plain", g, w,
                             K7_TOKEN_TOL)
             scale = float(w.float().abs().max())
@@ -6209,7 +6287,8 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
                 worst_abs = max(worst_abs, err)
         h = want
     mean = [round(sum(c[j] for c in kept) / len(kept), 2) for j in range(4)]
-    log(f"{tag} {cfg.n_layers} layers at pos {pos}: each K7 layer held to "
+    log(f"{tag} {cfg.n_layers} layers at pos {poss if B > 1 else pos}: "
+        f"each K7 layer held to "
         f"the plain layer (worst {worst:.2e} of scale, tolerance "
         f"{K7_TOKEN_TOL}); kept groups identical ({flips} one-group flips "
         f"explained); mean kept (qkv, o, gate|up, down) {mean} of caps "
@@ -6485,6 +6564,21 @@ def k7_times(params, cfg, device, seed, th, launches, err, wplan: int = 0):
                        K7_TIME_ITERS)
     plain, _ = cuda_ms(lambda i: tb.token_kernel_plain(*args, **kw), 2,
                        warmup=1, queued=False)
+    long = None
+    if wplan == 0:
+        # the same token at pos 2047 of a 2048-row cache of random rows:
+        # attention walks 2047 rows a layer in chunks
+        lp, lt = K7_LONG
+        lc = rows_cache(cfg, 1, dt, device, torch.Generator(
+            device=device).manual_seed(seed), T=lt)
+        lrope = llama.precompute_rope(cfg, lt, device)
+        lpos = torch.tensor([lp], dtype=torch.int32, device=device)
+        largs = (*args[:5], llama._rope_rows(lrope[0], lrope[1], lpos),
+                 lc.k, lc.v, lpos)
+        long, _ = cuda_ms(lambda i: tb.token_kernel(*largs, **kw),
+                          K7_TIME_ITERS)
+        del lc, largs
+        torch.cuda.empty_cache()
     nbytes, flops = k7_bound(sel, cfg, pos, llama.compute_dtype(
         params).itemsize, wplan)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -6496,7 +6590,10 @@ def k7_times(params, cfg, device, seed, th, launches, err, wplan: int = 0):
         else "fp32"
     tag = "[k7]" if wplan == 0 else f"[k7 {plan_name}]"
     log(f"{tag} K7 at the 7B main step (pos {pos}, {plan_name}, 32 layers): "
-        f"{ms:.4f} ms a token (bound {bound:.4f} ms by {by}: "
+        f"{ms:.4f} ms a token"
+        + (f" ({long:.4f} ms at pos {K7_LONG[0]} of a {K7_LONG[1]}-row "
+           "cache)" if long is not None else "")
+        + f" (bound {bound:.4f} ms by {by}: "
         f"{nbytes / 1e6:.1f} MB, {ms and bound / ms:.1%} of it), plain {plain:.3f} ms, barrier "
         f"floor {floor:.4f} ms ({plan.grid_barriers} grid barriers, "
         f"{plan.head_barriers} kv-head; {plan.clusters} clusters of "
@@ -6514,6 +6611,7 @@ def k7_times(params, cfg, device, seed, th, launches, err, wplan: int = 0):
                 launches=launches, max_abs_err=err, ms=ms, kernel_ms=ms,
                 plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=None, barrier_floor_ms=floor,
+                ms_pos2047=long,
                 phases_us=phases, kept_mean=kept, pos=pos,
                 plan=plan._asdict(),
                 timed=f"one 7B token (32 layers, {plan_name}) at pos "
@@ -6597,7 +6695,8 @@ def k7_phase(params, cfg, device, gen, seed, th):
     """Phase 18 on the resident bf16 7B after phase 4, at its thresholds:
     K7's plan; every layer of K7 alone held to the plain path on phase 4's
     calibration token; a 2-layer run at pos 2047 of a 2048-row cache; the
-    same holds on a 2-layer GQA 32/8 model at the 7B's width; the
+    same holds on a 2-layer GQA 32/8 model at the 7B's width; a 2-layer
+    int4 cut of llama-3-70b's widths at T 8192 (`k7_fault31`); the
     main path's tokens against the K1/K2 loop's (bf16 reported, an fp32
     cut gated) and its launches; both decode graphs' nodes and times in
     turns; K7's kernel, plain, bound and barrier-floor times; the K7 draft
@@ -6620,6 +6719,7 @@ def k7_phase(params, cfg, device, gen, seed, th):
     del cache
     res["long"] = k7_long_run(params, cfg, device, gen, th)
     res["gqa"] = k7_gqa_hold(cfg, device, gen, th)
+    res["fault31"] = k7_fault31(device, gen)
     res["tokens"], n7, gens = k7_tokens(params, cfg, device, seed, th)
     res["graphs"] = k7_graphs(gens, cfg, th, prompts)
     del gens
@@ -6629,6 +6729,274 @@ def k7_phase(params, cfg, device, gen, seed, th):
     res["phase_s"] = time.perf_counter() - t0
     log(f"[k7] phase 18 in {res['phase_s']:.1f} s")
     return entry, res
+
+
+# --- phase 19: K7's rows form; fault 3.1 (a plan that no longer grows
+# with T) ------------------------------------------------------------------
+
+K7_ROWS = (2, 8, 16)             # rows held at the 7B's width (bf16)
+K7_ROWS_FP32 = 16                # rows of the fp32 hold on a 2-layer cut
+K7_70B = ("llama-3-70b", 2, 8192)    # (config, layers of the cut, T)
+K7_ROWS_TURNS = 3                # K7 / token_fused=False server steps
+
+
+def row_positions(B: int):
+    """The positions of a B-row step: row i at 40 + 4 i (as
+    `STEP_BATCHES` steps and the server's first steps)."""
+    return [40 + 4 * i for i in range(B)]
+
+
+def check_k7_rows_plan():
+    """K7's rows form's plan in the wrapper (`token_block._token_plan(...,
+    rows=B)` on the card's resident clusters of the rows kernel) equal to
+    the kernel's (`teal_token_plan_rows`) on this card, fp32 and bf16, at
+    B = 2, 8 and 16: Llama-2-7B at T 512 and 4096, Mistral-7B (GQA 32/8,
+    window 4096) at T 8192, llama-3-70b's widths at T 8192; each within
+    shared memory."""
+    import ctypes
+
+    import torch
+
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.ops import token_block as tb
+
+    lib = _build.load()["token_decode_rows"]
+    sms = _build.sm_count(0)
+    dev = torch.device("cuda", 0)
+    shapes = [(4096, 11008, 32, 32, 512, None, 43, 32),
+              (4096, 11008, 32, 32, 4096, None, 43, 32),
+              (4096, 14336, 32, 8, 8192, 4096, 56, 32),
+              (8192, 28672, 64, 8, 8192, None, 112, 80)]
+    plans = {}
+    for D, I, Hq, Hkv, T, win, cm, L in shapes:
+        for code, esz, dt in ((0, 4, torch.float32), (1, 2, torch.bfloat16)):
+            for B in K7_ROWS:
+                out = (ctypes.c_int * 11)()
+                rc = lib.teal_token_plan_rows(code, B, D, I, Hq, Hkv, T,
+                                              win or 0, cm, sms, L, out)
+                want = tb._token_plan(
+                    esz, D, I, Hq, Hkv, T, win, cm, L, sms,
+                    tb.k7_clusters(dev, dt, Hq // Hkv, rows=True), rows=B)
+                check(rc == 0 and want is not None
+                      and tuple(out) == tuple(want)
+                      and want.smem <= tb._SMEM_BYTES,
+                      f"K7 rows plan {(B, D, I, Hq, Hkv, T, win, cm, L, esz)}"
+                      f": kernel {rc} {list(out)}, wrapper {want}")
+                plans[f"B{B}/{D}/{I}/{Hq}/{Hkv}/T{T}/{esz}B"] = list(out)
+    log(f"[k7 rows] plan equal in the wrapper and the kernel for "
+        f"{len(plans)} shapes on {sms} SMs; 7B bf16 B 16: "
+        f"{plans['B16/4096/11008/32/32/T512/2B']}")
+    return plans
+
+
+def rows_cache(cfg, B, dt, device, gen, T=MAX_SEQ):
+    """A [L, B, Hkv, T, 128] cache of random rows (a decode step's context
+    at every position)."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+
+    shape = (cfg.n_layers, B, cfg.n_kv_heads, T, 128)
+    return llama.KVCache(
+        torch.randn(shape, generator=gen, device=device).to(dt),
+        torch.randn(shape, generator=gen, device=device).to(dt))
+
+
+def k7_rows_bound(sel, cfg, poss, esz: int):
+    """(bytes, flops) one step of K7's rows form must move and do at the
+    kept counts of `sel` [L, 4, ...]: each kept slab read once for all
+    rows, each row's live K/V rows read and its token's rows written, the
+    gains and thresholds, the B rows of the stream in and out; 2 flops a
+    weight element a row, 4 a head and live row."""
+    D, I, kvw = cfg.dim, cfg.intermediate_size, cfg.n_kv_heads * 128
+    widths = (D + 2 * kvw, D, 2 * I, D)
+    kept = sel[:, :, 0].double().cpu()
+    elems = float(sum((kept[:, j] * 128 * widths[j]).sum() for j in range(4)))
+    lives = [min(p, cfg.sliding_window - 1) if cfg.sliding_window else p
+             for p in poss]
+    kv = cfg.n_layers * sum(2 * kvw * (lv + 1) for lv in lives) * esz
+    B = len(poss)
+    nbytes = (elems * esz + kv + cfg.n_layers * (2 * D * esz + 28)
+              + 2 * B * D * esz)
+    flops = (2 * B * elems
+             + 4 * cfg.n_layers * cfg.n_heads * 128 * sum(lv + 1
+                                                          for lv in lives))
+    return nbytes, flops
+
+
+def k7_rows_times(params, cfg, device, gen, th, B=16):
+    """K7's rows form on the resident 7B at B rows at `row_positions` on a
+    cache of random rows, the server's thresholds: kernel ms (`cuda_ms`),
+    its plain version's, the bound of this step's kept groups (bytes at
+    the HBM rate, the bf16 MMA's operations at the tensor cores' peak).
+    Returns the `kernels` entry (launches filled in by the server run)."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block as tb
+
+    dt = llama.compute_dtype(params)
+    poss = row_positions(B)
+    cache = rows_cache(cfg, B, dt, device, gen)
+    rope = llama.precompute_rope(cfg, MAX_SEQ, device)
+    pos_t = torch.tensor(poss, dtype=torch.int32, device=device)
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    lay = params["layers"]
+    toks = torch.arange(7, 7 + B, device=device)
+    args = (params["embed"][toks].to(dt), th,
+            tuple(lay[n] for n in PROJ_NAMES), lay["attn_norm"],
+            lay["mlp_norm"], llama._rope_rows(rope[0], rope[1], pos_t),
+            cache.k, cache.v, pos_t)
+    kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+              window=cfg.sliding_window)
+    sel = torch.zeros((cfg.n_layers, 4, 1 + max(caps)), dtype=torch.int32,
+                      device=device)
+    tb.token_kernel(*args, sel=sel, **kw)
+    plan = tb.token_plan(args[0], cache.k, args[2], cfg.n_heads, caps,
+                         cfg.sliding_window)
+    ms, _ = cuda_ms(lambda i: tb.token_kernel(*args, **kw), K7_TIME_ITERS)
+    plain, _ = cuda_ms(lambda i: tb.token_kernel_plain(*args, **kw), 2,
+                       warmup=1, queued=False)
+    nbytes, flops = k7_rows_bound(sel, cfg, poss, dt.itemsize)
+    bound, by = bound_ms(nbytes, flops)
+    kept = sel[:, :, 0].float().mean(0).tolist()
+    log(f"[k7 rows] K7's rows form, 7B, B = {B} at {poss[0]}..{poss[-1]}, 32 "
+        f"layers: {ms:.4f} ms a step (bound {bound:.4f} ms by {by}: "
+        f"{nbytes / 1e6:.1f} MB, {bound / ms:.1%} of it), plain {plain:.3f} "
+        f"ms; {plan.clusters} clusters of {plan.C}, head-owned "
+        f"{plan.head_owned}, {plan.slots} ring slots; mean kept "
+        f"{[round(k, 2) for k in kept]} of caps {list(caps)}")
+    del cache
+    torch.cuda.empty_cache()
+    return dict(name="token_kernel[rows]", route="cuda",
+                source="teal_tpu_torch/csrc/token_decode_rows.cu",
+                replaces="teal_tpu/ops/token_block.py:518", launches=0,
+                max_abs_err=0.0, ms=ms, kernel_ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None, rows=B,
+                positions=poss, kept_mean=kept, plan=plan._asdict(),
+                timed=f"one 7B step (32 layers, bf16) of {B} rows at "
+                      f"positions {poss[0]}..{poss[-1]} on a cache of random "
+                      "rows at the server's thresholds; launches: phase 9's "
+                      "one-shot server run")
+
+
+def k7_rows_holds(params, cfg, device, gen, th):
+    """Every 7B layer of K7's rows form held to the plain path
+    (`hold_k7_layers` with B rows, `explain_flip`'s rule for one-group
+    flips) at B = 2, 8 and 16, row i at 40 + 4 i on a cache of random
+    rows, the server's thresholds; then an fp32 copy of the first two
+    layers at B = `K7_ROWS_FP32`. Returns {B: (worst, max abs err,
+    flips)}."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+
+    rope = llama.precompute_rope(cfg, MAX_SEQ, device)
+    dt = llama.compute_dtype(params)
+    res = {}
+    for B in K7_ROWS:
+        cache = rows_cache(cfg, B, dt, device, gen)
+        res[B] = hold_k7_layers(params, cfg, cache, list(range(7, 7 + B)),
+                                row_positions(B), rope, th, device,
+                                tag=f"[k7 rows B {B}]")
+        del cache
+        torch.cuda.empty_cache()
+    ccfg = dataclasses.replace(cfg, n_layers=2)
+    cut = to_fp32(dict(params, layers={k: v[:2] for k, v in
+                                       params["layers"].items()}))
+    B = K7_ROWS_FP32
+    cache = rows_cache(ccfg, B, torch.float32, device, gen)
+    res[f"fp32 B {B}"] = hold_k7_layers(
+        cut, ccfg, cache, list(range(7, 7 + B)), row_positions(B), rope,
+        th[:2].contiguous(), device, tag=f"[k7 rows fp32 B {B}]")
+    del cut, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def k7_fault31(device, gen):
+    """Fault 3.1 on the card: a 2-layer cut of llama-3-70b's widths (64/8
+    heads, D 8192, I 28672; random bf16 weights quantized to packed int4
+    at group 128) decodes at pos T - 1 of a T = 8192-row cache of random
+    rows through K7 (which had no plan at T 8192 before its attention
+    walked the cache in chunks): its plan in the wrapper equal to the
+    kernel's, each layer held to the plain path (`hold_k7_layers`), the
+    route (`k7_route`) K7, and one 2-layer launch against the K1/K2 loop
+    (`token_decode(token_fused=False)`) on the same input, output and
+    cache within `K7_TOKEN_TOL` of scale where both keep the same groups.
+    Thresholds 0 keep each stage's first `cap` groups. Returns the
+    results."""
+    import ctypes
+
+    import torch
+
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.config import SparsityConfig, get_model_config
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import quant
+    from teal_tpu_torch.ops import token_block as tb
+
+    t0 = time.perf_counter()
+    name, L, T = K7_70B
+    cfg = dataclasses.replace(get_model_config(name), n_layers=L)
+    params = llama.init_params(cfg, gen, torch.bfloat16, device)
+    qp = quant.pack_int4_params(quant.quantize_params_int4(params, 128), 128)
+    del params
+    torch.cuda.empty_cache()
+    cache = rows_cache(cfg, 1, torch.bfloat16, device, gen, T=T)
+    th = torch.zeros((L, 7), device=device)
+    pos = T - 1
+    lay = qp["layers"]
+    ws = tuple(lay[n] for n in PROJ_NAMES)
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    h = qp["embed"][7].to(torch.bfloat16)
+    want = tb.token_plan(h, cache.k, ws, cfg.n_heads, caps)
+    out = (ctypes.c_int * 11)()
+    rc = _build.load()["token_decode_quant"].teal_token_plan_q(
+        2, cfg.dim, cfg.intermediate_size, cfg.n_heads, cfg.n_kv_heads, T, 0,
+        max(caps), _build.sm_count(0), L, out)
+    check(rc == 0 and want is not None and tuple(out) == tuple(want),
+          f"[k7 70b] plan: kernel {rc} {list(out)}, wrapper {want}")
+    check(tb.k7_route(h, ws, cache.k, cfg.n_heads, caps),
+          "[k7 70b] the route does not take K7")
+    rope = llama.precompute_rope(cfg, T, device)
+    worst, err, flips = hold_k7_layers(qp, cfg, cache, 7, pos, rope, th,
+                                       device, tag="[k7 70b int4]")
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=device)
+    rows = llama._rope_rows(rope[0], rope[1], pos_t)
+    kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps)
+    sel = torch.zeros((L, 4, 1 + max(caps)), dtype=torch.int32,
+                      device=device)
+    caches = [(cache.k.clone(), cache.v.clone()) for _ in range(2)]
+    reset_launches()
+    got = tb.token_kernel(h, th, ws, lay["attn_norm"], lay["mlp_norm"], rows,
+                          *caches[0], pos_t, sel=sel, **kw)
+    loop = tb.token_decode(h, th, ws, lay["attn_norm"], lay["mlp_norm"],
+                           rows, *caches[1], pos_t, token_fused=False, **kw)
+    torch.cuda.synchronize()
+    n7, n12 = k7_launches(), read_launches()[:2]
+    check(n7 == 1 and n12 == (4 * L, L), f"[k7 70b] launches: K7 {n7}, "
+          f"(K1, K2) {n12}; expected 1 and {(4 * L, L)}")
+    e = rel_check("[k7 70b int4] 2 layers: K7 vs the K1/K2 loop", got, loop,
+                  K7_TOKEN_TOL)
+    for i, what in enumerate(("k", "v")):
+        rel_check(f"[k7 70b int4] {what} cache: K7 vs the loop",
+                  caches[0][i], caches[1][i], K7_TOKEN_TOL)
+    ms, _ = cuda_ms(lambda i: tb.token_kernel(
+        h, th, ws, lay["attn_norm"], lay["mlp_norm"], rows, *caches[0],
+        pos_t, **kw), K7_TIME_ITERS)
+    res = dict(config=name, layers=L, T=T, pos=pos, plan=want._asdict(),
+               layer_worst=worst, max_abs_err=err, flips=flips,
+               loop_err=e, ms=ms, kept=sel[:, :, 0].tolist(),
+               phase_s=time.perf_counter() - t0)
+    log(f"[k7 70b int4] {name}'s widths, {L} layers, pos {pos} of T {T}: "
+        f"plan {tuple(want)}; each layer held to the plain path (worst "
+        f"{worst:.2e} of scale), one launch within {e:.3e} of the K1/K2 loop;"
+        f" {ms:.4f} ms a token ({res['phase_s']:.1f} s)")
+    del qp, cache, caches
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:

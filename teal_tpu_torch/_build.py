@@ -136,6 +136,27 @@ SIGNATURES = {
     ("token_decode", "teal_token_clusters"): [
         _I, _I, _I,             # dtype code, query heads a kv head, C
     ],
+    ("token_decode_rows", "teal_token_decode_rows"): [
+        _I, _I,                 # dtype code, rows B
+        _P, _P, _P, _P,         # x [B, D], thresholds, pos [B], cos|sin
+        _P, _P,                 # attention / mlp norm gains
+        _P, _P, _P, _P,         # wq, wk, wv, wo
+        _P, _P, _P,             # wgate, wup, wdown
+        _P, _P, _P, _P,         # kc, vc, out [B, D], sel (or null)
+        _P,                     # workspace
+        _I, _I, _I, _I, _I,     # L, D, I, Hq, Hkv
+        _I, _I,                 # T, window (0: none)
+        _I, _I, _I, _I, _I,     # caps (qkv, o, gate|up, down), fixed
+        _F, _I, _P,             # norm_eps, SM count, stream
+    ],
+    ("token_decode_rows", "teal_token_plan_rows"): [
+        _I, _I, _I, _I, _I, _I,  # dtype code, rows B, D, I, Hq, Hkv
+        _I, _I, _I, _I, _I,     # T, window, largest cap, SM count, L
+        _P,                     # out int32 [11]
+    ],
+    ("token_decode_rows", "teal_token_clusters_rows"): [
+        _I, _I, _I,             # dtype code, query heads a kv head, C
+    ],
     ("token_decode_quant", "teal_token_decode_q"): [
         _I, _P, _P, _P, _P,     # plan (1 int8, 2 int4), x, thresholds,
                                 # pos, cos|sin

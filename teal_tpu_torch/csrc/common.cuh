@@ -146,6 +146,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The folded rms_norm's selection input of a bf16x2 pair v (an MMA A
+// fragment register): rnd(rnd(v * rs) * g) per element, g the gains'
+// pair (the rows forms of K1 and K7)
+__device__ __forceinline__ uint32_t sel2(uint32_t v, float rs, uint32_t g) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+  const float2 gg =
+      __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&g));
+  return pack_bf16(rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(x.x * rs) * gg.x),
+                   rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(x.y * rs) * gg.y));
+}
+
 // mbarriers (shared::cta): init by one thread, then the fence before any
 // other thread uses them; a wait spins until the phase of the given
 // parity has completed (a fresh barrier is in phase 0).

@@ -711,15 +711,6 @@ RowsPlan rows_plan(int esz, int plan, int nw, int K, int n_out, int cap,
   return p;
 }
 
-// selection input of a bf16x2 pair: rnd(rnd(v * rs) * g) per element
-__device__ __forceinline__ uint32_t sel2(uint32_t v, float rs, uint32_t g) {
-  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-  const float2 gg =
-      __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&g));
-  return pack_bf16(rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(x.x * rs) * gg.x),
-                   rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(x.y * rs) * gg.y));
-}
-
 // bf16: two blocks an SM (128 registers a thread), as the plan assumes
 template <typename T, int P, bool PAIR>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 2 : 1)

@@ -21,10 +21,14 @@
 //      groups 0..cap-1), the q|k|v gather GEMV in fp32, RoPE from the fp32
 //      sums (q then scaled by 1/sqrt(128)), this token's K/V written at
 //      `pos` into [L, 1, Hkv, T, 128], and GQA attention over the live rows
-//      t < pos (t > pos - window) plus the current token: slab scores of q
-//      rounded to T, ONE max over all of them before any exp, the weights
-//      rounded to T for the PV product, the denominator of the unrounded
-//      ones, the output in T;
+//      t < pos (t > pos - window) plus the current token, walked in chunks
+//      of a fixed number of rows, as the reference's chunked `attn_stage`
+//      walks them (attn_block.py:352-380, 492-504), in two passes: slab
+//      scores of q rounded to T, ONE max over all of them and the current
+//      token's before any exp, the weights rounded to T for the PV
+//      product, the denominator of the unrounded ones, the output in T
+//      (the plain version's rounding points; a running max rescaled chunk
+//      by chunk moved kept groups, PERF.md);
 //   2. o (column 3): out = T(sums + h) into the stream;
 //   3. gate|up (column 4) with the folded mlp norm: T(silu(gate) * up);
 //   4. down (column 6): out = T(sums + h).
@@ -62,10 +66,14 @@
 //     the q columns of its Hq / Hkv query heads; every block of it adds the
 //     cluster's partial sums (rank order) into the head's fp32 q|k|v,
 //     applies RoPE, block 0 of the cluster writes this token's K/V at
-//     `pos`, and the blocks split the live cache rows: maxima, then partial
-//     PV and denominators, exchanged through distributed shared memory
-//     behind cluster barriers (barrier.cluster arrive.release /
-//     wait.acquire). The plan's column-owned stages run on the same
+//     `pos`, and the blocks split the live cache rows: the maxima (every
+//     block scores all the live rows where they fit one chunk of
+//     `chunk_rows`, else its share, the maxima exchanged), then each
+//     block's weights and partial PV and denominators of its share, added
+//     in rank order through distributed shared memory behind cluster
+//     barriers (barrier.cluster arrive.release / wait.acquire). Shared
+//     memory keeps a fixed number of scores (`score_rows`; a longer share
+//     is scored again chunk by chunk), so no plan depends on T. The plan's column-owned stages run on the same
 //     clusters. In the other plan (few kv heads) the q|k|v stage is
 //     column-owned like the others and writes its fp32 sums to the
 //     workspace; a grid barrier; then cluster c runs the attention of kv
@@ -142,6 +150,7 @@ constexpr int MAXSLOT = 8;             // ring slots at most
 constexpr int MAXGH = 8;               // query heads a kv head
 constexpr int MINC = 2, MAXC = 8;      // blocks a cluster (portable sizes)
 constexpr int U = 8;                   // cache rows in flight a row lane
+constexpr int MISC = 128;              // floats of scratch (reductions)
 constexpr int MAXCH = 8;               // 16-byte chunks of h a thread
 constexpr int SMEM_MAX = 232448;       // a block's shared memory on Hopper
 constexpr int NBAR = 5;                // grid-barrier slots a layer
@@ -168,6 +177,19 @@ __host__ __device__ constexpr size_t al256(size_t n) {
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 
+// Cache rows of an attention chunk (a block walks its share of a head's
+// live rows in chunks): RPI rows a pass (LPR = 8 or 16 lanes a 256- or
+// 512-byte row), U passes: 128 (bf16) or 64 (fp32).
+__host__ __device__ constexpr int chunk_rows(int esz) {
+  return WORKERS / (HD * esz / 16) * U;
+}
+// Scores a query row of attention keeps in shared memory: SCORES floats
+// over the GH query rows of a kv head (a block's share of up to 2048 live
+// rows at one query row a kv head, 256 at eight; a longer share is
+// scored again in the second pass)
+constexpr int SCORES = 2048;
+__host__ __device__ constexpr int score_rows(int GH) { return SCORES / GH; }
+
 // Bytes of a slab row in a TMA box, the unit of a stage's columns: 256 for
 // arrays (128 bf16 or 64 fp32 columns), 128 for int8 and packed int4 (128
 // columns); the stored rows of a box (BOXB bytes); the columns of a unit;
@@ -192,11 +214,11 @@ __host__ __device__ constexpr int slot_bytes(int plan) {
 // the warps' sums of a tile [8][2][columns of a unit] fp32, the stream h
 // [D] and a stage's selection input [max(D, I)] of T, the scores, the kept
 // groups, (int4) each kept group's sum of its selection input [capmax]
-// fp32, 64 floats of scratch, then attention's q|k|v sums [GH + 2][128]
+// fp32, MISC floats of scratch, then attention's q|k|v sums [GH + 2][128]
 // and RoPE'd q|k [GH + 1][128] fp32, q rounded [GH][128] T, four [8] fp32
 // (current score, its weight, max, sum), the block's maxima [8] and
 // partial PV and denominators [GH * 128 + 8] fp32 (read by the peers),
-// and the score slice [GH][NS] fp32.
+// and the kept scores [GH][NS] fp32 (NS = `score_rows`).
 struct Layout {
   int bars, part, red, h, xs, scores, idx, gsum, misc, qraw, qf, qr, small,
       amax, apv, s, total;
@@ -211,7 +233,7 @@ struct Layout {
     idx = scores + pad4(imax(D, I) / HD) * 4;
     gsum = idx + pad4(capmax + 1) * 4;
     misc = gsum + (plan == PLAN_INT4 ? pad4(capmax) * 4 : 0);
-    qraw = misc + 64 * 4;
+    qraw = misc + MISC * 4;
     qf = qraw + (GH + 2) * HD * 4;
     qr = qf + (GH + 1) * HD * 4;
     small = qr + al16(GH * HD * esz);
@@ -255,11 +277,31 @@ struct TokPlan {
 //     (measured 5% slower a token, PERF.md);
 //   - else the other plan: nc[C] clusters of the largest C whose grid
 //     (nc[C] C blocks) is within 1/16 of the largest such grid;
-// NS = a block's score slice (its share of the most live rows, padded to
-// 4); `part` holds the largest NW x (columns of a cluster) of the stages;
+// NS = the scores a query row keeps (`score_rows`, whatever T); `part`
+// holds the largest NW x (columns of a cluster) of the stages;
 // the ring takes what shared memory is left, up to MAXSLOT slots of
 // `slot_bytes`, at least two and at least attention's PV sums. The
 // quantized plans take a bf16 stream only.
+// The plan's structure from the resident clusters (see above): C blocks
+// a cluster, NC clusters, head-owned; C 0 where no cluster fits. The rows
+// form (`token_decode_rows.cu`) takes the same.
+struct Structure {
+  int C, NC, head;
+};
+Structure token_structure(int Hkv, int n_sms, const int* nc) {
+  int best = 0, co = 0, ch = 0;
+  for (int c = MINC; c <= MAXC; ++c) {
+    best = imax(best, c * nc[c]);
+    if (nc[c] >= Hkv) ch = c;
+  }
+  for (int c = MAXC; c >= MINC && co == 0; --c)
+    if (best > 0 && 16 * c * nc[c] >= 15 * best) co = c;
+  const int head = ch > 0 && 2 * ch * Hkv >= n_sms;
+  if (!head && co == 0) return {0, 0, 0};
+  const int C = head ? ch : co, NC = head ? Hkv : nc[C];
+  return {C, NC, head};
+}
+
 TokPlan token_plan(int plan, int esz, int D, int I, int Hq, int Hkv, int T,
                    int window, int capmax, int n_sms, const int* nc) {
   TokPlan p = {0, 0, 0, 0, 0, 0, 0, -1, 0};
@@ -270,18 +312,10 @@ TokPlan token_plan(int plan, int esz, int D, int I, int Hq, int Hkv, int T,
       capmax > imax(D, I) / HD || D * esz > 16 * MAXCH * THREADS)
     return p;
   const int GH = Hq / Hkv;
-  int best = 0, co = 0, ch = 0;
-  for (int c = MINC; c <= MAXC; ++c) {
-    best = imax(best, c * nc[c]);
-    if (nc[c] >= Hkv) ch = c;
-  }
-  for (int c = MAXC; c >= MINC && co == 0; --c)
-    if (best > 0 && 16 * c * nc[c] >= 15 * best) co = c;
-  const int head = ch > 0 && 2 * ch * Hkv >= n_sms;
-  if (!head && co == 0) return p;
-  const int C = head ? ch : co, NC = head ? Hkv : nc[C];
-  const int live = window > 0 && window < T ? window : T;
-  const int NS = pad4(cdiv(imax(live - 1, 1), C));
+  const Structure sc = token_structure(Hkv, n_sms, nc);
+  if (sc.C == 0) return p;
+  const int C = sc.C, NC = sc.NC, head = sc.head;
+  const int NS = score_rows(Hq / Hkv);
   const int uw = unit_cols(plan, esz), slot = slot_bytes(plan);
   auto most = [&](int cols, int nw) { return nw * cdiv(cols / uw, NC) * uw; };
   const int partf = imax(imax(most(D, 1), most(I, 2)),
@@ -311,6 +345,7 @@ struct Args {
   long long* stamps;      // [L, NSTAMP + NBAR grid] the trace, or null
   unsigned char* ws;
   int L, D, I, Hq, Hkv, T, window, fixed, empty;
+  int B;                  // rows (the rows form, `token_decode_rows.cu`)
   int cap[4], capmax;
   float eps, scale;
   int C, NC, head, grid, nslot, NS, partf;
@@ -874,10 +909,44 @@ __device__ __forceinline__ void epilogue(const Args& a, int kind,
   }
 }
 
+// N values reduced over the block at once (max or sum) in a fixed order:
+// each warp's butterfly, then the warps in order; every thread gets the
+// results. `scratch` holds NWARPS * N floats (<= MISC).
+template <int N, bool MAX>
+__device__ __forceinline__ void block_reduce_n(float (&v)[N],
+                                               float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int n = 0; n < N; ++n) v[n] = MAX ? warp_max(v[n]) : warp_sum(v[n]);
+  if (lane == 0)
+#pragma unroll
+    for (int n = 0; n < N; ++n) scratch[warp * N + n] = v[n];
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float r = scratch[n];
+    for (int w = 1; w < NWARPS; ++w)
+      r = MAX ? fmaxf(r, scratch[w * N + n]) : r + scratch[w * N + n];
+    v[n] = r;
+  }
+  __syncthreads();
+}
+
 // Kv head hk's attention by this cluster (block `rank` of C) on the head's
-// q|k|v sums in `qraw`: see the header. QG = the query heads a kv head
-// (one kernel each, so that the hot loops hold no predicated work for
-// absent heads).
+// q|k|v sums in `qraw`: see the header. Two passes over the live rows in
+// chunks of CH rows (`chunk_rows`), so that shared memory holds a fixed
+// number of scores whatever T: the first finds the one max M of each
+// query row over every live row and the current token (where the live
+// rows fit one chunk, every block scores them all and no exchange is
+// needed; else each block its share, the maxima exchanged through
+// distributed shared memory), keeping the block's scores where they fit
+// `s` ([GH][NS], NS = `score_rows`); the second takes each of the
+// block's rows' weight exp(s - M) rounded to T (the scores recomputed
+// chunk by chunk where they did not fit), the sum of the unrounded ones
+// and the partial PV. The blocks' PV and denominators are then added in
+// rank order: the rounding points of one exact softmax, as the plain
+// version's. QG = the query heads a kv head (one kernel each, so that
+// the hot loops hold no predicated work for absent heads).
 template <typename T, int QG>
 __device__ __forceinline__ void attention(const Args& a, const Layout& lay,
                                        const WsLayout& wl, unsigned char* sm,
@@ -886,16 +955,16 @@ __device__ __forceinline__ void attention(const Args& a, const Layout& lay,
   constexpr int VE = 16 / ESZ;              // a chunk's elements
   constexpr int LPR = HD / VE;              // lanes a cache row
   constexpr int RPI = WORKERS / LPR;        // cache rows a pass
+  constexpr int CH = chunk_rows(ESZ);       // rows of a chunk: RPI * U
   constexpr int GH = QG;
+  constexpr int NS = score_rows(GH);        // scores a query row keeps
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int C = a.C, NS = a.NS;
+  const int C = a.C;
   float* qraw = reinterpret_cast<float*>(sm + lay.qraw);
   float* qf = reinterpret_cast<float*>(sm + lay.qf);
   T* qr = reinterpret_cast<T*>(sm + lay.qr);
   float* sc = reinterpret_cast<float*>(sm + lay.small);
-  float* ec = sc + MAXGH;
-  float* M = ec + MAXGH;
-  float* den = M + MAXGH;
+  float* M = sc + MAXGH;
   float* amax = reinterpret_cast<float*>(sm + lay.amax);
   float* apv = reinterpret_cast<float*>(sm + lay.apv);
   float* s = reinterpret_cast<float*>(sm + lay.s);
@@ -931,54 +1000,38 @@ __device__ __forceinline__ void attention(const Args& a, const Layout& lay,
     kcache[static_cast<size_t>(pos) * HD + tid] = from_f<T>(knf[tid]);
     vcache[static_cast<size_t>(pos) * HD + tid] = from_f<T>(vnf[tid]);
   }
-  // the current token's score, fp32: a warp a query row
-  for (int g = warp; g < GH; g += NWARPS) {
-    const float* qg = qf + g * HD + lane * 4;
-    const float* kg = knf + lane * 4;
-    float p = qg[0] * kg[0];
-    p = fmaf(qg[1], kg[1], p);
-    p = fmaf(qg[2], kg[2], p);
-    p = fmaf(qg[3], kg[3], p);
-    p = warp_sum(p);
-    if (lane == 0) sc[g] = p;
-  }
-
-  // the block's share [ra, ra + nr) of the live rows [lo, pos)
+  // the live rows [lo, lo + n); the block's share [ra, ra + nr); the rows
+  // the first pass scores: all of them where they fit one chunk (`whole`),
+  // else the share
   const int lo = a.window > 0 ? max(pos - a.window + 1, 0) : 0;
   const int n = pos - lo;
   const int ra = lo + split_lo(n, C, rank);
   const int nr = split_lo(n, C, rank + 1) - split_lo(n, C, rank);
+  const bool whole = n <= CH;
+  const int p0 = whole ? lo : ra, np = whole ? n : nr;
+  const bool keep = np <= NS;               // the first pass's scores kept
   const int li = tid % LPR, rr = tid / LPR;
   const bool worker = tid < WORKERS;
-  // a row lane's chunk of cache rows base + rr + u RPI (zeros past nr)
-  auto rows = [&](const T* cache, int base, uint4 (&c)[U]) {
+  // a row lane's chunk of cache rows first + base + rr + u RPI (zeros from
+  // count on)
+  auto rows = [&](const T* cache, int first, int count, int base,
+                  uint4 (&c)[U]) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = base + rr + u * RPI;
-      c[u] = worker && t < nr
+      c[u] = worker && t < count
                  ? __ldcg(reinterpret_cast<const uint4*>(
-                              cache + static_cast<size_t>(ra + t) * HD) + li)
+                              cache + static_cast<size_t>(first + t) * HD) +
+                          li)
                  : make_uint4(0, 0, 0, 0);
     }
   };
-  // the first pass's K and V rows in flight together (the only pass up to
-  // RPI U rows a block)
-  uint4 k0[U], v0[U];
-  rows(kcache, 0, k0);
-  rows(vcache, 0, v0);
-  // slab scores: LPR lanes a cache row, U rows in flight a row lane
-  if (worker)
-    for (int base = 0; base < nr; base += RPI * U) {
-      uint4 kv[U];
-      if (base == 0) {
-#pragma unroll
-        for (int u = 0; u < U; ++u) kv[u] = k0[u];
-      } else {
-        rows(kcache, base, kv);
-      }
+  // the chunk's scores of rows first + base + t into s[g][at + t], t < nc
+  auto scores = [&](const uint4 (&kv)[U], int at, int nc) {
+    if (worker)
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int t = base + rr + u * RPI;
+        const int t = rr + u * RPI;
         float k[VE];
         unpack16(kv[u], k);
         for (int g = 0; g < GH; ++g) {
@@ -991,77 +1044,113 @@ __device__ __forceinline__ void attention(const Args& a, const Layout& lay,
 #pragma unroll
           for (int o = 1; o < LPR; o <<= 1)
             p += __shfl_xor_sync(0xffffffffu, p, o);
-          if (li == 0 && t < nr) s[g * NS + t] = p;
+          if (li == 0 && t < nc) s[g * NS + at + t] = p;
         }
       }
-    }
-  __syncthreads();
-  // the share's max per query row, then the cluster's: the one max M
-  for (int g = 0; g < GH; ++g) {
-    float m = __int_as_float(0xff800000);   // -inf
-    for (int t = tid; t < nr; t += THREADS) m = fmaxf(m, s[g * NS + t]);
-    m = block_max(m, misc);
-    if (tid == 0) amax[g] = m;
+  };
+  // the first chunk's K rows (and, where the share is one chunk, its V
+  // rows) in flight during the current token's score
+  uint4 kv[U], vv[U];
+  rows(kcache, p0, np, 0, kv);
+  rows(vcache, ra, nr, 0, vv);
+  // the current token's score, fp32: a warp a query row
+  for (int g = warp; g < GH; g += NWARPS) {
+    const float* qg = qf + g * HD + lane * 4;
+    const float* kg = knf + lane * 4;
+    float p = qg[0] * kg[0];
+    p = fmaf(qg[1], kg[1], p);
+    p = fmaf(qg[2], kg[2], p);
+    p = fmaf(qg[3], kg[3], p);
+    p = warp_sum(p);
+    if (lane == 0) sc[g] = p;
   }
+  // pass 1: each query row's max over the scored rows
+  float mx[GH];
+#pragma unroll
+  for (int g = 0; g < GH; ++g) mx[g] = __int_as_float(0xff800000);   // -inf
+  for (int base = 0; base < np; base += CH) {
+    if (base > 0) rows(kcache, p0, np, base, kv);
+    const int nc = imin(CH, np - base), at = keep ? base : 0;
+    scores(kv, at, nc);
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < GH; ++g)
+      for (int t = tid; t < nc; t += THREADS)
+        mx[g] = fmaxf(mx[g], s[g * NS + at + t]);
+    if (!keep) __syncthreads();            // s: the next chunk's scores
+  }
+  block_reduce_n<GH, true>(mx, misc);
   stamp(1);
-  cluster_sync();
-  if (tid < GH) {
-    const uint32_t at = smem_u32(amax + tid);
-    float m = sc[tid], mv[MAXC];
+  if (whole) {                             // every block scored every row
 #pragma unroll
-    for (int q = 0; q < MAXC; ++q)
-      if (q < C) mv[q] = ld_cluster(mapa(at, q));
+    for (int g = 0; g < GH; ++g)
+      if (tid == g) M[g] = fmaxf(sc[g], mx[g]);
+  } else {                                 // the cluster's maxima
 #pragma unroll
-    for (int q = 0; q < MAXC; ++q)
-      if (q < C) m = fmaxf(m, mv[q]);
-    M[tid] = m;
-    ec[tid] = expf(sc[tid] - m);
+    for (int g = 0; g < GH; ++g)
+      if (tid == g) amax[g] = mx[g];
+    cluster_sync();
+    if (tid < GH) {
+      const uint32_t at = smem_u32(amax + tid);
+      float m = sc[tid], mv[MAXC];
+#pragma unroll
+      for (int q = 0; q < MAXC; ++q)
+        if (q < C) mv[q] = ld_cluster(mapa(at, q));
+#pragma unroll
+      for (int q = 0; q < MAXC; ++q)
+        if (q < C) m = fmaxf(m, mv[q]);
+      M[tid] = m;
+    }
   }
   __syncthreads();
   stamp(2);
-  // weights rounded to T for PV; the sum of the unrounded ones
-  for (int g = 0; g < GH; ++g) {
-    float sum = 0.f;
-    for (int t = tid; t < nr; t += THREADS) {
-      const float e = expf(s[g * NS + t] - M[g]);
-      s[g * NS + t] = rnd<T>(e);
-      sum += e;
-    }
-    sum = block_sum(sum, misc);
-    if (tid == 0) den[g] = sum;
-  }
-  __syncthreads();
-  // partial PV: each lane its VE dimensions of its rows, then the row
-  // lanes added in order
-  float acc[GH][VE];
+  // pass 2: the share's weights (rounded to T for PV), their unrounded
+  // sums and the partial PV, chunk by chunk
+  float acc[GH][VE], es[GH];
 #pragma unroll
-  for (int g = 0; g < GH; ++g)
+  for (int g = 0; g < GH; ++g) {
+    es[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < VE; ++e) acc[g][e] = 0.f;
-  if (worker)
-    for (int base = 0; base < nr; base += RPI * U) {
-      uint4 vv[U];
-      if (base == 0) {
+  }
+  const int off = whole ? ra - lo : 0;     // the share's first kept score
+  for (int base = 0; base < nr; base += CH) {
+    const int nc = imin(CH, nr - base);
+    int at = off + base;
+    if (!keep) {                           // recompute the chunk's scores
+      rows(kcache, ra, nr, base, kv);
+      at = 0;
+      __syncthreads();
+      scores(kv, 0, nc);
+      __syncthreads();
+    }
+    if (base > 0) rows(vcache, ra, nr, base, vv);
 #pragma unroll
-        for (int u = 0; u < U; ++u) vv[u] = v0[u];
-      } else {
-        rows(vcache, base, vv);
+    for (int g = 0; g < GH; ++g)
+      for (int t = tid; t < nc; t += THREADS) {
+        const float e = expf(s[g * NS + at + t] - M[g]);
+        s[g * NS + at + t] = rnd<T>(e);
+        es[g] += e;
       }
+    __syncthreads();
+    if (worker)
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int t = base + rr + u * RPI;
-        if (t < nr) {
+        const int t = rr + u * RPI;
+        if (t < nc) {
           float v[VE];
           unpack16(vv[u], v);
 #pragma unroll
           for (int g = 0; g < GH; ++g) {
-            const float w = s[g * NS + t];
+            const float w = s[g * NS + at + t];
 #pragma unroll
             for (int e = 0; e < VE; ++e) acc[g][e] = fmaf(w, v[e], acc[g][e]);
           }
         }
       }
-    }
+  }
+  block_reduce_n<GH, false>(es, misc);
+  // the row lanes' partial PV added in order
   float* red = reinterpret_cast<float*>(sm);        // [RPI][GH][128]
   if (worker)
 #pragma unroll
@@ -1075,12 +1164,14 @@ __device__ __forceinline__ void attention(const Args& a, const Layout& lay,
     for (int r = 0; r < RPI; ++r) p += red[r * GH * HD + i];
     apv[i] = p;
   }
-  if (tid < GH) apv[GH * HD + tid] = den[tid];
+#pragma unroll
+  for (int g = 0; g < GH; ++g)
+    if (tid == g) apv[GH * HD + g] = es[g];
   stamp(3);
   cluster_sync();
   stamp(4);
   // this block's slice of the head's dimensions, the cluster's blocks in
-  // rank order
+  // rank order, then the current token
   const uint32_t pb = smem_u32(apv);
   const int d0 = split_lo(HD, C, rank), nd = split_lo(HD, C, rank + 1) - d0;
   for (int i = tid; i < GH * nd; i += THREADS) {
@@ -1089,8 +1180,9 @@ __device__ __forceinline__ void attention(const Args& a, const Layout& lay,
     const bool ok[2] = {true, true};
     float pd[2];
     cluster_sums(addr, ok, C, pd);
+    const float ec = expf(sc[g] - M[g]);
     st_cg(attn + (hk * GH + g) * HD + d,
-          from_f<T>((pd[0] + ec[g] * vnf[d]) * (1.0f / (pd[1] + ec[g]))));
+          from_f<T>((pd[0] + ec * vnf[d]) * (1.0f / (pd[1] + ec))));
   }
   fence_proxy_async();       // `red` lies in the ring, which TMA refills
 }
@@ -1328,10 +1420,10 @@ EncodeTiled encode_tiled() {
 }
 
 // A 2-D map over [rows, N] elements of esz bytes (type dt): boxes of bc
-// columns by br rows, no swizzle.
+// columns by br rows, no swizzle (or `swz`).
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* p,
             CUtensorMapDataType dt, int esz, long long rows, int N, int bc,
-            int br) {
+            int br, CUtensorMapSwizzle swz = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * esz};
@@ -1339,7 +1431,7 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* p,
                              static_cast<cuuint32_t>(br)};
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, dt, 2, const_cast<void*>(p), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1563,6 +1655,7 @@ int decode_impl(int plan, int dtype, const void* x, const void* thr,
   a.window = window;
   a.fixed = fixed;
   a.empty = empty;
+  a.B = 1;
   for (int i = 0; i < 4; ++i) a.cap[i] = caps[i];
   a.capmax = capmax;
   a.eps = eps;

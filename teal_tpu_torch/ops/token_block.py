@@ -4,17 +4,21 @@ or a batch of up to 16 rows.
 Port of `teal_tpu/ops/token_block.py:token_decode`. The JAX package runs
 every layer in one Pallas launch (`_token_kernel`), or with `token_fused`
 False in the 4-launch packed pipeline (`models/llama.py:_packed_layer`).
-Here two routes, decided by the call's form alone:
+Here two routes, decided by the call's form and shapes before any
+launch:
   - K7 `token_kernel` (`csrc/token_decode.cuh`, built by `token_decode.cu`
-    for the arrays and `token_decode_quant.cu` for int8 and int4): one
-    persistent launch a token through every layer, for one row (batch 1)
-    with weights that are arrays of the stream type (the cache of that
-    type), or with a bf16 stream and cache all seven int8 dicts or all
-    seven packed int4 dicts at quant group 128; no MoE, head_dim 128 and
-    Hq / Hkv <= 8, where `token_fused` is not False. Its plain version,
+    for the arrays, `token_decode_quant.cu` for int8 and int4 and
+    `token_decode_rows.cu` for rows): one persistent launch a step through
+    every layer, for one row (batch 1) with weights that are arrays of the
+    stream type (the cache of that type), or with a bf16 stream and cache
+    all seven int8 dicts or all seven packed int4 dicts at quant group
+    128; or for 2-16 rows (the server's step) with arrays; no MoE,
+    head_dim 128 and Hq / Hkv <= 8, where `token_fused` is not False and
+    K7 has a launch plan for the shapes (`k7_plan`). Its plain version,
     `token_kernel_plain`, runs each stage through K1's and K2's plain
     versions (on CPU tensors the wrapper runs it);
-  - the layer loop below, every other form and `token_fused=False`: a
+  - the layer loop below, every other form (int8 and int4 rows,
+    `seq_block`, MoE), a shape K7 cannot plan and `token_fused=False`: a
     host loop runs, per layer, five kernel launches whatever the batch
     (160 a step at 7B):
   1. the attention stage (`attn_block.attn_stage`: K1 on q|k|v with the
@@ -326,17 +330,17 @@ def token_decode(h: torch.Tensor, thresholds: torch.Tensor,
           N], "scale" [L, E, N]}), `n_experts_per_tok` of which run a
           layer (see the module docstring)
     token_fused: False keeps the layer loop (the reference's packed
-          pipeline); otherwise K7 takes the forms it covers
+          pipeline); otherwise K7 takes the forms it covers where it has a
+          launch plan for the shapes
 
     Returns the stream after the last layer, of h's shape.
     """
-    if token_fused is not False and k7_form(h, ws, kc, n_heads, router,
-                                            seq_block):
-        if isinstance(pos, int):
-            if not 0 <= pos < kc.shape[3]:
-                raise ValueError(f"pos {pos} out of range "
-                                 f"[0, {kc.shape[3]})")
-            pos = torch.full((1,), pos, dtype=torch.int32, device=h.device)
+    if isinstance(pos, int):
+        if not 0 <= pos < kc.shape[3]:
+            raise ValueError(f"pos {pos} out of range [0, {kc.shape[3]})")
+        pos = torch.full((1,), pos, dtype=torch.int32, device=h.device)
+    if k7_route(h, ws, kc, n_heads, caps, window, router, seq_block,
+                token_fused):
         return token_kernel(h, thresholds, ws, norm_attn, norm_mlp, rope,
                             kc, vc, pos, caps=caps, n_heads=n_heads,
                             norm_eps=norm_eps, window=window,
@@ -345,10 +349,6 @@ def token_decode(h: torch.Tensor, thresholds: torch.Tensor,
         if h.dim() != 1 or seq_block:
             raise ValueError("the MoE token path decodes one row")
         ws = (*ws[:4], *(expert_stacks(w) for w in ws[4:]))
-    if isinstance(pos, int):
-        if not 0 <= pos < kc.shape[3]:
-            raise ValueError(f"pos {pos} out of range [0, {kc.shape[3]})")
-        pos = torch.full((1,), pos, dtype=torch.int32, device=h.device)
     if kc.dtype != h.dtype:
         raise ValueError(f"the token path needs the cache in the stream "
                          f"type {h.dtype}; got {kc.dtype}")
@@ -382,6 +382,9 @@ _TOK_BARRIER_SLOTS = 5           # q|k|v (other plan), attention, o,
                                  # gate|up, down
 _TOK_TRACE_ROWS = _TOK_BARRIER_SLOTS + 4    # a block's trace: barrier
                                  # arrivals, then its gathers' ends
+_TOK_MISC = 128                  # floats of scratch (block reductions)
+MAX_ROWS = 16                    # K7's rows form: 2..16 rows (the MMA's M)
+_ROWS_UB = 128                   # bytes of a rows-form box row: a unit
 
 # Resident clusters of C blocks of K7 (one block an SM) on an NVIDIA H100
 # 80GB HBM3 (132 SMs), from `cudaOccupancyMaxActiveClusters`
@@ -400,8 +403,11 @@ class TokenPlan(NamedTuple):
     C: int                       # blocks a cluster
     clusters: int
     head_owned: bool             # a cluster a kv head: q|k|v + attention
-    slots: int                   # ring slots of `_tok_slot` bytes
-    NS: int                      # a block's score slice (cache rows)
+    slots: int                   # ring slots (`_tok_slot` bytes; rows:
+                                 # two boxes and their staged input rows)
+    NS: int                      # attention: the scores a query row
+                                 # keeps (`_tok_scores`); rows: the rows
+                                 # of a warp's chunk (`_rows_chunk`)
 
 
 def _al(n: int, a: int) -> int:
@@ -421,6 +427,24 @@ def _tok_slot(plan: int = PLAN_STREAM) -> int:
     return 2 * _TOK_BOX + (2 * _TOK_SZB if plan == PLAN_INT4 else 0)
 
 
+_TOK_SCORES = 2048               # attention scores a block keeps
+
+
+def _tok_scores(GH: int) -> int:
+    """Scores a query row of K7's attention keeps in shared memory (a
+    block's share of up to 2048 live rows at one query row a kv head, 256
+    at eight; a longer share is scored again chunk by chunk), whatever
+    T."""
+    return _TOK_SCORES // GH
+
+
+def _rows_chunk(esz: int, GH: int) -> int:
+    """Cache rows of a warp's attention chunk in the rows form: 2 bf16 rows
+    a pass (1 fp32), 8 passes in flight (fewer for 4 and 8 query heads a
+    kv head, whose sums take registers)."""
+    return 32 // (HEAD_DIM * esz // 16) * (8 if GH <= 2 else 16 // GH)
+
+
 def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int, NS: int,
                 partf: int, slots: int, plan: int = PLAN_STREAM) -> int:
     """K7's shared memory a block in bytes: the ring (attention's row-lane
@@ -428,14 +452,15 @@ def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int, NS: int,
     (`partf` fp32, read by the cluster's peers), the warps' sums of a
     unit, the stream h [D] and a stage's selection input [max(D, I)] of
     the stream type, the group scores, the kept groups and count, (int4)
-    each kept group's sum [capmax] fp32, 64 floats of scratch,
+    each kept group's sum [capmax] fp32, 128 floats of scratch,
     attention's q|k|v sums and RoPE'd q|k (fp32), q rounded, four [8]
     fp32, the block's maxima and partial PV with its denominators (fp32,
-    read by the peers) and the score slice [GH][NS]."""
+    read by the peers) and the kept scores [GH][NS]."""
     n = slots * _tok_slot(plan) + 2 * _TOK_MAX_SLOTS * 8 + partf * 4
     n += 8 * 2 * _tok_unit(esz, plan) * 4
     n += _al(D * esz, 16) + _al(max(D, I) * esz, 16)
-    n += _al(max(D, I) // HEAD_DIM, 4) * 4 + _al(capmax + 1, 4) * 4 + 64 * 4
+    n += (_al(max(D, I) // HEAD_DIM, 4) * 4 + _al(capmax + 1, 4) * 4
+          + _TOK_MISC * 4)
     n += _al(capmax, 4) * 4 if plan == PLAN_INT4 else 0
     n += (GH + 2) * HEAD_DIM * 4 + (GH + 1) * HEAD_DIM * 4
     n += _al(GH * HEAD_DIM * esz, 16) + 4 * MAX_GROUP * 4 + MAX_GROUP * 4
@@ -443,17 +468,38 @@ def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int, NS: int,
     return n + GH * NS * 4
 
 
-def _token_ws(esz: int, D: int, I: int, Hq: int, Hkv: int) -> int:
+def _rows_slot(esz: int) -> int:
+    """Bytes of a rows-form ring slot: two boxes (64 rows x 128 bytes) and
+    16 staged input rows of a group (128 of the stream type, +16 bytes)."""
+    return 2 * _TOK_BOX + MAX_ROWS * (HEAD_DIM * esz + 16)
+
+
+def _token_smem_rows(esz: int, D: int, I: int, capmax: int, partf: int,
+                     slots: int) -> int:
+    """Shared memory a block of K7's rows form in bytes
+    (`token_decode_rows.cu`'s RowsLayout): the ring (`_rows_slot` a
+    slot), its full and empty mbarriers, the block's partial sums (`partf`
+    fp32: B rows), the warps' sums of a unit [8][16][unit] fp32, the
+    peers' sums of squares [8][16] and the row scales [16] fp32, the group
+    scores, the kept groups and count, 128 floats of scratch."""
+    n = slots * _rows_slot(esz) + 2 * _TOK_MAX_SLOTS * 8 + partf * 4
+    n += 8 * MAX_ROWS * (_ROWS_UB // esz) * 4 + 8 * MAX_ROWS * 4
+    n += MAX_ROWS * 4 + _al(max(D, I) // HEAD_DIM, 4) * 4
+    return n + _al(capmax + 1, 4) * 4 + _TOK_MISC * 4
+
+
+def _token_ws(esz: int, D: int, I: int, Hq: int, Hkv: int,
+              rows: int = 1) -> int:
     """K7's workspace in bytes (256-byte aligned regions): the grid
-    barrier's counter (a 128-byte line), the q|k|v sums [(Hq + 2 Hkv) *
-    128] fp32 (the other plan's), the stream after o and after down [D]
-    (two buffers, so that a stage that keeps no group can skip its
-    barrier), the attention output [Hq * 128] and the intermediate [I] of
-    the stream type."""
-    n = _al(256 + (Hq + 2 * Hkv) * HEAD_DIM * 4, 256)
+    barrier's counter (a 128-byte line), the q|k|v sums [rows][(Hq + 2
+    Hkv) * 128] fp32 (the other plan's, and every rows plan's), two
+    stream buffers [rows][D] (so that a stage that keeps no group can skip
+    its barrier), the attention output [rows][Hq * 128] and the
+    intermediate [rows][I] of the stream type."""
+    n = _al(256 + rows * (Hq + 2 * Hkv) * HEAD_DIM * 4, 256)
     for part in (D * esz, D * esz, Hq * HEAD_DIM * esz):
-        n = _al(n + part, 256)
-    return _al(n + I * esz, 256)
+        n = _al(n + rows * part, 256)
+    return _al(n + rows * I * esz, 256)
 
 
 def _token_structure(Hkv: int, n_sms: int, clusters) -> Optional[Tuple[int,
@@ -476,26 +522,32 @@ def _token_structure(Hkv: int, n_sms: int, clusters) -> Optional[Tuple[int,
 def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
                 window: Optional[int], capmax: int, L: int,
                 n_sms: int = _H100_SMS, clusters=None,
-                plan: int = PLAN_STREAM) -> Optional[TokenPlan]:
+                plan: int = PLAN_STREAM, rows: int = 1
+                ) -> Optional[TokenPlan]:
     """K7's launch plan from shapes, the weight plan (`block_gemv`'s
-    PLAN_*; int8 and int4 with a bf16 stream, esz 2) and the card's
-    resident clusters of each size (`clusters`: {C: clusters}, default
-    `H100_CLUSTERS`), or None where they take none (among them a stream
-    of more than 36 KB: a thread holds at most `_TOK_MAXCH` 16-byte
-    chunks of it). The grid is
-    clusters * C blocks (`_token_structure` picks C and the structure:
-    Hkv clusters head-owned, else as many as fit);
-    NS = ceil((min(T, window) - 1) / C) rows of scores a block (padded to
-    4); the ring takes what shared memory the rest leaves, up to 8 slots,
-    at least 2 and at least attention's PV sums. Grid barriers a layer: 4
-    head-owned, 5 in the other plan; none among a kv head's blocks."""
+    PLAN_*; int8 and int4 with a bf16 stream, esz 2), the rows (1, or
+    2..16 for the rows form, arrays only) and the card's resident
+    clusters of each size (`clusters`: {C: clusters}, default
+    `H100_CLUSTERS`), or None where they take none (among them, at one
+    row, a stream of more than 36 KB: a thread holds at most `_TOK_MAXCH`
+    16-byte chunks of it). The grid is clusters * C blocks
+    (`_token_structure` picks C and the structure: Hkv clusters
+    head-owned, else as many as fit); attention walks the cache in
+    chunks and keeps a fixed number of scores (NS a query row,
+    `_tok_scores`; rows: a warp's chunk of `_rows_chunk` rows), so no plan
+    depends on T or the window; the ring takes what shared memory the
+    rest leaves, up to 8 slots, at least 2 (one row: and at least
+    attention's PV sums). Grid barriers a layer: 4 head-owned, 5 in the
+    other plan; none among a kv head's blocks."""
     if ((plan != PLAN_STREAM and esz != 2)
             or plan not in (PLAN_STREAM, PLAN_INT8, PLAN_INT4)
+            or not (rows == 1 or (2 <= rows <= MAX_ROWS
+                                  and plan == PLAN_STREAM))
             or D <= 0 or I <= 0 or D % HEAD_DIM or I % HEAD_DIM or Hkv <= 0
             or Hq != D // HEAD_DIM or Hq % Hkv or MAX_GROUP % (Hq // Hkv)
             or T < 1 or L < 1
             or not 1 <= capmax <= max(D, I) // HEAD_DIM
-            or D * esz > 16 * _TOK_MAXCH * _TOK_THREADS):
+            or (rows == 1 and D * esz > 16 * _TOK_MAXCH * _TOK_THREADS)):
         return None
     st = _token_structure(Hkv, n_sms, H100_CLUSTERS if clusters is None
                           else clusters)
@@ -505,24 +557,29 @@ def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
     NC = Hkv if head else (H100_CLUSTERS if clusters is None
                            else clusters)[C]
     GH = Hq // Hkv
-    live = window if window and window < T else T
-    NS = _al(-(-max(live - 1, 1) // C), 4)
-    uw = _tok_unit(esz, plan)
+    uw = _ROWS_UB // esz if rows > 1 else _tok_unit(esz, plan)
 
     def most(cols, nw):
         return nw * -(-(cols // uw) // NC) * uw
-    partf = max(most(D, 1), most(I, 2),
-                (GH + 2) * HEAD_DIM if head
-                else most((Hq + 2 * Hkv) * HEAD_DIM, 1))
-    rest = _token_smem(esz, D, I, GH, capmax, NS, partf, 0, plan)
-    slots = min(_TOK_MAX_SLOTS, (_SMEM_BYTES - rest) // _tok_slot(plan))
+    partf = rows * max(most(D, 1), most(I, 2),
+                       (GH + 2) * HEAD_DIM if head
+                       else most((Hq + 2 * Hkv) * HEAD_DIM, 1))
+    if rows > 1:
+        NS, slot = _rows_chunk(esz, GH), _rows_slot(esz)
+
+        def smem(n):
+            return _token_smem_rows(esz, D, I, capmax, partf, n)
+    else:
+        NS, slot = _tok_scores(GH), _tok_slot(plan)
+
+        def smem(n):
+            return _token_smem(esz, D, I, GH, capmax, NS, partf, n, plan)
+    slots = min(_TOK_MAX_SLOTS, (_SMEM_BYTES - smem(0)) // slot)
     rpi = _TOK_WORKERS // (HEAD_DIM * esz // 16)
-    if slots < 2 or slots * _tok_slot(plan) < rpi * GH * HEAD_DIM * 4:
+    if slots < 2 or (rows == 1 and slots * slot < rpi * GH * HEAD_DIM * 4):
         return None
-    return TokenPlan(NC * C, _TOK_THREADS,
-                     _token_smem(esz, D, I, GH, capmax, NS, partf, slots,
-                                 plan),
-                     _token_ws(esz, D, I, Hq, Hkv),
+    return TokenPlan(NC * C, _TOK_THREADS, smem(slots),
+                     _token_ws(esz, D, I, Hq, Hkv, rows),
                      (_TOK_BARRIER_SLOTS - 1 if head else _TOK_BARRIER_SLOTS)
                      * L, 0, C, NC, head, slots, NS)
 
@@ -532,16 +589,18 @@ def _split_lo(count: int, S: int, s: int) -> int:
 
 
 def token_columns(plan: TokenPlan, esz: int, D: int, I: int, Hq: int,
-                  Hkv: int, wplan: int = PLAN_STREAM):
+                  Hkv: int, wplan: int = PLAN_STREAM, rows: int = 1):
     """Each cluster's output columns of each gather stage under `plan`
-    (weight plan `wplan`), as the kernel cuts them: {stage: [[(weight,
-    first, end), ...] a cluster]} over the weights wq, wk, wv, wo, wgate,
-    wup, wdown; a cluster owns a contiguous range of the stage's units
-    (`_tok_unit` columns; as even as they allow); in the head-owned plan
+    (weight plan `wplan`; `rows` > 1: the rows form), as the kernel cuts
+    them: {stage: [[(weight, first, end), ...] a cluster]} over the
+    weights wq, wk, wv, wo, wgate, wup, wdown; a cluster owns a contiguous
+    range of the stage's units (`_tok_unit` columns; the rows form's: 128
+    bytes; as even as they allow); in the head-owned plan
     cluster c < Hkv owns q|k|v of kv head c (its Hq / Hkv query heads' q
     columns, its k and v columns) and the other clusters none. Also
     {"attention": [kv heads a cluster]}."""
-    uw, GH, kvw = _tok_unit(esz, wplan), Hq // Hkv, Hkv * HEAD_DIM
+    uw = _ROWS_UB // esz if rows > 1 else _tok_unit(esz, wplan)
+    GH, kvw = Hq // Hkv, Hkv * HEAD_DIM
 
     def cut(pieces):
         cols = sum(n for _, _, n in pieces)
@@ -608,12 +667,14 @@ def _k7_stacks(ws, plan: int):
 def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
             router=None, seq_block: bool = False) -> bool:
     """Whether a `token_decode` call is of the form K7 covers (decided by
-    the form alone): one row, the cache of the stream type with one row
-    and head_dim 128, MHA or GQA with 1, 2, 4 or 8 (a divisor of
-    `MAX_GROUP`) query heads a kv head, no MoE router, no seq_block, and
-    the seven weights arrays of the stream type (fp32 or bf16), or with a
-    bf16 stream all seven int8 dicts or all seven packed int4 dicts at
-    quant group 128 (`k7_weight_plan`)."""
+    the form alone): one row h [D], or rows h [B, D] with 2 <= B <= 16
+    and array weights (the rows form), the cache of the stream type with
+    as many rows and head_dim 128, MHA or GQA with 1, 2, 4 or 8 (a divisor
+    of `MAX_GROUP`) query heads a kv head, no MoE router, no seq_block,
+    and the seven weights arrays of the stream type (fp32 or bf16), or
+    with a bf16 stream and one row all seven int8 dicts or all seven
+    packed int4 dicts at quant group 128 (`k7_weight_plan`). Whether K7
+    has a launch plan for the shapes is `k7_plan`'s."""
     plan = k7_weight_plan(ws)
     if plan is None:
         return False
@@ -622,21 +683,60 @@ def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
                                                for w in ws)
     else:
         types = h.dtype == torch.bfloat16
-    return (router is None and not seq_block and h.dim() == 1 and types
-            and kc.dim() == 5 and kc.dtype == h.dtype and kc.shape[1] == 1
+    rows = (1 if h.dim() == 1 else h.shape[0]
+            if h.dim() == 2 and plan == PLAN_STREAM
+            and 2 <= h.shape[0] <= MAX_ROWS else 0)
+    return (router is None and not seq_block and rows > 0 and types
+            and kc.dim() == 5 and kc.dtype == h.dtype
+            and kc.shape[1] == rows
             and kc.shape[4] == HEAD_DIM and n_heads % kc.shape[2] == 0
             and MAX_GROUP % (n_heads // kc.shape[2]) == 0)
 
 
+def k7_route(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int, caps,
+             window: Optional[int] = None, router=None,
+             seq_block: bool = False,
+             token_fused: Optional[bool] = None) -> bool:
+    """`token_decode`'s route, from the call's form and shapes alone: K7
+    where `token_fused` is not False, the call is of K7's form (`k7_form`)
+    and K7 has a launch plan for the shapes (`k7_plan`); else the loop."""
+    return (token_fused is not False
+            and k7_form(h, ws, kc, n_heads, router, seq_block)
+            and k7_plan(h, kc, ws, n_heads, caps, window) is not None)
+
+
+def k7_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
+            window: Optional[int] = None) -> Optional[TokenPlan]:
+    """K7's launch plan for a call of K7's form, decided from shapes before
+    any launch (the route's static gate, as the reference's
+    `_can_packed_pipeline`): on a CUDA tensor the card's (`token_plan`),
+    on a CPU tensor the H100's (`_token_plan` on `H100_CLUSTERS` and 132
+    SMs). None: the shapes take no plan, and the call takes the loop."""
+    if h.device.type == "cuda":
+        return token_plan(h, kc, ws, n_heads, caps, window)
+    plan = k7_weight_plan(ws)
+    if plan is None:
+        return None
+    return _token_plan(h.element_size(), h.shape[-1],
+                       _k7_stacks(ws, plan)[0][4].shape[-1], n_heads,
+                       kc.shape[2], kc.shape[3], window, max(caps),
+                       kc.shape[0], plan=plan,
+                       rows=h.shape[0] if h.dim() == 2 else 1)
+
+
 def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
               caps, n_heads, sel):
-    """Raise on anything K7 (and its plain version) does not take."""
-    if h.dim() != 1 or h.dtype not in _DTYPE_CODE or not h.is_contiguous():
-        raise ValueError(f"h must be a contiguous fp32/bf16 vector [D]; got "
+    """Raise on anything K7 (and its plain version) does not take. Returns
+    (L, D, I, Hkv, T, rows)."""
+    B = 1 if h.dim() == 1 else h.shape[0]
+    if (not (h.dim() == 1 or (h.dim() == 2 and 2 <= B <= MAX_ROWS))
+            or h.dtype not in _DTYPE_CODE or not h.is_contiguous()):
+        raise ValueError(f"h must be a contiguous fp32/bf16 vector [D] or "
+                         f"rows [B, D] with 2 <= B <= {MAX_ROWS}; got "
                          f"{h.dtype} {tuple(h.shape)}")
-    D, dev, dt = h.shape[0], h.device, h.dtype
-    if kc.dim() != 5 or kc.shape[1] != 1 or kc.shape[4] != HEAD_DIM:
-        raise ValueError(f"caches must be [L, 1, Hkv, T, {HEAD_DIM}]; got "
+    D, dev, dt = h.shape[-1], h.device, h.dtype
+    if kc.dim() != 5 or kc.shape[1] != B or kc.shape[4] != HEAD_DIM:
+        raise ValueError(f"caches must be [L, {B}, Hkv, T, {HEAD_DIM}]; got "
                          f"{tuple(kc.shape)}")
     L, _, Hkv, T, _ = kc.shape
     if n_heads * HEAD_DIM != D or n_heads % Hkv or \
@@ -656,6 +756,9 @@ def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
     if plan != PLAN_STREAM and dt != torch.bfloat16:
         raise ValueError(f"K7's int8 and int4 weights take a bf16 stream; "
                          f"got {dt}")
+    if plan != PLAN_STREAM and B > 1:
+        raise ValueError("K7's rows form takes array weights (int8 and "
+                         "int4 rows take the loop)")
     wts, szs, scs = _k7_stacks(ws, plan)
     I = wts[4].shape[-1]
     shapes = ((D, D), (D, Hkv * HEAD_DIM), (D, Hkv * HEAD_DIM), (D, D),
@@ -686,14 +789,15 @@ def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
             or thresholds.device != dev or not thresholds.is_contiguous()):
         raise ValueError(f"thresholds must be a contiguous fp32 [{L}, 7] "
                          f"table on h's device")
-    if (rope.shape != (1, 2, HEAD_DIM) or rope.dtype != torch.float32
+    if (rope.shape != (B, 2, HEAD_DIM) or rope.dtype != torch.float32
             or rope.device != dev or not rope.is_contiguous()):
-        raise ValueError(f"rope must be a contiguous fp32 [1, 2, {HEAD_DIM}] "
-                         f"(cos, sin) row on h's device")
-    if (not isinstance(pos, torch.Tensor) or pos.shape != (1,)
-            or pos.dtype != torch.int32 or pos.device != dev):
-        raise ValueError("pos must be an int32 [1] tensor on h's device "
-                         "(read on the device; K7 traps out of range)")
+        raise ValueError(f"rope must be contiguous fp32 [{B}, 2, {HEAD_DIM}] "
+                         f"(cos, sin) rows on h's device")
+    if (not isinstance(pos, torch.Tensor) or pos.shape != (B,)
+            or pos.dtype != torch.int32 or pos.device != dev
+            or not pos.is_contiguous()):
+        raise ValueError(f"pos must be an int32 [{B}] tensor on h's device "
+                         f"(read on the device; K7 traps out of range)")
     ks = (D, D, D, I)
     if len(caps) != 4 or not all(1 <= c <= k // HEAD_DIM
                                  for c, k in zip(caps, ks)):
@@ -708,7 +812,7 @@ def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
     if h.data_ptr() % 16:
         raise ValueError("K7 reads h in 16-byte chunks: it must be 16-byte "
                          "aligned")
-    return L, D, I, Hkv, T
+    return L, D, I, Hkv, T, B
 
 
 def _record(sel, layer: int, stage: int, idx, count) -> None:
@@ -727,10 +831,12 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
     """K7 in plain PyTorch (same arguments and result as `token_kernel`):
     each layer's four stages through K1's and K2's plain versions, as the
     layer loop runs them (the same cast points; int8's scales on each
-    stage's fp32 sums, packed int4 through its factored affine). A device
-    position is read to the host here (this version is no fast path)."""
-    _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
-              caps, n_heads, sel)
+    stage's fp32 sums, packed int4 through its factored affine; rows
+    [B, D] through the plain twins' rows: one kept set a stage, pooled
+    over the rows). A device position is read to the host here (this
+    version is no fast path)."""
+    B = _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
+                  caps, n_heads, sel)[5]
     ops, sc = stage_operands(ws)
     wq, wk, wv, wo, wgate, wup, wdown = ops
 
@@ -742,11 +848,12 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
             h, thresholds[layer, 0], (wq, wk, wv), layer, caps[0],
             norm=norm_attn, norm_eps=norm_eps, scales=scales(0, 1, 2),
             fixed=fixed_sel)
+        q2 = qkv.reshape(B, -1)
         attn = decode_attention_plain(
-            qkv[:nq].view(1, n_heads, HEAD_DIM),
-            qkv[nq:nq + nk].view(1, -1, HEAD_DIM),
-            qkv[nq + nk:].view(1, -1, HEAD_DIM), kc, vc, layer, pos,
-            window=window, rope=rope).reshape(nq)
+            q2[:, :nq].reshape(B, n_heads, HEAD_DIM),
+            q2[:, nq:nq + nk].reshape(B, -1, HEAD_DIM),
+            q2[:, nq + nk:].reshape(B, -1, HEAD_DIM), kc, vc, layer, pos,
+            window=window, rope=rope).reshape(h.shape[:-1] + (nq,))
         h, i1, c1 = select_gather_gemv_plain(
             attn, thresholds[layer, 3], (wo,), layer, caps[1], res=h,
             scales=scales(3), fixed=fixed_sel)
@@ -765,21 +872,28 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
 
 
 def k7_clusters(device: torch.device, dtype: torch.dtype, GH: int,
-                plan: int = PLAN_STREAM) -> dict:
+                plan: int = PLAN_STREAM, rows: bool = False) -> dict:
     """The card's resident clusters of C blocks of K7 for (weight plan,
-    dtype, GH query heads a kv head): {C: clusters} for C in [2, 8] from
-    the CUDA runtime (`teal_token_clusters`, or `teal_token_clusters_q`
-    for int8 and int4; asked once)."""
-    key = (device.index, dtype, GH, plan)
+    dtype, GH query heads a kv head; `rows`: the rows form's kernel):
+    {C: clusters} for C in [2, 8] from the CUDA runtime
+    (`teal_token_clusters`, `teal_token_clusters_q` for int8 and int4,
+    `teal_token_clusters_rows`; asked once)."""
+    key = (device.index, dtype, GH, plan, rows)
     if key not in _CLUSTERS:
         libs = _build.load()
+
+        def ask(c):
+            if rows:
+                return libs["token_decode_rows"].teal_token_clusters_rows(
+                    _DTYPE_CODE[dtype], GH, c)
+            if plan == PLAN_STREAM:
+                return libs["token_decode"].teal_token_clusters(
+                    _DTYPE_CODE[dtype], GH, c)
+            return libs["token_decode_quant"].teal_token_clusters_q(
+                plan, GH, c)
         with torch.cuda.device(device):
-            _CLUSTERS[key] = {
-                c: (libs["token_decode"].teal_token_clusters(
-                    _DTYPE_CODE[dtype], GH, c) if plan == PLAN_STREAM
-                    else libs["token_decode_quant"].teal_token_clusters_q(
-                        plan, GH, c))
-                for c in range(_TOK_MIN_C, _TOK_MAX_C + 1)}
+            _CLUSTERS[key] = {c: ask(c)
+                              for c in range(_TOK_MIN_C, _TOK_MAX_C + 1)}
     return _CLUSTERS[key]
 
 
@@ -789,17 +903,22 @@ _CLUSTERS: dict = {}
 def token_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
                window: Optional[int] = None) -> Optional[TokenPlan]:
     """K7's plan for a `token_kernel` call on h's card (None where the
-    shapes or the weights take none)."""
+    shapes or the weights take none); h [B, D] asks the rows form's."""
     L, _, Hkv, T, _ = kc.shape
     plan = k7_weight_plan(ws)
     if plan is None:
         return None
-    return _token_plan(h.element_size(), h.shape[0],
+    rows = h.shape[0] if h.dim() == 2 else 1
+    if rows > 1 and (plan != PLAN_STREAM or not 2 <= rows <= MAX_ROWS
+                     or MAX_GROUP % max(1, n_heads // Hkv)):
+        return None
+    return _token_plan(h.element_size(), h.shape[-1],
                        _k7_stacks(ws, plan)[0][4].shape[-1], n_heads, Hkv,
                        T, window, max(caps), L,
                        _build.sm_count(h.device.index),
-                       k7_clusters(h.device, h.dtype, n_heads // Hkv, plan),
-                       plan)
+                       k7_clusters(h.device, h.dtype, n_heads // Hkv, plan,
+                                   rows > 1),
+                       plan, rows)
 
 
 def token_trace(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
@@ -824,9 +943,12 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
                  window: Optional[int] = None, fixed_sel: bool = False,
                  sel: Optional[torch.Tensor] = None, empty: bool = False,
                  stamps: Optional[torch.Tensor] = None):
-    """K7: one token through every layer in one launch (batch 1).
+    """K7: one token through every layer in one launch, for one row or
+    for 2-16 rows (the rows form: each row a sequence at its own position,
+    one kept set a stage pooled over the rows).
 
-    h:    [D] raw residual stream (the token's embedding), fp32 or bf16
+    h:    [D] raw residual stream (the token's embedding), fp32 or bf16;
+          or rows [B, D] (arrays only)
     thresholds: [L, 7] fp32 group thresholds, read on the device
     ws:   (wq, wk, wv, wo, wgate, wup, wdown), [L, K, N] arrays of h's
           type, or with bf16 h all seven int8 {"q" [L, K, N], "scale"
@@ -834,16 +956,16 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
           "sz" [L, K/128, 2, N] fp32} (the layouts `quant` produces, read
           as they are)
     norm_attn/norm_mlp: [L, D] rms_norm gains of h's type
-    rope: [1, 2, 128] fp32 (cos, sin) row at pos
-    kc/vc: [L, 1, Hkv, T, 128] caches of h's type, updated in place
-    pos:  int32 [1] on the device (the kernel traps outside [0, T))
+    rope: [B, 2, 128] fp32 (cos, sin) rows at pos (B = 1 for one row)
+    kc/vc: [L, B, Hkv, T, 128] caches of h's type, updated in place
+    pos:  int32 [B] on the device (the kernel traps outside [0, T))
     caps: gather capacities (qkv, o, gate|up, down)
     fixed_sel: keep groups 0..cap-1 at every stage
     sel:  optional int32 [L, 4, 1 + max(caps)]: each stage's kept count
           and groups (-1 past the count)
     empty: launch the kernel with its barriers alone (their floor; no
-          output is written)
-    stamps: optional int64 [L, K7_STAMPS + 9 * grid] on the card
+          output is written; one row)
+    stamps: optional int64 [L, K7_STAMPS + 9 * grid] on the card (one row)
           (`token_trace` makes one): block 0's %globaltimer (ns) at each
           layer's start, at the arrival at and the exit from each grid
           barrier, at each gather's start and end, at the end of each
@@ -851,12 +973,16 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
           every block's arrival at each barrier slot and the end of its
           share of each gather stage (`k7_phases` reads it)
 
-    Returns the stream after the last layer [D]. On CPU tensors this runs
-    `token_kernel_plain`; on a CUDA tensor it launches K7 or raises."""
-    L, D, I, Hkv, T = _check_k7(h, thresholds, ws, norm_attn, norm_mlp,
-                                rope, kc, vc, pos, caps, n_heads, sel)
+    Returns the stream after the last layer, of h's shape. On CPU tensors
+    this runs `token_kernel_plain`; on a CUDA tensor it launches K7 or
+    raises."""
+    L, D, I, Hkv, T, B = _check_k7(h, thresholds, ws, norm_attn, norm_mlp,
+                                   rope, kc, vc, pos, caps, n_heads, sel)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive; got {window}")
+    if B > 1 and (empty or stamps is not None):
+        raise ValueError("the empty launch and the trace are the one-row "
+                         "kernel's")
     if h.device.type == "cpu":
         if empty or stamps is not None:
             raise ValueError("an empty launch and the trace are card "
@@ -884,6 +1010,21 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
     work = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=h.device)
     wplan = k7_weight_plan(ws)
     wts, szs, scs = _k7_stacks(ws, wplan)
+    if B > 1:
+        err = _build.load()["token_decode_rows"].teal_token_decode_rows(
+            _DTYPE_CODE[h.dtype], B, h.data_ptr(), thresholds.data_ptr(),
+            pos.data_ptr(), rope.data_ptr(), norm_attn.data_ptr(),
+            norm_mlp.data_ptr(), *(w.data_ptr() for w in wts),
+            kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+            None if sel is None else sel.data_ptr(), work.data_ptr(), L, D,
+            I, n_heads, Hkv, T, window or 0, *caps, int(fixed_sel), norm_eps,
+            sms, torch.cuda.current_stream().cuda_stream)
+        if err == -1:
+            raise RuntimeError("token_kernel: no plan or no TMA map for "
+                               "these rows on this card")
+        _build.check(err, "token_kernel")
+        token_kernel.launches += 1
+        return out
     head = (h.data_ptr(), thresholds.data_ptr(), pos.data_ptr(),
             rope.data_ptr(), norm_attn.data_ptr(), norm_mlp.data_ptr(),
             *(w.data_ptr() for w in wts))

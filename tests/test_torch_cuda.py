@@ -1262,11 +1262,11 @@ def test_safetensors_reader_on_card(cuda, tmp_path, stored):
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
 def test_decode_graph_matches_host_loop(cuda, b, temperature):
     """The decode step captured as a CUDA graph (`on_device_loop=True`) on
-    the K1/K2 loop (at batch 1 `token_fused=False`; K1's rows form at
-    batch 4) gives the host loop's tokens from one generator seed, and
+    the K1/K2 loop at batch 1 (`token_fused=False`) and on K7's rows form
+    at batch 4 gives the host loop's tokens from one generator seed, and
     leaves the generator where the host loop does; the graph holds the
-    step's 4*L K1 + L K2 (K7's graph:
-    `test_k7_decode_graph_matches_host_loop`)."""
+    step's 4*L K1 + L K2 at batch 1, one K7 rows node and no K1 or K2 at
+    batch 4 (K7's one-row graph: `test_k7_decode_graph_matches_host_loop`)."""
     from teal_tpu_torch.config import SparsityConfig, get_model_config
     from teal_tpu_torch.engine import Generator
     from teal_tpu_torch.utils.profiling import graph_kernels
@@ -1296,8 +1296,8 @@ def test_decode_graph_matches_host_loop(cuda, b, temperature):
     # the graph's kernel nodes, read from the CUDA driver: what a replay runs
     nodes = graph_kernels(gen._loop.graph)
     assert [sum(c for k, c in nodes.items() if name in k)
-            for name in ("sgg_", "attn_kernel")] == [
-        4 * cfg.n_layers, cfg.n_layers], nodes
+            for name in ("sgg_", "attn_kernel", "token_rows_kernel")] == (
+        [4 * cfg.n_layers, cfg.n_layers, 0] if b == 1 else [0, 0, 1]), nodes
 
 
 @pytest.mark.parametrize("kw", [dict(temperature=1.0),
@@ -1437,16 +1437,63 @@ def test_k7_matches_plain(cuda, dtype, Hq, Hkv, window, fixed, pos):
         assert ok, err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,window,fixed", [
+    (4, 4, None, False), (8, 2, None, False), (8, 2, 24, False),
+    (4, 4, None, True), (32, 32, None, False), (32, 4, None, False)],
+    ids=["mha", "gqa", "gqa-window", "fixed", "7b-heads", "gqa-32-4"])
+@pytest.mark.parametrize("B", [2, 16])
+def test_k7_rows_matches_plain(cuda, dtype, Hq, Hkv, window, fixed, B):
+    """K7's rows form (B rows, each a sequence at its own position and
+    cache row: pos 0, 5, 10, ... of a 64-row cache) on 2 layers against
+    its plain version on the same inputs, as `test_k7_matches_plain`
+    holds the one-row kernel: one kept set a stage (the score pooled over
+    the rows) equal at every stage, the rows' streams and both caches
+    within 1e-5 (fp32) or 2e-2 (bf16) of their largest value."""
+    h1, ws, (na, nm), _, _, _ = _k7_inputs(cuda, dtype, Hq, Hkv)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    L, T, D, I = 2, 64, h1.shape[0], 192 * Hq
+    h = (torch.randn(B, D, generator=g, device=cuda)).to(dtype)
+    kc = torch.randn(L, B, Hkv, T, 128, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(L, B, Hkv, T, 128, generator=g, device=cuda).to(dtype)
+    rope = torch.rand(B, 2, 128, generator=g, device=cuda)
+    pos_t = torch.tensor([(5 * b) % T for b in range(B)], dtype=torch.int32,
+                         device=cuda)
+    th = torch.zeros((L, 7), device=cuda)
+    if dtype == torch.float32:
+        th[:, 0], th[:, 3], th[:, 4], th[:, 6] = 2.2, 0.05, 2.2, 0.02
+    caps = (D // 256, D // 256, D // 256, I // 256)
+    kw = dict(caps=caps, n_heads=Hq, window=window, fixed_sel=fixed)
+    assert tb.k7_form(h, ws, kc, Hq)
+    assert tb.token_plan(h, kc, ws, Hq, caps, window) is not None
+    out, sels, caches = [], [], []
+    for f in (tb.token_kernel, tb.token_kernel_plain):
+        sel = torch.zeros((L, 4, 1 + max(caps)), dtype=torch.int32,
+                          device=cuda)
+        k, v = kc.clone(), vc.clone()
+        out.append(f(h, th, ws, na, nm, rope, k, v, pos_t, sel=sel, **kw))
+        sels.append(sel)
+        caches.append((k, v))
+    assert torch.equal(sels[0], sels[1]), (sels[0][..., :4], sels[1][..., :4])
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, want in ((out[0], out[1]), (caches[0][0], caches[1][0]),
+                      (caches[0][1], caches[1][1])):
+        ok, err = _close(got, want, rel)
+        assert ok, err
+
+
 def test_k7_plan_matches_kernel(cuda):
     """`teal_token_plan` (the kernel's plan) equal to `_token_plan` (the
     wrapper's, on the card's resident clusters from `k7_clusters`) on this
     card at 7B, Mistral-7B with its window, GQA 32/4 and the tiny configs,
     fp32 and bf16 arrays, and int8 and packed int4 with a bf16 stream
-    (`teal_token_plan_q`)."""
+    (`teal_token_plan_q`); the rows form's (`teal_token_plan_rows`) at B
+    = 2, 8 and 16, fp32 and bf16 arrays."""
     import ctypes
 
     lib = _build.load()["token_decode"]
     qlib = _build.load()["token_decode_quant"]
+    rlib = _build.load()["token_decode_rows"]
     sms = _build.sm_count(cuda.index)
     for D, I, Hq, Hkv, T, win, cm, L in (
             (4096, 11008, 32, 32, 4096, None, 43, 32),
@@ -1463,6 +1510,15 @@ def test_k7_plan_matches_kernel(cuda):
                                   tb.k7_clusters(cuda, dtype, Hq // Hkv))
             assert rc == 0 and tuple(out) == tuple(want), (D, esz, list(out),
                                                            want)
+            for B in (2, 8, 16):
+                out = (ctypes.c_int * 11)()
+                rc = rlib.teal_token_plan_rows(code, B, D, I, Hq, Hkv, T,
+                                               win or 0, cm, sms, L, out)
+                want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms,
+                                      tb.k7_clusters(cuda, dtype, Hq // Hkv,
+                                                     rows=True), rows=B)
+                assert rc == 0 and tuple(out) == tuple(want), (
+                    D, esz, B, list(out), want)
         for plan in (bg.PLAN_INT8, bg.PLAN_INT4):
             out = (ctypes.c_int * 11)()
             rc = qlib.teal_token_plan_q(plan, D, I, Hq, Hkv, T, win or 0, cm,

@@ -5,19 +5,27 @@ token through every layer in one launch, the counterpart of the JAX
 package's whole-token kernel `_token_kernel`; with `token_fused=False`
 the port keeps the K1/K2 loop, the counterpart of `_packed_layer`. Here:
   - the route: K7 exactly for its form (batch 1, arrays of the stream
-    type, head_dim 128, no MoE, no seq_block, token_fused not False);
+    type or int8 / int4 at group 128; 2-16 rows of arrays; head_dim 128,
+    no MoE, no seq_block, token_fused not False) where it has a launch
+    plan, from the shapes alone;
   - `_token_plan` at Llama-2-7B, Mistral-7B (GQA 32/8, window 4096) and
-    the tiny configs, for 132 SMs;
+    the tiny configs, for 132 SMs, at one row and in the rows form; no
+    plan depends on T, and every head_dim-128 dense config of the
+    registry plans at its max_seq_len;
   - the port's forward (K7's plain version on CPU tensors) against the
     JAX `_token_kernel` in interpret mode, and with token_fused=False (the
     loop) against the JAX `_packed_layer`: fp32 within 2e-5 (as
     test_torch_model.py), bf16 within 2e-2 of the logits' largest value
     (the two frameworks round the bf16 stream at the same points but may
     sum in other orders: a bf16 ulp is 2^-8 of a value); GQA, MHA, a
-    window with pos past it, `fixed_sel`. The bf16 cases select at
+    window with pos past it, `fixed_sel`; and at B = 2, 8 and 16 rows,
+    each at its own position, through K7's rows route against the JAX
+    `_token_kernel` with `batch` = B. The bf16 cases select at
     threshold 0, where every group survives and the first `cap` are
     kept, so that a one-ulp score difference cannot flip a group.
 All JAX cases run in one child process (`jax_subprocess.jax_results`)."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +38,8 @@ from jax_subprocess import jax_results
 from teal_tpu.config import SparsityConfig as JSparsityConfig
 from teal_tpu.config import get_model_config as jget_model_config
 from teal_tpu.models import llama as jllama
-from teal_tpu_torch.config import SparsityConfig, get_model_config
+from teal_tpu_torch.config import (MODEL_REGISTRY, SparsityConfig,
+                                   get_model_config)
 from teal_tpu_torch.models import llama
 from teal_tpu_torch.ops import quant
 from teal_tpu_torch.ops import token_block as tb
@@ -56,6 +65,20 @@ CASES = {
     "bf16-window-p13": (WINDOW, "bfloat16", 13, None, False),
     "packed-gqa-p9": (GQA, "float32", 9, False, False),
     "packed-mha-p5": (MHA, "float32", 5, False, False),
+}
+
+# rows cases, the port through K7's rows route (its plain version):
+# (config overrides, dtype, positions of the rows); each row at its own
+# position, its own cache row
+ROW_CASES = {
+    "rows2-gqa": (GQA, "float32", (9, 4)),
+    "rows8-mha": (MHA, "float32", (0, 3, 5, 7, 9, 11, 13, 15)),
+    "rows16-window": (WINDOW, "float32", tuple((3 * i + 1) % 16
+                                               for i in range(16))),
+    "bf16-rows16-gqa": (GQA, "bfloat16", tuple((5 * i + 2) % 16
+                                               for i in range(16))),
+    "bf16-rows8-window": (WINDOW, "bfloat16", (14, 2, 6, 10, 13, 5, 9, 1)),
+    "bf16-rows2-mha": (MHA, "bfloat16", (15, 7)),
 }
 
 
@@ -84,10 +107,44 @@ def _sp(fused, fixed):
                 **({} if fused is None else dict(token_fused=fused)))
 
 
+def _row_inputs(case):
+    cfg_kw, dtype, pos = ROW_CASES[case]
+    B = len(pos)
+    rng = np.random.default_rng(len(case) * 11 + B)
+    shape = (cfg_kw["n_layers"], B, cfg_kw["n_kv_heads"], T, 128)
+    k = rng.standard_normal(shape).astype(np.float32) * 0.1
+    v = rng.standard_normal(shape).astype(np.float32) * 0.1
+    toks = rng.integers(1, 120, (B, 1))
+    return cfg_kw, dtype, list(pos), k, v, toks
+
+
+def jax_rows_case(case):
+    """JAX's forward at a rows case in interpret mode: the whole-token
+    kernel with `batch` = B."""
+    cfg_kw, dtype, pos, k, v, toks = _row_inputs(case)
+    jcfg = jget_model_config("tiny", **cfg_kw)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    params = jllama.init_params(jcfg, jax.random.PRNGKey(7), jnp.float32)
+    params = jax.tree.map(lambda a: a.astype(jdt), params)
+    with pltpu.force_tpu_interpret_mode():
+        logits, cache = jllama.forward(
+            params, jnp.asarray(toks, jnp.int32),
+            jllama.KVCache(jnp.asarray(k, jdt), jnp.asarray(v, jdt)),
+            jnp.asarray(pos, jnp.int32),
+            jnp.asarray(_thresholds(cfg_kw, dtype)), cfg=jcfg,
+            sp=JSparsityConfig(**MAIN, fused_decode_attention=True))
+    return dict(logits=np.asarray(logits, np.float32),
+                k=np.asarray(cache.k.astype(jnp.float32)),
+                v=np.asarray(cache.v.astype(jnp.float32)))
+
+
 def jax_token_case(case):
     """JAX's forward at one case, in interpret mode: the whole-token kernel
-    (token_fused unset) or the packed pipeline (token_fused False). Run by
-    `jax_results` in the subprocess."""
+    (token_fused unset) or the packed pipeline (token_fused False); a
+    rows case through `jax_rows_case`. Run by `jax_results` in the
+    subprocess."""
+    if case in ROW_CASES:
+        return jax_rows_case(case)
     cfg_kw, dtype, pos, fused, fixed, k, v, tok = _inputs(case)
     jcfg = jget_model_config("tiny", **cfg_kw)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
@@ -108,7 +165,7 @@ def jax_token_case(case):
 @pytest.fixture(scope="module")
 def jax_refs(tmp_path_factory):
     return jax_results(__file__, "jax_token_case",
-                       {c: dict(case=c) for c in CASES},
+                       {c: dict(case=c) for c in (*CASES, *ROW_CASES)},
                        tmp_path_factory.mktemp("jax_token_kernel"))
 
 
@@ -158,6 +215,47 @@ def test_plain_matches_jax(jax_refs, monkeypatch, case):
         assert np.abs(free.numpy() - got[0]).max() > 1e-3
 
 
+@pytest.mark.parametrize("case", list(ROW_CASES))
+def test_rows_plain_matches_jax(jax_refs, monkeypatch, case):
+    """The port's forward at B = 2, 8 and 16 rows, each at its own
+    position: one K7 call (its rows form; on the CPU its plain version
+    `token_kernel_plain`) and no K1/K2 loop, against JAX's forward through
+    `_token_kernel` with `batch` = B; logits and both caches, fp32 within
+    2e-5, bf16 (threshold 0) within 2e-2 of the largest value."""
+    cfg_kw, dtype, pos, k, v, toks = _row_inputs(case)
+    dt = getattr(torch, dtype)
+    cfg = get_model_config("tiny", **cfg_kw)
+    params = _port_params(cfg_kw, dt)
+    cache = llama.KVCache.from_numpy(k, v, device="cpu", dtype=dt)
+    calls = {"k7": 0, "plain": 0, "loop": 0}
+    kernel, plain, layer = tb.token_kernel, tb.token_kernel_plain, \
+        tb.layer_decode
+
+    def spy(name, f):
+        def g(*a, **kw):
+            calls[name] += 1
+            return f(*a, **kw)
+        return g
+    monkeypatch.setattr(tb, "token_kernel", spy("k7", kernel))
+    monkeypatch.setattr(tb, "token_kernel_plain", spy("plain", plain))
+    monkeypatch.setattr(tb, "layer_decode", spy("loop", layer))
+    sp = SparsityConfig(**MAIN)
+    logits, cache = llama.forward(
+        params, torch.from_numpy(toks), cache, pos,
+        torch.from_numpy(_thresholds(cfg_kw, dtype)), cfg=cfg, sp=sp)
+    assert calls == {"k7": 1, "plain": 1, "loop": 0}
+    want = jax_refs[case]
+    got = (logits.float().numpy(), cache.k.float().numpy(),
+           cache.v.float().numpy())
+    for g, name in zip(got, ("logits", "k", "v")):
+        w = want[name]
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, **TOL, err_msg=name)
+        else:
+            err = np.abs(g - w).max()
+            assert err <= BF16_REL * np.abs(w).max(), (name, err)
+
+
 # --- the route -----------------------------------------------------------
 
 MOE = dict(n_layers=2, n_heads=2, n_kv_heads=2, dim=256,
@@ -193,7 +291,16 @@ ROUTES = {
     # the layer loop, at 128 the K1/K2 loop refuses the groups
     "layers-int4-g64": (GQA, "int4-g64", 1, dict(block_size=64), "layers"),
     "raises-int4-g64-main": (GQA, "int4-g64", 1, {}, "raises"),
-    "loop-rows": (GQA, "float32", 2, {}, "loop"),
+    # rows of arrays: K7's rows form (the case keeps its name from before
+    # K7 took the rows); int8 and int4 rows keep the K1/K2 loop, and rows
+    # with token_fused False the model's layer loop, as in the reference
+    # (its rows are the whole-token kernel's alone)
+    "loop-rows": (GQA, "float32", 2, {}, "k7"),
+    "k7-rows16-bf16-window": (WINDOW, "bfloat16", 16, {}, "k7"),
+    "layers-rows-token-fused-false": (GQA, "float32", 2,
+                                      dict(token_fused=False), "layers"),
+    "loop-rows-int8": (GQA, "int8", 2, {}, "loop"),
+    "loop-rows-int4": (GQA, "int4", 8, {}, "loop"),
     "loop-moe": (MOE, "float32", 1, {}, "loop"),
 }
 
@@ -223,8 +330,9 @@ def _route_params(cfg, kind):
 def test_route(monkeypatch, case):
     """`llama.forward` at one decode position takes K7 (its wrapper,
     `token_kernel`) exactly for K7's form with token_fused not False
-    (arrays, all seven int8, all seven packed int4 at quant group 128),
-    the K1/K2 loop (`layer_decode`) for token_fused False, rows and MoE,
+    (arrays, all seven int8, all seven packed int4 at quant group 128;
+    2-16 rows of arrays), the K1/K2 loop (`layer_decode`) for token_fused
+    False, int8 and int4 rows and MoE,
     the model's layer loop where `can_token_decode` refuses, and raises
     where the token path refuses the weights; the route is decided by the
     form alone."""
@@ -249,8 +357,8 @@ def test_route(monkeypatch, case):
     assert llama.can_token_decode(params, cfg, sp, 1, b, dt) == (
         route != "layers")
     th = torch.zeros((cfg.n_layers, 7))
-    args = (params, torch.full((b, 1), 3), cache, [4] * b if b > 1 else 4,
-            th)
+    args = (params, torch.full((b, 1), 3), cache,
+            [4 + i % 9 for i in range(b)] if b > 1 else 4, th)
     if route == "raises":
         with pytest.raises(ValueError):
             llama.forward(*args, cfg=cfg, sp=sp)
@@ -288,6 +396,31 @@ def test_route_seq_block_takes_the_loop(monkeypatch):
     assert out.shape == h.shape and not calls
     assert not tb.k7_form(h, (lay["wq"],) * 7, cache.k, cfg.n_heads,
                           seq_block=True)
+
+
+def test_block_verify_takes_the_loop(monkeypatch):
+    """`block_verify` (the speculative verify: S consecutive positions of
+    one sequence, `seq_block`) keeps the K1/K2 loop for array weights: K7
+    takes no seq_block."""
+    cfg = get_model_config("tiny", **GQA)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               torch.float32, device="cpu")
+    calls = {"k7": 0, "loop": 0}
+    kernel, layer = tb.token_kernel, tb.layer_decode
+
+    def spy(name, f):
+        def g(*a, **kw):
+            calls[name] += 1
+            return f(*a, **kw)
+        return g
+    monkeypatch.setattr(tb, "token_kernel", spy("k7", kernel))
+    monkeypatch.setattr(tb, "layer_decode", spy("loop", layer))
+    cache = llama.KVCache.init(cfg, 1, T, torch.float32, "cpu")
+    logits, _ = llama.block_verify(
+        params, torch.tensor([[3, 5, 7, 9]]), cache, 2,
+        torch.zeros((cfg.n_layers, 7)), cfg=cfg)
+    assert torch.isfinite(logits).all()
+    assert calls == {"k7": 0, "loop": cfg.n_layers}
 
 
 def test_k7_raises_rather_than_falls_back():
@@ -403,12 +536,24 @@ ONE_CLUSTER = {c: 1 for c in range(2, 9)}
 SMEM = 232448
 
 
-def _check_columns(p, esz, D, I, Hq, Hkv, wplan=0):
+def _rows_partf(p, esz, D, I, Hq, Hkv, B):
+    """The rows form's partial sums a block (fp32): B rows of the largest
+    NW x (columns of a cluster) of the stages, in 128-byte units."""
+    uw, GH = 128 // esz, Hq // Hkv
+
+    def most(cols, nw):
+        return nw * -(-(cols // uw) // p.clusters) * uw
+    return B * max(most(D, 1), most(I, 2), (GH + 2) * 128 if p.head_owned
+                   else most((Hq + 2 * Hkv) * 128, 1))
+
+
+def _check_columns(p, esz, D, I, Hq, Hkv, wplan=0, rows=1):
     """Each stage's clusters cover its weights' columns exactly once (in
-    units of the weight plan `wplan`); in the head-owned plan cluster c's
-    q columns are those of kv head c's query heads; every kv head's
-    attention runs on one cluster."""
-    cols = tb.token_columns(p, esz, D, I, Hq, Hkv, wplan)
+    units of the weight plan `wplan`, or of the rows form's 128 bytes);
+    in the head-owned plan cluster c's q columns are those of kv head c's
+    query heads; every kv head's attention runs on one cluster."""
+    unit = 128 // esz if rows > 1 else tb._tok_unit(esz, wplan)
+    cols = tb.token_columns(p, esz, D, I, Hq, Hkv, wplan, rows)
     widths = {"wq": D, "wk": Hkv * 128, "wv": Hkv * 128, "wo": D,
               "wgate": I, "wup": I, "wdown": D}
     stages = {"qkv": ("wq", "wk", "wv"), "o": ("wo",),
@@ -418,8 +563,7 @@ def _check_columns(p, esz, D, I, Hq, Hkv, wplan=0):
         seen = {n: np.zeros(widths[n], np.int64) for n in names}
         for got in cols[stage]:
             for name, a, b in got:
-                assert a < b and a % tb._tok_unit(esz, wplan) == 0, (
-                    stage, name, a, b)
+                assert a < b and a % unit == 0, (stage, name, a, b)
                 seen[name][a:b] += 1
         for name in names:
             assert (seen[name] == 1).all(), (stage, name)
@@ -441,7 +585,8 @@ def test_token_plan(name):
     30 of 4 would not) with 4 grid barriers a layer, Mistral-7B's 8 kv
     heads the other plan (2 blocks a cluster, all 66 clusters) with 5; no
     kv-head barrier; shared
-    memory within a block's 232448 bytes and equal to its layout's; the
+    memory within a block's 232448 bytes and equal to its layout's (2048
+    attention scores over the query rows of a kv head, whatever T); the
     workspace of its regions (each 256-byte aligned); the columns of every
     stage covered once."""
     esz, D, I, Hq, Hkv, T_, window, caps, L = PLANS[name]
@@ -454,8 +599,7 @@ def test_token_plan(name):
     assert (p.grid_barriers, p.head_barriers) == ((4 if head else 5) * L, 0)
     assert 2 <= p.slots <= 8 and p.smem <= SMEM
     GH = Hq // Hkv
-    live = min(T_, window or T_)
-    assert p.NS == -(-(-(-(live - 1) // p.C)) // 4) * 4
+    assert p.NS == tb._tok_scores(GH) == 2048 // GH
 
     def al(n):
         return -(-n // 256) * 256
@@ -514,6 +658,151 @@ def test_token_plan_quantized(name, wplan):
         assert units == [2, 3]           # 86 units: 3 or 2 a cluster
 
 
+@pytest.mark.parametrize("B", [2, 8, 16])
+@pytest.mark.parametrize("name", list(PLANS))
+def test_token_plan_rows(name, B):
+    """K7's rows form's plan (arrays, B rows) for 132 SMs and the H100's
+    resident clusters: the structure of the one-row plan (the 7B head-owned
+    with clusters of 3, Mistral-7B the other plan), a warp's attention
+    chunk of 16 bf16 or 8 fp32 rows (GQA 32/8: 4 query heads a kv head,
+    8 and 4), B rows of the partial sums in 128-byte units, the workspace
+    of B rows of each region, shared memory equal to its layout's and
+    within a block's, and every column covered once; none for int8 or
+    int4 rows, nor for 1 or 17 rows."""
+    esz, D, I, Hq, Hkv, T_, window, caps, L = PLANS[name]
+    p = tb._token_plan(esz, D, I, Hq, Hkv, T_, window, max(caps), L, 132,
+                       rows=B)
+    one = tb._token_plan(esz, D, I, Hq, Hkv, T_, window, max(caps), L, 132)
+    assert p is not None
+    assert (p.grid, p.C, p.clusters, p.head_owned, p.grid_barriers) == (
+        one.grid, one.C, one.clusters, one.head_owned, one.grid_barriers)
+    GH = Hq // Hkv
+    assert p.NS == tb._rows_chunk(esz, GH) == (16 if esz == 2 else 8) // (
+        1 if GH <= 2 else GH // 2)
+    assert p.ws_bytes == tb._token_ws(esz, D, I, Hq, Hkv, B)
+    assert 2 <= p.slots <= 8 and p.smem <= SMEM
+    assert p.smem == tb._token_smem_rows(
+        esz, D, I, max(caps), _rows_partf(p, esz, D, I, Hq, Hkv, B), p.slots)
+    _check_columns(p, esz, D, I, Hq, Hkv, rows=B)
+    for bad in (dict(rows=1 + 16), dict(rows=B, plan=1), dict(rows=B, plan=2)):
+        assert tb._token_plan(2, D, I, Hq, Hkv, T_, window, max(caps), L,
+                              132, **bad) is None
+
+
+@pytest.mark.parametrize("wplan,rows", [(0, 1), (1, 1), (2, 1), (0, 16)],
+                         ids=["arrays", "int8", "int4", "arrays-rows16"])
+def test_token_plan_independent_of_T(wplan, rows):
+    """K7's plan is the same at T 2048, 8192 and 32768 (attention walks the
+    cache in chunks of a fixed size, so no shared memory grows with T),
+    with and without a window, at the 7B's and llama-3-70b's widths (one
+    row: bf16, int8, int4, fp32 arrays; 16 rows: bf16 and fp32 arrays)."""
+    for D, I, Hq, Hkv, L in ((4096, 11008, 32, 32, 32),
+                             (8192, 28672, 64, 8, 80)):
+        for esz in ((2, 4) if wplan == 0 else (2,)):
+            plans = {(T_, w): tb._token_plan(esz, D, I, Hq, Hkv, T_, w,
+                                             I // 256, L, 132, plan=wplan,
+                                             rows=rows)
+                     for T_ in (2048, 8192, 32768) for w in (None, 4096)}
+            first = plans[(2048, None)]
+            assert first is not None, (D, esz, wplan, rows)
+            assert all(p == first for p in plans.values()), (D, esz)
+
+
+def _dense_128():
+    return [n for n, c in ((n, get_model_config(n))
+                           for n in MODEL_REGISTRY)
+            if c.head_dim == 128 and not c.n_experts]
+
+
+def _meta_call(cfg, kind, B, dt):
+    """(h, ws, kc) of a decode call at cfg's full shapes on the meta device
+    (no memory): h [D] or [B, D], the seven weights as `kind` (arrays of
+    dt, int8 or packed int4 at group 128 dicts), the cache at max_seq_len."""
+    L, D, I, kvw = cfg.n_layers, cfg.dim, cfg.intermediate_size, \
+        cfg.n_kv_heads * 128
+    shapes = ((D, D), (D, kvw), (D, kvw), (D, D), (D, I), (D, I), (I, D))
+
+    def weight(k, n):
+        if kind == "int8":
+            return {"q": torch.empty((L, k, n), dtype=torch.int8,
+                                     device="meta"),
+                    "scale": torch.empty((L, n), device="meta")}
+        if kind == "int4":
+            return {"qp": torch.empty((L, k // 2, n), dtype=torch.int8,
+                                      device="meta"),
+                    "sz": torch.empty((L, k // 128, 2, n), device="meta")}
+        return torch.empty((L, k, n), dtype=dt, device="meta")
+    h = torch.empty((D,) if B == 1 else (B, D), dtype=dt, device="meta")
+    kc = torch.empty((L, B, cfg.n_kv_heads, cfg.max_seq_len, 128), dtype=dt,
+                     device="meta")
+    return h, tuple(weight(k, n) for k, n in shapes), kc
+
+
+FORMS = {"bf16": ("arrays", torch.bfloat16, 1),
+         "fp32": ("arrays", torch.float32, 1),
+         "int8": ("int8", torch.bfloat16, 1),
+         "int4": ("int4", torch.bfloat16, 1),
+         "bf16-rows16": ("arrays", torch.bfloat16, 16),
+         "fp32-rows16": ("arrays", torch.float32, 16)}
+
+
+@pytest.mark.parametrize("name", _dense_128())
+def test_registry_plans_at_max_seq_len(name):
+    """Every dense head_dim-128 config of the registry has a K7 plan at its
+    max_seq_len (llama-3-70b at T 8192 among them) in bf16, int8 and int4
+    at one row, and in bf16 at 16 rows, at its main-path caps."""
+    cfg = get_model_config(name)
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN))
+    for form in ("bf16", "int8", "int4", "bf16-rows16"):
+        kind, dt, B = FORMS[form]
+        plan = {"arrays": 0, "int8": 1, "int4": 2}[kind]
+        p = tb._token_plan(dt.itemsize, cfg.dim, cfg.intermediate_size,
+                           cfg.n_heads, cfg.n_kv_heads, cfg.max_seq_len,
+                           cfg.sliding_window, max(caps), cfg.n_layers,
+                           plan=plan, rows=B)
+        assert p is not None and p.smem <= SMEM, (name, form)
+
+
+@pytest.mark.parametrize("name", _dense_128())
+def test_route_agrees_with_plan(name):
+    """`token_decode`'s route (`k7_route`, from the call's form and shapes
+    alone; on a tensor off the card the H100's plan) takes K7 exactly
+    where `_token_plan` has a plan, for every dense head_dim-128 config of
+    the registry at its full shapes and max_seq_len (tensors on the meta
+    device) in bf16, fp32, int8 and int4 at one row and bf16 and fp32 at
+    16 rows; token_fused False keeps the loop."""
+    cfg = get_model_config(name)
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN))
+    for form, (kind, dt, B) in FORMS.items():
+        h, ws, kc = _meta_call(cfg, kind, B, dt)
+        plan = {"arrays": 0, "int8": 1, "int4": 2}[kind]
+        want = tb._token_plan(dt.itemsize, cfg.dim, cfg.intermediate_size,
+                              cfg.n_heads, cfg.n_kv_heads, cfg.max_seq_len,
+                              cfg.sliding_window, max(caps), cfg.n_layers,
+                              plan=plan, rows=B)
+        assert tb.k7_form(h, ws, kc, cfg.n_heads), (name, form)
+        assert tb.k7_plan(h, kc, ws, cfg.n_heads, caps,
+                          cfg.sliding_window) == want, (name, form)
+        assert tb.k7_route(h, ws, kc, cfg.n_heads, caps,
+                           cfg.sliding_window) == (want is not None)
+        assert not tb.k7_route(h, ws, kc, cfg.n_heads, caps,
+                               cfg.sliding_window, token_fused=False)
+
+
+def test_route_takes_the_loop_without_a_plan():
+    """A call of K7's form whose shapes K7 cannot plan (no cluster can be
+    resident: here 33 query heads a kv head are not a form at all, so the
+    shapes are a stream past 36 KB at one row: D 32768) takes the loop:
+    the route asks the plan before any launch."""
+    cfg = dataclasses.replace(get_model_config("7B"), dim=32768,
+                              n_heads=256, n_kv_heads=32, n_layers=2)
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN))
+    h, ws, kc = _meta_call(cfg, "arrays", 1, torch.bfloat16)
+    assert tb.k7_form(h, ws, kc, cfg.n_heads)
+    assert tb.k7_plan(h, kc, ws, cfg.n_heads, caps) is None
+    assert not tb.k7_route(h, ws, kc, cfg.n_heads, caps)
+
+
 def test_token_plan_quantized_refuses():
     """No quantized plan for an fp32 stream (the int8 and int4 plans take
     bf16), nor for an unknown weight plan."""
@@ -524,12 +813,14 @@ def test_token_plan_quantized_refuses():
 
 
 def test_token_plan_refuses():
-    """No plan where the shapes do not fit: a score slice past shared
-    memory (no window, a long cache, 8 query heads a kv head), a head_dim
-    other than 128, a cap above the groups, 3 query heads a kv head, a
-    stream past 36 KB, no cluster that can be resident."""
-    assert tb._token_plan(2, 4096, 11008, 32, 4, 1 << 20, None, 16, 32,
-                          132) is None
+    """No plan where the shapes do not fit: a head_dim other than 128, a
+    cap above the groups, 3 query heads a kv head, a stream past 36 KB, no
+    cluster that can be resident. A long cache is no longer among them
+    (no window, 2^20 rows, 8 query heads a kv head): attention walks it in
+    chunks of a fixed size, so it plans as a short one does."""
+    long = tb._token_plan(2, 4096, 11008, 32, 4, 1 << 20, None, 16, 32, 132)
+    assert long == tb._token_plan(2, 4096, 11008, 32, 4, 512, None, 16, 32,
+                                  132)
     assert tb._token_plan(2, 4096, 11008, 64, 8, 4096, None, 16, 32,
                           132) is None
     assert tb._token_plan(2, 4096, 11008, 32, 32, 4096, None, 87, 32,
@@ -564,7 +855,10 @@ def test_token_plan_covers_every_column(GH, edge):
     input, the cluster's partial sums) pass a block's shared memory, or
     its clusters cover every q, k, v, o, gate, up and down column exactly
     once, each head-owned cluster's q columns belong to its kv head, and
-    its shared bytes stay within 232448."""
+    its shared bytes stay within 232448. The same for the rows form at B
+    = 2, 8 and 16 (arrays, 128-byte units; no stream limit: its rows live
+    in the workspace), where None means two slots beside B rows of the
+    cluster's partial sums pass shared memory."""
     clusters, sms = {"h100": (tb.H100_CLUSTERS, 132),
                      "one-cluster": (ONE_CLUSTER, 132),
                      "64-sms": ({c: n // 2 for c, n in
@@ -583,27 +877,50 @@ def test_token_plan_covers_every_column(GH, edge):
             partf = max(2 * -(-(I // uw) // NC) * uw,
                         (GH + 2) * 128 if head
                         else -(-((Hq + 2 * Hkv) * 128 // uw) // NC) * uw)
-            NS = -(-(-(-511 // C)) // 4) * 4
             # at least two slots, and room for attention's PV sums
             least = max(2, -(-(256 // (128 * esz // 16)) * GH * 512 // 16384))
-            assert tb._token_smem(esz, D, I, GH, cap, NS, partf,
-                                  least) > SMEM, (esz, D, I, Hkv)
+            assert tb._token_smem(esz, D, I, GH, cap, tb._tok_scores(GH),
+                                  partf, least) > SMEM, (esz, D, I, Hkv)
             continue
         planned += 1
         assert p.smem <= SMEM and p.grid <= sms
         _check_columns(p, esz, D, I, Hq, Hkv)
     assert planned > 0
+    planned = 0
+    for esz, D, I, Hkv in _sweep_shapes(GH):
+        Hq, cap = GH * Hkv, min(8, D // 128)
+        for B in (2, 8, 16):
+            p = tb._token_plan(esz, D, I, Hq, Hkv, 512, None, cap, 2, sms,
+                               clusters, rows=B)
+            if p is None:
+                C, head = tb._token_structure(Hkv, sms, clusters)
+                uw, NC = 128 // esz, Hkv if head else clusters[C]
+                partf = B * max(2 * -(-(I // uw) // NC) * uw,
+                                (GH + 2) * 128 if head
+                                else -(-((Hq + 2 * Hkv) * 128 // uw) // NC)
+                                * uw)
+                assert tb._token_smem_rows(esz, D, I, cap, partf,
+                                           2) > SMEM, (esz, D, I, Hkv, B)
+                continue
+            planned += 1
+            assert p.smem <= SMEM and p.grid <= sms
+            assert p.smem == tb._token_smem_rows(
+                esz, D, I, cap, _rows_partf(p, esz, D, I, Hq, Hkv, B),
+                p.slots)
+            _check_columns(p, esz, D, I, Hq, Hkv, rows=B)
+    assert planned > 0
 
 
 def test_token_plan_one_cluster_raises_past_shared_memory():
     """At the edge of one resident cluster a cluster owns every column:
-    the 7B still plans (one cluster of 8; bf16 with six ring slots, fp32
-    with four), but a 70B-wide fp32 layer's gate|up partial sums (2 x
+    the 7B still plans (one cluster of 8; bf16 with five ring slots
+    beside the 8 KB of attention scores, fp32 with four), but a 70B-wide
+    fp32 layer's gate|up partial sums (2 x
     28672 fp32) beside its stream pass shared memory, so no plan; the tiny
     config plans too."""
     assert tb._token_plan(4, 8192, 28672, 64, 8, 512, None, 43, 32, 132,
                           ONE_CLUSTER) is None
-    for esz, slots in ((2, 6), (4, 4)):
+    for esz, slots in ((2, 5), (4, 4)):
         p = tb._token_plan(esz, 4096, 11008, 32, 32, 512, None, 43, 32, 132,
                            ONE_CLUSTER)
         assert (p.C, p.clusters, p.slots) == (8, 1, slots)
