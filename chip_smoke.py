@@ -307,8 +307,8 @@ Phases:
      bound (this token's kept groups), barrier floor (`empty`) and the
      trace (`stamps`: block 0's layer phases, every block's arrival at
      every grid barrier), and its time at pos 2047 of a 2048-row cache;
-     self-speculation with the K7 draft (k K7 launches and one verify a
-     round); a 2-layer cut of llama-3-70b's widths (64/8 heads, D 8192,
+     self-speculation with the K7 draft (k + 1 K7 launches a round: the
+     draft steps and the verify chunk, phase 20); a 2-layer cut of llama-3-70b's widths (64/8 heads, D 8192,
      I 28672; random weights, packed int4 at group 128) at pos 8191 of
      an 8192-row cache, which K7 could not plan before its attention
      walked the cache in chunks (`k7_fault31`: the plan in the wrapper
@@ -326,6 +326,26 @@ Phases:
      with token_fused=False in turns (device and wall ms, idle, tok/s;
      `server_turns`); K7's rows form's kernel ms, plain ms and bound at B =
      16 (`k7_rows_times`);
+ 20. K7's rows form with int8 and packed-int4 weights and its seq_block
+     form (`token_decode_rows.cuh`, the quantized kernels built by
+     `token_decode_rows_quant.cu`). In phase 8, on each quantized copy
+     (int8; int4 at group 128): the Q·-main-b16 server steps one K7 launch
+     a step and no K1-K6 (`QUANT_K7`, also in their decode graph: one K7
+     node); every 7B layer held at B = 2, 8 and 16 (`k7_rows_holds`);
+     the B = 16 call through K7 and through the K1/K2 loop
+     (`token_decode(token_fused=False)`) on the same inputs in turns
+     (`k7_loop_turns`: device and wall ms, idle); K7's kernel ms, plain ms
+     and bound (`k7_rows_times`); `block_verify` at S = 5 and 12, every
+     layer of each chunk through K7's seq_block form held to the plain
+     path (`k7_quant_verify`, `k7_verify_holds`) and ceil(S/8) K7
+     launches. In phase 9, `block_verify` at S = 4, 8, 12 takes one K7
+     launch a chunk and no K1-K6, each chunk's layers held through K7 as
+     well as on the K1/K2 loop; the S = 8 chunk through K7 and the loop in
+     turns; the seq_block form's kernel ms, plain ms and bound
+     (`k7_seq_times`). In phase 13, every verify chunk is one K7 launch
+     (the draft k x (4L K1 + L K2)): the launch counts, the round graphs'
+     kernel nodes (one K7 node a round) and the first round's chunk held
+     through K7;
 all printed as one `kernels` JSON line, with the card in it (and the
 results of phases 12-18 under "calibration", "speculative", "cli",
 "parallel", "serving_tp", "device_loop" and "k7");
@@ -399,10 +419,13 @@ QUANT_PATHS = {
     "Q4-loop": ("int4-g64", LOOP_PATHS["A"][0], 1),
 }
 QUANT_LAUNCHES = {"Q8-main": (4, 1, 0, 0, 0, 0),
-                  "Q8-main-b16": (4, 1, 0, 0, 0, 0),
+                  "Q8-main-b16": (0, 0, 0, 0, 0, 0),
                   "Q8-loop": (0, 1, 4, 0, 0, 0), "Q4-main": (4, 1, 0, 0, 0, 0),
-                  "Q4-main-b16": (4, 1, 0, 0, 0, 0),
+                  "Q4-main-b16": (0, 0, 0, 0, 0, 0),
                   "Q4-loop": (0, 1, 4, 0, 0, 0)}
+# K7 launches a decode step (not a layer): the quantized server steps of 16
+# rows take K7's int8 / int4 rows form, one launch a step and no K1-K6
+QUANT_K7 = {"Q8-main-b16": 1, "Q4-main-b16": 1}
 
 
 class SmokeFailure(RuntimeError):
@@ -954,27 +977,44 @@ def end_to_end(params, cfg, caps, device, seed):
     return (k1, k2, decoded), speeds, th
 
 
+PROFILE_TRIES = 3                # torch.profiler sessions a reading
+
+
 def profile_device(fn, iters: int):
     """Device time of fn() per call from torch.profiler: (the sum of the
     kernel times in ms, [(kernel, ms)] largest first). Kernel events only:
     an operator's event, and the span the profiler draws on the device
     for an annotated operator (e.g. "aten::mm"), repeat the device time
-    of the kernels inside them."""
+    of the kernels inside them. On this card the profiler now and then
+    records no kernel at all in a session: the reading is then taken
+    again, up to `PROFILE_TRIES` sessions; after that the device time
+    comes from CUDA events around the `iters` calls (a span that includes
+    any host gaps between launches: an upper bound), as one row named so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
-    return sum(t for _, t in rows), rows
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        if rows:
+            return sum(t for _, t in rows), rows
+        log("[time] torch.profiler recorded no kernel of the call; "
+            "profiling it again")
+    dev, _ = cuda_ms(lambda i: fn(), iters, warmup=0, queued=False)
+    log(f"[time] no kernel recorded in {PROFILE_TRIES} profiler sessions: "
+        f"device {dev:.3f} ms a call from CUDA events around the calls "
+        "(host gaps included)")
+    return dev, [("cuda events around the calls (no profiler record)", dev)]
 
 
 def time_decode_step(params, cfg, runs, device, rope, iters: int = 3,
@@ -1719,11 +1759,13 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
     return th, worst, (k, v)
 
 
-def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
+def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None,
+               k7=None):
     """Phase 6 for every path of `paths` (name: (SparsityConfig kwargs,
     batch); `LOOP_PATHS` by default), each held layer by layer on the
     token path or the layer loop, as `forward` routes it, with the launch
-    counts per step of `launches`. Returns {path: results}."""
+    counts per layer and step of `launches` and the K7 launches per step
+    of `k7` (none where a path is absent). Returns {path: results}."""
     import numpy as np
 
     from teal_tpu_torch.config import SparsityConfig
@@ -1732,6 +1774,7 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
 
     paths = paths or LOOP_PATHS
     launches = launches or LOOP_LAUNCHES
+    k7 = k7 or {}
     rng = np.random.default_rng(seed + 1)
     dt = llama.compute_dtype(params)
     L = cfg.n_layers
@@ -1763,27 +1806,30 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None):
         reset_launches()
         outs = [gen.generate(p, LOOP_NEW_TOKENS, thresholds=th,
                              on_device_loop=False) for p in prompts]
-        counts = read_launches()
+        counts, n7 = read_launches(), k7_launches()
         steps = len(prompts) * (LOOP_NEW_TOKENS - 1)
         want = tuple(n * L * steps for n in launches[name])
-        check(counts == want, f"path {name}: launches (K1, K2, K3, K4, K5, "
-              f"K6) "
-              f"{counts}, expected {want} for {steps} decode steps")
+        check(counts == want and n7 == k7.get(name, 0) * steps,
+              f"path {name}: launches (K1, K2, K3, K4, K5, K6) {counts} and "
+              f"{n7} K7, expected {want} and {k7.get(name, 0) * steps} for "
+              f"{steps} decode steps")
         for p, (toks, st) in zip(prompts, outs):
             check(toks.shape == (b, p.shape[1] + LOOP_NEW_TOKENS)
                   and bool((toks >= 0).all() and (toks < cfg.vocab_size)
                            .all()), f"path {name}: bad tokens {toks.shape}")
         log(f"[loop] path {name}: {len(prompts)} requests, {steps} decode "
             f"steps, launches per step (K1, K2, K3, K4, K5, K6) "
-            f"{tuple(c // steps for c in counts)}; tok/s "
+            f"{tuple(c // steps for c in counts)} and K7 {n7 // steps}; tok/s "
             + ", ".join(f"{st.tokens_per_s * b:.2f}" for _, st in outs)
             + f"; first request's new tokens "
             f"{outs[0][0][0, prompts[0].shape[1]:].tolist()}")
         del gen
         graph = graph_route(f"path {name}", cfg, params, sp_kw, b, th, device,
                             prompts, launches[name], seed,
-                            n_new=LOOP_NEW_TOKENS)
+                            n_new=LOOP_NEW_TOKENS,
+                            k7_per_step=k7.get(name, 0))
         out[name] = dict(th=th, worst=worst, launches=counts, steps=steps,
+                         k7_launches=n7,
                          tok_s=[st.tokens_per_s * b for _, st in outs],
                          graph=graph)
     return out
@@ -2209,6 +2255,16 @@ def time_quant_head(qparams, plan, cfg, device, gen):
     return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, quant_library_ms=lib)
 
 
+def off_path(e, still):
+    """Mark a `kernels` entry whose kernel the main path's runs no longer
+    launch (its `launches`, read from those runs, are 0): it is still held
+    to its plain version and timed; `still` says which option runs it."""
+    e.update(on_main_path=False, still_run_by=still)
+    log(f"[kernels] {e['name']}: off the main path ({e['launches']} "
+        f"launches in its runs); still run by {still}")
+    return e
+
+
 def plan_entry(stages, name, source, replaces, launches, steps, err, timed):
     """A `kernels` line entry from per-stage rows (one layer, summed)."""
     e = _summed(stages, name, source, replaces, launches, steps, err, timed)
@@ -2228,8 +2284,14 @@ def quant_paths(params, cfg, caps, device, gen, seed, rope):
     with that weight plan to their plain versions, run its paths
     (`loop_paths`: every 7B layer held to the plain path, three greedy
     requests, launch counts), time one decode step at pos 40, the plan's
-    kernels and the quantized logits head; then free the copy. Returns
-    (kernels entries, {path: results}, extra results)."""
+    kernels and the quantized logits head; for int8 and int4 at group
+    128, K7's batch-1 checks (`k7_quant`) and its rows form: the B = 16
+    server step one K7 launch (`QUANT_K7`), every layer held at B = 2, 8
+    and 16 (`k7_rows_holds`), the step in turns with the K1/K2 loop
+    (`k7_loop_turns`), its time and bound (`k7_rows_times`), and
+    `block_verify` at S = 5 and 12 through K7's seq_block form
+    (`k7_quant_verify`); then free the copy. Returns (kernels entries,
+    {path: results}, extra results)."""
     import torch
 
     src = "teal_tpu_torch/csrc/"
@@ -2257,7 +2319,7 @@ def quant_paths(params, cfg, caps, device, gen, seed, rope):
                     e["max_abs_err"] = max(e["max_abs_err"], k1g)
         runs = loop_paths(qp, cfg, device, seed, rope,
                           paths={n: QUANT_PATHS[n][1:] for n in names},
-                          launches=QUANT_LAUNCHES)
+                          launches=QUANT_LAUNCHES, k7=QUANT_K7)
         results.update(runs)
         extra.update({f"decode_step_ms {k}": v for k, v in time_decode_step(
             qp, cfg, [(n, *QUANT_PATHS[n][1:], runs[n]["th"])
@@ -2265,9 +2327,25 @@ def quant_paths(params, cfg, caps, device, gen, seed, rope):
         for n in names:
             r = runs[n]
             if n.endswith("-b16"):
-                entries.append(time_rows_kernels(
+                rows = extra.setdefault("k7_rows", {})[plan] = {}
+                holds = k7_rows_holds(qp, cfg, device, gen, r["th"],
+                                      fp32_cut=False, tag=f"k7 rows {plan}")
+                rows["holds"] = {str(k): dict(worst=v[0], max_abs_err=v[1],
+                                              flips=v[2])
+                                 for k, v in holds.items()}
+                rows["turns"] = k7_loop_turns(qp, cfg, device, gen, r["th"])
+                e7 = k7_rows_times(qp, cfg, device, gen, r["th"])
+                e7.update(launches=r["k7_launches"], steps=r["steps"],
+                          max_abs_err=max(v[1] for v in holds.values()),
+                          turns=rows["turns"]["turns"])
+                entries.append(e7)
+                rows["verify"] = k7_quant_verify(qp, cfg, device, seed, rope,
+                                                 plan)
+                # K1's rows form: its launches in the main path's run
+                entries.append(off_path(time_rows_kernels(
                     qp, params, cfg, caps, device, gen, rope, plan,
-                    r["launches"][0], r["steps"], errs["rows"]))
+                    r["launches"][0], r["steps"], errs["rows"]),
+                    "token_fused=False: a B = 16 step's 4 L launches"))
             elif n.endswith("-main"):
                 entries.append(plan_entry(
                     time_k1_plan(qp, params, cfg, caps, device, gen, plan),
@@ -2612,7 +2690,9 @@ def to_fp32(tree):
 def verify_phase(params, cfg, device, seed, rope):
     """`block_verify` at S in `VERIFY_S` after a dense prefill of 40
     tokens: every layer of each chunk held to its plain version (2e-2 of
-    scale), ceil(S/8) * (4*L K1 + L K2) launches, finite logits. The
+    scale) on the K1/K2 loop (`hold_token_layers(verify=True)`) and
+    through K7's seq_block form (`k7_verify_holds`), ceil(S/8) K7
+    launches and none of K1-K6, finite logits. The
     logits of all 32 bf16 layers are compared with the dense forward and
     with `block_verify` on the plain versions, and reported: random bf16
     weights turn each layer's rounding differences (the per-layer holds'
@@ -2637,9 +2717,8 @@ def verify_phase(params, cfg, device, seed, rope):
         check(llama.can_block_verify(params, cfg, S), f"S={S}: gate refused")
         toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, S)))
         toks = toks_s[S] = toks.to(device)
-        n_chunks = -(-S // 8)
-        sizes = [S // n_chunks + (1 if j < S % n_chunks else 0)
-                 for j in range(n_chunks)]
+        sizes = chunk_sizes(S)
+        n_chunks = len(sizes)
         kv, off, worst = cache, 0, 0.0
         for ss in sizes:                 # each chunk on the plain cache
             _, w, kv = hold_token_layers(
@@ -2647,6 +2726,9 @@ def verify_phase(params, cfg, device, seed, rope):
                 list(range(pos + off, pos + off + ss)), rope, device,
                 verify=True)
             worst, off = max(worst, w), off + ss
+        k7_worst, k7_err = k7_verify_holds(params, cfg, cache, toks[0], pos,
+                                           rope, device,
+                                           tag=f"[k7 verify bf16 S={S}]")
         runs = {}
         for kind in ("kernel", "plain", "dense"):
             c = llama.KVCache(cache.k.clone(), cache.v.clone())
@@ -2664,22 +2746,26 @@ def verify_phase(params, cfg, device, seed, rope):
                 lg, _ = llama.block_verify(params, toks, c, pos, zero,
                                            cfg=cfg, rope=rope)
             torch.cuda.synchronize()
-            runs[kind] = (lg, time.perf_counter() - t0, read_launches())
-        lg, wall, got = runs["kernel"]
-        want = (n_chunks * 4 * L, n_chunks * L, 0, 0, 0, 0)
-        check(got == want, f"block_verify S={S}: launches {got}, expected "
-              f"{want}")
+            runs[kind] = (lg, time.perf_counter() - t0, read_launches(),
+                          k7_launches())
+        lg, wall, got, n7 = runs["kernel"]
+        check(got == (0,) * 6 and n7 == n_chunks, f"block_verify S={S}: "
+              f"launches (K1, K2, K3, K4, K5, K6) {got} and {n7} K7, "
+              f"expected none and {n_chunks}")
         check(tuple(lg.shape) == (1, S, cfg.vocab_size)
               and bool(torch.isfinite(lg).all()), f"S={S}: bad logits")
         rel = {k: float((lg - runs[k][0]).abs().max()
                         / runs[k][0].abs().max()) for k in ("plain", "dense")}
-        out[S] = dict(launches=got, worst=worst, wall_ms=wall * 1e3,
+        out[S] = dict(launches=got, k7_launches=n7, worst=worst,
+                      k7_worst=k7_worst, k7_max_abs_err=k7_err,
+                      wall_ms=wall * 1e3,
                       dense_wall_ms=runs["dense"][1] * 1e3,
                       bf16_err_dense=rel["dense"],
                       bf16_err_plain=rel["plain"])
         log(f"[verify] S={S} ({n_chunks} chunk(s) {sizes}): every layer held "
-            f"to the plain version (worst {worst:.2e} of scale); launches "
-            f"(K1, K2, K3, K4, K5, K6) {got}; bf16 logits after {L} layers "
+            f"to the plain version on the K1/K2 loop (worst {worst:.2e} of "
+            f"scale) and through K7 (worst {k7_worst:.2e}); launches (K1, K2, "
+            f"K3, K4, K5, K6) {got} and {n7} K7; bf16 logits after {L} layers "
             f"vs "
             f"the dense forward {rel['dense']:.2e} of scale, vs the plain "
             f"version {rel['plain']:.2e} (reported, not checked); wall "
@@ -2869,21 +2955,33 @@ def step_kept_counts(params, cfg, th, device, rope, b: int = 16):
     return kept
 
 
+def in_turns(routes, turns: int, reading):
+    """`turns` readings of each route, taken in turns (the order reversed
+    every other turn, so that neither route always runs first): {route:
+    [reading(route), ...]}."""
+    out = {r: [] for r in routes}
+    for i in range(turns):
+        for r in (routes if i % 2 == 0 else routes[::-1]):
+            out[r].append(reading(r))
+    return out
+
+
 def server_turns(params, cfg, th, device, rope, b: int = 16):
     """The server's B-row decode step (token 7 at `row_positions` on an
     empty cache) through K7's rows form (`MAIN_SP`) and with
     token_fused=False (`LOOP_SP`: the model's layer loop) in turns,
     `K7_ROWS_TURNS` times each: device ms, wall ms, idle share and tok/s
     from the wall time. Returns {route: [readings]}."""
-    out = {"k7": [], "token_fused=False": []}
-    for i in range(K7_ROWS_TURNS):
-        order = (("k7", MAIN_SP), ("token_fused=False", LOOP_SP))
-        for name, sp in (order if i % 2 == 0 else order[::-1]):
-            r = time_decode_step(params, cfg, [(f"server batch {b}, {name}",
-                                               sp, b, th, row_positions(b))],
-                                 device, rope)[f"server batch {b}, {name}"]
-            r["tok_s"] = b / r["wall_ms"] * 1e3
-            out[name].append(r)
+    sps = {"k7": MAIN_SP, "token_fused=False": LOOP_SP}
+
+    def reading(name):
+        kind = f"server batch {b}, {name}"
+        r = time_decode_step(params, cfg, [(kind, sps[name], b, th,
+                                            row_positions(b))],
+                             device, rope)[kind]
+        r["tok_s"] = b / r["wall_ms"] * 1e3
+        return r
+    out = in_turns(tuple(sps), K7_ROWS_TURNS, reading)
     for name, rs in out.items():
         log(f"[serve] batch-{b} step, {name}, in turns: device "
             f"{[round(r['device_ms'], 3) for r in rs]} ms, wall "
@@ -2921,22 +3019,37 @@ def batched_phase(params, cfg, caps, device, gen, seed, rope):
             f"{r['device_ms']:.3f} ms device, idle {r['idle_share']:.1%})")
     turns = server_turns(params, cfg, th, device, rope)
     kept = step_kept_counts(params, cfg, th, device, rope)
-    v_launch = [sum(r["launches"][j] for r in verify.values())
-                for j in (0, 1)]
     v_steps = sum(-(-S // 8) for S in VERIFY_S)
+    v_k7 = sum(r["k7_launches"] for r in verify.values())
+    # the verify chunk (S = 8) through K7 and through the K1/K2 loop, in
+    # turns
+    v_turns = k7_loop_turns(params, cfg, device, gen, th, B=K7_VERIFY_S,
+                            seq=True)
     loop_step = serve["loop_step_launches"]
+    # K1's rows form and K2's seq_block form: their launches in the main
+    # path's runs (the server's steps and the verify chunks, which take K7)
+    main_k1 = one["launches"][0] + sum(r["launches"][0]
+                                       for r in verify.values())
+    main_seq = sum(r["launches"][1] for r in verify.values())
     entries = [
-        time_rows_kernels(params, params, cfg, caps, device, gen, rope,
-                          "bf16", v_launch[0], v_steps, e_k1),
+        off_path(time_rows_kernels(params, params, cfg, caps, device, gen,
+                                   rope, "bf16", main_k1,
+                                   one["steps"] + v_steps, e_k1),
+                 "token_fused=False: a verify chunk's 4 L launches"),
         time_k2_rows(cfg, device, gen, rope, loop_step[1], 1, e_k2, "B=16"),
-        time_k2_rows(cfg, device, gen, rope, v_launch[1], v_steps, e_k2,
-                     "seq_block"),
+        off_path(time_k2_rows(cfg, device, gen, rope, main_seq, v_steps,
+                              e_k2, "seq_block"),
+                 "token_fused=False: a verify chunk's L launches"),
         e_k7,
+        k7_seq_times(params, cfg, device, gen, v_k7, v_steps,
+                     max(r["k7_max_abs_err"] for r in verify.values())),
     ]
+    entries[-1]["turns"] = v_turns["turns"]
     results = dict(
         server={k: ({kk: vv for kk, vv in v.items() if kk != "outs"}
                     if isinstance(v, dict) else v) for k, v in serve.items()},
-        verify=verify, decode_step_ms=steps, server_turns=turns,
+        verify=verify, verify_turns=v_turns, decode_step_ms=steps,
+        server_turns=turns,
         step_kept_b16={name: kept[:, j].tolist()
                        for j, name in enumerate(STAGES)},
         k7_rows=dict(plans=rows_plans,
@@ -3775,12 +3888,14 @@ def check_spec_rounds(rec, toks, what):
 
 
 def spec_launches(got, L: int, live: int, rounds: int, what: str):
-    """K1 4*L and K2 L a live draft step and a verify chunk (k + 1 <= 8
-    positions: one chunk a round), no other kernel."""
-    want = (4 * L * (live + rounds), L * (live + rounds), 0, 0, 0, 0)
-    check(tuple(got) == want, f"{what}: launches (K1, K2, K3, K4, K5, K6) "
-          f"{tuple(got)}, expected {want} for {live} draft steps and "
-          f"{rounds} verifies")
+    """K1 4*L and K2 L a live draft step (the K1/K2 loop), one K7 a verify
+    chunk (k + 1 <= 8 positions: one chunk a round, K7's seq_block form),
+    no other kernel."""
+    want = (4 * L * live, L * live, 0, 0, 0, 0)
+    n7 = k7_launches()
+    check(tuple(got) == want and n7 == rounds, f"{what}: launches (K1, K2, "
+          f"K3, K4, K5, K6) {tuple(got)} and {n7} K7, expected {want} and "
+          f"{rounds} for {live} draft steps and {rounds} verifies")
 
 
 def spec_run(params, cfg, prompt, n, device, th, seed, draft=LOOP_SP,
@@ -3810,10 +3925,10 @@ def spec_run(params, cfg, prompt, n, device, th, seed, draft=LOOP_SP,
 
 def spec_round_kernels(L: int, k_eff) -> tuple:
     """K1-K6 launches of one self-speculative round of the 7B's main-path
-    draft at depth k_eff (None: `SPEC_K`): k_eff draft steps and one verify
-    chunk, 4L K1 + L K2 each."""
+    draft at depth k_eff (None: `SPEC_K`): k_eff draft steps, 4L K1 + L K2
+    each (the verify chunk is one K7 launch)."""
     d = SPEC_K if k_eff is None else k_eff
-    return ((d + 1) * 4 * L, (d + 1) * L, 0, 0, 0, 0)
+    return (d * 4 * L, d * L, 0, 0, 0, 0)
 
 
 @contextlib.contextmanager
@@ -3825,7 +3940,8 @@ def timed_rounds(rec, count=None):
     loop's replayed rounds; rec["capture"]: (k_eff, seconds) of the rounds
     that captured their depth's graph first. With count = (what, L), each
     captured graph's K1-K6 kernel nodes, read after its round, must equal
-    `spec_round_kernels(L, k_eff)` (`graph_counts`; rec["counts"][k_eff])."""
+    `spec_round_kernels(L, k_eff)` (`graph_counts`; rec["counts"][k_eff])
+    and its K7 nodes 1 (the verify chunk, `k7_nodes`)."""
     from teal_tpu_torch.engine import speculative as spec
 
     orig_round = spec._Rounds.round
@@ -3846,6 +3962,9 @@ def timed_rounds(rec, count=None):
                 rec.setdefault("counts", {})[k_eff] = graph_counts(
                     self.graphs[k_eff], f"{count[0]} depth {k_eff}",
                     spec_round_kernels(count[1], k_eff))[0]
+                n7 = k7_nodes(self.graphs[k_eff])
+                check(n7 == 1, f"graph {count[0]} depth {k_eff}: {n7} K7 "
+                      "kernel nodes, expected 1 (the verify chunk)")
         else:
             rec["replay"].append(dt)
         return out
@@ -3863,8 +3982,8 @@ def spec_graph_runs(params, cfg, device, seed, th, prompt):
     at forced_alpha 0.9, in turns (host, graph, graph, host): the same
     tokens, new_tokens, mean_accepted and rounds in every run; the
     wrappers' launches of a graph run are its warm-up round and its
-    capture, 2 x (k + 1) x (4L K1 + L K2); the round's graph holds (k + 1)
-    x (4L K1 + L K2) kernel nodes, what one replay launches
+    capture, 2 x (k x (4L K1 + L K2) + one K7); the round's graph holds k x
+    (4L K1 + L K2) kernel nodes and one K7 node, what one replay launches
     (`timed_rounds`' count). t_round of both loops (the graph's replayed
     rounds only; its capture apart). Returns the results."""
     import numpy as np
@@ -3882,12 +4001,13 @@ def spec_graph_runs(params, cfg, device, seed, th, prompt):
                 toks, st, wall = spec_run(params, cfg, prompt,
                                           SPEC_NEW_TOKENS, device, th, seed,
                                           device_loop=dl, **kw)
-            got = read_launches()
+            got, n7 = read_launches(), k7_launches()
             rounds = st["rounds"] if dl else len(st["accepted_per_step"])
             if dl:
-                check(got == tuple(2 * n for n in per_round),
-                      f"spec graph {what}: launches {got} at the capture, "
-                      f"expected {tuple(2 * n for n in per_round)}")
+                check(got == tuple(2 * n for n in per_round) and n7 == 2,
+                      f"spec graph {what}: launches {got} and {n7} K7 at the "
+                      f"capture, expected {tuple(2 * n for n in per_round)} "
+                      "and 2")
             runs.append((toks, st["new_tokens"], st["mean_accepted"],
                          rounds))
         for r in runs[1:]:
@@ -3919,15 +4039,16 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
          the third again with the draft at keep 1.0 and zero thresholds
          (whose proposals the verify accepts; at least one must be), at
          temperature 0 with every verify recorded (`recording_verify`):
-         per round 4*L K1 + L K2 a draft step and a verify chunk
+         per round 4*L K1 + L K2 a draft step and one K7 a verify chunk
          (`spec_launches`); every emitted token the argmax of its verify
          row and the cache rows of the emitted tokens the verify's
          (`check_spec_rounds`); then the same generation unrecorded and
          timed (the same tokens): t_round, tok/s, mean accepted;
       2. the first round's verify rerun on the final cache (the rows
          before it are the prefill's): the logits equal to the recorded
-         ones, every layer of the chunk held to the plain path
-         (`hold_token_layers(verify=True)`, 2e-2 of scale); the bf16
+         ones, every layer of the chunk held to the plain path on the
+         K1/K2 loop (`hold_token_layers(verify=True)`, 2e-2 of scale) and
+         through K7's seq_block form (`k7_verify_holds`); the bf16
          logits beside the plain path's reported; the same verify on an
          fp32 copy of the weights and cache through the kernels held to
          the plain path within 2e-2 of scale (in bf16 the 32 random
@@ -3992,8 +4113,9 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
         host_toks.append(toks)
         log(f"[spec] {what}: {rounds} rounds, mean accepted "
             f"{st['mean_accepted']:.3f} {st['accepted_per_step']}; launches "
-            f"(K1, K2, K3, K4, K5, K6) {got} = {SPEC_K + 1} x (4L K1 + L K2) "
-            f"a round; {n_tok} emitted tokens each the argmax of its verify "
+            f"(K1, K2, K3, K4, K5, K6) {got} = {SPEC_K} x (4L K1 + L K2) and "
+            f"one K7 a round; {n_tok} emitted tokens each the argmax of its "
+            "verify "
             f"row ({near} within {SPEC_NEAR_TIE:g} of it), the emitted "
             f"rows of the cache the verifies' bit for bit; t_round "
             f"{run['t_round_ms']:.2f} ms, {run['tok_s']:.2f} tok/s")
@@ -4021,6 +4143,8 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
     _, worst, _ = hold_token_layers(
         params, cfg, llama.KVCache(base.k.clone(), base.v.clone()),
         stoks[0], list(range(pos, pos + S)), rope, device, verify=True)
+    k7_worst, _ = k7_verify_holds(params, cfg, base, stoks[0], pos, rope,
+                                  device, tag=f"[k7 spec verify S={S}]")
     with plain_path():
         plg, _ = llama.block_verify(
             params, stoks, llama.KVCache(base.k.clone(), base.v.clone()),
@@ -4040,11 +4164,13 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
     fp32_rel = err / float(lgs[1].abs().max())
     del p32, lgs, first, base
     torch.cuda.empty_cache()
-    res.update(verify_worst=worst, verify_bf16_rel_plain=bf16_rel,
+    res.update(verify_worst=worst, verify_k7_worst=k7_worst,
+               verify_bf16_rel_plain=bf16_rel,
                verify_fp32_rel_plain=fp32_rel)
     log(f"[spec] first round's verify (S = {S} at pos {pos}) rerun on the "
         f"final cache: logits equal to the recorded ones; every layer held "
-        f"to the plain path (worst {worst:.2e} of scale, tolerance 2e-2); "
+        f"to the plain path on the K1/K2 loop (worst {worst:.2e} of scale, "
+        f"tolerance 2e-2) and through K7 (worst {k7_worst:.2e}); "
         f"bf16 logits vs the plain path {bf16_rel:.2e} of scale (reported); "
         f"fp32 copy through the kernels vs the plain path {fp32_rel:.2e} of "
         f"scale (tolerance 2e-2)")
@@ -4105,13 +4231,14 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
                                   device, th, seed, device_loop=True,
                                   adaptive_k=True)
     k1, k2, *rest = got = read_launches()
+    n7 = k7_launches()
     check(np.array_equal(toks, host_toks[0]), "spec: the adaptive device "
           "loop's tokens differ from the host loop's")
     r = st["rounds"]
     depths = sorted(k for k, _ in rec["capture"])
-    check(k1 == 4 * k2 and k2 == 2 * L * sum(d + 1 for d in depths)
-          and not any(rest), f"spec adaptive: launches {got} for the "
-          f"captures of depths {depths}")
+    check(k1 == 4 * k2 and k2 == 2 * L * sum(depths) and not any(rest)
+          and n7 == 2 * len(depths), f"spec adaptive: launches {got} and "
+          f"{n7} K7 for the captures of depths {depths}")
     res["adaptive"] = dict(rounds=r, k_eff_final=st["k_eff_final"],
                            alpha_hat_final=st["alpha_hat_final"],
                            mean_accepted=st["mean_accepted"],
@@ -4186,8 +4313,7 @@ def cli_phase(device):
     --block-size 128`: the main path, one K7 launch a step, captured in
     the step's graph, with --metrics); self-speculation (`--speculate-k 4
     --self-speculate`, with --metrics and --profile: a non-empty trace
-    directory; k K7 draft steps and 4*L K1 + L K2 for the verify a
-    round); ppl at `CLI_PPL` (K6 L a window); eval of a task file whose
+    directory; k K7 draft steps and one K7 verify chunk a round); ppl at `CLI_PPL` (K6 L a window); eval of a task file whose
     contexts pass 128 tokens (K6 L a scored sequence and L for the
     generated one's prefill); quantize --mode int4, then generate from
     its store (K1's int4 plan after the repack: the K1/K2 loop, 4*L K1 +
@@ -4247,10 +4373,10 @@ def cli_phase(device):
                              "--block-size", "128", "--metrics",
                              str(metrics), "--profile", str(prof)],
                           want_k7=None)
-    # a round: 4 draft steps (K7 each) and one verify chunk (4 L K1 + L K2)
-    per_round = 4 * L
-    check(got[0] > 0 and got[0] % per_round == 0 and got[0] == 4 * got[1]
-          and not any(got[2:]) and k7 == 4 * (got[0] // per_round),
+    # a round: 4 draft steps and one verify chunk (K7's seq_block form),
+    # one K7 launch each, no K1-K6
+    per_round = 4 + 1
+    check(not any(got) and k7 > 0 and k7 % per_round == 0,
           f"cli speculative: launches {got}, K7 {k7}")
     check(f"{CLI_NEW_TOKENS} tokens" in err and "mean accepted" in err,
           f"cli speculative: {err}")
@@ -4260,7 +4386,7 @@ def cli_phase(device):
     check(len(lines) == 2 and lines[1]["speculate_k"] == 4,
           f"cli metrics: {lines}")
     res["generate speculative"].update(
-        rounds=got[0] // per_round,
+        rounds=k7 // per_round,
         mean_accepted=lines[1]["mean_accepted"],
         trace_files=sorted(p.name for p in prof.iterdir()))
     n_tok, ctx, win = CLI_PPL
@@ -5997,6 +6123,15 @@ def graph_counts(graph, what: str, per_replay):
     return counts, sum(nodes.values())
 
 
+def k7_nodes(graph) -> int:
+    """K7's kernel nodes (one row's `token_kernel`, the rows form's
+    `token_rows_kernel`) of a captured graph (`profiling.graph_kernels`)."""
+    from teal_tpu_torch.utils.profiling import graph_kernels
+
+    return sum(c for k, c in graph_kernels(graph).items()
+               if "token_kernel" in k or "token_rows_kernel" in k)
+
+
 def profile_replays(loop, iters: int):
     """`iters` replays of a `Generator`'s decode graph (`loop`, its
     `_DecodeLoop`) from position `GRAPH_POS`: (device ms a replay, the sum
@@ -6028,7 +6163,7 @@ def profile_replays(loop, iters: int):
 
 
 def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
-                seed, n_new: int = NEW_TOKENS):
+                seed, n_new: int = NEW_TOKENS, k7_per_step: int = 0):
     """Phase 17 on one route the script's `Generator` drives (sparsity
     kwargs `sp_kw`, batch b, thresholds th, `per_step` K1-K6 launches a
     layer and step): the decode step's capture, counts set to 0 just
@@ -6037,7 +6172,9 @@ def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
     `n_new` tokens by the host loop and by the graph at each
     temperature of `GRAPH_TEMPS` from one generator seed, the tokens
     equal; the graph's K1-K6 kernel nodes, what one replay launches,
-    equal to per_step x L (`graph_counts`); the replayed step's device and
+    equal to per_step x L (`graph_counts`), and its K7 nodes to
+    `k7_per_step` (`k7_nodes`; K7's wrapper counts 3 x k7_per_step at the
+    capture); the replayed step's device and
     wall time and idle share (1 - device / wall, unclamped: device time
     above wall time is reported as it is, with a note); tok/s of both
     loops in `GRAPH_TURNS` turns of 2 x n_new tokens. Returns the
@@ -6060,10 +6197,11 @@ def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
     t0 = time.perf_counter()
     g0.warmup()
     capture_s = time.perf_counter() - t0
-    got = read_launches()
+    got, n7 = read_launches(), k7_launches()
     want = tuple(3 * n * L for n in per_step)
-    check(got == want, f"graph {what}: launches (K1, K2, K3, K4, K5, K6) at "
-          f"the capture {got}, expected {want} (2 warm-up steps and the "
+    check(got == want and n7 == 3 * k7_per_step, f"graph {what}: launches "
+          f"(K1, K2, K3, K4, K5, K6) at the capture {got} and {n7} K7, "
+          f"expected {want} and {3 * k7_per_step} (2 warm-up steps and the "
           "captured one)")
     for temp, g in gens.items():
         for i, p in enumerate(prompts):
@@ -6077,6 +6215,9 @@ def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
     dev, wall = profile_replays(g0._loop, GRAPH_REPLAYS)
     counts, total = graph_counts(g0._loop.graph, what,
                                  [n * L for n in per_step])
+    nodes7 = k7_nodes(g0._loop.graph)
+    check(nodes7 == k7_per_step, f"graph {what}: {nodes7} K7 kernel nodes, "
+          f"expected {k7_per_step}")
     tok_s = {"host": [], "graph": []}
     for i in range(GRAPH_TURNS):
         for kind in (("host", "graph") if i % 2 == 0 else ("graph", "host")):
@@ -6084,13 +6225,15 @@ def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
                                 on_device_loop=kind == "graph")
             tok_s[kind].append(st.tokens_per_s * b)
     res = dict(batch=b, capture_launches=got, replay_launches=counts,
+               replay_k7_nodes=nodes7,
                replay_kernels=total, replay_device_ms=dev,
                replay_wall_ms=wall, replay_idle_share=1 - dev / wall,
                first_generate_s=capture_s, tok_s=tok_s)
     log(f"[graph] {what} (batch {b}): the graph's tokens equal the host "
         f"loop's for {len(prompts)} prompts x {n_new} tokens at "
-        f"temperatures {GRAPH_TEMPS}; capture launches {got}; one replay: "
-        f"(K1, K2, K3, K4, K5, K6) {counts} of {total} kernel nodes, device "
+        f"temperatures {GRAPH_TEMPS}; capture launches {got}, K7 {n7}; one "
+        f"replay: (K1, K2, K3, K4, K5, K6) {counts} and K7 {nodes7} of "
+        f"{total} kernel nodes, device "
         f"{dev:.3f} ms, wall {wall:.3f} ms, idle "
         f"{res['replay_idle_share']:.1%}"
         + (" (device time above wall time: the profiled and the unprofiled "
@@ -6199,7 +6342,7 @@ def k7_recorder(rec, idx_rec, override=None):
 
 
 def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
-                   tag="[k7]"):
+                   tag="[k7]", seq_block: bool = False, keep=None):
     """Every layer of K7 run alone on a one-layer slice of the stack
     (weights, gains, thresholds and cache layer `i:i+1`), on the plain
     path's input to that layer and the pre-step cache: its output and
@@ -6211,8 +6354,12 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
     phase 4), the plain layer runs again past that score and K7 is held to
     that. `tok` and `pos` as lists of B > 1 (the cache of B rows): K7's
     rows form, one row a sequence at its own position, the written K/V
-    rows held at each. Returns (worst relative error, worst absolute error
-    of the output, flips explained)."""
+    rows held at each; with `seq_block` the rows are the consecutive
+    positions of one sequence in cache row 0 (`block_verify`'s chunk: the
+    fixed selection at full caps, K7's seq_block form). With `keep` (a
+    dict), keep["cache"] receives the plain path's cache after the step
+    as (k, v). Returns (worst relative error, worst absolute error of the
+    output, flips explained)."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -6221,9 +6368,12 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
 
     lay = params["layers"]
     ws = tuple(lay[n] for n in PROJ_NAMES)
-    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    caps = ((cfg.dim // 128,) * 3 + (cfg.intermediate_size // 128,)
+            if seq_block else
+            llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP)))
     kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
-              window=cfg.sliding_window)
+              window=cfg.sliding_window, fixed_sel=seq_block,
+              seq_block=seq_block)
     k, v = cache.k.clone(), cache.v.clone()            # plain path
     poss = [pos] if isinstance(pos, int) else list(pos)
     B = len(poss)
@@ -6274,11 +6424,12 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
                   f"{sel[0, st, 1:1 + c].tolist()}, the plain path "
                   f"{idx_rec[st].tolist()}")
         kept.append(g_cnt)
+        rows_of = [(0 if seq_block else b, p) for b, p in enumerate(poss)]
         for what, g, w in (("hidden", got, held),
                            *((f"k row {b}", kk[0, b, :, p], k[i, b, :, p])
-                             for b, p in enumerate(poss)),
+                             for b, p in rows_of),
                            *((f"v row {b}", vk[0, b, :, p], v[i, b, :, p])
-                             for b, p in enumerate(poss))):
+                             for b, p in rows_of)):
             err = rel_check(f"{tag} layer {i} {what}: K7 vs plain", g, w,
                             K7_TOKEN_TOL)
             scale = float(w.float().abs().max())
@@ -6287,6 +6438,8 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
                 worst_abs = max(worst_abs, err)
         h = want
     mean = [round(sum(c[j] for c in kept) / len(kept), 2) for j in range(4)]
+    if keep is not None:
+        keep["cache"] = (k, v)
     log(f"{tag} {cfg.n_layers} layers at pos {poss if B > 1 else pos}: "
         f"each K7 layer held to "
         f"the plain layer (worst {worst:.2e} of scale, tolerance "
@@ -6494,29 +6647,36 @@ def k7_graphs(gens, cfg, th, prompts, tag="[k7]"):
     return res
 
 
+def k7_weight_bytes(kept, cfg, esz: int, wplan: int):
+    """(bytes, elements) of the weights K7 reads at the kept group counts
+    `kept` [L, 4] (q|k|v, o, gate|up, down): each kept group's slab rows
+    of the stage's weights once (arrays: esz bytes a weight; int8: 1, and
+    each stage's per-channel scales once where it kept a group; packed
+    int4: half a byte, and each kept group's [scale, zero] rows, 8 bytes a
+    column)."""
+    D, I, kvw = cfg.dim, cfg.intermediate_size, cfg.n_kv_heads * 128
+    widths = (D + 2 * kvw, D, 2 * I, D)
+    kept = kept.double().cpu()
+    elems = float(sum((kept[:, j] * 128 * widths[j]).sum() for j in range(4)))
+    if wplan == 0:
+        return elems * esz, elems
+    if wplan == 1:
+        return elems + float(sum(((kept[:, j] > 0).double() * 4
+                                  * widths[j]).sum() for j in range(4))), elems
+    return elems / 2 + float(sum((kept[:, j] * 8 * widths[j]).sum()
+                                 for j in range(4))), elems
+
+
 def k7_bound(sel, cfg, pos: int, esz: int, wplan: int = 0):
     """(bytes, flops) one K7 token must move and do at the kept counts of
-    `sel` [L, 4, ...]: each kept group's slab rows of the stage's weights
-    read once (arrays: esz bytes a weight; int8: 1, and each stage's
-    per-channel scales once where it kept a group; packed int4: half a
-    byte, and each kept group's [scale, zero] rows, 8 bytes a column), the
+    `sel` [L, 4, ...]: the kept weights once (`k7_weight_bytes`), the
     live K/V rows read and the token's rows written, the gains, thresholds
     and the stream in and out; 2 flops a weight element read, 4 a head and
     live row."""
-    D, I, kvw = cfg.dim, cfg.intermediate_size, cfg.n_kv_heads * 128
-    widths = (D + 2 * kvw, D, 2 * I, D)
-    kept = sel[:, :, 0].double().cpu()
-    elems = float(sum((kept[:, j] * 128 * widths[j]).sum() for j in range(4)))
+    D, kvw = cfg.dim, cfg.n_kv_heads * 128
+    wbytes, elems = k7_weight_bytes(sel[:, :, 0], cfg, esz, wplan)
     live = min(pos, cfg.sliding_window - 1) if cfg.sliding_window else pos
     kv = cfg.n_layers * (2 * kvw * live + 2 * kvw) * esz
-    if wplan == 0:
-        wbytes = elems * esz
-    elif wplan == 1:
-        wbytes = elems + float(sum(((kept[:, j] > 0).double() * 4
-                                    * widths[j]).sum() for j in range(4)))
-    else:
-        wbytes = elems / 2 + float(sum((kept[:, j] * 8 * widths[j]).sum()
-                                       for j in range(4)))
     nbytes = wbytes + kv + cfg.n_layers * (2 * D * esz + 28) + 2 * D * esz
     flops = 2 * elems + 4 * cfg.n_layers * cfg.n_heads * 128 * (live + 1)
     return nbytes, flops
@@ -6670,24 +6830,25 @@ def k7_quant(qp, cfg, device, gen, seed, th, plan_name: str):
 
 def k7_speculative(params, cfg, device, seed, th):
     """Self-speculation with the main path as its draft (`MAIN_SP`): a draft
-    step is one K7 launch, a verify chunk 4 L K1 + L K2 (`block_verify`),
-    the counts set to 0 just before and read just after."""
+    step is one K7 launch, a verify chunk one K7 launch too (its seq_block
+    form, `block_verify`) and no K1-K6, the counts set to 0 just before
+    and read just after."""
     import numpy as np
 
-    L = cfg.n_layers
     prompt = main_prompts(cfg, seed)[1]
     reset_launches()
     _, st, wall = spec_run(params, cfg, prompt, 2 * SPEC_K, device, th, seed,
                            draft=MAIN_SP)
     got, n7 = read_launches(), k7_launches()
     rounds = len(np.asarray(st["accepted_per_step"]))
-    want = (4 * L * rounds, L * rounds, 0, 0, 0, 0)
-    check(got == want and n7 == SPEC_K * rounds, f"[k7] speculative, K7 "
-          f"draft: launches (K1-K6) {got}, K7 {n7}; expected {want} and "
-          f"{SPEC_K * rounds} for {rounds} rounds of {SPEC_K} draft steps")
+    want = (0,) * 6
+    check(got == want and n7 == (SPEC_K + 1) * rounds, f"[k7] speculative, "
+          f"K7 draft: launches (K1-K6) {got}, K7 {n7}; expected {want} and "
+          f"{(SPEC_K + 1) * rounds} for {rounds} rounds of {SPEC_K} draft "
+          "steps and a verify chunk")
     log(f"[k7] self-speculation with the K7 draft: {rounds} rounds, {n7} K7 "
-        f"draft steps, K1 {got[0]} and K2 {got[1]} for the verifies, "
-        f"{wall:.2f} s")
+        f"launches ({SPEC_K} draft steps and one verify chunk a round), no "
+        f"K1-K6, {wall:.2f} s")
     return dict(rounds=rounds, k7_launches=n7, launches=got, wall_s=wall)
 
 
@@ -6802,21 +6963,20 @@ def rows_cache(cfg, B, dt, device, gen, T=MAX_SEQ):
         torch.randn(shape, generator=gen, device=device).to(dt))
 
 
-def k7_rows_bound(sel, cfg, poss, esz: int):
+def k7_rows_bound(sel, cfg, poss, esz: int, wplan: int = 0):
     """(bytes, flops) one step of K7's rows form must move and do at the
     kept counts of `sel` [L, 4, ...]: each kept slab read once for all
-    rows, each row's live K/V rows read and its token's rows written, the
-    gains and thresholds, the B rows of the stream in and out; 2 flops a
-    weight element a row, 4 a head and live row."""
-    D, I, kvw = cfg.dim, cfg.intermediate_size, cfg.n_kv_heads * 128
-    widths = (D + 2 * kvw, D, 2 * I, D)
-    kept = sel[:, :, 0].double().cpu()
-    elems = float(sum((kept[:, j] * 128 * widths[j]).sum() for j in range(4)))
+    rows (`k7_weight_bytes`), each row's live K/V rows read and its
+    token's rows written, the gains and thresholds, the B rows of the
+    stream in and out; 2 flops a weight element a row, 4 a head and live
+    row."""
+    D, kvw = cfg.dim, cfg.n_kv_heads * 128
+    wbytes, elems = k7_weight_bytes(sel[:, :, 0], cfg, esz, wplan)
     lives = [min(p, cfg.sliding_window - 1) if cfg.sliding_window else p
              for p in poss]
     kv = cfg.n_layers * sum(2 * kvw * (lv + 1) for lv in lives) * esz
     B = len(poss)
-    nbytes = (elems * esz + kv + cfg.n_layers * (2 * D * esz + 28)
+    nbytes = (wbytes + kv + cfg.n_layers * (2 * D * esz + 28)
               + 2 * B * D * esz)
     flops = (2 * B * elems
              + 4 * cfg.n_layers * cfg.n_heads * 128 * sum(lv + 1
@@ -6825,11 +6985,13 @@ def k7_rows_bound(sel, cfg, poss, esz: int):
 
 
 def k7_rows_times(params, cfg, device, gen, th, B=16):
-    """K7's rows form on the resident 7B at B rows at `row_positions` on a
-    cache of random rows, the server's thresholds: kernel ms (`cuda_ms`),
-    its plain version's, the bound of this step's kept groups (bytes at
-    the HBM rate, the bf16 MMA's operations at the tensor cores' peak).
-    Returns the `kernels` entry (launches filled in by the server run)."""
+    """K7's rows form on the resident 7B (bf16 arrays, or its int8 or
+    packed-int4 copy) at B rows at `row_positions` on a cache of random
+    rows, the server's (or the quantized path's) thresholds: kernel ms
+    (`cuda_ms`), its plain version's, the bound of this step's kept groups
+    (bytes at the HBM rate, the bf16 MMA's operations at the tensor cores'
+    peak). Returns the `kernels` entry (launches filled in by the caller
+    from the server's or the quantized path's run)."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -6858,10 +7020,13 @@ def k7_rows_times(params, cfg, device, gen, th, B=16):
     ms, _ = cuda_ms(lambda i: tb.token_kernel(*args, **kw), K7_TIME_ITERS)
     plain, _ = cuda_ms(lambda i: tb.token_kernel_plain(*args, **kw), 2,
                        warmup=1, queued=False)
-    nbytes, flops = k7_rows_bound(sel, cfg, poss, dt.itemsize)
+    wplan = tb.k7_weight_plan(args[2])
+    pname = ("bf16", "int8", "int4")[wplan]
+    nbytes, flops = k7_rows_bound(sel, cfg, poss, dt.itemsize, wplan)
     bound, by = bound_ms(nbytes, flops)
     kept = sel[:, :, 0].float().mean(0).tolist()
-    log(f"[k7 rows] K7's rows form, 7B, B = {B} at {poss[0]}..{poss[-1]}, 32 "
+    log(f"[k7 rows] K7's rows form, 7B {pname}, B = {B} at "
+        f"{poss[0]}..{poss[-1]}, 32 "
         f"layers: {ms:.4f} ms a step (bound {bound:.4f} ms by {by}: "
         f"{nbytes / 1e6:.1f} MB, {bound / ms:.1%} of it), plain {plain:.3f} "
         f"ms; {plan.clusters} clusters of {plan.C}, head-owned "
@@ -6869,25 +7034,30 @@ def k7_rows_times(params, cfg, device, gen, th, B=16):
         f"{[round(k, 2) for k in kept]} of caps {list(caps)}")
     del cache
     torch.cuda.empty_cache()
-    return dict(name="token_kernel[rows]", route="cuda",
-                source="teal_tpu_torch/csrc/token_decode_rows.cu",
+    return dict(name="token_kernel[rows]" if wplan == 0
+                else f"token_kernel[rows {pname}]", route="cuda",
+                source="teal_tpu_torch/csrc/token_decode_rows"
+                + (".cu" if wplan == 0 else "_quant.cu"),
                 replaces="teal_tpu/ops/token_block.py:518", launches=0,
                 max_abs_err=0.0, ms=ms, kernel_ms=ms, plain_ms=plain,
                 bound_ms=bound, bound_by=by, library_ms=None, rows=B,
                 positions=poss, kept_mean=kept, plan=plan._asdict(),
-                timed=f"one 7B step (32 layers, bf16) of {B} rows at "
+                timed=f"one 7B step (32 layers, {pname}) of {B} rows at "
                       f"positions {poss[0]}..{poss[-1]} on a cache of random "
-                      "rows at the server's thresholds; launches: phase 9's "
-                      "one-shot server run")
+                      + ("rows at the server's thresholds; launches: phase "
+                         "9's one-shot server run" if wplan == 0 else
+                         f"rows at the Q{8 if wplan == 1 else 4}-main-b16 "
+                         "hold's thresholds; launches: its host-loop run"))
 
 
-def k7_rows_holds(params, cfg, device, gen, th):
+def k7_rows_holds(params, cfg, device, gen, th, fp32_cut: bool = True,
+                  tag: str = "k7 rows"):
     """Every 7B layer of K7's rows form held to the plain path
     (`hold_k7_layers` with B rows, `explain_flip`'s rule for one-group
     flips) at B = 2, 8 and 16, row i at 40 + 4 i on a cache of random
-    rows, the server's thresholds; then an fp32 copy of the first two
-    layers at B = `K7_ROWS_FP32`. Returns {B: (worst, max abs err,
-    flips)}."""
+    rows, at the thresholds `th`; then (`fp32_cut`) an fp32 copy of the
+    first two layers at B = `K7_ROWS_FP32`. Returns {B: (worst, max abs
+    err, flips)}."""
     import torch
 
     from teal_tpu_torch.models import llama
@@ -6899,9 +7069,11 @@ def k7_rows_holds(params, cfg, device, gen, th):
         cache = rows_cache(cfg, B, dt, device, gen)
         res[B] = hold_k7_layers(params, cfg, cache, list(range(7, 7 + B)),
                                 row_positions(B), rope, th, device,
-                                tag=f"[k7 rows B {B}]")
+                                tag=f"[{tag} B {B}]")
         del cache
         torch.cuda.empty_cache()
+    if not fp32_cut:
+        return res
     ccfg = dataclasses.replace(cfg, n_layers=2)
     cut = to_fp32(dict(params, layers={k: v[:2] for k, v in
                                        params["layers"].items()}))
@@ -6913,6 +7085,254 @@ def k7_rows_holds(params, cfg, device, gen, th):
     del cut, cache
     torch.cuda.empty_cache()
     return res
+
+
+# --- phases 8, 9 and 13: K7's quantized rows and its seq_block form --------
+
+K7_VERIFY_QS = (5, 12)           # block_verify S held on the Q8 / Q4 copies
+K7_VERIFY_S = 8                  # the verify chunk timed (one chunk)
+
+
+def chunk_sizes(S: int):
+    """`block_verify`'s chunks of S positions: ceil(S / 8) of balanced
+    sizes (12 -> 6 + 6)."""
+    n = -(-S // 8)
+    return [S // n + (1 if j < S % n else 0) for j in range(n)]
+
+
+def k7_verify_holds(params, cfg, cache, toks, pos: int, rope, device,
+                    tag: str):
+    """Every layer of each `block_verify` chunk of `toks` (S positions
+    from `pos` of one sequence) through K7's seq_block form (fixed
+    selection at full caps) held to the plain path (`hold_k7_layers(...,
+    seq_block=True)`), each chunk on the plain path's cache after the
+    chunks before it. Returns (worst relative error, worst absolute
+    error)."""
+    from teal_tpu_torch.models import llama
+
+    zero = llama.zero_thresholds(cfg, device)
+    kv, off, worst, err = (cache.k, cache.v), 0, 0.0, 0.0
+    for ss in chunk_sizes(len(toks)):
+        keep = {}
+        w, e, _ = hold_k7_layers(
+            params, cfg, llama.KVCache(*kv), toks[off:off + ss].tolist(),
+            list(range(pos + off, pos + off + ss)), rope, zero, device,
+            tag=f"{tag} chunk {pos + off}..{pos + off + ss - 1}",
+            seq_block=True, keep=keep)
+        kv, off = keep["cache"], off + ss
+        worst, err = max(worst, w), max(err, e)
+    return worst, err
+
+
+def k7_quant_verify(qp, cfg, device, seed, rope, plan: str):
+    """Phase 8's `block_verify` on a quantized copy (int8, or packed int4
+    at group 128) after a prefill of 40 tokens, at S in `K7_VERIFY_QS`:
+    every layer of each chunk held to the plain path through K7's
+    seq_block form (`k7_verify_holds`), then one `block_verify` call with
+    the counts set to 0 just before and read just after: ceil(S / 8) K7
+    launches and no K1-K6, finite logits of the expected shape. Returns
+    {S: results}."""
+    import numpy as np
+    import torch
+
+    from teal_tpu_torch.models import llama
+
+    rng = np.random.default_rng(seed + 9)
+    cache, _, pos = prefill(qp, cfg, rng.integers(1, cfg.vocab_size,
+                                                  (1, 40)), device, rope)
+    zero = llama.zero_thresholds(cfg, device)
+    out = {}
+    for S in K7_VERIFY_QS:
+        check(llama.can_block_verify(qp, cfg, S), f"{plan} S={S}: gate "
+              "refused")
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                             (1, S))).to(device)
+        worst, err = k7_verify_holds(qp, cfg, cache, toks[0], pos, rope,
+                                     device, tag=f"[k7 verify {plan} S={S}]")
+        c = llama.KVCache(cache.k.clone(), cache.v.clone())
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        lg, _ = llama.block_verify(qp, toks, c, pos, zero, cfg=cfg, rope=rope)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, n7 = read_launches(), k7_launches()
+        n_chunks = len(chunk_sizes(S))
+        check(got == (0,) * 6 and n7 == n_chunks, f"{plan} block_verify "
+              f"S={S}: launches (K1, K2, K3, K4, K5, K6) {got} and {n7} K7, "
+              f"expected none and {n_chunks}")
+        check(tuple(lg.shape) == (1, S, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()), f"{plan} S={S}: bad "
+              "logits")
+        out[S] = dict(worst=worst, max_abs_err=err, k7_launches=n7,
+                      wall_ms=wall * 1e3)
+        log(f"[k7 verify] {plan} S={S} at pos {pos} ({n_chunks} chunk(s) "
+            f"{chunk_sizes(S)}): every layer of each chunk through K7's "
+            f"seq_block form held to the plain path (worst {worst:.2e} of "
+            f"scale, tolerance {K7_TOKEN_TOL}); {n7} K7 launches and none of "
+            f"K1-K6; wall {wall * 1e3:.1f} ms")
+        del c
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def k7_loop_turns(params, cfg, device, gen, th, B: int = 16,
+                  seq: bool = False, turns: int = K7_ROWS_TURNS):
+    """K7 and the K1/K2 loop on the same inputs, in turns: `token_decode`
+    of B rows (token_fused unset: one K7 launch; token_fused=False: the
+    host loop of 4 L K1 and L K2 launches) at `row_positions` on a cache
+    of random rows at thresholds `th`, or with `seq` a verify chunk (B
+    consecutive positions from 40 of one sequence, fixed selection at full
+    caps, seq_block). The launch counts of one call of each (set to 0 just
+    before, read just after) are checked; then `turns` turns of each:
+    device ms, wall ms (host clock, synchronised) and idle share (1 -
+    device / wall) a call. Both routes' device ms come from the same
+    tool: CUDA events around one call queued behind a sleep (`cuda_ms`),
+    so the device runs the call's launches back to back (K7: its launch
+    and the workspace's memset; the loop: its 5 L launches and the gaps
+    between them on the device, not the host's). Returns the results (the
+    loop's launches of one call under "loop_launches")."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block as tb
+
+    L, dt = cfg.n_layers, llama.compute_dtype(params)
+    poss = list(range(40, 40 + B)) if seq else row_positions(B)
+    cache = rows_cache(cfg, 1 if seq else B, dt, device, gen)
+    rope = llama.precompute_rope(cfg, MAX_SEQ, device)
+    pos_t = torch.tensor(poss, dtype=torch.int32, device=device)
+    caps = ((cfg.dim // 128,) * 3 + (cfg.intermediate_size // 128,) if seq
+            else llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP)))
+    if seq:
+        th = llama.zero_thresholds(cfg, device)
+    lay = params["layers"]
+    h = params["embed"][torch.arange(7, 7 + B, device=device)].to(dt)
+    args = (h, th, tuple(lay[n] for n in PROJ_NAMES), lay["attn_norm"],
+            lay["mlp_norm"], llama._rope_rows(rope[0], rope[1], pos_t),
+            cache.k, cache.v, pos_t)
+    kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+              window=cfg.sliding_window, fixed_sel=seq, seq_block=seq)
+    routes = {"k7": None, "loop": False}
+
+    def call(route):
+        return tb.token_decode(*args, token_fused=routes[route], **kw)
+    counts = {}
+    for route in routes:
+        call(route)
+        torch.cuda.synchronize()
+        reset_launches()
+        call(route)
+        torch.cuda.synchronize()
+        counts[route] = (read_launches(), k7_launches())
+    want = {"k7": ((0,) * 6, 1), "loop": ((4 * L, L, 0, 0, 0, 0), 0)}
+    check(counts == want, f"K7 / loop turns (B={B}, seq {seq}): launches "
+          f"((K1, K2, K3, K4, K5, K6), K7) {counts}, expected {want}")
+
+    def reading(route):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            call(route)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+        dev, _ = cuda_ms(lambda i: call(route), 1, warmup=0)
+        return dict(device_ms=dev, wall_ms=wall, idle_share=1 - dev / wall)
+    out = in_turns(tuple(routes), turns, reading)
+    what = (f"verify chunk S={B} at {poss[0]}.." if seq else
+            f"B={B} step at {poss[0]}..{poss[-1]}")
+    pname = ("bf16", "int8", "int4")[tb.k7_weight_plan(args[2])]
+    for route, rs in out.items():
+        log(f"[k7 turns] 7B {pname} {what}, {route} "
+            f"({'one K7 launch' if route == 'k7' else '4L K1 + L K2'}), in "
+            f"turns: device {[round(r['device_ms'], 4) for r in rs]} ms, "
+            f"wall {[round(r['wall_ms'], 3) for r in rs]} ms, idle "
+            f"{[round(r['idle_share'], 4) for r in rs]}")
+    del cache, args
+    torch.cuda.empty_cache()
+    return dict(rows=B, seq_block=seq, positions=poss, turns=out,
+                loop_launches=counts["loop"][0])
+
+
+def k7_seq_bound(cfg, pos0: int, S: int, esz: int, wplan: int = 0):
+    """(bytes, flops) one verify chunk of S positions from pos0 through
+    K7's seq_block form must move and do at full caps: every weight read
+    once (`k7_weight_bytes` at every group), the sequence's cache rows
+    [lo, pos0 + S - 1) read once and its S new rows written, the gains and
+    thresholds, S rows of the stream in and out; 2 flops a weight element
+    a row, 4 a head and live row of each row."""
+    import torch
+
+    D, I, kvw = cfg.dim, cfg.intermediate_size, cfg.n_kv_heads * 128
+    full = torch.tensor([[D // 128] * 3 + [I // 128]] * cfg.n_layers)
+    wbytes, elems = k7_weight_bytes(full, cfg, esz, wplan)
+    last = pos0 + S - 1
+    lo = max(pos0 - cfg.sliding_window + 1, 0) if cfg.sliding_window else 0
+    kv = 2 * kvw * ((last - lo) + S) * esz
+    nbytes = (wbytes + cfg.n_layers * (kv + 2 * D * esz + 28)
+              + 2 * S * D * esz)
+    lives = [min(p, cfg.sliding_window - 1) if cfg.sliding_window else p
+             for p in range(pos0, pos0 + S)]
+    flops = (2 * S * elems
+             + cfg.n_layers * 4 * cfg.n_heads * 128 * sum(lv + 1
+                                                        for lv in lives))
+    return nbytes, flops
+
+
+def k7_seq_times(params, cfg, device, gen, launches: int, steps: int,
+                 err: float, S: int = K7_VERIFY_S):
+    """K7's seq_block form on the resident 7B (bf16): one verify chunk of
+    S positions from 40 of one sequence on a cache of random rows (fixed
+    selection at full caps): kernel ms (`cuda_ms`), its plain version's,
+    the bound (`k7_seq_bound`). Returns the `kernels` entry (launches:
+    phase 9's `block_verify` runs)."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block as tb
+
+    dt = llama.compute_dtype(params)
+    poss = list(range(40, 40 + S))
+    cache = rows_cache(cfg, 1, dt, device, gen)
+    rope = llama.precompute_rope(cfg, MAX_SEQ, device)
+    pos_t = torch.tensor(poss, dtype=torch.int32, device=device)
+    caps = (cfg.dim // 128,) * 3 + (cfg.intermediate_size // 128,)
+    lay = params["layers"]
+    args = (params["embed"][torch.arange(7, 7 + S, device=device)].to(dt),
+            llama.zero_thresholds(cfg, device),
+            tuple(lay[n] for n in PROJ_NAMES), lay["attn_norm"],
+            lay["mlp_norm"], llama._rope_rows(rope[0], rope[1], pos_t),
+            cache.k, cache.v, pos_t)
+    kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+              window=cfg.sliding_window, fixed_sel=True, seq_block=True)
+    plan = tb.token_plan(args[0], cache.k, args[2], cfg.n_heads, caps,
+                         cfg.sliding_window)
+    ms, _ = cuda_ms(lambda i: tb.token_kernel(*args, **kw), K7_TIME_ITERS)
+    plain, _ = cuda_ms(lambda i: tb.token_kernel_plain(*args, **kw), 2,
+                       warmup=1, queued=False)
+    nbytes, flops = k7_seq_bound(cfg, poss[0], S, dt.itemsize)
+    bound, by = bound_ms(nbytes, flops)
+    log(f"[k7 seq] K7's seq_block form, 7B bf16, a verify chunk of S = {S} "
+        f"at {poss[0]}..{poss[-1]} (full caps, 32 layers): {ms:.4f} ms "
+        f"(bound {bound:.4f} ms by {by}: {nbytes / 1e6:.1f} MB, "
+        f"{bound / ms:.1%} of it), plain {plain:.3f} ms; {plan.clusters} "
+        f"clusters of {plan.C}, head-owned {plan.head_owned}, {plan.slots} "
+        "ring slots")
+    del cache, args
+    torch.cuda.empty_cache()
+    return dict(name="token_kernel[seq_block]", route="cuda",
+                source="teal_tpu_torch/csrc/token_decode_rows.cu",
+                replaces="teal_tpu/ops/token_block.py:518",
+                launches=launches, launches_per_chunk=launches / steps,
+                max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None, rows=S,
+                positions=poss, plan=plan._asdict(),
+                timed=f"one 7B verify chunk (32 layers, bf16) of S = {S} "
+                      f"positions {poss[0]}..{poss[-1]} of one sequence, "
+                      "full caps, on a cache of random rows; launches: "
+                      "phase 9's block_verify runs")
 
 
 def k7_fault31(device, gen):
@@ -7019,6 +7439,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card = card_line()
+
+    def mark(what: str) -> None:
+        log(f"[phase] {what} done at {time.perf_counter() - t_start:.1f} s")
     log(f"[env] torch {torch.__version__} CUDA {torch.version.cuda} card "
         f"{torch.cuda.get_device_name(0)} ({card})")
 
@@ -7050,8 +7473,11 @@ def main() -> int:
         f"CUDA graph): dense {speeds['dense']} sparse {speeds['sparse']} "
         f"on {card}")
     graphs = device_loop_phase(params, cfg, device, seed, th)
+    mark("4 and 17")
     k7_entry, k7_res = k7_phase(params, cfg, device, gen, seed, th)
+    mark("18")
     loop = loop_paths(params, cfg, device, seed, rope)
+    mark("6")
     step = time_decode_step(
         params, cfg, [("sparse", LOOP_SP, 1, th), ("dense", {}, 1, th)]
         + [(f"path {n}", sp_kw, b, loop[n]["th"])
@@ -7074,9 +7500,11 @@ def main() -> int:
     line["device_loop"].update({f"path {n}": r.pop("graph")
                                 for n, r in loop.items()})
     line["decode_step_ms"] = step
+    mark("7")
     b_entries, line["batched"], _ = batched_phase(params, cfg, caps, device,
                                                   gen, seed, rope)
     line["kernels"] += b_entries
+    mark("9, 19 and 20")
     q_entries, q_runs, q_extra = quant_paths(params, cfg, caps, device, gen,
                                              seed, rope)
     line["kernels"] += q_entries
@@ -7085,13 +7513,18 @@ def main() -> int:
     line["device_loop"].update({n: r.pop("graph") for n, r in q_runs.items()})
     line["k7"].update(q_extra.pop("k7"))
     line["quant"] = q_extra
+    mark("8 and 20")
     l_entries, line["long_prompts"] = long_prompt_phase(params, cfg, device,
                                                         gen, seed, th)
     line["kernels"] += l_entries
+    mark("11")
     line["calibration"] = calibration_phase(params, cfg, device, seed)
+    mark("12")
     line["speculative"] = speculative_phase(params, cfg, device, seed, th,
                                             speeds)
+    mark("13")
     line["cli"] = cli_phase(device)
+    mark("14")
     # phase 10 needs the card's memory for int8 Mixtral-8x7B (46 GB)
     del params
     torch.cuda.empty_cache()
@@ -7100,8 +7533,10 @@ def main() -> int:
                                 for p, r in line["moe"].items()
                                 if isinstance(r, dict) and "graph" in r})
     line["kernels"] += m_entries
+    mark("10")
     p_entries, line["parallel"] = parallel_phase(device, gen, seed, card)
     line["kernels"] += p_entries
+    mark("15")
     s_entries, line["serving_tp"] = serving_tp_phase(device, gen, seed, card,
                                                      p_entries, bench)
     line["kernels"] += s_entries

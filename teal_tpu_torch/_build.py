@@ -147,6 +147,7 @@ SIGNATURES = {
         _I, _I, _I, _I, _I,     # L, D, I, Hq, Hkv
         _I, _I,                 # T, window (0: none)
         _I, _I, _I, _I, _I,     # caps (qkv, o, gate|up, down), fixed
+        _I,                     # seq (consecutive positions, cache row 0)
         _F, _I, _P,             # norm_eps, SM count, stream
     ],
     ("token_decode_rows", "teal_token_plan_rows"): [
@@ -156,6 +157,29 @@ SIGNATURES = {
     ],
     ("token_decode_rows", "teal_token_clusters_rows"): [
         _I, _I, _I,             # dtype code, query heads a kv head, C
+    ],
+    ("token_decode_rows_quant", "teal_token_decode_rows_q"): [
+        _I, _I,                 # plan (1 int8, 2 int4), rows B
+        _P, _P, _P, _P,         # x [B, D], thresholds, pos [B], cos|sin
+        _P, _P,                 # attention / mlp norm gains
+        *[_P] * 7,              # the seven q (int8) or qp (int4) stacks
+        *[_P] * 7,              # int4's seven sz stacks (or null)
+        *[_P] * 7,              # int8's seven scale stacks (or null)
+        _P, _P, _P, _P,         # kc, vc, out [B, D], sel (or null)
+        _P,                     # workspace
+        _I, _I, _I, _I, _I,     # L, D, I, Hq, Hkv
+        _I, _I,                 # T, window (0: none)
+        _I, _I, _I, _I, _I,     # caps (qkv, o, gate|up, down), fixed
+        _I,                     # seq (consecutive positions, cache row 0)
+        _F, _I, _P,             # norm_eps, SM count, stream
+    ],
+    ("token_decode_rows_quant", "teal_token_plan_rows_q"): [
+        _I, _I, _I, _I, _I, _I,  # plan, rows B, D, I, Hq, Hkv
+        _I, _I, _I, _I, _I,     # T, window, largest cap, SM count, L
+        _P,                     # out int32 [11]
+    ],
+    ("token_decode_rows_quant", "teal_token_clusters_rows_q"): [
+        _I, _I, _I,             # plan, query heads a kv head, C
     ],
     ("token_decode_quant", "teal_token_decode_q"): [
         _I, _P, _P, _P, _P,     # plan (1 int8, 2 int4), x, thresholds,

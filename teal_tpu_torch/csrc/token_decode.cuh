@@ -284,7 +284,7 @@ struct TokPlan {
 // quantized plans take a bf16 stream only.
 // The plan's structure from the resident clusters (see above): C blocks
 // a cluster, NC clusters, head-owned; C 0 where no cluster fits. The rows
-// form (`token_decode_rows.cu`) takes the same.
+// form (`token_decode_rows.cuh`) takes the same.
 struct Structure {
   int C, NC, head;
 };
@@ -345,7 +345,9 @@ struct Args {
   long long* stamps;      // [L, NSTAMP + NBAR grid] the trace, or null
   unsigned char* ws;
   int L, D, I, Hq, Hkv, T, window, fixed, empty;
-  int B;                  // rows (the rows form, `token_decode_rows.cu`)
+  int B;                  // rows (the rows form, `token_decode_rows.cuh`)
+  int seq;                // rows form: the rows are consecutive positions
+                          // of one sequence in cache row 0
   int cap[4], capmax;
   float eps, scale;
   int C, NC, head, grid, nslot, NS, partf;

@@ -16,9 +16,9 @@ Port of `teal_tpu/engine/speculative.py`, with the reference's algorithm
 
 Self-speculation (`draft_params is target_params` with a sparse
 `draft_sp`): the draft is the same weights decoded through the sparse
-token path (K1's single row, K2) and the target verifies densely through
-`llama.block_verify` (K1's `fixed` rows form, K2's `seq_block`) where
-`can_block_verify` holds. Speculative sampling makes the output
+token path (K7, or with `token_fused=False` K1's single row and K2) and
+the target verifies densely through `llama.block_verify` (one K7 launch a
+chunk, its seq_block form) where `can_block_verify` holds. Speculative sampling makes the output
 distribution the dense model's exactly, at any sparsity; its speed is
 bounded by the acceptance rate.
 

@@ -21,9 +21,10 @@ Port of `teal_tpu/models/llama.py` with the same parameter layout:
 decode at G=128 with the default route flags, batch 1 or up to 16 rows
 (the main path and the continuous-batching server's decode step; the
 reference's packed pipeline / whole-token kernel) runs
-`ops/token_block.token_decode` on kernels K1 and K2; so does
-`block_verify` (S consecutive positions of one sequence as rows, fixed
-full selection, `seq_block`). Mixtral decodes batch 1 on the token path
+`ops/token_block.token_decode`: one K7 launch a step where `token_fused`
+is not False, else the K1/K2 loop; so does `block_verify` (S consecutive
+positions of one sequence as rows, fixed full selection, `seq_block`:
+one K7 launch a chunk). Mixtral decodes batch 1 on the token path
 too, routing in kernel K5 and gathering the routed experts' kept groups
 through K1. Everything else
 runs the layer loop (`layer_forward`): dense and masked-dense layers in
@@ -590,9 +591,9 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
         # stream type, or with a bf16 stream all seven int8 or packed int4
         # at quant group 128): K7, one launch a token (the reference's
         # `_token_kernel` in its three weight plans); token_fused False:
-        # the K1/K2 loop (its `_packed_layer`). rows (batch > 1): one
-        # launch per stage for all rows, one pooled selection, the kept
-        # weights read once for the batch
+        # the K1/K2 loop (its `_packed_layer`). rows (batch 2-16): K7's
+        # rows form in the same three plans, one launch a step, one pooled
+        # selection, the kept weights read once for the batch
         pos_arg = pos_t.to(torch.int32)
         moe_kw = (dict(router=lay["router"],
                        n_experts_per_tok=cfg.n_experts_per_tok)
@@ -682,11 +683,13 @@ def block_verify(params, tokens: torch.Tensor, cache: KVCache, pos,
                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Dense forward over S consecutive positions pos..pos+S-1 of ONE
     sequence through the token path (the reference's `block_verify`,
-    `teal_tpu/models/llama.py:811`): the positions ride as K1's rows with
-    the identity selection at full capacity (`fixed_sel`), so every
-    weight is read once per chunk, and K2 runs them as `seq_block` slots
-    of cache row 0. S > 8 runs ceil(S/8) chunks of balanced sizes (S = 12
-    -> 6 + 6) in order; a later chunk attends to the earlier ones through
+    `teal_tpu/models/llama.py:811`): the positions ride as K7's rows in
+    its seq_block form (one launch a chunk, `token_block.token_kernel`)
+    with the identity selection at full capacity (`fixed_sel`), so every
+    weight is read once per chunk, and each layer writes every position's
+    K/V to cache row 0 before any position attends. S > 8 runs ceil(S/8)
+    chunks of balanced sizes (S = 12 -> 6 + 6) in order; a later chunk
+    attends to the earlier ones through
     the cache. Gate with `can_block_verify`.
 
     tokens: [1, S] int; pos: the first position (an int, or an int

@@ -7,20 +7,20 @@ False in the 4-launch packed pipeline (`models/llama.py:_packed_layer`).
 Here two routes, decided by the call's form and shapes before any
 launch:
   - K7 `token_kernel` (`csrc/token_decode.cuh`, built by `token_decode.cu`
-    for the arrays, `token_decode_quant.cu` for int8 and int4 and
-    `token_decode_rows.cu` for rows): one persistent launch a step through
-    every layer, for one row (batch 1) with weights that are arrays of the
+    for the arrays and `token_decode_quant.cu` for int8 and int4; the rows
+    form `csrc/token_decode_rows.cuh`, built by `token_decode_rows.cu` and
+    `token_decode_rows_quant.cu`): one persistent launch a step through
+    every layer, for one row (batch 1) or 2-16 rows (the server's step, or
+    with `seq_block` a verify chunk), with weights that are arrays of the
     stream type (the cache of that type), or with a bf16 stream and cache
     all seven int8 dicts or all seven packed int4 dicts at quant group
-    128; or for 2-16 rows (the server's step) with arrays; no MoE,
-    head_dim 128 and Hq / Hkv <= 8, where `token_fused` is not False and
-    K7 has a launch plan for the shapes (`k7_plan`). Its plain version,
-    `token_kernel_plain`, runs each stage through K1's and K2's plain
-    versions (on CPU tensors the wrapper runs it);
-  - the layer loop below, every other form (int8 and int4 rows,
-    `seq_block`, MoE), a shape K7 cannot plan and `token_fused=False`: a
-    host loop runs, per layer, five kernel launches whatever the batch
-    (160 a step at 7B):
+    128; no MoE, head_dim 128 and Hq / Hkv <= 8, where `token_fused` is
+    not False and K7 has a launch plan for the shapes (`k7_plan`). Its
+    plain version, `token_kernel_plain`, runs each stage through K1's and
+    K2's plain versions (on CPU tensors the wrapper runs it);
+  - the layer loop below, every other form (MoE), a shape K7 cannot plan
+    and `token_fused=False`: a host loop runs, per layer, five kernel
+    launches whatever the batch (160 a step at 7B):
   1. the attention stage (`attn_block.attn_stage`: K1 on q|k|v with the
      folded attention norm, then K2), threshold column 0;
   2. o + residual (K1), column 3;
@@ -344,7 +344,7 @@ def token_decode(h: torch.Tensor, thresholds: torch.Tensor,
         return token_kernel(h, thresholds, ws, norm_attn, norm_mlp, rope,
                             kc, vc, pos, caps=caps, n_heads=n_heads,
                             norm_eps=norm_eps, window=window,
-                            fixed_sel=fixed_sel)
+                            fixed_sel=fixed_sel, seq_block=seq_block)
     if router is not None:
         if h.dim() != 1 or seq_block:
             raise ValueError("the MoE token path decodes one row")
@@ -468,22 +468,29 @@ def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int, NS: int,
     return n + GH * NS * 4
 
 
-def _rows_slot(esz: int) -> int:
-    """Bytes of a rows-form ring slot: two boxes (64 rows x 128 bytes) and
-    16 staged input rows of a group (128 of the stream type, +16 bytes)."""
-    return 2 * _TOK_BOX + MAX_ROWS * (HEAD_DIM * esz + 16)
+def _rows_unit(esz: int, plan: int = PLAN_STREAM) -> int:
+    """Columns of a unit of K7's rows form (a box row of 128 bytes): 64
+    bf16 or 32 fp32 columns of arrays, 128 of int8 or packed int4."""
+    return _ROWS_UB // esz if plan == PLAN_STREAM else _TOK_QUB
+
+
+def _rows_slot(esz: int, plan: int = PLAN_STREAM) -> int:
+    """Bytes of a rows-form ring slot: two boxes (64 rows x 128 bytes; for
+    int4 also two groups' scale and zero rows) and 16 staged input rows of
+    a group (128 of the stream type, +16 bytes)."""
+    return _tok_slot(plan) + MAX_ROWS * (HEAD_DIM * esz + 16)
 
 
 def _token_smem_rows(esz: int, D: int, I: int, capmax: int, partf: int,
-                     slots: int) -> int:
+                     slots: int, plan: int = PLAN_STREAM) -> int:
     """Shared memory a block of K7's rows form in bytes
-    (`token_decode_rows.cu`'s RowsLayout): the ring (`_rows_slot` a
+    (`token_decode_rows.cuh`'s RowsLayout): the ring (`_rows_slot` a
     slot), its full and empty mbarriers, the block's partial sums (`partf`
     fp32: B rows), the warps' sums of a unit [8][16][unit] fp32, the
     peers' sums of squares [8][16] and the row scales [16] fp32, the group
     scores, the kept groups and count, 128 floats of scratch."""
-    n = slots * _rows_slot(esz) + 2 * _TOK_MAX_SLOTS * 8 + partf * 4
-    n += 8 * MAX_ROWS * (_ROWS_UB // esz) * 4 + 8 * MAX_ROWS * 4
+    n = slots * _rows_slot(esz, plan) + 2 * _TOK_MAX_SLOTS * 8 + partf * 4
+    n += 8 * MAX_ROWS * _rows_unit(esz, plan) * 4 + 8 * MAX_ROWS * 4
     n += MAX_ROWS * 4 + _al(max(D, I) // HEAD_DIM, 4) * 4
     return n + _al(capmax + 1, 4) * 4 + _TOK_MISC * 4
 
@@ -526,7 +533,8 @@ def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
                 ) -> Optional[TokenPlan]:
     """K7's launch plan from shapes, the weight plan (`block_gemv`'s
     PLAN_*; int8 and int4 with a bf16 stream, esz 2), the rows (1, or
-    2..16 for the rows form, arrays only) and the card's resident
+    2..16 for the rows form, in every weight plan; its seq_block form
+    plans as its rows do) and the card's resident
     clusters of each size (`clusters`: {C: clusters}, default
     `H100_CLUSTERS`), or None where they take none (among them, at one
     row, a stream of more than 36 KB: a thread holds at most `_TOK_MAXCH`
@@ -541,8 +549,7 @@ def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
     other plan; none among a kv head's blocks."""
     if ((plan != PLAN_STREAM and esz != 2)
             or plan not in (PLAN_STREAM, PLAN_INT8, PLAN_INT4)
-            or not (rows == 1 or (2 <= rows <= MAX_ROWS
-                                  and plan == PLAN_STREAM))
+            or not (rows == 1 or 2 <= rows <= MAX_ROWS)
             or D <= 0 or I <= 0 or D % HEAD_DIM or I % HEAD_DIM or Hkv <= 0
             or Hq != D // HEAD_DIM or Hq % Hkv or MAX_GROUP % (Hq // Hkv)
             or T < 1 or L < 1
@@ -557,7 +564,7 @@ def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
     NC = Hkv if head else (H100_CLUSTERS if clusters is None
                            else clusters)[C]
     GH = Hq // Hkv
-    uw = _ROWS_UB // esz if rows > 1 else _tok_unit(esz, plan)
+    uw = _rows_unit(esz, plan) if rows > 1 else _tok_unit(esz, plan)
 
     def most(cols, nw):
         return nw * -(-(cols // uw) // NC) * uw
@@ -565,10 +572,10 @@ def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
                        (GH + 2) * HEAD_DIM if head
                        else most((Hq + 2 * Hkv) * HEAD_DIM, 1))
     if rows > 1:
-        NS, slot = _rows_chunk(esz, GH), _rows_slot(esz)
+        NS, slot = _rows_chunk(esz, GH), _rows_slot(esz, plan)
 
         def smem(n):
-            return _token_smem_rows(esz, D, I, capmax, partf, n)
+            return _token_smem_rows(esz, D, I, capmax, partf, n, plan)
     else:
         NS, slot = _tok_scores(GH), _tok_slot(plan)
 
@@ -594,12 +601,12 @@ def token_columns(plan: TokenPlan, esz: int, D: int, I: int, Hq: int,
     (weight plan `wplan`; `rows` > 1: the rows form), as the kernel cuts
     them: {stage: [[(weight, first, end), ...] a cluster]} over the
     weights wq, wk, wv, wo, wgate, wup, wdown; a cluster owns a contiguous
-    range of the stage's units (`_tok_unit` columns; the rows form's: 128
-    bytes; as even as they allow); in the head-owned plan
+    range of the stage's units (`_tok_unit` columns; the rows form's:
+    `_rows_unit`; as even as they allow); in the head-owned plan
     cluster c < Hkv owns q|k|v of kv head c (its Hq / Hkv query heads' q
     columns, its k and v columns) and the other clusters none. Also
     {"attention": [kv heads a cluster]}."""
-    uw = _ROWS_UB // esz if rows > 1 else _tok_unit(esz, wplan)
+    uw = _rows_unit(esz, wplan) if rows > 1 else _tok_unit(esz, wplan)
     GH, kvw = Hq // Hkv, Hkv * HEAD_DIM
 
     def cut(pieces):
@@ -668,13 +675,14 @@ def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
             router=None, seq_block: bool = False) -> bool:
     """Whether a `token_decode` call is of the form K7 covers (decided by
     the form alone): one row h [D], or rows h [B, D] with 2 <= B <= 16
-    and array weights (the rows form), the cache of the stream type with
-    as many rows and head_dim 128, MHA or GQA with 1, 2, 4 or 8 (a divisor
-    of `MAX_GROUP`) query heads a kv head, no MoE router, no seq_block,
-    and the seven weights arrays of the stream type (fp32 or bf16), or
-    with a bf16 stream and one row all seven int8 dicts or all seven
-    packed int4 dicts at quant group 128 (`k7_weight_plan`). Whether K7
-    has a launch plan for the shapes is `k7_plan`'s."""
+    (the rows form), the cache of the stream type with as many rows (one
+    with `seq_block`: the rows are consecutive positions of one sequence)
+    and head_dim 128, MHA or GQA with 1, 2, 4 or 8 (a divisor of
+    `MAX_GROUP`) query heads a kv head, no MoE router, and the seven
+    weights arrays of the stream type (fp32 or bf16), or with a bf16
+    stream all seven int8 dicts or all seven packed int4 dicts at quant
+    group 128 (`k7_weight_plan`). Whether K7 has a launch plan for the
+    shapes is `k7_plan`'s."""
     plan = k7_weight_plan(ws)
     if plan is None:
         return False
@@ -684,11 +692,10 @@ def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
     else:
         types = h.dtype == torch.bfloat16
     rows = (1 if h.dim() == 1 else h.shape[0]
-            if h.dim() == 2 and plan == PLAN_STREAM
-            and 2 <= h.shape[0] <= MAX_ROWS else 0)
-    return (router is None and not seq_block and rows > 0 and types
+            if h.dim() == 2 and 2 <= h.shape[0] <= MAX_ROWS else 0)
+    return (router is None and rows > 0 and types
             and kc.dim() == 5 and kc.dtype == h.dtype
-            and kc.shape[1] == rows
+            and kc.shape[1] == (1 if seq_block else rows)
             and kc.shape[4] == HEAD_DIM and n_heads % kc.shape[2] == 0
             and MAX_GROUP % (n_heads // kc.shape[2]) == 0)
 
@@ -725,7 +732,7 @@ def k7_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
 
 
 def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
-              caps, n_heads, sel):
+              caps, n_heads, sel, seq_block=False):
     """Raise on anything K7 (and its plain version) does not take. Returns
     (L, D, I, Hkv, T, rows)."""
     B = 1 if h.dim() == 1 else h.shape[0]
@@ -735,8 +742,9 @@ def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
                          f"rows [B, D] with 2 <= B <= {MAX_ROWS}; got "
                          f"{h.dtype} {tuple(h.shape)}")
     D, dev, dt = h.shape[-1], h.device, h.dtype
-    if kc.dim() != 5 or kc.shape[1] != B or kc.shape[4] != HEAD_DIM:
-        raise ValueError(f"caches must be [L, {B}, Hkv, T, {HEAD_DIM}]; got "
+    Bc = 1 if seq_block else B            # the cache's rows
+    if kc.dim() != 5 or kc.shape[1] != Bc or kc.shape[4] != HEAD_DIM:
+        raise ValueError(f"caches must be [L, {Bc}, Hkv, T, {HEAD_DIM}]; got "
                          f"{tuple(kc.shape)}")
     L, _, Hkv, T, _ = kc.shape
     if n_heads * HEAD_DIM != D or n_heads % Hkv or \
@@ -756,9 +764,6 @@ def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
     if plan != PLAN_STREAM and dt != torch.bfloat16:
         raise ValueError(f"K7's int8 and int4 weights take a bf16 stream; "
                          f"got {dt}")
-    if plan != PLAN_STREAM and B > 1:
-        raise ValueError("K7's rows form takes array weights (int8 and "
-                         "int4 rows take the loop)")
     wts, szs, scs = _k7_stacks(ws, plan)
     I = wts[4].shape[-1]
     shapes = ((D, D), (D, Hkv * HEAD_DIM), (D, Hkv * HEAD_DIM), (D, D),
@@ -827,16 +832,18 @@ def _record(sel, layer: int, stage: int, idx, count) -> None:
 def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
                        pos, *, caps, n_heads: int, norm_eps: float = 1e-5,
                        window: Optional[int] = None, fixed_sel: bool = False,
+                       seq_block: bool = False,
                        sel: Optional[torch.Tensor] = None):
     """K7 in plain PyTorch (same arguments and result as `token_kernel`):
     each layer's four stages through K1's and K2's plain versions, as the
     layer loop runs them (the same cast points; int8's scales on each
     stage's fp32 sums, packed int4 through its factored affine; rows
     [B, D] through the plain twins' rows: one kept set a stage, pooled
-    over the rows). A device position is read to the host here (this
-    version is no fast path)."""
+    over the rows; `seq_block` through K2's plain seq_block form). A
+    device position is read to the host here (this version is no fast
+    path)."""
     B = _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
-                  caps, n_heads, sel)[5]
+                  caps, n_heads, sel, seq_block)[5]
     ops, sc = stage_operands(ws)
     wq, wk, wv, wo, wgate, wup, wdown = ops
 
@@ -853,7 +860,8 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
             q2[:, :nq].reshape(B, n_heads, HEAD_DIM),
             q2[:, nq:nq + nk].reshape(B, -1, HEAD_DIM),
             q2[:, nq + nk:].reshape(B, -1, HEAD_DIM), kc, vc, layer, pos,
-            window=window, rope=rope).reshape(h.shape[:-1] + (nq,))
+            window=window, rope=rope,
+            seq_block=seq_block).reshape(h.shape[:-1] + (nq,))
         h, i1, c1 = select_gather_gemv_plain(
             attn, thresholds[layer, 3], (wo,), layer, caps[1], res=h,
             scales=scales(3), fixed=fixed_sel)
@@ -877,15 +885,20 @@ def k7_clusters(device: torch.device, dtype: torch.dtype, GH: int,
     dtype, GH query heads a kv head; `rows`: the rows form's kernel):
     {C: clusters} for C in [2, 8] from the CUDA runtime
     (`teal_token_clusters`, `teal_token_clusters_q` for int8 and int4,
-    `teal_token_clusters_rows`; asked once)."""
+    `teal_token_clusters_rows` and `teal_token_clusters_rows_q`; asked
+    once)."""
     key = (device.index, dtype, GH, plan, rows)
     if key not in _CLUSTERS:
         libs = _build.load()
 
         def ask(c):
-            if rows:
+            if rows and plan == PLAN_STREAM:
                 return libs["token_decode_rows"].teal_token_clusters_rows(
                     _DTYPE_CODE[dtype], GH, c)
+            if rows:
+                return libs[
+                    "token_decode_rows_quant"].teal_token_clusters_rows_q(
+                        plan, GH, c)
             if plan == PLAN_STREAM:
                 return libs["token_decode"].teal_token_clusters(
                     _DTYPE_CODE[dtype], GH, c)
@@ -909,7 +922,7 @@ def token_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
     if plan is None:
         return None
     rows = h.shape[0] if h.dim() == 2 else 1
-    if rows > 1 and (plan != PLAN_STREAM or not 2 <= rows <= MAX_ROWS
+    if rows > 1 and (not 2 <= rows <= MAX_ROWS
                      or MAX_GROUP % max(1, n_heads // Hkv)):
         return None
     return _token_plan(h.element_size(), h.shape[-1],
@@ -941,14 +954,15 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
                  pos: torch.Tensor, *, caps: Tuple[int, int, int, int],
                  n_heads: int, norm_eps: float = 1e-5,
                  window: Optional[int] = None, fixed_sel: bool = False,
-                 sel: Optional[torch.Tensor] = None, empty: bool = False,
-                 stamps: Optional[torch.Tensor] = None):
+                 seq_block: bool = False, sel: Optional[torch.Tensor] = None,
+                 empty: bool = False, stamps: Optional[torch.Tensor] = None):
     """K7: one token through every layer in one launch, for one row or
     for 2-16 rows (the rows form: each row a sequence at its own position,
-    one kept set a stage pooled over the rows).
+    or with `seq_block` a position of one sequence, one kept set a stage
+    pooled over the rows).
 
     h:    [D] raw residual stream (the token's embedding), fp32 or bf16;
-          or rows [B, D] (arrays only)
+          or rows [B, D]
     thresholds: [L, 7] fp32 group thresholds, read on the device
     ws:   (wq, wk, wv, wo, wgate, wup, wdown), [L, K, N] arrays of h's
           type, or with bf16 h all seven int8 {"q" [L, K, N], "scale"
@@ -957,10 +971,16 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
           as they are)
     norm_attn/norm_mlp: [L, D] rms_norm gains of h's type
     rope: [B, 2, 128] fp32 (cos, sin) rows at pos (B = 1 for one row)
-    kc/vc: [L, B, Hkv, T, 128] caches of h's type, updated in place
-    pos:  int32 [B] on the device (the kernel traps outside [0, T))
+    kc/vc: [L, B, Hkv, T, 128] caches of h's type ([L, 1, ...] with
+          seq_block), updated in place
+    pos:  int32 [B] on the device (the kernel traps outside [0, T), and
+          with seq_block where pos[i] != pos[0] + i)
     caps: gather capacities (qkv, o, gate|up, down)
     fixed_sel: keep groups 0..cap-1 at every stage
+    seq_block: the rows are the consecutive positions pos[0] + i of one
+          sequence in cache row 0: every row's K/V is written before any
+          row attends, row i to the rows before pos[0] + i (the verify's
+          chunk)
     sel:  optional int32 [L, 4, 1 + max(caps)]: each stage's kept count
           and groups (-1 past the count)
     empty: launch the kernel with its barriers alone (their floor; no
@@ -977,7 +997,8 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
     this runs `token_kernel_plain`; on a CUDA tensor it launches K7 or
     raises."""
     L, D, I, Hkv, T, B = _check_k7(h, thresholds, ws, norm_attn, norm_mlp,
-                                   rope, kc, vc, pos, caps, n_heads, sel)
+                                   rope, kc, vc, pos, caps, n_heads, sel,
+                                   seq_block)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive; got {window}")
     if B > 1 and (empty or stamps is not None):
@@ -991,7 +1012,7 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
                                   rope, kc, vc, pos, caps=caps,
                                   n_heads=n_heads, norm_eps=norm_eps,
                                   window=window, fixed_sel=fixed_sel,
-                                  sel=sel)
+                                  seq_block=seq_block, sel=sel)
     _check_launch_device(h, "token_kernel")
     sms = _build.sm_count(h.device.index)
     plan = token_plan(h, kc, ws, n_heads, caps, window)
@@ -1010,15 +1031,26 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
     work = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=h.device)
     wplan = k7_weight_plan(ws)
     wts, szs, scs = _k7_stacks(ws, wplan)
+    none = (None,) * 7
     if B > 1:
-        err = _build.load()["token_decode_rows"].teal_token_decode_rows(
-            _DTYPE_CODE[h.dtype], B, h.data_ptr(), thresholds.data_ptr(),
-            pos.data_ptr(), rope.data_ptr(), norm_attn.data_ptr(),
-            norm_mlp.data_ptr(), *(w.data_ptr() for w in wts),
-            kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-            None if sel is None else sel.data_ptr(), work.data_ptr(), L, D,
-            I, n_heads, Hkv, T, window or 0, *caps, int(fixed_sel), norm_eps,
-            sms, torch.cuda.current_stream().cuda_stream)
+        head = (B, h.data_ptr(), thresholds.data_ptr(), pos.data_ptr(),
+                rope.data_ptr(), norm_attn.data_ptr(), norm_mlp.data_ptr(),
+                *(w.data_ptr() for w in wts))
+        tail = (kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+                None if sel is None else sel.data_ptr(), work.data_ptr(), L,
+                D, I, n_heads, Hkv, T, window or 0, *caps, int(fixed_sel),
+                int(seq_block), norm_eps, sms,
+                torch.cuda.current_stream().cuda_stream)
+        if wplan == PLAN_STREAM:
+            err = _build.load()["token_decode_rows"].teal_token_decode_rows(
+                _DTYPE_CODE[h.dtype], *head, *tail)
+        else:
+            err = _build.load()[
+                "token_decode_rows_quant"].teal_token_decode_rows_q(
+                    wplan, *head,
+                    *(none if szs is None else (t.data_ptr() for t in szs)),
+                    *(none if scs is None else (t.data_ptr() for t in scs)),
+                    *tail)
         if err == -1:
             raise RuntimeError("token_kernel: no plan or no TMA map for "
                                "these rows on this card")
@@ -1037,7 +1069,6 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
         err = _build.load()["token_decode"].teal_token_decode(
             _DTYPE_CODE[h.dtype], *head, *tail)
     else:
-        none = (None,) * 7
         err = _build.load()["token_decode_quant"].teal_token_decode_q(
             wplan, *head,
             *(none if szs is None else (t.data_ptr() for t in szs)),

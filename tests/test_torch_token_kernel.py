@@ -4,10 +4,10 @@ K7 (`ops/token_block.token_kernel`, `csrc/token_decode.cu`) decodes one
 token through every layer in one launch, the counterpart of the JAX
 package's whole-token kernel `_token_kernel`; with `token_fused=False`
 the port keeps the K1/K2 loop, the counterpart of `_packed_layer`. Here:
-  - the route: K7 exactly for its form (batch 1, arrays of the stream
-    type or int8 / int4 at group 128; 2-16 rows of arrays; head_dim 128,
-    no MoE, no seq_block, token_fused not False) where it has a launch
-    plan, from the shapes alone;
+  - the route: K7 exactly for its form (batch 1 or 2-16 rows, arrays of
+    the stream type or int8 / int4 at group 128; seq_block rows of one
+    sequence; head_dim 128, no MoE, token_fused not False) where it has a
+    launch plan, from the shapes alone;
   - `_token_plan` at Llama-2-7B, Mistral-7B (GQA 32/8, window 4096) and
     the tiny configs, for 132 SMs, at one row and in the rows form; no
     plan depends on T, and every head_dim-128 dense config of the
@@ -20,9 +20,12 @@ the port keeps the K1/K2 loop, the counterpart of `_packed_layer`. Here:
     sum in other orders: a bf16 ulp is 2^-8 of a value); GQA, MHA, a
     window with pos past it, `fixed_sel`; and at B = 2, 8 and 16 rows,
     each at its own position, through K7's rows route against the JAX
-    `_token_kernel` with `batch` = B. The bf16 cases select at
-    threshold 0, where every group survives and the first `cap` are
-    kept, so that a one-ulp score difference cannot flip a group.
+    `_token_kernel` with `batch` = B, with arrays and with int8 (B = 2,
+    16) and packed-int4 (B = 8) weights, these within 2^-7 of scale (the
+    bound of a quantized bf16 layer, as test_torch_batched.py). The bf16
+    cases select at threshold 0, where every group survives and the first
+    `cap` are kept, so that a one-ulp score difference cannot flip a
+    group.
 All JAX cases run in one child process (`jax_subprocess.jax_results`)."""
 
 import dataclasses
@@ -79,14 +82,22 @@ ROW_CASES = {
                                                for i in range(16))),
     "bf16-rows8-window": (WINDOW, "bfloat16", (14, 2, 6, 10, 13, 5, 9, 1)),
     "bf16-rows2-mha": (MHA, "bfloat16", (15, 7)),
+    # int8 and packed int4 (group 128) copies of the bf16 weights, a bf16
+    # stream and cache
+    "int8-rows2-gqa": (GQA, "int8", (11, 3)),
+    "int8-rows16-window": (WINDOW, "int8", tuple((7 * i + 3) % 16
+                                                 for i in range(16))),
+    "int4-rows8-window": (WINDOW, "int4", (13, 1, 6, 9, 15, 4, 10, 2)),
 }
+QUANT_REL = 2 ** -7
 
 
 def _thresholds(cfg_kw, dtype):
     """Per-layer group thresholds near each stage's median group score
-    (fp32), or 0 (bf16: every group survives, the first cap kept)."""
+    (fp32), or 0 (bf16, int8, int4: every group survives, the first cap
+    kept)."""
     L = cfg_kw["n_layers"]
-    if dtype == "bfloat16":
+    if dtype != "float32":
         return np.zeros((L, 7), np.float32)
     base = np.array([2.6, 2.6, 2.6, 0.12, 2.65, 2.65, 0.12], np.float32)
     return (base[None] * (1 + 0.03 * np.arange(L)[:, None])).astype(
@@ -118,14 +129,26 @@ def _row_inputs(case):
     return cfg_kw, dtype, list(pos), k, v, toks
 
 
+def _to_jax(tree):
+    """A port params tree (CPU tensors) as JAX arrays of the same types."""
+    if isinstance(tree, dict):
+        return {k: _to_jax(v) for k, v in tree.items()}
+    if tree.dtype == torch.bfloat16:
+        return jnp.asarray(tree.float().numpy(), jnp.bfloat16)
+    return jnp.asarray(tree.numpy())
+
+
 def jax_rows_case(case):
     """JAX's forward at a rows case in interpret mode: the whole-token
-    kernel with `batch` = B."""
+    kernel with `batch` = B (int8 and int4: the port's quantized copy of
+    the bf16 weights, carried across)."""
     cfg_kw, dtype, pos, k, v, toks = _row_inputs(case)
     jcfg = jget_model_config("tiny", **cfg_kw)
-    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     params = jllama.init_params(jcfg, jax.random.PRNGKey(7), jnp.float32)
     params = jax.tree.map(lambda a: a.astype(jdt), params)
+    if dtype in ("int8", "int4"):
+        params = _to_jax(_port_params(cfg_kw, dtype))
     with pltpu.force_tpu_interpret_mode():
         logits, cache = jllama.forward(
             params, jnp.asarray(toks, jnp.int32),
@@ -170,10 +193,20 @@ def jax_refs(tmp_path_factory):
 
 
 def _port_params(cfg_kw, dtype):
+    """The port's params of JAX's seed-7 weights in dtype, or (dtype
+    "int8" / "int4") their bf16 copy quantized by the port's `quant`."""
     jcfg = jget_model_config("tiny", **cfg_kw)
     jparams = jllama.init_params(jcfg, jax.random.PRNGKey(7), jnp.float32)
-    return llama.params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                   device="cpu", dtype=dtype)
+    q = dtype if dtype in ("int8", "int4") else None
+    params = llama.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                     device="cpu",
+                                     dtype=torch.bfloat16 if q else dtype)
+    if q == "int8":
+        return quant.quantize_params_int8(params)
+    if q == "int4":
+        return quant.pack_int4_params(quant.quantize_params_int4(params, 128),
+                                      128)
+    return params
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -221,11 +254,13 @@ def test_rows_plain_matches_jax(jax_refs, monkeypatch, case):
     position: one K7 call (its rows form; on the CPU its plain version
     `token_kernel_plain`) and no K1/K2 loop, against JAX's forward through
     `_token_kernel` with `batch` = B; logits and both caches, fp32 within
-    2e-5, bf16 (threshold 0) within 2e-2 of the largest value."""
+    2e-5, bf16 (threshold 0) within 2e-2 of the largest value, int8 and
+    packed int4 (threshold 0, a bf16 stream) within 2^-7 of it."""
     cfg_kw, dtype, pos, k, v, toks = _row_inputs(case)
-    dt = getattr(torch, dtype)
+    quantized = dtype in ("int8", "int4")
+    dt = torch.bfloat16 if quantized else getattr(torch, dtype)
     cfg = get_model_config("tiny", **cfg_kw)
-    params = _port_params(cfg_kw, dt)
+    params = _port_params(cfg_kw, dtype if quantized else dt)
     cache = llama.KVCache.from_numpy(k, v, device="cpu", dtype=dt)
     calls = {"k7": 0, "plain": 0, "loop": 0}
     kernel, plain, layer = tb.token_kernel, tb.token_kernel_plain, \
@@ -253,7 +288,8 @@ def test_rows_plain_matches_jax(jax_refs, monkeypatch, case):
             np.testing.assert_allclose(g, w, **TOL, err_msg=name)
         else:
             err = np.abs(g - w).max()
-            assert err <= BF16_REL * np.abs(w).max(), (name, err)
+            rel = QUANT_REL if quantized else BF16_REL
+            assert err <= rel * np.abs(w).max(), (name, err)
 
 
 # --- the route -----------------------------------------------------------
@@ -291,16 +327,19 @@ ROUTES = {
     # the layer loop, at 128 the K1/K2 loop refuses the groups
     "layers-int4-g64": (GQA, "int4-g64", 1, dict(block_size=64), "layers"),
     "raises-int4-g64-main": (GQA, "int4-g64", 1, {}, "raises"),
-    # rows of arrays: K7's rows form (the case keeps its name from before
-    # K7 took the rows); int8 and int4 rows keep the K1/K2 loop, and rows
-    # with token_fused False the model's layer loop, as in the reference
-    # (its rows are the whole-token kernel's alone)
+    # rows: K7's rows form, of arrays, all-int8 and packed int4 (the
+    # cases named loop-rows* keep their names from before K7 took them);
+    # rows with token_fused False the model's layer loop, as in the
+    # reference (its rows are the whole-token kernel's alone)
     "loop-rows": (GQA, "float32", 2, {}, "k7"),
     "k7-rows16-bf16-window": (WINDOW, "bfloat16", 16, {}, "k7"),
     "layers-rows-token-fused-false": (GQA, "float32", 2,
                                       dict(token_fused=False), "layers"),
-    "loop-rows-int8": (GQA, "int8", 2, {}, "loop"),
-    "loop-rows-int4": (GQA, "int4", 8, {}, "loop"),
+    "loop-rows-int8": (GQA, "int8", 2, {}, "k7"),
+    "loop-rows-int4": (GQA, "int4", 8, {}, "k7"),
+    "k7-rows16-int8-window": (WINDOW, "int8", 16, {}, "k7"),
+    "layers-rows-int4-token-fused-false": (GQA, "int4", 8,
+                                           dict(token_fused=False), "layers"),
     "loop-moe": (MOE, "float32", 1, {}, "loop"),
 }
 
@@ -331,8 +370,8 @@ def test_route(monkeypatch, case):
     """`llama.forward` at one decode position takes K7 (its wrapper,
     `token_kernel`) exactly for K7's form with token_fused not False
     (arrays, all seven int8, all seven packed int4 at quant group 128;
-    2-16 rows of arrays), the K1/K2 loop (`layer_decode`) for token_fused
-    False, int8 and int4 rows and MoE,
+    one row or 2-16 rows), the K1/K2 loop (`layer_decode`) for token_fused
+    False at one row and MoE,
     the model's layer loop where `can_token_decode` refuses, and raises
     where the token path refuses the weights; the route is decided by the
     form alone."""
@@ -372,36 +411,53 @@ def test_route(monkeypatch, case):
 
 
 def test_route_seq_block_takes_the_loop(monkeypatch):
-    """`token_decode` with seq_block (the verify path's rows) keeps the
-    loop whatever token_fused says; K7's form is one row."""
+    """`token_decode` with seq_block (the verify path's rows: consecutive
+    positions of one sequence in cache row 0) takes K7's seq_block form
+    where token_fused is not False, and the K1/K2 loop with token_fused
+    False; both write the same cache and return the same rows. K7's
+    seq_block form needs a cache of one row."""
     cfg = get_model_config("tiny", **GQA)
     params = llama.init_params(cfg, torch.Generator().manual_seed(0),
                                torch.float32, device="cpu")
     lay = params["layers"]
-    calls = []
-    kernel = tb.token_kernel
-    monkeypatch.setattr(tb, "token_kernel",
-                        lambda *a, **kw: calls.append(1) or kernel(*a, **kw))
-    cache = llama.KVCache.init(cfg, 1, T, torch.float32, "cpu")
+    calls = {"k7": 0, "loop": 0}
+    kernel, layer = tb.token_kernel, tb.layer_decode
+
+    def spy(name, f):
+        def g(*a, **kw):
+            calls[name] += 1
+            return f(*a, **kw)
+        return g
+    monkeypatch.setattr(tb, "token_kernel", spy("k7", kernel))
+    monkeypatch.setattr(tb, "layer_decode", spy("loop", layer))
+    ws = tuple(lay[n] for n in ("wq", "wk", "wv", "wo", "wgate", "wup",
+                                "wdown"))
     cos, sin = llama.precompute_rope(cfg, T, "cpu")
     pos = torch.tensor([4, 5], dtype=torch.int32)
     h = params["embed"][torch.tensor([3, 4])]
-    out = tb.token_decode(
-        h, torch.zeros((cfg.n_layers, 7)),
-        tuple(lay[n] for n in ("wq", "wk", "wv", "wo", "wgate", "wup",
-                               "wdown")),
-        lay["attn_norm"], lay["mlp_norm"], llama._rope_rows(cos, sin, pos),
-        cache.k, cache.v, pos, caps=(2, 2, 2, 3), n_heads=cfg.n_heads,
-        fixed_sel=True, seq_block=True)
-    assert out.shape == h.shape and not calls
-    assert not tb.k7_form(h, (lay["wq"],) * 7, cache.k, cfg.n_heads,
-                          seq_block=True)
+    outs, caches = [], []
+    for fused in (None, False):
+        cache = llama.KVCache.init(cfg, 1, T, torch.float32, "cpu")
+        outs.append(tb.token_decode(
+            h, torch.zeros((cfg.n_layers, 7)), ws, lay["attn_norm"],
+            lay["mlp_norm"], llama._rope_rows(cos, sin, pos), cache.k,
+            cache.v, pos, caps=(2, 2, 2, 3), n_heads=cfg.n_heads,
+            fixed_sel=True, seq_block=True, token_fused=fused))
+        caches.append(cache)
+    assert calls == {"k7": 1, "loop": cfg.n_layers}
+    assert outs[0].shape == h.shape
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(caches[0].k, caches[1].k)
+    assert torch.equal(caches[0].v, caches[1].v)
+    assert tb.k7_form(h, ws, caches[0].k, cfg.n_heads, seq_block=True)
+    two = llama.KVCache.init(cfg, 2, T, torch.float32, "cpu")
+    assert not tb.k7_form(h, ws, two.k, cfg.n_heads, seq_block=True)
 
 
 def test_block_verify_takes_the_loop(monkeypatch):
     """`block_verify` (the speculative verify: S consecutive positions of
-    one sequence, `seq_block`) keeps the K1/K2 loop for array weights: K7
-    takes no seq_block."""
+    one sequence, `seq_block`) takes K7's seq_block form once a chunk (S
+    = 4: one chunk, S = 12: two) and never the K1/K2 loop."""
     cfg = get_model_config("tiny", **GQA)
     params = llama.init_params(cfg, torch.Generator().manual_seed(0),
                                torch.float32, device="cpu")
@@ -415,12 +471,14 @@ def test_block_verify_takes_the_loop(monkeypatch):
         return g
     monkeypatch.setattr(tb, "token_kernel", spy("k7", kernel))
     monkeypatch.setattr(tb, "layer_decode", spy("loop", layer))
-    cache = llama.KVCache.init(cfg, 1, T, torch.float32, "cpu")
-    logits, _ = llama.block_verify(
-        params, torch.tensor([[3, 5, 7, 9]]), cache, 2,
-        torch.zeros((cfg.n_layers, 7)), cfg=cfg)
-    assert torch.isfinite(logits).all()
-    assert calls == {"k7": 0, "loop": cfg.n_layers}
+    for toks, chunks in (([3, 5, 7, 9], 1), (list(range(3, 15)), 2)):
+        calls.update(k7=0, loop=0)
+        cache = llama.KVCache.init(cfg, 1, T, torch.float32, "cpu")
+        logits, _ = llama.block_verify(
+            params, torch.tensor([toks]), cache, 2,
+            torch.zeros((cfg.n_layers, 7)), cfg=cfg)
+        assert torch.isfinite(logits).all()
+        assert calls == {"k7": chunks, "loop": 0}
 
 
 def test_k7_raises_rather_than_falls_back():
@@ -536,10 +594,11 @@ ONE_CLUSTER = {c: 1 for c in range(2, 9)}
 SMEM = 232448
 
 
-def _rows_partf(p, esz, D, I, Hq, Hkv, B):
+def _rows_partf(p, esz, D, I, Hq, Hkv, B, wplan=0):
     """The rows form's partial sums a block (fp32): B rows of the largest
-    NW x (columns of a cluster) of the stages, in 128-byte units."""
-    uw, GH = 128 // esz, Hq // Hkv
+    NW x (columns of a cluster) of the stages, in 128-byte units (64 bf16
+    or 32 fp32 columns, 128 int8 or packed-int4 ones)."""
+    uw, GH = (128 // esz if wplan == 0 else 128), Hq // Hkv
 
     def most(cols, nw):
         return nw * -(-(cols // uw) // p.clusters) * uw
@@ -552,7 +611,8 @@ def _check_columns(p, esz, D, I, Hq, Hkv, wplan=0, rows=1):
     units of the weight plan `wplan`, or of the rows form's 128 bytes);
     in the head-owned plan cluster c's q columns are those of kv head c's
     query heads; every kv head's attention runs on one cluster."""
-    unit = 128 // esz if rows > 1 else tb._tok_unit(esz, wplan)
+    unit = tb._rows_unit(esz, wplan) if rows > 1 else tb._tok_unit(esz,
+                                                                    wplan)
     cols = tb.token_columns(p, esz, D, I, Hq, Hkv, wplan, rows)
     widths = {"wq": D, "wk": Hkv * 128, "wv": Hkv * 128, "wo": D,
               "wgate": I, "wup": I, "wdown": D}
@@ -658,20 +718,28 @@ def test_token_plan_quantized(name, wplan):
         assert units == [2, 3]           # 86 units: 3 or 2 a cluster
 
 
+@pytest.mark.parametrize("wplan", [0, 1, 2], ids=["arrays", "int8", "int4"])
 @pytest.mark.parametrize("B", [2, 8, 16])
 @pytest.mark.parametrize("name", list(PLANS))
-def test_token_plan_rows(name, B):
-    """K7's rows form's plan (arrays, B rows) for 132 SMs and the H100's
-    resident clusters: the structure of the one-row plan (the 7B head-owned
-    with clusters of 3, Mistral-7B the other plan), a warp's attention
-    chunk of 16 bf16 or 8 fp32 rows (GQA 32/8: 4 query heads a kv head,
-    8 and 4), B rows of the partial sums in 128-byte units, the workspace
-    of B rows of each region, shared memory equal to its layout's and
-    within a block's, and every column covered once; none for int8 or
-    int4 rows, nor for 1 or 17 rows."""
+def test_token_plan_rows(name, B, wplan):
+    """K7's rows form's plan (arrays, and int8 and packed int4 with a bf16
+    stream; B rows) for 132 SMs and the H100's resident clusters: the
+    structure of the one-row plan (the 7B head-owned with clusters of 3,
+    Mistral-7B the other plan), a warp's attention chunk of 16 bf16 or 8
+    fp32 rows (GQA 32/8: 4 query heads a kv head, 8 and 4), B rows of the
+    partial sums in 128-byte units (128 columns for int8 and int4), the
+    workspace of B rows of each region, ring slots of two 8 KB boxes (int4:
+    and two groups' scale and zero rows) beside 16 staged input rows,
+    shared memory equal to its layout's and within a block's, and every
+    column covered once; none for 1 or 17 rows, nor for quantized rows
+    with an fp32 stream."""
     esz, D, I, Hq, Hkv, T_, window, caps, L = PLANS[name]
+    if wplan:
+        assert tb._token_plan(4, D, I, Hq, Hkv, T_, window, max(caps), L,
+                              132, plan=wplan, rows=B) is None
+        esz = 2
     p = tb._token_plan(esz, D, I, Hq, Hkv, T_, window, max(caps), L, 132,
-                       rows=B)
+                       plan=wplan, rows=B)
     one = tb._token_plan(esz, D, I, Hq, Hkv, T_, window, max(caps), L, 132)
     assert p is not None
     assert (p.grid, p.C, p.clusters, p.head_owned, p.grid_barriers) == (
@@ -681,21 +749,25 @@ def test_token_plan_rows(name, B):
         1 if GH <= 2 else GH // 2)
     assert p.ws_bytes == tb._token_ws(esz, D, I, Hq, Hkv, B)
     assert 2 <= p.slots <= 8 and p.smem <= SMEM
+    assert tb._rows_slot(esz, wplan) == 16384 + 2048 * (wplan == 2) + 16 * (
+        128 * esz + 16)
     assert p.smem == tb._token_smem_rows(
-        esz, D, I, max(caps), _rows_partf(p, esz, D, I, Hq, Hkv, B), p.slots)
-    _check_columns(p, esz, D, I, Hq, Hkv, rows=B)
-    for bad in (dict(rows=1 + 16), dict(rows=B, plan=1), dict(rows=B, plan=2)):
-        assert tb._token_plan(2, D, I, Hq, Hkv, T_, window, max(caps), L,
-                              132, **bad) is None
+        esz, D, I, max(caps), _rows_partf(p, esz, D, I, Hq, Hkv, B, wplan),
+        p.slots, wplan)
+    _check_columns(p, esz, D, I, Hq, Hkv, wplan, rows=B)
+    assert tb._token_plan(2, D, I, Hq, Hkv, T_, window, max(caps), L, 132,
+                          plan=wplan, rows=1 + 16) is None
 
 
-@pytest.mark.parametrize("wplan,rows", [(0, 1), (1, 1), (2, 1), (0, 16)],
-                         ids=["arrays", "int8", "int4", "arrays-rows16"])
+@pytest.mark.parametrize("wplan,rows", [(0, 1), (1, 1), (2, 1), (0, 16),
+                                       (1, 16), (2, 16)],
+                         ids=["arrays", "int8", "int4", "arrays-rows16",
+                              "int8-rows16", "int4-rows16"])
 def test_token_plan_independent_of_T(wplan, rows):
     """K7's plan is the same at T 2048, 8192 and 32768 (attention walks the
     cache in chunks of a fixed size, so no shared memory grows with T),
     with and without a window, at the 7B's and llama-3-70b's widths (one
-    row: bf16, int8, int4, fp32 arrays; 16 rows: bf16 and fp32 arrays)."""
+    row and 16 rows: bf16, int8, int4, fp32 arrays)."""
     for D, I, Hq, Hkv, L in ((4096, 11008, 32, 32, 32),
                              (8192, 28672, 64, 8, 80)):
         for esz in ((2, 4) if wplan == 0 else (2,)):
@@ -743,17 +815,30 @@ FORMS = {"bf16": ("arrays", torch.bfloat16, 1),
          "int8": ("int8", torch.bfloat16, 1),
          "int4": ("int4", torch.bfloat16, 1),
          "bf16-rows16": ("arrays", torch.bfloat16, 16),
-         "fp32-rows16": ("arrays", torch.float32, 16)}
+         "fp32-rows16": ("arrays", torch.float32, 16),
+         "int8-rows16": ("int8", torch.bfloat16, 16),
+         "int4-rows16": ("int4", torch.bfloat16, 16)}
 
 
 @pytest.mark.parametrize("name", _dense_128())
 def test_registry_plans_at_max_seq_len(name):
     """Every dense head_dim-128 config of the registry has a K7 plan at its
     max_seq_len (llama-3-70b at T 8192 among them) in bf16, int8 and int4
-    at one row, and in bf16 at 16 rows, at its main-path caps."""
+    at one row and at 16 rows, at its main-path caps and at the verify's
+    full caps (a chunk of 8 rows)."""
     cfg = get_model_config(name)
     caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN))
-    for form in ("bf16", "int8", "int4", "bf16-rows16"):
+    full = (cfg.dim // 128,) * 3 + (cfg.intermediate_size // 128,)
+    for form in ("bf16", "int8", "int4"):
+        kind, dt, _ = FORMS[form]
+        p = tb._token_plan(dt.itemsize, cfg.dim, cfg.intermediate_size,
+                           cfg.n_heads, cfg.n_kv_heads, cfg.max_seq_len,
+                           cfg.sliding_window, max(full), cfg.n_layers,
+                           plan={"arrays": 0, "int8": 1, "int4": 2}[kind],
+                           rows=8)
+        assert p is not None and p.smem <= SMEM, (name, form, "verify")
+    for form in ("bf16", "int8", "int4", "bf16-rows16", "int8-rows16",
+                 "int4-rows16"):
         kind, dt, B = FORMS[form]
         plan = {"arrays": 0, "int8": 1, "int4": 2}[kind]
         p = tb._token_plan(dt.itemsize, cfg.dim, cfg.intermediate_size,
@@ -769,8 +854,8 @@ def test_route_agrees_with_plan(name):
     alone; on a tensor off the card the H100's plan) takes K7 exactly
     where `_token_plan` has a plan, for every dense head_dim-128 config of
     the registry at its full shapes and max_seq_len (tensors on the meta
-    device) in bf16, fp32, int8 and int4 at one row and bf16 and fp32 at
-    16 rows; token_fused False keeps the loop."""
+    device) in bf16, fp32, int8 and int4 at one row and at 16 rows;
+    token_fused False keeps the loop."""
     cfg = get_model_config(name)
     caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN))
     for form, (kind, dt, B) in FORMS.items():
@@ -805,9 +890,11 @@ def test_route_takes_the_loop_without_a_plan():
 
 def test_token_plan_quantized_refuses():
     """No quantized plan for an fp32 stream (the int8 and int4 plans take
-    bf16), nor for an unknown weight plan."""
+    bf16; one row or rows), nor for an unknown weight plan."""
     assert tb._token_plan(4, 4096, 11008, 32, 32, 4096, None, 43, 32, 132,
                           plan=1) is None
+    assert tb._token_plan(4, 4096, 11008, 32, 32, 4096, None, 43, 32, 132,
+                          plan=2, rows=8) is None
     assert tb._token_plan(2, 4096, 11008, 32, 32, 4096, None, 43, 32, 132,
                           plan=3) is None
 
@@ -857,8 +944,9 @@ def test_token_plan_covers_every_column(GH, edge):
     once, each head-owned cluster's q columns belong to its kv head, and
     its shared bytes stay within 232448. The same for the rows form at B
     = 2, 8 and 16 (arrays, 128-byte units; no stream limit: its rows live
-    in the workspace), where None means two slots beside B rows of the
-    cluster's partial sums pass shared memory."""
+    in the workspace) and at B = 16 with int8 and int4 weights (bf16),
+    where None means two slots beside B rows of the cluster's partial
+    sums pass shared memory."""
     clusters, sms = {"h100": (tb.H100_CLUSTERS, 132),
                      "one-cluster": (ONE_CLUSTER, 132),
                      "64-sms": ({c: n // 2 for c, n in
@@ -889,25 +977,28 @@ def test_token_plan_covers_every_column(GH, edge):
     planned = 0
     for esz, D, I, Hkv in _sweep_shapes(GH):
         Hq, cap = GH * Hkv, min(8, D // 128)
-        for B in (2, 8, 16):
+        for B, wplan in ((2, 0), (8, 0), (16, 0), (16, 1), (16, 2)):
+            if wplan and esz != 2:
+                continue
             p = tb._token_plan(esz, D, I, Hq, Hkv, 512, None, cap, 2, sms,
-                               clusters, rows=B)
+                               clusters, plan=wplan, rows=B)
             if p is None:
                 C, head = tb._token_structure(Hkv, sms, clusters)
-                uw, NC = 128 // esz, Hkv if head else clusters[C]
+                uw, NC = tb._rows_unit(esz, wplan), Hkv if head else \
+                    clusters[C]
                 partf = B * max(2 * -(-(I // uw) // NC) * uw,
                                 (GH + 2) * 128 if head
                                 else -(-((Hq + 2 * Hkv) * 128 // uw) // NC)
                                 * uw)
-                assert tb._token_smem_rows(esz, D, I, cap, partf,
-                                           2) > SMEM, (esz, D, I, Hkv, B)
+                assert tb._token_smem_rows(esz, D, I, cap, partf, 2,
+                                           wplan) > SMEM, (esz, D, I, Hkv, B)
                 continue
             planned += 1
             assert p.smem <= SMEM and p.grid <= sms
             assert p.smem == tb._token_smem_rows(
-                esz, D, I, cap, _rows_partf(p, esz, D, I, Hq, Hkv, B),
-                p.slots)
-            _check_columns(p, esz, D, I, Hq, Hkv, rows=B)
+                esz, D, I, cap, _rows_partf(p, esz, D, I, Hq, Hkv, B, wplan),
+                p.slots, wplan)
+            _check_columns(p, esz, D, I, Hq, Hkv, wplan, rows=B)
     assert planned > 0
 
 
