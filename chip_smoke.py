@@ -4783,15 +4783,199 @@ def time_moe_kernels(params, cfg, caps, device, gen, plan):
     return k5, rows
 
 
+K7_MOE_REPEATS = 30              # K7 MoE launches held bit-identical
+
+
+def check_k7_moe_plan(cfg, wplan: int):
+    """K7's MoE plan in the wrapper (`_token_plan(..., E=, k_exp=)` on the
+    card's resident clusters) equal to the kernel's (`teal_token_plan` /
+    `teal_token_plan_q` with E and k) at cfg's shapes, T `MAX_SEQ` and
+    its max_seq_len, within shared memory. Returns the plan at
+    `MAX_SEQ`."""
+    import ctypes
+
+    import torch
+
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block as tb
+
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    sms = _build.sm_count(0)
+    GH = cfg.n_heads // cfg.n_kv_heads
+    E, kx = cfg.n_experts, cfg.n_experts_per_tok
+    plans = {}
+    for T in (cfg.max_seq_len, MAX_SEQ):
+        out = (ctypes.c_int * 11)()
+        args = (cfg.dim, cfg.intermediate_size, cfg.n_heads, cfg.n_kv_heads,
+                T, 0, max(caps), sms, cfg.n_layers, E, kx, out)
+        rc = (_build.load()["token_decode"].teal_token_plan(1, *args)
+              if wplan == 0 else
+              _build.load()["token_decode_quant"].teal_token_plan_q(wplan,
+                                                                    *args))
+        want = tb._token_plan(2, *args[:6], max(caps), cfg.n_layers, sms,
+                              tb.k7_clusters(torch.device("cuda", 0),
+                                             torch.bfloat16, GH, wplan),
+                              wplan, E=E, k_exp=kx)
+        check(rc == 0 and want is not None and tuple(out) == tuple(want)
+              and want.smem <= tb._SMEM_BYTES, f"K7 MoE plan T {T}: kernel "
+              f"{rc} {list(out)}, wrapper {want}")
+        plans[T] = want
+    log(f"[k7 moe] plan (weight plan {wplan}) equal in the wrapper and the "
+        f"kernel at T {cfg.max_seq_len} and {MAX_SEQ}: {plans[MAX_SEQ]}")
+    return plans[MAX_SEQ]
+
+
+def k7_moe_turns(cfg, args, kw):
+    """K7's MoE form and the K1/K2/K5 loop (`token_decode(...,
+    token_fused=False)`) on the same call (`args`, `kw`; the caches
+    copied) in `K7_ROWS_TURNS` turns (`route_turns`: one K7 and nothing
+    else; (2 + 2k) L K1, L K2, L K5). Returns the results."""
+    from teal_tpu_torch.ops import token_block as tb
+
+    L, kx = cfg.n_layers, cfg.n_experts_per_tok
+    routes = {"k7": None, "loop": False}
+    cache = (args[6].clone(), args[7].clone())
+
+    def call(route):
+        return tb.token_decode(*args[:6], *cache, *args[8:],
+                               token_fused=routes[route], **kw)
+    out, counts = route_turns(
+        call, {"k7": ((0,) * 6, 1),
+               "loop": (((2 + 2 * kx) * L, L, 0, 0, L, 0), 0)},
+        K7_ROWS_TURNS, f"{MOE_MODEL} MoE")
+    for route, rs in out.items():
+        log(f"[k7 moe turns] {MOE_MODEL} {L} layers, {route} "
+            f"({'one K7 launch' if route == 'k7' else 'the K1/K2/K5 loop'})"
+            f", in turns: device {[round(r['device_ms'], 4) for r in rs]} "
+            f"ms, wall {[round(r['wall_ms'], 3) for r in rs]} ms, idle "
+            f"{[round(r['idle_share'], 4) for r in rs]}")
+    return dict(turns=out, loop_launches=counts["loop"][0])
+
+
+def k7_moe(params, cfg, plan, device, gen, seed, th, prompts, rope, cache,
+           tok, pos):
+    """Phase 10's K7 checks on one Mixtral copy (int8 or bf16) at the
+    thresholds its token path was held at (`th`): the plan
+    (`check_k7_moe_plan`); every layer through K7's MoE form on a one-layer
+    slice held to the plain layer, the same routed experts and kept groups
+    (`hold_k7_layers`, on the step after prompt 0's prefill: `cache`, `tok`,
+    `pos`); `K7_MOE_REPEATS` launches of the whole stack on the same inputs
+    bit-identical (stream and caches: every cluster routed alike); K7's
+    ms (queued), its plain version's, the barrier floor (the empty launch)
+    and the bound of this token's kept groups; K7 against the K1/K2/K5
+    loop on one call in turns (`k7_moe_turns`); the two decode graphs in
+    turns (`k7_graphs`). Returns (the `kernels` entry, results)."""
+    import torch
+
+    from teal_tpu_torch.config import SparsityConfig
+    from teal_tpu_torch.engine import Generator
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import token_block as tb
+
+    wplan = 1 if plan == "int8" else 0
+    L, kx = cfg.n_layers, cfg.n_experts_per_tok
+    tag = f"[k7 moe {plan}]"
+    kplan = check_k7_moe_plan(cfg, wplan)
+    t0 = time.perf_counter()
+    worst, err, flips = hold_k7_layers(params, cfg, cache, tok, pos, rope,
+                                       th, device, tag=tag)
+    hold_s = time.perf_counter() - t0
+    caps = llama.token_path_caps(cfg, SparsityConfig(**MAIN_SP))
+    lay = params["layers"]
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=device)
+    args = (params["embed"][tok].to(torch.bfloat16), th,
+            tuple(lay[n] for n in PROJ_NAMES), lay["attn_norm"],
+            lay["mlp_norm"], llama._rope_rows(rope[0], rope[1], pos_t),
+            cache.k, cache.v, pos_t)
+    kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+              window=cfg.sliding_window, router=lay["router"],
+              n_experts_per_tok=kx)
+    check(tb.k7_route(args[0], args[2], cache.k, cfg.n_heads, caps,
+                      cfg.sliding_window, lay["router"],
+                      n_experts_per_tok=kx), f"{tag} the route refuses K7")
+    first = None
+    sel = torch.zeros((L, 2 + 2 * kx, 1 + max(caps)), dtype=torch.int32,
+                      device=device)
+    routes = torch.zeros((L, kx), dtype=torch.int32, device=device)
+    for i in range(K7_MOE_REPEATS):
+        kc, vc = cache.k.clone(), cache.v.clone()
+        out = tb.token_kernel(*args[:6], kc, vc, pos_t, sel=sel,
+                              routes=routes, **kw)
+        if first is None:
+            first = (out, kc, vc, sel.clone(), routes.clone())
+            continue
+        same = (torch.equal(out, first[0]) and torch.equal(kc, first[1])
+                and torch.equal(vc, first[2]) and torch.equal(sel, first[3])
+                and torch.equal(routes, first[4]))
+        check(same, f"{tag} launch {i} of {K7_MOE_REPEATS} differs from the "
+              "first on the same inputs")
+    del kc, vc
+    check(bool(torch.isfinite(first[0].float()).all()),
+          f"{tag} a non-finite stream")
+    log(f"{tag} {K7_MOE_REPEATS} launches of the {L}-layer stack on the "
+        f"same inputs: stream, caches, kept groups and routes bit-identical")
+    scratch = (cache.k.clone(), cache.v.clone())
+    targs = (*args[:6], *scratch, pos_t)
+    ms, _ = cuda_ms(lambda i: tb.token_kernel(*targs, **kw), K7_TIME_ITERS)
+    floor, _ = cuda_ms(lambda i: tb.token_kernel(*targs, empty=True, **kw),
+                       K7_TIME_ITERS)
+    plain, _ = cuda_ms(lambda i: tb.token_kernel_plain(*targs, **kw), 2,
+                       warmup=1, queued=False)
+    del scratch, targs
+    nbytes, flops = k7_bound(first[3], cfg, pos, 2, wplan)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                             "operations")
+    kept = first[3][:, :, 0].float().mean(0).tolist()
+    log(f"{tag} K7 at {MOE_MODEL}'s step (pos {pos}, {L} layers, {plan}): "
+        f"{ms:.4f} ms a token (bound {bound:.4f} ms by {by}: "
+        f"{nbytes / 1e6:.1f} MB, {bound / ms:.1%} of it), plain "
+        f"{plain:.3f} ms, barrier floor {floor:.4f} ms "
+        f"({kplan.grid_barriers} grid barriers a token; {kplan.clusters} "
+        f"clusters of {kplan.C}, head-owned {kplan.head_owned}); mean kept "
+        f"(qkv, o, then gate|up and down a routed expert) "
+        f"{[round(k, 2) for k in kept]} of caps {list(caps)}")
+    turns = k7_moe_turns(cfg, args, kw)
+    gens = [Generator(cfg, params, sp=SparsityConfig(**MAIN_SP),
+                      max_seq=MAX_SEQ, cache_dtype=torch.bfloat16,
+                      temperature=0.0, device=device) for _ in range(2)]
+    graphs = k7_graphs(gens, cfg, th, prompts, tag=tag)
+    del gens
+    torch.cuda.empty_cache()
+    res = dict(plan=kplan._asdict(), hold_worst=worst, hold_abs=err,
+               flips=flips, hold_s=hold_s, repeats=K7_MOE_REPEATS, ms=ms,
+               plain_ms=plain, barrier_floor_ms=floor, bound_ms=bound,
+               bound_by=by, kept_mean=kept, pos=pos, turns=turns,
+               graphs=graphs)
+    entry = dict(name=f"token_kernel[moe {plan}]", route="cuda",
+                 source="teal_tpu_torch/csrc/token_decode"
+                 + ("_quant.cu" if wplan else ".cu"),
+                 replaces="teal_tpu/ops/token_block.py:274",
+                 launches=None, max_abs_err=err, ms=ms, kernel_ms=ms,
+                 plain_ms=plain, bound_ms=bound, bound_by=by,
+                 library_ms=None, barrier_floor_ms=floor, kept_mean=kept,
+                 pos=pos, plan=kplan._asdict(),
+                 timed=f"one {MOE_MODEL} token ({L} layers, {plan} experts, "
+                       f"bf16 stream) at pos {pos} at the thresholds of "
+                       "phase 10's token-path hold; launches: this copy's "
+                       "main-path host-loop run of three requests")
+    return entry, res
+
+
 def moe_run(cfg, plan, device, gen, seed, rope):
     """Phase 10 for one Mixtral copy: build it on the card, hold K1's MoE
     forms to the plain version, pick the thresholds (columns 0, 3 and 4;
-    6 stays 0) on the plain token path and hold every layer of one decode
-    step to it (2e-2 of scale, the same routed experts), run three greedy
-    requests (dense prefill on the layer loop, decode on the token path)
-    with 6 K1 + 1 K2 + 1 K5 launches a layer and token, and time the
-    decode step (keep 0.5 and 1.0), tok/s in turns and the kernels.
-    Returns (kernels rows, results)."""
+    6 stays 0) on the plain token path and hold every layer of the K1/K5
+    loop's decode step to it (2e-2 of scale, the same routed experts),
+    K7's MoE form (`k7_moe`: every layer held, repeated launches
+    bit-identical, times, K7 against the loop in turns, both graphs), run
+    three greedy requests (dense prefill on the layer loop, decode on the
+    main path: one K7 launch a token, no K1-K6), and time the decode step
+    (keep 0.5 and 1.0), tok/s in turns and the kernels. Returns (K5 row,
+    K1 rows, K7's entry, results)."""
     import numpy as np
     import torch
 
@@ -4819,9 +5003,12 @@ def moe_run(cfg, plan, device, gen, seed, rope):
     th, worst, _ = hold_token_layers(params, cfg, cache, tok, pos, rope,
                                      device)
     log(f"[moe {plan}] thresholds (columns 0, 3, 4; column 6 at 0) picked "
-        f"on the plain token path and every layer of the kernel path held "
+        f"on the plain token path and every layer of the K1/K5 loop held "
         f"to it with the same routed experts (worst error {worst:.2e} of "
         f"scale, tolerance 2e-2) in {time.perf_counter() - t0:.2f} s")
+    k7_entry, k7_res = k7_moe(params, cfg, plan, device, gen, seed, th,
+                              prompts, rope, cache, int(tok.reshape(-1)[0]),
+                              pos)
 
     gens = {keep: Generator(cfg, params, sp=SparsityConfig(
         **dict(MAIN_SP, block_keep_frac=keep)), max_seq=MAX_SEQ,
@@ -4833,19 +5020,18 @@ def moe_run(cfg, plan, device, gen, seed, rope):
     reset_launches()
     outs = [gens[0.5].generate(p, NEW_TOKENS, thresholds=th,
                                on_device_loop=False) for p in prompts]
-    got = read_launches()
+    got, n7 = read_launches(), k7_launches()
     decoded = len(prompts) * (NEW_TOKENS - 1)
-    k_exp = cfg.n_experts_per_tok
-    want = ((2 + 2 * k_exp) * L * decoded, L * decoded, 0, 0, L * decoded, 0)
-    check(got == want, f"moe {plan}: launches (K1, K2, K3, K4, K5, K6) {got}, "
-          f"expected {want} for {decoded} decoded tokens")
+    check(got == (0,) * 6 and n7 == decoded, f"moe {plan}: launches (K1, "
+          f"K2, K3, K4, K5, K6) {got} and {n7} K7, expected none and "
+          f"{decoded} (one K7 a decoded token)")
+    k7_entry["launches"] = n7
     for p, (toks, st) in zip(prompts, outs):
         check(toks.shape == (1, len(p) + NEW_TOKENS)
               and bool((toks >= 0).all() and (toks < cfg.vocab_size).all()),
               f"moe {plan}: bad tokens {toks.shape}")
     log(f"[moe {plan}] {len(prompts)} requests, {decoded} decoded tokens, "
-        f"launches a token (K1, K2, K3, K4, K5, K6) "
-        f"{tuple(c // decoded for c in got)}; first request's new tokens "
+        f"{n7} K7 launches and none of K1-K6; first request's new tokens "
         f"{outs[0][0][0, len(prompts[0]):].tolist()}")
     lg, _ = llama.forward(params, tok, llama.KVCache(cache.k.clone(),
                                                      cache.v.clone()),
@@ -4866,9 +5052,9 @@ def moe_run(cfg, plan, device, gen, seed, rope):
          zero)], device, rope)
     k5, k1_rows = time_moe_kernels(params, cfg, caps, device, gen, plan)
     graph = graph_route(f"moe {plan}", cfg, params, MAIN_SP, 1, th, device,
-                        prompts, (2 + 2 * k_exp, 1, 0, 0, 1, 0), seed)
+                        prompts, (0,) * 6, seed, k7_per_step=1)
     results = dict(layers=L, build_s=build_s, worst=worst, launches=got,
-                   graph=graph,
+                   k7_launches=n7, k7=k7_res, graph=graph,
                    decoded=decoded, err_k1=err_k1,
                    tok_s={str(k): v for k, v in speeds.items()},
                    decode_step_ms=step,
@@ -4877,13 +5063,16 @@ def moe_run(cfg, plan, device, gen, seed, rope):
                                for p, o in zip(prompts, outs)])
     del params, gens, cache
     torch.cuda.empty_cache()
-    return k5, k1_rows, results
+    return k5, k1_rows, k7_entry, results
 
 
 def moe_phase(device, gen, seed):
     """Phase 10: K5 against its plain version, then `moe_run` on the int8
-    and bf16 copies of `MOE_RUNS`, then K2 at Mixtral's heads. Returns
-    (kernels entries, results)."""
+    and bf16 copies of `MOE_RUNS` (the main path: K7's MoE form), then K2
+    at Mixtral's heads. K1's MoE forms, K5 and K2 there run only on the
+    `token_fused=False` loop now: their entries take their launches from
+    the main path's runs (0) and are marked off the path. Returns (kernels
+    entries, results)."""
     import dataclasses
 
     from teal_tpu_torch.config import get_model_config
@@ -4894,21 +5083,24 @@ def moe_phase(device, gen, seed):
     err_k5, k5_differ = check_k5(device, gen)
     entries, results, k5_rows = [], {}, {}
     src = "teal_tpu_torch/csrc/"
+    still = ("token_decode(token_fused=False): the K1/K2/K5 loop, and a "
+             "Mixtral shape K7 cannot plan")
     for plan, layers in MOE_RUNS:
         cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
-        k5_rows[plan], k1_rows, results[plan] = moe_run(cfg, plan, device,
-                                                        gen, seed, rope)
+        k5_rows[plan], k1_rows, k7_entry, results[plan] = moe_run(
+            cfg, plan, device, gen, seed, rope)
         r = results[plan]
-        entries.append(plan_entry(
+        entries.append(k7_entry)
+        entries.append(off_path(plan_entry(
             k1_rows, f"select_gather_gemv[moe {plan}]",
             src + "select_gather_gemv.cu", "teal_tpu/ops/token_block.py:274",
             r["launches"][0], r["decoded"], r["err_k1"],
             f"{MOE_MODEL} {plan} at {cfg.n_layers} layers: one routed "
             "expert's two calls (gate|up, down with the weighted residual; "
-            "device pseudo-layer) at count == cap, summed; launches are all "
-            "of K1's on that path (qkv, o and 2 per routed expert)"))
+            "device pseudo-layer) at count == cap, summed; launches: all of "
+            "K1's in the main path's run (K7's MoE form there)"), still))
     r8 = results["int8"]
-    entries.append(dict(
+    entries.append(off_path(dict(
         name="moe_route", route="cuda", source=src + "moe_route.cu",
         replaces="teal_tpu/ops/token_block.py:131",
         launches=r8["launches"][4],
@@ -4922,14 +5114,14 @@ def moe_phase(device, gen, seed):
         xn_differ=k5_differ,
         **{k: k5_rows["int8"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "floor_one_block_ms", "floor_cluster_ms")}))
-    # K2 at Mixtral's heads (GQA 32/8), launched on the int8 path above
+            "floor_one_block_ms", "floor_cluster_ms")}), still))
+    # K2 at Mixtral's heads (GQA 32/8), launched on the int8 main path
+    # before K7 took it (K7 attends inside)
     rope = llama.precompute_rope(full, 2048, device)
     for T in (MAX_SEQ, 2048):
-        entries.append(time_k2(full, device, gen, rope, r8["launches"][1],
-                               r8["decoded"], 0.0,
-                               f"decode_attention[GQA 32/8 pos {T - 1}]",
-                               T=T))
+        entries.append(off_path(time_k2(
+            full, device, gen, rope, r8["launches"][1], r8["decoded"], 0.0,
+            f"decode_attention[GQA 32/8 pos {T - 1}]", T=T), still))
     return entries, results
 
 
@@ -6303,10 +6495,10 @@ def check_k7_plan(wplan: int = 0):
             out = (ctypes.c_int * 11)()
             if wplan == 0:
                 rc = lib.teal_token_plan(code, D, I, Hq, Hkv, T, win or 0, cm,
-                                         sms, L, out)
+                                         sms, L, 0, 0, out)
             else:
                 rc = lib.teal_token_plan_q(wplan, D, I, Hq, Hkv, T, win or 0,
-                                           cm, sms, L, out)
+                                           cm, sms, L, 0, 0, out)
             want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms,
                                   tb.k7_clusters(dev, dt, Hq // Hkv, wplan),
                                   wplan)
@@ -6358,8 +6550,13 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
     positions of one sequence in cache row 0 (`block_verify`'s chunk: the
     fixed selection at full caps, K7's seq_block form). With `keep` (a
     dict), keep["cache"] receives the plain path's cache after the step
-    as (k, v). Returns (worst relative error, worst absolute error of the
-    output, flips explained)."""
+    as (k, v). Mixtral (`cfg.n_experts`, one row): a one-layer slice of
+    the expert stacks and of the router too (K7's MoE form, whose routes
+    are read at pseudo-layer e of the slice), its routed experts equal to
+    the plain path's (K5's plain version) and its kept counts and groups
+    at every stage (qkv, o, then gate|up and down of each routed expert).
+    Returns (worst relative error, worst absolute error of the output,
+    flips explained)."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -6374,6 +6571,14 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
     kw = dict(caps=caps, n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
               window=cfg.sliding_window, fixed_sel=seq_block,
               seq_block=seq_block)
+    E, kx = cfg.n_experts, cfg.n_experts_per_tok
+    stages = list(STAGES)
+    plain_ws, moe_kw, k7_kw = ws, {}, {}
+    if E:
+        plain_ws = (*ws[:4], *(tb.expert_stacks(w) for w in ws[4:]))
+        moe_kw = dict(router=lay["router"], k_exp=kx)
+        stages = ["qkv", "o"] + [f"{n} (expert {t})" for t in range(kx)
+                                 for n in ("gate|up", "down")]
     k, v = cache.k.clone(), cache.v.clone()            # plain path
     poss = [pos] if isinstance(pos, int) else list(pos)
     B = len(poss)
@@ -6386,20 +6591,33 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
     worst = worst_abs = 0.0
     flips, kept = 0, []
     for i in range(cfg.n_layers):
-        rec, idx_rec, counts = [], [], []
+        rec, idx_rec, counts, routes = [], [], [], []
         with plain_path(k1=k7_recorder(rec, idx_rec)):
-            want = tb.layer_decode(h, i, th, ws, lay["attn_norm"],
+            want = tb.layer_decode(h, i, th, plain_ws, lay["attn_norm"],
                                    lay["mlp_norm"], rows, k, v, pos_t,
-                                   counts=counts, **kw)
+                                   counts=counts, routes=routes, **kw,
+                                   **moe_kw)
         sl = slice(i, i + 1)
         kk, vk = cache.k[sl].clone(), cache.v[sl].clone()
-        sel = torch.zeros((1, 4, 1 + max(caps)), dtype=torch.int32,
+        sel = torch.zeros((1, len(stages), 1 + max(caps)), dtype=torch.int32,
                           device=device)
+        if E:
+            k7_kw = dict(router=lay["router"][sl].contiguous(),
+                         n_experts_per_tok=kx,
+                         routes=torch.zeros((1, kx), dtype=torch.int32,
+                                            device=device))
         got = tb.token_kernel(h, th[sl].contiguous(),
                               tuple(llama._leaf(w, lambda a: a[sl])
                                     for w in ws), lay["attn_norm"][sl],
                               lay["mlp_norm"][sl], rows, kk, vk, pos_t,
-                              sel=sel, **kw)
+                              sel=sel, **kw, **k7_kw)
+        if E:
+            g_e = k7_kw["routes"][0].tolist()
+            w_e = [e - i * E for e in routes[0].tolist()]
+            check(g_e == w_e, f"{tag} layer {i}: K7 routed experts {g_e}, "
+                  f"the plain path {w_e}")
+            if i in (0, cfg.n_layers - 1):
+                log(f"{tag} layer {i}: routed experts {g_e} on both paths")
         g_cnt = [int(c) for c in sel[0, :, 0].tolist()]
         w_cnt = [int(c) for c in counts[-1].tolist()]
         held = want
@@ -6411,16 +6629,16 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
                   f"{w_cnt}: {what}")
             rec, idx_rec, again = [], [], []
             with plain_path(k1=k7_recorder(rec, idx_rec, override)):
-                held = tb.layer_decode(h, i, th, ws, lay["attn_norm"],
+                held = tb.layer_decode(h, i, th, plain_ws, lay["attn_norm"],
                                        lay["mlp_norm"], rows, k, v, pos_t,
-                                       counts=again, **kw)
+                                       counts=again, **kw, **moe_kw)
             check([int(c) for c in again[0].tolist()] == g_cnt,
                   f"{tag} layer {i}: the plain layer run again keeps "
                   f"{again[0].tolist()}, K7 {g_cnt}")
             flips += 1
         for st, c in enumerate(g_cnt):
             check(torch.equal(sel[0, st, 1:1 + c], idx_rec[st].int()),
-                  f"{tag} layer {i} stage {STAGES[st]}: K7 kept "
+                  f"{tag} layer {i} stage {stages[st]}: K7 kept "
                   f"{sel[0, st, 1:1 + c].tolist()}, the plain path "
                   f"{idx_rec[st].tolist()}")
         kept.append(g_cnt)
@@ -6437,15 +6655,16 @@ def hold_k7_layers(params, cfg, cache, tok, pos, rope, th, device,
             if what == "hidden":
                 worst_abs = max(worst_abs, err)
         h = want
-    mean = [round(sum(c[j] for c in kept) / len(kept), 2) for j in range(4)]
+    mean = [round(sum(c[j] for c in kept) / len(kept), 2)
+            for j in range(len(stages))]
     if keep is not None:
         keep["cache"] = (k, v)
     log(f"{tag} {cfg.n_layers} layers at pos {poss if B > 1 else pos}: "
         f"each K7 layer held to "
         f"the plain layer (worst {worst:.2e} of scale, tolerance "
         f"{K7_TOKEN_TOL}); kept groups identical ({flips} one-group flips "
-        f"explained); mean kept (qkv, o, gate|up, down) {mean} of caps "
-        f"{list(caps)}")
+        f"explained)" + (", routed experts identical" if E else "")
+        + f"; mean kept ({', '.join(stages)}) {mean} of caps {list(caps)}")
     return worst, worst_abs, flips
 
 
@@ -6607,23 +6826,46 @@ def k7_tokens(params, cfg, device, seed, th, fp32_cut: bool = True,
     return res, n7, (k7, loop)
 
 
+@contextlib.contextmanager
+def k7_off():
+    """Inside the block `token_decode` takes the K1/K2 loop (Mixtral's: K1,
+    K2 and K5) wherever it would take K7: the loop's decode graph of a
+    `Generator` is captured under it where `token_fused=False` would leave
+    the token path (Mixtral: the model's layer loop, as in the
+    reference). A replay does not call Python: the graph keeps the loop."""
+    from teal_tpu_torch.ops import token_block as tb
+
+    route = tb.k7_route
+    tb.k7_route = lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        tb.k7_route = route
+
+
 def k7_graphs(gens, cfg, th, prompts, tag="[k7]"):
     """The decode graphs of K7 and of the K1/K2 loop (the two `Generator`s
-    of `k7_tokens`): their kernel nodes from the driver (one K7 and no
-    K1/K2 node; 4 L K1 + L K2), then in turns a replay's device ms
-    (profiler), wall ms, idle share and tok/s (`GRAPH_TURNS` turns of 2 x
-    `NEW_TOKENS` tokens)."""
+    of `k7_tokens`; Mixtral: the loop's `Generator` is captured under
+    `k7_off`): their kernel nodes (`graph_kernels`; one K7 and no K1/K2/K5
+    node; 4 L K1 + L K2, Mixtral (2 + 2k) L K1 + L K2 + L K5), then in
+    turns a replay's device ms (profiler), wall ms, idle share and tok/s
+    (`GRAPH_TURNS` turns of 2 x `NEW_TOKENS` tokens)."""
     from teal_tpu_torch.utils.profiling import graph_kernels
 
-    L = cfg.n_layers
+    L, kx = cfg.n_layers, cfg.n_experts_per_tok
+    loop_want = ((2 + 2 * kx) * L, L, L, 0) if cfg.n_experts else (
+        4 * L, L, 0, 0)
     res = {}
-    for name, g, want in (("k7", gens[0], (0, 0, 1)),
-                          ("loop", gens[1], (4 * L, L, 0))):
-        g.generate(prompts[0], 4, thresholds=th)          # the capture
+    for name, g, want in (("k7", gens[0], (0, 0, 0, 1)),
+                          ("loop", gens[1], loop_want)):
+        with (k7_off() if cfg.n_experts and name == "loop"
+              else contextlib.nullcontext()):
+            g.generate(prompts[0], 4, thresholds=th)      # the capture
         nodes = graph_kernels(g._loop.graph)
         counts = tuple(sum(c for k, c in nodes.items() if n in k)
-                       for n in ("sgg_", "attn_kernel", "token_kernel"))
-        check(counts == want, f"{tag} {name} graph: (K1, K2, K7) nodes "
+                       for n in ("sgg_", "attn_kernel", "route_kernel",
+                                 "token_kernel"))
+        check(counts == want, f"{tag} {name} graph: (K1, K2, K5, K7) nodes "
               f"{counts}, expected {want}")
         res[name] = dict(nodes=counts, kernel_nodes=sum(nodes.values()),
                          device_ms=[], wall_ms=[], idle=[], tok_s=[])
@@ -6638,8 +6880,9 @@ def k7_graphs(gens, cfg, th, prompts, tag="[k7]"):
             r["idle"].append(1 - dev / wall)
             r["tok_s"].append(st.tokens_per_s)
     for name, r in res.items():
-        log(f"{tag} {name} decode graph: (K1, K2, K7) nodes {r['nodes']} of "
-            f"{r['kernel_nodes']} kernel nodes; in turns device "
+        log(f"{tag} {name} decode graph: (K1, K2, K5, K7) nodes "
+            f"{r['nodes']} of {r['kernel_nodes']} kernel nodes; in turns "
+            f"device "
             f"{[round(x, 3) for x in r['device_ms']]} ms, wall "
             f"{[round(x, 3) for x in r['wall_ms']]} ms, idle "
             f"{[round(x, 4) for x in r['idle']]}, tok/s "
@@ -6649,36 +6892,42 @@ def k7_graphs(gens, cfg, th, prompts, tag="[k7]"):
 
 def k7_weight_bytes(kept, cfg, esz: int, wplan: int):
     """(bytes, elements) of the weights K7 reads at the kept group counts
-    `kept` [L, 4] (q|k|v, o, gate|up, down): each kept group's slab rows
-    of the stage's weights once (arrays: esz bytes a weight; int8: 1, and
-    each stage's per-channel scales once where it kept a group; packed
-    int4: half a byte, and each kept group's [scale, zero] rows, 8 bytes a
+    `kept` [L, 4] (q|k|v, o, gate|up, down; MoE [L, 2 + 2k]: gate|up and
+    down of each routed expert): each kept group's slab rows of the
+    stage's weights once (arrays: esz bytes a weight; int8: 1, and each
+    stage's per-channel scales once where it kept a group; packed int4:
+    half a byte, and each kept group's [scale, zero] rows, 8 bytes a
     column)."""
     D, I, kvw = cfg.dim, cfg.intermediate_size, cfg.n_kv_heads * 128
-    widths = (D + 2 * kvw, D, 2 * I, D)
+    widths = (D + 2 * kvw, D) + (2 * I, D) * ((kept.shape[1] - 2) // 2)
     kept = kept.double().cpu()
-    elems = float(sum((kept[:, j] * 128 * widths[j]).sum() for j in range(4)))
+    n = len(widths)
+    elems = float(sum((kept[:, j] * 128 * widths[j]).sum() for j in range(n)))
     if wplan == 0:
         return elems * esz, elems
     if wplan == 1:
         return elems + float(sum(((kept[:, j] > 0).double() * 4
-                                  * widths[j]).sum() for j in range(4))), elems
+                                  * widths[j]).sum() for j in range(n))), elems
     return elems / 2 + float(sum((kept[:, j] * 8 * widths[j]).sum()
-                                 for j in range(4))), elems
+                                 for j in range(n))), elems
 
 
 def k7_bound(sel, cfg, pos: int, esz: int, wplan: int = 0):
     """(bytes, flops) one K7 token must move and do at the kept counts of
-    `sel` [L, 4, ...]: the kept weights once (`k7_weight_bytes`), the
-    live K/V rows read and the token's rows written, the gains, thresholds
-    and the stream in and out; 2 flops a weight element read, 4 a head and
-    live row."""
+    `sel` [L, 4, ...] (MoE: [L, 2 + 2k, ...]): the kept weights once
+    (`k7_weight_bytes`), the live K/V rows read and the token's rows
+    written, the gains, thresholds and the stream in and out, and (MoE)
+    each layer's router [D, E] fp32 once; 2 flops a weight element read,
+    4 a head and live row, 2 a router element."""
     D, kvw = cfg.dim, cfg.n_kv_heads * 128
     wbytes, elems = k7_weight_bytes(sel[:, :, 0], cfg, esz, wplan)
     live = min(pos, cfg.sliding_window - 1) if cfg.sliding_window else pos
     kv = cfg.n_layers * (2 * kvw * live + 2 * kvw) * esz
-    nbytes = wbytes + kv + cfg.n_layers * (2 * D * esz + 28) + 2 * D * esz
-    flops = 2 * elems + 4 * cfg.n_layers * cfg.n_heads * 128 * (live + 1)
+    router = cfg.n_layers * D * cfg.n_experts
+    nbytes = (wbytes + kv + cfg.n_layers * (2 * D * esz + 28) + 2 * D * esz
+              + 4 * router)
+    flops = (2 * elems + 4 * cfg.n_layers * cfg.n_heads * 128 * (live + 1)
+             + 2 * router)
     return nbytes, flops
 
 
@@ -7177,6 +7426,39 @@ def k7_quant_verify(qp, cfg, device, seed, rope, plan: str):
     return out
 
 
+def route_turns(call, want, turns: int, what: str):
+    """K7 and the loop on one call in turns: `call(route)` runs the call
+    through route "k7" or "loop"; the launch counts of one call of each
+    (set to 0 just before, read just after) must be `want` {route:
+    ((K1, K2, K3, K4, K5, K6), K7)}; then `turns` turns of each: device ms
+    (CUDA events around one call queued behind a sleep, `cuda_ms`), wall
+    ms (host clock, synchronised) and idle share (1 - device / wall).
+    Returns ({route: [reading, ...]}, the counts)."""
+    import torch
+
+    counts = {}
+    for route in want:
+        call(route)
+        torch.cuda.synchronize()
+        reset_launches()
+        call(route)
+        torch.cuda.synchronize()
+        counts[route] = (read_launches(), k7_launches())
+    check(counts == want, f"K7 / loop turns ({what}): launches ((K1, K2, "
+          f"K3, K4, K5, K6), K7) {counts}, expected {want}")
+
+    def reading(route):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            call(route)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+        dev, _ = cuda_ms(lambda i: call(route), 1, warmup=0)
+        return dict(device_ms=dev, wall_ms=wall, idle_share=1 - dev / wall)
+    return in_turns(tuple(want), turns, reading), counts
+
+
 def k7_loop_turns(params, cfg, device, gen, th, B: int = 16,
                   seq: bool = False, turns: int = K7_ROWS_TURNS):
     """K7 and the K1/K2 loop on the same inputs, in turns: `token_decode`
@@ -7219,28 +7501,9 @@ def k7_loop_turns(params, cfg, device, gen, th, B: int = 16,
 
     def call(route):
         return tb.token_decode(*args, token_fused=routes[route], **kw)
-    counts = {}
-    for route in routes:
-        call(route)
-        torch.cuda.synchronize()
-        reset_launches()
-        call(route)
-        torch.cuda.synchronize()
-        counts[route] = (read_launches(), k7_launches())
-    want = {"k7": ((0,) * 6, 1), "loop": ((4 * L, L, 0, 0, 0, 0), 0)}
-    check(counts == want, f"K7 / loop turns (B={B}, seq {seq}): launches "
-          f"((K1, K2, K3, K4, K5, K6), K7) {counts}, expected {want}")
-
-    def reading(route):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            call(route)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / 3
-        dev, _ = cuda_ms(lambda i: call(route), 1, warmup=0)
-        return dict(device_ms=dev, wall_ms=wall, idle_share=1 - dev / wall)
-    out = in_turns(tuple(routes), turns, reading)
+    out, counts = route_turns(
+        call, {"k7": ((0,) * 6, 1), "loop": ((4 * L, L, 0, 0, 0, 0), 0)},
+        turns, f"B={B}, seq {seq}")
     what = (f"verify chunk S={B} at {poss[0]}.." if seq else
             f"B={B} step at {poss[0]}..{poss[-1]}")
     pname = ("bf16", "int8", "int4")[tb.k7_weight_plan(args[2])]
@@ -7375,7 +7638,7 @@ def k7_fault31(device, gen):
     out = (ctypes.c_int * 11)()
     rc = _build.load()["token_decode_quant"].teal_token_plan_q(
         2, cfg.dim, cfg.intermediate_size, cfg.n_heads, cfg.n_kv_heads, T, 0,
-        max(caps), _build.sm_count(0), L, out)
+        max(caps), _build.sm_count(0), L, 0, 0, out)
     check(rc == 0 and want is not None and tuple(out) == tuple(want),
           f"[k7 70b] plan: kernel {rc} {list(out)}, wrapper {want}")
     check(tb.k7_route(h, ws, cache.k, cfg.n_heads, caps),

@@ -121,16 +121,19 @@ SIGNATURES = {
         _P, _P,                 # attention / mlp norm gains
         _P, _P, _P, _P,         # wq, wk, wv, wo
         _P, _P, _P,             # wgate, wup, wdown
-        _P, _P, _P, _P,         # kc, vc, out, sel (or null)
+        _P,                     # MoE router (or null)
+        _P, _P, _P, _P, _P,     # kc, vc, out, sel, routes (or null)
         _P, _P,                 # trace stamps (or null), workspace
         _I, _I, _I, _I, _I,     # L, D, I, Hq, Hkv
         _I, _I,                 # T, window (0: none)
         _I, _I, _I, _I, _I,     # caps (qkv, o, gate|up, down), fixed
+        _I, _I,                 # MoE experts, routed (0, 0: dense)
         _F, _I, _I, _P,         # norm_eps, SM count, empty, stream
     ],
     ("token_decode", "teal_token_plan"): [
         _I, _I, _I, _I, _I,     # dtype code, D, I, Hq, Hkv
         _I, _I, _I, _I, _I,     # T, window, largest cap, SM count, L
+        _I, _I,                 # MoE experts, routed (0, 0: dense)
         _P,                     # out int32 [11]
     ],
     ("token_decode", "teal_token_clusters"): [
@@ -188,16 +191,19 @@ SIGNATURES = {
         *[_P] * 7,              # the seven q (int8) or qp (int4) stacks
         *[_P] * 7,              # int4's seven sz stacks (or null)
         *[_P] * 7,              # int8's seven scale stacks (or null)
-        _P, _P, _P, _P,         # kc, vc, out, sel (or null)
+        _P,                     # MoE router (or null)
+        _P, _P, _P, _P, _P,     # kc, vc, out, sel, routes (or null)
         _P, _P,                 # trace stamps (or null), workspace
         _I, _I, _I, _I, _I,     # L, D, I, Hq, Hkv
         _I, _I,                 # T, window (0: none)
         _I, _I, _I, _I, _I,     # caps (qkv, o, gate|up, down), fixed
+        _I, _I,                 # MoE experts, routed (0, 0: dense)
         _F, _I, _I, _P,         # norm_eps, SM count, empty, stream
     ],
     ("token_decode_quant", "teal_token_plan_q"): [
         _I, _I, _I, _I, _I,     # plan, D, I, Hq, Hkv
         _I, _I, _I, _I, _I,     # T, window, largest cap, SM count, L
+        _I, _I,                 # MoE experts, routed (0, 0: dense)
         _P,                     # out int32 [11]
     ],
     ("token_decode_quant", "teal_token_clusters_q"): [

@@ -29,35 +29,40 @@ extern "C" int teal_token_clusters(int dtype, int GH, int C) {
 }
 
 // The plan for dtype (0 fp32, 1 bf16) at these shapes on n_sms SMs and the
-// current device's resident clusters, into out int32 [11]: grid, threads,
-// shared bytes, workspace bytes, grid barriers a token (4 L head-owned, 5
-// L other), kv-head barriers a token (0), C, clusters, head-owned (1 / 0),
-// ring slots, NS. Returns 0, or -1 where the shapes take no plan (out
-// untouched).
+// current device's resident clusters, with E experts of which KE are
+// routed a token (0, 0: a dense MLP), into out int32 [11]: grid, threads,
+// shared bytes, workspace bytes, grid barriers a token ((2 + 2 KE) L
+// head-owned, (3 + 2 KE) L other; KE 1 for a dense MLP), kv-head barriers
+// a token (0), C, clusters, head-owned (1 / 0), ring slots, NS. Returns 0,
+// or -1 where the shapes take no plan (out untouched).
 extern "C" int teal_token_plan(int dtype, int D, int I, int Hq, int Hkv,
                                int T, int window, int capmax, int n_sms,
-                               int L, int* out) {
+                               int L, int E, int KE, int* out) {
   return plan_impl(PLAN_STREAM, dtype, D, I, Hq, Hkv, T, window, capmax,
-                   n_sms, L, out);
+                   n_sms, L, E, KE, out);
 }
 
 // One token through the L layers. The caller checks shapes, types and
 // contiguity and allocates `ws` (the plan's workspace bytes); window 0
 // means none; fixed keeps groups 0..cap-1; empty runs the barriers alone.
-// Returns the launch's error, or -1 where no plan or no tensor map can be
-// made.
+// MoE (E > 0 experts, KE routed): router [L, D, E] fp32, wg / wu / wd the
+// expert stacks [L, E, K, N], routes [L, KE] int32 (or null) receives the
+// routed pseudo-layers; E = 0 (router null): a dense MLP. Returns the
+// launch's error, or -1 where no plan or no tensor map can be made.
 extern "C" int teal_token_decode(
     int dtype, const void* x, const void* thr, const void* pos,
     const void* cs, const void* na, const void* nm, const void* wq,
     const void* wk, const void* wv, const void* wo, const void* wg,
-    const void* wu, const void* wd, void* kc, void* vc, void* out, void* sel,
-    void* stamps, void* ws, int L, int D, int I, int Hq, int Hkv, int T,
-    int window, int cap0, int cap1, int cap2, int cap3, int fixed, float eps,
-    int n_sms, int empty, void* stream) {
+    const void* wu, const void* wd, const void* router, void* kc, void* vc,
+    void* out, void* sel, void* routes, void* stamps, void* ws, int L, int D,
+    int I, int Hq, int Hkv, int T, int window, int cap0, int cap1, int cap2,
+    int cap3, int fixed, int E, int KE, float eps, int n_sms, int empty,
+    void* stream) {
   const void* const w[7] = {wq, wk, wv, wo, wg, wu, wd};
   const void* const none[7] = {};
   const int caps[4] = {cap0, cap1, cap2, cap3};
   return decode_impl(PLAN_STREAM, dtype, x, thr, pos, cs, na, nm, w, none,
-                     none, kc, vc, out, sel, stamps, ws, L, D, I, Hq, Hkv, T,
-                     window, caps, fixed, eps, n_sms, empty, stream);
+                     none, router, kc, vc, out, sel, routes, stamps, ws, L, D,
+                     I, Hq, Hkv, T, window, caps, fixed, E, KE, eps, n_sms,
+                     empty, stream);
 }

@@ -154,6 +154,8 @@ constexpr int MISC = 128;              // floats of scratch (reductions)
 constexpr int MAXCH = 8;               // 16-byte chunks of h a thread
 constexpr int SMEM_MAX = 232448;       // a block's shared memory on Hopper
 constexpr int NBAR = 5;                // grid-barrier slots a layer
+constexpr int MAXE = 64;               // MoE: experts at most (E | WORKERS)
+constexpr int MAXK = 8;                // MoE: routed experts a token at most
 // trace stamps a layer (block 0): its start, each grid barrier's arrival
 // and exit (slots: q|k|v in the other plan, attention, o, gate|up, down),
 // each gather's start (after its selection) and end (its last slot used),
@@ -218,12 +220,17 @@ __host__ __device__ constexpr int slot_bytes(int plan) {
 // and RoPE'd q|k [GH + 1][128] fp32, q rounded [GH][128] T, four [8] fp32
 // (current score, its weight, max, sum), the block's maxima [8] and
 // partial PV and denominators [GH * 128 + 8] fp32 (read by the peers),
-// and the kept scores [GH][NS] fp32 (NS = `score_rows`).
+// and the kept scores [GH][NS] fp32 (NS = `score_rows`); with E experts
+// (MoE) then the folded stream xn [D] of T, which every routed expert's
+// gate|up reads, the block's partial router logits [E] (read by the
+// peers) and the routed pseudo-layers [MAXK] int32 and weights [MAXK]
+// fp32.
 struct Layout {
   int bars, part, red, h, xs, scores, idx, gsum, misc, qraw, qf, qr, small,
-      amax, apv, s, total;
+      amax, apv, s, xn, rlog, eidx, wts, total;
   __host__ __device__ Layout(int plan, int esz, int D, int I, int GH,
-                             int capmax, int NS, int partf, int nslot) {
+                             int capmax, int NS, int partf, int nslot,
+                             int E = 0) {
     bars = nslot * slot_bytes(plan);
     part = bars + 2 * MAXSLOT * 8;
     red = part + partf * 4;
@@ -240,7 +247,11 @@ struct Layout {
     amax = small + 4 * MAXGH * 4;
     apv = amax + MAXGH * 4;
     s = apv + (GH * HD + MAXGH) * 4;
-    total = s + GH * NS * 4;
+    xn = s + GH * NS * 4;
+    rlog = xn + (E > 0 ? al16(D * esz) : 0);
+    eidx = rlog + (E > 0 ? pad4(E) * 4 : 0);
+    wts = eidx + (E > 0 ? MAXK * 4 : 0);
+    total = wts + (E > 0 ? MAXK * 4 : 0);
   }
 };
 
@@ -281,7 +292,10 @@ struct TokPlan {
 // holds the largest NW x (columns of a cluster) of the stages;
 // the ring takes what shared memory is left, up to MAXSLOT slots of
 // `slot_bytes`, at least two and at least attention's PV sums. The
-// quantized plans take a bf16 stream only.
+// quantized plans take a bf16 stream only. MoE (E > 0 experts, KE routed a
+// token): arrays or int8 (int4 MoE is not wired, as in the reference),
+// E a divisor of WORKERS up to MAXE, 1 <= KE <= min(E, MAXK); the layout
+// adds xn and the routing's few floats, the workspace nothing.
 // The plan's structure from the resident clusters (see above): C blocks
 // a cluster, NC clusters, head-owned; C 0 where no cluster fits. The rows
 // form (`token_decode_rows.cuh`) takes the same.
@@ -302,14 +316,28 @@ Structure token_structure(int Hkv, int n_sms, const int* nc) {
   return {C, NC, head};
 }
 
+bool moe_ok(int plan, int E, int KE) {
+  return E == 0 ? KE == 0
+                : plan != PLAN_INT4 && E <= MAXE && WORKERS % E == 0 &&
+                      KE >= 1 && KE <= imin(E, MAXK);
+}
+
+// Grid barriers a layer: after q|k|v (the other plan), attention, o, and
+// gate|up and down (once, or once for each routed expert).
+int layer_barriers(int head, int KE) {
+  return (head ? 2 : 3) + 2 * imax(KE, 1);
+}
+
 TokPlan token_plan(int plan, int esz, int D, int I, int Hq, int Hkv, int T,
-                   int window, int capmax, int n_sms, const int* nc) {
+                   int window, int capmax, int n_sms, const int* nc,
+                   int E = 0, int KE = 0) {
   TokPlan p = {0, 0, 0, 0, 0, 0, 0, -1, 0};
   if ((plan != PLAN_STREAM && esz != 2) || plan < PLAN_STREAM ||
       plan > PLAN_INT4 ||
       D <= 0 || I <= 0 || D % HD || I % HD || Hkv <= 0 || Hq != D / HD ||
       Hq % Hkv || MAXGH % (Hq / Hkv) || T < 1 || capmax < 1 ||
-      capmax > imax(D, I) / HD || D * esz > 16 * MAXCH * THREADS)
+      capmax > imax(D, I) / HD || D * esz > 16 * MAXCH * THREADS ||
+      !moe_ok(plan, E, KE))
     return p;
   const int GH = Hq / Hkv;
   const Structure sc = token_structure(Hkv, n_sms, nc);
@@ -321,12 +349,12 @@ TokPlan token_plan(int plan, int esz, int D, int I, int Hq, int Hkv, int T,
   const int partf = imax(imax(most(D, 1), most(I, 2)),
                          head ? (GH + 2) * HD
                               : most((Hq + 2 * Hkv) * HD, 1));
-  const int rest = Layout(plan, esz, D, I, GH, capmax, NS, partf, 0).total;
+  const int rest = Layout(plan, esz, D, I, GH, capmax, NS, partf, 0, E).total;
   const int nslot = imin(MAXSLOT, (SMEM_MAX - rest) / slot);
   const int rpi = WORKERS / (HD * esz / 16);
   if (nslot < 2 || nslot * slot < rpi * GH * HD * 4) return p;
   p = {C, NC, head, NC * C, nslot, NS, partf,
-       Layout(plan, esz, D, I, GH, capmax, NS, partf, nslot).total,
+       Layout(plan, esz, D, I, GH, capmax, NS, partf, nslot, E).total,
        WsLayout(esz, D, I, Hq, Hkv).total};
   return p;
 }
@@ -341,7 +369,10 @@ struct Args {
   void* kc;               // [L, 1, Hkv, T, 128]
   void* vc;
   void* out;              // [D] the stream after the last layer
-  int* sel;               // [L, 4, 1 + capmax] kept counts and groups, or null
+  int* sel;               // [L, nst, 1 + capmax] kept counts and groups, or
+                          // null
+  int nst;                // sel's stages a layer: 4, or 2 + 2 KE (MoE: qkv,
+                          // o, then gate|up and down of each routed expert)
   long long* stamps;      // [L, NSTAMP + NBAR grid] the trace, or null
   unsigned char* ws;
   int L, D, I, Hq, Hkv, T, window, fixed, empty;
@@ -352,7 +383,12 @@ struct Args {
   float eps, scale;
   int C, NC, head, grid, nslot, NS, partf;
   const float* wscale[7];   // int8: [L, N_i] per-channel scales, or null
+                            // (MoE: wgate, wup, wdown's [L E, N_i])
   int wn[7];                // the weights' output columns N_i
+  const float* router;      // MoE: [L, D, E] fp32 router weights, or null
+  int E, KE;                // MoE: experts and routed experts a token (0:
+                            // a dense MLP)
+  int* routes;              // MoE: [L, KE] routed pseudo-layers, or null
 };
 
 // the seven weights' TMA maps (wq, wk, wv, wo, wgate, wup, wdown: the
@@ -556,7 +592,7 @@ __device__ __forceinline__ int select_stage(const Args& a, const T* xs, int K,
   __syncthreads();
   const int count = idx[cap];
   if (blockIdx.x == 0 && a.sel != nullptr) {
-    int* row = a.sel + (static_cast<size_t>(l) * 4 + st) * (a.capmax + 1);
+    int* row = a.sel + (static_cast<size_t>(l) * a.nst + st) * (a.capmax + 1);
     for (int j = tid; j < a.capmax; j += THREADS)
       row[1 + j] = j < count ? idx[j] : -1;
     if (tid == 0) row[0] = count;
@@ -859,22 +895,26 @@ __device__ __forceinline__ Ring gather(const Maps& maps, const Stage& st,
   return q;
 }
 
-enum Epi { EPI_HEAD = 0, EPI_QKV = 1, EPI_RES = 2, EPI_SILU = 3 };
+enum Epi { EPI_HEAD = 0, EPI_QKV = 1, EPI_RES = 2, EPI_SILU = 3,
+           EPI_WRES = 4 };
 
 // The cluster's sums of stage `st` (after a cluster barrier): block
 // `rank` adds, over the cluster's blocks in rank order, its slice of the
 // cluster's columns (EPI_HEAD: every column) and writes each once:
 // EPI_HEAD the head's q|k|v sums (fp32) into `dst` (shared), EPI_QKV the
 // fp32 sums to the workspace at the stage's column, EPI_RES T(sums + h)
-// into the stream, EPI_SILU T(silu(gate) * up) into the intermediate;
-// dst2 (or null) a second copy of EPI_RES (the launch's output at the last
-// layer). int8 first multiplies each sum by its column's per-channel scale
-// at `layer` (gate and up each by their own).
+// into the stream, EPI_WRES (a routed expert's down) T(sums * wt + h), the
+// product rounded before the sum (K1's weighted residual, the reference's
+// `write_down_weighted`), EPI_SILU T(silu(gate) * up) into the
+// intermediate; dst2 (or null) a second copy of EPI_RES / EPI_WRES (the
+// launch's output at the last layer). int8 first multiplies each sum by
+// its column's per-channel scale at `layer` (the weights' layer: an
+// expert's pseudo-layer; gate and up each by their own).
 template <typename T, int P>
 __device__ __forceinline__ void epilogue(const Args& a, int kind,
                                       const Stage& st, const float* part,
                                       int rank, int C, int layer, const T* h,
-                                      void* dst, void* dst2) {
+                                      void* dst, void* dst2, float wt) {
   constexpr int UW = unit_cols(P, static_cast<int>(sizeof(T)));
   const int ncol = st.nu * UW;
   const uint32_t pb = smem_u32(part);
@@ -900,8 +940,10 @@ __device__ __forceinline__ void epilogue(const Args& a, int kind,
       static_cast<float*>(dst)[j] = s[0];
     } else if (kind == EPI_QKV) {
       __stcg(static_cast<float*>(dst) + c, s[0]);
-    } else if (kind == EPI_RES) {
-      const T v = from_f<T>(s[0] + to_f(h[c]));
+    } else if (kind == EPI_RES || kind == EPI_WRES) {
+      const T v = from_f<T>(kind == EPI_RES
+                                ? s[0] + to_f(h[c])
+                                : __fadd_rn(__fmul_rn(s[0], wt), to_f(h[c])));
       st_cg(static_cast<T*>(dst) + c, v);
       if (dst2 != nullptr) static_cast<T*>(dst2)[c] = v;
     } else {
@@ -909,6 +951,87 @@ __device__ __forceinline__ void epilogue(const Args& a, int kind,
             from_f<T>(s[0] * (1.0f / (1.0f + expf(-s[0]))) * s[1]));
     }
   }
+}
+
+// MoE: this block's share of layer l's router rows (the rows
+// split_lo(D, C, rank) .. of [L, D, E] fp32) fetched into L2, a 128-byte
+// line a thread at a time: issued before o's grid barrier, as the rows do
+// not depend on the stream, so that `route` after it reads them from L2.
+__device__ __forceinline__ void prefetch_router(const Args& a, int l,
+                                                int rank, int C) {
+  const int d0 = split_lo(a.D, C, rank), d1 = split_lo(a.D, C, rank + 1);
+  const char* base = reinterpret_cast<const char*>(
+      a.router + (static_cast<size_t>(l) * a.D + d0) * a.E);
+  const size_t lo = reinterpret_cast<size_t>(base) & 127;
+  const size_t n = lo + static_cast<size_t>(d1 - d0) * a.E * 4;
+  for (size_t off = threadIdx.x * 128; off < n; off += THREADS * 128)
+    asm volatile("prefetch.global.L2 [%0];\n" :: "l"(base - lo + off));
+}
+
+// MoE: the reference's `_moe_route` on the folded stream xn [D] (T,
+// shared) at layer l, by the cluster: each block dots its rank's share of
+// the router rows with xn in fp32 (worker w sums elements w, w + WORKERS,
+// ... of the share, all of column w mod E since E divides WORKERS; then
+// column e's sums over the workers in order) into `rlog` [E]; after a
+// cluster barrier every block adds the C blocks' partial logits in rank
+// order, so that every block of every cluster (the same C and split)
+// holds the same logits; thread 0 takes the top KE (the lowest index
+// first among equal logits, as jax.lax.top_k) and their softmax anchored
+// at the largest (exp(v_t - v_0) over their sum in t order): eidx [KE] the
+// pseudo-layers l E + e_t, wts [KE] the weights (block 0 records the
+// pseudo-layers in `routes`). `red` holds WORKERS + E floats of scratch.
+template <typename T>
+__device__ __forceinline__ void route(const Args& a, const T* xn, int l,
+                                      int rank, int C, float* red,
+                                      float* rlog, int* eidx, float* wts) {
+  const int E = a.E, tid = threadIdx.x;
+  const int d0 = split_lo(a.D, C, rank), d1 = split_lo(a.D, C, rank + 1);
+  const float* r = a.router + (static_cast<size_t>(l) * a.D + d0) * E;
+  const int n = (d1 - d0) * E;
+  if (tid < WORKERS) {
+    float acc = 0.f;
+    for (int i = tid; i < n; i += WORKERS)
+      acc = fmaf(to_f(xn[d0 + i / E]), __ldg(r + i), acc);
+    red[tid] = acc;
+  }
+  __syncthreads();
+  if (tid < E) {
+    float v = 0.f;
+    for (int j = tid; j < WORKERS; j += E) v += red[j];
+    rlog[tid] = v;
+  }
+  cluster_sync();              // every block's partial logits written
+  if (tid < E) {
+    const uint32_t addr = smem_u32(rlog + tid);
+    float v = 0.f;
+    for (int q = 0; q < C; ++q) v += ld_cluster(mapa(addr, q));
+    red[WORKERS + tid] = v;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const float* lg = red + WORKERS;
+    unsigned long long taken = 0ull;
+    float v[MAXK];
+    for (int t = 0; t < a.KE; ++t) {
+      int bi = -1;
+      for (int e = 0; e < E; ++e)
+        if (!((taken >> e) & 1ull) && (bi < 0 || lg[e] > lg[bi])) bi = e;
+      taken |= 1ull << bi;
+      v[t] = lg[bi];
+      eidx[t] = l * E + bi;
+    }
+    float ex[MAXK], den = 0.f;
+    for (int t = 0; t < a.KE; ++t) {
+      ex[t] = expf(v[t] - v[0]);
+      den = t == 0 ? ex[0] : den + ex[t];
+    }
+    for (int t = 0; t < a.KE; ++t) {
+      wts[t] = ex[t] / den;
+      if (blockIdx.x == 0 && a.routes != nullptr)
+        a.routes[static_cast<size_t>(l) * a.KE + t] = eidx[t];
+    }
+  }
+  __syncthreads();
 }
 
 // N values reduced over the block at once (max or sum) in a fixed order:
@@ -1204,8 +1327,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tid = threadIdx.x, b = blockIdx.x, warp = tid >> 5;
   const int rank = cluster_rank(), cid = cluster_index();
   const int D = a.D, I = a.I, C = a.C, GH = QG;
-  const Layout lay(P, ESZ, D, I, GH, a.capmax, a.NS, a.partf, a.nslot);
+  const Layout lay(P, ESZ, D, I, GH, a.capmax, a.NS, a.partf, a.nslot, a.E);
   const WsLayout wl(ESZ, D, I, a.Hq, a.Hkv);
+  const int ne = a.E > 0 ? a.KE : 1;       // gate|up and down runs a layer
   unsigned* bar = reinterpret_cast<unsigned*>(a.ws + wl.bar);
   const uint32_t bars = smem_u32(sm + lay.bars);
   if (tid == 0) {
@@ -1240,10 +1364,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       cluster_sync();                      // attention: maxima, PV
       cluster_sync();
       grid_barrier(l, 1);
-      for (int i = 2; i < NBAR; ++i) {
-        cluster_sync();                    // the stage's sums
-        grid_barrier(l, i);
-      }
+      cluster_sync();                      // o's sums
+      grid_barrier(l, 2);
+      if (a.E > 0) cluster_sync();         // the routing's logits
+      for (int t = 0; t < ne; ++t)
+        for (int i = 3; i < NBAR; ++i) {
+          cluster_sync();                  // the stage's sums
+          grid_barrier(l, i);
+        }
     }
     cluster_sync();
     return;
@@ -1254,6 +1382,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* red = reinterpret_cast<float*>(sm + lay.red);
   T* h = reinterpret_cast<T*>(sm + lay.h);
   T* xs = reinterpret_cast<T*>(sm + lay.xs);
+  // the MLP's selection input: the folded stream, in xn where every
+  // routed expert's gate|up reads it (MoE), else in xs
+  T* xm = a.E > 0 ? reinterpret_cast<T*>(sm + lay.xn) : xs;
+  int* eidx = reinterpret_cast<int*>(sm + lay.eidx);
+  float* wts = reinterpret_cast<float*>(sm + lay.wts);
   float* scores = reinterpret_cast<float*>(sm + lay.scores);
   int* idx = reinterpret_cast<int*>(sm + lay.idx);
   float* gsum = P == PLAN_INT4 ? reinterpret_cast<float*>(sm + lay.gsum)
@@ -1291,15 +1424,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       a.stamps[l * sw + NSTAMP + slot * a.grid + b] =
           static_cast<long long>(globaltimer());
   };
-  // gather stage i on its kept groups, then the cluster's sums of it
+  // gather stage i on its kept groups of the selection input `in` from
+  // the weights' layer `wlay` (l, or a routed expert's pseudo-layer), then
+  // the cluster's sums of it (`wt`: EPI_WRES's routing weight)
   auto run = [&](int l, int i, const Stage& st, int count, int kind,
-                 void* dst, void* dst2) {
+                 const T* in, int wlay, void* dst, void* dst2, float wt) {
     stamp(l, ST_GATHER + i);
     if (i == 2)
-      ring = gather<T, 2, P>(maps, st, l, xs, idx, gsum, count, rank, C,
+      ring = gather<T, 2, P>(maps, st, wlay, in, idx, gsum, count, rank, C,
                              a.nslot, sm, bars, part, red, ring);
     else
-      ring = gather<T, 1, P>(maps, st, l, xs, idx, gsum, count, rank, C,
+      ring = gather<T, 1, P>(maps, st, wlay, in, idx, gsum, count, rank, C,
                              a.nslot, sm, bars, part, red, ring);
     __syncthreads();
     stamp(l, ST_GEND + i);
@@ -1307,7 +1442,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       a.stamps[l * sw + NSTAMP + (NBAR + i) * a.grid + b] =
           static_cast<long long>(globaltimer());
     cluster_sync();
-    epilogue<T, P>(a, kind, st, part, rank, C, l, h, dst, dst2);
+    epilogue<T, P>(a, kind, st, part, rank, C, wlay, h, dst, dst2, wt);
     stamp(l, ST_EPI + i);
   };
   const bool qkv_here = !a.head || cid < Hkv;
@@ -1326,10 +1461,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                                   gsum, l, 0);
     if (qkv_here) {
       if (a.head) {
-        run(l, 0, head_qkv, c0, EPI_HEAD, qraw, nullptr);
+        run(l, 0, head_qkv, c0, EPI_HEAD, xs, l, qraw, nullptr, 0.f);
         __syncthreads();
       } else {
-        run(l, 0, stage(0), c0, EPI_QKV, wqkv, nullptr);
+        run(l, 0, stage(0), c0, EPI_QKV, xs, l, wqkv, nullptr, 0.f);
       }
     }
     if (!a.head) grid_barrier(l, 0);
@@ -1355,39 +1490,57 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int c1 = select_stage(a, xs, D, thr[1], a.cap[1], scores, idx,
                                   gsum, l, 1);
     load_gains(nm + static_cast<size_t>(l) * D, D, g);
+    if (a.E > 0) prefetch_router(a, l, rank, C);
     if (c1 > 0) {
-      run(l, 1, stage(1), c1, EPI_RES, wh, nullptr);
+      run(l, 1, stage(1), c1, EPI_RES, xs, l, wh, nullptr, 0.f);
       grid_barrier(l, 2);
       load_cg(h, wh, D);
     } else {
       skip_barrier(l, 2);
     }
-    // 3. gate|up on the folded mlp norm: T(silu(gate) * up)
-    fold(h, g, D, a.eps, xs, misc);
-    const int c2 = select_stage(a, xs, D, thr[2], a.cap[2], scores, idx,
-                                  gsum, l, 2);
-    if (c2 > 0) {
-      run(l, 2, stage(2), c2, EPI_SILU, winter, nullptr);
-      grid_barrier(l, 3);
-      load_cg(xs, winter, I);
-    } else {
-      for (int i = tid; i < I; i += THREADS) xs[i] = from_f<T>(0.f);
-      skip_barrier(l, 3);
-      __syncthreads();
+    // 3-4. the MLP on the folded mlp norm xm: gate|up and down once, or
+    // (MoE, the reference's branch) the routing, then gate|up and down of
+    // each routed expert t in order at its pseudo-layer, thresholds at
+    // the real layer, down adding T(sums * w_t + h)
+    fold(h, g, D, a.eps, xm, misc);
+    if (a.E > 0) route(a, xm, l, rank, C, red, reinterpret_cast<float*>(
+                                                   sm + lay.rlog),
+                       eidx, wts);
+    for (int t = 0; t < ne; ++t) {
+      const int wlay = a.E > 0 ? eidx[t] : l;
+      // 3. gate|up: T(silu(gate) * up); the same kept set for every
+      // expert (the same input and threshold)
+      const int c2 = select_stage(a, xm, D, thr[2], a.cap[2], scores, idx,
+                                    gsum, l, 2 + 2 * t);
+      if (c2 > 0) {
+        run(l, 2, stage(2), c2, EPI_SILU, xm, wlay, winter, nullptr, 0.f);
+        grid_barrier(l, 3);
+        load_cg(xs, winter, I);
+      } else {
+        for (int i = tid; i < I; i += THREADS) xs[i] = from_f<T>(0.f);
+        skip_barrier(l, 3);
+        __syncthreads();
+      }
+      // 4. down, its sums added to the stream (the barrier that is never
+      // skipped: it orders these reads of the workspace before its next
+      // writes; consecutive experts' streams alternate between two
+      // buffers, so that a skipped gate|up barrier stays safe)
+      const int c3 = select_stage(a, xs, I, thr[3], a.cap[3], scores, idx,
+                                    gsum, l, 3 + 2 * t);
+      T* dst = t % 2 == 0 ? wh2 : wh;
+      const bool fin = last && t + 1 == ne;    // the launch's output
+      if (c3 > 0) {
+        run(l, 3, stage(3), c3, a.E > 0 ? EPI_WRES : EPI_RES, xs, wlay, dst,
+            fin ? a.out : nullptr, a.E > 0 ? wts[t] : 0.f);
+      } else if (fin && b == 0) {
+        for (int i = tid; i < D; i += THREADS)
+          static_cast<T*>(a.out)[i] = h[i];
+      }
+      if (!last && t + 1 == ne)
+        load_gains(na + static_cast<size_t>(l + 1) * D, D, g);
+      grid_barrier(l, 4);
+      if (c3 > 0 && !fin) load_cg(h, dst, D);
     }
-    // 4. down, its sums added to the stream (the one barrier a layer that
-    // is never skipped: it orders this layer's reads of the workspace
-    // before the next layer's writes)
-    const int c3 = select_stage(a, xs, I, thr[3], a.cap[3], scores, idx,
-                                  gsum, l, 3);
-    if (c3 > 0) {
-      run(l, 3, stage(3), c3, EPI_RES, wh2, last ? a.out : nullptr);
-    } else if (last && b == 0) {
-      for (int i = tid; i < D; i += THREADS) static_cast<T*>(a.out)[i] = h[i];
-    }
-    if (!last) load_gains(na + static_cast<size_t>(l + 1) * D, D, g);
-    grid_barrier(l, 4);
-    if (c3 > 0 && !last) load_cg(h, wh2, D);
   }
   cluster_sync();              // no peer reads this block's shared memory
 }
@@ -1567,15 +1720,16 @@ int clusters_impl(int plan, int dtype, int GH, int C) {
 // The plan into out int32 [11] (see `teal_token_plan`); 0, or -1 where
 // the shapes take none.
 int plan_impl(int plan, int dtype, int D, int I, int Hq, int Hkv, int T,
-              int window, int capmax, int n_sms, int L, int* out) {
+              int window, int capmax, int n_sms, int L, int E, int KE,
+              int* out) {
   if (!form_ok(plan, dtype) || !heads_ok(Hq, Hkv) || L < 1) return -1;
   const int* nc = cluster_table(plan, dtype, Hq / Hkv);
   if (nc == nullptr) return -1;
   const TokPlan p = token_plan(plan, dtype == 0 ? 4 : 2, D, I, Hq, Hkv, T,
-                               window, capmax, n_sms, nc);
+                               window, capmax, n_sms, nc, E, KE);
   if (p.smem < 0) return -1;
   const int v[11] = {p.grid, THREADS, p.smem, static_cast<int>(p.ws),
-                     (p.head ? NBAR - 1 : NBAR) * L, 0, p.C, p.NC, p.head,
+                     layer_barriers(p.head, KE) * L, 0, p.C, p.NC, p.head,
                      p.nslot, p.NS};
   for (int i = 0; i < 11; ++i) out[i] = v[i];
   return 0;
@@ -1583,15 +1737,18 @@ int plan_impl(int plan, int dtype, int D, int I, int Hq, int Hkv, int T,
 
 // One token through the L layers in plan `plan` (see `teal_token_decode`):
 // w the seven weights (int4: qp), sz int4's seven sz stacks, sc int8's
-// seven scale stacks (null where the plan has none).
+// seven scale stacks (null where the plan has none); MoE (E > 0): router
+// [L, D, E] fp32, wgate, wup and wdown (and int8's scales) the expert
+// stacks read as [L E, K, N] ([L E, N]), routes [L, KE] or null.
 int decode_impl(int plan, int dtype, const void* x, const void* thr,
                 const void* pos, const void* cs, const void* na,
                 const void* nm, const void* const (&w)[7],
                 const void* const (&sz)[7], const void* const (&sc)[7],
-                void* kc, void* vc, void* out, void* sel, void* stamps,
-                void* ws, int L, int D, int I, int Hq, int Hkv, int T,
-                int window, const int (&caps)[4], int fixed, float eps,
-                int n_sms, int empty, void* stream) {
+                const void* router, void* kc, void* vc, void* out, void* sel,
+                void* routes, void* stamps, void* ws, int L, int D, int I,
+                int Hq, int Hkv, int T, int window, const int (&caps)[4],
+                int fixed, int E, int KE, float eps, int n_sms, int empty,
+                void* stream) {
   cudaGetLastError();  // clear any stale error of this library
   int capmax = 0;
   for (int c : caps) capmax = imax(capmax, c);
@@ -1602,13 +1759,15 @@ int decode_impl(int plan, int dtype, const void* x, const void* thr,
             (plan != PLAN_INT8 || sc[i] != nullptr);
   if (!form_ok(plan, dtype) || !given || !heads_ok(Hq, Hkv) || L < 1 ||
       caps[0] < 1 || caps[0] > D / HD || caps[1] < 1 || caps[1] > D / HD ||
-      caps[2] < 1 || caps[2] > D / HD || caps[3] < 1 || caps[3] > I / HD)
+      caps[2] < 1 || caps[2] > D / HD || caps[3] < 1 || caps[3] > I / HD ||
+      !moe_ok(plan, E, KE) || (E > 0 && (router == nullptr ||
+                                         stamps != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* nc = cluster_table(plan, dtype, Hq / Hkv);
   if (nc == nullptr) return -1;
   const int esz = dtype == 0 ? 4 : 2;
   const TokPlan p = token_plan(plan, esz, D, I, Hq, Hkv, T, window, capmax,
-                               n_sms, nc);
+                               n_sms, nc, E, KE);
   EncodeTiled fn = encode_tiled();
   if (p.smem < 0 || fn == nullptr) return -1;
   const int kn[7][2] = {{D, D}, {D, Hkv * HD}, {D, Hkv * HD}, {D, D},
@@ -1617,25 +1776,25 @@ int decode_impl(int plan, int dtype, const void* x, const void* thr,
   // same stacks every token), keyed on the plan, the pointers and shapes
   static Maps maps;
   static const void* key[14] = {};
-  static int key_shape[6] = {-1};
-  const int shape[6] = {plan, esz, L, D, I, Hkv};
+  static int key_shape[7] = {-1};
+  const int shape[7] = {plan, esz, L, D, I, Hkv, E};
   bool same = true;
   for (int i = 0; i < 7; ++i)
     same = same && key[i] == w[i] && key[7 + i] == sz[i];
-  for (int i = 0; i < 6; ++i) same = same && key_shape[i] == shape[i];
+  for (int i = 0; i < 7; ++i) same = same && key_shape[i] == shape[i];
   if (!same) {
     key_shape[0] = -1;
-    for (int i = 0; i < 7; ++i)
-      if (!encode_weight(fn, maps, i, plan, esz, w[i], sz[i], L, kn[i][0],
-                         kn[i][1]))
+    for (int i = 0; i < 7; ++i)   // an expert stack: L E pseudo-layers
+      if (!encode_weight(fn, maps, i, plan, esz, w[i], sz[i],
+                         i >= 4 && E > 0 ? L * E : L, kn[i][0], kn[i][1]))
         return -1;
     for (int i = 0; i < 7; ++i) {
       key[i] = w[i];
       key[7 + i] = sz[i];
     }
-    for (int i = 0; i < 6; ++i) key_shape[i] = shape[i];
+    for (int i = 0; i < 7; ++i) key_shape[i] = shape[i];
   }
-  Args a;
+  Args a = {};
   a.x = x;
   a.thr = static_cast<const float*>(thr);
   a.pos = static_cast<const int*>(pos);
@@ -1646,8 +1805,13 @@ int decode_impl(int plan, int dtype, const void* x, const void* thr,
   a.vc = vc;
   a.out = out;
   a.sel = static_cast<int*>(sel);
+  a.nst = E > 0 ? 2 + 2 * KE : 4;
   a.stamps = static_cast<long long*>(stamps);
   a.ws = static_cast<unsigned char*>(ws);
+  a.router = static_cast<const float*>(router);
+  a.E = E;
+  a.KE = KE;
+  a.routes = static_cast<int*>(routes);
   a.L = L;
   a.D = D;
   a.I = I;

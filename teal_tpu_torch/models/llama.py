@@ -25,8 +25,10 @@ reference's packed pipeline / whole-token kernel) runs
 is not False, else the K1/K2 loop; so does `block_verify` (S consecutive
 positions of one sequence as rows, fixed full selection, `seq_block`:
 one K7 launch a chunk). Mixtral decodes batch 1 on the token path
-too, routing in kernel K5 and gathering the routed experts' kept groups
-through K1. Everything else
+too: one K7 launch a token with its routing inside (K7's MoE form, arrays
+or int8 experts), or with a shape K7 cannot plan the loop, routing in
+kernel K5 and gathering the routed experts' kept groups through K1.
+Everything else
 runs the layer loop (`layer_forward`): dense and masked-dense layers in
 plain PyTorch, and single-token sparse decode through the kernels --
 block mode on K1 (threshold) or K3 (top-k, and batches of up to 8),
@@ -498,8 +500,8 @@ def can_token_decode(params, cfg: ModelConfig, sp: SparsityConfig,
     capacities within the fused stages, head_dim 128, the cache in the
     stream type. Mixtral only at batch 1 with `token_fused` not False,
     arrays or all seven int8 (no packed int4), and an effective group of
-    128 for dim and intermediate_size, as in the reference; b > 1 takes
-    the layer loop."""
+    128 for dim and intermediate_size, as in the reference (then K7's
+    MoE form where it has a launch plan); b > 1 takes the layer loop."""
     lay = params["layers"]
     if isinstance(lay["wq"], dict) and "zero" in lay["wq"]:
         return False
@@ -590,10 +592,14 @@ def forward(params, tokens: torch.Tensor, cache: KVCache, pos, thresholds,
         # batch 1 in K7's form with token_fused not False (arrays of the
         # stream type, or with a bf16 stream all seven int8 or packed int4
         # at quant group 128): K7, one launch a token (the reference's
-        # `_token_kernel` in its three weight plans); token_fused False:
-        # the K1/K2 loop (its `_packed_layer`). rows (batch 2-16): K7's
-        # rows form in the same three plans, one launch a step, one pooled
-        # selection, the kept weights read once for the batch
+        # `_token_kernel` in its three weight plans); Mixtral (arrays or
+        # int8 experts) K7's MoE form, its routing inside the launch (the
+        # reference's MoE branch); token_fused False: the K1/K2 loop (its
+        # `_packed_layer`; Mixtral never comes here then: `can_token_decode`
+        # sends it to the layer loop, as the reference does). rows (batch
+        # 2-16): K7's rows form in the same three plans, one launch a
+        # step, one pooled selection, the kept weights read once for the
+        # batch
         pos_arg = pos_t.to(torch.int32)
         moe_kw = (dict(router=lay["router"],
                        n_experts_per_tok=cfg.n_experts_per_tok)

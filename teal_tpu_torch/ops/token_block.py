@@ -14,12 +14,13 @@ launch:
     with `seq_block` a verify chunk), with weights that are arrays of the
     stream type (the cache of that type), or with a bf16 stream and cache
     all seven int8 dicts or all seven packed int4 dicts at quant group
-    128; no MoE, head_dim 128 and Hq / Hkv <= 8, where `token_fused` is
-    not False and K7 has a launch plan for the shapes (`k7_plan`). Its
-    plain version, `token_kernel_plain`, runs each stage through K1's and
-    K2's plain versions (on CPU tensors the wrapper runs it);
-  - the layer loop below, every other form (MoE), a shape K7 cannot plan
-    and `token_fused=False`: a host loop runs, per layer, five kernel
+    128; Mixtral at one row with arrays or int8 experts, its routing
+    inside (below); head_dim 128 and Hq / Hkv <= 8, where `token_fused`
+    is not False and K7 has a launch plan for the shapes (`k7_plan`). Its
+    plain version, `token_kernel_plain`, runs each stage through K1's,
+    K2's and K5's plain versions (on CPU tensors the wrapper runs it);
+  - the layer loop below, every other form, a shape K7 cannot plan and
+    `token_fused=False`: a host loop runs, per layer, five kernel
     launches whatever the batch (160 a step at 7B):
   1. the attention stage (`attn_block.attn_stage`: K1 on q|k|v with the
      folded attention norm, then K2), threshold column 0;
@@ -44,7 +45,16 @@ per-channel scales to its fp32 sums before the epilogue, the reference's
 `scale_ref`) or packed int4 dicts {"qp", "sz"} (unpacked in K1).
 
 Mixtral (the reference's MoE branch, `token_block.py:274-324`; batch 1,
-arrays or int8): stages 3-4 become, per layer,
+arrays or int8). K7 takes it in one launch a token: after o, every
+cluster folds the mlp norm into xn and routes (each block dots its share
+of the router rows, the cluster's partial logits added in rank order, so
+that every block of the grid picks the same experts with no barrier of
+its own), then runs gate|up and down of each routed expert in order,
+each stage followed by a grid barrier: 2 + 2 K_EXP grid barriers a layer
+head-owned, 3 + 2 K_EXP in the other plan (Mixtral's: 7). With
+`token_fused=False`, or a shape K7 cannot plan, the layer loop runs it
+(the form K7's plain version composes), its stages 3-4 becoming, per
+layer,
   3. K5 `moe_route` (`csrc/moe_route.cu`) on the stream: the mlp norm
      (`xn`, stream type), the top K_EXP experts as pseudo-layers l*E + e
      (int32) and their softmax weights (fp32), all left on the device;
@@ -54,10 +64,11 @@ arrays or int8): stages 3-4 become, per layer,
      output on the device from the expert stacks read as [L*E, K, N]
      (int8 scales as [L*E, N]): no host sync between K5 and the experts.
 Launches a layer: 2 (attention) + 1 (o) + 1 (K5) + 2 * K_EXP; 256 a token
-at Mixtral's 32 layers. Two quirks of the reference are kept: thresholds
-are read at the real layer (calibration leaves the MoE down column 6 at
-0, so the down stage keeps its first `cap` groups by index), and each
-expert is added to the stream in fp32 with the fp32 routing weight (the
+at Mixtral's 32 layers. Both routes keep two quirks of the reference:
+thresholds are read at the real layer (calibration leaves the MoE down
+column 6 at 0, so the down stage keeps its first `cap` groups by index),
+and each expert is added to the stream in fp32 with the fp32 routing
+weight, the product rounded before the sum (the
 layer loop's twin, `models/moe.moe_ffn`, combines the experts in the
 stream type with weights rounded to it).
 """
@@ -340,11 +351,13 @@ def token_decode(h: torch.Tensor, thresholds: torch.Tensor,
             raise ValueError(f"pos {pos} out of range [0, {kc.shape[3]})")
         pos = torch.full((1,), pos, dtype=torch.int32, device=h.device)
     if k7_route(h, ws, kc, n_heads, caps, window, router, seq_block,
-                token_fused):
+                token_fused, n_experts_per_tok):
         return token_kernel(h, thresholds, ws, norm_attn, norm_mlp, rope,
                             kc, vc, pos, caps=caps, n_heads=n_heads,
                             norm_eps=norm_eps, window=window,
-                            fixed_sel=fixed_sel, seq_block=seq_block)
+                            fixed_sel=fixed_sel, seq_block=seq_block,
+                            router=router,
+                            n_experts_per_tok=n_experts_per_tok)
     if router is not None:
         if h.dim() != 1 or seq_block:
             raise ValueError("the MoE token path decodes one row")
@@ -446,7 +459,8 @@ def _rows_chunk(esz: int, GH: int) -> int:
 
 
 def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int, NS: int,
-                partf: int, slots: int, plan: int = PLAN_STREAM) -> int:
+                partf: int, slots: int, plan: int = PLAN_STREAM,
+                E: int = 0) -> int:
     """K7's shared memory a block in bytes: the ring (attention's row-lane
     PV sums), its full and empty mbarriers, the block's partial sums
     (`partf` fp32, read by the cluster's peers), the warps' sums of a
@@ -455,7 +469,10 @@ def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int, NS: int,
     each kept group's sum [capmax] fp32, 128 floats of scratch,
     attention's q|k|v sums and RoPE'd q|k (fp32), q rounded, four [8]
     fp32, the block's maxima and partial PV with its denominators (fp32,
-    read by the peers) and the kept scores [GH][NS]."""
+    read by the peers) and the kept scores [GH][NS]; with E experts (MoE)
+    the folded stream xn [D] of the stream type, the block's partial
+    router logits [E] and the routed pseudo-layers and weights
+    [MAX_ROUTED] each."""
     n = slots * _tok_slot(plan) + 2 * _TOK_MAX_SLOTS * 8 + partf * 4
     n += 8 * 2 * _tok_unit(esz, plan) * 4
     n += _al(D * esz, 16) + _al(max(D, I) * esz, 16)
@@ -464,8 +481,10 @@ def _token_smem(esz: int, D: int, I: int, GH: int, capmax: int, NS: int,
     n += _al(capmax, 4) * 4 if plan == PLAN_INT4 else 0
     n += (GH + 2) * HEAD_DIM * 4 + (GH + 1) * HEAD_DIM * 4
     n += _al(GH * HEAD_DIM * esz, 16) + 4 * MAX_GROUP * 4 + MAX_GROUP * 4
-    n += (GH * HEAD_DIM + MAX_GROUP) * 4
-    return n + GH * NS * 4
+    n += (GH * HEAD_DIM + MAX_GROUP) * 4 + GH * NS * 4
+    if E:
+        n += _al(D * esz, 16) + (_al(E, 4) + 2 * MAX_ROUTED) * 4
+    return n
 
 
 def _rows_unit(esz: int, plan: int = PLAN_STREAM) -> int:
@@ -526,11 +545,23 @@ def _token_structure(Hkv: int, n_sms: int, clusters) -> Optional[Tuple[int,
     return (co, False) if co else None
 
 
+def _k7_moe_ok(plan: int, rows: int, E: int, k_exp: int) -> bool:
+    """Whether K7 takes E experts with k_exp routed a token (E = 0: a
+    dense MLP, k_exp 0): one row, arrays or int8 (int4 MoE is not wired,
+    as in the reference), E a divisor of the 256 worker threads up to
+    MAX_EXPERTS (a worker's router elements fall in one column), 1 <=
+    k_exp <= min(E, MAX_ROUTED)."""
+    if E == 0:
+        return k_exp == 0
+    return (rows == 1 and plan != PLAN_INT4 and 1 <= E <= MAX_EXPERTS
+            and _TOK_WORKERS % E == 0 and 1 <= k_exp <= min(E, MAX_ROUTED))
+
+
 def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
                 window: Optional[int], capmax: int, L: int,
                 n_sms: int = _H100_SMS, clusters=None,
-                plan: int = PLAN_STREAM, rows: int = 1
-                ) -> Optional[TokenPlan]:
+                plan: int = PLAN_STREAM, rows: int = 1, E: int = 0,
+                k_exp: int = 0) -> Optional[TokenPlan]:
     """K7's launch plan from shapes, the weight plan (`block_gemv`'s
     PLAN_*; int8 and int4 with a bf16 stream, esz 2), the rows (1, or
     2..16 for the rows form, in every weight plan; its seq_block form
@@ -546,8 +577,13 @@ def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
     depends on T or the window; the ring takes what shared memory the
     rest leaves, up to 8 slots, at least 2 (one row: and at least
     attention's PV sums). Grid barriers a layer: 4 head-owned, 5 in the
-    other plan; none among a kv head's blocks."""
-    if ((plan != PLAN_STREAM and esz != 2)
+    other plan; none among a kv head's blocks. MoE (E experts, k_exp
+    routed, `_k7_moe_ok`): the same structure and workspace, shared
+    memory for xn and the routing, and gate|up and down once for each
+    routed expert: 2 + 2 k_exp grid barriers a layer head-owned, 3 + 2
+    k_exp in the other plan."""
+    if (not _k7_moe_ok(plan, rows, E, k_exp)
+            or (plan != PLAN_STREAM and esz != 2)
             or plan not in (PLAN_STREAM, PLAN_INT8, PLAN_INT4)
             or not (rows == 1 or 2 <= rows <= MAX_ROWS)
             or D <= 0 or I <= 0 or D % HEAD_DIM or I % HEAD_DIM or Hkv <= 0
@@ -580,15 +616,15 @@ def _token_plan(esz: int, D: int, I: int, Hq: int, Hkv: int, T: int,
         NS, slot = _tok_scores(GH), _tok_slot(plan)
 
         def smem(n):
-            return _token_smem(esz, D, I, GH, capmax, NS, partf, n, plan)
+            return _token_smem(esz, D, I, GH, capmax, NS, partf, n, plan, E)
     slots = min(_TOK_MAX_SLOTS, (_SMEM_BYTES - smem(0)) // slot)
     rpi = _TOK_WORKERS // (HEAD_DIM * esz // 16)
     if slots < 2 or (rows == 1 and slots * slot < rpi * GH * HEAD_DIM * 4):
         return None
     return TokenPlan(NC * C, _TOK_THREADS, smem(slots),
                      _token_ws(esz, D, I, Hq, Hkv, rows),
-                     (_TOK_BARRIER_SLOTS - 1 if head else _TOK_BARRIER_SLOTS)
-                     * L, 0, C, NC, head, slots, NS)
+                     ((2 if head else 3) + 2 * max(k_exp, 1)) * L, 0, C, NC,
+                     head, slots, NS)
 
 
 def _split_lo(count: int, S: int, s: int) -> int:
@@ -671,6 +707,11 @@ def _k7_stacks(ws, plan: int):
     return tuple(ws), None, None
 
 
+def _experts(router) -> int:
+    """The experts of a MoE router [L, D, E] (0 without one)."""
+    return 0 if router is None else router.shape[-1]
+
+
 def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
             router=None, seq_block: bool = False) -> bool:
     """Whether a `token_decode` call is of the form K7 covers (decided by
@@ -678,11 +719,13 @@ def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
     (the rows form), the cache of the stream type with as many rows (one
     with `seq_block`: the rows are consecutive positions of one sequence)
     and head_dim 128, MHA or GQA with 1, 2, 4 or 8 (a divisor of
-    `MAX_GROUP`) query heads a kv head, no MoE router, and the seven
-    weights arrays of the stream type (fp32 or bf16), or with a bf16
-    stream all seven int8 dicts or all seven packed int4 dicts at quant
-    group 128 (`k7_weight_plan`). Whether K7 has a launch plan for the
-    shapes is `k7_plan`'s."""
+    `MAX_GROUP`) query heads a kv head, and the seven weights arrays of
+    the stream type (fp32 or bf16), or with a bf16 stream all seven int8
+    dicts or all seven packed int4 dicts at quant group 128
+    (`k7_weight_plan`). With a MoE `router` (fp32 [L, D, E]): one row, no
+    seq_block, arrays or int8 (the expert stacks [L, E, K, N]; int4 MoE is
+    not wired, as in the reference). Whether K7 has a launch plan for the
+    shapes (among them E and the routed count) is `k7_plan`'s."""
     plan = k7_weight_plan(ws)
     if plan is None:
         return False
@@ -693,7 +736,14 @@ def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
         types = h.dtype == torch.bfloat16
     rows = (1 if h.dim() == 1 else h.shape[0]
             if h.dim() == 2 and 2 <= h.shape[0] <= MAX_ROWS else 0)
-    return (router is None and rows > 0 and types
+    if router is not None:
+        w4 = _k7_stacks(ws, plan)[0][4]
+        if not (rows == 1 and not seq_block and plan != PLAN_INT4
+                and router.dtype == torch.float32 and router.dim() == 3
+                and router.shape[1] == h.shape[-1] and w4.dim() == 4
+                and w4.shape[:2] == (router.shape[0], router.shape[2])):
+            return False
+    return (rows > 0 and types
             and kc.dim() == 5 and kc.dtype == h.dtype
             and kc.shape[1] == (1 if seq_block else rows)
             and kc.shape[4] == HEAD_DIM and n_heads % kc.shape[2] == 0
@@ -703,24 +753,28 @@ def k7_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
 def k7_route(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int, caps,
              window: Optional[int] = None, router=None,
              seq_block: bool = False,
-             token_fused: Optional[bool] = None) -> bool:
+             token_fused: Optional[bool] = None,
+             n_experts_per_tok: int = 0) -> bool:
     """`token_decode`'s route, from the call's form and shapes alone: K7
     where `token_fused` is not False, the call is of K7's form (`k7_form`)
     and K7 has a launch plan for the shapes (`k7_plan`); else the loop."""
     return (token_fused is not False
             and k7_form(h, ws, kc, n_heads, router, seq_block)
-            and k7_plan(h, kc, ws, n_heads, caps, window) is not None)
+            and k7_plan(h, kc, ws, n_heads, caps, window, router,
+                        n_experts_per_tok) is not None)
 
 
 def k7_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
-            window: Optional[int] = None) -> Optional[TokenPlan]:
+            window: Optional[int] = None, router=None,
+            n_experts_per_tok: int = 0) -> Optional[TokenPlan]:
     """K7's launch plan for a call of K7's form, decided from shapes before
     any launch (the route's static gate, as the reference's
     `_can_packed_pipeline`): on a CUDA tensor the card's (`token_plan`),
     on a CPU tensor the H100's (`_token_plan` on `H100_CLUSTERS` and 132
     SMs). None: the shapes take no plan, and the call takes the loop."""
     if h.device.type == "cuda":
-        return token_plan(h, kc, ws, n_heads, caps, window)
+        return token_plan(h, kc, ws, n_heads, caps, window, router,
+                          n_experts_per_tok)
     plan = k7_weight_plan(ws)
     if plan is None:
         return None
@@ -728,13 +782,46 @@ def k7_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
                        _k7_stacks(ws, plan)[0][4].shape[-1], n_heads,
                        kc.shape[2], kc.shape[3], window, max(caps),
                        kc.shape[0], plan=plan,
-                       rows=h.shape[0] if h.dim() == 2 else 1)
+                       rows=h.shape[0] if h.dim() == 2 else 1,
+                       E=_experts(router), k_exp=n_experts_per_tok)
+
+
+def _check_k7_moe(h, ws, router, k_exp, routes, L):
+    """Raise on a MoE call K7 does not take; returns ws with the expert
+    stacks as the pseudo-layer stacks [L*E, K, N] (`expert_stacks`)."""
+    plan = k7_weight_plan(ws)
+    if (h.dim() != 1 or plan not in (PLAN_STREAM, PLAN_INT8)
+            or router.dtype != torch.float32 or router.dim() != 3
+            or router.shape[:2] != (L, h.shape[0])
+            or router.device != h.device or not router.is_contiguous()):
+        raise ValueError(f"K7's MoE form takes one row, arrays or int8 "
+                         f"experts and an fp32 router [{L}, {h.shape[-1]}, "
+                         f"E] on h's device; got h {tuple(h.shape)}, router "
+                         f"{router.dtype} {tuple(router.shape)}")
+    E = router.shape[2]
+    if not _k7_moe_ok(plan, 1, E, k_exp):
+        raise ValueError(f"K7 routes {k_exp} of {E} experts: E must divide "
+                         f"{_TOK_WORKERS} and be at most {MAX_EXPERTS}, "
+                         f"1 <= routed <= min(E, {MAX_ROUTED})")
+    for w in ws[4:]:
+        w4 = w["q"] if isinstance(w, dict) else w
+        if w4.dim() != 4 or w4.shape[:2] != (L, E):
+            raise ValueError(f"expert stacks must be [{L}, {E}, K, N]; got "
+                             f"{tuple(w4.shape)}")
+    if routes is not None and (routes.shape != (L, k_exp)
+                               or routes.dtype != torch.int32
+                               or routes.device != h.device
+                               or not routes.is_contiguous()):
+        raise ValueError(f"routes must be a contiguous int32 [{L}, {k_exp}] "
+                         f"tensor on h's device")
+    return (*ws[:4], *(expert_stacks(w) for w in ws[4:]))
 
 
 def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
-              caps, n_heads, sel, seq_block=False):
-    """Raise on anything K7 (and its plain version) does not take. Returns
-    (L, D, I, Hkv, T, rows)."""
+              caps, n_heads, sel, seq_block=False, n_exp=0, k_exp=0):
+    """Raise on anything K7 (and its plain version) does not take (ws with
+    the expert stacks of `n_exp` experts flattened, `_check_k7_moe`).
+    Returns (L, D, I, Hkv, T, rows)."""
     B = 1 if h.dim() == 1 else h.shape[0]
     if (not (h.dim() == 1 or (h.dim() == 2 and 2 <= B <= MAX_ROWS))
             or h.dtype not in _DTYPE_CODE or not h.is_contiguous()):
@@ -769,12 +856,14 @@ def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
     shapes = ((D, D), (D, Hkv * HEAD_DIM), (D, Hkv * HEAD_DIM), (D, D),
               (D, I), (D, I), (I, D))
     for i, (k, n) in enumerate(shapes):
-        want = [(wts[i], (L, k, n) if plan != PLAN_INT4 else (L, k // 2, n),
+        Lw = L * n_exp if i >= 4 and n_exp else L     # pseudo-layers
+        want = [(wts[i], (Lw, k, n) if plan != PLAN_INT4
+                 else (Lw, k // 2, n),
                  dt if plan == PLAN_STREAM else torch.int8)]
         if plan == PLAN_INT4:
-            want.append((szs[i], (L, k // HEAD_DIM, 2, n), torch.float32))
+            want.append((szs[i], (Lw, k // HEAD_DIM, 2, n), torch.float32))
         if plan == PLAN_INT8:
-            want.append((scs[i], (L, n), torch.float32))
+            want.append((scs[i], (Lw, n), torch.float32))
         for t, shape, tdt in want:
             if (t.shape != shape or t.dtype != tdt or t.device != dev
                     or not t.is_contiguous() or t.data_ptr() % 16):
@@ -809,10 +898,11 @@ def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
         raise ValueError(f"caps {tuple(caps)} out of range: (qkv, o, "
                          f"gate|up, down) within [1, {D // HEAD_DIM}] x 3 "
                          f"and [1, {I // HEAD_DIM}]")
-    if sel is not None and (sel.shape != (L, 4, 1 + max(caps))
+    nst = 2 + 2 * k_exp if n_exp else 4
+    if sel is not None and (sel.shape != (L, nst, 1 + max(caps))
                             or sel.dtype != torch.int32 or sel.device != dev
                             or not sel.is_contiguous()):
-        raise ValueError(f"sel must be a contiguous int32 [{L}, 4, "
+        raise ValueError(f"sel must be a contiguous int32 [{L}, {nst}, "
                          f"{1 + max(caps)}] tensor on h's device")
     if h.data_ptr() % 16:
         raise ValueError("K7 reads h in 16-byte chunks: it must be 16-byte "
@@ -821,8 +911,8 @@ def _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
 
 
 def _record(sel, layer: int, stage: int, idx, count) -> None:
-    """A stage's kept count and groups into sel [L, 4, 1 + max cap]: the
-    count, the groups in order, -1 past the count."""
+    """A stage's kept count and groups into sel [L, stages, 1 + max cap]:
+    the count, the groups in order, -1 past the count."""
     row = sel[layer, stage]
     row.fill_(-1)
     row[0] = count.reshape(())
@@ -833,17 +923,25 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
                        pos, *, caps, n_heads: int, norm_eps: float = 1e-5,
                        window: Optional[int] = None, fixed_sel: bool = False,
                        seq_block: bool = False,
-                       sel: Optional[torch.Tensor] = None):
+                       sel: Optional[torch.Tensor] = None,
+                       router: Optional[torch.Tensor] = None,
+                       n_experts_per_tok: int = 0,
+                       routes: Optional[torch.Tensor] = None):
     """K7 in plain PyTorch (same arguments and result as `token_kernel`):
     each layer's four stages through K1's and K2's plain versions, as the
     layer loop runs them (the same cast points; int8's scales on each
     stage's fp32 sums, packed int4 through its factored affine; rows
     [B, D] through the plain twins' rows: one kept set a stage, pooled
-    over the rows; `seq_block` through K2's plain seq_block form). A
-    device position is read to the host here (this version is no fast
-    path)."""
+    over the rows; `seq_block` through K2's plain seq_block form; MoE:
+    K5's plain version on the stream after o, then gate|up and down of
+    each routed expert at its pseudo-layer of the stacks `expert_stacks`
+    flattens, as `layer_decode(router=...)` runs them). A device position
+    is read to the host here (this version is no fast path)."""
+    k_exp = n_experts_per_tok if router is not None else 0
+    if router is not None:
+        ws = _check_k7_moe(h, ws, router, k_exp, routes, kc.shape[0])
     B = _check_k7(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc, pos,
-                  caps, n_heads, sel, seq_block)[5]
+                  caps, n_heads, sel, seq_block, _experts(router), k_exp)[5]
     ops, sc = stage_operands(ws)
     wq, wk, wv, wo, wgate, wup, wdown = ops
 
@@ -865,16 +963,32 @@ def token_kernel_plain(h, thresholds, ws, norm_attn, norm_mlp, rope, kc, vc,
         h, i1, c1 = select_gather_gemv_plain(
             attn, thresholds[layer, 3], (wo,), layer, caps[1], res=h,
             scales=scales(3), fixed=fixed_sel)
-        inter, i2, c2 = select_gather_gemv_plain(
-            h, thresholds[layer, 4], (wgate, wup), layer, caps[2],
-            norm=norm_mlp, norm_eps=norm_eps, silu=True,
-            scales=scales(4, 5), fixed=fixed_sel)
-        h, i3, c3 = select_gather_gemv_plain(
-            inter, thresholds[layer, 6], (wdown,), layer, caps[3], res=h,
-            scales=scales(6), fixed=fixed_sel)
+        kept = [(i0, c0), (i1, c1)]
+        if router is None:
+            inter, i2, c2 = select_gather_gemv_plain(
+                h, thresholds[layer, 4], (wgate, wup), layer, caps[2],
+                norm=norm_mlp, norm_eps=norm_eps, silu=True,
+                scales=scales(4, 5), fixed=fixed_sel)
+            h, i3, c3 = select_gather_gemv_plain(
+                inter, thresholds[layer, 6], (wdown,), layer, caps[3],
+                res=h, scales=scales(6), fixed=fixed_sel)
+            kept += [(i2, c2), (i3, c3)]
+        else:
+            xn, eidx, route_w = moe_route_plain(h, norm_mlp, router, layer,
+                                                k_exp, norm_eps)
+            if routes is not None:
+                routes[layer] = eidx
+            for t in range(k_exp):
+                inter, i2, c2 = select_gather_gemv_plain(
+                    xn, thresholds[layer, 4], (wgate, wup), eidx, caps[2],
+                    slot=t, silu=True, scales=scales(4, 5), fixed=fixed_sel)
+                h, i3, c3 = select_gather_gemv_plain(
+                    inter, thresholds[layer, 6], (wdown,), eidx, caps[3],
+                    slot=t, res=h, route_w=route_w, scales=scales(6),
+                    fixed=fixed_sel)
+                kept += [(i2, c2), (i3, c3)]
         if sel is not None:
-            for st, (i, c) in enumerate(((i0, c0), (i1, c1), (i2, c2),
-                                         (i3, c3))):
+            for st, (i, c) in enumerate(kept):
                 _record(sel, layer, st, i, c)
     return h
 
@@ -914,9 +1028,11 @@ _CLUSTERS: dict = {}
 
 
 def token_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
-               window: Optional[int] = None) -> Optional[TokenPlan]:
+               window: Optional[int] = None, router=None,
+               n_experts_per_tok: int = 0) -> Optional[TokenPlan]:
     """K7's plan for a `token_kernel` call on h's card (None where the
-    shapes or the weights take none); h [B, D] asks the rows form's."""
+    shapes or the weights take none); h [B, D] asks the rows form's, a
+    `router` the MoE form's."""
     L, _, Hkv, T, _ = kc.shape
     plan = k7_weight_plan(ws)
     if plan is None:
@@ -931,15 +1047,16 @@ def token_plan(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
                        _build.sm_count(h.device.index),
                        k7_clusters(h.device, h.dtype, n_heads // Hkv, plan,
                                    rows > 1),
-                       plan, rows)
+                       plan, rows, _experts(router), n_experts_per_tok)
 
 
 def token_trace(h: torch.Tensor, kc: torch.Tensor, ws, n_heads: int, caps,
                 window: Optional[int] = None) -> torch.Tensor:
-    """A zeroed `stamps` tensor for a `token_kernel` call on the card:
-    int64 [L, K7_STAMPS + 9 * grid] (block 0's points, then every block's
-    arrival at each of the five barrier slots and the end of its share of
-    each of the four gather stages)."""
+    """A zeroed `stamps` tensor for a `token_kernel` call on the card (not
+    the MoE form, whose trace K7 does not keep): int64 [L, K7_STAMPS + 9 *
+    grid] (block 0's points, then every block's arrival at each of the
+    five barrier slots and the end of its share of each of the four
+    gather stages)."""
     plan = token_plan(h, kc, ws, n_heads, caps, window)
     if plan is None:
         raise ValueError("K7 has no launch plan for these shapes")
@@ -955,11 +1072,15 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
                  n_heads: int, norm_eps: float = 1e-5,
                  window: Optional[int] = None, fixed_sel: bool = False,
                  seq_block: bool = False, sel: Optional[torch.Tensor] = None,
-                 empty: bool = False, stamps: Optional[torch.Tensor] = None):
+                 empty: bool = False, stamps: Optional[torch.Tensor] = None,
+                 router: Optional[torch.Tensor] = None,
+                 n_experts_per_tok: int = 0,
+                 routes: Optional[torch.Tensor] = None):
     """K7: one token through every layer in one launch, for one row or
     for 2-16 rows (the rows form: each row a sequence at its own position,
     or with `seq_block` a position of one sequence, one kept set a stage
-    pooled over the rows).
+    pooled over the rows), or (MoE) one row of Mixtral with its routing
+    inside.
 
     h:    [D] raw residual stream (the token's embedding), fp32 or bf16;
           or rows [B, D]
@@ -982,10 +1103,21 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
           row attends, row i to the rows before pos[0] + i (the verify's
           chunk)
     sel:  optional int32 [L, 4, 1 + max(caps)]: each stage's kept count
-          and groups (-1 past the count)
+          and groups (-1 past the count); MoE: [L, 2 + 2 k, 1 + max(caps)],
+          qkv, o, then gate|up and down of each routed expert in order
+    router: Mixtral, one row: [L, D, E] fp32 router weights; ws[4:7] are
+          then the expert stacks [L, E, K, N] (int8: {"q" [L, E, K, N],
+          "scale" [L, E, N]}), `n_experts_per_tok` (k) of which run a
+          layer: K7 routes in every cluster (the same logits in every
+          block), then runs gate|up (column 4 of the real layer, no norm
+          fold past the routing's) and down (column 6, the weighted
+          residual) of each routed expert at its pseudo-layer l E + e
+    routes: optional int32 [L, k] (MoE): each layer's routed
+          pseudo-layers
     empty: launch the kernel with its barriers alone (their floor; no
           output is written; one row)
-    stamps: optional int64 [L, K7_STAMPS + 9 * grid] on the card (one row)
+    stamps: optional int64 [L, K7_STAMPS + 9 * grid] on the card (one row;
+          not the MoE form)
           (`token_trace` makes one): block 0's %globaltimer (ns) at each
           layer's start, at the arrival at and the exit from each grid
           barrier, at each gather's start and end, at the end of each
@@ -996,14 +1128,20 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
     Returns the stream after the last layer, of h's shape. On CPU tensors
     this runs `token_kernel_plain`; on a CUDA tensor it launches K7 or
     raises."""
-    L, D, I, Hkv, T, B = _check_k7(h, thresholds, ws, norm_attn, norm_mlp,
+    k_exp = n_experts_per_tok if router is not None else 0
+    E = _experts(router)
+    flat = ws if router is None else _check_k7_moe(h, ws, router, k_exp,
+                                                   routes, kc.shape[0])
+    L, D, I, Hkv, T, B = _check_k7(h, thresholds, flat, norm_attn, norm_mlp,
                                    rope, kc, vc, pos, caps, n_heads, sel,
-                                   seq_block)
+                                   seq_block, E, k_exp)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive; got {window}")
     if B > 1 and (empty or stamps is not None):
         raise ValueError("the empty launch and the trace are the one-row "
                          "kernel's")
+    if router is not None and stamps is not None:
+        raise ValueError("K7's MoE form keeps no trace")
     if h.device.type == "cpu":
         if empty or stamps is not None:
             raise ValueError("an empty launch and the trace are card "
@@ -1012,14 +1150,17 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
                                   rope, kc, vc, pos, caps=caps,
                                   n_heads=n_heads, norm_eps=norm_eps,
                                   window=window, fixed_sel=fixed_sel,
-                                  seq_block=seq_block, sel=sel)
+                                  seq_block=seq_block, sel=sel,
+                                  router=router, n_experts_per_tok=k_exp,
+                                  routes=routes)
     _check_launch_device(h, "token_kernel")
     sms = _build.sm_count(h.device.index)
-    plan = token_plan(h, kc, ws, n_heads, caps, window)
+    plan = token_plan(h, kc, ws, n_heads, caps, window, router, k_exp)
     if plan is None:
         raise ValueError(f"K7 has no launch plan for D = {D}, I = {I}, "
                          f"{n_heads}/{Hkv} heads, T = {T}, window {window}, "
-                         f"caps {tuple(caps)} on {sms} SMs")
+                         f"caps {tuple(caps)}, {k_exp} of {E} experts on "
+                         f"{sms} SMs")
     width = K7_STAMPS + _TOK_TRACE_ROWS * plan.grid
     if stamps is not None and (stamps.shape != (L, width)
                                or stamps.dtype != torch.int64
@@ -1029,8 +1170,8 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
                          f"tensor on h's device (`token_trace`)")
     out = torch.empty_like(h)
     work = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=h.device)
-    wplan = k7_weight_plan(ws)
-    wts, szs, scs = _k7_stacks(ws, wplan)
+    wplan = k7_weight_plan(flat)
+    wts, szs, scs = _k7_stacks(flat, wplan)
     none = (None,) * 7
     if B > 1:
         head = (B, h.data_ptr(), thresholds.data_ptr(), pos.data_ptr(),
@@ -1060,11 +1201,14 @@ def token_kernel(h: torch.Tensor, thresholds: torch.Tensor, ws,
     head = (h.data_ptr(), thresholds.data_ptr(), pos.data_ptr(),
             rope.data_ptr(), norm_attn.data_ptr(), norm_mlp.data_ptr(),
             *(w.data_ptr() for w in wts))
-    tail = (kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+    tail = (None if router is None else router.data_ptr(), kc.data_ptr(),
+            vc.data_ptr(), out.data_ptr(),
             None if sel is None else sel.data_ptr(),
+            None if routes is None else routes.data_ptr(),
             None if stamps is None else stamps.data_ptr(), work.data_ptr(), L,
-            D, I, n_heads, Hkv, T, window or 0, *caps, int(fixed_sel),
-            norm_eps, sms, int(empty), torch.cuda.current_stream().cuda_stream)
+            D, I, n_heads, Hkv, T, window or 0, *caps, int(fixed_sel), E,
+            k_exp, norm_eps, sms, int(empty),
+            torch.cuda.current_stream().cuda_stream)
     if wplan == PLAN_STREAM:
         err = _build.load()["token_decode"].teal_token_decode(
             _DTYPE_CODE[h.dtype], *head, *tail)

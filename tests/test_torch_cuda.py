@@ -1572,7 +1572,7 @@ def test_k7_plan_matches_kernel(cuda):
                                  (torch.bfloat16, 1, 2)):
             out = (ctypes.c_int * 11)()
             rc = lib.teal_token_plan(code, D, I, Hq, Hkv, T, win or 0, cm,
-                                     sms, L, out)
+                                     sms, L, 0, 0, out)
             want = tb._token_plan(esz, D, I, Hq, Hkv, T, win, cm, L, sms,
                                   tb.k7_clusters(cuda, dtype, Hq // Hkv))
             assert rc == 0 and tuple(out) == tuple(want), (D, esz, list(out),
@@ -1589,7 +1589,7 @@ def test_k7_plan_matches_kernel(cuda):
         for plan in (bg.PLAN_INT8, bg.PLAN_INT4):
             out = (ctypes.c_int * 11)()
             rc = qlib.teal_token_plan_q(plan, D, I, Hq, Hkv, T, win or 0, cm,
-                                        sms, L, out)
+                                        sms, L, 0, 0, out)
             want = tb._token_plan(2, D, I, Hq, Hkv, T, win, cm, L, sms,
                                   tb.k7_clusters(cuda, torch.bfloat16,
                                                  Hq // Hkv, plan), plan)
@@ -1671,3 +1671,176 @@ def test_k7_quant_decode_graph_matches_host_loop(cuda, plan):
     nodes = graph_kernels(gen._loop.graph)
     assert [sum(c for k, c in nodes.items() if name in k)
             for name in ("token_kernel", "sgg_", "attn_kernel")] == [1, 0, 0]
+
+
+# --- K7's MoE form (Mixtral) -------------------------------------------------
+
+_MOE_MODELS: dict = {}
+
+
+def _k7_moe_model(cuda, plan, L=2):
+    """Mixtral-8x7B's widths (D 4096, I 14336, 32/8 heads, 8 experts, 2
+    routed) cut to L layers: random weights from seed 0 in bf16, or
+    quantized to int8 by `ops/quant` (kept for the module's tests)."""
+    import dataclasses
+
+    from teal_tpu_torch.config import get_model_config
+    from teal_tpu_torch.ops import quant
+
+    key = (plan, L)
+    if key not in _MOE_MODELS:
+        _MOE_MODELS.clear()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_model_config("Mixtral-8x7B"),
+                                  n_layers=L, vocab_size=8)
+        params = llama.init_params(cfg, torch.Generator(
+            device=cuda).manual_seed(0), torch.bfloat16, cuda)
+        if plan == "int8":
+            params = quant.quantize_params_int8(params)
+        _MOE_MODELS[key] = (cfg, params)
+    return _MOE_MODELS[key]
+
+
+def _k7_moe_call(cuda, plan, f, pos=40, T=64, **extra):
+    """One token of `_k7_moe_model` through f (K7 or its plain version) at
+    thresholds 0 (every group survives, the first cap kept) on a cache of
+    random rows: (stream, k, v, sel, routes)."""
+    cfg, params = _k7_moe_model(cuda, plan)
+    L, lay = cfg.n_layers, params["layers"]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    kc = (torch.randn(L, 1, cfg.n_kv_heads, T, 128, generator=g, device=cuda)
+          * 0.1).bfloat16()
+    vc = (torch.randn(kc.shape, generator=g, device=cuda) * 0.1).bfloat16()
+    cos, sin = llama.precompute_rope(cfg, T, cuda)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    caps = (16, 16, 16, 56)
+    sel = torch.zeros((L, 6, 1 + max(caps)), dtype=torch.int32, device=cuda)
+    routes = torch.zeros((L, 2), dtype=torch.int32, device=cuda)
+    out = f(params["embed"][3], torch.zeros((L, 7), device=cuda),
+            tuple(lay[n] for n in K7_WS), lay["attn_norm"], lay["mlp_norm"],
+            llama._rope_rows(cos, sin, pos_t), kc, vc, pos_t, caps=caps,
+            n_heads=cfg.n_heads, norm_eps=cfg.norm_eps, router=lay["router"],
+            n_experts_per_tok=2, sel=sel, routes=routes, **extra)
+    return out, kc, vc, sel, routes
+
+
+@pytest.mark.parametrize("plan", ["bf16", "int8"])
+def test_k7_moe_matches_plain(cuda, plan):
+    """K7's MoE form on a 2-layer cut at Mixtral's widths against its plain
+    version (`token_kernel_plain`: K5's and K1's plain versions at the
+    pseudo-layers) on the same inputs: the same routed pseudo-layers and
+    kept counts and groups at every stage (qkv, o, then gate|up and down
+    of each routed expert), the stream and both caches within 2e-2 of
+    their largest value (a bf16 ulp is 2^-8; the partial sums are added in
+    other orders)."""
+    got = _k7_moe_call(cuda, plan, tb.token_kernel)
+    want = _k7_moe_call(cuda, plan, tb.token_kernel_plain)
+    assert torch.equal(got[4], want[4]), (got[4], want[4])
+    assert torch.equal(got[3], want[3]), (got[3][..., :4], want[3][..., :4])
+    for a, b in zip(got[:3], want[:3]):
+        ok, err = _close(a, b, 2e-2)
+        assert ok, err
+
+
+def test_k7_moe_deterministic(cuda):
+    """30 launches of K7's MoE form (int8, 2 layers at Mixtral's widths) on
+    the same inputs give bit-identical streams, caches, kept groups and
+    routes: every cluster routes alike, and every sum has a fixed
+    order."""
+    first = _k7_moe_call(cuda, "int8", tb.token_kernel)
+    for _ in range(29):
+        again = _k7_moe_call(cuda, "int8", tb.token_kernel)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_k7_moe_plan_matches_kernel(cuda):
+    """`teal_token_plan` / `teal_token_plan_q` (the kernel's plan) equal to
+    `_token_plan` (the wrapper's, on the card's resident clusters) for the
+    MoE form: Mixtral-8x7B's shapes at T 4096 and 32768 with 8 experts and
+    2 routed (fp32 and bf16 arrays, int8), E 4 / k 1 and E 64 / k 8; both
+    refuse int4 MoE, E 6 and more routed than experts."""
+    import ctypes
+
+    lib = _build.load()["token_decode"]
+    qlib = _build.load()["token_decode_quant"]
+    sms = _build.sm_count(cuda.index)
+    D, I, Hq, Hkv, cm, L = 4096, 14336, 32, 8, 56, 32
+    for T in (4096, 32768):
+        for E, k in ((8, 2), (4, 1), (64, 8)):
+            for code, esz, dt, plan in ((0, 4, torch.float32, 0),
+                                        (1, 2, torch.bfloat16, 0),
+                                        (1, 2, torch.bfloat16, 1)):
+                out = (ctypes.c_int * 11)()
+                rc = (lib.teal_token_plan(code, D, I, Hq, Hkv, T, 0, cm, sms,
+                                          L, E, k, out) if plan == 0 else
+                      qlib.teal_token_plan_q(plan, D, I, Hq, Hkv, T, 0, cm,
+                                             sms, L, E, k, out))
+                want = tb._token_plan(esz, D, I, Hq, Hkv, T, None, cm, L, sms,
+                                      tb.k7_clusters(cuda, dt, Hq // Hkv,
+                                                     plan), plan, E=E,
+                                      k_exp=k)
+                assert rc == 0 and tuple(out) == tuple(want), (
+                    T, E, k, esz, plan, list(out), want)
+    out = (ctypes.c_int * 11)()
+    assert qlib.teal_token_plan_q(2, D, I, Hq, Hkv, 4096, 0, cm, sms, L, 8,
+                                  2, out) == -1
+    for E, k in ((6, 2), (4, 5)):
+        assert lib.teal_token_plan(1, D, I, Hq, Hkv, 4096, 0, cm, sms, L, E,
+                                   k, out) == -1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,k", [(4, 1), (16, 4)])
+@pytest.mark.parametrize("skip", ["none", "o", "gate|up", "down"])
+def test_k7_moe_forms_match_plain(cuda, dtype, E, k, skip):
+    """K7's MoE form at other expert counts (4 experts, 1 routed; 16, 4)
+    on a 2-layer model of 4/2 heads, D 512, I 768, against its plain
+    version: the same routes, kept counts and groups, the stream and both
+    caches within 1e-5 (fp32) or 2e-2 (bf16) of their largest value. The
+    thresholds keep every group up to the cap (0), or none at one stage
+    (`skip`): o leaves the stream as it is; gate|up makes every expert's
+    intermediate 0, so that down keeps nothing either; down keeps none of
+    an intermediate (the stream after the last layer then comes from the
+    block's copy)."""
+    from teal_tpu_torch.config import get_model_config
+
+    cfg = get_model_config("tiny", n_layers=2, n_heads=4, n_kv_heads=2,
+                           dim=512, intermediate_size=768, vocab_size=128,
+                           n_experts=E, n_experts_per_tok=k)
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(
+        E + k), dtype, cuda)
+    lay, L, T = params["layers"], cfg.n_layers, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    kc = (torch.randn(L, 1, 2, T, 128, generator=g, device=cuda) * 0.1).to(
+        dtype)
+    vc = (torch.randn(kc.shape, generator=g, device=cuda) * 0.1).to(dtype)
+    th = torch.zeros((L, 7), device=cuda)
+    col = {"o": 3, "gate|up": 4, "down": 6}.get(skip)
+    if col is not None:
+        th[:, col] = 1e9
+    cos, sin = llama.precompute_rope(cfg, T, cuda)
+    pos = torch.tensor([21], dtype=torch.int32, device=cuda)
+    caps = (2, 2, 2, 3)
+    outs = []
+    for f in (tb.token_kernel, tb.token_kernel_plain):
+        sel = torch.zeros((L, 2 + 2 * k, 4), dtype=torch.int32, device=cuda)
+        routes = torch.zeros((L, k), dtype=torch.int32, device=cuda)
+        kk, vv = kc.clone(), vc.clone()
+        out = f(params["embed"][5], th, tuple(lay[n] for n in K7_WS),
+                lay["attn_norm"], lay["mlp_norm"],
+                llama._rope_rows(cos, sin, pos), kk, vv, pos, caps=caps,
+                n_heads=cfg.n_heads, norm_eps=cfg.norm_eps,
+                router=lay["router"], n_experts_per_tok=k, sel=sel,
+                routes=routes)
+        outs.append((out, kk, vv, sel, routes))
+    got, want = outs
+    assert torch.equal(got[4], want[4]), (got[4], want[4])
+    assert torch.equal(got[3], want[3]), (got[3], want[3])
+    if skip != "none":
+        stages = {"o": [1], "gate|up": list(range(2, 2 + 2 * k)),
+                  "down": list(range(3, 2 + 2 * k, 2))}[skip]
+        assert int(got[3][:, stages, 0].max()) == 0
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got[:3], want[:3]):
+        ok, err = _close(a, b, rel)
+        assert ok, err

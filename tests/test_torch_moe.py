@@ -8,10 +8,11 @@ routed, head dim 128):
     config; batch 2, which the token path refuses) against JAX's layer loop
     with its Pallas kernels in interpret mode (fp32, 2e-5: logits and both
     caches);
-  - the token path (plain K1 / K2 / K5) against JAX's whole-token kernel in
-    interpret mode, at pos 0 and 5 with a random cache, the down threshold
-    (column 6) at 0 as calibration leaves it and picked (fp32, 2e-5:
-    logits and both caches);
+  - the token path (K7's MoE form: its plain version, plain K1 / K2 / K5)
+    against JAX's whole-token kernel in interpret mode, at pos 0 and 5
+    with a random cache, the down threshold (column 6) at 0 as
+    calibration leaves it and picked (fp32, 2e-5: logits and both
+    caches);
   - the int8 token path at one layer in bf16 against JAX's int8 token
     kernel (2^-7 of scale, as `tests/test_torch_quant.py` holds one
     quantized layer);
@@ -263,14 +264,20 @@ def jax_token_runs(jax_refs):
                               for p, c in TOKEN_CASES])
 def test_token_path_matches_jax_token_kernel(model, jax_token_runs, p,
                                              col6):
-    """The port's MoE token path (K1 / K2 / K5 plain versions: route, then
-    each routed expert's gate|up and down through pseudo-layers on the
-    device) == JAX's whole-token kernel, logits and both caches."""
+    """The port's MoE token path (K7's MoE form, on CPU tensors its plain
+    version: K5's and K1's plain versions, route, then each routed
+    expert's gate|up and down through pseudo-layers) == JAX's whole-token
+    kernel, logits and both caches."""
     cfg, _, params, _ = model
     sp = SparsityConfig(**MAIN)
     assert llama.can_token_decode(params, cfg, sp, 1, 1, torch.float32)
     k, v = _cache(p)
     cache = llama.KVCache.from_numpy(k, v, device="cpu")
+    lay = params["layers"]
+    assert token_block.k7_route(
+        params["embed"][3], tuple(lay[n] for n in llama._WEIGHTS), cache.k,
+        cfg.n_heads, llama.token_path_caps(cfg, sp), None, lay["router"],
+        n_experts_per_tok=cfg.n_experts_per_tok)
     got, gc = llama.forward(params, torch.tensor([[3 + p]]), cache, p,
                             torch.from_numpy(_thresholds(col6)), cfg=cfg,
                             sp=sp)

@@ -6,8 +6,9 @@ package's whole-token kernel `_token_kernel`; with `token_fused=False`
 the port keeps the K1/K2 loop, the counterpart of `_packed_layer`. Here:
   - the route: K7 exactly for its form (batch 1 or 2-16 rows, arrays of
     the stream type or int8 / int4 at group 128; seq_block rows of one
-    sequence; head_dim 128, no MoE, token_fused not False) where it has a
-    launch plan, from the shapes alone;
+    sequence; Mixtral at one row with arrays or int8 experts; head_dim
+    128, token_fused not False) where it has a launch plan, from the
+    shapes alone;
   - `_token_plan` at Llama-2-7B, Mistral-7B (GQA 32/8, window 4096) and
     the tiny configs, for 132 SMs, at one row and in the rows form; no
     plan depends on T, and every head_dim-128 dense config of the
@@ -340,7 +341,18 @@ ROUTES = {
     "k7-rows16-int8-window": (WINDOW, "int8", 16, {}, "k7"),
     "layers-rows-int4-token-fused-false": (GQA, "int4", 8,
                                            dict(token_fused=False), "layers"),
-    "loop-moe": (MOE, "float32", 1, {}, "loop"),
+    # Mixtral at one row: K7's MoE form for arrays and int8 experts (the
+    # case named loop-moe keeps its name from before K7 took it); with
+    # token_fused False, or two rows, the model's layer loop, as in the
+    # reference (its MoE decode is the whole-token kernel's alone)
+    "loop-moe": (MOE, "float32", 1, {}, "k7"),
+    "k7-moe-bf16": (MOE, "bfloat16", 1, {}, "k7"),
+    "k7-moe-int8": (MOE, "int8", 1, {}, "k7"),
+    "layers-moe-token-fused-false": (MOE, "float32", 1,
+                                     dict(token_fused=False), "layers"),
+    "layers-moe-int8-token-fused-false": (MOE, "int8", 1,
+                                          dict(token_fused=False), "layers"),
+    "layers-moe-rows": (MOE, "float32", 2, {}, "layers"),
 }
 
 
@@ -370,9 +382,9 @@ def test_route(monkeypatch, case):
     """`llama.forward` at one decode position takes K7 (its wrapper,
     `token_kernel`) exactly for K7's form with token_fused not False
     (arrays, all seven int8, all seven packed int4 at quant group 128;
-    one row or 2-16 rows), the K1/K2 loop (`layer_decode`) for token_fused
-    False at one row and MoE,
-    the model's layer loop where `can_token_decode` refuses, and raises
+    one row or 2-16 rows; Mixtral at one row with arrays or int8
+    experts), the K1/K2 loop (`layer_decode`) for token_fused False at one
+    row, the model's layer loop where `can_token_decode` refuses, and raises
     where the token path refuses the weights; the route is decided by the
     form alone."""
     cfg_kw, kind, b, sp_kw, route = ROUTES[case]

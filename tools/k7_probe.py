@@ -104,10 +104,10 @@ def main() -> int:
     out = (ctypes.c_int * 11)()
     if wplan == bg.PLAN_STREAM:
         rc = _build.load()["token_decode"].teal_token_plan(
-            1, D, I, Hq, Hkv, T, 0, max(caps), sms, L, out)
+            1, D, I, Hq, Hkv, T, 0, max(caps), sms, L, 0, 0, out)
     else:
         rc = _build.load()["token_decode_quant"].teal_token_plan_q(
-            wplan, D, I, Hq, Hkv, T, 0, max(caps), sms, L, out)
+            wplan, D, I, Hq, Hkv, T, 0, max(caps), sms, L, 0, 0, out)
     clusters = tb.k7_clusters(dev, torch.bfloat16, Hq // Hkv, wplan)
     print(f"plan {args.plan}: resident clusters of C blocks: {clusters}")
     want = tb._token_plan(2, D, I, Hq, Hkv, T, None, max(caps), L, sms,

@@ -65,10 +65,12 @@ def check_plan(h, kc, ws, cfg, caps):
             wplan, B, *shape)
     elif B > 1:
         rc = libs["token_decode_rows"].teal_token_plan_rows(code, B, *shape)
-    elif wplan:
-        rc = libs["token_decode_quant"].teal_token_plan_q(wplan, *shape)
+    elif wplan:       # one row: a dense MLP (no experts, none routed)
+        rc = libs["token_decode_quant"].teal_token_plan_q(
+            wplan, *shape[:-1], 0, 0, out)
     else:
-        rc = libs["token_decode"].teal_token_plan(code, *shape)
+        rc = libs["token_decode"].teal_token_plan(code, *shape[:-1], 0, 0,
+                                                  out)
     want = tb.token_plan(h, kc, ws, cfg.n_heads, caps)
     cs.check(rc == 0 and want is not None and tuple(out) == tuple(want),
              f"K7 plan B {B}: kernel {rc} {list(out)}, wrapper {want}")

@@ -12,11 +12,13 @@ DIR holds the older K7's two sources, as `git show` writes them:
     for f in token_decode.cu common.cuh; do
       git show 2c8250c:teal_tpu_torch/csrc/$f > build/parent_k7/$f; done
 
-Both libraries export `teal_token_decode` with the same arguments and
-`teal_token_plan` with the workspace bytes at out[3], so each is called
-here through ctypes with a workspace of its own plan's size (the older
-plan's partials are larger). On Llama-2-7B (bf16 random weights from
-seed 0, 32 layers, as `chip_smoke.py` builds them) it
+Both libraries export `teal_token_decode` and `teal_token_plan` (the
+workspace bytes at out[3]); this tree's take the MoE arguments the older
+one lacks (router, routes, E, KE: passed as none here), so each is bound
+to its own signature and called through ctypes with a workspace of its
+own plan's size (the older plan's partials are larger). On Llama-2-7B
+(bf16 random weights from seed 0, 32 layers, as `chip_smoke.py` builds
+them) it
   1. holds each library's K7 to the plain version (`token_kernel_plain`)
      on the first two layers at pos 2047 of a 2048-row cache of random
      rows: the same kept groups, the stream within 2e-2 of its largest
@@ -99,19 +101,30 @@ VARIANTS = {
         "__device__ __forceinline__ void attention(",
         "__device__ __noinline__ void attention(")],
     "no cluster sums (wrong results)": [(
-        "    epilogue<T, P>(a, kind, st, part, rank, C, l, h, dst, dst2);\n",
+        "    epilogue<T, P>(a, kind, st, part, rank, C, wlay, h, dst, dst2, "
+        "wt);\n",
         "")],
 }
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the entry points' argtypes (this tree's signatures)."""
+def bind(lib: ctypes.CDLL, moe: bool) -> ctypes.CDLL:
+    """Set the entry points' argtypes: this tree's signatures, or (`moe`
+    False, the older library) the same without the MoE arguments (the
+    router after the weights, routes after sel, E and KE after fixed;
+    E and KE before the plan's out)."""
     from teal_tpu_torch import _build
 
-    for fn in ("teal_token_decode", "teal_token_plan"):
+    sig = {fn: _build.SIGNATURES[("token_decode", fn)]
+           for fn in ("teal_token_decode", "teal_token_plan")}
+    if not moe:
+        d, p = sig["teal_token_decode"], sig["teal_token_plan"]
+        sig = {"teal_token_decode": d[:14] + d[15:19] + d[20:34] + d[36:],
+               "teal_token_plan": p[:10] + p[12:]}
+    for fn, argtypes in sig.items():
         f = getattr(lib, fn)
-        f.argtypes = _build.SIGNATURES[("token_decode", fn)]
+        f.argtypes = argtypes
         f.restype = ctypes.c_int
+    lib.moe_args = moe
     return lib
 
 
@@ -146,7 +159,7 @@ def build_all(jobs):
         text, _ = proc.communicate(timeout=900)
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {tag}:\n{text}")
-        libs[tag] = bind(ctypes.CDLL(str(so)))
+        libs[tag] = bind(ctypes.CDLL(str(so)), tag != "parent")
     return libs
 
 
@@ -188,19 +201,23 @@ class Point:
         c, L = self.cfg, self.kc.shape[0]
         sms = _build.sm_count(self.h.device.index)
         out = (ctypes.c_int * 11)()
+        moe = lib.moe_args          # a dense MLP: no router, E = KE = 0
         rc = lib.teal_token_plan(1, c.dim, c.intermediate_size, c.n_heads,
                                  c.n_kv_heads, self.kc.shape[3], 0,
-                                 max(self.caps), sms, L, out)
+                                 max(self.caps), sms, L,
+                                 *((0, 0) if moe else ()), out)
         cs.check(rc == 0, f"no K7 plan: {rc}")
         work = torch.empty(out[3], dtype=torch.uint8, device=self.h.device)
         args = (1, self.h.data_ptr(), self.th.data_ptr(), self.pos.data_ptr(),
                 self.rope.data_ptr(), *(n.data_ptr() for n in self.norms),
-                *(w.data_ptr() for w in self.ws), self.kc.data_ptr(),
+                *(w.data_ptr() for w in self.ws),
+                *((None,) if moe else ()), self.kc.data_ptr(),
                 self.vc.data_ptr(), self.out.data_ptr(),
-                None if sel is None else sel.data_ptr(), None,
+                None if sel is None else sel.data_ptr(),
+                *((None,) if moe else ()), None,
                 work.data_ptr(), L, c.dim, c.intermediate_size, c.n_heads,
-                c.n_kv_heads, self.kc.shape[3], 0, *self.caps, 0, c.norm_eps,
-                sms, 0)
+                c.n_kv_heads, self.kc.shape[3], 0, *self.caps, 0,
+                *((0, 0) if moe else ()), c.norm_eps, sms, 0)
 
         def fn(i):
             err = lib.teal_token_decode(
