@@ -34,8 +34,8 @@ Phases:
      token; layer 0 of the kernel path against the plain path (2e-2 of
      the largest magnitude); three greedy requests (prompt lengths 5, 17,
      40; 16 new tokens each) with the launch counts reset just before and
-     read just after: K1 4*L and K2 L launches per decoded token; dense
-     and sparse decode tok/s;
+     read just after: L K8 and 3*L K1 launches per decoded token (the
+     one-row loop, phase 21); dense and sparse decode tok/s;
   5. the layer loop's kernels at the 7B stage shapes of its paths, against
      their plain versions: K1 at G=32 / 64 (path B's four stages, with the
      folded norm on q|k|v and gate|up; the three selection regimes of
@@ -59,7 +59,7 @@ Phases:
      plain layer run on the kernel path's kept groups, at the same 2e-2);
      three greedy requests per
      path with the launch counts reset just before and read just after:
-     per decode step A: K3 4*L and K2 L, B: K1 4*L and K2 L, C: K4 7*L;
+     per decode step A: K3 4*L and K2 L, B: K8 L and K1 3*L, C: K4 7*L;
   7. per-kernel times on the card beside their plain version, the
      library call and the memory bound (and the GB/s a gather moves), the
      logits head's time, and the decode step's device and wall time on
@@ -75,7 +75,8 @@ Phases:
      kept sets; 1e-4 of scale for fp32 outputs, 2^-7 for bf16 epilogues);
      every 7B layer of each path held to its plain path (2e-2 of scale);
      three greedy requests per path (8 new tokens) with the launches per
-     step asserted (main paths: K1 4*L + K2 L; loop paths: K3 4*L + K2 L);
+     step asserted (Q8-main: K1 4*L + K2 L; Q4-main: K8 L + K1 3*L; loop
+     paths: K3 4*L + K2 L);
      the decode step, the plan kernels' times beside their bound, plain
      version, `torch.matmul` on the bf16 weights and PyTorch's own
      weight-only GEMV, and the quantized logits head; with each plan also
@@ -138,7 +139,7 @@ Phases:
      output 2^-6 a row, the layer output 2e-2 of scale); `Generator` with
      a 2000-token prompt
      (padded to 2048) and 16 greedy tokens on the main path, asserting
-     exactly L K6 launches for the long prefill besides 4*L K1 + L K2 a
+     exactly L K6 launches for the long prefill besides L K8 + 3*L K1 a
      token (the short prompts of phases 4-10 assert none); the 2k
      prefill's seconds and peak memory with K6 against the plain
      `_attention` path, in turns; one main-path decode step at pos 2000
@@ -180,7 +181,8 @@ Phases:
      single row, K2), the dense verify through `block_verify` (K1's fixed
      rows form, K2's seq_block): phase 4's three prompts and the third
      again with the draft at keep 1.0, 32 tokens each at temperature 0,
-     4*L K1 + L K2 launches a draft step and a verify chunk, every emitted
+     L K8 + 3*L K1 launches a draft step and one K7 a verify chunk, every
+     emitted
      token the argmax of its verify row and the cache rows of the emitted
      tokens the verify's bit for bit; the first round's verify rerun equal
      to the recorded one, each layer held to the plain path (2e-2), and
@@ -194,7 +196,7 @@ Phases:
      at temperature 1 from one seed and at forced_alpha 0.9, in turns:
      the same tokens, new_tokens, mean accepted and rounds, the wrappers'
      launches those of the warm-up and the capture, one replayed round's
-     kernels from the profiler (at most (k + 1) x (4*L K1 + L K2)),
+     kernel nodes (k x (L K8 + 3*L K1) and one K7),
      t_round of both loops;
  14. the CLI (`teal_tpu_torch.cli.main` in-process, `cli_phase`) on a
      2-layer cut of the 7B config at full widths, random weights from
@@ -273,7 +275,7 @@ Phases:
      loop and from the graph, at
      temperature 0 and at 0.8 from one generator seed, the tokens equal;
      one replay's K1-K6 executions from the profiler's kernel records,
-     never more than the step's launches (main: 4*L K1 + L K2 = 160,
+     never more than the step's launches (main: L K8 + 3*L K1 = 128,
      gated equal; Mixtral: 6*L K1 + L K2 + L K5 = 256; later phases'
      traces have dropped a few records, reported); the replayed step's
      device time, wall
@@ -346,6 +348,24 @@ Phases:
      (the draft k x (4L K1 + L K2)): the launch counts, the round graphs'
      kernel nodes (one K7 node a round) and the first round's chunk held
      through K7;
+ 21. K8, the one-row attention stage in one launch (`csrc/attn_block.cu`,
+     `check_k8` after phase 3): its plan in the wrapper equal to the
+     kernel's (`check_k8_plan`: 486 shapes, among them the 70b cut's);
+     K8 against its plain version at the 7B's width: bf16 and fp32 arrays
+     at G 128 and 32, packed int4 at G 128, MHA 32/32 and GQA 32/8 with a
+     window of 64, pos 0, 1, 127, 128, 511 of a 512-row cache and 2047 of
+     a 2048-row one, each in the three selection regimes of phase 2 and
+     `fixed`: identical kept sets and counts, the written k/v row within
+     2^-7 (bf16) or 1e-4 (fp32) of its scale and every other cache row
+     bit for bit, each head's output within 2^-6 / 1e-4 of its largest
+     value, two calls bit for bit (`k8_case`). The one-row loop (phases
+     4, 6's path B, 8's Q4-main, 11-13, 16's bench step, 17's main graph,
+     18's loop legs, fault 3.1's loop, Mixtral's bf16 loop) launches L K8
+     and no K2 a step, its graphs hold L K8 nodes (`k8_nodes`), and the
+     plain path swaps K8 for `attn_block_plain`. In phase 7 K8's times
+     (`time_k8`): 7B bf16 at G 128 and 32 and int4 at G 128, pos 511 and
+     2047, beside K1's q|k|v call + K2 on the same inputs in turns, its
+     plain version and its bound;
 all printed as one `kernels` JSON line, with the card in it (and the
 results of phases 12-18 under "calibration", "speculative", "cli",
 "parallel", "serving_tp", "device_loop" and "k7");
@@ -402,7 +422,14 @@ LOOP_PATHS = {
 # K5, K6 (K6 runs only in the prefill of a prompt of 256 or more tokens:
 # none for these requests' short prompts)
 LOOP_LAUNCHES = {"A": (0, 1, 4, 0, 0, 0), "A-b4": (0, 1, 4, 0, 0, 0),
-                 "B": (4, 1, 0, 0, 0, 0), "C": (0, 0, 0, 7, 0, 0)}
+                 "B": (3, 0, 0, 0, 0, 0), "C": (0, 0, 0, 7, 0, 0)}
+# K8 launches per layer and decode step: the one-row attention stage
+# (`attn_block.attn_block`) of path B and of the one-row K1/K8 loop
+LOOP_K8 = {"B": 1}
+# the one-row loop's launches a layer (`token_fused=False` or the layer
+# loop at batch 1, arrays or packed int4): K8, then K1 for o, gate|up and
+# down; no K2
+LOOP_ROW = (3, 0, 0, 0, 0, 0)
 LOOP_NEW_TOKENS = 8
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "wgate", "wup", "wdown")
 STAGE_WEIGHTS = {"qkv": ("wq", "wk", "wv"), "o": ("wo",),
@@ -420,9 +447,12 @@ QUANT_PATHS = {
 }
 QUANT_LAUNCHES = {"Q8-main": (4, 1, 0, 0, 0, 0),
                   "Q8-main-b16": (0, 0, 0, 0, 0, 0),
-                  "Q8-loop": (0, 1, 4, 0, 0, 0), "Q4-main": (4, 1, 0, 0, 0, 0),
+                  "Q8-loop": (0, 1, 4, 0, 0, 0), "Q4-main": LOOP_ROW,
                   "Q4-main-b16": (0, 0, 0, 0, 0, 0),
                   "Q4-loop": (0, 1, 4, 0, 0, 0)}
+# K8 launches per layer and step: Q4-main's one-row loop (int8's attention
+# stays K1 + K2)
+QUANT_K8 = {"Q4-main": 1}
 # K7 launches a decode step (not a layer): the quantized server steps of 16
 # rows take K7's int8 / int4 rows form, one launch a step and no K1-K6
 QUANT_K7 = {"Q8-main-b16": 1, "Q4-main-b16": 1}
@@ -748,6 +778,331 @@ def check_k2(cfg, device, gen, rope):
     return worst
 
 
+# --- phase 21 (beside phases 2 and 3): K8, the attention stage ------------
+
+# K8's check shapes at the 7B's width (K 4096, head_dim 128, keep 0.5):
+# (tag, stream type, weights, G, Hq, Hkv, window, T, positions)
+K8_POS = (0, 1, 127, 128, 511)
+K8_CASES = (
+    ("bf16 G128", "bfloat16", "array", 128, 32, 32, None, 512, K8_POS),
+    ("bf16 G32", "bfloat16", "array", 32, 32, 32, None, 512, K8_POS),
+    ("fp32 G128", "float32", "array", 128, 32, 32, None, 512, K8_POS),
+    ("fp32 G32", "float32", "array", 32, 32, 32, None, 512, K8_POS),
+    ("int4 G128", "bfloat16", "int4", 128, 32, 32, None, 512, K8_POS),
+    ("bf16 GQA 32/8 w64", "bfloat16", "array", 128, 32, 8, 64, 512, K8_POS),
+    ("fp32 GQA 32/8 w64", "float32", "array", 32, 32, 8, 64, 512, K8_POS),
+    ("bf16 T2048", "bfloat16", "array", 128, 32, 32, None, 2048, (2047,)),
+    ("int4 GQA T2048", "bfloat16", "int4", 128, 32, 8, None, 2048, (2047,)),
+)
+K8_KEEP = 0.5
+# K8 against its plain version: each (head) output row within this of its
+# row's largest value (bf16: each side rounds its output, and its weights
+# before PV, to bf16 from scores summed in other orders); the written k/v
+# row within K8_ROW_TOL's second column of the row's scale
+K8_ROW_TOL = {"bfloat16": (2 ** -6, 2 ** -7), "float32": (1e-4, 1e-4)}
+# K8's timed cases: (tag, weights, G, pos, T) on the resident 7B's layers
+K8_TIMES = (("bf16 G128", "array", 128, 511, 512),
+            ("bf16 G32", "array", 32, 511, 512),
+            ("int4 G128", "int4", 128, 511, 512),
+            ("bf16 G128", "array", 128, 2047, 2048),
+            ("bf16 G32", "array", 32, 2047, 2048),
+            ("int4 G128", "int4", 128, 2047, 2048))
+K8_TIME_ITERS = 64
+K8_INT4_LAYERS = 8               # int4 q|k|v stacks timed (> L2 together)
+
+
+def check_k8_plan():
+    """The wrapper's K8 plan (`attn_block.k8_plan`: C, grid, shared bytes,
+    or none) equal to the kernel's (`teal_attn_block_plan`) on this card's
+    SM count: the check shapes and the 70b cut's (K 8192, 64/8 heads,
+    int4 at G 128), every G and weight plan, caps 1, nb / 2 and nb, GH 1-8
+    and Hkv 1-64. Returns the number of shapes checked."""
+    import torch
+
+    from teal_tpu_torch import _build
+    from teal_tpu_torch.ops import attn_block as ab
+
+    sms = _build.sm_count(torch.cuda.current_device())
+    n = 0
+    for K in (4096, 8192, 1024):
+        for plan in (0, 2):
+            for G in (32, 64, 128):
+                nb = K // G
+                for cap in sorted({1, nb // 2, nb}):
+                    for Hq, Hkv in ((32, 32), (32, 8), (64, 8), (4, 2),
+                                    (8, 1), (12, 4), (48, 48), (64, 64),
+                                    (16, 16)):
+                        want = ab.k8_plan(plan, G, K, Hq, Hkv, cap, sms)
+                        got = ab.k8_card_plan(plan, G, K, Hq, Hkv, cap, sms)
+                        check(got == want, f"K8 plan at K={K} plan={plan} "
+                              f"G={G} cap={cap} {Hq}/{Hkv}: the kernel's "
+                              f"{got}, the wrapper's {want}")
+                        n += 1
+    for shape in ((0, 32, 4096, 32, 32, 64), (0, 128, 4096, 32, 32, 16),
+                  (2, 128, 4096, 32, 32, 16), (0, 128, 4096, 32, 8, 16),
+                  (2, 128, 8192, 64, 8, 32)):
+        check(ab.k8_plan(*shape, sms) is not None,
+              f"K8 has no plan for the slice's shape {shape}")
+    log(f"[k8] the wrapper's plan equals the kernel's at all {n} shapes "
+        f"checked ({sms} SMs); (C, grid, shared bytes) 7B path B "
+        f"{ab.k8_plan(0, 32, 4096, 32, 32, 64, sms)}, 7B loop "
+        f"{ab.k8_plan(0, 128, 4096, 32, 32, 16, sms)}, GQA 32/8 "
+        f"{ab.k8_plan(0, 128, 4096, 32, 8, 16, sms)}, 70b int4 "
+        f"{ab.k8_plan(2, 128, 8192, 64, 8, 32, sms)}")
+    return n
+
+
+def k8_weights(K, Hq, Hkv, L, kind, G, gen, device, dtype):
+    """Random q|k|v stacks [L, K, N] of `dtype`, or (int4) those drawn in
+    bf16 quantized at group G and packed (`quant.pack_int4`)."""
+    import torch
+
+    from teal_tpu_torch.ops import quant
+
+    ws = []
+    for n in (Hq * 128, Hkv * 128, Hkv * 128):
+        w = (torch.randn(L, K, n, generator=gen, device=device) * 0.02)
+        if kind == "int4":
+            packs = [quant.pack_int4(quant.quantize_int4(w[i], G))
+                     for i in range(L)]
+            ws.append({k: torch.stack([p[k] for p in packs])
+                       for k in ("qp", "sz")})
+        else:
+            ws.append(w.to(dtype))
+        del w
+    return ws
+
+
+def k8_input(K, G, L, layer, gen, device, dtype):
+    """A spiky stream (`spiky_input`) and attention-norm gains [L, K] of 1
+    +- 0.1, exactly 1 at each group's spike: the selection input's scores
+    keep the spikes' 5% spacing."""
+    import torch
+
+    x = spiky_input(K, gen, device, dtype, G)
+    norm = 1 + 0.1 * torch.randn(L, K, generator=gen, device=device)
+    peak = (x.float().abs().reshape(-1, G).argmax(-1)
+            + torch.arange(K // G, device=device) * G)
+    norm[:, peak] = 1.0
+    return x, norm.to(dtype)
+
+
+def k8_case(what, x, thr, ws, layer, cap, norm, kc, vc, pos, rope, *,
+            n_heads, window, G, fixed, tol):
+    """K8 twice and its plain version on copies of the caches: the same
+    kept groups and count, the two calls bit for bit (outputs, kept sets,
+    caches), the written k/v row within tol[1] of its scale and every other
+    cache row bit for bit, each (head) output row within tol[0] of its
+    largest value. Returns (largest output error, worst row ratio, kept
+    count)."""
+    import torch
+
+    from teal_tpu_torch.ops.attn_block import attn_block, attn_block_plain
+
+    kw = dict(n_heads=n_heads, window=window, G=G, fixed=fixed)
+    runs = []
+    for _ in range(2):
+        k1, v1 = kc.clone(), vc.clone()
+        runs.append((*attn_block(x, thr, *ws, layer, cap, norm, 1e-5, k1,
+                                 v1, pos, rope, **kw), k1, v1))
+    k2, v2 = kc.clone(), vc.clone()
+    want, widx, wcnt = attn_block_plain(x, thr, *ws, layer, cap, norm, 1e-5,
+                                        k2, v2, pos, rope, **kw)
+    a, b = runs
+    check(all(torch.equal(u, w) for u, w in zip(a, b)),
+          f"{what}: two identical calls differ")
+    out, idx, cnt, k1, v1 = a
+    check(torch.equal(idx, widx) and torch.equal(cnt, wcnt),
+          f"{what}: kept {int(cnt[0])} {idx.tolist()}, plain "
+          f"{int(wcnt[0])} {widx.tolist()}")
+    p = int(pos[0])
+    for name, got, ref in (("k", k1, k2), ("v", v1, v2)):
+        rel_check(f"{what}: the written {name} row", got[layer, :, :, p],
+                  ref[layer, :, :, p], tol[1])
+        got, ref = got.clone(), ref.clone()
+        got[layer, :, :, p] = 0
+        ref[layer, :, :, p] = 0
+        check(torch.equal(got, ref), f"{what}: {name} cache rows other "
+              "than pos differ")
+    err, ratio = row_check(what, out.view(n_heads, 128),
+                           want.view(n_heads, 128), tol[0])
+    return err, ratio, int(cnt[0])
+
+
+def check_k8(cfg, device, gen):
+    """K8 (`attn_block`) against its plain version (`k8_case`) at
+    `K8_CASES`, each position with the three selection regimes of phase 2
+    (count < cap, count == cap with groups under the threshold, more
+    survivors than cap) and `fixed`; its plan against the kernel's
+    (`check_k8_plan`). Returns the largest bf16 output error."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops.block_gemv import group_scores, selection_input
+    from teal_tpu_torch.ops.sparsify import group_capacity
+
+    if device.type == "cuda":
+        check_k8_plan()
+    K, L, layer = cfg.dim, 2, 1
+    ropes = {T: llama.precompute_rope(cfg, T, device)
+             for T in {c[7] for c in K8_CASES}}
+    worst = 0.0
+    for tag, dts, kind, G, Hq, Hkv, window, T, poss in K8_CASES:
+        dt = getattr(torch, dts)
+        nb = K // G
+        cap = group_capacity(nb, K8_KEEP)
+        ws = k8_weights(K, Hq, Hkv, L, kind, G, gen, device, dt)
+        kc = torch.randn(L, 1, Hkv, T, 128, generator=gen,
+                         device=device).to(dt)
+        vc = torch.randn(L, 1, Hkv, T, 128, generator=gen,
+                         device=device).to(dt)
+        for p in poss:
+            pos = torch.tensor([p], dtype=torch.int32, device=device)
+            rope = torch.stack([ropes[T][0][p], ropes[T][1][p]])[None]
+            line = []
+            for regime, n_surv in (("count<cap", max(1, cap // 2)),
+                                   ("count==cap", cap),
+                                   ("overflow", min(nb, cap + nb // 4)),
+                                   ("fixed", cap)):
+                x, norm = k8_input(K, G, L, layer, gen, device, dt)
+                xs = selection_input(x, norm, layer, 1e-5)
+                thr, margin = threshold_for(group_scores(xs.float()[None],
+                                                         G), n_surv)
+                check(regime == "fixed" or margin > 1e-2, f"K8 {tag}: a "
+                      f"group score lies within {margin:.2e} of the "
+                      "threshold")
+                what = f"K8 {tag} pos={p} {regime}"
+                err, ratio, kept = k8_case(
+                    what, x, torch.tensor(thr, device=device), ws, layer,
+                    cap, norm, kc, vc, pos, rope.contiguous(), n_heads=Hq,
+                    window=window, G=G, fixed=regime == "fixed",
+                    tol=K8_ROW_TOL[dts])
+                check(kept == min(n_surv, cap), f"{what}: kept {kept}, "
+                      f"expected {min(n_surv, cap)}")
+                if dt == torch.bfloat16:
+                    worst = max(worst, err)
+                line.append(f"{regime} kept {kept} err {err:.2e} row "
+                            f"{ratio:.1e}")
+            log(f"[k8] {tag} (G={G} cap={cap} {Hq}/{Hkv} window={window} "
+                f"T={T}) pos={p}: " + "; ".join(line)
+                + "; kept sets equal, two calls identical")
+        del ws, kc, vc
+        torch.cuda.empty_cache()
+    return worst
+
+
+def k8_bound(K, G, cap, Hq, Hkv, p, esz, int4: bool):
+    """K8's least time on the card (`bound_ms`) for a call keeping `cap`
+    groups at pos p: the kept slab rows of q|k|v (int4: half a byte an
+    element and each kept group's scale and zero rows), the live cache
+    rows of K and V, the gains and the stream, the cos|sin row, the output
+    and the written k/v rows; 2 flops a kept weight and 4 a live cache
+    element of each query head. Returns (ms, "bytes" or "operations",
+    bytes)."""
+    n = (Hq + 2 * Hkv) * 128
+    w = cap * G * n // 2 + cap * 2 * n * 4 if int4 else cap * G * n * esz
+    nbytes = (w + 2 * p * Hkv * 128 * esz + 2 * K * esz + 2 * 128 * 4
+              + Hq * 128 * esz + 2 * Hkv * 128 * esz)
+    ms, by = bound_ms(nbytes, 2 * cap * G * n + 4 * Hq * p * 128)
+    return ms, by, nbytes
+
+
+def time_k8(params, cfg, device, gen, launches, err):
+    """K8 on the resident 7B's q|k|v stacks (bf16, every layer in turn so
+    that calls do not share L2; int4 on `K8_INT4_LAYERS` layers quantized
+    at group 128) at `K8_TIMES`, zero thresholds (count == cap): one
+    `k8_case`, then its time and that of K1's q|k|v call followed by K2 on
+    the same inputs, in turns (K8, K1 + K2, K1 + K2, K8; CUDA events behind
+    a sleep, `cuda_ms`), the plain version's and the bound. Returns the
+    `kernels` entry (launches: `launches`, {route: (K8 launches, steps)}
+    of the main path's runs)."""
+    import torch
+
+    from teal_tpu_torch.models import llama
+    from teal_tpu_torch.ops import attn_block as ab
+    from teal_tpu_torch.ops import block_gemv as bg
+    from teal_tpu_torch.ops import decode_attention as da
+    from teal_tpu_torch.ops import quant
+    from teal_tpu_torch.ops.sparsify import group_capacity
+
+    lay = params["layers"]
+    K, Hq, Hkv = cfg.dim, cfg.n_heads, cfg.n_kv_heads
+    norm = lay["attn_norm"]
+    arrays = (lay["wq"], lay["wk"], lay["wv"])
+    nl4 = K8_INT4_LAYERS
+    int4 = [{k: torch.stack([quant.pack_int4(quant.quantize_int4(
+        w[i], 128))[k] for i in range(nl4)]) for k in ("qp", "sz")}
+        for w in arrays]
+    x = torch.randn(K, generator=gen, device=device).to(torch.bfloat16)
+    thr = torch.zeros((), device=device)
+    rows, worst = [], err
+    for tag, kind, G, p, T in K8_TIMES:
+        ws = int4 if kind == "int4" else arrays
+        L = nl4 if kind == "int4" else cfg.n_layers
+        nrm = norm[:L].contiguous()
+        cap = group_capacity(K // G, K8_KEEP)
+        kc = torch.randn(L, 1, Hkv, T, 128, generator=gen,
+                         device=device).bfloat16()
+        vc = torch.randn(L, 1, Hkv, T, 128, generator=gen,
+                         device=device).bfloat16()
+        rope_t = llama.precompute_rope(cfg, T, device)
+        row = torch.stack([rope_t[0][p], rope_t[1][p]])[None].contiguous()
+        pos = torch.tensor([p], dtype=torch.int32, device=device)
+        e, ratio, kept = k8_case(f"K8 timed {tag} pos={p}", x, thr, ws, 0,
+                                 cap, nrm, kc, vc, pos,
+                                 row, n_heads=Hq, window=None, G=G,
+                                 fixed=False, tol=K8_ROW_TOL["bfloat16"])
+        check(kept == cap, f"K8 timed {tag}: kept {kept} of cap {cap}")
+        worst = max(worst, e)
+        nq, nk = Hq * 128, Hkv * 128
+
+        def k8(i):
+            ab.attn_block(x, thr, *ws, i % L, cap, nrm, cfg.norm_eps, kc,
+                          vc, pos, row, n_heads=Hq, G=G)
+
+        def k1k2(i):
+            qkv, _, _ = bg.select_gather_gemv(x, thr, ws, i % L, cap, G=G,
+                                              norm=nrm,
+                                              norm_eps=cfg.norm_eps)
+            r = qkv.view(1, -1)
+            da.decode_attention(r[:, :nq].view(1, Hq, 128),
+                                r[:, nq:nq + nk].view(1, Hkv, 128),
+                                r[:, nq + nk:].view(1, Hkv, 128), kc, vc,
+                                i % L, pos, rope=row)
+        turns = in_turns(("k8", "k1+k2"), 2, lambda r: cuda_ms(
+            k8 if r == "k8" else k1k2, K8_TIME_ITERS)[0])
+        p_ms, _ = cuda_ms(lambda i: ab.attn_block_plain(
+            x, thr, *ws, i % L, cap, nrm, cfg.norm_eps, kc, vc, pos, row,
+            n_heads=Hq, G=G), 5, warmup=1, queued=False)
+        b_ms, b_by, nbytes = k8_bound(K, G, cap, Hq, Hkv, p, 2,
+                                      kind == "int4")
+        ms = min(turns["k8"])
+        rows.append(dict(case=f"{tag} pos={p} T={T}", G=G, cap=cap, pos=p,
+                         ms=ms, k8_turns=turns["k8"],
+                         k1_k2_turns=turns["k1+k2"], plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6))
+        log(f"[time] K8 {tag} pos={p} (T={T}, cap {cap}): kernel "
+            f"{[round(t, 4) for t in turns['k8']]} ms in turns with K1 + K2 "
+            f"{[round(t, 4) for t in turns['k1+k2']]} ms; plain {p_ms:.4f} "
+            f"ms; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
+            f"{b_ms / ms:.1%} of it); worst row {ratio:.2e}")
+        del kc, vc
+        torch.cuda.empty_cache()
+    del int4
+    main = rows[0]
+    n8, steps = launches["loop"]
+    return dict(name="attn_block", route="cuda",
+                source="teal_tpu_torch/csrc/attn_block.cu",
+                replaces="teal_tpu/ops/attn_block.py:605", launches=n8,
+                launches_per_token=n8 / steps,
+                launches_path_b=launches.get("B"), on_main_path=False,
+                max_abs_err=worst, ms=main["ms"], kernel_ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                timed=f"7B bf16 G=128 cap {main['cap']} pos 511 (T 512), "
+                      "zero thresholds", cases=rows)
+
+
 # --- phase 4: end to end ------------------------------------------------
 
 def pick_threshold(scores, cap: int) -> float:
@@ -849,12 +1204,14 @@ def _wrappers():
 
 
 def reset_launches():
-    """Set the launch counts of K1-K6 and K7 to 0."""
+    """Set the launch counts of K1-K6, K7 and K8 to 0."""
+    from teal_tpu_torch.ops.attn_block import attn_block
     from teal_tpu_torch.ops.token_block import token_kernel
 
     for f in _wrappers():
         f.launches = 0
     token_kernel.launches = 0
+    attn_block.launches = 0
 
 
 def k7_launches() -> int:
@@ -864,19 +1221,32 @@ def k7_launches() -> int:
     return token_kernel.launches
 
 
+def k8_launches() -> int:
+    """K8's launch count (the one-row attention stage, read beside
+    K1-K6's wherever the one-row loop runs)."""
+    from teal_tpu_torch.ops.attn_block import attn_block
+
+    return attn_block.launches
+
+
 def read_launches():
     """Launch counts (K1, K2, K3, K4, K5, K6)."""
     return tuple(f.launches for f in _wrappers())
 
 
-def check_launches(counts, L: int, decoded: int, long_prefills: int = 0):
-    """The main path's launch counts (K1, K2, K3, K4, K5, K6) after
-    `decoded` token-path decode steps and prefills of which
-    `long_prefills` had 256 or more tokens: 4*L K1 and L K2 a token, L K6
-    a long prefill (none for a short one), no other kernel."""
-    want = (4 * L * decoded, L * decoded, 0, 0, 0, L * long_prefills)
-    check(tuple(counts) == want, f"launches (K1, K2, K3, K4, K5, K6) "
-          f"{tuple(counts)}, expected {want} for {decoded} decoded tokens "
+def check_launches(counts, L: int, decoded: int, long_prefills: int = 0,
+                   n8: int = None):
+    """The one-row loop's launch counts (K1, K2, K3, K4, K5, K6) and K8's
+    (`n8`, by default read now) after `decoded` decode steps and prefills
+    of which `long_prefills` had 256 or more tokens: L K8 and 3*L K1 a
+    token (`LOOP_ROW`), L K6 a long prefill (none for a short one), no
+    other kernel."""
+    n8 = k8_launches() if n8 is None else n8
+    want = tuple(n * L * decoded for n in LOOP_ROW[:5]) + (
+        L * long_prefills,)
+    check(tuple(counts) == want and n8 == L * decoded,
+          f"launches (K1, K2, K3, K4, K5, K6) {tuple(counts)} and {n8} K8, "
+          f"expected {want} and {L * decoded} for {decoded} decoded tokens "
           f"and {long_prefills} prefill(s) of 256 or more tokens")
 
 
@@ -947,10 +1317,12 @@ def end_to_end(params, cfg, caps, device, seed):
     outs = [sparse.generate(p, NEW_TOKENS, thresholds=th,
                             on_device_loop=False) for p in prompts]
     k1, k2, *_ = counts = read_launches()
+    k8 = k8_launches()
     decoded = len(prompts) * (NEW_TOKENS - 1)
-    check_launches(counts, L, decoded)         # short prompts: no K6
+    check_launches(counts, L, decoded, n8=k8)  # short prompts: no K6
     log(f"[e2e] main path: {len(prompts)} requests, {decoded} decoded "
-        f"tokens, K1 launches {k1} ({k1 // max(decoded, 1)}/token), "
+        f"tokens, K8 launches {k8} ({k8 // max(decoded, 1)}/token), "
+        f"K1 launches {k1} ({k1 // max(decoded, 1)}/token), "
         f"K2 launches {k2} ({k2 // max(decoded, 1)}/token)")
     for p, (toks, st) in zip(prompts, outs):
         check(toks.shape == (1, len(p) + NEW_TOKENS)
@@ -974,7 +1346,7 @@ def end_to_end(params, cfg, caps, device, seed):
                            thresholds=None if kind == "dense" else th,
                            on_device_loop=False)
         speeds[kind].append(st.tokens_per_s)
-    return (k1, k2, decoded), speeds, th
+    return (k1, k2, k8, decoded), speeds, th
 
 
 PROFILE_TRIES = 3                # torch.profiler sessions a reading
@@ -1300,7 +1672,8 @@ def plain_path(k1=None):
     """Inside the block, every kernel wrapper the layer loop and the token
     path call is its plain PyTorch version (K1's is `k1` where given): the
     same `layer_forward` / `layer_decode` then runs on the card without a
-    kernel of the port."""
+    kernel of the port. K8's is `attn_block_plain`, whose q|k|v call is
+    `k1` too."""
     from teal_tpu_torch.models import llama
     from teal_tpu_torch.ops import attn_block, token_block
     from teal_tpu_torch.ops import block_gemv as bg
@@ -1312,6 +1685,8 @@ def plain_path(k1=None):
     k1 = k1 or bg.select_gather_gemv_plain
     swaps = [(bg, "select_gather_gemv", k1),
              (attn_block, "select_gather_gemv", k1),
+             (attn_block, "attn_block", attn_block.attn_block_plain),
+             (attn_block, "select_gather_gemv_plain", k1),
              (token_block, "select_gather_gemv", k1),
              (bg, "block_gather_gemv_multi",
               bg.block_gather_gemv_multi_plain),
@@ -1324,7 +1699,7 @@ def plain_path(k1=None):
              (llama, "flash_prefill_attention",
               fp.flash_prefill_attention_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
-    before = read_launches(), k7_launches()
+    before = read_launches(), k7_launches(), k8_launches()
     for m, n, f in swaps:
         setattr(m, n, f)
     try:
@@ -1332,7 +1707,7 @@ def plain_path(k1=None):
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
-    check((read_launches(), k7_launches()) == before,
+    check((read_launches(), k7_launches(), k8_launches()) == before,
           "the plain path launched a kernel")
 
 
@@ -1760,12 +2135,13 @@ def hold_token_layers(params, cfg, cache, tok, pos, rope, device, *,
 
 
 def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None,
-               k7=None):
+               k7=None, k8=None):
     """Phase 6 for every path of `paths` (name: (SparsityConfig kwargs,
     batch); `LOOP_PATHS` by default), each held layer by layer on the
     token path or the layer loop, as `forward` routes it, with the launch
-    counts per layer and step of `launches` and the K7 launches per step
-    of `k7` (none where a path is absent). Returns {path: results}."""
+    counts per layer and step of `launches`, the K7 launches per step of
+    `k7` and the K8 launches per layer and step of `k8` (`LOOP_K8` by
+    default; none where a path is absent). Returns {path: results}."""
     import numpy as np
 
     from teal_tpu_torch.config import SparsityConfig
@@ -1775,6 +2151,7 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None,
     paths = paths or LOOP_PATHS
     launches = launches or LOOP_LAUNCHES
     k7 = k7 or {}
+    k8 = LOOP_K8 if k8 is None else k8
     rng = np.random.default_rng(seed + 1)
     dt = llama.compute_dtype(params)
     L = cfg.n_layers
@@ -1806,20 +2183,24 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None,
         reset_launches()
         outs = [gen.generate(p, LOOP_NEW_TOKENS, thresholds=th,
                              on_device_loop=False) for p in prompts]
-        counts, n7 = read_launches(), k7_launches()
+        counts, n7, n8 = read_launches(), k7_launches(), k8_launches()
         steps = len(prompts) * (LOOP_NEW_TOKENS - 1)
         want = tuple(n * L * steps for n in launches[name])
-        check(counts == want and n7 == k7.get(name, 0) * steps,
-              f"path {name}: launches (K1, K2, K3, K4, K5, K6) {counts} and "
-              f"{n7} K7, expected {want} and {k7.get(name, 0) * steps} for "
-              f"{steps} decode steps")
+        want8 = k8.get(name, 0) * L * steps
+        check(counts == want and n7 == k7.get(name, 0) * steps
+              and n8 == want8,
+              f"path {name}: launches (K1, K2, K3, K4, K5, K6) {counts}, "
+              f"{n7} K7 and {n8} K8, expected {want}, "
+              f"{k7.get(name, 0) * steps} and {want8} for {steps} decode "
+              "steps")
         for p, (toks, st) in zip(prompts, outs):
             check(toks.shape == (b, p.shape[1] + LOOP_NEW_TOKENS)
                   and bool((toks >= 0).all() and (toks < cfg.vocab_size)
                            .all()), f"path {name}: bad tokens {toks.shape}")
         log(f"[loop] path {name}: {len(prompts)} requests, {steps} decode "
             f"steps, launches per step (K1, K2, K3, K4, K5, K6) "
-            f"{tuple(c // steps for c in counts)} and K7 {n7 // steps}; tok/s "
+            f"{tuple(c // steps for c in counts)}, K7 {n7 // steps} and K8 "
+            f"{n8 // steps}; tok/s "
             + ", ".join(f"{st.tokens_per_s * b:.2f}" for _, st in outs)
             + f"; first request's new tokens "
             f"{outs[0][0][0, prompts[0].shape[1]:].tolist()}")
@@ -1827,9 +2208,10 @@ def loop_paths(params, cfg, device, seed, rope, paths=None, launches=None,
         graph = graph_route(f"path {name}", cfg, params, sp_kw, b, th, device,
                             prompts, launches[name], seed,
                             n_new=LOOP_NEW_TOKENS,
-                            k7_per_step=k7.get(name, 0))
+                            k7_per_step=k7.get(name, 0),
+                            k8_per_step=k8.get(name, 0) * L)
         out[name] = dict(th=th, worst=worst, launches=counts, steps=steps,
-                         k7_launches=n7,
+                         k7_launches=n7, k8_launches=n8,
                          tok_s=[st.tokens_per_s * b for _, st in outs],
                          graph=graph)
     return out
@@ -1841,7 +2223,7 @@ def time_kernels(params, cfg, caps, device, gen, rope, launches, errs):
     L = cfg.n_layers
     stages = time_k1_plan(params, params, cfg, caps, device, gen, "bf16")
 
-    (k1n, k2n, decoded) = launches
+    (k1n, k2n, _, decoded) = launches
     k2 = time_k2(cfg, device, gen, rope, k2n, decoded, errs[1])
     per_layer = {key: sum(s[key] for s in stages)
                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
@@ -2319,7 +2701,8 @@ def quant_paths(params, cfg, caps, device, gen, seed, rope):
                     e["max_abs_err"] = max(e["max_abs_err"], k1g)
         runs = loop_paths(qp, cfg, device, seed, rope,
                           paths={n: QUANT_PATHS[n][1:] for n in names},
-                          launches=QUANT_LAUNCHES, k7=QUANT_K7)
+                          launches=QUANT_LAUNCHES, k7=QUANT_K7,
+                          k8=QUANT_K8)
         results.update(runs)
         extra.update({f"decode_step_ms {k}": v for k, v in time_decode_step(
             qp, cfg, [(n, *QUANT_PATHS[n][1:], runs[n]["th"])
@@ -2537,7 +2920,7 @@ def check_k2_rows(cfg, device, gen, rope):
 
 def check_step_launches(params, cfg, th, device, rope):
     """One batched decode `forward` at every B of `STEP_BATCHES` (distinct
-    positions): at B = 1 with `LOOP_SP` exactly 4*L K1 and L K2 launches,
+    positions): at B = 1 with `LOOP_SP` exactly L K8 and 3*L K1 launches,
     at B > 1 with `MAIN_SP` one K7 launch (its rows form), no other port
     kernel; finite logits of the expected shape. Then B = 16 with
     token_fused=False (the model's layer loop): its launch counts, read.
@@ -2557,16 +2940,17 @@ def check_step_launches(params, cfg, th, device, rope):
                               sp=SparsityConfig(**sp), rope=rope)
         check(tuple(lg.shape) == (b, 1, cfg.vocab_size)
               and bool(torch.isfinite(lg).all()), f"batch {b}: bad logits")
-        return read_launches(), k7_launches()
+        return read_launches(), k7_launches(), k8_launches()
 
+    row = tuple(n * L for n in LOOP_ROW)
     for b in STEP_BATCHES:
         got = step(b, LOOP_SP if b == 1 else MAIN_SP)
-        want = ((4 * L, L, 0, 0, 0, 0), 0) if b == 1 else ((0,) * 6, 1)
+        want = (row, 0, L) if b == 1 else ((0,) * 6, 1, 0)
         check(got == want, f"batch {b}: launches ((K1, K2, K3, K4, K5, K6), "
-              f"K7) {got} in one decode step, expected {want}")
+              f"K7, K8) {got} in one decode step, expected {want}")
     loop = step(16, LOOP_SP)
     log(f"[serve] one decode step at batch {STEP_BATCHES}: launches (K1, "
-        f"K2, K3, K4, K5, K6) = {(4 * L, L, 0, 0, 0, 0)} at batch 1 "
+        f"K2, K3, K4, K5, K6) = {row} and {L} K8 at batch 1 "
         f"(token_fused=False), one K7 and nothing else at batch > 1; batch "
         f"16 with token_fused=False (the layer loop): {loop}")
     return loop[0]
@@ -3318,7 +3702,7 @@ def long_prompt_run(params, cfg, device, seed, th):
           f"bad tokens {toks.shape}")
     log(f"[long] {LONG_PROMPT}-token prompt (padded to {T}), "
         f"{LONG_NEW_TOKENS} greedy tokens: launches (K1, K2, K3, K4, K5, K6) "
-        f"{counts}; prefill {st.prefill_s:.4f} s (time to first token), "
+        f"{counts} and K8 {k8_launches()}; prefill {st.prefill_s:.4f} s (time to first token), "
         f"decode {st.tokens_per_s:.2f} tok/s at pos {LONG_PROMPT}-"
         f"{LONG_PROMPT + decoded - 1}; new tokens "
         f"{toks[0, LONG_PROMPT:].tolist()}")
@@ -3489,8 +3873,8 @@ def calib_decode(params, cfg, th, device, seed, what, shares=None,
     """Hold every layer of one main-path decode step (the first prompt's
     next token after a dense prefill) at thresholds `th` [L, 7] to the
     plain path (`hold_token_layers`), then decode phase 4's three prompts
-    on the K1/K2 loop (`LOOP_SP`) with them, counts set to 0 just before:
-    4*L K1 and L K2 a decoded token. With `k7`, the user's route instead
+    on the one-row loop (`LOOP_SP`) with them, counts set to 0 just
+    before: L K8 and 3*L K1 a decoded token. With `k7`, the user's route instead
     (`MAIN_SP`: K7): every layer of K7 alone held to the plain layer
     (`hold_k7_layers`), one K7 and no K1-K6 launch a decoded token.
     Returns (worst hold error, tok/s per prompt)."""
@@ -3537,7 +3921,7 @@ def calib_decode(params, cfg, th, device, seed, what, shares=None,
         f"path (worst error {worst:.2e} of scale, tolerance 2e-2); "
         f"{len(prompts)} requests, {decoded} decoded tokens, "
         + ("one K7 launch a token; " if k7 else
-           f"{4 * cfg.n_layers} K1 + {cfg.n_layers} K2 launches a token; ")
+           f"{cfg.n_layers} K8 + {3 * cfg.n_layers} K1 launches a token; ")
         + f"tok/s {', '.join(f'{t:.2f}' for t in tok_s)}")
     return worst, tok_s
 
@@ -3888,14 +4272,15 @@ def check_spec_rounds(rec, toks, what):
 
 
 def spec_launches(got, L: int, live: int, rounds: int, what: str):
-    """K1 4*L and K2 L a live draft step (the K1/K2 loop), one K7 a verify
-    chunk (k + 1 <= 8 positions: one chunk a round, K7's seq_block form),
-    no other kernel."""
-    want = (4 * L * live, L * live, 0, 0, 0, 0)
-    n7 = k7_launches()
-    check(tuple(got) == want and n7 == rounds, f"{what}: launches (K1, K2, "
-          f"K3, K4, K5, K6) {tuple(got)} and {n7} K7, expected {want} and "
-          f"{rounds} for {live} draft steps and {rounds} verifies")
+    """L K8 and 3*L K1 a live draft step (the one-row loop), one K7 a
+    verify chunk (k + 1 <= 8 positions: one chunk a round, K7's seq_block
+    form), no other kernel."""
+    want = tuple(n * L * live for n in LOOP_ROW)
+    n7, n8 = k7_launches(), k8_launches()
+    check(tuple(got) == want and n7 == rounds and n8 == L * live,
+          f"{what}: launches (K1, K2, K3, K4, K5, K6) {tuple(got)}, {n7} K7 "
+          f"and {n8} K8, expected {want}, {rounds} and {L * live} for "
+          f"{live} draft steps and {rounds} verifies")
 
 
 def spec_run(params, cfg, prompt, n, device, th, seed, draft=LOOP_SP,
@@ -3925,10 +4310,10 @@ def spec_run(params, cfg, prompt, n, device, th, seed, draft=LOOP_SP,
 
 def spec_round_kernels(L: int, k_eff) -> tuple:
     """K1-K6 launches of one self-speculative round of the 7B's main-path
-    draft at depth k_eff (None: `SPEC_K`): k_eff draft steps, 4L K1 + L K2
-    each (the verify chunk is one K7 launch)."""
+    draft at depth k_eff (None: `SPEC_K`): k_eff draft steps, L K8 + 3L K1
+    each (`LOOP_ROW`; the verify chunk is one K7 launch)."""
     d = SPEC_K if k_eff is None else k_eff
-    return (d * 4 * L, d * L, 0, 0, 0, 0)
+    return tuple(d * n * L for n in LOOP_ROW)
 
 
 @contextlib.contextmanager
@@ -3940,8 +4325,9 @@ def timed_rounds(rec, count=None):
     loop's replayed rounds; rec["capture"]: (k_eff, seconds) of the rounds
     that captured their depth's graph first. With count = (what, L), each
     captured graph's K1-K6 kernel nodes, read after its round, must equal
-    `spec_round_kernels(L, k_eff)` (`graph_counts`; rec["counts"][k_eff])
-    and its K7 nodes 1 (the verify chunk, `k7_nodes`)."""
+    `spec_round_kernels(L, k_eff)` (`graph_counts`; rec["counts"][k_eff]),
+    its K7 nodes 1 (the verify chunk, `k7_nodes`) and its K8 nodes k_eff x
+    L (`k8_nodes`)."""
     from teal_tpu_torch.engine import speculative as spec
 
     orig_round = spec._Rounds.round
@@ -3965,6 +4351,11 @@ def timed_rounds(rec, count=None):
                 n7 = k7_nodes(self.graphs[k_eff])
                 check(n7 == 1, f"graph {count[0]} depth {k_eff}: {n7} K7 "
                       "kernel nodes, expected 1 (the verify chunk)")
+                n8 = k8_nodes(self.graphs[k_eff])
+                d = SPEC_K if k_eff is None else k_eff
+                check(n8 == d * count[1], f"graph {count[0]} depth "
+                      f"{k_eff}: {n8} K8 kernel nodes, expected "
+                      f"{d * count[1]} (the draft steps)")
         else:
             rec["replay"].append(dt)
         return out
@@ -3982,8 +4373,8 @@ def spec_graph_runs(params, cfg, device, seed, th, prompt):
     at forced_alpha 0.9, in turns (host, graph, graph, host): the same
     tokens, new_tokens, mean_accepted and rounds in every run; the
     wrappers' launches of a graph run are its warm-up round and its
-    capture, 2 x (k x (4L K1 + L K2) + one K7); the round's graph holds k x
-    (4L K1 + L K2) kernel nodes and one K7 node, what one replay launches
+    capture, 2 x (k x (L K8 + 3L K1) + one K7); the round's graph holds k x
+    (L K8 + 3L K1) kernel nodes and one K7 node, what one replay launches
     (`timed_rounds`' count). t_round of both loops (the graph's replayed
     rounds only; its capture apart). Returns the results."""
     import numpy as np
@@ -4001,13 +4392,15 @@ def spec_graph_runs(params, cfg, device, seed, th, prompt):
                 toks, st, wall = spec_run(params, cfg, prompt,
                                           SPEC_NEW_TOKENS, device, th, seed,
                                           device_loop=dl, **kw)
-            got, n7 = read_launches(), k7_launches()
+            got, n7, n8 = read_launches(), k7_launches(), k8_launches()
             rounds = st["rounds"] if dl else len(st["accepted_per_step"])
             if dl:
-                check(got == tuple(2 * n for n in per_round) and n7 == 2,
-                      f"spec graph {what}: launches {got} and {n7} K7 at the "
-                      f"capture, expected {tuple(2 * n for n in per_round)} "
-                      "and 2")
+                check(got == tuple(2 * n for n in per_round) and n7 == 2
+                      and n8 == 2 * SPEC_K * L,
+                      f"spec graph {what}: launches {got}, {n7} K7 and {n8} "
+                      f"K8 at the capture, expected "
+                      f"{tuple(2 * n for n in per_round)}, 2 and "
+                      f"{2 * SPEC_K * L}")
             runs.append((toks, st["new_tokens"], st["mean_accepted"],
                          rounds))
         for r in runs[1:]:
@@ -4039,7 +4432,7 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
          the third again with the draft at keep 1.0 and zero thresholds
          (whose proposals the verify accepts; at least one must be), at
          temperature 0 with every verify recorded (`recording_verify`):
-         per round 4*L K1 + L K2 a draft step and one K7 a verify chunk
+         per round L K8 + 3*L K1 a draft step and one K7 a verify chunk
          (`spec_launches`); every emitted token the argmax of its verify
          row and the cache rows of the emitted tokens the verify's
          (`check_spec_rounds`); then the same generation unrecorded and
@@ -4113,7 +4506,8 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
         host_toks.append(toks)
         log(f"[spec] {what}: {rounds} rounds, mean accepted "
             f"{st['mean_accepted']:.3f} {st['accepted_per_step']}; launches "
-            f"(K1, K2, K3, K4, K5, K6) {got} = {SPEC_K} x (4L K1 + L K2) and "
+            f"(K1, K2, K3, K4, K5, K6) {got} = {SPEC_K} x 3L K1 beside "
+            f"{SPEC_K} x L K8 and "
             f"one K7 a round; {n_tok} emitted tokens each the argmax of its "
             "verify "
             f"row ({near} within {SPEC_NEAR_TIE:g} of it), the emitted "
@@ -4231,14 +4625,15 @@ def speculative_phase(params, cfg, device, seed, th, speeds):
                                   device, th, seed, device_loop=True,
                                   adaptive_k=True)
     k1, k2, *rest = got = read_launches()
-    n7 = k7_launches()
+    n7, n8 = k7_launches(), k8_launches()
     check(np.array_equal(toks, host_toks[0]), "spec: the adaptive device "
           "loop's tokens differ from the host loop's")
     r = st["rounds"]
     depths = sorted(k for k, _ in rec["capture"])
-    check(k1 == 4 * k2 and k2 == 2 * L * sum(depths) and not any(rest)
-          and n7 == 2 * len(depths), f"spec adaptive: launches {got} and "
-          f"{n7} K7 for the captures of depths {depths}")
+    check(k1 == 3 * n8 and k2 == 0 and n8 == 2 * L * sum(depths)
+          and not any(rest) and n7 == 2 * len(depths),
+          f"spec adaptive: launches {got}, {n7} K7 and {n8} K8 for the "
+          f"captures of depths {depths}")
     res["adaptive"] = dict(rounds=r, k_eff_final=st["k_eff_final"],
                            alpha_hat_final=st["alpha_hat_final"],
                            mean_accepted=st["mean_accepted"],
@@ -4828,26 +5223,30 @@ def check_k7_moe_plan(cfg, wplan: int):
 
 
 def k7_moe_turns(cfg, args, kw):
-    """K7's MoE form and the K1/K2/K5 loop (`token_decode(...,
+    """K7's MoE form and the K1/K8/K5 loop (`token_decode(...,
     token_fused=False)`) on the same call (`args`, `kw`; the caches
     copied) in `K7_ROWS_TURNS` turns (`route_turns`: one K7 and nothing
-    else; (2 + 2k) L K1, L K2, L K5). Returns the results."""
+    else; arrays: L K8, (1 + 2k) L K1, L K5; int8: (2 + 2k) L K1, L K2, L
+    K5). Returns the results."""
     from teal_tpu_torch.ops import token_block as tb
 
     L, kx = cfg.n_layers, cfg.n_experts_per_tok
     routes = {"k7": None, "loop": False}
     cache = (args[6].clone(), args[7].clone())
+    int8 = tb.k7_weight_plan(args[2]) == 1
 
     def call(route):
         return tb.token_decode(*args[:6], *cache, *args[8:],
                                token_fused=routes[route], **kw)
+    loop = ((((2 + 2 * kx) * L, L, 0, 0, L, 0), 0, 0) if int8 else
+            (((1 + 2 * kx) * L, 0, 0, 0, L, 0), 0, L))
     out, counts = route_turns(
-        call, {"k7": ((0,) * 6, 1),
-               "loop": (((2 + 2 * kx) * L, L, 0, 0, L, 0), 0)},
+        call, {"k7": ((0,) * 6, 1, 0), "loop": loop},
         K7_ROWS_TURNS, f"{MOE_MODEL} MoE")
+    loop_name = "the K1/K2/K5 loop" if int8 else "the K1/K8/K5 loop"
     for route, rs in out.items():
         log(f"[k7 moe turns] {MOE_MODEL} {L} layers, {route} "
-            f"({'one K7 launch' if route == 'k7' else 'the K1/K2/K5 loop'})"
+            f"({'one K7 launch' if route == 'k7' else loop_name})"
             f", in turns: device {[round(r['device_ms'], 4) for r in rs]} "
             f"ms, wall {[round(r['wall_ms'], 3) for r in rs]} ms, idle "
             f"{[round(r['idle_share'], 4) for r in rs]}")
@@ -6197,7 +6596,7 @@ def p16_bench_step(params, cfg, th, device, rope, step):
     thresholds `th`) timed by `bench_chained` (each step's token the
     argmax of the step before, the thresholds the carry's float leaf),
     beside `time_decode_step`'s reading `step`; its launches counted
-    around it (4*L K1 and L K2 a step)."""
+    around it (L K8 and 3*L K1 a step)."""
     import torch
 
     from teal_tpu_torch.config import SparsityConfig
@@ -6216,14 +6615,15 @@ def p16_bench_step(params, cfg, th, device, rope, step):
     reset_launches()
     s = bench_chained(one, {"tok": torch.full((1, 1), 7, device=device),
                             "th": th}, **P16_BENCH)
-    counts = read_launches()
+    counts, n8 = read_launches(), k8_launches()
     n = (P16_BENCH["n_short"] + P16_BENCH["n_long"]) * (P16_BENCH["reps"]
                                                          + 1)
     L = cfg.n_layers
-    want = (4 * L * n, L * n, 0, 0, 0, 0) if device.type == "cuda" \
-        else (0,) * 6
-    check(counts == want, f"bench_chained's steps launched {counts}, "
-          f"expected {want}")
+    cuda = device.type == "cuda"
+    want = (tuple(c * L * n for c in LOOP_ROW) if cuda else (0,) * 6,
+            L * n if cuda else 0)
+    check((counts, n8) == want, f"bench_chained's steps launched "
+          f"{counts} and {n8} K8, expected {want}")
     ref = step["sparse"]
     log(f"[p16] bench_chained: one main-path decode step {s * 1e3:.4f} ms "
         f"(median slope of {P16_BENCH['n_long']} vs {P16_BENCH['n_short']} "
@@ -6324,6 +6724,15 @@ def k7_nodes(graph) -> int:
                if "token_kernel" in k or "token_rows_kernel" in k)
 
 
+def k8_nodes(graph) -> int:
+    """K8's kernel nodes (`attn_block_kernel`) of a captured graph
+    (`profiling.graph_kernels`)."""
+    from teal_tpu_torch.utils.profiling import graph_kernels
+
+    return sum(c for k, c in graph_kernels(graph).items()
+               if "attn_block_kernel" in k)
+
+
 def profile_replays(loop, iters: int):
     """`iters` replays of a `Generator`'s decode graph (`loop`, its
     `_DecodeLoop`) from position `GRAPH_POS`: (device ms a replay, the sum
@@ -6355,7 +6764,8 @@ def profile_replays(loop, iters: int):
 
 
 def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
-                seed, n_new: int = NEW_TOKENS, k7_per_step: int = 0):
+                seed, n_new: int = NEW_TOKENS, k7_per_step: int = 0,
+                k8_per_step: int = 0):
     """Phase 17 on one route the script's `Generator` drives (sparsity
     kwargs `sp_kw`, batch b, thresholds th, `per_step` K1-K6 launches a
     layer and step): the decode step's capture, counts set to 0 just
@@ -6366,7 +6776,8 @@ def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
     equal; the graph's K1-K6 kernel nodes, what one replay launches,
     equal to per_step x L (`graph_counts`), and its K7 nodes to
     `k7_per_step` (`k7_nodes`; K7's wrapper counts 3 x k7_per_step at the
-    capture); the replayed step's device and
+    capture), and its K8 nodes to `k8_per_step` (`k8_nodes`, likewise);
+    the replayed step's device and
     wall time and idle share (1 - device / wall, unclamped: device time
     above wall time is reported as it is, with a note); tok/s of both
     loops in `GRAPH_TURNS` turns of 2 x n_new tokens. Returns the
@@ -6389,12 +6800,12 @@ def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
     t0 = time.perf_counter()
     g0.warmup()
     capture_s = time.perf_counter() - t0
-    got, n7 = read_launches(), k7_launches()
+    got, n7, n8 = read_launches(), k7_launches(), k8_launches()
     want = tuple(3 * n * L for n in per_step)
-    check(got == want and n7 == 3 * k7_per_step, f"graph {what}: launches "
-          f"(K1, K2, K3, K4, K5, K6) at the capture {got} and {n7} K7, "
-          f"expected {want} and {3 * k7_per_step} (2 warm-up steps and the "
-          "captured one)")
+    check(got == want and n7 == 3 * k7_per_step and n8 == 3 * k8_per_step,
+          f"graph {what}: launches (K1, K2, K3, K4, K5, K6) at the capture "
+          f"{got}, {n7} K7 and {n8} K8, expected {want}, {3 * k7_per_step} "
+          f"and {3 * k8_per_step} (2 warm-up steps and the captured one)")
     for temp, g in gens.items():
         for i, p in enumerate(prompts):
             outs = [g.generate(p, n_new, thresholds=th, generator=(
@@ -6410,6 +6821,9 @@ def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
     nodes7 = k7_nodes(g0._loop.graph)
     check(nodes7 == k7_per_step, f"graph {what}: {nodes7} K7 kernel nodes, "
           f"expected {k7_per_step}")
+    nodes8 = k8_nodes(g0._loop.graph)
+    check(nodes8 == k8_per_step, f"graph {what}: {nodes8} K8 kernel nodes, "
+          f"expected {k8_per_step}")
     tok_s = {"host": [], "graph": []}
     for i in range(GRAPH_TURNS):
         for kind in (("host", "graph") if i % 2 == 0 else ("graph", "host")):
@@ -6417,14 +6831,15 @@ def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
                                 on_device_loop=kind == "graph")
             tok_s[kind].append(st.tokens_per_s * b)
     res = dict(batch=b, capture_launches=got, replay_launches=counts,
-               replay_k7_nodes=nodes7,
+               replay_k7_nodes=nodes7, replay_k8_nodes=nodes8,
                replay_kernels=total, replay_device_ms=dev,
                replay_wall_ms=wall, replay_idle_share=1 - dev / wall,
                first_generate_s=capture_s, tok_s=tok_s)
     log(f"[graph] {what} (batch {b}): the graph's tokens equal the host "
         f"loop's for {len(prompts)} prompts x {n_new} tokens at "
-        f"temperatures {GRAPH_TEMPS}; capture launches {got}, K7 {n7}; one "
-        f"replay: (K1, K2, K3, K4, K5, K6) {counts} and K7 {nodes7} of "
+        f"temperatures {GRAPH_TEMPS}; capture launches {got}, K7 {n7}, K8 "
+        f"{n8}; one replay: (K1, K2, K3, K4, K5, K6) {counts}, K7 {nodes7} "
+        f"and K8 {nodes8} of "
         f"{total} kernel nodes, device "
         f"{dev:.3f} ms, wall {wall:.3f} ms, idle "
         f"{res['replay_idle_share']:.1%}"
@@ -6440,13 +6855,14 @@ def graph_route(what, cfg, params, sp_kw, b, th, device, prompts, per_step,
 
 def device_loop_phase(params, cfg, device, seed, th):
     """Phase 17 on the resident bf16 7B after phase 4, at its thresholds:
-    `graph_route` on the main path (4*L K1 + L K2 a replay) and on dense
+    `graph_route` on the main path (L K8 + 3*L K1 a replay) and on dense
     decode (none of the port's kernels), phase 4's three prompts. Returns
     {route: results}."""
     t0 = time.perf_counter()
     prompts = main_prompts(cfg, seed)
     res = {"main": graph_route("main", cfg, params, LOOP_SP, 1, th, device,
-                               prompts, (4, 1, 0, 0, 0, 0), seed),
+                               prompts, LOOP_ROW, seed,
+                               k8_per_step=cfg.n_layers),
            "dense": graph_route("dense", cfg, params, {}, 1, th, device,
                                 prompts, (0, 0, 0, 0, 0, 0), seed)}
     log(f"[graph] phase 17 (main and dense) in "
@@ -6846,17 +7262,23 @@ def k7_off():
 def k7_graphs(gens, cfg, th, prompts, tag="[k7]"):
     """The decode graphs of K7 and of the K1/K2 loop (the two `Generator`s
     of `k7_tokens`; Mixtral: the loop's `Generator` is captured under
-    `k7_off`): their kernel nodes (`graph_kernels`; one K7 and no K1/K2/K5
-    node; 4 L K1 + L K2, Mixtral (2 + 2k) L K1 + L K2 + L K5), then in
-    turns a replay's device ms (profiler), wall ms, idle share and tok/s
-    (`GRAPH_TURNS` turns of 2 x `NEW_TOKENS` tokens)."""
+    `k7_off`): their kernel nodes (`graph_kernels`; one K7 and no
+    K1/K2/K5/K8 node; the loop with arrays or int4 L K8 + 3 L K1, Mixtral
+    L K8 + (1 + 2k) L K1 + L K5; with int8 4 L K1 + L K2, Mixtral (2 + 2k)
+    L K1 + L K2 + L K5), then in turns a replay's device ms (profiler),
+    wall ms, idle share and tok/s (`GRAPH_TURNS` turns of 2 x
+    `NEW_TOKENS` tokens)."""
+    from teal_tpu_torch.models import llama
     from teal_tpu_torch.utils.profiling import graph_kernels
 
     L, kx = cfg.n_layers, cfg.n_experts_per_tok
-    loop_want = ((2 + 2 * kx) * L, L, L, 0) if cfg.n_experts else (
-        4 * L, L, 0, 0)
+    int8 = llama._is_int8(gens[1].params["layers"]["wq"])
+    mlp = 2 * kx if cfg.n_experts else 2         # K1 launches of the MLP
+    loop_want = (((2 + mlp) * L, L, L if cfg.n_experts else 0, 0, 0)
+                 if int8 else
+                 (mlp * L + L, 0, L if cfg.n_experts else 0, 0, L))
     res = {}
-    for name, g, want in (("k7", gens[0], (0, 0, 0, 1)),
+    for name, g, want in (("k7", gens[0], (0, 0, 0, 1, 0)),
                           ("loop", gens[1], loop_want)):
         with (k7_off() if cfg.n_experts and name == "loop"
               else contextlib.nullcontext()):
@@ -6864,9 +7286,9 @@ def k7_graphs(gens, cfg, th, prompts, tag="[k7]"):
         nodes = graph_kernels(g._loop.graph)
         counts = tuple(sum(c for k, c in nodes.items() if n in k)
                        for n in ("sgg_", "attn_kernel", "route_kernel",
-                                 "token_kernel"))
-        check(counts == want, f"{tag} {name} graph: (K1, K2, K5, K7) nodes "
-              f"{counts}, expected {want}")
+                                 "token_kernel", "attn_block_kernel"))
+        check(counts == want, f"{tag} {name} graph: (K1, K2, K5, K7, K8) "
+              f"nodes {counts}, expected {want}")
         res[name] = dict(nodes=counts, kernel_nodes=sum(nodes.values()),
                          device_ms=[], wall_ms=[], idle=[], tok_s=[])
     for i in range(GRAPH_TURNS):
@@ -6880,7 +7302,7 @@ def k7_graphs(gens, cfg, th, prompts, tag="[k7]"):
             r["idle"].append(1 - dev / wall)
             r["tok_s"].append(st.tokens_per_s)
     for name, r in res.items():
-        log(f"{tag} {name} decode graph: (K1, K2, K5, K7) nodes "
+        log(f"{tag} {name} decode graph: (K1, K2, K5, K7, K8) nodes "
             f"{r['nodes']} of {r['kernel_nodes']} kernel nodes; in turns "
             f"device "
             f"{[round(x, 3) for x in r['device_ms']]} ms, wall "
@@ -7430,7 +7852,7 @@ def route_turns(call, want, turns: int, what: str):
     """K7 and the loop on one call in turns: `call(route)` runs the call
     through route "k7" or "loop"; the launch counts of one call of each
     (set to 0 just before, read just after) must be `want` {route:
-    ((K1, K2, K3, K4, K5, K6), K7)}; then `turns` turns of each: device ms
+    ((K1, K2, K3, K4, K5, K6), K7, K8)}; then `turns` turns of each: device ms
     (CUDA events around one call queued behind a sleep, `cuda_ms`), wall
     ms (host clock, synchronised) and idle share (1 - device / wall).
     Returns ({route: [reading, ...]}, the counts)."""
@@ -7443,9 +7865,9 @@ def route_turns(call, want, turns: int, what: str):
         reset_launches()
         call(route)
         torch.cuda.synchronize()
-        counts[route] = (read_launches(), k7_launches())
+        counts[route] = (read_launches(), k7_launches(), k8_launches())
     check(counts == want, f"K7 / loop turns ({what}): launches ((K1, K2, "
-          f"K3, K4, K5, K6), K7) {counts}, expected {want}")
+          f"K3, K4, K5, K6), K7, K8) {counts}, expected {want}")
 
     def reading(route):
         torch.cuda.synchronize()
@@ -7463,7 +7885,8 @@ def k7_loop_turns(params, cfg, device, gen, th, B: int = 16,
                   seq: bool = False, turns: int = K7_ROWS_TURNS):
     """K7 and the K1/K2 loop on the same inputs, in turns: `token_decode`
     of B rows (token_fused unset: one K7 launch; token_fused=False: the
-    host loop of 4 L K1 and L K2 launches) at `row_positions` on a cache
+    host loop of 4 L K1 and L K2 launches, at one row of arrays or int4 L
+    K8 and 3 L K1) at `row_positions` on a cache
     of random rows at thresholds `th`, or with `seq` a verify chunk (B
     consecutive positions from 40 of one sequence, fixed selection at full
     caps, seq_block). The launch counts of one call of each (set to 0 just
@@ -7501,15 +7924,19 @@ def k7_loop_turns(params, cfg, device, gen, th, B: int = 16,
 
     def call(route):
         return tb.token_decode(*args, token_fused=routes[route], **kw)
+    one_row = B == 1 and not seq and tb.k7_weight_plan(args[2]) != 1
+    loop = ((tuple(n * L for n in LOOP_ROW), 0, L) if one_row
+            else ((4 * L, L, 0, 0, 0, 0), 0, 0))
     out, counts = route_turns(
-        call, {"k7": ((0,) * 6, 1), "loop": ((4 * L, L, 0, 0, 0, 0), 0)},
+        call, {"k7": ((0,) * 6, 1, 0), "loop": loop},
         turns, f"B={B}, seq {seq}")
+    loop_name = "L K8 + 3L K1" if one_row else "4L K1 + L K2"
     what = (f"verify chunk S={B} at {poss[0]}.." if seq else
             f"B={B} step at {poss[0]}..{poss[-1]}")
     pname = ("bf16", "int8", "int4")[tb.k7_weight_plan(args[2])]
     for route, rs in out.items():
         log(f"[k7 turns] 7B {pname} {what}, {route} "
-            f"({'one K7 launch' if route == 'k7' else '4L K1 + L K2'}), in "
+            f"({'one K7 launch' if route == 'k7' else loop_name}), in "
             f"turns: device {[round(r['device_ms'], 4) for r in rs]} ms, "
             f"wall {[round(r['wall_ms'], 3) for r in rs]} ms, idle "
             f"{[round(r['idle_share'], 4) for r in rs]}")
@@ -7605,8 +8032,9 @@ def k7_fault31(device, gen):
     rows through K7 (which had no plan at T 8192 before its attention
     walked the cache in chunks): its plan in the wrapper equal to the
     kernel's, each layer held to the plain path (`hold_k7_layers`), the
-    route (`k7_route`) K7, and one 2-layer launch against the K1/K2 loop
-    (`token_decode(token_fused=False)`) on the same input, output and
+    route (`k7_route`) K7, and one 2-layer launch against the K1/K8 loop
+    (`token_decode(token_fused=False)`: L K8 + 3 L K1) on the same input,
+    output and
     cache within `K7_TOKEN_TOL` of scale where both keep the same groups.
     Thresholds 0 keep each stage's first `cap` groups. Returns the
     results."""
@@ -7658,10 +8086,11 @@ def k7_fault31(device, gen):
     loop = tb.token_decode(h, th, ws, lay["attn_norm"], lay["mlp_norm"],
                            rows, *caches[1], pos_t, token_fused=False, **kw)
     torch.cuda.synchronize()
-    n7, n12 = k7_launches(), read_launches()[:2]
-    check(n7 == 1 and n12 == (4 * L, L), f"[k7 70b] launches: K7 {n7}, "
-          f"(K1, K2) {n12}; expected 1 and {(4 * L, L)}")
-    e = rel_check("[k7 70b int4] 2 layers: K7 vs the K1/K2 loop", got, loop,
+    n7, n12, n8 = k7_launches(), read_launches()[:2], k8_launches()
+    check(n7 == 1 and n12 == (3 * L, 0) and n8 == L, f"[k7 70b] launches: "
+          f"K7 {n7}, (K1, K2) {n12}, K8 {n8}; expected 1, {(3 * L, 0)} and "
+          f"{L}")
+    e = rel_check("[k7 70b int4] 2 layers: K7 vs the K1/K8 loop", got, loop,
                   K7_TOKEN_TOL)
     for i, what in enumerate(("k", "v")):
         rel_check(f"[k7 70b int4] {what} cache: K7 vs the loop",
@@ -7675,7 +8104,7 @@ def k7_fault31(device, gen):
                phase_s=time.perf_counter() - t0)
     log(f"[k7 70b int4] {name}'s widths, {L} layers, pos {pos} of T {T}: "
         f"plan {tuple(want)}; each layer held to the plain path (worst "
-        f"{worst:.2e} of scale), one launch within {e:.3e} of the K1/K2 loop;"
+        f"{worst:.2e} of scale), one launch within {e:.3e} of the K1/K8 loop;"
         f" {ms:.4f} ms a token ({res['phase_s']:.1f} s)")
     del qp, cache, caches
     torch.cuda.empty_cache()
@@ -7728,6 +8157,8 @@ def main() -> int:
     check_k1_plan(cfg, caps)
     e1 = check_k1(params, cfg, caps, device, gen)
     e2 = check_k2(cfg, device, gen, rope)
+    e8 = check_k8(cfg, device, gen)
+    mark("2, 3 and 21")
     e_loop = (check_k1_groups(params, cfg, device, gen),
               check_k3(params, cfg, device, gen),
               check_k4(params, cfg, device, gen))
@@ -7754,6 +8185,10 @@ def main() -> int:
                         (e1, e2))
     line["kernels"] += time_loop_kernels(params, cfg, device, gen, loop,
                                          e_loop)
+    line["kernels"].append(time_k8(
+        params, cfg, device, gen,
+        {"loop": launches[2:], "B": (loop["B"]["k8_launches"],
+                                     loop["B"]["steps"])}, e8))
     line["kernels"].append(k7_entry)
     line["k7"] = k7_res
     line["lm_head_ms"] = time_lm_head(params, cfg, device, gen)

@@ -96,6 +96,22 @@ SIGNATURES = {
     ("decode_attention", "teal_decode_attention_smem"): [
         _I, _I, _I, _I, _I, _I,  # dtype code, GH, slots, rebuilt rows, T, S
     ],
+    ("attn_block", "teal_attn_block"): [
+        _I, _I,                 # dtype code, weight plan (0 or 2: int4)
+        _P, _P, _P, _F,         # x, thr, norm (or null), norm_eps
+        _P, _P, _P,             # wq, wk, wv (int4: their qp)
+        _P, _P, _P,             # int4 sz of wq, wk, wv (or null)
+        _P, _P, _P, _P,         # kc, vc, cos|sin, pos
+        _P, _P, _P,             # out, idx, count
+        _I, _I, _I, _I,         # K, G, cap, fixed
+        _I, _I, _I, _I,         # layer, L, Hq, Hkv
+        _I, _I, _F, _P,         # T, window (0: none), scale, stream
+    ],
+    ("attn_block", "teal_attn_block_plan"): [
+        _I, _I, _I,             # weight plan, G, K
+        _I, _I, _I, _I,         # Hq, Hkv, cap, SM count (0: the card's)
+        _P,                     # out int32 [3]
+    ],
     ("moe_route", "teal_moe_route"): [
         _I, _P, _P, _F, _P,     # dtype code, x, norm, norm_eps, router
         _P, _P, _P,             # xn, pseudo-layers, weights (outputs)

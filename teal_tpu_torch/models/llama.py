@@ -336,7 +336,9 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
     and down through `block_gemv.project_many` (K1 in threshold mode,
     with the rms_norm folded in at B = 1; K3 in top-k mode) or
     `project_many_batched` (K3), and at B = 1 in threshold mode with K2
-    the attention stage (K1 + K2 with RoPE inside). Outputs leave the
+    the attention stage (`attn_stage`: K8 in one launch for arrays of the
+    cache's type and packed int4, else K1 + K2 with RoPE inside). Outputs
+    leave the
     projections in the stream type, the residual adds are in the stream
     type, and silu runs in fp32 before the cast and the product with up:
     the layer loop's cast points, not the token path's.
@@ -388,8 +390,10 @@ def layer_forward(h, lp: Dict[str, torch.Tensor], kc, vc,
         return [blockproj(inp, [p], f, norm)[0] for p, f in zip(projs, fr)]
 
     x = None if fold else rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    # the attention stage (K1 + K2); int8 takes K1 then K2 on their own
-    # here, with the scale after K1, as the reference's layer loop does
+    # the attention stage (`attn_stage`: one K8 launch for arrays of the
+    # cache's type and packed int4, else K1 + K2); int8 takes K1 then K2 on
+    # their own here, with the scale after K1, as the reference's layer
+    # loop does
     mega = (fold and fused_attn and kf[0] == kf[1] == kf[2]
             and cfg.head_dim == 128 and not _is_int8(lp["wq"])
             and sp.fused_attn_block is not False)

@@ -20,10 +20,12 @@ launch:
     plain version, `token_kernel_plain`, runs each stage through K1's,
     K2's and K5's plain versions (on CPU tensors the wrapper runs it);
   - the layer loop below, every other form, a shape K7 cannot plan and
-    `token_fused=False`: a host loop runs, per layer, five kernel
-    launches whatever the batch (160 a step at 7B):
-  1. the attention stage (`attn_block.attn_stage`: K1 on q|k|v with the
-     folded attention norm, then K2), threshold column 0;
+    `token_fused=False`: a host loop runs, per layer, four kernel
+    launches at one row of arrays or packed int4 (128 a step at 7B, as the
+    reference's packed pipeline), five with int8 and for rows (160):
+  1. the attention stage (`attn_block.attn_stage`: one K8 launch at one
+     row of arrays or int4; else K1 on q|k|v with the folded attention
+     norm, then K2), threshold column 0;
   2. o + residual (K1), column 3;
   3. gate|up with the folded mlp norm and silu * mul (K1), column 4;
   4. down + residual (K1), column 6.
@@ -63,8 +65,9 @@ layer,
      rounded to the stream type, both reading pseudo-layer t of K5's
      output on the device from the expert stacks read as [L*E, K, N]
      (int8 scales as [L*E, N]): no host sync between K5 and the experts.
-Launches a layer: 2 (attention) + 1 (o) + 1 (K5) + 2 * K_EXP; 256 a token
-at Mixtral's 32 layers. Both routes keep two quirks of the reference:
+Launches a layer: the attention stage (K8 with arrays; K1 + K2 with
+int8) + 1 (o) + 1 (K5) + 2 * K_EXP: 224 a token at Mixtral's 32 layers
+with arrays, 256 with int8. Both routes keep two quirks of the reference:
 thresholds are read at the real layer (calibration leaves the MoE down
 column 6 at 0, so the down stage keeps its first `cap` groups by index),
 and each expert is added to the stream in fp32 with the fp32 routing

@@ -65,6 +65,7 @@ CHILD_WORST_S = {
     "test_torch_multihost.py": 42,
     "test_torch_hidden.py": 33,
     "test_torch_prefill.py": 23,
+    "test_torch_attn_block.py": 32,
 }
 MIN_TIMEOUT_S = 600.0
 CAP_FACTOR = 6.0

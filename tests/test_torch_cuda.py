@@ -1844,3 +1844,108 @@ def test_k7_moe_forms_match_plain(cuda, dtype, E, k, skip):
     for a, b in zip(got[:3], want[:3]):
         ok, err = _close(a, b, rel)
         assert ok, err
+
+
+def _k8_inputs(dev, kind, G=128, Hq=32, Hkv=32, T=512, seed=0):
+    """One-row attention stage inputs at the 7B's width (K 4096, 2 layers):
+    a bf16 stream with one spike a group (distinct group scores), gains of
+    1 at the spikes, q|k|v of bf16 or packed int4 at G, caches of random
+    bf16 rows. Returns (args, kwargs) of `attn_block` with the threshold
+    keeping 12 of the cap of 16 groups."""
+    from teal_tpu_torch.config import get_model_config
+    from teal_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    K, L, nb = 4096, 2, 4096 // G
+    x = torch.rand(nb, G, generator=g, device=dev) - 0.5
+    levels = 1.05 ** torch.randperm(nb, generator=g, device=dev).float()
+    x[torch.arange(nb, device=dev), 0] = levels
+    x = x.reshape(K).bfloat16()
+    norm = (1 + 0.1 * torch.randn(L, K, generator=g, device=dev))
+    norm[:, ::G] = 1.0
+    norm = norm.bfloat16()
+    ws = []
+    for n in (Hq * 128, Hkv * 128, Hkv * 128):
+        w = torch.randn(L, K, n, generator=g, device=dev) * 0.02
+        if kind == "int4":
+            packs = [quant.pack_int4(quant.quantize_int4(w[i], G))
+                     for i in range(L)]
+            ws.append({k: torch.stack([p[k] for p in packs])
+                       for k in ("qp", "sz")})
+        else:
+            ws.append(w.bfloat16())
+    kc = torch.randn(L, 1, Hkv, T, 128, generator=g, device=dev).bfloat16()
+    vc = torch.randn(L, 1, Hkv, T, 128, generator=g, device=dev).bfloat16()
+    cos, sin = llama.precompute_rope(get_model_config("7B"), T, dev)
+    p = T - 212
+    rope = torch.stack([cos[p], sin[p]])[None].contiguous()
+    pos = torch.tensor([p], dtype=torch.int32, device=dev)
+    s = sorted(levels.tolist(), reverse=True)
+    thr = torch.tensor((s[11] + s[12]) / 2, device=dev)
+    return ((x, thr, *ws, 1, 16, norm, 1e-5, kc, vc, pos, rope),
+            dict(n_heads=Hq, G=G))
+
+
+@pytest.mark.parametrize("kind,G,Hkv", [("bf16", 128, 32), ("bf16", 32, 32),
+                                        ("bf16", 128, 8), ("int4", 128, 32)])
+def test_k8_matches_plain(cuda, kind, G, Hkv):
+    """K8 (`attn_block`) against its plain version at the 7B's width: the
+    same kept groups, the written k/v row within 2^-7 of its scale and the
+    other cache rows bit for bit, each head's output within 2^-6 of its
+    largest value."""
+    from teal_tpu_torch.ops import attn_block as ab
+
+    args, kw = _k8_inputs(cuda, kind, G=G, Hkv=Hkv)
+    if G != 128:
+        args = args[:6] + (64,) + args[7:]
+    kc, vc = args[9], args[10]
+    k2, v2 = kc.clone(), vc.clone()
+    got, gidx, gcnt = ab.attn_block(*args, **kw)
+    want, widx, wcnt = ab.attn_block_plain(*args[:9], k2, v2, *args[11:],
+                                           **kw)
+    assert torch.equal(gidx, widx) and torch.equal(gcnt, wcnt)
+    p = int(args[11][0])
+    for a, b in ((kc, k2), (vc, v2)):
+        ok, err = _close(a[1, :, :, p], b[1, :, :, p], 2 ** -7)
+        assert ok, err
+        a[1, :, :, p] = 0
+        b[1, :, :, p] = 0
+        assert torch.equal(a, b)
+    diff = (got.float() - want.float()).abs().view(32, 128).amax(-1)
+    scale = want.float().abs().view(32, 128).amax(-1)
+    assert bool((diff <= 2 ** -6 * scale).all()), float((diff / scale).max())
+
+
+def test_k8_deterministic(cuda):
+    """30 K8 launches on the same inputs (bf16, 7B width, GQA 32/8 at T
+    2048) give the same bits: output, kept groups and caches."""
+    from teal_tpu_torch.ops import attn_block as ab
+
+    args, kw = _k8_inputs(cuda, "bf16", Hkv=8, T=2048)
+    first = None
+    for _ in range(30):
+        kc, vc = args[9].clone(), args[10].clone()
+        out = ab.attn_block(*args[:9], kc, vc, *args[11:], **kw)
+        got = (*out, kc, vc)
+        if first is None:
+            first = got
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
+def test_k8_plan_matches_kernel(cuda):
+    """`teal_attn_block_plan` (the kernel's plan) equal to `k8_plan` (the
+    wrapper's) on this card's SM count: the slice's shapes (7B path B and
+    loop, int4, GQA 32/8, the 70b cut's K 8192 and 64/8 heads) and shapes
+    without a plan (3 query heads a kv head, int4 at G 32, cap 0)."""
+    from teal_tpu_torch.ops import attn_block as ab
+
+    sms = _build.sm_count(cuda.index)
+    for shape in ((0, 32, 4096, 32, 32, 64), (0, 128, 4096, 32, 32, 16),
+                  (2, 128, 4096, 32, 32, 16), (2, 64, 4096, 32, 32, 32),
+                  (0, 128, 4096, 32, 8, 16), (2, 128, 8192, 64, 8, 32),
+                  (0, 128, 768, 6, 2, 3), (2, 32, 4096, 32, 32, 64),
+                  (0, 128, 4096, 32, 32, 0)):
+        want = ab.k8_plan(*shape, sms)
+        assert ab.k8_card_plan(*shape, sms) == want, shape
+        assert (want is None) == (shape[3] == 6 or shape[1] == 32
+                                  and shape[0] == 2 or shape[5] == 0)
