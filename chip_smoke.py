@@ -350,7 +350,7 @@ Phases:
      through K7;
  21. K8, the one-row attention stage in one launch (`csrc/attn_block.cu`,
      `check_k8` after phase 3): its plan in the wrapper equal to the
-     kernel's (`check_k8_plan`: 486 shapes, among them the 70b cut's);
+     kernel's (`check_k8_plan`: 1296 shapes, among them the 70b cut's);
      K8 against its plain version at the 7B's width: bf16 and fp32 arrays
      at G 128 and 32, packed int4 at G 128, MHA 32/32 and GQA 32/8 with a
      window of 64, pos 0, 1, 127, 128, 511 of a 512-row cache and 2047 of
@@ -811,12 +811,27 @@ K8_TIME_ITERS = 64
 K8_INT4_LAYERS = 8               # int4 q|k|v stacks timed (> L2 together)
 
 
+# the slice's K8 shapes: (what, `k8_plan`'s stream type code, weight plan,
+# G, K, Hq, Hkv, cap)
+K8_SLICE_PLANS = (("7B path B", 1, 0, 32, 4096, 32, 32, 64),
+                  ("7B loop", 1, 0, 128, 4096, 32, 32, 16),
+                  ("7B fp32", 0, 0, 128, 4096, 32, 32, 16),
+                  ("7B int4", 1, 2, 128, 4096, 32, 32, 16),
+                  ("GQA 32/8", 1, 0, 128, 4096, 32, 8, 16),
+                  ("70b int4", 1, 2, 128, 8192, 64, 8, 32))
+
+
 def check_k8_plan():
     """The wrapper's K8 plan (`attn_block.k8_plan`: C, grid, shared bytes,
     or none) equal to the kernel's (`teal_attn_block_plan`) on this card's
-    SM count: the check shapes and the 70b cut's (K 8192, 64/8 heads,
-    int4 at G 128), every G and weight plan, caps 1, nb / 2 and nb, GH 1-8
-    and Hkv 1-64. Returns the number of shapes checked."""
+    SM count: both stream types, K 1024-32768 (one block an SM at 32768),
+    every G and weight plan, caps 1, nb / 2 and nb, GH 1-8 and Hkv 1-64;
+    the rule's premise against the card's reading (`teal_attn_block_
+    clusters`): every instance (stream type, weight plan, GH) holds
+    `k8_blocks_an_sm` blocks an SM; and every shape of `K8_SLICE_PLANS`
+    has a plan whose Hkv clusters are all resident at once (one wave).
+    Logs the readings for clusters of 1-8 at the 7B. Returns the number of
+    shapes checked."""
     import torch
 
     from teal_tpu_torch import _build
@@ -824,31 +839,50 @@ def check_k8_plan():
 
     sms = _build.sm_count(torch.cuda.current_device())
     n = 0
-    for K in (4096, 8192, 1024):
+    for code in (0, 1):
+        for K in (4096, 8192, 1024, 32768):
+            for plan in (0, 2):
+                for G in (32, 64, 128):
+                    nb = K // G
+                    for cap in sorted({1, nb // 2, nb}):
+                        for Hq, Hkv in ((32, 32), (32, 8), (64, 8), (4, 2),
+                                        (8, 1), (12, 4), (48, 48), (64, 64),
+                                        (16, 16)):
+                            shape = (code, plan, G, K, Hq, Hkv, cap)
+                            want = ab.k8_plan(*shape, sms)
+                            got = ab.k8_card_plan(*shape, sms)
+                            check(got == want, f"K8 plan at {shape}: the "
+                                  f"kernel's {got}, the wrapper's {want}")
+                            n += 1
+    clusters = _build.load()["attn_block"].teal_attn_block_clusters
+    for code in (0, 1):
         for plan in (0, 2):
-            for G in (32, 64, 128):
-                nb = K // G
-                for cap in sorted({1, nb // 2, nb}):
-                    for Hq, Hkv in ((32, 32), (32, 8), (64, 8), (4, 2),
-                                    (8, 1), (12, 4), (48, 48), (64, 64),
-                                    (16, 16)):
-                        want = ab.k8_plan(plan, G, K, Hq, Hkv, cap, sms)
-                        got = ab.k8_card_plan(plan, G, K, Hq, Hkv, cap, sms)
-                        check(got == want, f"K8 plan at K={K} plan={plan} "
-                              f"G={G} cap={cap} {Hq}/{Hkv}: the kernel's "
-                              f"{got}, the wrapper's {want}")
-                        n += 1
-    for shape in ((0, 32, 4096, 32, 32, 64), (0, 128, 4096, 32, 32, 16),
-                  (2, 128, 4096, 32, 32, 16), (0, 128, 4096, 32, 8, 16),
-                  (2, 128, 8192, 64, 8, 32)):
-        check(ab.k8_plan(*shape, sms) is not None,
-              f"K8 has no plan for the slice's shape {shape}")
+            for GH in ab.K8_HEAD_GROUPS:
+                smem = ab._k8_smem(4096, 128, 16, GH)
+                want = ab.k8_blocks_an_sm(code, plan, GH, smem) * sms
+                got = clusters(code, plan, GH, 1, smem)
+                check(got == want, f"K8 instance (dtype {code}, plan {plan}"
+                      f", GH {GH}) at {smem} shared bytes: the card holds "
+                      f"{got} blocks, the plan counts {want}")
+    plans = []
+    for what, *shape in K8_SLICE_PLANS:
+        code, plan, Hq, Hkv = shape[0], shape[1], shape[4], shape[5]
+        got = ab.k8_plan(*shape, sms)
+        check(got is not None, f"K8 has no plan for {what} {shape}")
+        C, _, smem = got
+        res = clusters(code, plan, Hq // Hkv, C, smem)
+        check(res >= Hkv, f"K8 {what}: {res} clusters of {C} resident, "
+              f"fewer than its {Hkv} kv heads (a second wave)")
+        plans.append(f"{what} {got} ({res} resident)")
     log(f"[k8] the wrapper's plan equals the kernel's at all {n} shapes "
-        f"checked ({sms} SMs); (C, grid, shared bytes) 7B path B "
-        f"{ab.k8_plan(0, 32, 4096, 32, 32, 64, sms)}, 7B loop "
-        f"{ab.k8_plan(0, 128, 4096, 32, 32, 16, sms)}, GQA 32/8 "
-        f"{ab.k8_plan(0, 128, 4096, 32, 8, 16, sms)}, 70b int4 "
-        f"{ab.k8_plan(2, 128, 8192, 64, 8, 32, sms)}")
+        f"checked ({sms} SMs); every instance holds the blocks an SM the "
+        f"plan counts; (C, grid, shared bytes): {'; '.join(plans)}")
+    for what, code, plan in (("bf16", 1, 0), ("int4", 1, 2)):
+        smem = ab._k8_smem(4096, 128, 16, 1)
+        got = {C: clusters(code, plan, 1, C, smem) for C in range(1, 9)}
+        log(f"[k8] 7B {what} ({smem} shared bytes a block): clusters of C "
+            f"blocks the card keeps resident (cudaOccupancyMaxActive"
+            f"Clusters) {got}")
     return n
 
 

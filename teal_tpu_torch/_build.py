@@ -105,12 +105,16 @@ SIGNATURES = {
         _P, _P, _P,             # out, idx, count
         _I, _I, _I, _I,         # K, G, cap, fixed
         _I, _I, _I, _I,         # layer, L, Hq, Hkv
-        _I, _I, _F, _P,         # T, window (0: none), scale, stream
+        _I, _I, _F,             # T, window (0: none), scale
+        _I, _P,                 # SM count (0: the card's), stream
     ],
     ("attn_block", "teal_attn_block_plan"): [
-        _I, _I, _I,             # weight plan, G, K
+        _I, _I, _I, _I,         # dtype code, weight plan, G, K
         _I, _I, _I, _I,         # Hq, Hkv, cap, SM count (0: the card's)
         _P,                     # out int32 [3]
+    ],
+    ("attn_block", "teal_attn_block_clusters"): [
+        _I, _I, _I, _I, _I,     # dtype code, weight plan, GH, C, smem
     ],
     ("moe_route", "teal_moe_route"): [
         _I, _P, _P, _F, _P,     # dtype code, x, norm, norm_eps, router

@@ -59,10 +59,16 @@
 //     to move the o stage's kept groups in the layer holds.)
 // No atomics: every sum has a fixed order, so two launches give the same
 // bits. Clusters of C blocks: the largest C <= 8 whose Hkv C blocks stay
-// within three quarters of the SMs (the 7B's 32 kv heads: C = 3, 96
-// blocks; 32 clusters of 4 would exceed the 30 that the H100 keeps
-// resident, a second wave), `ab_plan`, exported as `teal_attn_block_plan`
-// and mirrored by the wrapper's `k8_plan`.
+// within three quarters of the blocks the SMs hold at once (`ab_plan`,
+// exported as `teal_attn_block_plan` and mirrored by the wrapper's
+// `k8_plan`): two an SM for bf16 arrays at GH <= 4 (at most 127
+// registers a thread) where two blocks' shared memory fits, else one.
+// The 7B's 32 kv heads on the H100: bf16 arrays C = 6, 192 blocks; in
+// turns C = 3, 4, 6 and 8 took 0.0422, 0.0372, 0.0350 and 0.0489 ms at
+// pos 511, with 79, 62, 39 and 30 clusters resident
+// (`teal_attn_block_clusters`): C = 8 runs a second wave
+// (`tools/k8_check.py --clusters`). fp32 and int4 (146-255 registers, one
+// block an SM) C = 3: at C = 6 int4 ran in two waves, 1.22-1.38x slower.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -80,6 +86,8 @@ constexpr int MAXC = 8;                 // blocks a cluster (portable size)
 constexpr int RB = 4;                   // cache rows a warp's chunk
 constexpr int MISC = 64;                // floats of scratch (block_sum)
 constexpr int SMEM_MAX = 232448;        // a block's shared memory on Hopper
+constexpr int SMEM_SM = 233472;         // an SM's
+constexpr int SMEM_RESERVED = 1024;     // the runtime's share of a block
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 
@@ -134,8 +142,9 @@ struct AbPlan { int C, grid, smem; };   // smem -1: no plan
 // The plan from shapes only: GH = Hq / Hkv of 1, 2, 4 or 8; G of 32, 64 or
 // 128 dividing K (packed int4 at G >= 64); 1 <= cap <= K / G; the layout
 // within a block's shared memory; C the largest size <= MAXC with
-// 4 Hkv C <= 3 n_sms (at least 1).
-AbPlan ab_plan(int plan, int G, int K, int Hq, int Hkv, int cap,
+// 4 Hkv C <= 3 b n_sms (at least 1), b the blocks an SM holds: 2 for bf16
+// arrays at GH <= 4 where two blocks' shared memory fits, else 1.
+AbPlan ab_plan(int dtype, int plan, int G, int K, int Hq, int Hkv, int cap,
                int n_sms) {
   AbPlan p = {0, 0, -1};
   if (Hkv < 1 || Hq < Hkv || Hq % Hkv) return p;
@@ -148,7 +157,9 @@ AbPlan ab_plan(int plan, int G, int K, int Hq, int Hkv, int cap,
   const Layout lay(K, G, cap, GH);
   if (lay.total > SMEM_MAX) return p;
   int C = 1;
-  while (C < MAXC && 4 * Hkv * (C + 1) <= 3 * n_sms) ++C;
+  const bool two = dtype == 1 && plan == PLAN_STREAM && GH <= 4;
+  const int b = two && 2 * (lay.total + SMEM_RESERVED) <= SMEM_SM ? 2 : 1;
+  while (C < MAXC && 4 * Hkv * (C + 1) <= 3 * b * n_sms) ++C;
   p = {C, Hkv * C, lay.total};
   return p;
 }
@@ -607,42 +618,61 @@ struct OccEntry { const void* fn; int C, smem, clusters; };
 OccEntry occ_cache[64];
 int occ_n = 0;
 
+// The clusters of C blocks of one instance of the kernel, at `smem` bytes
+// a block, that the card keeps resident at once
+// (cudaOccupancyMaxActiveClusters, cached by instance, C and smem); a
+// failed query as its negative CUDA error. `cfg` is the launch's, with its
+// cluster attribute.
 template <typename T, int P, int GH>
-int launch(const Args& a, int smem, cudaStream_t stream) {
+int resident(cudaLaunchConfig_t* cfg, int C, int smem) {
   auto fn = attn_block_kernel<T, P, GH>;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return -static_cast<int>(e);
     attr_set = true;
   }
+  for (int i = 0; i < occ_n; ++i)
+    if (occ_cache[i].fn == reinterpret_cast<const void*>(fn) &&
+        occ_cache[i].C == C && occ_cache[i].smem == smem)
+      return occ_cache[i].clusters;
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, fn, cfg);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (occ_n < 64)
+    occ_cache[occ_n++] = {reinterpret_cast<const void*>(fn), C, smem,
+                          clusters};
+  return clusters;
+}
+
+// A launch's configuration: `grid` blocks in clusters of C; `attr` holds
+// its one attribute.
+cudaLaunchConfig_t config(int grid, int C, int smem, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.Hkv * a.C, 1, 1);
+  cfg.gridDim = dim3(grid, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.C;
+  attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int clusters = -1;
-  for (int i = 0; i < occ_n; ++i)
-    if (occ_cache[i].fn == reinterpret_cast<const void*>(fn) &&
-        occ_cache[i].C == a.C && occ_cache[i].smem == smem)
-      clusters = occ_cache[i].clusters;
-  if (clusters < 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (occ_n < 64)
-      occ_cache[occ_n++] = {reinterpret_cast<const void*>(fn), a.C, smem,
-                            clusters};
-  }
+  return cfg;
+}
+
+template <typename T, int P, int GH>
+int launch(const Args& a, int smem, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(a.Hkv * a.C, a.C, smem, stream, attr);
+  const int clusters = resident<T, P, GH>(&cfg, a.C, smem);
+  if (clusters < 0) return -clusters;
   if (clusters < 1) return -1;             // the cluster cannot be placed
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, fn, a);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, attn_block_kernel<T, P, GH>,
+                                           a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -658,16 +688,30 @@ int by_heads(const Args& a, int smem, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T, int P>
+int resident_by_heads(int GH, int C, int smem) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(C, C, smem, nullptr, attr);
+  switch (GH) {
+    case 1: return resident<T, P, 1>(&cfg, C, smem);
+    case 2: return resident<T, P, 2>(&cfg, C, smem);
+    case 4: return resident<T, P, 4>(&cfg, C, smem);
+    case 8: return resident<T, P, 8>(&cfg, C, smem);
+  }
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// The plan for these shapes on this card's SM count (`n_sms`, 0: the
-// current device's): out[0..2] = C, grid, shared bytes. Returns 0, or -1
-// where the shapes take no plan. plan: 0 weights of the stream type, 2
-// packed int4 (the stream type does not change the plan: shared memory
-// holds fp32 only).
-extern "C" int teal_attn_block_plan(int plan, int G, int K, int Hq, int Hkv,
-                                    int cap, int n_sms, int* out) {
-  const AbPlan p = ab_plan(plan, G, K, Hq, Hkv, cap,
+// The plan for these types and shapes on this card's SM count (`n_sms`,
+// 0: the current device's): out[0..2] = C, grid, shared bytes. Returns 0,
+// or -1 where the shapes take no plan. dtype: the stream type's code
+// (shared memory holds fp32 only, but the instance's registers set the
+// blocks an SM holds); plan: 0 weights of the stream type, 2 packed int4.
+extern "C" int teal_attn_block_plan(int dtype, int plan, int G, int K,
+                                    int Hq, int Hkv, int cap, int n_sms,
+                                    int* out) {
+  const AbPlan p = ab_plan(dtype, plan, G, K, Hq, Hkv, cap,
                            n_sms > 0 ? n_sms : device_sms());
   out[0] = p.C;
   out[1] = p.grid;
@@ -675,10 +719,30 @@ extern "C" int teal_attn_block_plan(int plan, int G, int K, int Hq, int Hkv,
   return p.smem < 0 ? -1 : 0;
 }
 
+// How many clusters of C blocks (1 <= C <= 8) of K8's instance for
+// (dtype, plan, GH query heads a kv head), at `smem` bytes a block, the
+// card keeps resident at once (cudaOccupancyMaxActiveClusters): the
+// reading behind the plan's rule for C. A failed query returns its CUDA
+// error as a negative value.
+extern "C" int teal_attn_block_clusters(int dtype, int plan, int GH, int C,
+                                        int smem) {
+  if (C < 1 || C > MAXC || smem < 0 || smem > SMEM_MAX)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (plan == PLAN_INT4)
+    return dtype == 0 ? resident_by_heads<float, PLAN_INT4>(GH, C, smem)
+                      : resident_by_heads<__nv_bfloat16, PLAN_INT4>(GH, C,
+                                                                    smem);
+  return dtype == 0 ? resident_by_heads<float, PLAN_STREAM>(GH, C, smem)
+                    : resident_by_heads<__nv_bfloat16, PLAN_STREAM>(GH, C,
+                                                                    smem);
+}
+
 // One launch of K8 on `stream`. Weights: plan 0 wq, wk, wv of the stream
 // type; plan 2 their packed int4 qp stacks and sz0-2 their sz stacks.
-// window 0 means none. The caller checks shapes, types and alignment (the
-// wrapper `ops/attn_block.attn_block`); a shape with no plan returns
+// window 0 means none. The plan is made for `n_sms` SMs (0: the current
+// device's; the wrapper passes the count its route planned with). The
+// caller checks shapes, types and alignment (the wrapper
+// `ops/attn_block.attn_block`); a shape with no plan returns
 // cudaErrorInvalidValue, a cluster that cannot be resident -1.
 extern "C" int teal_attn_block(
     int dtype, int plan, const void* x, const void* thr, const void* norm,
@@ -686,9 +750,10 @@ extern "C" int teal_attn_block(
     const void* sz0, const void* sz1, const void* sz2, void* kc, void* vc,
     const void* cs, const void* pos, void* out, void* idx, void* count,
     int K, int G, int cap, int fixed, int layer, int L, int Hq, int Hkv,
-    int T, int window, float scale, void* stream) {
+    int T, int window, float scale, int n_sms, void* stream) {
   cudaGetLastError();  // clear any stale error of this library
-  const AbPlan p = ab_plan(plan, G, K, Hq, Hkv, cap, device_sms());
+  const AbPlan p = ab_plan(dtype, plan, G, K, Hq, Hkv, cap,
+                           n_sms > 0 ? n_sms : device_sms());
   if (p.smem < 0 || layer < 0 || layer >= L || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;

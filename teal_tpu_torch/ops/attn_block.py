@@ -55,6 +55,8 @@ _K8_MAX_CLUSTER = 8              # blocks a cluster (the portable size)
 _K8_MAXGH = 8
 _K8_MISC = 64                    # floats of scratch
 _SMEM_BYTES = 232448             # a block's shared memory on Hopper
+_SMEM_SM = 233472                # an SM's
+_SMEM_RESERVED = 1024            # the runtime's share of a block
 
 
 def _pad4(n: int) -> int:
@@ -76,16 +78,32 @@ def _k8_smem(K: int, G: int, cap: int, GH: int) -> int:
                 + 2 * _K8_MAXGH + GH * HEAD_DIM)
 
 
-def k8_plan(plan: int, G: int, K: int, Hq: int, Hkv: int, cap: int,
-            n_sms: int = _H100_SMS) -> Optional[Tuple[int, int, int]]:
-    """K8's launch plan from shapes only: (C blocks a cluster, grid, shared
-    bytes), or None where the shapes take none. One cluster a kv head;
-    GH = Hq / Hkv in `K8_HEAD_GROUPS`; G in `GROUP_SIZES` dividing K,
-    packed int4 (`plan` PLAN_INT4) at G >= 64; 1 <= cap <= K / G; the
-    layout within a block's shared memory; C the largest size <= 8 with
-    4 * Hkv * C <= 3 * n_sms, at least 1 (the 7B's 32 kv heads on the
-    H100: C = 3, 96 blocks, where 32 clusters of 4 would exceed the 30
-    the card keeps resident)."""
+def k8_blocks_an_sm(code: int, plan: int, GH: int, smem: int) -> int:
+    """The blocks of K8's instance for (stream type code: 0 fp32, 1 bf16;
+    weight plan; GH query heads a kv head) that an SM holds at once, at
+    `smem` shared bytes a block: two for bf16 arrays at GH <= 4 (103-127
+    registers a thread in ptxas' report, two blocks' worth within the
+    SM's 65536) where two blocks' shared memory fits, else one (fp32,
+    int4 and GH 8 take 146-255). chip_smoke.py's `check_k8_plan` holds it
+    to the card's reading (`teal_attn_block_clusters`)."""
+    two = code == 1 and plan == PLAN_STREAM and GH <= 4
+    return 2 if two and 2 * (smem + _SMEM_RESERVED) <= _SMEM_SM else 1
+
+
+def k8_plan(code: int, plan: int, G: int, K: int, Hq: int, Hkv: int,
+            cap: int, n_sms: int = _H100_SMS
+            ) -> Optional[Tuple[int, int, int]]:
+    """K8's launch plan from types and shapes only: (C blocks a cluster,
+    grid, shared bytes), or None where they take none. `code` the stream
+    type's (0 fp32, 1 bf16). One cluster a kv head; GH = Hq / Hkv in
+    `K8_HEAD_GROUPS`; G in `GROUP_SIZES` dividing K, packed int4 (`plan`
+    PLAN_INT4) at G >= 64; 1 <= cap <= K / G; the layout within a block's
+    shared memory; C the largest size <= 8 with 4 * Hkv * C <= 3 * b *
+    n_sms, at least 1, b = `k8_blocks_an_sm`. The 7B's 32 kv heads on the
+    H100: bf16 arrays C = 6 (192 blocks, two an SM), the fastest of C =
+    2-8 in turns (`tools/k8_check.py --clusters`; C = 8 leaves 30
+    clusters resident, a second wave); fp32 and int4 C = 3 (one an SM:
+    C = 6 ran int4 in two waves, 1.22-1.38x C = 3's time)."""
     if Hkv < 1 or Hq < Hkv or Hq % Hkv or Hq // Hkv not in K8_HEAD_GROUPS:
         return None
     if G not in GROUP_SIZES or plan not in (PLAN_STREAM, PLAN_INT4) or (
@@ -96,8 +114,9 @@ def k8_plan(plan: int, G: int, K: int, Hq: int, Hkv: int, cap: int,
     smem = _k8_smem(K, G, cap, Hq // Hkv)
     if smem > _SMEM_BYTES:
         return None
+    b = k8_blocks_an_sm(code, plan, Hq // Hkv, smem)
     C = 1
-    while C < _K8_MAX_CLUSTER and 4 * Hkv * (C + 1) <= 3 * n_sms:
+    while C < _K8_MAX_CLUSTER and 4 * Hkv * (C + 1) <= 3 * b * n_sms:
         C += 1
     return C, Hkv * C, smem
 
@@ -113,31 +132,49 @@ def _k8_weight_plan(ws, dtype) -> Optional[int]:
     return None
 
 
+def _k8_form(h: torch.Tensor, ws, kc: torch.Tensor, n_heads: int,
+             scales=None, seq_block: bool = False) -> Tuple[Optional[int],
+                                                            str]:
+    """K8's form, from the call's types and shapes: (weight plan, "") for
+    one row (h [D] or [1, D]) of fp32 or bf16, no int8 scales and no
+    seq_block, the cache [L, 1, Hkv, T, 128] of h's type and the weights
+    three arrays of h's type or three packed int4 dicts of n_heads, Hkv
+    and Hkv heads; else (None, the reason). `k8_route` and the wrapper's
+    checks both ask it."""
+    if scales is not None or seq_block:
+        return None, "int8 scales and seq_block take K1 then K2"
+    if (h.dtype not in _DTYPE_CODE or h.numel() != h.shape[-1]
+            or h.dim() > 2):
+        return None, (f"h must be one fp32/bf16 row [K] or [1, K]; got "
+                      f"{h.dtype} {tuple(h.shape)}")
+    if (kc.dim() != 5 or kc.shape[1] != 1 or kc.shape[4] != HEAD_DIM
+            or kc.dtype != h.dtype):
+        return None, (f"the cache must be [L, 1, Hkv, T, {HEAD_DIM}] of h's "
+                      f"type; got {kc.dtype} {tuple(kc.shape)}")
+    plan = _k8_weight_plan(ws, h.dtype)
+    if plan is None:
+        return None, ("K8 takes wq, wk, wv as arrays of the stream type or "
+                      "packed int4 dicts (int8 takes K1 then K2)")
+    widths = [_width(w) for w in ws]
+    if widths != [n_heads * HEAD_DIM, kc.shape[2] * HEAD_DIM,
+                  kc.shape[2] * HEAD_DIM]:
+        return None, (f"wq, wk, wv must be {n_heads} and {kc.shape[2]} "
+                      f"heads of {HEAD_DIM} columns; got widths {widths}")
+    return plan, ""
+
+
 def k8_route(h: torch.Tensor, wq, wk, wv, kc: torch.Tensor, n_heads: int,
              cap: int, G: int, scales=None, seq_block: bool = False) -> bool:
     """Whether `attn_stage` takes K8, from the call's form and shapes
-    alone: one row (h [D] or [1, D]) of fp32 or bf16, no int8 scales and
-    no seq_block, the cache [L, 1, Hkv, T, 128] of h's type, the weights
-    three arrays of h's type or three packed int4 dicts, and a launch plan
-    for the shapes (`k8_plan` on the card's SM count, the H100's for a
-    CPU tensor)."""
-    ws = (wq, wk, wv)
-    if (scales is not None or seq_block or h.dtype not in _DTYPE_CODE
-            or h.numel() != h.shape[-1] or h.dim() > 2
-            or kc.dim() != 5 or kc.shape[1] != 1
-            or kc.shape[4] != HEAD_DIM or kc.dtype != h.dtype):
-        return False
-    plan = _k8_weight_plan(ws, h.dtype)
+    alone: K8's form (`_k8_form`) and a launch plan for the shapes
+    (`k8_plan` on the card's SM count, the H100's for a CPU tensor)."""
+    plan, _ = _k8_form(h, (wq, wk, wv), kc, n_heads, scales, seq_block)
     if plan is None:
-        return False
-    if [_width(w) for w in ws] != [n_heads * HEAD_DIM,
-                                   kc.shape[2] * HEAD_DIM,
-                                   kc.shape[2] * HEAD_DIM]:
         return False
     sms = (_build.sm_count(h.device.index) if h.device.type == "cuda"
            else _H100_SMS)
-    return k8_plan(plan, G, h.shape[-1], n_heads, kc.shape[2], cap,
-                   sms) is not None
+    return k8_plan(_DTYPE_CODE[h.dtype], plan, G, h.shape[-1], n_heads,
+                   kc.shape[2], cap, sms) is not None
 
 
 def attn_block_plain(h: torch.Tensor, thr: torch.Tensor, wq, wk, wv,
@@ -165,35 +202,27 @@ def attn_block_plain(h: torch.Tensor, thr: torch.Tensor, wq, wk, wv,
 
 def _check_k8(h, thr, ws, layer, cap, norm, kc, vc, pos, rope, n_heads,
               window, G):
-    """Raise on what K8 does not take; return (L, weight plan)."""
-    if (h.dtype not in _DTYPE_CODE or h.numel() != h.shape[-1]
-            or h.dim() > 2 or not h.is_contiguous()):
-        raise ValueError(f"h must be one contiguous fp32/bf16 row [K] or "
-                         f"[1, K]; got {h.dtype} {tuple(h.shape)}")
-    K = h.shape[-1]
-    plan = _k8_weight_plan(ws, h.dtype)
+    """Raise on what K8 does not take; return (L, weight plan). Whether
+    K8 has a launch plan for the shapes is the kernel's to say (it returns
+    cudaErrorInvalidValue where `k8_plan` has none)."""
+    plan, why = _k8_form(h, ws, kc, n_heads)
     if plan is None:
-        raise ValueError("K8 takes wq, wk, wv as arrays of the stream type "
-                         "or packed int4 dicts (int8 takes K1 then K2)")
+        raise ValueError(why)
+    if not h.is_contiguous():
+        raise ValueError("h must be contiguous")
+    K = h.shape[-1]
     if G not in GROUP_SIZES or K % G:
         raise ValueError(f"group size {G} must be one of {GROUP_SIZES} and "
                          f"divide K={K}")
     L, _ = _check_weights(ws, K, h.dtype, h.device, G)
-    if (kc.dim() != 5 or kc.shape[1] != 1 or kc.shape[4] != HEAD_DIM
-            or kc.shape[0] != L):
+    if kc.shape[0] != L:
         raise ValueError(f"caches must be [{L}, 1, Hkv, T, {HEAD_DIM}]; "
                          f"got {tuple(kc.shape)}")
-    Hkv = kc.shape[2]
-    if (vc.shape != kc.shape or vc.dtype != kc.dtype or kc.dtype != h.dtype
+    if (vc.shape != kc.shape or vc.dtype != kc.dtype
             or not kc.is_contiguous() or not vc.is_contiguous()
             or kc.device != h.device or vc.device != h.device):
         raise ValueError("k/v caches must be contiguous, of one shape and "
                          "of h's type, on h's device")
-    if [_width(w) for w in ws] != [n_heads * HEAD_DIM, Hkv * HEAD_DIM,
-                                   Hkv * HEAD_DIM]:
-        raise ValueError(f"wq, wk, wv must be {n_heads} and {Hkv} heads of "
-                         f"{HEAD_DIM} columns; got widths "
-                         f"{[_width(w) for w in ws]}")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
     if not 1 <= cap <= K // G:
@@ -251,10 +280,6 @@ def attn_block(h: torch.Tensor, thr: torch.Tensor, wq, wk, wv, layer: int,
                                 window=window, G=G, fixed=fixed)
     _check_launch_device(h, "attn_block")
     K, Hkv, T = h.shape[-1], kc.shape[2], kc.shape[3]
-    if k8_plan(plan, G, K, n_heads, Hkv, cap,
-               _build.sm_count(h.device.index)) is None:
-        raise ValueError(f"K8 has no launch plan for K = {K}, G = {G}, cap "
-                         f"{cap}, {n_heads}/{Hkv} heads")
     if h.data_ptr() % 16 or (norm is not None and norm.data_ptr() % 16):
         raise ValueError("K8 reads h and norm in 16-byte chunks: both must "
                          "be 16-byte aligned")
@@ -271,7 +296,8 @@ def attn_block(h: torch.Tensor, thr: torch.Tensor, wq, wk, wv, layer: int,
         kc.data_ptr(), vc.data_ptr(), rope.data_ptr(), pos.data_ptr(),
         out.data_ptr(), sel.data_ptr(), sel.data_ptr() + 4 * cap, K, G, cap,
         int(fixed), layer, L, n_heads, Hkv, T, window or 0,
-        1.0 / HEAD_DIM ** 0.5, torch.cuda.current_stream().cuda_stream)
+        1.0 / HEAD_DIM ** 0.5, _build.sm_count(h.device.index),
+        torch.cuda.current_stream().cuda_stream)
     if err == -1:
         raise RuntimeError(f"attn_block: no cluster of K8's plan ({Hkv} kv "
                            f"heads) can be resident on this card")
@@ -283,9 +309,10 @@ def attn_block(h: torch.Tensor, thr: torch.Tensor, wq, wk, wv, layer: int,
 attn_block.launches = 0
 
 
-def k8_card_plan(plan: int, G: int, K: int, Hq: int, Hkv: int, cap: int,
-                 n_sms: int = 0) -> Optional[Tuple[int, int, int]]:
-    """The kernel's own plan (`teal_attn_block_plan`) for these shapes, on
+def k8_card_plan(code: int, plan: int, G: int, K: int, Hq: int, Hkv: int,
+                 cap: int, n_sms: int = 0) -> Optional[Tuple[int, int, int]]:
+    """The kernel's own plan (`teal_attn_block_plan`) for these types and
+    shapes (`k8_plan`'s arguments), on
     `n_sms` SMs (0: the current card's): (C, grid, shared bytes) or None.
     Builds the library where needed (the card checks hold `k8_plan` to
     it)."""
@@ -293,7 +320,7 @@ def k8_card_plan(plan: int, G: int, K: int, Hq: int, Hkv: int, cap: int,
 
     out = (ctypes.c_int * 3)()
     lib = _build.load()["attn_block"]
-    rc = lib.teal_attn_block_plan(plan, G, K, Hq, Hkv, cap, n_sms,
+    rc = lib.teal_attn_block_plan(code, plan, G, K, Hq, Hkv, cap, n_sms,
                                   ctypes.addressof(out))
     return None if rc != 0 else tuple(out)
 

@@ -256,23 +256,29 @@ def test_attn_stage_takes_the_route(k8, monkeypatch):
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
-# the slice's shapes: (what, weight plan, G, K, Hq, Hkv, cap, C)
+# the slice's shapes, fp32, and one past two blocks an SM: (what, stream
+# type code, weight plan, G, K, Hq, Hkv, cap, C)
 PLAN_CASES = [
-    ("7B path B", tab.PLAN_STREAM, 32, 4096, 32, 32, 64, 3),
-    ("7B loop", tab.PLAN_STREAM, 128, 4096, 32, 32, 16, 3),
-    ("7B int4", tab.PLAN_INT4, 128, 4096, 32, 32, 16, 3),
-    ("7B int4 G64", tab.PLAN_INT4, 64, 4096, 32, 32, 32, 3),
-    ("Mixtral loop", tab.PLAN_STREAM, 128, 4096, 32, 8, 16, 8),
-    ("70b cut int4", tab.PLAN_INT4, 128, 8192, 64, 8, 32, 8),
+    ("7B path B", 1, tab.PLAN_STREAM, 32, 4096, 32, 32, 64, 6),
+    ("7B loop", 1, tab.PLAN_STREAM, 128, 4096, 32, 32, 16, 6),
+    ("7B fp32", 0, tab.PLAN_STREAM, 128, 4096, 32, 32, 16, 3),
+    ("7B int4", 1, tab.PLAN_INT4, 128, 4096, 32, 32, 16, 3),
+    ("7B int4 G64", 1, tab.PLAN_INT4, 64, 4096, 32, 32, 32, 3),
+    ("Mixtral loop", 1, tab.PLAN_STREAM, 128, 4096, 32, 8, 16, 8),
+    ("70b cut int4", 1, tab.PLAN_INT4, 128, 8192, 64, 8, 32, 8),
+    ("K 32768", 1, tab.PLAN_STREAM, 128, 32768, 32, 32, 16, 3),
 ]
 
 
-@pytest.mark.parametrize("what,plan,G,K,Hq,Hkv,cap,C", PLAN_CASES)
-def test_k8_plan_of_the_slice(what, plan, G, K, Hq, Hkv, cap, C):
+@pytest.mark.parametrize("what,code,plan,G,K,Hq,Hkv,cap,C", PLAN_CASES)
+def test_k8_plan_of_the_slice(what, code, plan, G, K, Hq, Hkv, cap, C):
     """Every shape of the slice has a plan within a block's shared memory
-    (232448 bytes) on the H100's 132 SMs: one cluster of C blocks a kv head
-    (the 7B's 32 kv heads: clusters of 3, 96 blocks)."""
-    got = tab.k8_plan(plan, G, K, Hq, Hkv, cap)
+    (232448 bytes) on the H100's 132 SMs: one cluster of C blocks a kv head.
+    The 7B's 32 kv heads: bf16 arrays clusters of 6, 192 blocks, two an SM;
+    fp32 and int4 (over 128 registers a thread, one block an SM) clusters
+    of 3; at K 32768 two blocks' selection inputs of 128 KiB do not fit an
+    SM, so one an SM: clusters of 3."""
+    got = tab.k8_plan(code, plan, G, K, Hq, Hkv, cap)
     assert got is not None and got[0] == C and got[1] == Hkv * C, got
     assert got[2] <= 232448 and got[2] == tab._k8_smem(K, G, cap, Hq // Hkv)
 
@@ -281,12 +287,12 @@ def test_k8_plan_refuses_what_it_does_not_take():
     """No plan for GH outside 1, 2, 4, 8, packed int4 at G 32, a cap
     outside [1, K / G], a G that does not divide K, or a layout past
     shared memory (a selection input of K 65536 fp32)."""
-    assert tab.k8_plan(tab.PLAN_STREAM, 128, 768, 6, 2, 3) is None
-    assert tab.k8_plan(tab.PLAN_INT4, 32, 4096, 32, 32, 64) is None
-    assert tab.k8_plan(tab.PLAN_STREAM, 128, 4096, 32, 32, 0) is None
-    assert tab.k8_plan(tab.PLAN_STREAM, 128, 4096, 32, 32, 33) is None
-    assert tab.k8_plan(tab.PLAN_STREAM, 128, 4000, 32, 32, 16) is None
-    assert tab.k8_plan(tab.PLAN_STREAM, 128, 65536, 32, 32, 16) is None
+    assert tab.k8_plan(1, tab.PLAN_STREAM, 128, 768, 6, 2, 3) is None
+    assert tab.k8_plan(1, tab.PLAN_INT4, 32, 4096, 32, 32, 64) is None
+    assert tab.k8_plan(1, tab.PLAN_STREAM, 128, 4096, 32, 32, 0) is None
+    assert tab.k8_plan(1, tab.PLAN_STREAM, 128, 4096, 32, 32, 33) is None
+    assert tab.k8_plan(1, tab.PLAN_STREAM, 128, 4000, 32, 32, 16) is None
+    assert tab.k8_plan(1, tab.PLAN_STREAM, 128, 65536, 32, 32, 16) is None
 
 
 @pytest.mark.parametrize("T", [512, 32768])
@@ -299,7 +305,7 @@ def test_k8_plan_does_not_grow_with_T(T):
                             int4=True, device="meta")
     kc = torch.zeros((L, 1, 8, T, 128), dtype=torch.bfloat16, device="meta")
     assert tab.k8_route(h, *ws, kc, 64, 32, 128)
-    assert tab.k8_plan(tab.PLAN_INT4, 128, 8192, 64, 8, 32)[2] == \
+    assert tab.k8_plan(1, tab.PLAN_INT4, 128, 8192, 64, 8, 32)[2] == \
         tab._k8_smem(8192, 128, 32, 8)
 
 

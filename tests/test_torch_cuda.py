@@ -1262,11 +1262,12 @@ def test_safetensors_reader_on_card(cuda, tmp_path, stored):
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
 def test_decode_graph_matches_host_loop(cuda, b, temperature):
     """The decode step captured as a CUDA graph (`on_device_loop=True`) on
-    the K1/K2 loop at batch 1 (`token_fused=False`) and on K7's rows form
+    the K8/K1 loop at batch 1 (`token_fused=False`) and on K7's rows form
     at batch 4 gives the host loop's tokens from one generator seed, and
     leaves the generator where the host loop does; the graph holds the
-    step's 4*L K1 + L K2 at batch 1, one K7 rows node and no K1 or K2 at
-    batch 4 (K7's one-row graph: `test_k7_decode_graph_matches_host_loop`)."""
+    step's L K8 + 3*L K1 and no K2 at batch 1 (one row of bf16 arrays:
+    `attn_stage` takes K8), one K7 rows node and no K1, K2 or K8 at batch
+    4 (K7's one-row graph: `test_k7_decode_graph_matches_host_loop`)."""
     from teal_tpu_torch.config import SparsityConfig, get_model_config
     from teal_tpu_torch.engine import Generator
     from teal_tpu_torch.utils.profiling import graph_kernels
@@ -1296,8 +1297,10 @@ def test_decode_graph_matches_host_loop(cuda, b, temperature):
     # the graph's kernel nodes, read from the CUDA driver: what a replay runs
     nodes = graph_kernels(gen._loop.graph)
     assert [sum(c for k, c in nodes.items() if name in k)
-            for name in ("sgg_", "attn_kernel", "token_rows_kernel")] == (
-        [4 * cfg.n_layers, cfg.n_layers, 0] if b == 1 else [0, 0, 1]), nodes
+            for name in ("sgg_", "attn_kernel", "attn_block_kernel",
+                         "token_rows_kernel")] == (
+        [3 * cfg.n_layers, 0, cfg.n_layers, 0] if b == 1
+        else [0, 0, 0, 1]), nodes
 
 
 @pytest.mark.parametrize("kw", [dict(temperature=1.0),
@@ -1932,20 +1935,47 @@ def test_k8_deterministic(cuda):
         assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
+def test_k8_raises_without_a_plan(cuda):
+    """A call the wrapper's checks pass but K8 has no plan for (3 query
+    heads a kv head) raises from the kernel's own plan, launching
+    nothing: no K1 + K2 in its place."""
+    from teal_tpu_torch.ops import attn_block as ab
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    L, K = 2, 768
+    x = torch.randn(K, generator=g, device=cuda)
+    ws = [torch.randn(L, K, n, generator=g, device=cuda) * 0.05
+          for n in (6 * 128, 2 * 128, 2 * 128)]
+    kc = torch.randn(L, 1, 2, 16, 128, generator=g, device=cuda)
+    rope = torch.stack([torch.ones(128), torch.zeros(128)])[None].to(cuda)
+    pos = torch.tensor([3], dtype=torch.int32, device=cuda)
+    assert not ab.k8_route(x, *ws, kc, 6, 3, 128)
+    before = (ab.attn_block.launches, bg.select_gather_gemv.launches,
+              decode_attention.launches)
+    with pytest.raises(RuntimeError):
+        ab.attn_block(x, torch.tensor(0.1, device=cuda), *ws, 1, 3, None,
+                      1e-5, kc, kc.clone(), pos, rope, n_heads=6)
+    assert (ab.attn_block.launches, bg.select_gather_gemv.launches,
+            decode_attention.launches) == before
+
+
 def test_k8_plan_matches_kernel(cuda):
     """`teal_attn_block_plan` (the kernel's plan) equal to `k8_plan` (the
-    wrapper's) on this card's SM count: the slice's shapes (7B path B and
-    loop, int4, GQA 32/8, the 70b cut's K 8192 and 64/8 heads) and shapes
-    without a plan (3 query heads a kv head, int4 at G 32, cap 0)."""
+    wrapper's) on this card's SM count, in both stream types: the slice's
+    shapes (7B path B and loop, int4, GQA 32/8, the 70b cut's K 8192 and
+    64/8 heads), K 32768 (one block an SM) and shapes without a plan (3
+    query heads a kv head, int4 at G 32, cap 0)."""
     from teal_tpu_torch.ops import attn_block as ab
 
     sms = _build.sm_count(cuda.index)
     for shape in ((0, 32, 4096, 32, 32, 64), (0, 128, 4096, 32, 32, 16),
                   (2, 128, 4096, 32, 32, 16), (2, 64, 4096, 32, 32, 32),
                   (0, 128, 4096, 32, 8, 16), (2, 128, 8192, 64, 8, 32),
+                  (0, 128, 32768, 32, 32, 16),
                   (0, 128, 768, 6, 2, 3), (2, 32, 4096, 32, 32, 64),
                   (0, 128, 4096, 32, 32, 0)):
-        want = ab.k8_plan(*shape, sms)
-        assert ab.k8_card_plan(*shape, sms) == want, shape
-        assert (want is None) == (shape[3] == 6 or shape[1] == 32
-                                  and shape[0] == 2 or shape[5] == 0)
+        for code in (0, 1):
+            want = ab.k8_plan(code, *shape, sms)
+            assert ab.k8_card_plan(code, *shape, sms) == want, (code, shape)
+            assert (want is None) == (shape[3] == 6 or shape[1] == 32
+                                      and shape[0] == 2 or shape[5] == 0)
